@@ -1,4 +1,5 @@
-"""The port's CUDA sweep kernels against their plain PyTorch versions.
+"""The port's CUDA kernels (the unrolled sweeps of ``ops/sweep.py`` and the
+scan sweeps of ``ops/sweep_scan.py``) against their plain PyTorch versions.
 
 These tests need a CUDA card: each one skips here without one (decided in
 a fixture, not at import). This file imports neither JAX nor pandas, so it
@@ -153,6 +154,188 @@ def test_served_rows_go_through_the_kernels(asia_vbn, lg_vbn):
     assert mom.shape == (B, 2) and np.isfinite(mom).all()
     assert sweep.LAUNCHES["categorical"] == before["categorical"] + 2
     assert sweep.LAUNCHES["lg"] == before["lg"] + 1
+
+
+def _fit_discrete(bn, card, seed=0, rows=4096):
+    vbn = VBN({n: bn.parents[n] for n in bn.nodes}, seed=seed, device=card)
+    conf = {}
+    for node in bn.nodes:
+        c = dict(defaults.cpd("categorical_table"), n_classes=bn.card(node))
+        if bn.parents[node]:
+            c["parent_n_classes"] = [bn.card(p) for p in bn.parents[node]]
+        conf[node] = c
+    vbn.set_learning_method("node_wise", nodes_cpds=conf)
+    vbn.fit(generate_dataset(bn, rows, seed=seed))
+    return vbn
+
+
+def _canonical(vbn):
+    topo = tuple(vbn.dag.topological_order())
+    return _plan(vbn, target=topo[0], evidence={}, do={})
+
+
+def _hetero_rows(n, cards, b, seed):
+    """Per-row targets, two evidence nodes and one do node, as int32
+    packed words (value | ev << 16 | do << 17) and [B] targets."""
+    rng = np.random.default_rng(seed)
+    packed = np.zeros((b, n), np.int32)
+    tgt = np.zeros((b,), np.int32)
+    for r in range(b):
+        picks = rng.choice(n, size=4, replace=False)
+        tgt[r] = picks[0]
+        for i, bit in ((picks[1], 1 << 16), (picks[2], 1 << 16),
+                       (picks[3], 1 << 17)):
+            packed[r, i] = int(rng.integers(0, cards[i])) | bit
+    return (torch.as_tensor(packed, device="cuda"),
+            torch.as_tensor(tgt, device="cuda"))
+
+
+@pytest.fixture(scope="module")
+def scan_nets(card):
+    from benchmarking.networks import random_bn
+
+    return {
+        "random24": _fit_discrete(random_bn(n_nodes=24, max_card=4, seed=7),
+                                  card, seed=1),
+        "highcard": _fit_discrete(
+            random_bn(n_nodes=6, max_card=80, max_indegree=1, seed=0), card,
+            seed=3),
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("net", ["random24", "highcard"])
+@pytest.mark.parametrize("want", CAT_WANTS, ids="-".join)
+def test_cat_scan_kernel_matches_plain(scan_nets, net, want):
+    from vectorizedbayesiannetwork_torch.ops import sweep_scan
+
+    plan, cpds, params = _canonical(scan_nets[net])
+    struct = sweep_scan.scan_struct_for(plan, cpds)
+    flat = sweep_scan._flat_counts(cpds, params)
+    packed, tgt = _hetero_rows(plan.n_nodes, struct[2], B, seed=9)
+    before = sweep.LAUNCHES["categorical_scan"]
+    u_ext = torch.rand((B, plan.n_nodes, S), device="cuda")
+    for u in (None, u_ext.clamp(1e-6, 1 - 1e-6)):
+        k_out = sweep_scan.categorical_sweep_scan(
+            5, packed, tgt, flat, struct, S, u_ext=u, want=want)
+        p_out = sweep_scan.categorical_sweep_scan_plain(
+            5, packed, tgt, flat, struct, S, u_ext=u, want=want)
+        _check(k_out, p_out, tgt_atol=0, lp_atol=1e-4)
+    assert sweep.LAUNCHES["categorical_scan"] == before + 2
+
+
+@pytest.fixture(scope="module")
+def gauss_vbn(card):
+    from benchmarking.gaussian_bn import random_gaussian
+
+    bn = random_gaussian(9, seed=0)
+    vbn = VBN({n: bn.parents[n] for n in bn.nodes}, seed=0, device=card)
+    vbn.set_learning_method(
+        "node_wise",
+        nodes_cpds={n: defaults.cpd("linear_gaussian") for n in bn.nodes})
+    vbn.fit(bn.sample(4096, seed=0))
+    return vbn
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("want", LG_WANTS, ids="-".join)
+def test_lg_scan_kernel_matches_plain(gauss_vbn, want):
+    from vectorizedbayesiannetwork_torch.ops import sweep_scan
+
+    plan, cpds, params = _canonical(gauss_vbn)
+    n = plan.n_nodes
+    struct = sweep_scan.lg_scan_struct_for(plan, cpds)
+    ptab = sweep_scan.lg_ptab_flat(cpds, params, struct[2])
+    rng = np.random.default_rng(4)
+    flags = np.zeros((B, n), np.int32)
+    for r in range(B):
+        picks = rng.choice(n, size=3, replace=False)
+        flags[r, picks[0]], flags[r, picks[1]], flags[r, picks[2]] = 1, 1, 2
+    fixed = torch.as_tensor(rng.normal(size=(B, n)).astype(np.float32),
+                            device="cuda")
+    flags = torch.as_tensor(flags, device="cuda")
+    tgt = torch.as_tensor(rng.integers(0, n, size=B).astype(np.int32),
+                          device="cuda")
+    before = sweep.LAUNCHES["lg_scan"]
+    u_ext = torch.rand((B, 2 * n, S), device="cuda").clamp(1e-6, 1 - 1e-6)
+    for u in (None, u_ext):
+        k_out = sweep_scan.lg_sweep_scan(
+            5, fixed, flags, tgt, ptab, struct, S, u_ext=u, want=want)
+        p_out = sweep_scan.lg_sweep_scan_plain(
+            5, fixed, flags, tgt, ptab, struct, S, u_ext=u, want=want)
+        _check(k_out, p_out, tgt_atol=2e-4, lp_atol=2e-3)
+    assert sweep.LAUNCHES["lg_scan"] == before + 2
+
+
+@pytest.mark.cuda
+def test_scan_kernel_matches_unrolled_kernel_bitwise(asia_vbn):
+    """Same seed, static plan: vbn_cat_scan draws vbn_cat_sweep's classes
+    (one Philox stream, one walk)."""
+    from vectorizedbayesiannetwork_torch.ops import sweep_scan
+
+    plan, cpds, params = _plan(
+        asia_vbn, target="dysp", do={"xray": np.ones((B, 1), np.float32)},
+        evidence={"smoke": np.ones((B, 1), np.float32),
+                  "asia": np.zeros((B, 1), np.float32)})
+    st, rows, cmax = sweep.plan_tuple_for(plan, cpds)
+    fixed = torch.zeros((B, plan.n_nodes), dtype=torch.int32, device="cuda")
+    for i, name in enumerate(plan.topo_order):
+        if name in ("smoke", "xray"):
+            fixed[:, i] = 1
+    bits = (torch.tensor(plan.evidence_mask, device="cuda").int() << 16) | (
+        torch.tensor(plan.do_mask, device="cuda").int() << 17)
+    tgt = torch.full((B,), plan.target_idx, dtype=torch.int32, device="cuda")
+    want = ("logw", "tgt", "lpt")
+    a = sweep.categorical_sweep_fused(
+        11, fixed, sweep._stacked_counts(cpds, params, rows, cmax), st, S,
+        want=want)
+    b = sweep_scan.categorical_sweep_scan(
+        11, fixed | bits, tgt, sweep_scan._flat_counts(cpds, params),
+        sweep_scan.scan_struct_for(plan, cpds), S, want=want)
+    assert torch.equal(a[1], b[1])
+    torch.testing.assert_close(a[0], b[0], atol=1e-6, rtol=0)
+    torch.testing.assert_close(a[2], b[2], atol=1e-6, rtol=0)
+
+
+@pytest.mark.cuda
+def test_scan_smem_layout_matches_the_kernels(card):
+    """The gates' shared-memory count is the one the kernels lay out."""
+    from vectorizedbayesiannetwork_torch.ops import sweep_scan
+
+    lib = sweep_scan._lib()
+    for args in [(724, 1000, 309, 128, 4, 13583), (24, 30, 15, 64, 0, 0),
+                 (6, 5, 7, 32, 80, 9000), (1500, 4000, 1501, 32, 3, 0)]:
+        assert lib.vbn_cat_scan_smem_bytes(*args) == \
+            sweep_scan._cat_scan_smem(*args)
+    for args in [(107, 3, 64, 128, 1), (9, 3, 6, 64, 0), (1500, 3, 900, 32, 1)]:
+        assert lib.vbn_lg_scan_smem_bytes(*args) == \
+            sweep_scan._lg_scan_smem(*args)
+    assert sweep_scan._smem_limit(0) >= 48 * 1024
+
+
+@pytest.mark.cuda
+def test_dynamic_serving_goes_through_the_scan_kernels(scan_nets, gauss_vbn):
+    """dynamic_masks=True: one launch serves a mixed query list."""
+    vbn = scan_nets["random24"]
+    nodes = list(vbn.dag.topological_order())
+    qs = [{"target": nodes[-1], "evidence": {nodes[0]: [[1.0]]}},
+          {"target": nodes[2], "evidence": {nodes[-1]: [[0.0]]}}]
+    vbn.set_inference_method("likelihood_weighting", n_samples=S,
+                             dynamic_masks=True)
+    before = dict(sweep.LAUNCHES)
+    pmf, spans = vbn.infer_posterior_pmf(qs, n_classes=4, pad_bucket=4)
+    assert vbn._last_summary_path == "fused" and pmf.shape == (2, 4)
+    np.testing.assert_allclose(pmf.sum(axis=1), 1.0, atol=1e-5)
+    gq = [{"target": "x8", "evidence": {"x0": [[0.3]]}}]
+    gauss_vbn.set_inference_method("likelihood_weighting", n_samples=S,
+                                   dynamic_masks=True)
+    mom, _ = gauss_vbn.infer_posterior_moments(gq)
+    assert np.isfinite(mom).all()
+    after = dict(sweep.LAUNCHES)
+    assert after["categorical_scan"] == before["categorical_scan"] + 1
+    assert after["lg_scan"] == before["lg_scan"] + 1
+    assert after["categorical"] == before["categorical"]
+    assert after["lg"] == before["lg"]
 
 
 @pytest.mark.cuda

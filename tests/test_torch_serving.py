@@ -235,10 +235,19 @@ def test_port_fit_serves_like_loaded(models):
 
 
 def test_dynamic_masks_not_ported(models):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        models["asia"].set_inference_method(
-            "likelihood_weighting", dynamic_masks=True
-        )
+    """``dynamic_masks=True`` used to raise here; it now serves, and its
+    reduced pmf rows come back normalized."""
+    tv = models["asia"]
+    tv.set_inference_method("likelihood_weighting", n_samples=S,
+                            dynamic_masks=True)
+    try:
+        pmf, spans = tv.infer_posterior_pmf([_asia_query()], n_classes=2)
+    finally:
+        tv.set_inference_method("likelihood_weighting", n_samples=S)
+    assert tv._last_summary_path == "fused" and spans == [(0, B, 7)]
+    np.testing.assert_allclose(pmf.sum(axis=1), 1.0, atol=1e-6)
+    exact = exact_posterior(models["bn"], "dysp", {"smoke": 1, "asia": 0})
+    assert np.abs(pmf - exact[None]).max() < 0.05
 
 
 def test_default_device_is_cuda():
@@ -256,6 +265,7 @@ def test_port_imports_no_jax():
         "import sys, runpy\n"
         "import vectorizedbayesiannetwork_torch\n"
         "import vectorizedbayesiannetwork_torch.ops.sweep\n"
+        "import vectorizedbayesiannetwork_torch.ops.sweep_scan\n"
         "import vectorizedbayesiannetwork_torch.ops._build\n"
         "runpy.run_path('chip_smoke.py', run_name='chip_smoke')\n"
         "import benchmarking.bif, benchmarking.data_gen\n"  # chip_smoke's

@@ -1,11 +1,13 @@
 """vectorizedbayesiannetwork_torch: vectorized Bayesian networks on PyTorch.
 
 The PyTorch/CUDA port of ``vectorizedbayesiannetwork_tpu``, one slice at a
-time. This slice covers the fit -> serve path: node-wise fitting of
-``categorical_table`` and ``linear_gaussian`` CPDs, and likelihood
-weighting / Monte-Carlo marginalization served as posterior pmf or
-(mean, std) rows through hand-written CUDA sweep kernels (``ops/sweep.py``,
-``csrc/sweep.cu``). It runs on a CUDA device unless the caller passes
+time. Ported so far: node-wise fitting of ``categorical_table`` and
+``linear_gaussian`` CPDs, and likelihood weighting / Monte-Carlo
+marginalization served as posterior pmf or (mean, std) rows through
+hand-written CUDA sweep kernels: the unrolled ones (``ops/sweep.py``,
+``csrc/sweep.cu``) and the mask-dynamic scan ones for networks of up to
+1500 nodes (``ops/sweep_scan.py``, ``csrc/sweep_scan.cu``, served with
+``dynamic_masks=True``). It runs on a CUDA device unless the caller passes
 ``device="cpu"``. Importing the package populates the registries; it never
 imports JAX or the JAX package.
 """

@@ -102,22 +102,23 @@ def uniform_from_bits(bits: torch.Tensor) -> torch.Tensor:
 
 def philox_uniforms(
     seed: int, b: int, n_nodes: int, s: int, words: int, device,
-    row0: int = 0,
+    row0: int = 0, node0: int = 0,
 ) -> torch.Tensor:
     """The sweep kernels' in-kernel uniforms as a [B, words*N, S] tensor.
 
     Counter = (particle, row, node, 0), key = ``seed``, for query rows
-    ``row0 .. row0 + B - 1``. Row ``words*i + w`` holds output word ``w``
-    of node ``i``: one word per node for the categorical sweep, the
-    Box-Muller pair (words 0 and 1) for the LG one. This is the
-    external-uniform layout the kernels take, so feeding the result back
-    reproduces the in-kernel random mode (``row0`` lets a caller rebuild a
-    large batch's draws a slice of rows at a time).
+    ``row0 .. row0 + B - 1`` and nodes ``node0 .. node0 + N - 1``. Row
+    ``words*i + w`` holds output word ``w`` of node ``node0 + i``: one word
+    per node for the categorical sweeps, the Box-Muller pair (words 0 and
+    1) for the LG ones. This is the external-uniform layout the kernels
+    take, so feeding the result back reproduces the in-kernel random mode
+    (``row0`` and ``node0`` let a caller rebuild a large batch's draws a
+    slice of rows or nodes at a time).
     """
     i64 = dict(dtype=torch.int64, device=device)
     c0 = torch.arange(s, **i64).view(1, 1, s)
     c1 = torch.arange(row0, row0 + b, **i64).view(b, 1, 1)
-    c2 = torch.arange(n_nodes, **i64).view(1, n_nodes, 1)
+    c2 = torch.arange(node0, node0 + n_nodes, **i64).view(1, n_nodes, 1)
     c0, c1, c2 = torch.broadcast_tensors(c0, c1, c2)
     out = philox4x32_10(c0, c1, c2, torch.zeros_like(c0), int(seed))
     u = torch.stack([uniform_from_bits(w) for w in out[:words]], dim=2)

@@ -16,9 +16,8 @@
 // table (LG) is copied into shared memory once per block when it fits.
 //
 // Random numbers: Philox-4x32-10 with key = the 64-bit seed and counter =
-// (particle, row, node, 0); the categorical walk takes output word 0, the
-// LG Box-Muller pair words 0 and 1. Uniforms are ((bits >> 8) + 0.5) * 2^-24
-// as in the TPU kernel's _uniform_from_bits. A non-null u_ext ([B, N, S] or
+// (particle, row, node, 0) (vbn_common.cuh); the categorical walk takes
+// output word 0, the LG Box-Muller pair words 0 and 1. A non-null u_ext ([B, N, S] or
 // [B, 2N, S] float32) replaces the generator, which is how the kernels are
 // held against their plain PyTorch versions.
 //
@@ -40,92 +39,19 @@
 // val = sum_{j>=1} [cum_{j-1} <= thresh]; the _rn intrinsics keep nvcc
 // from contracting multiply-adds, so the plain version's float32 order holds.
 
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "vbn_common.cuh"
 
 #define VBN_THREADS 128
-#define VBN_MAX_K 32
+
+using vbn::Acc;
+using vbn::align16;
+using vbn::allow_smem;
+using vbn::philox4x32_10;
+using vbn::uniform_from_bits;
 
 namespace {
-
-__device__ __forceinline__ void philox4x32_10(uint32_t c[4], uint64_t seed) {
-  uint32_t k0 = (uint32_t)seed, k1 = (uint32_t)(seed >> 32);
-#pragma unroll
-  for (int r = 0; r < 10; ++r) {
-    uint32_t hi0 = __umulhi(0xD2511F53u, c[0]), lo0 = 0xD2511F53u * c[0];
-    uint32_t hi1 = __umulhi(0xCD9E8D57u, c[2]), lo1 = 0xCD9E8D57u * c[2];
-    uint32_t n0 = hi1 ^ c[1] ^ k0, n2 = hi0 ^ c[3] ^ k1;
-    c[0] = n0;
-    c[1] = lo1;
-    c[2] = n2;
-    c[3] = lo0;
-    k0 += 0x9E3779B9u;
-    k1 += 0xBB67AE85u;
-  }
-}
-
-__device__ __forceinline__ float uniform_from_bits(uint32_t x) {
-  return __fmul_rn(__fadd_rn((float)(x >> 8), 0.5f), 5.9604644775390625e-08f);
-}
-
-__host__ __device__ __forceinline__ size_t align16(size_t n) { return (n + 15) & ~size_t(15); }
-
-// Reduction state of one thread: running max shift and shifted sums.
-template <int RED>
-struct Acc {
-  float m;
-  float s[RED == 1 ? VBN_MAX_K : 3];
-
-  __device__ __forceinline__ void init() {
-    m = -INFINITY;
-#pragma unroll
-    for (int j = 0; j < (RED == 1 ? VBN_MAX_K : 3); ++j) s[j] = 0.f;
-  }
-
-  // RED == 1: class histogram of cls; RED == 2: moments of x.
-  __device__ __forceinline__ void add(float src, int cls, float x) {
-    if (src > m) {
-      float sc = expf(m - src);
-#pragma unroll
-      for (int j = 0; j < (RED == 1 ? VBN_MAX_K : 3); ++j) s[j] *= sc;
-      m = src;
-    }
-    float e = expf(src - m);
-    if constexpr (RED == 1) {
-#pragma unroll
-      for (int j = 0; j < VBN_MAX_K; ++j) s[j] += (cls == j) ? e : 0.f;
-    } else {
-      s[0] += e;
-      s[1] += e * x;
-      s[2] += e * x * x;
-    }
-  }
-
-  // Fold the block's threads into out[0..K-1] (sums) and out[K] (max).
-  __device__ __forceinline__ void block_store(float* scratch, int k, float* out) {
-    const int tid = threadIdx.x;
-    float* sm = scratch;                 // [T]
-    float* ss = scratch + VBN_THREADS;   // [K][T]
-    sm[tid] = m;
-#pragma unroll
-    for (int j = 0; j < (RED == 1 ? VBN_MAX_K : 3); ++j)
-      if (j < k) ss[j * VBN_THREADS + tid] = s[j];
-    __syncthreads();
-    if (tid <= k) {
-      float mb = -INFINITY;
-      for (int t = 0; t < VBN_THREADS; ++t) mb = fmaxf(mb, sm[t]);
-      if (tid < k) {
-        float sum = 0.f;
-        for (int t = 0; t < VBN_THREADS; ++t)
-          if (sm[t] > -INFINITY) sum += expf(sm[t] - mb) * ss[tid * VBN_THREADS + t];
-        out[tid] = sum;
-      } else {
-        out[k] = mb;
-      }
-    }
-  }
-};
 
 // meta (int32): off[N] card[N] flags[N] pstart[N+1] plist[P] pstride[P]
 // flags bit 0 = evidence, bit 1 = do.
@@ -170,7 +96,7 @@ cat_sweep_kernel(const int32_t* __restrict__ meta, int n_nodes, int n_par,
   const int32_t* pstride = plist + n_par;
 
   Acc<RED> acc;
-  acc.init();
+  acc.init(s_red, k);
   for (int it = 0; it < ppt; ++it) {
     const int s = (blk * ppt + it) * VBN_THREADS + tid;
     float logw = 0.f, lpt = 0.f;
@@ -222,7 +148,7 @@ cat_sweep_kernel(const int32_t* __restrict__ meta, int n_nodes, int n_par,
     if (RED != 0) acc.add(red_src == 0 ? logw : lpt, tval, (float)tval);
   }
   if (RED != 0)
-    acc.block_store(s_red, k, out_red + ((size_t)b * nblk + blk) * (k + 1));
+    acc.block_store(s_red, out_red + ((size_t)b * nblk + blk) * (k + 1));
 }
 
 // meta (int32): flags[N] pstart[N+1] plist[P]; ptab [N, dmax + 2] rows are
@@ -267,7 +193,7 @@ lg_sweep_kernel(const int32_t* __restrict__ meta, int n_nodes, int n_par,
   const float half_log_2pi = 0.9189385332046727f;
 
   Acc<RED> acc;
-  acc.init();
+  acc.init(s_red, k);
   for (int it = 0; it < ppt; ++it) {
     const int s = (blk * ppt + it) * VBN_THREADS + tid;
     float logw = 0.f, lpt = 0.f, tval = 0.f;
@@ -318,18 +244,7 @@ lg_sweep_kernel(const int32_t* __restrict__ meta, int n_nodes, int n_par,
     if (RED != 0) acc.add(red_src == 0 ? logw : lpt, 0, tval);
   }
   if (RED != 0)
-    acc.block_store(s_red, k, out_red + ((size_t)b * nblk + blk) * (k + 1));
-}
-
-// Dynamic shared memory above 48 KB must be allowed per kernel first.
-template <typename K>
-cudaError_t allow_smem(K kernel, size_t smem) {
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
-  }
-  return cudaSuccess;
+    acc.block_store(s_red, out_red + ((size_t)b * nblk + blk) * (k + 1));
 }
 
 }  // namespace

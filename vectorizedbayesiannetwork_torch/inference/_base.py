@@ -2,15 +2,15 @@
 
 Counterpart of ``vectorizedbayesiannetwork_tpu/inference/_base.py``. A
 ``Program`` is one query's inference function plus its inputs. PyTorch
-runs eagerly, so there is no compiled-program cache and nothing to fuse
-across queries: ``infer_posterior_many`` runs the programs one after the
-other.
+runs eagerly, so there is no compiled-program cache: ``infer_posterior_many``
+here runs the programs one after the other, and the mask-dynamic methods
+(``_dynamic_base.py``) fuse a query list into one sweep instead.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, List, Optional, Sequence, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -23,12 +23,14 @@ from ..core.utils import infer_batch_size
 @dataclass
 class Program:
     """``fn(params_tuple, draw, fixed) -> outs`` and ``post(outs) ->
-    (pdf, samples)``; ``fixed`` is the packed [B, total_dim] numpy rows."""
+    (pdf, samples)``; ``fixed`` is the packed [B, total_dim] numpy rows,
+    or for a mask-dynamic program the tuple (rows, ev, do, tgt) of
+    ``pack_dynamic_inputs``."""
 
     plan: InferencePlan
     fn: Callable
     params: Tuple
-    fixed: np.ndarray
+    fixed: Union[np.ndarray, Tuple[np.ndarray, ...]]
     post: Callable
 
 
@@ -47,7 +49,11 @@ class Method:
         return [self._run_program(vbn, p) for p in progs]
 
     def _run_program(self, vbn, prog: Program):
-        fixed = torch.as_tensor(prog.fixed, device=vbn.device)
+        if isinstance(prog.fixed, tuple):
+            fixed = tuple(torch.as_tensor(a, device=vbn.device)
+                          for a in prog.fixed)
+        else:
+            fixed = torch.as_tensor(prog.fixed, device=vbn.device)
         return prog.post(prog.fn(prog.params, vbn.next_key(), fixed))
 
     def _plan_and_batch(self, vbn, query: Query):

@@ -1,11 +1,15 @@
 """Monte-Carlo marginalization posterior inference.
 
 Port of
-``vectorizedbayesiannetwork_tpu/inference/monte_carlo_marginalization.py``
-(static plans): a do(target) delta fast path, a direct-CPD fast path when
-all of the target's parents are fixed, otherwise a full ancestral sweep
-(fused kernel where the gates allow, else torch ops);
+``vectorizedbayesiannetwork_tpu/inference/monte_carlo_marginalization.py``:
+a do(target) delta fast path, a direct-CPD fast path when all of the
+target's parents are fixed, otherwise a full ancestral sweep (the unrolled
+or scan kernel where the gates allow, else torch ops);
 pdf = exp(target log-density). Evidence and do both clamp, unweighted.
+With ``dynamic_masks=True`` every query rides the mask-dynamic sweep; the
+do(target) delta holds per row (pdf 1 at the intervened value) and the
+direct path runs as the general sweep (same distribution: the clamped
+ancestors make it exact).
 """
 
 from __future__ import annotations
@@ -15,10 +19,11 @@ import torch
 from ..core.base import Query
 from ..core.plan import pack_fixed_values
 from ..core.registry import register_inference
-from ..ops.sweep import make_fused_sweep_fn
 from ._base import Program
 from ._dynamic_base import DynamicMaskMethod
+from ._dynamic_sweep import dynamic_sweep_trace, dynamic_target_values
 from ._sweep import node_values, sweep_trace, target_log_prob
+from .likelihood_weighting import LikelihoodWeighting
 
 
 @register_inference("monte_carlo_marginalization")
@@ -32,9 +37,40 @@ class MonteCarloMarginalization(DynamicMaskMethod):
         super().__init__(dynamic_masks)
         self.n_samples = int(n_samples)
 
+    def _dynamic_fn(self, plan, cpds, s, opts):
+        raw = self._fused_dyn_raw(plan, cpds, s, ("lpt", "tgt"))
+
+        def fn(params_tuple, draw, tensors):
+            fixed_vals, evm, dom, ti = tensors
+            # evidence AND do both clamp, through the do bit; nothing weights
+            fx = torch.maximum(evm, dom)
+            no_weight = torch.zeros_like(evm)
+            do_t = dom.gather(1, ti.long()[:, None])[:, 0]  # [B]
+            if raw is not None:
+                _, tv, lp_t, _ = raw(
+                    params_tuple, draw.seed, fixed_vals, no_weight, fx, ti
+                )
+                samples = tv[:, :, None]
+            else:
+                tgt = torch.nn.functional.one_hot(
+                    ti.long(), plan.n_nodes
+                ).to(torch.float32)
+                packed, _, lp_t = dynamic_sweep_trace(
+                    plan, cpds, params_tuple, draw.generator, fixed_vals,
+                    no_weight, fx, s, tgt_mask=tgt,
+                )
+                samples = dynamic_target_values(plan, packed, ti)
+            # do(target) rows: a delta at the intervened value (the sweep
+            # already clamped the samples; pdf := 1)
+            pdf = torch.where(do_t[:, None] > 0, 1.0, torch.exp(lp_t))
+            return pdf, samples
+
+        return fn
+
     def make_program(self, vbn, query: Query, **kwargs):
-        self._check_static(kwargs)
         s = int(kwargs.get("n_samples", self.n_samples))
+        if self._dynamic_enabled(kwargs):
+            return self._make_dynamic_program(vbn, query, s, ())
         plan, b = self._plan_and_batch(vbn, query)
         fixed = pack_fixed_values(query, plan, b)
         t = plan.target_idx
@@ -87,7 +123,7 @@ class MonteCarloMarginalization(DynamicMaskMethod):
 
             return Program(plan, fn_direct, params, fixed, post)
 
-        raw = make_fused_sweep_fn(plan, cpds, s, want=("lpt",))
+        raw = LikelihoodWeighting._fused_raw_fn(plan, cpds, s, want=("lpt",))
         if raw is not None:
             def fn(params_tuple, draw, fixed_vals):
                 _logw, tgt, lpt, _red = raw(params_tuple, draw.seed, fixed_vals)

@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface (no PyTorch headers), so it
 compiles in seconds. It is built at first use into ``build/kernels/`` at
-the root of the checkout, under a name keyed by a hash of the source and
-the flags, so a changed source builds anew and an unchanged one is reused.
+the root of the checkout, under a name keyed by a hash of the source, the
+shared ``csrc/*.cuh`` headers and the flags, so a changed source builds
+anew and an unchanged one is reused.
 ``build_all`` starts one nvcc per source, all at once. Nothing here runs
 at import time: the CPU tests import this module on machines without nvcc.
 """
@@ -22,7 +23,7 @@ from typing import Dict, List
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("sweep",)
+SOURCES = ("sweep", "sweep_scan")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -43,8 +44,13 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
+    """The library's path, keyed by the source, the shared headers
+    (``csrc/*.cuh``) and the flags."""
+    text = (CSRC / f"{name}.cu").read_bytes()
+    for header in sorted(CSRC.glob("*.cuh")):
+        text += header.read_bytes()
     digest = hashlib.sha256(
-        (CSRC / f"{name}.cu").read_bytes() + " ".join(NVCC_FLAGS).encode()
+        text + " ".join(NVCC_FLAGS).encode()
     ).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

@@ -50,7 +50,9 @@ _THREADS = 128  # threads per block (VBN_THREADS in csrc/sweep.cu)
 _SMEM_LIMIT = 200 * 1024  # keep the CPT in shared memory below this
 _HALF_LOG_2PI = 0.9189385332046727
 
-LAUNCHES = {"categorical": 0, "lg": 0}
+# Kernel launches by wrapper; the scan kernels (ops/sweep_scan.py) count here
+# too, so one reset covers every kernel of a served batch.
+LAUNCHES = {"categorical": 0, "lg": 0, "categorical_scan": 0, "lg_scan": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -372,9 +374,9 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _ppt(n_samples: int) -> int:
-    """Particles per thread: a block spans 128 * ppt particles."""
-    return 16 if n_samples % (_THREADS * 16) == 0 else 8
+def _ppt(n_samples: int, threads: int = _THREADS) -> int:
+    """Particles per thread: a block spans threads * ppt particles."""
+    return 16 if n_samples % (threads * 16) == 0 else 8
 
 
 @functools.lru_cache(maxsize=64)

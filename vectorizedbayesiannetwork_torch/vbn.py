@@ -2,8 +2,8 @@
 
 Port of ``vectorizedbayesiannetwork_tpu/vbn.py`` for the fit -> serve path:
 method setters (str / dict / callable), ``fit``, ``infer_posterior``,
-``infer_posterior_many`` (sequential: PyTorch runs eagerly, so there is
-nothing to fuse), the fused ``infer_posterior_pmf`` / ``_moments`` with
+``infer_posterior_many`` (one fused sweep in ``dynamic_masks`` mode, else
+sequential), the fused ``infer_posterior_pmf`` / ``_moments`` with
 their stream fallback, ``_posterior_stats``, and ``save`` / ``load`` in the
 JAX package's checkpoint format (an ``.npz`` of flattened params with a
 ``__structure__`` JSON entry), so a model fitted by either package serves
@@ -182,8 +182,9 @@ class VBN:
         return self._inference.infer_posterior(self, q, **kwargs)
 
     def infer_posterior_many(self, queries, **kwargs):
-        """Answer several queries, one after the other; a list of
-        (pdf, samples) pairs in input order."""
+        """Answer several queries; a list of (pdf, samples) pairs in input
+        order. A method in ``dynamic_masks`` mode runs them as one sweep;
+        otherwise they run one after the other."""
         self._require_inference("infer_posterior_many")
         qs = [self._normalize_query(q) for q in queries]
         many = getattr(self._inference, "infer_posterior_many", None)
@@ -197,9 +198,10 @@ class VBN:
     def infer_posterior_pmf(self, queries, *, n_classes, **kwargs):
         """Discrete posterior pmf rows ``(rows [sum B, n_classes], spans)``.
 
-        The fused path reduces in the sweep kernel and returns rows scaled
-        by ``exp(-max log-weight)``; the stream fallback returns raw
-        weighted histograms. Rows are UNNORMALIZED either way.
+        The static fused path reduces in the sweep kernel and returns rows
+        scaled by ``exp(-max log-weight)``; the mask-dynamic reduced path
+        returns normalized rows; the stream paths return raw weighted
+        histograms. Rows are UNNORMALIZED in general.
         ``_last_summary_path`` records which path served ("fused" or
         "stream").
         """
@@ -232,8 +234,10 @@ class VBN:
         many = getattr(self._inference, "infer_posterior_many", None)
         results = many(self, qs, **kwargs) if many and len(qs) <= 16 else None
         if results is None:
+            call_kw = dict(kwargs)
+            call_kw.pop("pad_bucket", None)
             results = [
-                self._inference.infer_posterior(self, q, **kwargs) for q in qs
+                self._inference.infer_posterior(self, q, **call_kw) for q in qs
             ]
         node_to_idx = {
             n: i for i, n in enumerate(self.dag.topological_order())
