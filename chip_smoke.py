@@ -46,7 +46,31 @@ queries at S=2^20 with ``dynamic_masks=True``:
    version over SCAN_PLAIN_ROWS rows of it (scaled to the batch), the
    bound, and the end-to-end queries/s of both workloads.
 
-Prints a JSON line of kernel results (all four kernels), the card's name
+Then the resampling slice (resampled and plain importance sampling):
+
+10. resample_kernels: ``vbn_cumsum``, ``vbn_cum_index``, ``vbn_srg`` and
+    ``vbn_spg`` against their plain versions at B=8, S=2^16 on six weight
+    profiles quantized to multiples of 2^-23 (D=1 and D=5; exact), the
+    high-u0 case and multinomial order statistics (exact), and at S=2^22
+    on unquantized weights, where ``norm_cum`` takes the monotone cumsum
+    and both merges read the kernel's CDF (exact given it);
+11. ris_main_path: RIS on the flagship diagnosis query (x0 | x2, B=8) at
+    S=2^20 systematic, S=2^20 multinomial and S=2^22 systematic, each with
+    the counters reset just before and read just after (one resampling
+    event: one ``cumsum``, one ``cum_index`` and one ``srg``, or two
+    ``cumsum`` and one ``spg``), moments against the closed form, peak
+    memory;
+12. ris_asia: asia P(lung | xray, dysp), B=8, S=2^20, ess_threshold 0.99
+    (two events, the first over 3 live nodes), pmf against the exact
+    posterior of the fitted CPTs;
+13. is_main_path: flagship diagnosis IS at B=8, S=2^20, and IS with
+    ``dynamic_masks=True`` on the 96 link-scale queries at S=2^16 (two scan
+    launches: the IS sweep and its per-row LW fallback);
+14. resample_timing: each resampling kernel's ms at B=8, S=2^20 (D=1, and
+    D=3 for ``vbn_srg``), its plain version's and one PyTorch call's, the
+    byte bound, RIS and IS queries/s, and a profiled RIS batch.
+
+Prints a JSON line of kernel results (all eight kernels), the card's name
 and power limit, and last ``{"ok": true, "device": {...}}``. Any failure
 exits nonzero. The script imports nothing of JAX or of the JAX package.
 """
@@ -73,6 +97,10 @@ S_STREAMS = 1 << 16  # depth of the dynamic_streams phase
 SCAN_PLAIN_ROWS = 2  # rows of the scan plain versions timed at full width
 SCAN_REPS = 3  # kernel launches per CUDA-event window
 SCAN_WINDOWS = 3  # served batches timed end to end, best of
+B_RIS, S_RIS, S_RIS_BIG = 8, 1 << 20, 1 << 22  # the RIS workload (tpu_study.py)
+S_IS_DYN = 1 << 16  # IS dynamic_masks on the link-scale queries
+RIS_REPS = 5  # launches per CUDA-event window of a resampling kernel
+PROFILES = ["dirichlet", "uniform", "last", "first", "alternate", "mixed"]
 CAT_WANTS = [("logw", "lpt"), ("logw", "tgt"), ("lpt",), ("pmf_logw",),
              ("pmf_lpt",), ("mom_logw",), ("mom_lpt",)]
 LG_WANTS = [("logw", "lpt"), ("logw", "tgt"), ("lpt",), ("mom_logw",),
@@ -436,7 +464,8 @@ def at_main_shape(kernel, plain, kind, *, rtol, shift_atol):
 
 
 def kernel_row(name, replaces, launches, err, ms, plain_ms, cost,
-               source="vectorizedbayesiannetwork_torch/csrc/sweep.cu"):
+               source="vectorizedbayesiannetwork_torch/csrc/sweep.cu",
+               library_ms=None):
     ops, nbytes = cost
     t_ops, t_bytes = ops / PEAK_OPS * 1e3, nbytes / PEAK_BYTES * 1e3
     return {
@@ -444,7 +473,7 @@ def kernel_row(name, replaces, launches, err, ms, plain_ms, cost,
         "replaces": replaces, "launches": launches, "max_abs_err": err,
         "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-        "library_ms": None, "ops": ops, "bytes": nbytes,
+        "library_ms": library_ms, "ops": ops, "bytes": nbytes,
     }
 
 
@@ -989,10 +1018,11 @@ def time_scan_kernels(link_vbn, link_qs, gauss_vbn, gauss_qs, launches, errs):
     return [cat, lg]
 
 
-def profile_batch(serve):
+def profile_batch(serve, kernels=("scan_kernel",)):
     """One served batch under torch.profiler: its wall ms (host clock, to
-    the rows' fetch), the device's busy ms (kernels and copies), the
-    scan kernel's ms, and the device's idle share of the wall time."""
+    the rows' fetch), the device's busy ms (kernels and copies), the ms of
+    the device events whose names hold each of ``kernels``, and the
+    device's idle share of the wall time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1006,9 +1036,9 @@ def profile_batch(serve):
     if not dev:
         return {"wall_ms": wall, "device": "not measured (no CUDA events)"}
     busy = sum(e.time_range.elapsed_us() for e in dev) / 1e3
-    scan = sum(e.time_range.elapsed_us() for e in dev
-               if "scan_kernel" in e.name) / 1e3
-    return {"wall_ms": wall, "device_busy_ms": busy, "scan_kernel_ms": scan,
+    named = {f"{k}_ms": sum(e.time_range.elapsed_us() for e in dev
+                            if k in e.name) / 1e3 for k in kernels}
+    return {"wall_ms": wall, "device_busy_ms": busy, **named,
             "device_events": len(dev), "idle_share": 1.0 - busy / wall}
 
 
@@ -1075,6 +1105,381 @@ def serve_large_networks(vbn_cls, defaults, asia_vbn):
         lambda: link_vbn.infer_posterior_pmf(lq, n_classes=4, pad_bucket=N_DYN)))
     log("serve_profile", workload="gauss107", **profile_batch(
         lambda: gauss_vbn.infer_posterior_moments(gq, pad_bucket=N_DYN)))
+    return kernels, (link_bn, link_vbn, link_qs)
+
+
+# ---------------------------------------------------------------------------
+# The resampling slice: RIS and IS on the resampling kernels
+# ---------------------------------------------------------------------------
+
+
+def quantized_profile(name, b, s):
+    """[b, s] weights of one profile of tests/test_resample_pallas.py:24-53,
+    rounded to integer multiples of 2^-23 summing to exactly 1 per row (as
+    ``quantized_profile`` in tests/test_torch_cuda.py): every grouping of
+    their sums is exact, so kernel and plain version agree bit for bit."""
+    rng = np.random.default_rng(PROFILES.index(name))
+    if name == "dirichlet":
+        w = rng.dirichlet(np.full(s, 0.3), size=b)
+    elif name == "uniform":
+        w = np.full((b, s), 1.0 / s)
+    elif name in ("last", "first"):
+        w = np.zeros((b, s))
+        w[:, -1 if name == "last" else 0] = 1.0
+    elif name == "alternate":
+        w = np.tile((np.arange(s) // 256 % 2).astype(float), (b, 1))
+    else:
+        delta = np.zeros(s)
+        delta[s // 2] = 1.0
+        rows = [delta, np.full(s, 1.0 / s), rng.dirichlet(np.ones(s))]
+        w = np.stack([rows[r % 3] for r in range(b)])
+    w = w / w.sum(axis=1, keepdims=True)
+    k = np.round(w * 2.0**23).astype(np.int64)
+    k[np.arange(b), k.argmax(axis=1)] += (1 << 23) - k.sum(axis=1)
+    return (k / 2.0**23).astype(np.float32)
+
+
+def exact(tag, got, want):
+    import torch
+
+    if isinstance(got, tuple):
+        for i, (g, w) in enumerate(zip(got, want)):
+            exact(f"{tag}[{i}]", g, w)
+        return 0.0
+    if got.shape != want.shape or not bool(torch.equal(got, want)):
+        bad = (got != want).sum() if got.shape == want.shape else "shape"
+        raise AssertionError(f"{tag}: kernel != plain version ({bad} entries)")
+    return 0.0
+
+
+def check_resample_kernels(dev):
+    """Each resampling kernel against its plain version on the same inputs;
+    returns the max abs error per kernel (0 where the check is exact)."""
+    import torch
+
+    from vectorizedbayesiannetwork_torch.ops import resample_merge as rm
+    from vectorizedbayesiannetwork_torch.ops import scan
+
+    b, s = B_CHECK, S_CHECK
+    g = torch.Generator(device=dev).manual_seed(2024)
+    errs = {"cumsum": 0.0, "cum_index": 0.0, "srg": 0.0, "spg": 0.0}
+    for name in PROFILES:
+        w = torch.as_tensor(quantized_profile(name, b, s), device=dev)
+        for mono in (False, True):
+            exact(f"vbn_cumsum {name} monotone={mono}",
+                  scan.cumsum_rows(w, mono), scan.cumsum_rows_plain(w, mono))
+        cum = rm.norm_cum(w)
+        u0 = torch.rand((b, 1), generator=g, device=dev)
+        pos = torch.sort(torch.rand((b, s), generator=g, device=dev)).values
+        pos[:, 0], pos[:, -1] = 0.0, 1.0
+        sys_q = rm.systematic_positions(u0, s, rm.T)
+        for q in (sys_q, pos[:, :: rm.T]):
+            exact(f"vbn_cum_index {name}", rm.cum_index(cum, q),
+                  rm.cum_index_plain(cum, q))
+        index = rm.cum_index(cum, sys_q)
+        for d in (1, 5):
+            vals = torch.randn((b, s, d), generator=g, device=dev)
+            exact(f"vbn_srg {name} D={d}", rm.srg(u0, cum, vals, index),
+                  rm.srg_plain(u0, cum, vals))
+            for s_out in (s, s // 2):
+                p = pos[:, :s_out]
+                exact(f"vbn_spg {name} D={d} S_out={s_out}",
+                      rm.sorted_gather(cum, p, vals), rm.spg_plain(cum, p, vals))
+        log("resample_kernel_check", profile=name, B=b, S=s, D=[1, 5], ok=True)
+    # high u0: (S-1+u0)/S rounds to 1.0; the clamp keeps a real particle
+    w = torch.full((2, s), 1.0 / s, device=dev)
+    vals = torch.arange(1, s + 1, dtype=torch.float32, device=dev)
+    vals = vals[None, :, None].repeat(2, 1, 1)
+    u0 = torch.tensor([[0.5], [1.0 - 2.0**-24]], device=dev)
+    got = rm.systematic_resample_gather(w, vals, u0=u0)
+    exact("vbn_srg high u0", got, rm.systematic_resample_gather_plain(w, vals, u0=u0))
+    if float(got.min()) < 1.0 or float(got[1, -1, 0]) != s:
+        raise AssertionError("high u0: the last position left the particles")
+    # multinomial order statistics: Exp draws in multiples of 2^-6 below 8,
+    # whose partial sums stay exact (under 2^24 quanta) at S = 2^16
+    w = torch.as_tensor(quantized_profile("dirichlet", b, s), device=dev)
+    vals = torch.randn((b, s, 1), generator=g, device=dev)
+    e = torch.empty((b, s + 1), device=dev).exponential_(generator=g)
+    e = torch.round(torch.clamp(e, max=7.9) * 64.0) / 64.0
+    c = scan.cumsum_rows_plain(e, monotone=True)
+    exact("multinomial", rm.multinomial_resample_gather(w, vals, e=e),
+          rm.spg_plain(rm.norm_cum(w), c[:, :s] / c[:, -1:], vals))
+    # S = 2^22: unquantized weights, norm_cum's monotone cumsum; the merges
+    # are held against their plain versions on the kernel's CDF
+    big = S_RIS_BIG
+    w = torch.rand((B_RIS, big), generator=g, device=dev) ** 8
+    w = w / w.sum(dim=1, keepdim=True)  # RIS passes softmax weights
+    k_cum = scan.cumsum_rows(w, True)
+    p_cum = scan.cumsum_rows_plain(w, True)
+    ref = torch.cumsum(w.double(), dim=1)  # float64 prefix sums
+    rel = {tag: float(((c.double() - ref).abs() / ref[:, -1:]).max())
+           for tag, c in (("kernel", k_cum), ("plain", p_cum))}
+    # float32 prefix sums of 2^22 terms drift by ~1e-4 of the total at
+    # worst (the JAX note, resample_pallas.py:124-127)
+    if rel["kernel"] > 1e-4 or not bool((k_cum.diff(dim=1) >= 0).all()):
+        raise AssertionError(f"vbn_cumsum at S=2^22: {rel} of the row total, "
+                             "or not monotone")
+    errs["cumsum"] = float((k_cum - p_cum).abs().max())
+    cum = rm.norm_cum(w)
+    u0 = torch.rand((B_RIS, 1), generator=g, device=dev)
+    index = rm.cum_index(cum, rm.systematic_positions(u0, big, rm.T))
+    vals = torch.randn((B_RIS, big, 1), generator=g, device=dev)
+    exact("vbn_srg S=2^22", rm.srg(u0, cum, vals, index),
+          rm.srg_plain(u0, cum, vals))
+    pos = torch.sort(torch.rand((B_RIS, big), generator=g, device=dev)).values
+    exact("vbn_spg S=2^22", rm.sorted_gather(cum, pos, vals),
+          rm.spg_plain(cum, pos, vals))
+    log("resample_kernel_check", case="S=2^22 monotone", B=B_RIS, S=big,
+        cumsum_err_over_total_vs_float64=rel,
+        cumsum_kernel_vs_plain_max_abs=errs["cumsum"], ok=True)
+    return errs
+
+
+def flagship_diag_query(b=B_RIS):
+    """The RIS/IS workload of benchmarking/tpu_study.py:39-46: x0 given
+    x2 = linspace(-1, 1, b)."""
+    return {"target": "x0", "evidence": {
+        "x2": np.linspace(-1, 1, b).reshape(b, 1).astype(np.float32)}}
+
+
+def diag_accuracy(lg_vbn, q, w, samples):
+    """Worst |d mean| / std and |d std| / std of the served (mean, std) of
+    x0 against the fitted network's closed form."""
+    st = lg_vbn._posterior_stats(w, samples)
+    mean = st["mean"][:, 0].double().cpu().numpy()
+    std = st["std"][:, 0].double().cpu().numpy()
+    fit = fitted_gaussian_bn(lg_vbn)
+    cf = np.array([fit.conditional("x0", {"x2": float(v)})
+                   for v in q["evidence"]["x2"][:, 0]])
+    return {"dmean_over_std": float(np.max(np.abs(mean - cf[:, 0]) / cf[:, 1])),
+            "dstd_over_std": float(np.max(np.abs(std - cf[:, 1]) / cf[:, 1]))}
+
+
+def serve_ris(lg_vbn):
+    """RIS on the flagship diagnosis query, three runs through the public
+    entry point; returns the launches of all three."""
+    import torch
+
+    q = flagship_diag_query()
+    total = {}
+    for method, s in (("systematic", S_RIS), ("multinomial", S_RIS),
+                      ("systematic", S_RIS_BIG)):
+        lg_vbn.set_inference_method("resampled_importance_sampling",
+                                    n_samples=s, ess_threshold=0.5,
+                                    resample_method=method)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        w, samples = lg_vbn.infer_posterior(q)
+        torch.cuda.synchronize()
+        merge = "srg" if method == "systematic" else "spg"
+        launches = read_launches({"cumsum": 1 if merge == "srg" else 2,
+                                  "cum_index": 1, merge: 1})
+        mem = torch.cuda.max_memory_allocated()
+        resampled = lg_vbn._inference._last_resampled
+        acc = diag_accuracy(lg_vbn, q, w, samples)
+        log("ris_main_path", method=method, S=s, B=B_RIS, launches=launches,
+            resampled=resampled, ess=lg_vbn._inference._last_ess.tolist(),
+            max_memory_allocated_bytes=mem, **acc)
+        if not resampled:
+            raise AssertionError("RIS did not resample the flagship query")
+        if acc["dmean_over_std"] > 0.05 or acc["dstd_over_std"] > 0.05:
+            raise AssertionError(f"RIS moments off the closed form: {acc}")
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
+def serve_ris_asia(bn, asia_vbn):
+    """asia P(lung | xray, dysp), the four evidence patterns twice, RIS at
+    ess_threshold 0.99: two resampling events (3 live columns, then 1)."""
+    from benchmarking.exact import exact_posterior
+
+    xr = np.array([0, 0, 1, 1, 0, 0, 1, 1], np.float32)
+    dy = np.array([0, 1, 0, 1, 0, 1, 0, 1], np.float32)
+    q = {"target": "lung",
+         "evidence": {"xray": xr.reshape(-1, 1), "dysp": dy.reshape(-1, 1)}}
+    asia_vbn.set_inference_method("resampled_importance_sampling",
+                                  n_samples=S_RIS, ess_threshold=0.99)
+    reset_launches()
+    w, samples = asia_vbn.infer_posterior(q)
+    launches = read_launches({"cumsum": 2, "cum_index": 2, "srg": 2})
+    fit = fitted_discrete_bn(bn, asia_vbn)
+    err = 0.0
+    x = samples[:, :, 0].long()
+    for r in range(B_RIS):
+        pmf = np.array([float(w[r][x[r] == c].double().sum()) for c in (0, 1)])
+        gt = np.asarray(exact_posterior(fit, "lung", {"xray": int(xr[r]),
+                                                      "dysp": int(dy[r])}))
+        err = max(err, float(np.abs(pmf / pmf.sum() - gt).max()))
+    log("ris_asia", launches=launches, resampled=asia_vbn._inference._last_resampled,
+        pmf_max_abs_err=err)
+    asia_vbn.set_inference_method("likelihood_weighting", n_samples=S_MAIN)
+    if err > 5e-3:
+        raise AssertionError(f"asia RIS pmf off the exact posterior by {err}")
+
+
+def serve_is(lg_vbn, link):
+    """IS: the flagship diagnosis query (static, S=2^20), and the 96
+    link-scale queries with dynamic_masks=True at S=2^16."""
+    link_bn, link_vbn, link_qs = link
+    q = flagship_diag_query()
+    lg_vbn.set_inference_method("importance_sampling", n_samples=S_RIS)
+    w, samples = lg_vbn.infer_posterior(q)
+    acc = diag_accuracy(lg_vbn, q, w, samples)
+    log("is_main_path", workload="flagship diagnosis", B=B_RIS, S=S_RIS,
+        fallback=lg_vbn._inference._last_fallback,
+        ess=lg_vbn._inference._last_ess.tolist(), **acc)
+    if acc["dmean_over_std"] > 0.05 or acc["dstd_over_std"] > 0.05:
+        raise AssertionError(f"IS moments off the closed form: {acc}")
+    qs = [as_query(t, ev) for t, ev in link_qs]
+    link_vbn.set_inference_method("importance_sampling", n_samples=S_IS_DYN,
+                                  dynamic_masks=True)
+    reset_launches()
+    pmf, spans = link_vbn.infer_posterior_pmf(qs, n_classes=4, pad_bucket=N_DYN)
+    launches = read_launches({"categorical_scan": 2})
+    acc = link_accuracy(link_bn, link_vbn, link_qs, pmf, spans)
+    log("is_main_path", workload="link724 dynamic", S=S_IS_DYN,
+        queries=len(qs), launches=launches,
+        fallback=link_vbn._inference._last_fallback, **acc)
+    if acc["kl_median"] > 2e-3:
+        raise AssertionError(f"IS link median KL {acc['kl_median']} > 2e-3")
+
+
+def time_resample_kernels(dev, launches, errs):
+    """Each resampling kernel at B=8, S=2^20 (the RIS main path's shape):
+    its ms, its plain version's, one PyTorch call's, and the byte bound."""
+    import torch
+
+    from vectorizedbayesiannetwork_torch.ops import resample_merge as rm
+    from vectorizedbayesiannetwork_torch.ops import scan
+
+    b, s = B_RIS, S_RIS
+    g = torch.Generator(device=dev).manual_seed(7)
+    src = "vectorizedbayesiannetwork_torch/csrc/resample.cu"
+    tpu = "vectorizedbayesiannetwork_tpu/ops/"
+    w = torch.as_tensor(quantized_profile("dirichlet", b, s), device=dev)
+    rows = []
+
+    # monotone, as norm_cum calls it: a sum and a max per entry
+    ms = cuda_ms(lambda: scan.cumsum_rows(w, True), RIS_REPS)
+    plain = cuda_ms(lambda: scan.cumsum_rows_plain(w, True), RIS_REPS)
+    lib = cuda_ms(lambda: torch.cumsum(w, dim=1), RIS_REPS)
+    rows.append(kernel_row("vbn_cumsum", tpu + "scan_pallas.py:33",
+                           launches.get("cumsum", 0), errs["cumsum"], ms, plain,
+                           (2 * b * s, 8 * b * s), src, lib))
+
+    cum = rm.norm_cum(w)
+    u0 = torch.rand((b, 1), generator=g, device=dev)
+    q = rm.systematic_positions(u0, s, rm.T)
+    k, kw = s // rm.T, s // rm.W
+    ms = cuda_ms(lambda: rm.cum_index(cum, q), RIS_REPS)
+    plain = cuda_ms(lambda: rm.cum_index_plain(cum, q), RIS_REPS)
+    lib = cuda_ms(lambda: torch.searchsorted(cum[:, rm.W - 1 :: rm.W], q,
+                                             right=True), RIS_REPS)
+    steps = int(np.ceil(np.log2(kw)))
+    rows.append(kernel_row("vbn_cum_index", tpu + "resample_pallas.py:250",
+                           launches.get("cum_index", 0), errs["cum_index"], ms,
+                           plain, (b * k * steps, 4 * (2 * b * kw + 2 * b * k)),
+                           src, lib))
+
+    index = rm.cum_index(cum, q)
+    u = rm.systematic_positions(u0, s)
+    merge_ops = b * s * (int(np.log2(2 * rm.W)) + 3)
+    for d in (1, 3):
+        vals = torch.randn((b, s, d), generator=g, device=dev)
+        ms = cuda_ms(lambda: rm.srg(u0, cum, vals, index), RIS_REPS)
+        plain = cuda_ms(lambda: rm.srg_plain(u0, cum, vals), RIS_REPS)
+        lib = cuda_ms(lambda: vals.gather(1, torch.searchsorted(
+            cum, u, right=True).clamp_(max=s - 1)[..., None].expand(-1, -1, d)),
+            RIS_REPS)
+        nbytes = 4 * (b * s + b * s * d + b + b * k + b * kw + b * s * d)
+        row = kernel_row("vbn_srg", tpu + "resample_pallas.py:472",
+                         launches.get("srg", 0), errs["srg"], ms, plain,
+                         (merge_ops, nbytes), src, lib)
+        row["D"] = d
+        if d == 1:
+            rows.append(row)
+        else:
+            log("kernel_main_shape", kernel="vbn_srg", D=d, ms=ms,
+                plain_ms=plain, library_ms=lib, bound_ms=row["bound_ms"])
+
+    e = torch.empty((b, s + 1), device=dev).exponential_(generator=g)
+    c = scan.cumsum_rows(e, monotone=True)
+    pos = (c[:, :s] / c[:, -1:]).contiguous()
+    vals = torch.randn((b, s, 1), generator=g, device=dev)
+    index = rm.cum_index(cum, pos[:, :: rm.T])
+    ms = cuda_ms(lambda: rm.spg(cum, pos, vals, index), RIS_REPS)
+    plain = cuda_ms(lambda: rm.spg_plain(cum, pos, vals), RIS_REPS)
+    lib = cuda_ms(lambda: vals.gather(1, torch.searchsorted(
+        cum, pos, right=True).clamp_(max=s - 1)[..., None]), RIS_REPS)
+    exact("vbn_spg at S=2^20", rm.spg(cum, pos, vals, index),
+          rm.spg_plain(cum, pos, vals))
+    nbytes = 4 * (b * s + 2 * b * s + b * k + b * kw + b * s)
+    rows.append(kernel_row("vbn_spg", tpu + "resample_pallas.py:531",
+                           launches.get("spg", 0), errs["spg"], ms, plain,
+                           (merge_ops, nbytes), src, lib))
+    for r in rows:
+        log("kernel_main_shape", kernel=r["name"], ms=r["ms"],
+            plain_ms=r["plain_ms"], library_ms=r["library_ms"],
+            bound_ms=r["bound_ms"])
+    return rows
+
+
+def method_qps(vbn, q, b):
+    """queries/s of one served batch (posterior, then its (mean, std) or
+    pmf rows fetched to the host), best of SCAN_WINDOWS."""
+    def serve():
+        w, samples = vbn.infer_posterior(q)
+        st = vbn._posterior_stats(w, samples.float())
+        return st["mean"].cpu()
+
+    serve()
+    qps = []
+    for _ in range(SCAN_WINDOWS):
+        t0 = time.perf_counter()
+        serve()
+        qps.append(b / (time.perf_counter() - t0))
+    return max(qps), qps, serve
+
+
+def serve_resampling(bn, asia_vbn, lg_vbn, link):
+    """Phases 10-14 (the resampling slice); returns the resampling kernels'
+    rows of the kernel line."""
+    t0 = time.perf_counter()
+    errs = check_resample_kernels(lg_vbn.device)
+    log("resample_kernel_check_done", max_abs_err=errs,
+        seconds=time.perf_counter() - t0)
+    launches = serve_ris(lg_vbn)
+    serve_ris_asia(bn, asia_vbn)
+    serve_is(lg_vbn, link)
+    kernels = time_resample_kernels(lg_vbn.device, launches, errs)
+
+    q = flagship_diag_query()
+    out = {}
+    for tag, name, kw in (
+        ("ris_systematic", "resampled_importance_sampling",
+         {"resample_method": "systematic"}),
+        ("ris_multinomial", "resampled_importance_sampling",
+         {"resample_method": "multinomial"}),
+        ("is", "importance_sampling", {}),
+    ):
+        lg_vbn.set_inference_method(name, n_samples=S_RIS, **kw)
+        out[tag] = method_qps(lg_vbn, q, B_RIS)[:2]
+    link_bn, link_vbn, link_qs = link
+    lq = [as_query(t, ev) for t, ev in link_qs]
+    link_qps, link_w = dynamic_qps(lambda: link_vbn.infer_posterior_pmf(
+        lq, n_classes=4, pad_bucket=N_DYN))
+    log("end_to_end_resampling", B=B_RIS, S=S_RIS,
+        **{f"{k}_qps": v[0] for k, v in out.items()},
+        **{f"{k}_window_qps": v[1] for k, v in out.items()},
+        is_dynamic_link724_qps=link_qps, is_dynamic_link724_window_qps=link_w,
+        is_dynamic_S=S_IS_DYN)
+    lg_vbn.set_inference_method("resampled_importance_sampling",
+                                n_samples=S_RIS, resample_method="systematic")
+    serve = method_qps(lg_vbn, q, B_RIS)[2]
+    log("serve_profile", workload="flagship RIS systematic", **profile_batch(
+        serve, ("cumsum_kernel", "cum_index_kernel", "merge_kernel")))
     return kernels
 
 
@@ -1126,7 +1531,9 @@ def main() -> int:
         log("serve_breakdown", workload=tag, batch_ms=batch_ms,
             kernel_ms=row["ms"], kernel_share=row["ms"] / batch_ms)
 
-    kernels += serve_large_networks(VBN, defaults, asia_vbn)
+    scan_rows, link = serve_large_networks(VBN, defaults, asia_vbn)
+    kernels += scan_rows
+    kernels += serve_resampling(bn, asia_vbn, lg_vbn, link)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -1,5 +1,7 @@
-"""The port's CUDA kernels (the unrolled sweeps of ``ops/sweep.py`` and the
-scan sweeps of ``ops/sweep_scan.py``) against their plain PyTorch versions.
+"""The port's CUDA kernels (the unrolled sweeps of ``ops/sweep.py``, the
+scan sweeps of ``ops/sweep_scan.py`` and the resampling kernels of
+``ops/scan.py`` and ``ops/resample_merge.py``) against their plain PyTorch
+versions.
 
 These tests need a CUDA card: each one skips here without one (decided in
 a fixture, not at import). This file imports neither JAX nor pandas, so it
@@ -12,7 +14,9 @@ sides get the same external uniforms, or the in-kernel Philox stream that
 the plain versions reproduce. Tolerances are the JAX kernel tests' own
 (``tests/test_sweep_pallas.py``): categorical target classes exact,
 log-weights atol 1e-4; LG targets atol 2e-4, log-densities atol 2e-3;
-reductions rtol 2e-3.
+reductions rtol 2e-3. The resampling kernels are exact on the weight
+profiles of ``tests/test_resample_pallas.py`` quantized to multiples of
+2^-23 (``quantized_profile``, which ``tests/test_torch_resample.py`` shares).
 """
 
 import numpy as np
@@ -27,6 +31,7 @@ from vectorizedbayesiannetwork_torch.core.plan import get_plan
 from vectorizedbayesiannetwork_torch.ops import sweep
 
 B, S = 4, 2048
+PROFILES = ["dirichlet", "uniform", "last", "first", "alternate", "mixed"]
 CAT_WANTS = [("logw", "lpt"), ("logw", "tgt"), ("lpt",), ("pmf_logw",),
              ("pmf_lpt",), ("mom_logw",), ("mom_lpt",)]
 LG_WANTS = [("logw", "lpt"), ("logw", "tgt"), ("lpt",), ("mom_logw",),
@@ -350,3 +355,196 @@ def test_launch_refuses_what_the_kernel_does_not_take(asia_vbn):
         sweep.categorical_sweep_fused(0, fixed, counts, struct, 1000)
     with pytest.raises(ValueError, match="fixed_idx"):
         sweep.categorical_sweep_fused(0, fixed.float(), counts, struct, S)
+
+
+# ---------------------------------------------------------------------------
+# Resampling kernels: vbn_cumsum, vbn_cum_index, vbn_srg, vbn_spg
+# ---------------------------------------------------------------------------
+
+
+def quantized_profile(name: str, b: int, s: int) -> np.ndarray:
+    """[b, s] weights of one profile of tests/test_resample_pallas.py:24-53
+    (heavy-tailed Dirichlet, uniform, all mass last, all mass first,
+    alternate dead 256-blocks, mixed delta/uniform/random rows), rounded to
+    integer multiples of 2^-23 that sum to exactly 1 per row: every
+    grouping of their sums is then exact."""
+    rng = np.random.default_rng(PROFILES.index(name))
+    if name == "dirichlet":
+        w = rng.dirichlet(np.full(s, 0.3), size=b)
+    elif name == "uniform":
+        w = np.full((b, s), 1.0 / s)
+    elif name in ("last", "first"):
+        w = np.zeros((b, s))
+        w[:, -1 if name == "last" else 0] = 1.0
+    elif name == "alternate":
+        w = np.tile((np.arange(s) // 256 % 2).astype(float), (b, 1))
+    else:
+        delta = np.zeros(s)
+        delta[s // 2] = 1.0
+        rows = [delta, np.full(s, 1.0 / s), rng.dirichlet(np.ones(s))]
+        w = np.stack([rows[r % 3] for r in range(b)])
+    w = w / w.sum(axis=1, keepdims=True)
+    k = np.round(w * 2.0**23).astype(np.int64)
+    k[np.arange(b), k.argmax(axis=1)] += (1 << 23) - k.sum(axis=1)
+    return (k / 2.0**23).astype(np.float32)
+
+
+RB, RS = 3, 2048  # the JAX resample tests' sizes
+
+
+def _weights(name, b=RB, s=RS):
+    return torch.as_tensor(quantized_profile(name, b, s), device="cuda")
+
+
+def _vals(d, b=RB, s=RS, seed=0):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randn((b, s, d), generator=g, device="cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("monotone", [False, True])
+def test_cumsum_kernel_matches_plain(card, monotone):
+    from vectorizedbayesiannetwork_torch.ops import scan
+
+    before = sweep.LAUNCHES["cumsum"]
+    w = torch.cat([_weights(p) for p in PROFILES])  # exact sums
+    assert torch.equal(scan.cumsum_rows(w, monotone),
+                       scan.cumsum_rows_plain(w, monotone))
+    g = torch.Generator(device="cuda").manual_seed(1)
+    for shape in [(3, 70000), (2, 2049), (1, 100)]:
+        x = torch.rand(shape, generator=g, device="cuda")
+        got = scan.cumsum_rows(x, monotone)
+        torch.testing.assert_close(got, scan.cumsum_rows_plain(x, monotone),
+                                   rtol=1e-5, atol=0)
+        if monotone:
+            assert bool((got.diff(dim=1) >= 0).all())
+    assert sweep.LAUNCHES["cumsum"] == before + 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", PROFILES)
+def test_cum_index_kernel_matches_plain(card, name):
+    from vectorizedbayesiannetwork_torch.ops import resample_merge as rm
+
+    cum = rm.norm_cum(_weights(name))
+    g = torch.Generator(device="cuda").manual_seed(2)
+    u0 = torch.rand((RB, 1), generator=g, device="cuda")
+    pos = torch.sort(torch.rand((RB, RS), generator=g, device="cuda")).values
+    before = sweep.LAUNCHES["cum_index"]
+    for q in (rm.systematic_positions(u0, RS, rm.T), pos[:, :: rm.T]):
+        got = rm.cum_index(cum, q)
+        want = rm.cum_index_plain(cum, q)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert sweep.LAUNCHES["cum_index"] == before + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [1, 5])
+@pytest.mark.parametrize("name", PROFILES)
+def test_srg_kernel_matches_plain(card, name, d):
+    from vectorizedbayesiannetwork_torch.ops import resample_merge as rm
+
+    w, vals = _weights(name), _vals(d)
+    g = torch.Generator(device="cuda").manual_seed(3)
+    u0 = torch.rand((RB, 1), generator=g, device="cuda")
+    before = dict(sweep.LAUNCHES)
+    got = rm.systematic_resample_gather(w, vals, u0=u0)
+    assert sweep.LAUNCHES["srg"] == before["srg"] + 1
+    assert sweep.LAUNCHES["cum_index"] == before["cum_index"] + 1
+    assert sweep.LAUNCHES["cumsum"] == before["cumsum"] + 1
+    assert torch.equal(got, rm.srg_plain(u0, rm.norm_cum(w), vals))
+
+
+@pytest.mark.cuda
+def test_srg_kernel_high_u0_and_smallest_size(card):
+    """(S-1+u0)/S rounds to 1.0 at S = 2^16: the last position still picks
+    a real particle; and S = 1024, the smallest size the gate admits."""
+    from vectorizedbayesiannetwork_torch.ops import resample_merge as rm
+
+    s2 = 1 << 16
+    w = torch.full((2, s2), 1.0 / s2, device="cuda")
+    vals = torch.arange(1, s2 + 1, dtype=torch.float32,
+                        device="cuda")[None, :, None].repeat(2, 1, 1)
+    u0 = torch.tensor([[0.25], [1.0 - 2.0**-24]], device="cuda")
+    got = rm.systematic_resample_gather(w, vals, u0=u0)
+    assert torch.equal(got, rm.srg_plain(u0, rm.norm_cum(w), vals))
+    assert float(got.min()) >= 1.0 and float(got[1, -1, 0]) == s2
+    w, vals, u0 = _weights("dirichlet", s=1024), _vals(3, s=1024), u0[:1].repeat(RB, 1)
+    got = rm.systematic_resample_gather(w, vals, u0=u0)
+    assert torch.equal(got, rm.srg_plain(u0, rm.norm_cum(w), vals))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s_out", [RS, 1024])
+@pytest.mark.parametrize("name", PROFILES)
+def test_spg_kernel_matches_plain(card, name, s_out):
+    from vectorizedbayesiannetwork_torch.ops import resample_merge as rm
+
+    cum = rm.norm_cum(_weights(name))
+    g = torch.Generator(device="cuda").manual_seed(4)
+    pos = torch.sort(torch.rand((RB, s_out), generator=g, device="cuda")).values
+    pos[:, 0], pos[:, -1] = 0.0, 1.0
+    vals = _vals(5)
+    before = sweep.LAUNCHES["spg"]
+    got = rm.sorted_gather(cum, pos, vals)
+    assert sweep.LAUNCHES["spg"] == before + 1
+    assert got.shape == (RB, s_out, 5)
+    assert torch.equal(got, rm.spg_plain(cum, pos, vals))
+
+
+@pytest.mark.cuda
+def test_multinomial_gather_goes_through_the_kernels(card):
+    """Exp(1) draws in multiples of 2^-6 below 8: their cumsum is exact too, so the
+    kernel path equals the plain one bit for bit."""
+    from vectorizedbayesiannetwork_torch.ops import resample_merge as rm
+    from vectorizedbayesiannetwork_torch.ops import scan
+
+    w, vals = _weights("dirichlet"), _vals(5)
+    g = torch.Generator(device="cuda").manual_seed(5)
+    e = torch.empty((RB, RS + 1), device="cuda").exponential_(generator=g)
+    e = torch.round(torch.clamp(e, max=7.9) * 64.0) / 64.0
+    before = dict(sweep.LAUNCHES)
+    got = rm.multinomial_resample_gather(w, vals, e=e)
+    after = dict(sweep.LAUNCHES)
+    assert {k: after[k] - before[k] for k in ("cumsum", "cum_index", "spg")} \
+        == {"cumsum": 2, "cum_index": 1, "spg": 1}
+    c = scan.cumsum_rows_plain(e, monotone=True)
+    pos = c[:, :RS] / c[:, -1:]
+    assert torch.equal(got, rm.spg_plain(rm.norm_cum(w), pos, vals))
+
+
+@pytest.mark.cuda
+def test_merge_wrappers_refuse_what_the_kernels_do_not_take(card):
+    from vectorizedbayesiannetwork_torch.ops import resample_merge as rm
+    from vectorizedbayesiannetwork_torch.ops import scan
+
+    w = torch.full((2, 512), 1.0 / 512, device="cuda")
+    with pytest.raises(ValueError, match="S >= 1024"):
+        rm.systematic_resample_gather(w, torch.zeros((2, 512, 1), device="cuda"))
+    with pytest.raises(ValueError, match="float32"):
+        scan.cumsum_rows(torch.zeros((2, 8), dtype=torch.float64, device="cuda"))
+    cum = rm.norm_cum(_weights("uniform"))
+    with pytest.raises(ValueError, match="S_out"):
+        rm.sorted_gather(cum, torch.zeros((RB, 700), device="cuda"), _vals(1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["systematic", "multinomial"])
+def test_ris_resampling_events_launch_the_kernels(lg_vbn, method):
+    """Flagship diagnosis (x0 | x2): one resampling event per call, each
+    one cumsum (two for multinomial), one index and one merge launch."""
+    q = {"target": "x0", "evidence": {
+        "x2": np.linspace(-1, 1, B).reshape(B, 1).astype(np.float32)}}
+    lg_vbn.set_inference_method("resampled_importance_sampling", n_samples=S,
+                                ess_threshold=0.5, resample_method=method)
+    before = dict(sweep.LAUNCHES)
+    w, s = lg_vbn.infer_posterior(q)
+    after = dict(sweep.LAUNCHES)
+    assert lg_vbn._inference._last_resampled
+    merge = "srg" if method == "systematic" else "spg"
+    got = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+    assert got == {"cumsum": 1 if merge == "srg" else 2, "cum_index": 1,
+                   merge: 1}
+    mean = lg_vbn._posterior_stats(w, s)["mean"][:, 0].cpu().numpy()
+    assert np.all(np.diff(mean) > 0)  # x0 | x2 rises with x2
+    lg_vbn.set_inference_method("monte_carlo_marginalization", n_samples=S)

@@ -7,7 +7,9 @@ marginalization served as posterior pmf or (mean, std) rows through
 hand-written CUDA sweep kernels: the unrolled ones (``ops/sweep.py``,
 ``csrc/sweep.cu``) and the mask-dynamic scan ones for networks of up to
 1500 nodes (``ops/sweep_scan.py``, ``csrc/sweep_scan.cu``, served with
-``dynamic_masks=True``). It runs on a CUDA device unless the caller passes
+``dynamic_masks=True``); importance sampling, and resampled importance
+sampling on the CUDA resampling kernels (``ops/scan.py``,
+``ops/resample_merge.py``, ``csrc/resample.cu``). It runs on a CUDA device unless the caller passes
 ``device="cpu"``. Importing the package populates the registries; it never
 imports JAX or the JAX package.
 """

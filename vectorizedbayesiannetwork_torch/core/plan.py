@@ -12,6 +12,7 @@ from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from .base import Query
 from .utils import ensure_2d_np
@@ -84,6 +85,13 @@ def get_plan(vbn, query: Query) -> InferencePlan:
 
 
 _CLAMP = 1e6
+
+
+def clamp_evidence(x: torch.Tensor) -> torch.Tensor:
+    """NaN -> 0, +-inf -> +-1e6, then clip to +-1e6 (the evidence
+    sanitization of ``pack_fixed_values``, on a tensor)."""
+    x = torch.nan_to_num(x, nan=0.0, posinf=_CLAMP, neginf=-_CLAMP)
+    return torch.clamp(x, -_CLAMP, _CLAMP)
 
 
 def pack_fixed_values(

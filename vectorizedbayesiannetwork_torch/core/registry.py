@@ -1,7 +1,7 @@
 """Component registries, populated by decorators (duplicate keys refused).
 
 Same surface as ``vectorizedbayesiannetwork_tpu/core/registry.py`` for the
-components this port has: two CPD families, one learner and two inference
+components this port has: two CPD families, one learner and four inference
 methods are registered; the sampling and update registries come with their
 slices.
 """

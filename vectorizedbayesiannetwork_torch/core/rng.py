@@ -52,6 +52,15 @@ class Draw:
         return self._gen
 
 
+def fold(draw: Draw, *indices: int) -> Draw:
+    """A sub-stream of ``draw`` for each integer folded in (the counterpart
+    of the JAX package's ``fold(key, *indices)``)."""
+    seed = draw.seed
+    for idx in indices:
+        seed = mix64(seed, idx)
+    return Draw(seed, draw.device)
+
+
 class KeyStream:
     """Host-side counter turning one seed into a deterministic stream."""
 

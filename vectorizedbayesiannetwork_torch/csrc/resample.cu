@@ -1,0 +1,312 @@
+// Particle resampling kernels for the PyTorch port, written for Hopper (sm_90a).
+//
+// vbn_cumsum replaces the TPU kernel
+//   vectorizedbayesiannetwork_tpu/ops/scan_pallas.py:33 _cumsum_kernel,
+// vbn_cum_index replaces
+//   vectorizedbayesiannetwork_tpu/ops/resample_pallas.py:250 _prebuild_kernel,
+// vbn_srg replaces
+//   vectorizedbayesiannetwork_tpu/ops/resample_pallas.py:472 _srg_kernel,
+// and vbn_spg replaces
+//   vectorizedbayesiannetwork_tpu/ops/resample_pallas.py:531 _spg_kernel.
+//
+// vbn_cumsum: inclusive scan of each row of a [B, S] float32 array, one
+// block of 1024 threads per row. The block walks its row in chunks of
+// 8 x 1024 entries: every thread issues its 8 coalesced loads at once, each
+// warp scans its 32 entries of a sub-chunk with shuffles, warp 0 scans the
+// 256 warp totals, and the running total carries from chunk to chunk in a
+// register (the loop takes the place of the TPU kernel's sequential grid).
+// With `monotone`, the same pattern runs an exact running max over the
+// prefix sums (max is associative in floating point), so the output is
+// nondecreasing. On weights that are multiples of 2^-23 summing to at most
+// 2, every partial sum is exact, so any grouping gives torch.cumsum's bits.
+// Bound: bytes (one read and one write of the row). At B = 8 only 8 of the
+// 132 SMs work; a reduce-then-scan over many blocks would use them all.
+//
+// vbn_cum_index: the search index of the merge kernels. The TPU kernel
+// builds, per 512-entry window of the CDF, a header (supercolumn lasts,
+// the CDF transposed to 8 sublanes, column lasts) and a transposed copy of
+// the values, because its vector unit resolves a rank with in-register lane
+// gathers of 8 candidates. A CUDA thread indexes shared memory directly, so
+// the Hopper merge needs neither the transposed CDF nor the transposed
+// values: this kernel writes only each window's last CDF entry
+// (lasts [B, S/512]) and each output tile's window pointer
+// (ptrs [B, K] = min(#{w : lasts[w] <= q_k}, S/512 - 2), the
+// _window_pointers of resample_pallas.py:83), one thread per entry, the
+// pointer by binary search over the lasts (the CDF is nondecreasing).
+//
+// vbn_srg / vbn_spg: one block of 512 threads per tile of 512 output
+// positions. The block loads the pointed window pair of the CDF (1024
+// entries) into shared memory; each thread takes one position
+// (systematic: (k*512 + lane) * (1/S) + u0 * (1/S), in that float32 order
+// with _rn intrinsics so nvcc fuses nothing; sorted: read from pos), clamps
+// it to [0, 1 - 2^-24], and counts the CDF entries <= it:
+// ancestor = #{i : cum_i <= u} = searchsorted(cum, u, 'right'), clipped to
+// S - 1. A position beyond the pair (crowded weights) continues by binary
+// search over the lasts and then inside one window in global memory; one
+// before the pair (unsorted positions) by binary search in global memory,
+// so the count is exact for any position. The block then copies the D
+// values of its 512 ancestors with consecutive threads on consecutive
+// output floats (ancestors are nondecreasing, so reads coalesce too).
+// Bound: bytes (the CDF, the values and the output once each).
+//
+// Offsets into [B, S, D] arrays are 64-bit: B*S*D passes 2^31 at D = 512.
+
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int W = 512;           // CDF entries per window
+constexpr int T = 512;           // output positions per tile (threads a block)
+constexpr int CS_THREADS = 1024;  // vbn_cumsum threads per block
+constexpr int CS_ITEMS = 8;       // entries per thread per chunk
+constexpr int CS_WARPS = CS_THREADS / 32;
+constexpr int IDX_THREADS = 256;
+constexpr float POS_MAX = 0.99999994039535522f;  // 1 - 2^-24
+static_assert(T == W, "a block of T threads loads its window pair 2 per thread");
+
+__device__ __forceinline__ float clamp_pos(float u) {
+  return fminf(fmaxf(u, 0.f), POS_MAX);
+}
+
+// #{i in [lo, hi) : a[i] <= u} + lo for a nondecreasing a.
+__device__ __forceinline__ long long upper_bound(const float* __restrict__ a,
+                                                 long long lo, long long hi,
+                                                 float u) {
+  while (lo < hi) {
+    const long long mid = (lo + hi) >> 1;
+    if (a[mid] <= u)
+      lo = mid + 1;
+    else
+      hi = mid;
+  }
+  return lo;
+}
+
+// Exclusive scan by warp 0 of the CS_ITEMS * CS_WARPS block partials in
+// `buf` (sum, or max with MAX), in entry order j * CS_WARPS + warp. Writes
+// each partial's exclusive prefix (seeded with `seed`) back into `buf` and
+// returns the inclusive total (lane-uniform) to warp 0.
+template <bool MAX>
+__device__ __forceinline__ float scan_partials(float* buf, float seed,
+                                               int lane) {
+  constexpr int PER = CS_ITEMS * CS_WARPS / 32;  // 8 partials a lane
+  float t[PER];
+  float run = MAX ? -INFINITY : 0.f;
+#pragma unroll
+  for (int i = 0; i < PER; ++i) {
+    const float x = buf[lane * PER + i];
+    t[i] = run;  // exclusive within the lane
+    run = MAX ? fmaxf(run, x) : __fadd_rn(run, x);
+  }
+  float incl = run;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const float y = __shfl_up_sync(0xffffffffu, incl, d);
+    if (lane >= d) incl = MAX ? fmaxf(incl, y) : __fadd_rn(incl, y);
+  }
+  float excl = __shfl_up_sync(0xffffffffu, incl, 1);
+  if (lane == 0) excl = MAX ? -INFINITY : 0.f;
+  excl = MAX ? fmaxf(excl, seed) : __fadd_rn(seed, excl);
+#pragma unroll
+  for (int i = 0; i < PER; ++i)
+    buf[lane * PER + i] = MAX ? fmaxf(excl, t[i]) : __fadd_rn(excl, t[i]);
+  const float total = __shfl_sync(0xffffffffu, incl, 31);
+  return MAX ? fmaxf(seed, total) : __fadd_rn(seed, total);
+}
+
+__global__ void __launch_bounds__(CS_THREADS)
+cumsum_kernel(const float* __restrict__ x, float* __restrict__ out,
+              long long s, int monotone) {
+  __shared__ float s_part[CS_ITEMS * CS_WARPS];
+  __shared__ float s_carry[2];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const float* xr = x + (size_t)blockIdx.x * (size_t)s;
+  float* outr = out + (size_t)blockIdx.x * (size_t)s;
+  float carry = 0.f, carry_max = -INFINITY;
+  for (long long base = 0; base < s;
+       base += (long long)CS_THREADS * CS_ITEMS) {
+    float v[CS_ITEMS];
+#pragma unroll
+    for (int j = 0; j < CS_ITEMS; ++j) {
+      const long long e = base + (long long)j * CS_THREADS + tid;
+      v[j] = e < s ? xr[e] : 0.f;
+    }
+#pragma unroll
+    for (int j = 0; j < CS_ITEMS; ++j) {
+#pragma unroll
+      for (int d = 1; d < 32; d <<= 1) {
+        const float y = __shfl_up_sync(0xffffffffu, v[j], d);
+        if (lane >= d) v[j] = __fadd_rn(v[j], y);
+      }
+      if (lane == 31) s_part[j * CS_WARPS + warp] = v[j];
+    }
+    __syncthreads();
+    if (warp == 0) {
+      const float next = scan_partials<false>(s_part, carry, lane);
+      if (lane == 0) s_carry[0] = next;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < CS_ITEMS; ++j)
+      v[j] = __fadd_rn(s_part[j * CS_WARPS + warp], v[j]);
+    carry = s_carry[0];
+    if (monotone) {
+      __syncthreads();  // every thread has read its offsets
+#pragma unroll
+      for (int j = 0; j < CS_ITEMS; ++j) {
+        float m = v[j];
+#pragma unroll
+        for (int d = 1; d < 32; d <<= 1) {
+          const float y = __shfl_up_sync(0xffffffffu, m, d);
+          if (lane >= d) m = fmaxf(m, y);
+        }
+        if (lane == 31) s_part[j * CS_WARPS + warp] = m;
+        v[j] = m;  // the running max within the warp
+      }
+      __syncthreads();
+      if (warp == 0) {
+        const float next = scan_partials<true>(s_part, carry_max, lane);
+        if (lane == 0) s_carry[1] = next;
+      }
+      __syncthreads();
+#pragma unroll
+      for (int j = 0; j < CS_ITEMS; ++j)
+        v[j] = fmaxf(v[j], s_part[j * CS_WARPS + warp]);
+      carry_max = s_carry[1];
+    }
+#pragma unroll
+    for (int j = 0; j < CS_ITEMS; ++j) {
+      const long long e = base + (long long)j * CS_THREADS + tid;
+      if (e < s) outr[e] = v[j];
+    }
+    __syncthreads();  // s_part is rewritten by the next chunk
+  }
+}
+
+__global__ void __launch_bounds__(IDX_THREADS)
+cum_index_kernel(const float* __restrict__ cum, long long s, int kw,
+                 const float* __restrict__ q, long long q_row,
+                 long long q_col, int k, float* __restrict__ lasts,
+                 int32_t* __restrict__ ptrs) {
+  const int b = blockIdx.y;
+  const int i = blockIdx.x * IDX_THREADS + threadIdx.x;
+  const float* c = cum + (size_t)b * (size_t)s;
+  if (i < kw) lasts[(size_t)b * kw + i] = c[(size_t)i * W + (W - 1)];
+  if (i >= k) return;
+  const float u = clamp_pos(q[(size_t)b * q_row + (size_t)i * q_col]);
+  int lo = 0, hi = kw;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (c[(size_t)mid * W + (W - 1)] <= u)
+      lo = mid + 1;
+    else
+      hi = mid;
+  }
+  ptrs[(size_t)b * k + i] = min(lo, kw - 2);
+}
+
+// SYS: systematic positions from u0 [B]; else sorted positions pos [B, n_out].
+template <bool SYS>
+__global__ void __launch_bounds__(T)
+merge_kernel(const float* __restrict__ cum, long long s, int kw,
+             const float* __restrict__ lasts, const int32_t* __restrict__ ptrs,
+             int k_tiles, const float* __restrict__ u0, float inv_s,
+             const float* __restrict__ pos, long long n_out,
+             const float* __restrict__ values, int d,
+             float* __restrict__ out) {
+  __shared__ float s_cum[2 * W];
+  __shared__ int32_t s_anc[T];
+  const int k = blockIdx.x, b = blockIdx.y, t = threadIdx.x;
+  const float* c = cum + (size_t)b * (size_t)s;
+  const int p = ptrs[(size_t)b * k_tiles + k];
+  const long long w0 = (long long)p * W;
+  s_cum[t] = c[w0 + t];
+  s_cum[t + W] = c[w0 + W + t];
+  float u;
+  if (SYS) {
+    const float u0s = __fmul_rn(u0[b], inv_s);
+    u = fminf(__fadd_rn(__fmul_rn((float)(k * T + t), inv_s), u0s), POS_MAX);
+  } else {
+    u = clamp_pos(pos[(size_t)b * (size_t)n_out + (size_t)k * T + t]);
+  }
+  __syncthreads();
+  long long rank;
+  if (p > 0 && c[w0 - 1] > u) {
+    rank = upper_bound(c, 0, w0, u);  // before the pair
+  } else {
+    int lo = 0, hi = 2 * W;
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      if (s_cum[mid] <= u)
+        lo = mid + 1;
+      else
+        hi = mid;
+    }
+    if (lo < 2 * W) {
+      rank = w0 + lo;
+    } else {  // past the pair: the window by its last entry, then the entry
+      const float* lr = lasts + (size_t)b * kw;
+      const long long w = upper_bound(lr, p + 2, kw, u);
+      rank = w == kw ? s : upper_bound(c, w * W, w * W + W, u);
+    }
+  }
+  s_anc[t] = (int32_t)(rank < s ? rank : s - 1);
+  __syncthreads();
+  const float* vb = values + (size_t)b * (size_t)s * d;
+  float* ob = out + ((size_t)b * (size_t)n_out + (size_t)k * T) * d;
+  for (int i = t; i < T * d; i += T) {
+    const int j = i / d, f = i - j * d;
+    ob[i] = vb[(size_t)s_anc[j] * d + f];
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+// Each returns cudaGetLastError() after its launch; stream is a
+// cudaStream_t passed as an integer by the caller.
+
+int vbn_cumsum(const float* x, float* out, int b, long long s, int monotone,
+               void* stream) {
+  cumsum_kernel<<<b, CS_THREADS, 0, (cudaStream_t)stream>>>(x, out, s,
+                                                            monotone);
+  return (int)cudaGetLastError();
+}
+
+int vbn_cum_index(const float* cum, int b, long long s, const float* q,
+                  long long q_row, long long q_col, int k, float* lasts,
+                  int32_t* ptrs, void* stream) {
+  const int kw = (int)(s / W);
+  const int n = kw > k ? kw : k;
+  dim3 grid((n + IDX_THREADS - 1) / IDX_THREADS, b);
+  cum_index_kernel<<<grid, IDX_THREADS, 0, (cudaStream_t)stream>>>(
+      cum, s, kw, q, q_row, q_col, k, lasts, ptrs);
+  return (int)cudaGetLastError();
+}
+
+int vbn_srg(const float* cum, int b, long long s, const float* lasts,
+            const int32_t* ptrs, const float* u0, float inv_s,
+            const float* values, int d, float* out, void* stream) {
+  const int k_tiles = (int)(s / T);
+  dim3 grid(k_tiles, b);
+  merge_kernel<true><<<grid, T, 0, (cudaStream_t)stream>>>(
+      cum, s, (int)(s / W), lasts, ptrs, k_tiles, u0, inv_s, nullptr, s,
+      values, d, out);
+  return (int)cudaGetLastError();
+}
+
+int vbn_spg(const float* cum, int b, long long s_in, const float* lasts,
+            const int32_t* ptrs, const float* pos, long long s_out,
+            const float* values, int d, float* out, void* stream) {
+  const int k_tiles = (int)(s_out / T);
+  dim3 grid(k_tiles, b);
+  merge_kernel<false><<<grid, T, 0, (cudaStream_t)stream>>>(
+      cum, s_in, (int)(s_in / W), lasts, ptrs, k_tiles, nullptr, 0.f, pos,
+      s_out, values, d, out);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

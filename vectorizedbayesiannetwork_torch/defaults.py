@@ -46,6 +46,11 @@ _CATALOG: Dict[str, Dict[str, Dict]] = {
             "n_samples": 1024, "eps": 1e-12, "normalize": True,
         },
         "monte_carlo_marginalization": {"n_samples": 1024},
+        "resampled_importance_sampling": {
+            "n_samples": 1024, "ess_threshold": 0.5, "resample": True,
+            "clamp_obs": True,
+        },
+        "importance_sampling": {"n_samples": 1024},
     },
 }
 

@@ -17,8 +17,7 @@ import torch
 
 from ..core.base import BaseCPD, Params
 from ..core.registry import register_cpd
-
-LOG_2PI = math.log(2.0 * math.pi)
+from ..ops.gauss import diag_gaussian_log_prob
 
 
 def _ridge_solve(parents: torch.Tensor, x: torch.Tensor, ridge: float):
@@ -116,7 +115,4 @@ class LinearGaussianCPD(BaseCPD):
     def _log_prob_flat(self, params, x, parents):
         loc = self._loc(params, parents, x.shape[0])
         scale = self._scale(params).expand_as(loc)
-        z = (x - loc) / scale
-        return -0.5 * torch.sum(
-            z * z + 2.0 * torch.log(scale) + LOG_2PI, dim=-1
-        )
+        return diag_gaussian_log_prob(x, loc, scale)
