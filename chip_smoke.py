@@ -66,9 +66,11 @@ Then the resampling slice (resampled and plain importance sampling):
 13. is_main_path: flagship diagnosis IS at B=8, S=2^20, and IS with
     ``dynamic_masks=True`` on the 96 link-scale queries at S=2^16 (two scan
     launches: the IS sweep and its per-row LW fallback);
-14. resample_timing: each resampling kernel's ms at B=8, S=2^20 (D=1, and
-    D=3 for ``vbn_srg``), its plain version's and one PyTorch call's, the
-    byte bound, RIS and IS queries/s, and a profiled RIS batch.
+14. resample_timing: each resampling kernel held exactly against its plain
+    version at B=8, S=2^20 (D=1, and D=3 for ``vbn_srg``; ``vbn_cumsum``
+    also on multinomial's [B, S+1] Exp draws), then its ms there, its plain
+    version's and one PyTorch call's, the byte bound, the monotone pass's
+    cost, RIS and IS queries/s, and a profiled RIS batch.
 
 Prints a JSON line of kernel results (all eight kernels), the card's name
 and power limit, and last ``{"ok": true, "device": {...}}``. Any failure
@@ -1113,11 +1115,13 @@ def serve_large_networks(vbn_cls, defaults, asia_vbn):
 # ---------------------------------------------------------------------------
 
 
-def quantized_profile(name, b, s):
-    """[b, s] weights of one profile of tests/test_resample_pallas.py:24-53,
-    rounded to integer multiples of 2^-23 summing to exactly 1 per row (as
-    ``quantized_profile`` in tests/test_torch_cuda.py): every grouping of
-    their sums is exact, so kernel and plain version agree bit for bit."""
+def quantized_profile(name: str, b: int, s: int) -> np.ndarray:
+    """[b, s] weights of one profile of tests/test_resample_pallas.py:24-53
+    (heavy-tailed Dirichlet, uniform, all mass last, all mass first,
+    alternate dead 256-blocks, mixed delta/uniform/random rows), rounded to
+    integer multiples of 2^-23 that sum to exactly 1 per row: every
+    grouping of their sums is then exact, so kernel and plain version agree
+    bit for bit. The resampling tests import it from here."""
     rng = np.random.default_rng(PROFILES.index(name))
     if name == "dirichlet":
         w = rng.dirichlet(np.full(s, 0.3), size=b)
@@ -1348,7 +1352,9 @@ def serve_is(lg_vbn, link):
 
 def time_resample_kernels(dev, launches, errs):
     """Each resampling kernel at B=8, S=2^20 (the RIS main path's shape):
-    its ms, its plain version's, one PyTorch call's, and the byte bound."""
+    held exactly against its plain version there (``vbn_srg`` at D=1 and
+    D=3, as the flagship and asia's first event give it), then its ms, its
+    plain version's, one PyTorch call's, and the byte bound."""
     import torch
 
     from vectorizedbayesiannetwork_torch.ops import resample_merge as rm
@@ -1359,10 +1365,22 @@ def time_resample_kernels(dev, launches, errs):
     src = "vectorizedbayesiannetwork_torch/csrc/resample.cu"
     tpu = "vectorizedbayesiannetwork_tpu/ops/"
     w = torch.as_tensor(quantized_profile("dirichlet", b, s), device=dev)
+    # multinomial's Exp draws [B, S + 1], in multiples of 2^-2 below 8:
+    # their partial sums (about 2^20) stay exact in float32
+    e = torch.empty((b, s + 1), device=dev).exponential_(generator=g)
+    e = torch.round(torch.clamp(e, max=7.75) * 4.0) / 4.0
+    for x in (w, e):
+        for mono in (False, True):
+            exact(f"vbn_cumsum {tuple(x.shape)} monotone={mono}",
+                  scan.cumsum_rows(x, mono), scan.cumsum_rows_plain(x, mono))
     rows = []
 
-    # monotone, as norm_cum calls it: a sum and a max per entry
+    # monotone, as norm_cum calls it: a sum and a max per entry; the sum
+    # alone (the JAX _norm_cum's branch for S <= 2^20) timed beside it
+    sum_only = cuda_ms(lambda: scan.cumsum_rows(w, False), RIS_REPS)
     ms = cuda_ms(lambda: scan.cumsum_rows(w, True), RIS_REPS)
+    log("cumsum_monotone_cost", B=b, S=s, monotone_ms=ms,
+        sum_only_ms=sum_only, extra_ms=ms - sum_only)
     plain = cuda_ms(lambda: scan.cumsum_rows_plain(w, True), RIS_REPS)
     lib = cuda_ms(lambda: torch.cumsum(w, dim=1), RIS_REPS)
     rows.append(kernel_row("vbn_cumsum", tpu + "scan_pallas.py:33",
@@ -1373,6 +1391,11 @@ def time_resample_kernels(dev, launches, errs):
     u0 = torch.rand((b, 1), generator=g, device=dev)
     q = rm.systematic_positions(u0, s, rm.T)
     k, kw = s // rm.T, s // rm.W
+    c = scan.cumsum_rows(e, monotone=True)
+    pos = (c[:, :s] / c[:, -1:]).contiguous()
+    for tag, qq in (("systematic", q), ("multinomial", pos[:, :: rm.T])):
+        exact(f"vbn_cum_index at S=2^20 {tag}", rm.cum_index(cum, qq),
+              rm.cum_index_plain(cum, qq))
     ms = cuda_ms(lambda: rm.cum_index(cum, q), RIS_REPS)
     plain = cuda_ms(lambda: rm.cum_index_plain(cum, q), RIS_REPS)
     lib = cuda_ms(lambda: torch.searchsorted(cum[:, rm.W - 1 :: rm.W], q,
@@ -1388,6 +1411,8 @@ def time_resample_kernels(dev, launches, errs):
     merge_ops = b * s * (int(np.log2(2 * rm.W)) + 3)
     for d in (1, 3):
         vals = torch.randn((b, s, d), generator=g, device=dev)
+        exact(f"vbn_srg at S=2^20 D={d}", rm.srg(u0, cum, vals, index),
+              rm.srg_plain(u0, cum, vals))
         ms = cuda_ms(lambda: rm.srg(u0, cum, vals, index), RIS_REPS)
         plain = cuda_ms(lambda: rm.srg_plain(u0, cum, vals), RIS_REPS)
         lib = cuda_ms(lambda: vals.gather(1, torch.searchsorted(
@@ -1404,9 +1429,6 @@ def time_resample_kernels(dev, launches, errs):
             log("kernel_main_shape", kernel="vbn_srg", D=d, ms=ms,
                 plain_ms=plain, library_ms=lib, bound_ms=row["bound_ms"])
 
-    e = torch.empty((b, s + 1), device=dev).exponential_(generator=g)
-    c = scan.cumsum_rows(e, monotone=True)
-    pos = (c[:, :s] / c[:, -1:]).contiguous()
     vals = torch.randn((b, s, 1), generator=g, device=dev)
     index = rm.cum_index(cum, pos[:, :: rm.T])
     ms = cuda_ms(lambda: rm.spg(cum, pos, vals, index), RIS_REPS)
@@ -1415,6 +1437,8 @@ def time_resample_kernels(dev, launches, errs):
         cum, pos, right=True).clamp_(max=s - 1)[..., None]), RIS_REPS)
     exact("vbn_spg at S=2^20", rm.spg(cum, pos, vals, index),
           rm.spg_plain(cum, pos, vals))
+    log("resample_kernel_check", case="S=2^20 main shape", B=b, S=s,
+        cumsum_shapes=[[b, s], [b, s + 1]], srg_D=[1, 3], spg_D=[1], ok=True)
     nbytes = 4 * (b * s + 2 * b * s + b * k + b * kw + b * s)
     rows.append(kernel_row("vbn_spg", tpu + "resample_pallas.py:531",
                            launches.get("spg", 0), errs["spg"], ms, plain,

@@ -16,7 +16,7 @@ the plain versions reproduce. Tolerances are the JAX kernel tests' own
 log-weights atol 1e-4; LG targets atol 2e-4, log-densities atol 2e-3;
 reductions rtol 2e-3. The resampling kernels are exact on the weight
 profiles of ``tests/test_resample_pallas.py`` quantized to multiples of
-2^-23 (``quantized_profile``, which ``tests/test_torch_resample.py`` shares).
+2^-23 (``quantized_profile`` of ``chip_smoke.py``).
 """
 
 import numpy as np
@@ -25,13 +25,13 @@ import torch
 
 from benchmarking.data_gen import generate_dataset
 from benchmarking.networks import asia
+from chip_smoke import PROFILES, quantized_profile
 from vectorizedbayesiannetwork_torch import VBN, defaults
 from vectorizedbayesiannetwork_torch.core.base import Query
 from vectorizedbayesiannetwork_torch.core.plan import get_plan
 from vectorizedbayesiannetwork_torch.ops import sweep
 
 B, S = 4, 2048
-PROFILES = ["dirichlet", "uniform", "last", "first", "alternate", "mixed"]
 CAT_WANTS = [("logw", "lpt"), ("logw", "tgt"), ("lpt",), ("pmf_logw",),
              ("pmf_lpt",), ("mom_logw",), ("mom_lpt",)]
 LG_WANTS = [("logw", "lpt"), ("logw", "tgt"), ("lpt",), ("mom_logw",),
@@ -360,33 +360,6 @@ def test_launch_refuses_what_the_kernel_does_not_take(asia_vbn):
 # ---------------------------------------------------------------------------
 # Resampling kernels: vbn_cumsum, vbn_cum_index, vbn_srg, vbn_spg
 # ---------------------------------------------------------------------------
-
-
-def quantized_profile(name: str, b: int, s: int) -> np.ndarray:
-    """[b, s] weights of one profile of tests/test_resample_pallas.py:24-53
-    (heavy-tailed Dirichlet, uniform, all mass last, all mass first,
-    alternate dead 256-blocks, mixed delta/uniform/random rows), rounded to
-    integer multiples of 2^-23 that sum to exactly 1 per row: every
-    grouping of their sums is then exact."""
-    rng = np.random.default_rng(PROFILES.index(name))
-    if name == "dirichlet":
-        w = rng.dirichlet(np.full(s, 0.3), size=b)
-    elif name == "uniform":
-        w = np.full((b, s), 1.0 / s)
-    elif name in ("last", "first"):
-        w = np.zeros((b, s))
-        w[:, -1 if name == "last" else 0] = 1.0
-    elif name == "alternate":
-        w = np.tile((np.arange(s) // 256 % 2).astype(float), (b, 1))
-    else:
-        delta = np.zeros(s)
-        delta[s // 2] = 1.0
-        rows = [delta, np.full(s, 1.0 / s), rng.dirichlet(np.ones(s))]
-        w = np.stack([rows[r % 3] for r in range(b)])
-    w = w / w.sum(axis=1, keepdims=True)
-    k = np.round(w * 2.0**23).astype(np.int64)
-    k[np.arange(b), k.argmax(axis=1)] += (1 << 23) - k.sum(axis=1)
-    return (k / 2.0**23).astype(np.float32)
 
 
 RB, RS = 3, 2048  # the JAX resample tests' sizes

@@ -19,7 +19,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from test_torch_cuda import PROFILES, quantized_profile
+from chip_smoke import PROFILES, quantized_profile
 
 from vectorizedbayesiannetwork_torch.ops import resample as tres
 from vectorizedbayesiannetwork_torch.ops import resample_merge as tmerge

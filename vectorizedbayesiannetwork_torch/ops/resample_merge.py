@@ -58,14 +58,12 @@ ROADMAP queue 1 item 14).
 
 from __future__ import annotations
 
-import ctypes
-import functools
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
-from .scan import cumsum_rows
+from .scan import _lib, cumsum_rows
 from .sweep import LAUNCHES, _check
 
 T = 512  # output positions per tile
@@ -142,26 +140,9 @@ def spg_plain(cum: torch.Tensor, pos: torch.Tensor, values: torch.Tensor):
 
 
 # ---------------------------------------------------------------------------
-# CUDA kernels (csrc/resample.cu), launched through ctypes
+# CUDA kernels (csrc/resample.cu, loaded by ops/scan.py), launched through
+# ctypes
 # ---------------------------------------------------------------------------
-
-_P = ctypes.c_void_p
-_I = ctypes.c_int
-_L = ctypes.c_longlong
-
-
-@functools.lru_cache(maxsize=None)
-def _lib() -> ctypes.CDLL:
-    from ._build import load
-
-    lib = load("resample")
-    lib.vbn_cum_index.argtypes = [_P, _I, _L, _P, _L, _L, _I, _P, _P, _P]
-    lib.vbn_srg.argtypes = [_P, _I, _L, _P, _P, _P, ctypes.c_float, _P, _I,
-                            _P, _P]
-    lib.vbn_spg.argtypes = [_P, _I, _L, _P, _P, _P, _L, _P, _I, _P, _P]
-    for fn in (lib.vbn_cum_index, lib.vbn_srg, lib.vbn_spg):
-        fn.restype = _I
-    return lib
 
 
 def _need_gate(s: int, d: int) -> None:

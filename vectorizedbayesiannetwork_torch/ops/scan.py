@@ -32,6 +32,8 @@ import torch
 from .sweep import LAUNCHES
 
 _P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_longlong
 
 
 def cumsum_rows_plain(x: torch.Tensor, monotone: bool = False) -> torch.Tensor:
@@ -43,12 +45,18 @@ def cumsum_rows_plain(x: torch.Tensor, monotone: bool = False) -> torch.Tensor:
 
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
+    """``csrc/resample.cu`` with the argument types of its four entry
+    points (``ops/resample_merge.py`` launches the other three)."""
     from ._build import load
 
     lib = load("resample")
-    lib.vbn_cumsum.argtypes = [_P, _P, ctypes.c_int, ctypes.c_longlong,
-                               ctypes.c_int, _P]
-    lib.vbn_cumsum.restype = ctypes.c_int
+    lib.vbn_cumsum.argtypes = [_P, _P, _I, _L, _I, _P]
+    lib.vbn_cum_index.argtypes = [_P, _I, _L, _P, _L, _L, _I, _P, _P, _P]
+    lib.vbn_srg.argtypes = [_P, _I, _L, _P, _P, _P, ctypes.c_float, _P, _I,
+                            _P, _P]
+    lib.vbn_spg.argtypes = [_P, _I, _L, _P, _P, _P, _L, _P, _I, _P, _P]
+    for fn in (lib.vbn_cumsum, lib.vbn_cum_index, lib.vbn_srg, lib.vbn_spg):
+        fn.restype = _I
     return lib
 
 
