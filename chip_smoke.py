@@ -72,7 +72,32 @@ Then the resampling slice (resampled and plain importance sampling):
     version's and one PyTorch call's, the byte bound, the monotone pass's
     cost, RIS and IS queries/s, and a profiled RIS batch.
 
-Prints a JSON line of kernel results (all eight kernels), the card's name
+Then the KDE slice (KDE CPDs, max_points 2048 and Scott bandwidths, the
+``vbn_kde_lw_dyn`` preset's fit):
+
+15. kde_kernels: ``vbn_kde_root``, ``vbn_kde_cond``, ``vbn_kde_cond_wide``
+    and ``vbn_kde_pick`` against their plain versions at M=2^14 rows, N=2048
+    and 2000 (its last 300 points masked), Dx in {1, 2}, Dp in {0, 1, 2, 3,
+    40}: log-densities within 1e-4, picks exact with an external Gumbel
+    field and in-kernel Philox; the pick statistics over 2^20 draws (a flat
+    mask uniform within 6 sd by chi-square, a 0.75/0.25 two-point mask);
+16. kde_main_path: the KDE flagship (all three nodes KDE, 4096 rows): W1 LW
+    x2 | x0 and W2 LW x0 | x2 (B=8, S=2^20), and MCM x2 | x0, x1, each with
+    the counters reset just before and read just after, each held within
+    0.05 sd of a float64 reference of the fitted model; W1's peak memory;
+17. kde_dynamic: W3, ``random_gaussian(8)`` fitted on 4096 rows, 96 queries
+    as one ``dynamic_masks=True`` batch at S=2^16, KL against the exact
+    posterior (median <= 0.02, mean <= 0.1);
+18. kde_wide: W4, a KDE node with 40 parent features (LW t | y, B=8,
+    S=2^16), which launches ``vbn_kde_cond_wide``, held against its plain
+    version on that launch's own inputs;
+19. kde_timing: each KDE kernel's ms at its workload's shape, its plain
+    version's and one library composition's (``torch.cdist`` with
+    ``torch.logsumexp``, or with Gumbel noise and ``argmax``), each timed
+    over 2^16 rows and scaled, the operation bound (SFU exps and logs at
+    16 a clock per SM), W1-W3 queries/s and profiled W1 and W3 batches.
+
+Prints a JSON line of kernel results (all twelve kernels), the card's name
 and power limit, and last ``{"ok": true, "device": {...}}``. Any failure
 exits nonzero. The script imports nothing of JAX or of the JAX package.
 """
@@ -94,6 +119,7 @@ REPS = 12
 WINDOWS = 5
 PEAK_OPS = 67e12  # H100 SXM float32 outside the tensor cores, op/s
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3, byte/s
+PEAK_SFU = 132 * 16 * 1.98e9  # H100 SXM special-function results (exp, log), /s
 N_DYN = 96  # heterogeneous single-row queries per served batch
 S_STREAMS = 1 << 16  # depth of the dynamic_streams phase
 SCAN_PLAIN_ROWS = 2  # rows of the scan plain versions timed at full width
@@ -137,17 +163,23 @@ def fit_asia(vbn_cls, defaults):
     return bn, fit_discrete(vbn_cls, defaults, bn)
 
 
-def fit_flagship(vbn_cls, defaults, n=4096, seed=0):
+def flagship_data(n=4096, seed=0):
+    """The flagship's rows (``__graft_entry__.py:18-38``): x2 = 0.5 x0 -
+    0.2 x1 + 0.1 noise."""
     g = np.random.default_rng(seed)
     x0 = g.normal(size=n)
     x1 = g.normal(size=n)
     x2 = 0.5 * x0 - 0.2 * x1 + 0.1 * g.normal(size=n)
+    return {"x0": x0, "x1": x1, "x2": x2}
+
+
+def fit_flagship(vbn_cls, defaults, n=4096, seed=0):
     vbn = vbn_cls([("x0", "x2"), ("x1", "x2")], seed=seed)
     vbn.set_learning_method(
         "node_wise",
         nodes_cpds={k: defaults.cpd("linear_gaussian") for k in ("x0", "x1", "x2")},
     )
-    vbn.fit({"x0": x0, "x1": x1, "x2": x2})
+    vbn.fit(flagship_data(n, seed))
     return vbn
 
 
@@ -468,15 +500,24 @@ def at_main_shape(kernel, plain, kind, *, rtol, shift_atol):
 def kernel_row(name, replaces, launches, err, ms, plain_ms, cost,
                source="vectorizedbayesiannetwork_torch/csrc/sweep.cu",
                library_ms=None):
-    ops, nbytes = cost
+    """One entry of the kernel line. ``cost`` is (operations, bytes) or
+    (operations, bytes, SFU operations): the bound is the largest of the
+    operations at PEAK_OPS, the SFU operations (exp, log) at PEAK_SFU and
+    the bytes at PEAK_BYTES."""
+    ops, nbytes, *sfu = cost
     t_ops, t_bytes = ops / PEAK_OPS * 1e3, nbytes / PEAK_BYTES * 1e3
-    return {
+    if sfu:
+        t_ops = max(t_ops, sfu[0] / PEAK_SFU * 1e3)
+    row = {
         "name": name, "route": "cuda", "source": source,
         "replaces": replaces, "launches": launches, "max_abs_err": err,
         "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
         "library_ms": library_ms, "ops": ops, "bytes": nbytes,
     }
+    if sfu:
+        row["sfu_ops"] = sfu[0]
+    return row
 
 
 def time_kernels(asia_vbn, lg_vbn, launches, errs):
@@ -1044,15 +1085,15 @@ def profile_batch(serve, kernels=("scan_kernel",)):
             "device_events": len(dev), "idle_share": 1.0 - busy / wall}
 
 
-def dynamic_qps(serve):
-    """queries/s of one served batch of N_DYN queries, best of
+def dynamic_qps(serve, b=N_DYN):
+    """queries/s of one served batch of ``b`` queries, best of
     SCAN_WINDOWS (each window one batch, ending in the rows' fetch)."""
     serve()
     qps = []
     for _ in range(SCAN_WINDOWS):
         t0 = time.perf_counter()
         serve()
-        qps.append(N_DYN / (time.perf_counter() - t0))
+        qps.append(b / (time.perf_counter() - t0))
     return max(qps), qps
 
 
@@ -1507,6 +1548,542 @@ def serve_resampling(bn, asia_vbn, lg_vbn, link):
     return kernels
 
 
+# ---------------------------------------------------------------------------
+# The KDE slice: KDE CPDs on the four KDE kernels
+# ---------------------------------------------------------------------------
+
+
+KDE_POINTS = 2048  # max_points of the vbn_kde_lw_dyn preset (presets.py:154-160)
+B_KDE, S_KDE = 8, 1 << 20  # W1, W2, MCM: r2_measure.py's BASELINE point
+S_KDE_DYN = 1 << 16  # W3 and W4
+N_KDE_DYN = 96  # W3's queries, one batch
+M_KDE_CHECK = 1 << 14  # query rows of the kernel checks
+M_KDE_STATS = 1 << 20  # picks drawn for the pick statistics
+KDE_ROWS = 1 << 16  # rows of a plain or library slice timed at a main shape
+KDE_REPS = 3  # kernel launches per CUDA-event window
+KDE_NAMES = ("kde_root", "kde_cond", "kde_cond_wide", "kde_pick")
+
+
+def fit_kde(vbn_cls, defaults, dag, data, seed=0):
+    """The port's fit of a network of KDE CPDs (max_points KDE_POINTS,
+    Scott bandwidths) on ``data``."""
+    vbn = vbn_cls(dag, seed=seed)
+    vbn.set_learning_method("node_wise", nodes_cpds={
+        k: dict(defaults.cpd("kde"), max_points=KDE_POINTS) for k in data})
+    vbn.fit(data)
+    return vbn
+
+
+def wide_data(n=4096, seed=11):
+    """W4: z a 39-dim root, t a 1-dim root, y = t + 0.1 mean(z) + 0.1 noise."""
+    g = np.random.default_rng(seed)
+    z = g.normal(size=(n, 39))
+    t = g.normal(size=n)
+    return {"z": z, "t": t, "y": t + 0.1 * z.mean(axis=1) + 0.1 * g.normal(size=n)}
+
+
+def kde_support(g, n, dx, dp, valid, dev):
+    """A random support: N points, the first ``valid`` live, the rest at the
+    model's soft mask log(1e-20)."""
+    import torch
+
+    data_x = torch.randn((n, dx), generator=g, device=dev)
+    data_p = torch.randn((n, dp), generator=g, device=dev)
+    lm = torch.zeros(n, device=dev)
+    lm[valid:] = float(np.log(np.float32(1e-20)))
+    return data_x, data_p, lm
+
+
+def check_kde_kernels(dev):
+    """The four KDE kernels against their plain versions at M_KDE_CHECK
+    rows, N = 2048 and 2000 (its last 300 points masked), Dx in {1, 2}, Dp
+    in {0, 1, 2, 3, 40}: log-densities within 1e-4, picks exact with an
+    external Gumbel field and in-kernel Philox; then the pick statistics.
+    Returns the max abs error per kernel."""
+    import torch
+
+    from vectorizedbayesiannetwork_torch.ops import kde_fused as kf
+
+    g = torch.Generator(device=dev).manual_seed(99)
+    m = M_KDE_CHECK
+    errs = dict.fromkeys(KDE_NAMES, 0.0)
+    key = kf.pick_key(g, dev)
+    for n, valid in ((2048, 2048), (2000, 1700)):
+        for dx in (1, 2):
+            for dp in (0, 1, 2, 3, 40):
+                data_x, data_p, lm = kde_support(g, n, dx, max(dp, 1), valid, dev)
+                x = 1.5 * torch.randn((m, dx), generator=g, device=dev)
+                p = 1.5 * torch.randn((m, max(dp, 1)), generator=g, device=dev)
+                ys, ps = 0.3 * np.sqrt(dx), 0.4 * np.sqrt(max(dp, 1))
+                tag = f"N={n} valid={valid} Dx={dx} Dp={dp}"
+                if dp == 0:
+                    name, got = "kde_root", kf.kde_root(x, data_x, lm, ys)
+                    want = kf.kde_root_plain(x, data_x, lm, ys)
+                else:
+                    name = "kde_cond_wide" if dp > kf._DIRECT_D else "kde_cond"
+                    got = getattr(kf, name)(x, p, data_x, data_p, lm, ys, ps)
+                    want = kf.kde_cond_plain(x, p, data_x, data_p, lm, ys, ps)
+                errs[name] = max(errs[name], compare(
+                    f"vbn_{name} {tag}", got, want, atol=1e-4))
+                if dp <= kf._DIRECT_D:  # wider picks take the chunked form
+                    par = p if dp else None
+                    gum = -torch.log(torch.empty((m, n), device=dev)
+                                     .exponential_(generator=g))
+                    for gm in (gum, None):
+                        exact(f"vbn_kde_pick {tag} "
+                              f"{'external' if gm is not None else 'philox'}",
+                              kf.kde_pick(key, par, data_p, data_x, lm, ps, m,
+                                          gumbel=gm),
+                              kf.kde_pick_plain(key, par, data_p, data_x, lm,
+                                                ps, m, gumbel=gm))
+                log("kde_kernel_check", kernel=f"vbn_{name}", N=n, valid=valid,
+                    Dx=dx, Dp=dp, M=m, max_abs_err=errs[name],
+                    pick="exact, both Gumbel modes" if dp <= kf._DIRECT_D else None,
+                    ok=True)
+    # pick statistics over M_KDE_STATS in-kernel draws: a flat mask gives a
+    # uniform pick (chi-square), a 0.75/0.25 two-point mask its weights
+    n = 2048
+    vals = torch.arange(n, dtype=torch.float32, device=dev)[:, None]
+    none_p = torch.zeros((n, 0), device=dev)
+    picks = kf.kde_pick(kf.pick_key(g, dev), None, none_p, vals,
+                        torch.zeros(n, device=dev), 1.0, M_KDE_STATS)
+    counts = torch.bincount(picks[:, 0].long(), minlength=n).double()
+    e = M_KDE_STATS / n
+    chi2_z = float((((counts - e) ** 2 / e).sum() - (n - 1)) / np.sqrt(2 * (n - 1)))
+    lm = torch.full((n,), float(np.log(np.float32(1e-20))), device=dev)
+    lm[5], lm[1500] = float(np.log(0.75)), float(np.log(0.25))
+    picks = kf.kde_pick(kf.pick_key(g, dev), None, none_p, vals, lm, 1.0,
+                        M_KDE_STATS)[:, 0]
+    frac = float((picks == 5).double().mean())
+    frac_z = (frac - 0.75) / np.sqrt(0.75 * 0.25 / M_KDE_STATS)
+    stray = int(((picks != 5) & (picks != 1500)).sum())
+    log("kde_pick_statistics", M=M_KDE_STATS, uniform_chi2_z=chi2_z,
+        two_point_frac=frac, two_point_z=frac_z, stray_picks=stray)
+    if abs(chi2_z) > 6 or abs(frac_z) > 6 or stray:
+        raise AssertionError(f"pick statistics off: chi2 z {chi2_z}, "
+                             f"two-point z {frac_z}, stray {stray}")
+    return errs
+
+
+def kde_node(vbn, node):
+    """(data_x, data_p, y_scale, p_scale) of a fitted KDE node: its valid
+    support in float64."""
+    p, cpd = vbn.params[node], vbn.nodes[node]
+    keep = p["valid"] > 0
+    return (p["data_x"][keep].double(), p["data_p"][keep].double(),
+            cpd._y_scale(), cpd._p_scale())
+
+
+def _log_kernel(q, data, h):
+    """log of the unnormalized Gaussian kernel, [G, D] x [N, D] -> [G, N]."""
+    d2 = ((q[:, None, :] - data[None, :, :]) ** 2).sum(-1)
+    return -d2 / (2.0 * h * h)
+
+
+def _parents_cols(vbn, node, values):
+    """[G, Dp] parents of ``node`` from {parent: [G] tensor}, in its
+    parents' order."""
+    import torch
+
+    return torch.stack([values[p] for p in vbn.dag.parents(node)], dim=1)
+
+
+def _std(mean, e2):
+    return float(np.sqrt(max(e2 - mean * mean, 0.0)))
+
+
+def kde_reference(vbn, kind, rows):
+    """Float64 (mean, std) per row of the fitted KDE flagship's posterior,
+    in plain torch on the card. ``w1``: x2 | x0 = a, x1 marginalized by
+    quadrature on 2048 points; ``w2``: x0 | x2 = c on a 512 x 512 grid over
+    (x0, x1); ``mcm``: x2 | x0 = a, x1 = b in closed form. MCM weights each
+    draw by its density p, so its estimand is the mean and spread of p^2:
+    with p = sum_n w_n N(dx_n, h^2), p^2 = sum_nk w_n w_k N(dx_n; dx_k, 2h^2)
+    N((dx_n + dx_k) / 2, h^2 / 2)."""
+    import torch
+
+    f64 = dict(dtype=torch.float64, device=vbn.device)
+    dx2, dp2, hy2, hp2 = kde_node(vbn, "x2")
+    d2 = dx2[:, 0]
+    out = []
+    if kind == "w1":
+        d1, _, h1, _ = kde_node(vbn, "x1")
+        grid = torch.linspace(float(d1.min()) - 8 * h1, float(d1.max()) + 8 * h1,
+                              2048, **f64)
+        prior = torch.softmax(torch.logsumexp(_log_kernel(grid[:, None], d1, h1),
+                                              dim=1), dim=0)
+        for a in rows:
+            par = _parents_cols(vbn, "x2", {"x0": torch.full_like(grid, a),
+                                            "x1": grid})
+            w = torch.softmax(_log_kernel(par, dp2, hp2), dim=1)
+            m1, m2 = w @ d2, w @ d2**2 + hy2**2
+            mean = float(prior @ m1)
+            out.append((mean, _std(mean, float(prior @ m2))))
+    elif kind == "w2":
+        d0, _, h0, _ = kde_node(vbn, "x0")
+        d1, _, h1, _ = kde_node(vbn, "x1")
+        g0 = torch.linspace(float(d0.min()) - 8 * h0, float(d0.max()) + 8 * h0,
+                            512, **f64)
+        g1 = torch.linspace(float(d1.min()) - 8 * h1, float(d1.max()) + 8 * h1,
+                            512, **f64)
+        lp0 = torch.logsumexp(_log_kernel(g0[:, None], d0, h0), dim=1)
+        lp1 = torch.logsumexp(_log_kernel(g1[:, None], d1, h1), dim=1)
+        cols = vbn.dag.parents("x2")
+        i0, i1 = cols.index("x0"), cols.index("x1")
+        a1 = -(g1[:, None] - dp2[None, :, i1]) ** 2 / (2 * hp2 * hp2)  # [512, N]
+        for c in rows:
+            ly = -(c - d2) ** 2 / (2 * hy2 * hy2)  # [N]
+            logw = []
+            for s0 in range(0, 512, 32):  # 32 x 512 grid points at a time
+                a0 = -(g0[s0:s0 + 32, None] - dp2[None, :, i0]) ** 2 / (2 * hp2 * hp2)
+                lw = a0[:, None, :] + a1[None, :, :]  # [32, 512, N]
+                lik = torch.logsumexp(lw + ly, -1) - torch.logsumexp(lw, -1)
+                logw.append(lp0[s0:s0 + 32, None] + lp1[None, :] + lik)
+            w = torch.softmax(torch.cat(logw).reshape(-1), 0).reshape(512, 512)
+            w0 = w.sum(dim=1)
+            mean = float(w0 @ g0)
+            out.append((mean, _std(mean, float(w0 @ g0**2))))
+    else:
+        for a, b in rows:
+            par = _parents_cols(vbn, "x2", {"x0": torch.tensor([a], **f64),
+                                            "x1": torch.tensor([b], **f64)})
+            w = torch.softmax(_log_kernel(par, dp2, hp2)[0], dim=0)
+            lw2 = (torch.log(w)[:, None] + torch.log(w)[None, :]
+                   - (d2[:, None] - d2[None, :]) ** 2 / (4 * hy2 * hy2))
+            ww = torch.softmax(lw2.reshape(-1), 0).reshape(lw2.shape)
+            mid = (d2[:, None] + d2[None, :]) / 2
+            mean = float((ww * mid).sum())
+            e2 = float((ww * (mid**2 + hy2 * hy2 / 2)).sum())
+            out.append((mean, _std(mean, e2)))
+    return np.asarray(out)
+
+
+def kde_accuracy(served, ref):
+    """Worst |d mean| / std and |d std| / std of served (mean, std) rows
+    against the reference's."""
+    return {"dmean_over_std": float(np.max(np.abs(served[:, 0] - ref[:, 0]) / ref[:, 1])),
+            "dstd_over_std": float(np.max(np.abs(served[:, 1] - ref[:, 1]) / ref[:, 1]))}
+
+
+def kde_flagship_queries():
+    """W1 (x2 | x0), W2 (x0 | x2) and MCM (x2 | x0, x1) at B_KDE rows."""
+    v = np.linspace(-1, 1, B_KDE).reshape(B_KDE, 1).astype(np.float32)
+    return ({"target": "x2", "evidence": {"x0": v}},
+            {"target": "x0", "evidence": {"x2": v}},
+            {"target": "x2", "evidence": {"x0": v, "x1": v[::-1].copy()}})
+
+
+def add_launches(total, got):
+    for k in KDE_NAMES:
+        total[k] = total.get(k, 0) + got.get(k, 0)
+
+
+def serve_kde_main_path(vbn, total):
+    """W1, W2 and MCM through ``infer_posterior_moments``, each with the
+    counters reset just before and read just after, each held against the
+    float64 reference of the fitted model; W1's peak device memory."""
+    import torch
+
+    w1, w2, mcm = kde_flagship_queries()
+    v = w1["evidence"]["x0"][:, 0].astype(np.float64)
+    cases = (
+        ("W1 kde_flagship_lw", "likelihood_weighting", w1,
+         {"kde_root": 1, "kde_pick": 2}, ("w1", v)),
+        ("W2 kde_flagship_diag", "likelihood_weighting", w2,
+         {"kde_pick": 2, "kde_cond": 1}, ("w2", v)),
+        ("MCM x2 | x0, x1", "monte_carlo_marginalization", mcm,
+         {"kde_pick": 1, "kde_cond": 1}, ("mcm", list(zip(v, v[::-1])))),
+    )
+    for tag, method, q, expect, (kind, ref_rows) in cases:
+        vbn.set_inference_method(method, n_samples=S_KDE)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        rows, _ = vbn.infer_posterior_moments([q])
+        launches = read_launches(expect)
+        mem = torch.cuda.max_memory_allocated()
+        path = vbn._last_summary_path
+        if rows.shape != (B_KDE, 2) or not np.isfinite(rows).all():
+            raise AssertionError(f"{tag}: moments rows bad {rows.shape}")
+        ref = kde_reference(vbn, kind, ref_rows)
+        acc = kde_accuracy(rows, ref)
+        log("kde_main_path", workload=tag, B=B_KDE, S=S_KDE, launches=launches,
+            summary_path=path, max_memory_allocated_bytes=mem,
+            served=rows.tolist(), reference=ref.tolist(), limit=0.05, **acc)
+        if path != "stream":
+            raise AssertionError(f"{tag}: summary path {path} != stream")
+        if acc["dmean_over_std"] > 0.05 or acc["dstd_over_std"] > 0.05:
+            raise AssertionError(f"{tag} off the fitted model: {acc}")
+        add_launches(total, launches)
+
+
+def gauss8_kde(vbn_cls, defaults):
+    """W3's network, fit and queries: random_gaussian(8, seed=0) on 4096
+    rows, its 96 queries (seed 2) as single-row query dicts."""
+    from benchmarking.gaussian_bn import (
+        generate_gaussian_inference_queries,
+        random_gaussian,
+    )
+
+    gbn = random_gaussian(8, seed=0)
+    vbn = fit_kde(vbn_cls, defaults, {n: gbn.parents[n] for n in gbn.nodes},
+                  gbn.sample(4096, seed=1))
+    vbn.set_inference_method("likelihood_weighting", n_samples=S_KDE_DYN,
+                             dynamic_masks=True)
+    queries = generate_gaussian_inference_queries(gbn, n_queries=N_KDE_DYN, seed=2)
+    qd = [{"target": q.target,
+           "evidence": {k: np.array([[float(v)]], np.float32)
+                        for k, v in q.evidence.items()}} for q in queries]
+    return gbn, vbn, queries, qd
+
+
+def serve_kde_dynamic(gbn, vbn, queries, qd, total):
+    """W3: the 96 queries as one mask-dynamic batch; KL against the exact
+    posterior over the on-manifold and empty queries."""
+    import torch
+
+    roots = sum(1 for n in gbn.nodes if not gbn.parents[n])
+    expect = {"kde_pick": len(gbn.nodes), "kde_root": roots,
+              "kde_cond": len(gbn.nodes) - roots}
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    mom, spans = vbn.infer_posterior_moments(qd, pad_bucket=N_KDE_DYN)
+    launches = read_launches(expect)
+    mem = torch.cuda.max_memory_allocated()
+    if mom.shape != (N_KDE_DYN, 2) or not np.isfinite(mom).all():
+        raise AssertionError(f"W3 moments rows bad: {mom.shape}")
+    kls = []
+    for q, (lo, _hi, _t) in zip(queries, spans):
+        if q.evidence_mode == "off_manifold":
+            continue
+        m, s = gbn.conditional(q.target, q.evidence)
+        s1, s2 = max(float(mom[lo][1]), 1e-6), max(s, 1e-6)
+        kls.append(float(np.log(s2 / s1) + (s1**2 + (float(mom[lo][0]) - m) ** 2)
+                         / (2 * s2**2) - 0.5))
+    acc = {"kl_median": float(np.median(kls)), "kl_mean": float(np.mean(kls)),
+           "kl_max": float(np.max(kls)), "queries_scored": len(kls)}
+    log("kde_dynamic", workload="W3 kde_gauss8_dyn", queries=N_KDE_DYN,
+        S=S_KDE_DYN, launches=launches, summary_path=vbn._last_summary_path,
+        max_memory_allocated_bytes=mem, limits={"kl_median": 0.02, "kl_mean": 0.1},
+        **acc)
+    if acc["kl_median"] > 0.02 or acc["kl_mean"] > 0.1:
+        raise AssertionError(f"W3 KL over the limits: {acc}")
+    add_launches(total, launches)
+
+
+def serve_kde_wide(vbn, total):
+    """W4: LW t | y on the 40-parent-feature KDE node, B_KDE rows at
+    S_KDE_DYN; the wide kernel's launch recorded, and held against its
+    plain version on that launch's own inputs (first M_KDE_CHECK rows)."""
+    from vectorizedbayesiannetwork_torch.ops import kde_fused as kf
+    from vectorizedbayesiannetwork_torch.ops import kde_kernel
+
+    vbn.set_inference_method("likelihood_weighting", n_samples=S_KDE_DYN)
+    q = {"target": "t", "evidence": {
+        "y": np.linspace(-1, 1, B_KDE).reshape(B_KDE, 1).astype(np.float32)}}
+    rec = {}
+    launch = kde_kernel.kde_cond_wide
+
+    def recording(*args):
+        rec["args"], rec["out"] = args, launch(*args)
+        return rec["out"]
+
+    kde_kernel.kde_cond_wide = recording
+    try:
+        reset_launches()
+        rows, _ = vbn.infer_posterior_moments([q])
+        launches = read_launches({"kde_pick": 2, "kde_cond_wide": 1})
+    finally:
+        kde_kernel.kde_cond_wide = launch
+    x, p, data_x, data_p, lm, ys, ps = rec["args"]
+    r = M_KDE_CHECK
+    err = compare("vbn_kde_cond_wide on W4's launch", rec["out"][:r],
+                  kf.kde_cond_plain(x[:r], p[:r], data_x, data_p, lm, ys, ps),
+                  atol=1e-4)
+    log("kde_wide", workload="W4 kde_wide", B=B_KDE, S=S_KDE_DYN,
+        launches=launches, parent_features=p.shape[1], moments=rows.tolist(),
+        wide_kernel_vs_plain_max_abs_err=err)
+    if rows.shape != (B_KDE, 2) or not np.isfinite(rows).all():
+        raise AssertionError(f"W4 moments rows bad: {rows}")
+    add_launches(total, launches)
+    return rec["args"], err
+
+
+def kde_cost(kind, m, n, dx, dp):
+    """(float32 operations, bytes, SFU operations, M) of one KDE launch, per
+    pair of a query row and a support point: 2 per feature (difference,
+    multiply-add), then for the root 4 more (scale, mask, the online
+    logsumexp's compare and exp argument) and 1 exp; for the conditional
+    kernels 8 more and 2 exps; for the pick 5 more (scale, mask, Gumbel
+    add, compare, select), a quarter of a Philox-4x32-10 call (25) and the
+    uniform (3), and 2 logs. Bytes: each input read once (queries, support,
+    mask, key), each output written once."""
+    pairs = m * n
+    if kind == "root":
+        return (2 * dx + 4) * pairs, 4 * (m * dx + m + n * (dx + 1)), pairs, m
+    if kind == "pick":
+        return ((2 * dp + 33) * pairs,
+                4 * (m * dp + n * (dp + dx + 1) + m * dx) + 16, 2 * pairs, m)
+    return ((2 * (dx + dp) + 8) * pairs,
+            4 * (m * (dx + dp + 1) + n * (dx + dp + 1)), 2 * pairs, m)
+
+
+def kde_slice_ms(fn, total):
+    """ms of ``fn()`` over KDE_ROWS rows (CUDA events, one warm-up),
+    scaled to ``total`` rows."""
+    return cuda_ms(fn, 1) * total / KDE_ROWS
+
+
+def time_kde_kernels(flag, wide_args, launches, errs):
+    """Each KDE kernel at its workload's shape (root and Dp=2 pick: W1; the
+    conditional: W2; the wide conditional: W4's recorded launch): the
+    kernel's ms, held against its plain version over the first KDE_ROWS
+    rows, the plain version's and one library composition's ms over
+    KDE_ROWS rows scaled to the batch, and the bound."""
+    import torch
+
+    from vectorizedbayesiannetwork_torch.ops import kde_fused as kf
+
+    dev = flag.device
+    g = torch.Generator(device=dev).manual_seed(5)
+    m, r = B_KDE * S_KDE, KDE_ROWS
+    src = "vectorizedbayesiannetwork_torch/csrc/kde.cu"
+    tpu = "vectorizedbayesiannetwork_tpu/ops/kde_pallas.py:"
+    ev = torch.linspace(-1, 1, B_KDE, device=dev).repeat_interleave(S_KDE)[:, None]
+    drawn = torch.randn((m, 1), generator=g, device=dev)
+    par = torch.cat([ev, drawn], dim=1)  # x2's parents (x0, x1) in W1 and W2
+    rows = []
+
+    def lm_of(node):
+        return flag.nodes[node]._log_mask(flag.params[node])
+
+    def row(name, line, kernel, plain, library, cost, err, exact_check=False):
+        """Time ``kernel()`` over its launch's M rows, hold its first
+        KDE_ROWS rows against ``plain()``, time the plain version and the
+        library composition over KDE_ROWS rows, scaled to M."""
+        total = cost[3]
+        ms = cuda_ms(kernel, KDE_REPS)
+        got, want = kernel()[:r], plain()
+        if exact_check:
+            exact(f"vbn_{name} at the main shape", got, want)
+        else:
+            err = max(err, compare(f"vbn_{name} at the main shape", got, want,
+                                   atol=1e-4))
+        plain_ms = kde_slice_ms(plain, total)
+        lib_ms = kde_slice_ms(library, total)
+        out = kernel_row(f"vbn_{name}", tpu + line, launches.get(name, 0), err,
+                         ms, plain_ms, cost[:3], src, lib_ms)
+        out.update(M=total, plain_and_library_rows_timed=r)
+        log("kernel_main_shape", kernel=f"vbn_{name}", M=total, ms=ms,
+            plain_ms=plain_ms, library_ms=lib_ms, bound_ms=out["bound_ms"])
+        rows.append(out)
+
+    # root log-density: W1's evidence x0 through x0's fit
+    dx0, lm0 = flag.params["x0"]["data_x"], lm_of("x0")
+    hy0 = flag.nodes["x0"]._y_scale()
+    inv2y, const_y = kf.kernel_consts(1, hy0)
+    row("kde_root", "147",
+        lambda: kf.kde_root(ev, dx0, lm0, hy0),
+        lambda: kf.kde_root_plain(ev[:r], dx0, lm0, hy0),
+        lambda: torch.logsumexp(-torch.cdist(ev[:r], dx0) ** 2 * float(inv2y)
+                                + float(const_y) + lm0, dim=1),
+        kde_cost("root", m, dx0.shape[0], 1, 0), errs["kde_root"])
+
+    # conditional: W2's evidence x2 given (x0, x1) through x2's fit
+    p2 = flag.params["x2"]
+    dx2, dp2, lm2 = p2["data_x"], p2["data_p"], lm_of("x2")
+    hy2, hp2 = flag.nodes["x2"]._y_scale(), flag.nodes["x2"]._p_scale()
+
+    def lib_cond(x, p, dx, dp, lm, ys, ps):
+        iy, cy = kf.kernel_consts(x.shape[1], ys)
+        ip, cp = kf.kernel_consts(p.shape[1], ps)
+        kp = -torch.cdist(p, dp) ** 2 * float(ip) + float(cp) + lm
+        ky = -torch.cdist(x, dx) ** 2 * float(iy) + float(cy)
+        return torch.logsumexp(kp + ky, dim=1) - torch.logsumexp(kp, dim=1)
+
+    row("kde_cond", "106",
+        lambda: kf.kde_cond(ev, par, dx2, dp2, lm2, hy2, hp2),
+        lambda: kf.kde_cond_plain(ev[:r], par[:r], dx2, dp2, lm2, hy2, hp2),
+        lambda: lib_cond(ev[:r], par[:r], dx2, dp2, lm2, hy2, hp2),
+        kde_cost("cond", m, dx2.shape[0], 1, 2), errs["kde_cond"])
+
+    # wide conditional: W4's own launch
+    x, p, dxw, dpw, lmw, ysw, psw = wide_args
+    row("kde_cond_wide", "72",
+        lambda: kf.kde_cond_wide(x, p, dxw, dpw, lmw, ysw, psw),
+        lambda: kf.kde_cond_plain(x[:r], p[:r], dxw, dpw, lmw, ysw, psw),
+        lambda: lib_cond(x[:r], p[:r], dxw, dpw, lmw, ysw, psw),
+        kde_cost("cond", x.shape[0], dxw.shape[0], x.shape[1], p.shape[1]),
+        errs["kde_cond_wide"])
+
+    # pick: W1's draw of x2 given (x0, x1), in-kernel Philox
+    key = kf.pick_key(g, dev)
+    inv2p, _ = kf.kernel_consts(2, hp2)
+
+    def lib_pick():
+        u = torch.rand((r, dx2.shape[0]), generator=g, device=dev)
+        s = -torch.cdist(par[:r], dp2) ** 2 * float(inv2p) + lm2
+        return dx2[torch.argmax(s - torch.log(-torch.log(u)), dim=1)]
+
+    row("kde_pick", "390",
+        lambda: kf.kde_pick(key, par, dp2, dx2, lm2, hp2, m),
+        lambda: kf.kde_pick_plain(key, par[:r], dp2, dx2, lm2, hp2, r),
+        lib_pick, kde_cost("pick", m, dx2.shape[0], 1, 2), errs["kde_pick"],
+        exact_check=True)
+    root_ms = cuda_ms(lambda: kf.kde_pick(key, None, flag.params["x1"]["data_p"],
+                                          flag.params["x1"]["data_x"],
+                                          lm_of("x1"), 1.0, m), KDE_REPS)
+    log("kernel_main_shape", kernel="vbn_kde_pick", case="root (Dp=0)", M=m,
+        ms=root_ms)
+    return rows
+
+
+def serve_kde(vbn_cls, defaults):
+    """Phases 15-19 (the KDE slice); returns the KDE kernels' rows of the
+    kernel line."""
+    import torch
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    errs = check_kde_kernels(dev)
+    log("kde_kernel_check_done", max_abs_err=errs, seconds=time.perf_counter() - t0)
+
+    t0 = time.perf_counter()
+    flag = fit_kde(vbn_cls, defaults, [("x0", "x2"), ("x1", "x2")], flagship_data())
+    gbn, gauss, queries, qd = gauss8_kde(vbn_cls, defaults)
+    wide = fit_kde(vbn_cls, defaults, [("z", "y"), ("t", "y")], wide_data())
+    torch.cuda.synchronize()
+    log("kde_fit", seconds=time.perf_counter() - t0, max_points=KDE_POINTS,
+        bandwidths={k: [c.bandwidth, c.parent_bandwidth]
+                    for k, c in flag.nodes.items()})
+
+    launches = {}
+    serve_kde_main_path(flag, launches)
+    serve_kde_dynamic(gbn, gauss, queries, qd, launches)
+    wide_args, wide_err = serve_kde_wide(wide, launches)
+    errs["kde_cond_wide"] = max(errs["kde_cond_wide"], wide_err)
+    log("kde_launches", total=launches)
+    rows = time_kde_kernels(flag, wide_args, launches, errs)
+
+    w1, w2, _ = kde_flagship_queries()
+    out = {}
+    for tag, q in (("w1_kde_flagship_lw", w1), ("w2_kde_flagship_diag", w2)):
+        flag.set_inference_method("likelihood_weighting", n_samples=S_KDE)
+        out[tag] = dynamic_qps(lambda: flag.infer_posterior_moments([q]), B_KDE)
+    out["w3_kde_gauss8_dyn"] = dynamic_qps(
+        lambda: gauss.infer_posterior_moments(qd, pad_bucket=N_KDE_DYN), N_KDE_DYN)
+    log("end_to_end_kde", **{f"{k}_qps": v[0] for k, v in out.items()},
+        **{f"{k}_window_qps": v[1] for k, v in out.items()},
+        S={"w1": S_KDE, "w2": S_KDE, "w3": S_KDE_DYN})
+    log("serve_profile", workload="W1 kde_flagship_lw", **profile_batch(
+        lambda: flag.infer_posterior_moments([w1]),
+        ("kde_pick_kernel", "kde_direct_kernel")))
+    log("serve_profile", workload="W3 kde_gauss8_dyn", **profile_batch(
+        lambda: gauss.infer_posterior_moments(qd, pad_bucket=N_KDE_DYN),
+        ("kde_pick_kernel", "kde_direct_kernel")))
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -1558,6 +2135,7 @@ def main() -> int:
     scan_rows, link = serve_large_networks(VBN, defaults, asia_vbn)
     kernels += scan_rows
     kernels += serve_resampling(bn, asia_vbn, lg_vbn, link)
+    kernels += serve_kde(VBN, defaults)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -1,7 +1,7 @@
 """The port's CUDA kernels (the unrolled sweeps of ``ops/sweep.py``, the
-scan sweeps of ``ops/sweep_scan.py`` and the resampling kernels of
-``ops/scan.py`` and ``ops/resample_merge.py``) against their plain PyTorch
-versions.
+scan sweeps of ``ops/sweep_scan.py``, the resampling kernels of
+``ops/scan.py`` and ``ops/resample_merge.py``, and the KDE kernels of
+``ops/kde_fused.py``) against their plain PyTorch versions.
 
 These tests need a CUDA card: each one skips here without one (decided in
 a fixture, not at import). This file imports neither JAX nor pandas, so it
@@ -16,7 +16,10 @@ the plain versions reproduce. Tolerances are the JAX kernel tests' own
 log-weights atol 1e-4; LG targets atol 2e-4, log-densities atol 2e-3;
 reductions rtol 2e-3. The resampling kernels are exact on the weight
 profiles of ``tests/test_resample_pallas.py`` quantized to multiples of
-2^-23 (``quantized_profile`` of ``chip_smoke.py``).
+2^-23 (``quantized_profile`` of ``chip_smoke.py``). The KDE log-densities
+hold within 1e-4 (the JAX kernel tests' tolerance for the exact float32
+forms) on supports with an unaligned, masked tail; the picks are exact in
+both Gumbel modes.
 """
 
 import numpy as np
@@ -29,6 +32,7 @@ from chip_smoke import PROFILES, quantized_profile
 from vectorizedbayesiannetwork_torch import VBN, defaults
 from vectorizedbayesiannetwork_torch.core.base import Query
 from vectorizedbayesiannetwork_torch.core.plan import get_plan
+from vectorizedbayesiannetwork_torch.ops import kde_fused as kf
 from vectorizedbayesiannetwork_torch.ops import sweep
 
 B, S = 4, 2048
@@ -521,3 +525,143 @@ def test_ris_resampling_events_launch_the_kernels(lg_vbn, method):
     mean = lg_vbn._posterior_stats(w, s)["mean"][:, 0].cpu().numpy()
     assert np.all(np.diff(mean) > 0)  # x0 | x2 rises with x2
     lg_vbn.set_inference_method("monte_carlo_marginalization", n_samples=S)
+
+
+# ---------------------------------------------------------------------------
+# KDE kernels: vbn_kde_root, vbn_kde_cond, vbn_kde_cond_wide, vbn_kde_pick
+# ---------------------------------------------------------------------------
+
+
+KM = 3000  # query rows of the KDE checks
+
+
+def _kde_support(n, dx, dp, valid, seed=0):
+    """(data_x, data_p, log_mask) on the card: N support points, the first
+    ``valid`` live, the tail at the model's soft mask log(1e-20)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    data_x = torch.randn((n, dx), generator=g, device="cuda")
+    data_p = torch.randn((n, dp), generator=g, device="cuda")
+    lm = torch.zeros(n, device="cuda")
+    lm[valid:] = float(np.log(np.float32(1e-20)))
+    return data_x, data_p, lm
+
+
+def _kde_queries(dx, dp, seed=1):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return (1.5 * torch.randn((KM, dx), generator=g, device="cuda"),
+            1.5 * torch.randn((KM, dp), generator=g, device="cuda"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dx", [1, 2, 5])
+@pytest.mark.parametrize("n,valid", [(2048, 2048), (2000, 1700)])
+def test_kde_root_kernel_matches_plain(card, dx, n, valid):
+    data_x, _, lm = _kde_support(n, dx, 1, valid)
+    x, _ = _kde_queries(dx, 1)
+    before = sweep.LAUNCHES["kde_root"]
+    got = kf.kde_root(x, data_x, lm, 0.3)
+    assert sweep.LAUNCHES["kde_root"] == before + 1
+    torch.testing.assert_close(got, kf.kde_root_plain(x, data_x, lm, 0.3),
+                               atol=1e-4, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dx,dp", [(1, 1), (1, 2), (2, 3), (3, 17)])
+@pytest.mark.parametrize("n,valid", [(2048, 2048), (2000, 1700)])
+def test_kde_cond_kernel_matches_plain(card, dx, dp, n, valid):
+    data_x, data_p, lm = _kde_support(n, dx, dp, valid)
+    x, p = _kde_queries(dx, dp)
+    before = sweep.LAUNCHES["kde_cond"]
+    got = kf.kde_cond(x, p, data_x, data_p, lm, 0.3, 0.4)
+    assert sweep.LAUNCHES["kde_cond"] == before + 1
+    want = kf.kde_cond_plain(x, p, data_x, data_p, lm, 0.3, 0.4)
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dx,dp", [(1, 40), (2, 33), (35, 3), (1, 2)])
+def test_kde_cond_wide_kernel_matches_plain(card, dx, dp):
+    data_x, data_p, lm = _kde_support(2000, dx, dp, 1700)
+    x, p = _kde_queries(dx, dp)
+    # wide supports spread the squared distances: scales of their order
+    ys, ps = 0.5 * np.sqrt(dx), 0.5 * np.sqrt(dp)
+    before = sweep.LAUNCHES["kde_cond_wide"]
+    got = kf.kde_cond_wide(x, p, data_x, data_p, lm, ys, ps)
+    assert sweep.LAUNCHES["kde_cond_wide"] == before + 1
+    want = kf.kde_cond_plain(x, p, data_x, data_p, lm, ys, ps)
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dp", [0, 1, 2, 3])
+@pytest.mark.parametrize("gumbel", ["external", "philox"])
+@pytest.mark.parametrize("n,valid", [(2048, 2048), (2000, 1700)])
+def test_kde_pick_kernel_matches_plain(card, dp, gumbel, n, valid):
+    """Picks equal the plain version's exactly, in both Gumbel modes (the
+    plain Philox mode rebuilds the kernel's field)."""
+    data_x, data_p, lm = _kde_support(n, 2, max(dp, 1), valid)
+    _, p = _kde_queries(1, max(dp, 1))
+    parents = p if dp else None
+    key = torch.tensor([0x0BADF00D, 0x5EED1234], dtype=torch.int64,
+                       device="cuda")
+    g = (-torch.log(torch.empty((KM, n), device="cuda").exponential_())
+         if gumbel == "external" else None)
+    before = sweep.LAUNCHES["kde_pick"]
+    got = kf.kde_pick(key, parents, data_p, data_x, lm, 0.4, KM, gumbel=g)
+    assert sweep.LAUNCHES["kde_pick"] == before + 1
+    want = kf.kde_pick_plain(key, parents, data_p, data_x, lm, 0.4, KM, gumbel=g)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_kde_wrappers_refuse_what_the_kernels_do_not_take(card):
+    data_x, data_p, lm = _kde_support(256, 1, 2, 256)
+    x, p = _kde_queries(1, 2)
+    with pytest.raises(ValueError, match="float32"):
+        kf.kde_root(x.double(), data_x, lm, 0.3)
+    with pytest.raises(ValueError, match="contiguous"):
+        kf.kde_cond(x, p.t().contiguous().t(), data_x, data_p, lm, 0.3, 0.3)
+    with pytest.raises(ValueError, match="use kde_cond_wide"):
+        kf.kde_cond(x, torch.zeros((KM, 33), device="cuda"), data_x,
+                    torch.zeros((256, 33), device="cuda"), lm, 0.3, 0.3)
+    with pytest.raises(ValueError, match="key"):
+        kf.kde_pick(torch.tensor([1, 2], device="cuda", dtype=torch.int32),
+                    None, data_p, data_x, lm, 0.3, KM)
+    with pytest.raises(ValueError, match="Dp=40"):  # the chunked form's work
+        kf.kde_pick(None, torch.zeros((KM, 40), device="cuda"),
+                    torch.zeros((256, 40), device="cuda"), data_x, lm, 0.3, KM)
+
+
+@pytest.fixture(scope="module")
+def kde_vbn(card):
+    rng = np.random.default_rng(0)
+    x0, x1 = rng.normal(size=4096), rng.normal(size=4096)
+    x2 = 0.5 * x0 - 0.2 * x1 + 0.1 * rng.normal(size=4096)
+    vbn = VBN([("x0", "x2"), ("x1", "x2")], seed=0, device=card)
+    vbn.set_learning_method("node_wise", nodes_cpds={
+        k: dict(defaults.cpd("kde"), max_points=2048) for k in ("x0", "x1", "x2")})
+    vbn.fit({"x0": x0, "x1": x1, "x2": x2})
+    return vbn
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dynamic", [False, True])
+def test_kde_serving_goes_through_the_kernels(kde_vbn, dynamic):
+    """LW x2 | x0 on the card: the root's log-density and both picks
+    (static), or every node's pick and log-density (dynamic), in the
+    kernels; the served moments finite."""
+    assert float(kde_vbn.params["x2"]["valid"].sum()) == 2048
+    kde_vbn.set_inference_method("likelihood_weighting", n_samples=S,
+                                 dynamic_masks=dynamic)
+    q = {"target": "x2", "evidence": {
+        "x0": np.linspace(-1, 1, B).reshape(B, 1).astype(np.float32)}}
+    before = dict(sweep.LAUNCHES)
+    mom, _ = kde_vbn.infer_posterior_moments([q])
+    after = dict(sweep.LAUNCHES)
+    got = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+    want = ({"kde_root": 2, "kde_cond": 1, "kde_pick": 3} if dynamic
+            else {"kde_root": 1, "kde_pick": 2})
+    assert got == want
+    assert kde_vbn._last_summary_path == ("fused" if dynamic else "stream")
+    assert mom.shape == (B, 2) and np.isfinite(mom).all()
+    assert np.all(np.diff(mom[:, 0]) > 0)  # x2 | x0 rises with x0

@@ -1,15 +1,17 @@
 """vectorizedbayesiannetwork_torch: vectorized Bayesian networks on PyTorch.
 
 The PyTorch/CUDA port of ``vectorizedbayesiannetwork_tpu``, one slice at a
-time. Ported so far: node-wise fitting of ``categorical_table`` and
-``linear_gaussian`` CPDs, and likelihood weighting / Monte-Carlo
+time. Ported so far: node-wise fitting of ``categorical_table``,
+``linear_gaussian`` and ``kde`` CPDs, and likelihood weighting / Monte-Carlo
 marginalization served as posterior pmf or (mean, std) rows through
 hand-written CUDA sweep kernels: the unrolled ones (``ops/sweep.py``,
 ``csrc/sweep.cu``) and the mask-dynamic scan ones for networks of up to
 1500 nodes (``ops/sweep_scan.py``, ``csrc/sweep_scan.cu``, served with
 ``dynamic_masks=True``); importance sampling, and resampled importance
 sampling on the CUDA resampling kernels (``ops/scan.py``,
-``ops/resample_merge.py``, ``csrc/resample.cu``). It runs on a CUDA device unless the caller passes
+``ops/resample_merge.py``, ``csrc/resample.cu``); KDE log-densities and
+draws on the CUDA KDE kernels (``ops/kde_kernel.py``, ``ops/kde_fused.py``,
+``csrc/kde.cu``). It runs on a CUDA device unless the caller passes
 ``device="cpu"``. Importing the package populates the registries; it never
 imports JAX or the JAX package.
 """

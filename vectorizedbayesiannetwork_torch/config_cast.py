@@ -42,7 +42,8 @@ def _parse_listish(raw: str) -> Any:
 
 
 def cast_value(value: Any, kind: str, key: str = "?") -> Any:
-    """Interpret ``value`` as ``int``/``float``/``bool``/``str``/``list[k]``."""
+    """Interpret ``value`` as ``int``/``float``/``bool``/``str``/``list[k]``
+    or ``float_or_str``."""
     value = coerce_scalar(value)
     if kind == "str":
         return str(value)
@@ -63,6 +64,20 @@ def cast_value(value: Any, kind: str, key: str = "?") -> Any:
         if not isinstance(value, (list, tuple)):
             raise _bad(key, value, "list")
         return [cast_value(item, inner, key) for item in value]
+    if kind == "float_or_str":
+        # numeric -> float; a non-numeric string names a selection rule
+        # (kde bandwidth "scott"); None defers to the constructor.
+        if value is None:
+            return None
+        if isinstance(value, str):
+            try:
+                return float(value.strip())
+            except ValueError:
+                return value.strip()
+        try:
+            return float(value)
+        except (TypeError, ValueError) as exc:
+            raise _bad(key, value, kind) from exc
     if kind in ("int", "float"):
         if isinstance(value, str):
             try:
@@ -98,6 +113,12 @@ FIT_SCHEMA: Dict[str, str] = {
 }
 
 CPD_SCHEMAS: Dict[str, Dict[str, str]] = {
+    "kde": {
+        "bandwidth": "float_or_str",
+        "parent_bandwidth": "float_or_str",
+        "max_points": "int",
+        "min_scale": "float",
+    },
     "linear_gaussian": {"ridge": "float", "min_scale": "float"},
     "categorical_table": {
         "n_classes": "int",

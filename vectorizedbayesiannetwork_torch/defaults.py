@@ -31,6 +31,16 @@ _CATALOG: Dict[str, Dict[str, Dict]] = {
             "update": {"n_steps": 1, "batch_size": 128, "lr": 1e-3,
                        "weight_decay": 0.0},
         },
+        "kde": {
+            "bandwidth": "scott",
+            "parent_bandwidth": None,
+            "max_points": 4096,
+            "min_scale": 1e-4,
+            "fit": {"epochs": 100, "batch_size": 4096, "lr": 1e-3,
+                    "weight_decay": 0.0},
+            "update": {"n_steps": 1, "batch_size": 4096, "lr": 1e-3,
+                       "weight_decay": 0.0},
+        },
         "linear_gaussian": {
             "ridge": 1e-6,
             "min_scale": 1e-4,

@@ -4,7 +4,9 @@ Port of ``vectorizedbayesiannetwork_tpu/learning/node_wise.py``: per-node
 config validation (``cpd`` required, training keys banned at the top
 level, ``fit``/``update`` must be dicts), parent-column concatenation,
 registry-based CPD construction with schema-coerced kwargs, then
-``cpd.fit`` on the VBN's device. The JAX package's opt-in grouped fit
+``cpd.fit`` on the VBN's device with a ``torch.Generator`` of its own,
+folded from the VBN seed and ``1000 + node_idx`` as the JAX package folds
+its fit keys (the KDE CPD subsamples with it). The JAX package's opt-in grouped fit
 (``VBN_FIT_GROUP``) serves only neural CPDs, which this port does not
 have yet.
 """
@@ -17,6 +19,7 @@ import numpy as np
 
 from ..config_cast import CPD_SCHEMAS, FIT_SCHEMA, coerce_numbers
 from ..core.registry import CPD_REGISTRY, register_learning
+from ..core.rng import Draw, fold
 from ..core.utils import concat_parents, resolve_verbosity
 from ..defaults import TRAINING_KEYS
 
@@ -83,7 +86,8 @@ class NodeWiseLearner:
                 nodes_cpds[node] = _defaults.cpd(self.default_cpd)
             validate_node_conf(node, nodes_cpds[node])
 
-        for node in topo:
+        root = Draw(vbn.seed, vbn.device)
+        for node_idx, node in enumerate(topo):
             conf = nodes_cpds[node]
             parent_arr = concat_parents(data, vbn.dag.parents(node))
             x = np.asarray(data[node])
@@ -92,7 +96,8 @@ class NodeWiseLearner:
             fit_kwargs = coerce_numbers(dict(conf.get("fit") or {}), FIT_SCHEMA)
             params = cpd.init(vbn.device)
             vbn.params[node] = cpd.fit(
-                params, parent_arr, x, device=vbn.device, **fit_kwargs
+                params, parent_arr, x, device=vbn.device,
+                gen=fold(root, 1000 + node_idx).generator, **fit_kwargs
             )
             vbn.nodes[node] = cpd
             if verbosity >= 2:

@@ -50,11 +50,13 @@ _THREADS = 128  # threads per block (VBN_THREADS in csrc/sweep.cu)
 _SMEM_LIMIT = 200 * 1024  # keep the CPT in shared memory below this
 _HALF_LOG_2PI = 0.9189385332046727
 
-# Kernel launches by wrapper; the scan kernels (ops/sweep_scan.py) and the
-# resampling kernels (ops/scan.py, ops/resample_merge.py) count here too, so
-# one reset covers every kernel of a served batch.
+# Kernel launches by wrapper; the scan kernels (ops/sweep_scan.py), the
+# resampling kernels (ops/scan.py, ops/resample_merge.py) and the KDE kernels
+# (ops/kde_fused.py) count here too, so one reset covers every kernel of a
+# served batch.
 LAUNCHES = {"categorical": 0, "lg": 0, "categorical_scan": 0, "lg_scan": 0,
-            "cumsum": 0, "cum_index": 0, "srg": 0, "spg": 0}
+            "cumsum": 0, "cum_index": 0, "srg": 0, "spg": 0,
+            "kde_root": 0, "kde_cond": 0, "kde_cond_wide": 0, "kde_pick": 0}
 
 
 # ---------------------------------------------------------------------------
