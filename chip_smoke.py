@@ -43,8 +43,9 @@ queries at S=2^20 with ``dynamic_masks=True``:
    link-scale queries, one launch each, and one static 724-node LW query
    through the static plan's scan route;
 9. scan timing: each scan kernel's ms at the main-path shape, the plain
-   version over SCAN_PLAIN_ROWS rows of it (scaled to the batch), the
-   bound, and the end-to-end queries/s of both workloads.
+   version's over the same batch (SCAN_PLAIN_ROWS rows a call, held
+   against the kernel on every row), the bound, and the end-to-end
+   queries/s of both workloads.
 
 Then the resampling slice (resampled and plain importance sampling):
 
@@ -92,10 +93,13 @@ Then the KDE slice (KDE CPDs, max_points 2048 and Scott bandwidths, the
     S=2^16), which launches ``vbn_kde_cond_wide``, held against its plain
     version on that launch's own inputs;
 19. kde_timing: each KDE kernel's ms at its workload's shape, its plain
-    version's and one library composition's (``torch.cdist`` with
-    ``torch.logsumexp``, or with Gumbel noise and ``argmax``), each timed
-    over 2^16 rows and scaled, the operation bound (SFU exps and logs at
-    16 a clock per SM), W1-W3 queries/s and profiled W1 and W3 batches.
+    version's over all of that launch's rows (held against the kernel
+    there: picks exact) and one library composition's (``torch.cdist``
+    with ``torch.logsumexp``, or with Gumbel noise and ``argmax``) over
+    all of them, 2^16 rows a call; the operation bound of the function
+    (SFU exps and logs at 16 a clock per SM; for the pick, one draw a row
+    from its categorical, with the Gumbel design's own bound beside it);
+    W1-W3 queries/s and profiled W1, W2 and W3 batches.
 
 Prints a JSON line of kernel results (all twelve kernels), the card's name
 and power limit, and last ``{"ok": true, "device": {...}}``. Any failure
@@ -122,7 +126,7 @@ PEAK_BYTES = 3.35e12  # H100 SXM HBM3, byte/s
 PEAK_SFU = 132 * 16 * 1.98e9  # H100 SXM special-function results (exp, log), /s
 N_DYN = 96  # heterogeneous single-row queries per served batch
 S_STREAMS = 1 << 16  # depth of the dynamic_streams phase
-SCAN_PLAIN_ROWS = 2  # rows of the scan plain versions timed at full width
+SCAN_PLAIN_ROWS = 2  # rows per call of a scan plain version at full width
 SCAN_REPS = 3  # kernel launches per CUDA-event window
 SCAN_WINDOWS = 3  # served batches timed end to end, best of
 B_RIS, S_RIS, S_RIS_BIG = 8, 1 << 20, 1 << 22  # the RIS workload (tpu_study.py)
@@ -497,23 +501,30 @@ def at_main_shape(kernel, plain, kind, *, rtol, shift_atol):
     return ms, t0.elapsed_time(t1), err
 
 
-def kernel_row(name, replaces, launches, err, ms, plain_ms, cost,
-               source="vectorizedbayesiannetwork_torch/csrc/sweep.cu",
-               library_ms=None):
-    """One entry of the kernel line. ``cost`` is (operations, bytes) or
-    (operations, bytes, SFU operations): the bound is the largest of the
-    operations at PEAK_OPS, the SFU operations (exp, log) at PEAK_SFU and
-    the bytes at PEAK_BYTES."""
+def bound(cost):
+    """(bound ms, what bounds it) of ``cost``, (operations, bytes) or
+    (operations, bytes, SFU operations): the largest of the operations at
+    PEAK_OPS, the SFU operations (exp, log) at PEAK_SFU and the bytes at
+    PEAK_BYTES."""
     ops, nbytes, *sfu = cost
     t_ops, t_bytes = ops / PEAK_OPS * 1e3, nbytes / PEAK_BYTES * 1e3
     if sfu:
         t_ops = max(t_ops, sfu[0] / PEAK_SFU * 1e3)
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def kernel_row(name, replaces, launches, err, ms, plain_ms, cost,
+               source="vectorizedbayesiannetwork_torch/csrc/sweep.cu",
+               library_ms=None):
+    """One entry of the kernel line; ``cost`` as ``bound`` takes it."""
+    ops, nbytes, *sfu = cost
+    bound_ms, bound_by = bound(cost)
     row = {
         "name": name, "route": "cuda", "source": source,
         "replaces": replaces, "launches": launches, "max_abs_err": err,
-        "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
-        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-        "library_ms": library_ms, "ops": ops, "bytes": nbytes,
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+        "bound_by": bound_by, "library_ms": library_ms, "ops": ops,
+        "bytes": nbytes,
     }
     if sfu:
         row["sfu_ops"] = sfu[0]
@@ -976,27 +987,31 @@ def lg_scan_cost(n_par, struct, flags, s, want, threads):
     return int(per_row.sum()) * s, nbytes
 
 
-def time_plain_rows(plain):
-    """ms of ``plain()`` (a run over SCAN_PLAIN_ROWS rows), CUDA events."""
+def time_plain_batch(plain, b):
+    """(ms, reduction) of ``plain(r0, r1)`` over all ``b`` rows of a batch,
+    SCAN_PLAIN_ROWS rows a call (each call draws its rows' own Philox
+    stream through ``row0``), timed once over the batch with CUDA events;
+    the reduction's two parts concatenated over the rows."""
     import torch
 
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
     t0.record()
-    out = plain()
+    parts = [plain(r, min(r + SCAN_PLAIN_ROWS, b))[3]
+             for r in range(0, b, SCAN_PLAIN_ROWS)]
     t1.record()
     torch.cuda.synchronize()
-    return t0.elapsed_time(t1), out
+    return t0.elapsed_time(t1), (torch.cat([p[0] for p in parts]),
+                                 torch.cat([p[1] for p in parts]))
 
 
 def time_scan_kernels(link_vbn, link_qs, gauss_vbn, gauss_qs, launches, errs):
     """Each scan kernel at the main path's shape and ``want`` mode, in
-    in-kernel Philox mode; its plain version over the first
-    SCAN_PLAIN_ROWS rows of the same batch (same draws through ``row0``),
-    scaled to the batch, and the two reductions held against each other."""
+    in-kernel Philox mode; its plain version over the same batch
+    (``time_plain_batch``), and the two reductions held against each
+    other over every row."""
     from vectorizedbayesiannetwork_torch.ops import sweep_scan
 
-    rows = SCAN_PLAIN_ROWS
     plan, cpds, params, fixed, ev, do, tgt = scan_inputs(
         link_vbn, [as_query(t, e) for t, e in link_qs])
     struct = sweep_scan.scan_struct_for(plan, cpds)
@@ -1007,26 +1022,25 @@ def time_scan_kernels(link_vbn, link_qs, gauss_vbn, gauss_qs, launches, errs):
         5, packed, tgt, flat, struct, S_MAIN, want=want)
     ms = cuda_ms(kernel, SCAN_REPS)
     got = kernel()[3]
-    plain_rows_ms, ref = time_plain_rows(
-        lambda: sweep_scan.categorical_sweep_scan_plain(
-            5, packed[:rows], tgt[:rows], flat, struct, S_MAIN, want=want))
-    err = compare_red(f"vbn_cat_scan at S={S_MAIN}", (got[0][:rows], got[1][:rows]),
-                      ref[3], "pmf", rtol=2e-4, shift_atol=1e-4)
+    plain_ms, ref = time_plain_batch(
+        lambda a, b: sweep_scan.categorical_sweep_scan_plain(
+            5, packed[a:b], tgt[a:b], flat, struct, S_MAIN, want=want, row0=a),
+        packed.shape[0])
+    err = compare_red(f"vbn_cat_scan at S={S_MAIN}", got, ref, "pmf",
+                      rtol=2e-4, shift_atol=1e-4)
     _m, n_par, n_slots = sweep_scan._cat_meta_host(struct)
     threads, tbl_smem = sweep_scan._cat_layout(
         plan.n_nodes, n_par, n_slots, struct[7], struct[5],
         limit=sweep_scan._smem_limit(0))
     log("kernel_main_shape", kernel="vbn_cat_scan", batch=N_DYN, ms=ms,
-        plain_rows=rows, plain_rows_ms=plain_rows_ms,
-        served_row_max_abs_err=err, threads=threads,
+        plain_ms=plain_ms, served_row_max_abs_err=err, threads=threads,
         table_in_shared_memory=tbl_smem)
     cat = kernel_row(
         "vbn_cat_scan", "vectorizedbayesiannetwork_tpu/ops/sweep_scan_pallas.py:210",
         launches["categorical_scan"], max(errs["categorical_scan"], err), ms,
-        plain_rows_ms * N_DYN / rows,
+        plain_ms,
         cat_scan_cost(struct, packed, S_MAIN, want, struct[7], threads),
         source="vectorizedbayesiannetwork_torch/csrc/sweep_scan.cu")
-    cat["plain_ms_from_rows"] = rows
 
     plan, cpds, params, fixed, ev, do, tgt = scan_inputs(
         gauss_vbn, [as_query(t, e) for t, e in gauss_qs])
@@ -1038,26 +1052,25 @@ def time_scan_kernels(link_vbn, link_qs, gauss_vbn, gauss_qs, launches, errs):
         6, fixed, flags, tgt, ptab, struct, S_MAIN, want=want)
     ms = cuda_ms(kernel, SCAN_REPS)
     got = kernel()[3]
-    plain_rows_ms, ref = time_plain_rows(
-        lambda: sweep_scan.lg_sweep_scan_plain(
-            6, fixed[:rows], flags[:rows], tgt[:rows], ptab, struct, S_MAIN,
-            want=want))
-    err = compare_red(f"vbn_lg_scan at S={S_MAIN}", (got[0][:rows], got[1][:rows]),
-                      ref[3], "mom", rtol=2e-3, shift_atol=2e-3)
+    plain_ms, ref = time_plain_batch(
+        lambda a, b: sweep_scan.lg_sweep_scan_plain(
+            6, fixed[a:b], flags[a:b], tgt[a:b], ptab, struct, S_MAIN,
+            want=want, row0=a),
+        fixed.shape[0])
+    err = compare_red(f"vbn_lg_scan at S={S_MAIN}", got, ref, "mom",
+                      rtol=2e-3, shift_atol=2e-3)
     threads = sweep_scan._lg_threads(
         plan.n_nodes, struct[1], sweep_scan._compaction(struct[0])[2], True,
         limit=sweep_scan._smem_limit(0))
     log("kernel_main_shape", kernel="vbn_lg_scan", batch=N_DYN, ms=ms,
-        plain_rows=rows, plain_rows_ms=plain_rows_ms,
-        served_row_max_abs_err=err, threads=threads)
+        plain_ms=plain_ms, served_row_max_abs_err=err, threads=threads)
     lg = kernel_row(
         "vbn_lg_scan", "vectorizedbayesiannetwork_tpu/ops/sweep_scan_pallas.py:978",
         launches["lg_scan"], max(errs["lg_scan"], err), ms,
-        plain_rows_ms * N_DYN / rows,
+        plain_ms,
         lg_scan_cost(sum(len(p) for p in plan.parent_idx), struct, flags,
                      S_MAIN, want, threads),
         source="vectorizedbayesiannetwork_torch/csrc/sweep_scan.cu")
-    lg["plain_ms_from_rows"] = rows
     return [cat, lg]
 
 
@@ -1559,7 +1572,7 @@ S_KDE_DYN = 1 << 16  # W3 and W4
 N_KDE_DYN = 96  # W3's queries, one batch
 M_KDE_CHECK = 1 << 14  # query rows of the kernel checks
 M_KDE_STATS = 1 << 20  # picks drawn for the pick statistics
-KDE_ROWS = 1 << 16  # rows of a plain or library slice timed at a main shape
+KDE_ROWS = 1 << 16  # rows per library call, and of a plain version's warm-up
 KDE_REPS = 3  # kernel launches per CUDA-event window
 KDE_NAMES = ("kde_root", "kde_cond", "kde_cond_wide", "kde_pick")
 
@@ -1910,36 +1923,66 @@ def serve_kde_wide(vbn, total):
 
 
 def kde_cost(kind, m, n, dx, dp):
-    """(float32 operations, bytes, SFU operations, M) of one KDE launch, per
-    pair of a query row and a support point: 2 per feature (difference,
-    multiply-add), then for the root 4 more (scale, mask, the online
-    logsumexp's compare and exp argument) and 1 exp; for the conditional
-    kernels 8 more and 2 exps; for the pick 5 more (scale, mask, Gumbel
-    add, compare, select), a quarter of a Philox-4x32-10 call (25) and the
-    uniform (3), and 2 logs. Bytes: each input read once (queries, support,
-    mask, key), each output written once."""
+    """(float32 operations, bytes, SFU operations, M) of one KDE launch's
+    function, per pair of a query row and a support point: 2 per feature
+    (difference, multiply-add), then for the root 4 more (scale, mask, the
+    online logsumexp's compare and exp argument) and 1 exp; for the
+    conditional kernels 8 more and 2 exps. The pick's function is one draw
+    a row from the parent-softmax categorical, whatever the design: per
+    pair 6 more (scale, mask, exp argument, the running sum and its compare
+    with the row's threshold) and 1 exp (a root's weights do not depend on
+    the row: once per support point), per row one uniform (a quarter of a
+    Philox-4x32-10 call, 25, and 3) and the copy of its Dx values.
+    ``pick_gumbel`` counts the Gumbel-argmax design instead: per pair 5 more
+    (scale, mask, Gumbel add, compare, select), a quarter Philox call and
+    the uniform (28), and 2 logs. Bytes: each input read once (queries,
+    support, mask, key), each output written once."""
     pairs = m * n
     if kind == "root":
         return (2 * dx + 4) * pairs, 4 * (m * dx + m + n * (dx + 1)), pairs, m
+    nbytes_pick = 4 * (m * dp + n * (dp + dx + 1) + m * dx) + 16
     if kind == "pick":
-        return ((2 * dp + 33) * pairs,
-                4 * (m * dp + n * (dp + dx + 1) + m * dx) + 16, 2 * pairs, m)
+        w = pairs if dp else n
+        return (2 * dp + 6) * w + (28 + dx) * m, nbytes_pick, w, m
+    if kind == "pick_gumbel":
+        return (2 * dp + 33) * pairs, nbytes_pick, 2 * pairs, m
     return ((2 * (dx + dp) + 8) * pairs,
             4 * (m * (dx + dp + 1) + n * (dx + dp + 1)), 2 * pairs, m)
 
 
-def kde_slice_ms(fn, total):
-    """ms of ``fn()`` over KDE_ROWS rows (CUDA events, one warm-up),
-    scaled to ``total`` rows."""
-    return cuda_ms(fn, 1) * total / KDE_ROWS
+def once_ms(fn, warm):
+    """(ms, result) of one call of ``fn()`` (CUDA events), after one call
+    of ``warm()`` on a slice of the same inputs."""
+    import torch
+
+    warm()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    out = fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1), out
+
+
+def library_ms(fn, total):
+    """ms of ``fn(r0, r1)`` over all ``total`` rows, KDE_ROWS rows a call
+    (the library compositions hold [rows, N] tensors), after one warm-up
+    slice."""
+    def run():
+        for r0 in range(0, total, KDE_ROWS):
+            fn(r0, min(r0 + KDE_ROWS, total))
+
+    return once_ms(run, lambda: fn(0, min(KDE_ROWS, total)))[0]
 
 
 def time_kde_kernels(flag, wide_args, launches, errs):
     """Each KDE kernel at its workload's shape (root and Dp=2 pick: W1; the
     conditional: W2; the wide conditional: W4's recorded launch): the
-    kernel's ms, held against its plain version over the first KDE_ROWS
-    rows, the plain version's and one library composition's ms over
-    KDE_ROWS rows scaled to the batch, and the bound."""
+    kernel's ms, its plain version's ms over all M rows (which also holds
+    the kernel over them), one library composition's ms over all M rows,
+    and the bound."""
     import torch
 
     from vectorizedbayesiannetwork_torch.ops import kde_fused as kf
@@ -1958,25 +2001,28 @@ def time_kde_kernels(flag, wide_args, launches, errs):
         return flag.nodes[node]._log_mask(flag.params[node])
 
     def row(name, line, kernel, plain, library, cost, err, exact_check=False):
-        """Time ``kernel()`` over its launch's M rows, hold its first
-        KDE_ROWS rows against ``plain()``, time the plain version and the
-        library composition over KDE_ROWS rows, scaled to M."""
+        """Time ``kernel()`` over its launch's M rows, then ``plain(r0, r1)``
+        over all of them in one call (held against the kernel there), then
+        ``library(r0, r1)`` over all of them, KDE_ROWS rows a call."""
         total = cost[3]
         ms = cuda_ms(kernel, KDE_REPS)
-        got, want = kernel()[:r], plain()
+        got = kernel()
+        plain_ms, want = once_ms(lambda: plain(0, total),
+                                 lambda: plain(0, min(r, total)))
         if exact_check:
             exact(f"vbn_{name} at the main shape", got, want)
         else:
             err = max(err, compare(f"vbn_{name} at the main shape", got, want,
                                    atol=1e-4))
-        plain_ms = kde_slice_ms(plain, total)
-        lib_ms = kde_slice_ms(library, total)
+        del got, want
+        lib_ms = library_ms(library, total)
         out = kernel_row(f"vbn_{name}", tpu + line, launches.get(name, 0), err,
                          ms, plain_ms, cost[:3], src, lib_ms)
-        out.update(M=total, plain_and_library_rows_timed=r)
+        out.update(M=total)
         log("kernel_main_shape", kernel=f"vbn_{name}", M=total, ms=ms,
             plain_ms=plain_ms, library_ms=lib_ms, bound_ms=out["bound_ms"])
         rows.append(out)
+        return out
 
     # root log-density: W1's evidence x0 through x0's fit
     dx0, lm0 = flag.params["x0"]["data_x"], lm_of("x0")
@@ -1984,9 +2030,9 @@ def time_kde_kernels(flag, wide_args, launches, errs):
     inv2y, const_y = kf.kernel_consts(1, hy0)
     row("kde_root", "147",
         lambda: kf.kde_root(ev, dx0, lm0, hy0),
-        lambda: kf.kde_root_plain(ev[:r], dx0, lm0, hy0),
-        lambda: torch.logsumexp(-torch.cdist(ev[:r], dx0) ** 2 * float(inv2y)
-                                + float(const_y) + lm0, dim=1),
+        lambda a, b: kf.kde_root_plain(ev[a:b], dx0, lm0, hy0),
+        lambda a, b: torch.logsumexp(-torch.cdist(ev[a:b], dx0) ** 2 * float(inv2y)
+                                     + float(const_y) + lm0, dim=1),
         kde_cost("root", m, dx0.shape[0], 1, 0), errs["kde_root"])
 
     # conditional: W2's evidence x2 given (x0, x1) through x2's fit
@@ -2003,38 +2049,45 @@ def time_kde_kernels(flag, wide_args, launches, errs):
 
     row("kde_cond", "106",
         lambda: kf.kde_cond(ev, par, dx2, dp2, lm2, hy2, hp2),
-        lambda: kf.kde_cond_plain(ev[:r], par[:r], dx2, dp2, lm2, hy2, hp2),
-        lambda: lib_cond(ev[:r], par[:r], dx2, dp2, lm2, hy2, hp2),
+        lambda a, b: kf.kde_cond_plain(ev[a:b], par[a:b], dx2, dp2, lm2, hy2, hp2),
+        lambda a, b: lib_cond(ev[a:b], par[a:b], dx2, dp2, lm2, hy2, hp2),
         kde_cost("cond", m, dx2.shape[0], 1, 2), errs["kde_cond"])
 
     # wide conditional: W4's own launch
     x, p, dxw, dpw, lmw, ysw, psw = wide_args
     row("kde_cond_wide", "72",
         lambda: kf.kde_cond_wide(x, p, dxw, dpw, lmw, ysw, psw),
-        lambda: kf.kde_cond_plain(x[:r], p[:r], dxw, dpw, lmw, ysw, psw),
-        lambda: lib_cond(x[:r], p[:r], dxw, dpw, lmw, ysw, psw),
+        lambda a, b: kf.kde_cond_plain(x[a:b], p[a:b], dxw, dpw, lmw, ysw, psw),
+        lambda a, b: lib_cond(x[a:b], p[a:b], dxw, dpw, lmw, ysw, psw),
         kde_cost("cond", x.shape[0], dxw.shape[0], x.shape[1], p.shape[1]),
         errs["kde_cond_wide"])
 
-    # pick: W1's draw of x2 given (x0, x1), in-kernel Philox
+    # pick: W1's draw of x2 given (x0, x1), in-kernel Philox; the plain
+    # version rebuilds the same Philox field (rows from 0, so one call)
     key = kf.pick_key(g, dev)
     inv2p, _ = kf.kernel_consts(2, hp2)
 
-    def lib_pick():
-        u = torch.rand((r, dx2.shape[0]), generator=g, device=dev)
-        s = -torch.cdist(par[:r], dp2) ** 2 * float(inv2p) + lm2
+    def lib_pick(a, b):
+        u = torch.rand((b - a, dx2.shape[0]), generator=g, device=dev)
+        s = -torch.cdist(par[a:b], dp2) ** 2 * float(inv2p) + lm2
         return dx2[torch.argmax(s - torch.log(-torch.log(u)), dim=1)]
 
-    row("kde_pick", "390",
-        lambda: kf.kde_pick(key, par, dp2, dx2, lm2, hp2, m),
-        lambda: kf.kde_pick_plain(key, par[:r], dp2, dx2, lm2, hp2, r),
-        lib_pick, kde_cost("pick", m, dx2.shape[0], 1, 2), errs["kde_pick"],
-        exact_check=True)
-    root_ms = cuda_ms(lambda: kf.kde_pick(key, None, flag.params["x1"]["data_p"],
-                                          flag.params["x1"]["data_x"],
+    out = row("kde_pick", "390",
+              lambda: kf.kde_pick(key, par, dp2, dx2, lm2, hp2, m),
+              lambda a, b: kf.kde_pick_plain(key, par[a:b], dp2, dx2, lm2, hp2,
+                                             b - a),
+              lib_pick, kde_cost("pick", m, dx2.shape[0], 1, 2),
+              errs["kde_pick"], exact_check=True)
+    out["gumbel_design_bound_ms"] = bound(
+        kde_cost("pick_gumbel", m, dx2.shape[0], 1, 2)[:3])[0]
+    p1 = flag.params["x1"]
+    root_ms = cuda_ms(lambda: kf.kde_pick(key, None, p1["data_p"], p1["data_x"],
                                           lm_of("x1"), 1.0, m), KDE_REPS)
+    n1 = p1["data_x"].shape[0]
     log("kernel_main_shape", kernel="vbn_kde_pick", case="root (Dp=0)", M=m,
-        ms=root_ms)
+        ms=root_ms, bound_ms=bound(kde_cost("pick", m, n1, 1, 0)[:3])[0],
+        gumbel_design_bound_ms=bound(
+            kde_cost("pick_gumbel", m, n1, 1, 0)[:3])[0])
     return rows
 
 
@@ -2075,9 +2128,10 @@ def serve_kde(vbn_cls, defaults):
     log("end_to_end_kde", **{f"{k}_qps": v[0] for k, v in out.items()},
         **{f"{k}_window_qps": v[1] for k, v in out.items()},
         S={"w1": S_KDE, "w2": S_KDE, "w3": S_KDE_DYN})
-    log("serve_profile", workload="W1 kde_flagship_lw", **profile_batch(
-        lambda: flag.infer_posterior_moments([w1]),
-        ("kde_pick_kernel", "kde_direct_kernel")))
+    for tag, q in (("W1 kde_flagship_lw", w1), ("W2 kde_flagship_diag", w2)):
+        log("serve_profile", workload=tag, **profile_batch(
+            lambda: flag.infer_posterior_moments([q]),
+            ("kde_pick_kernel", "kde_direct_kernel")))
     log("serve_profile", workload="W3 kde_gauss8_dyn", **profile_batch(
         lambda: gauss.infer_posterior_moments(qd, pad_bucket=N_KDE_DYN),
         ("kde_pick_kernel", "kde_direct_kernel")))

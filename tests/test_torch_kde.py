@@ -7,10 +7,13 @@
   the JAX test's own tolerance: its kernel takes the cross terms through a
   bf16x3 GEMM (about 5e-4 from the exact form), where the port subtracts
   directly; picks on the same external Gumbel field exactly.
-- The chunked torch forms (``ops/kde_kernel.py``) against the JAX
-  ``kde_log_prob`` (its XLA form on the CPU) at M = 4096 + 123: 1e-4.
+- The port's ``kde_log_prob`` (``ops/kde_kernel.py``: the plain versions
+  on the CPU, the chunked form for a root past 32 features) against the
+  JAX one (its XLA form on the CPU) at M = 4096 + 123: 1e-4; the chunked
+  pick past 32 parent features takes the nearest parent.
 - The pick's own Philox mode: deterministic for a key, uniform under a
-  flat mask (chi-square within 6 sd of its mean).
+  flat mask (chi-square within 6 sd of its mean), and the same past one
+  row tile as over the whole field.
 - ``KDECPD.fit`` against the JAX fit (arrays and Scott bandwidths equal),
   the subsample past ``max_points``, and a JAX checkpoint loaded by the port
   (arrays, bandwidths, ``_log_prob_flat`` within 1e-4).
@@ -125,11 +128,24 @@ def test_wide_plain_matches_pallas():
                            0.6, 0.8)
     # the JAX kernel's bf16x3 cross terms, not the port, set the tolerance
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=5e-3)
-    # the plain version is exact float32: the expanded float64 form agrees
-    ref = tkk.kde_log_prob(_t(qx).double(), _t(qp).double(),
-                           _t(data_x).double(), _t(data_p).double(),
-                           _t(lm).double(), 0.6, 0.8)
-    np.testing.assert_allclose(got.numpy(), ref.numpy(), atol=1e-4)
+    # the plain version is exact float32: the float64 direct form agrees
+    np.testing.assert_allclose(
+        got.numpy(), _cond_f64(qx, qp, data_x, data_p, lm, 0.6, 0.8), atol=1e-4)
+
+
+def _cond_f64(qx, qp, data_x, data_p, lm, hy, hp):
+    """The conditional KDE log-density in numpy float64, direct
+    differences."""
+    def logits(q, t, h):
+        sq = ((q.astype(np.float64)[:, None, :] - t[None, :, :]) ** 2).sum(-1)
+        return -sq / (2 * h * h) - q.shape[1] * (0.5 * np.log(2 * np.pi) + np.log(h))
+
+    def lse(a):
+        mx = a.max(1, keepdims=True)
+        return (mx + np.log(np.exp(a - mx).sum(1, keepdims=True)))[:, 0]
+
+    kp = logits(qp, data_p, hp) + lm[None, :]
+    return lse(kp + logits(qx, data_x, hy)) - lse(kp)
 
 
 def _pick_case(case, g, n, m):
@@ -176,12 +192,15 @@ def test_pick_plain_matches_pallas(case):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("root", [True, False], ids=["root", "cond"])
-def test_chunked_forms_match_jax(root):
+@pytest.mark.parametrize("root,dx", [(True, 1), (False, 1), (True, 36)],
+                         ids=["root", "cond", "root_dx36"])
+def test_chunked_forms_match_jax(root, dx):
+    """``kde_log_prob`` against the JAX one over more than one row tile:
+    the plain versions for D <= 32, the chunked form past 32 features."""
     g = np.random.default_rng(5)
     n, m = 256, 4096 + 123
-    data_p, data_x = _normal(g, n, 2), _normal(g, n, 1)
-    qp, qx = _normal(g, m, 2), _normal(g, m, 1)
+    data_p, data_x = _normal(g, n, 2), _normal(g, n, dx)
+    qp, qx = _normal(g, m, 2), _normal(g, m, dx)
     lm = _tail_mask(n, 200, hard=False)
     want = jkk.kde_log_prob(
         jnp.asarray(qx), None if root else jnp.asarray(qp), jnp.asarray(data_x),
@@ -211,6 +230,40 @@ def test_plain_pick_philox_is_deterministic_and_uniform():
     # a row's field is the rebuilt Philox stream, row by row
     g = kf.pick_gumbel(key, 5, n, row0=3)
     assert torch.equal(g, kf.pick_gumbel(key, 8, n)[3:8])
+
+
+@pytest.mark.parametrize("dp", [0, 2])
+def test_plain_pick_tiles_rows_as_one_field(dp):
+    """Past one row tile the plain pick reads the rows' own Philox stream:
+    it equals the argmax over the whole rebuilt field."""
+    g = np.random.default_rng(12)
+    n, m = 96, 4096 + 123
+    data_x, data_p = _t(_normal(g, n, 2)), _t(_normal(g, n, dp))
+    parents = _t(_normal(g, m, dp)) if dp else None
+    lm = _t(_tail_mask(n, 80, hard=False))
+    key = torch.tensor([77, 88])
+    got = kf.kde_pick(key, parents, data_p, data_x, lm, 0.4, m)
+    scores = lm[None, :] + kf.pick_gumbel(key, m, n)
+    if dp:
+        inv2p, _ = kf.kernel_consts(dp, 0.4)
+        scores = (-kf.sq_dist(parents, data_p) * inv2p + lm[None, :]
+                  + kf.pick_gumbel(key, m, n))
+    assert torch.equal(got, data_x[torch.argmax(scores, dim=1)])
+
+
+def test_chunked_pick_past_32_parent_features_takes_the_nearest_parent():
+    """``kde_sample_indices``, the pick of a node with Dp > 32, over more
+    than one row tile: at a tiny parent bandwidth the nearest support
+    point's parents win."""
+    g = np.random.default_rng(13)
+    n, m, dp = 64, 4096 + 123, 36
+    data_p = _normal(g, n, dp)
+    rows = g.integers(0, n, m)
+    parents = data_p[rows] + 0.01 * _normal(g, m, dp)
+    idx = tkk.kde_sample_indices(torch.Generator().manual_seed(0), _t(parents),
+                                 _t(data_p), torch.zeros(n), 1e-3, m)
+    assert idx.shape == (m,)
+    np.testing.assert_array_equal(idx.numpy(), rows)
 
 
 def test_plain_pick_follows_a_two_point_mask():

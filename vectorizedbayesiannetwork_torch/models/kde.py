@@ -9,10 +9,12 @@ parent-softmax weighting (Gumbel-argmax), then adds bandwidth noise.
 time, in numpy float32 as the JAX package does, so both packages resolve
 the same bandwidths from the same data.
 
-On the card the log-density and the pick run in the CUDA kernels of
-``ops/kde_fused.py`` (``ops/kde_kernel.py`` dispatches); a node with more
-than 32 parent features picks through the chunked torch form, as the JAX
-package sends it to XLA. On the CPU both take the chunked torch forms.
+The log-density goes through ``ops/kde_kernel.py``'s dispatch to the
+wrappers of ``ops/kde_fused.py``: their CUDA kernels on the card, their
+plain versions on the CPU. On the card the pick runs in ``vbn_kde_pick``;
+a node with more than 32 parent features, and every node on the CPU,
+picks through the chunked torch form (``kde_sample_indices``), as the JAX
+package sends such picks to XLA.
 
 A fit with more than ``max_points`` rows keeps a uniform subset drawn with
 ``torch.randperm`` from the fit's generator: the same distribution as the

@@ -22,10 +22,13 @@ source note says what the designs do about that.
 
 Beside each wrapper sits a plain PyTorch version with the same signature
 (``kde_root_plain``, ``kde_cond_plain`` for both conditional kernels,
-``kde_pick_plain``). The wrappers launch the kernel for CUDA tensors and
-raise on what it does not take; for CPU tensors they run the plain
-version. ``LAUNCHES`` (``ops/sweep.py``) counts the launches under
-``"kde_root"``, ``"kde_cond"``, ``"kde_cond_wide"`` and ``"kde_pick"``.
+``kde_pick_plain``), which walks the query rows ``_CHUNK`` at a time, so no
+[M, N] tensor is ever whole. The wrappers launch the kernel for CUDA
+tensors and raise on what it does not take; for CPU tensors they run the
+plain version, which is how the CPU serves every KDE log-density
+(``ops/kde_kernel.py``). ``LAUNCHES`` (``ops/sweep.py``) counts the
+launches under ``"kde_root"``, ``"kde_cond"``, ``"kde_cond_wide"`` and
+``"kde_pick"``.
 
 The pick's Gumbel field is either given (``gumbel`` [M, N], the JAX
 kernels' test hook) or drawn in the kernel from a 64-bit Philox key held
@@ -61,6 +64,7 @@ from ..core.rng import philox4x32_10, uniform_from_bits
 from .sweep import LAUNCHES
 
 _DIRECT_D = 32  # feature-count cutoff of the direct kernels (kde_pallas.py:103)
+_CHUNK = 4096  # query rows per tile of a plain version or chunked form
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -93,11 +97,23 @@ def _lse_rows(a: torch.Tensor) -> torch.Tensor:
     return (mx + torch.log(torch.exp(a - mx).sum(dim=1, keepdim=True)))[:, 0]
 
 
+def _chunked(fn, m: int, *arrays):
+    """``fn`` over ``_CHUNK``-row tiles of the leading axis, concatenated."""
+    if m <= _CHUNK:
+        return fn(*arrays)
+    return torch.cat([fn(*(a[i : i + _CHUNK] for a in arrays))
+                      for i in range(0, m, _CHUNK)])
+
+
 def kde_root_plain(x, data_x, log_mask, y_scale: float) -> torch.Tensor:
     """``lse_n(-|x_m - t_n|^2 / 2h^2 + const + log_mask_n)`` -> [M]."""
     inv2y, const_y = kernel_consts(x.shape[1], y_scale)
-    ky = -sq_dist(x, data_x) * inv2y + const_y + log_mask[None, :]
-    return _lse_rows(ky)
+
+    def tile(xt):
+        return _lse_rows(-sq_dist(xt, data_x) * inv2y + const_y
+                         + log_mask[None, :])
+
+    return _chunked(tile, x.shape[0], x)
 
 
 def kde_cond_plain(x, p, data_x, data_p, log_mask, y_scale: float,
@@ -105,9 +121,13 @@ def kde_cond_plain(x, p, data_x, data_p, log_mask, y_scale: float,
     """``lse_n(kp + ky) - lse_n(kp)`` -> [M], any feature counts."""
     inv2y, const_y = kernel_consts(x.shape[1], y_scale)
     inv2p, const_p = kernel_consts(p.shape[1], p_scale)
-    ky = -sq_dist(x, data_x) * inv2y + const_y
-    kp = -sq_dist(p, data_p) * inv2p + const_p + log_mask[None, :]
-    return _lse_rows(kp + ky) - _lse_rows(kp)
+
+    def tile(xt, pt):
+        ky = -sq_dist(xt, data_x) * inv2y + const_y
+        kp = -sq_dist(pt, data_p) * inv2p + const_p + log_mask[None, :]
+        return _lse_rows(kp + ky) - _lse_rows(kp)
+
+    return _chunked(tile, x.shape[0], x, p)
 
 
 def pick_key(gen: torch.Generator, device) -> torch.Tensor:
@@ -146,14 +166,22 @@ def pick_gumbel(key: torch.Tensor, m: int, n: int, row0: int = 0):
 def kde_pick_plain(key, parents, data_p, data_x, log_mask, p_scale: float,
                    m: int, gumbel: Optional[torch.Tensor] = None):
     """Parent-weighted support pick -> picked ``data_x`` rows [m, Dx]."""
-    g = pick_gumbel(key, m, data_x.shape[0]) if gumbel is None else gumbel
-    if parents is None or parents.shape[1] == 0:
-        scores = log_mask[None, :] + g
-    else:
-        inv2p, _ = kernel_consts(parents.shape[1], p_scale)
-        scores = -sq_dist(parents, data_p) * inv2p + log_mask[None, :]
-        scores = scores + g
-    return data_x[torch.argmax(scores, dim=1)]
+    n = data_x.shape[0]
+    root = parents is None or parents.shape[1] == 0
+    inv2p, _ = kernel_consts(0 if root else parents.shape[1], p_scale)
+
+    def tile(r0):
+        r1 = min(r0 + _CHUNK, m)
+        g = (pick_gumbel(key, r1 - r0, n, r0) if gumbel is None
+             else gumbel[r0:r1])
+        if root:
+            scores = log_mask[None, :] + g
+        else:
+            scores = -sq_dist(parents[r0:r1], data_p) * inv2p + log_mask[None, :]
+            scores = scores + g
+        return data_x[torch.argmax(scores, dim=1)]
+
+    return torch.cat([tile(r0) for r0 in range(0, m, _CHUNK)])
 
 
 @functools.lru_cache(maxsize=None)

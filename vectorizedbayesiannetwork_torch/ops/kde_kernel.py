@@ -1,20 +1,23 @@
-"""KDE pairwise-kernel evaluation: the chunked torch forms, and the
-dispatch of the log-density to the CUDA kernels.
+"""KDE pairwise-kernel evaluation: the dispatch of the log-density to the
+kernels of ``ops/kde_fused.py``, and the chunked torch forms.
 
-Port of ``vectorizedbayesiannetwork_tpu/ops/kde_kernel.py``. The squared
-distance is expanded to ``|x|^2 - 2 x.t + |t|^2`` so the cross term is one
-matrix product (float32 on the card: PyTorch's default leaves TF32 off for
-matrix products), and the query rows are streamed in ``_CHUNK``-row tiles,
-so no [M, N] tensor is ever whole. These forms serve what the JAX package
-sends to XLA rather than to Pallas: every KDE evaluation on the CPU, a
-root's log-density with Dx > 32, and the picks of nodes with more than 32
-parent features (``models/kde.py``).
+Port of ``vectorizedbayesiannetwork_tpu/ops/kde_kernel.py``.
+``kde_log_prob`` dispatches as ``kde_kernel.py:77-117`` does, the
+tensor's device choosing where ``pallas_available()`` did: ``kde_root``
+for a root with Dx <= 32, ``kde_cond`` for max(Dx, Dp) <= 32 and
+``kde_cond_wide`` beyond. Each wrapper launches its CUDA kernel on a CUDA
+tensor and runs its plain version on a CPU tensor.
 
-On a CUDA tensor ``kde_log_prob`` takes the kernels of ``ops/kde_fused.py``
-where the JAX package takes its Pallas kernels (``kde_kernel.py:77-117``),
-the tensor's device choosing where ``pallas_available()`` did:
-``vbn_kde_root`` for a root with Dx <= 32, ``vbn_kde_cond`` for
-max(Dx, Dp) <= 32 and ``vbn_kde_cond_wide`` beyond.
+The chunked forms serve what the JAX package sends to XLA on every
+backend: a root's log-density with Dx > 32, and the picks of nodes with
+more than 32 parent features (``models/kde.py``). The squared distance is
+expanded to ``|x|^2 - 2 x.t + |t|^2`` so the cross term is one matrix
+product (float32 on the card: PyTorch's default leaves TF32 off for matrix
+products), and the query rows are streamed in ``_CHUNK``-row tiles, so no
+[M, N] tensor is ever whole. ``kde_sample_indices`` also serves every pick
+on the CPU: its Gumbel noise comes from ``torch.rand``, where the plain
+pick rebuilds the kernel's Philox stream in int64 torch ops, about 15
+times slower on a CPU.
 """
 
 from __future__ import annotations
@@ -24,9 +27,14 @@ from typing import Optional
 
 import torch
 
-from .kde_fused import _DIRECT_D, kde_cond, kde_cond_wide, kde_root
-
-_CHUNK = 4096  # query rows per streamed tile
+from .kde_fused import (
+    _CHUNK,
+    _DIRECT_D,
+    _chunked,
+    kde_cond,
+    kde_cond_wide,
+    kde_root,
+)
 
 
 def _pairwise_kernel_logits(q: torch.Tensor, data: torch.Tensor,
@@ -42,14 +50,6 @@ def _pairwise_kernel_logits(q: torch.Tensor, data: torch.Tensor,
     return -sq * inv2s2 + const
 
 
-def _chunked(fn, m: int, *arrays):
-    """``fn`` over ``_CHUNK``-row tiles of the leading axis, concatenated."""
-    if m <= _CHUNK:
-        return fn(*arrays)
-    return torch.cat([fn(*(a[i : i + _CHUNK] for a in arrays))
-                      for i in range(0, m, _CHUNK)])
-
-
 def kde_log_prob(
     x: torch.Tensor,  # [M, Dx]
     parents: Optional[torch.Tensor],  # [M, Dp] or None (root)
@@ -60,32 +60,21 @@ def kde_log_prob(
     p_scale: float,
 ) -> torch.Tensor:
     """Conditional KDE log density -> [M]."""
-    m = x.shape[0]
     if parents is None or data_p.shape[-1] == 0:
         log_n_eff = torch.log(torch.clamp(torch.exp(log_mask).sum(), min=1.0))
-        if x.is_cuda and x.shape[-1] <= _DIRECT_D:
+        if x.shape[-1] <= _DIRECT_D:
             return kde_root(x.contiguous(), data_x, log_mask, y_scale) - log_n_eff
 
         def tile_root(xt):
             log_ky = _pairwise_kernel_logits(xt, data_x, y_scale)
             return torch.logsumexp(log_ky + log_mask[None, :], dim=1)
 
-        return _chunked(tile_root, m, x) - log_n_eff
+        return _chunked(tile_root, x.shape[0], x) - log_n_eff
 
-    if x.is_cuda:
-        wide = max(x.shape[-1], parents.shape[-1]) > _DIRECT_D
-        fn = kde_cond_wide if wide else kde_cond
-        return fn(x.contiguous(), parents.contiguous(), data_x, data_p,
-                  log_mask, y_scale, p_scale)
-
-    def tile(xt, pt):
-        log_ky = _pairwise_kernel_logits(xt, data_x, y_scale)
-        log_kp = _pairwise_kernel_logits(pt, data_p, p_scale) + log_mask[None, :]
-        num = torch.logsumexp(log_kp + log_ky, dim=1)
-        den = torch.logsumexp(log_kp, dim=1)
-        return num - den
-
-    return _chunked(tile, m, x, parents)
+    wide = max(x.shape[-1], parents.shape[-1]) > _DIRECT_D
+    fn = kde_cond_wide if wide else kde_cond
+    return fn(x.contiguous(), parents.contiguous(), data_x, data_p, log_mask,
+              y_scale, p_scale)
 
 
 def kde_sample_indices(
