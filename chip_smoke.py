@@ -4,7 +4,8 @@
 Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
 
 1. build: compile ``vectorizedbayesiannetwork_torch/csrc/*.cu`` with nvcc
-   (sm_90a) and print the build seconds and ptxas' register report;
+   (sm_90a) and print the build seconds and ptxas' registers and spills of
+   every kernel;
 2. fit: the asia network (8 categorical nodes) and the 3-node
    linear-Gaussian flagship, each on 4096 rows, on the card;
 3. kernels: each sweep kernel against its plain PyTorch version at B=8,
@@ -29,11 +30,13 @@ the arth150-scale linear-Gaussian one (``random_gaussian(107)``, LW
 moments), each fitted on 4096 rows and served 96 heterogeneous single-row
 queries at S=2^20 with ``dynamic_masks=True``:
 
-6. scan_kernel_check: ``vbn_cat_scan`` and ``vbn_lg_scan`` against their
-   plain versions at B=8, S=2^16 in every ``want`` mode, on external
-   uniforms and in-kernel Philox, on the 724-node network, a network with
-   up to 80 classes and the 107-node one; and ``vbn_cat_scan`` against
-   ``vbn_cat_sweep`` bit for bit on asia's static plan;
+6. scan_kernel_check: ``vbn_cat_scan`` against its plain version bit for
+   bit (streams; reductions within 2e-4) at B=8, S=2^16 in every ``want``
+   mode, on external uniforms and its grouped Philox stream, on the
+   724-node network, a network with up to 80 classes and asia's static
+   plan; ``vbn_lg_scan`` within its tolerances on the 107-node one; and
+   ``vbn_cat_scan`` against ``vbn_cat_sweep`` bit for bit on asia's static
+   plan, both fed the same external uniforms;
 7. dynamic_main_path: ``infer_posterior_pmf`` on the 96 link-scale queries
    and ``infer_posterior_moments`` on the 96 LG queries, each with the
    launch counters reset just before and read just after; pmf rows held
@@ -44,8 +47,9 @@ queries at S=2^20 with ``dynamic_masks=True``:
    through the static plan's scan route;
 9. scan timing: each scan kernel's ms at the main-path shape, the plain
    version's over the same batch (SCAN_PLAIN_ROWS rows a call, held
-   against the kernel on every row), the bound, and the end-to-end
-   queries/s of both workloads.
+   against the kernel on every row), the bound, ``vbn_cat_scan``'s block
+   size, carveout and blocks an SM, the end-to-end queries/s of both
+   workloads and a profiled batch of each.
 
 Then the resampling slice (resampled and plain importance sampling):
 
@@ -80,8 +84,11 @@ Then the KDE slice (KDE CPDs, max_points 2048 and Scott bandwidths, the
     and ``vbn_kde_pick`` against their plain versions at M=2^14 rows, N=2048
     and 2000 (its last 300 points masked), Dx in {1, 2}, Dp in {0, 1, 2, 3,
     40}: log-densities within 1e-4, picks exact with an external Gumbel
-    field and in-kernel Philox; the pick statistics over 2^20 draws (a flat
-    mask uniform within 6 sd by chi-square, a 0.75/0.25 two-point mask);
+    field, and on the served inverse-CDF route the plain version's pick on
+    >= 99.99 % of 2^20 rows (any other a neighbour in the walk); the pick
+    statistics over 2^20 draws (a flat mask uniform and a conditional pick
+    the exact categorical within 6 sd by chi-square, a 0.75/0.25 two-point
+    mask);
 16. kde_main_path: the KDE flagship (all three nodes KDE, 4096 rows): W1 LW
     x2 | x0 and W2 LW x0 | x2 (B=8, S=2^20), and MCM x2 | x0, x1, each with
     the counters reset just before and read just after, each held within
@@ -94,12 +101,12 @@ Then the KDE slice (KDE CPDs, max_points 2048 and Scott bandwidths, the
     version on that launch's own inputs;
 19. kde_timing: each KDE kernel's ms at its workload's shape, its plain
     version's over all of that launch's rows (held against the kernel
-    there: picks exact) and one library composition's (``torch.cdist``
-    with ``torch.logsumexp``, or with Gumbel noise and ``argmax``) over
-    all of them, 2^16 rows a call; the operation bound of the function
-    (SFU exps and logs at 16 a clock per SM; for the pick, one draw a row
-    from its categorical, with the Gumbel design's own bound beside it);
-    W1-W3 queries/s and profiled W1, W2 and W3 batches.
+    there; picks on >= 99.99 % of rows) and one library composition's
+    (``torch.cdist`` with ``torch.logsumexp``, or with Gumbel noise and
+    ``argmax``) over all of them, 2^16 rows a call; the bound of the
+    function (SFU exps at 16 a clock per SM; for the pick, one draw a row
+    from its categorical); the root pick's own ms and bound; W1-W3
+    queries/s and profiled W1, W2 and W3 batches.
 
 Prints a JSON line of kernel results (all twelve kernels), the card's name
 and power limit, and last ``{"ok": true, "device": {...}}``. Any failure
@@ -109,6 +116,7 @@ exits nonzero. The script imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -426,11 +434,13 @@ def cuda_ms(fn, reps):
 
 
 def cat_cost(plan_struct, counts, b, s, want, k):
-    """(operations, bytes) of one categorical sweep call, counting each
-    integer, float and transcendental instruction of the algorithm as one
-    operation: per latent node a Philox-4x32-10 call (10 rounds of 2 mul.lo,
-    2 mul.hi, 4 xor, 2 key adds) and the uniform (3), the parent row (2 per
-    parent), the class total (c-1), the threshold (1) and the walk (3(c-1));
+    """(operations, bytes) of one categorical sweep call's function,
+    counting each integer, float and transcendental instruction as one
+    operation: per latent node one 32-bit random word, a quarter of a
+    Philox-4x32-10 call (10 rounds of 2 mul.lo, 2 mul.hi, 4 xor, 2 key adds:
+    100 a call, 25 a word), and the uniform (3), so 28 (the kernel's design
+    spends a whole call a node), the parent row (2 per parent), the class
+    total (c-1), the threshold (1) and the walk (3(c-1));
     per fixed node the row and total; 5 per weighted node (div, 2 max, log,
     add); per particle the reduction (3 + 2K for a histogram, 3 + 5 for
     moments). Bytes: each input read once, each output written once."""
@@ -444,7 +454,7 @@ def cat_cost(plan_struct, counts, b, s, want, k):
         c, npar = cards[i], len(parent_idx[i])
         per += 2 * npar + (c - 1)
         if not (ev[i] or do[i]):
-            per += 100 + 3 + 1 + 3 * (c - 1)
+            per += 28 + 1 + 3 * (c - 1)
         if (ev[i] and red.endswith("logw")) or (i == t and red.endswith("lpt")):
             per += 5
     per += 3 + (2 * k if red.startswith("pmf") else 5)
@@ -455,10 +465,11 @@ def cat_cost(plan_struct, counts, b, s, want, k):
 
 
 def lg_cost(plan_struct, dmax, b, s, want):
-    """(operations, bytes) of one LG sweep call, counted as ``cat_cost``:
-    per latent node Philox (100), two uniforms (6), Box-Muller (6: log, mul,
-    sqrt, mul, cos, mul), the location (2 per parent, then 2); 8 per
-    weighted node; 8 per particle for the moments."""
+    """(operations, bytes) of one LG sweep call's function, counted as
+    ``cat_cost``: per latent node two 32-bit random words (a quarter Philox
+    call and the uniform each: 56), Box-Muller (6: log, mul, sqrt, mul,
+    cos, mul), the location (2 per parent, then 2); 8 per weighted node; 8
+    per particle for the moments."""
     from vectorizedbayesiannetwork_torch.ops import sweep
 
     n, parent_idx, ev, do, t = plan_struct
@@ -467,7 +478,7 @@ def lg_cost(plan_struct, dmax, b, s, want):
     for i in range(n):
         per += 2 * len(parent_idx[i])
         if not (ev[i] or do[i]):
-            per += 100 + 6 + 6 + 2
+            per += 56 + 6 + 2
         if (ev[i] and red.endswith("logw")) or (i == t and red.endswith("lpt")):
             per += 8
     per += 8
@@ -773,13 +784,35 @@ def plain_for(want, ref, k_pmf):
             lpt if want_lpt else None, red)
 
 
-def check_scan_kernels(asia_vbn, link_vbn, link_qs, high_bn, high_vbn,
-                       gauss_vbn, gauss_qs):
-    """Both scan kernels against their plain versions at B_CHECK x S_CHECK
-    in every ``want`` mode, on external uniforms and in-kernel Philox; and
-    vbn_cat_scan against vbn_cat_sweep bit for bit on asia's static plan."""
+def asia_static_scan(asia_vbn, b):
+    """(plan, cpds, params, packed [b, N], tgt [b]) of asia's static plan
+    P(dysp | smoke, asia, do xray) as the scan kernel takes it."""
     import torch
 
+    from vectorizedbayesiannetwork_torch.core.plan import get_plan
+
+    plan = get_plan(asia_vbn, asia_vbn._normalize_query(asia_query(b)))
+    cpds = tuple(asia_vbn.cpd_spec(n) for n in plan.topo_order)
+    params = tuple(asia_vbn.params[n] for n in plan.topo_order)
+    fixed_i = kernel_inputs(asia_vbn, asia_query(b), False)[0]
+    dev = fixed_i.device
+    bits = (torch.tensor(plan.evidence_mask, device=dev).int() << 16) | (
+        torch.tensor(plan.do_mask, device=dev).int() << 17)
+    tgt = torch.full((b,), plan.target_idx, dtype=torch.int32, device=dev)
+    return plan, cpds, params, (fixed_i | bits).contiguous(), tgt
+
+
+def check_scan_kernels(asia_vbn, link_vbn, link_qs, high_bn, high_vbn,
+                       gauss_vbn, gauss_qs):
+    """vbn_cat_scan bitwise against its plain version (streams exact,
+    reductions within their tolerance) at B_CHECK x S_CHECK in every
+    ``want`` mode, on external uniforms and on its grouped Philox stream,
+    on link724, highcard and asia's static plan; vbn_lg_scan within its
+    tolerances; and vbn_cat_scan against vbn_cat_sweep bit for bit on
+    asia's static plan, both fed the same external uniforms."""
+    import torch
+
+    from vectorizedbayesiannetwork_torch.core.rng import philox_uniforms
     from vectorizedbayesiannetwork_torch.ops import sweep, sweep_scan
 
     errs = {"categorical_scan": 0.0, "lg_scan": 0.0}
@@ -787,16 +820,21 @@ def check_scan_kernels(asia_vbn, link_vbn, link_qs, high_bn, high_vbn,
     gen = torch.Generator(device=dev).manual_seed(4321)
     cases = [("link724", link_vbn,
               [as_query(t, ev) for t, ev in link_qs[:B_CHECK]]),
-             ("highcard", high_vbn, hetero_queries(high_bn, B_CHECK, 5))]
+             ("highcard", high_vbn, hetero_queries(high_bn, B_CHECK, 5)),
+             ("asia_static", asia_vbn, None)]
     for tag, vbn, qs in cases:
-        plan, cpds, params, fixed, ev, do, tgt = scan_inputs(vbn, qs)
+        if qs is None:
+            plan, cpds, params, packed, tgt = asia_static_scan(vbn, B_CHECK)
+        else:
+            plan, cpds, params, fixed, ev, do, tgt = scan_inputs(vbn, qs)
         struct = sweep_scan.scan_struct_for(plan, cpds)
-        packed = sweep_scan.pack_rows(fixed, ev, do, struct[2])
+        if qs is not None:
+            packed = sweep_scan.pack_rows(fixed, ev, do, struct[2])
         flat = sweep_scan._flat_counts(cpds, params)
         u = torch.rand((B_CHECK, plan.n_nodes, S_CHECK), generator=gen,
                        device=dev).clamp(1e-6, 1 - 1e-6)
         for u_ext in (u, None):
-            mode = "u_ext" if u_ext is not None else "philox"
+            mode = "u_ext" if u_ext is not None else "philox_grouped"
             ref = sweep_scan.categorical_sweep_scan_plain(
                 21, packed, tgt, flat, struct, S_CHECK, u_ext=u_ext,
                 want=("logw", "tgt", "lpt"))
@@ -808,10 +846,10 @@ def check_scan_kernels(asia_vbn, link_vbn, link_qs, high_bn, high_vbn,
                 errs["categorical_scan"] = max(errs["categorical_scan"], check_outputs(
                     f"vbn_cat_scan {tag} {want} {mode}", k_out,
                     plain_for(want, ref, struct[7]), want, tgt_atol=0,
-                    lp_atol=1e-4))
+                    lp_atol=0))
             log("scan_kernel_check", kernel="vbn_cat_scan", network=tag,
                 n_nodes=plan.n_nodes, cmax=struct[7], uniforms=mode,
-                wants=[list(w) for w in CAT_WANTS], ok=True)
+                wants=[list(w) for w in CAT_WANTS], streams="bitwise", ok=True)
         del u
 
     plan, cpds, params, fixed, ev, do, tgt = scan_inputs(
@@ -838,29 +876,27 @@ def check_scan_kernels(asia_vbn, link_vbn, link_qs, high_bn, high_vbn,
             n_nodes=plan.n_nodes, uniforms=mode,
             wants=[list(w) for w in LG_WANTS], ok=True)
 
-    # the scan kernel on a static plan draws the unrolled kernel's classes
-    from vectorizedbayesiannetwork_torch.core.plan import get_plan
-
-    q = asia_vbn._normalize_query(asia_query(B_CHECK))
-    plan = get_plan(asia_vbn, q)
-    cpds = tuple(asia_vbn.cpd_spec(n) for n in plan.topo_order)
-    params = tuple(asia_vbn.params[n] for n in plan.topo_order)
+    # on the same external uniforms (the scan's grouped Philox stream) the
+    # scan kernel draws the unrolled kernel's classes on a static plan
+    plan, cpds, params, packed, tgt = asia_static_scan(asia_vbn, B_CHECK)
     fixed_i, counts, st, _ = kernel_inputs(asia_vbn, asia_query(B_CHECK), False)
-    bits = (torch.tensor(plan.evidence_mask, device=dev).int() << 16) | (
-        torch.tensor(plan.do_mask, device=dev).int() << 17)
-    tgt = torch.full((B_CHECK,), plan.target_idx, dtype=torch.int32,
-                     device=dev)
     want = ("logw", "tgt", "lpt")
-    a = sweep.categorical_sweep_fused(31, fixed_i, counts, st, S_CHECK, want=want)
-    b = sweep_scan.categorical_sweep_scan(
-        31, (fixed_i | bits).contiguous(), tgt,
-        sweep_scan._flat_counts(cpds, params),
-        sweep_scan.scan_struct_for(plan, cpds), S_CHECK, want=want)
+    u = philox_uniforms(31, B_CHECK, plan.n_nodes, S_CHECK, 1, dev, grouped=True)
+    args = (packed, tgt, sweep_scan._flat_counts(cpds, params),
+            sweep_scan.scan_struct_for(plan, cpds), S_CHECK)
+    a = sweep.categorical_sweep_fused(31, fixed_i, counts, st, S_CHECK,
+                                      u_ext=u, want=want)
+    b = sweep_scan.categorical_sweep_scan(31, *args, u_ext=u, want=want)
+    c = sweep_scan.categorical_sweep_scan(31, *args, want=want)
     torch.cuda.synchronize()
     same = {k: bool(torch.equal(x, y)) for k, x, y in zip(want, a[:3], b[:3])}
-    log("scan_matches_unrolled", network="asia", seed=31, equal=same)
-    if not all(same.values()):
-        raise AssertionError(f"vbn_cat_scan != vbn_cat_sweep bitwise: {same}")
+    same_stream = {k: bool(torch.equal(x, y)) for k, x, y in zip(want, b[:3], c[:3])}
+    log("scan_matches_unrolled", network="asia", seed=31,
+        uniforms="philox_uniforms(grouped=True) as u_ext", equal=same,
+        in_kernel_stream_equal=same_stream)
+    if not all(same.values()) or not all(same_stream.values()):
+        raise AssertionError(f"vbn_cat_scan != vbn_cat_sweep bitwise: {same}, "
+                             f"in-kernel stream: {same_stream}")
     return errs
 
 
@@ -944,10 +980,11 @@ def cat_scan_cost(struct, packed, s, want, k, threads):
     """(operations, bytes) of one categorical scan call, counted as
     ``cat_cost`` counts them but per row from the row's own masks: per
     node the parent row (2 per parent) and the class total (c-1); per
-    latent node Philox (100), the uniform (3), the threshold (1) and the
-    walk (3(c-1)); 5 per weighted node; per particle the reduction (3 + 2
-    for one histogram add, 3 + 5 for moments). Bytes: each input read
-    once (packed rows, targets, table, meta), each partial written once."""
+    latent node a quarter Philox call and the uniform (28: one 32-bit word),
+    the threshold (1) and the walk (3(c-1)); 5 per weighted node; per
+    particle the reduction (3 + 2 for one histogram add, 3 + 5 for
+    moments). Bytes: each input read once (packed rows, targets, count
+    table, plan metadata), each partial written once."""
     from vectorizedbayesiannetwork_torch.ops import sweep_scan
 
     cards = np.asarray(struct[2])
@@ -955,22 +992,24 @@ def cat_scan_cost(struct, packed, s, want, k, threads):
     pk = packed.cpu().numpy()
     fx, ev = ((pk >> 16) & 3) > 0, ((pk >> 16) & 1) > 0
     per_row = (2 * npar + cards - 1).sum() + np.where(
-        fx, 0, 104 + 3 * (cards - 1)).sum(axis=1)
+        fx, 0, 29 + 3 * (cards - 1)).sum(axis=1)
     red = next(w for w in want if "_" in w)
     per_row = per_row + (5 * ev.sum(axis=1) if red.endswith("logw") else 5)
     per_row = per_row + 3 + (2 if red.startswith("pmf") else 5)
     nblk = s // (threads * sweep_scan._ppt(s, threads))
     b = pk.shape[0]
-    meta = len(sweep_scan._cat_meta_host(struct)[0])
-    nbytes = 4 * (pk.size + b + struct[5] + meta + b * nblk * (k + 1))
+    rec, par = sweep_scan._cat_meta_host(struct)[:2]
+    nbytes = 4 * (pk.size + b + struct[5] + rec.size + par.size
+                  + b * nblk * (k + 1))
     return int(per_row.sum()) * s, nbytes
 
 
 def lg_scan_cost(n_par, struct, flags, s, want, threads):
     """(operations, bytes) of one LG scan call, counted as ``lg_cost``
-    per row: 2 per parent for the location; per latent node Philox (100),
-    two uniforms (6), Box-Muller (6) and the draw (2); 8 per weighted
-    node; 8 per particle for the moments."""
+    per row: 2 per parent for the location; per latent node two 32-bit
+    random words (56: a quarter Philox call and the uniform each),
+    Box-Muller (6) and the draw (2); 8 per weighted node; 8 per particle
+    for the moments."""
     from vectorizedbayesiannetwork_torch.ops import sweep_scan
 
     pids, pmax, dmax = struct
@@ -978,7 +1017,7 @@ def lg_scan_cost(n_par, struct, flags, s, want, threads):
     fl = flags.cpu().numpy()
     b = fl.shape[0]
     red = next(w for w in want if "_" in w)
-    per_row = 2 * n_par + np.where(fl > 0, 0, 114).sum(axis=1)
+    per_row = 2 * n_par + np.where(fl > 0, 0, 64).sum(axis=1)
     per_row = per_row + (8 * (fl & 1).sum(axis=1) if red.endswith("logw") else 8)
     per_row = per_row + 8
     nblk = s // (threads * sweep_scan._ppt(s, threads))
@@ -1028,13 +1067,20 @@ def time_scan_kernels(link_vbn, link_qs, gauss_vbn, gauss_qs, launches, errs):
         packed.shape[0])
     err = compare_red(f"vbn_cat_scan at S={S_MAIN}", got, ref, "pmf",
                       rtol=2e-4, shift_atol=1e-4)
-    _m, n_par, n_slots = sweep_scan._cat_meta_host(struct)
-    threads, tbl_smem = sweep_scan._cat_layout(
-        plan.n_nodes, n_par, n_slots, struct[7], struct[5],
-        limit=sweep_scan._smem_limit(0))
+    rec, par, n_slots, tab_len = sweep_scan._cat_meta_host(struct)[:4]
+    resident = 4 * (tab_len + rec.size + par.size)
+    bits = sweep_scan._scratch_bits(struct[7])
+    layout = {b: sweep_scan.cat_scan_layout(plan.n_nodes, n_slots, struct[7], b,
+                                            resident, 1, 0) for b in (bits, 8)}
+    threads, carve_kb, blocks = layout[bits]
     log("kernel_main_shape", kernel="vbn_cat_scan", batch=N_DYN, ms=ms,
         plain_ms=plain_ms, served_row_max_abs_err=err, threads=threads,
-        table_in_shared_memory=tbl_smem)
+        scratch_bits=bits, carveout_kb=carve_kb, blocks_per_sm=blocks,
+        resident_table_and_meta_bytes=resident,
+        shared_bytes_per_block=sweep_scan._cat_scan_smem(
+            plan.n_nodes, n_slots, threads, struct[7], bits),
+        byte_scratch_layout={"threads": layout[8][0], "carveout_kb": layout[8][1],
+                             "blocks_per_sm": layout[8][2]})
     cat = kernel_row(
         "vbn_cat_scan", "vectorizedbayesiannetwork_tpu/ops/sweep_scan_pallas.py:210",
         launches["categorical_scan"], max(errs["categorical_scan"], err), ms,
@@ -1607,12 +1653,54 @@ def kde_support(g, n, dx, dp, valid, dev):
     return data_x, data_p, lm
 
 
+def pick_agreement(got, want, data_x, data_p, lm, p_scale, parents=None):
+    """How two inverse-CDF picks of the same rows agree: (share of rows
+    with the same point, rows that differ, the largest share of a row's
+    weight that lies strictly between two differing picks in the walk,
+    in float64). ``data_x``'s first feature names its support point."""
+    import torch
+
+    from vectorizedbayesiannetwork_torch.ops import kde_fused as kf
+
+    order = torch.argsort(data_x[:, 0])
+    key = data_x[order, 0].contiguous()
+
+    def index(out):
+        i = order[torch.searchsorted(key, out[:, 0].contiguous())]
+        bad = torch.nonzero((data_x[i] != out).any(dim=1))[:, 0]
+        if len(bad):  # support rows that share their first feature
+            eq = (data_x[None, :, :] == out[bad][:, None, :]).all(dim=-1)
+            if not bool(eq.any(dim=1).all()):
+                raise AssertionError("a pick is not a row of the support")
+            i[bad] = eq.int().argmax(dim=1)
+        return i
+
+    gi, wi = index(got), index(want)
+    diff = torch.nonzero(gi != wi)[:, 0]
+    worst = 0.0
+    if len(diff):
+        s = lm.double()[None, :].expand(len(diff), -1)
+        if parents is not None and parents.shape[1]:
+            inv2p, _ = kf.kernel_consts(parents.shape[1], p_scale)
+            sq = ((parents[diff].double()[:, None, :]
+                   - data_p.double()[None, :, :]) ** 2).sum(-1)
+            s = s - sq * float(inv2p)
+        cum = torch.cumsum(torch.exp(s - s.max(dim=1, keepdim=True).values), 1)
+        a = torch.minimum(gi, wi)[diff][:, None]
+        b = torch.maximum(gi, wi)[diff][:, None]
+        between = cum.gather(1, b - 1) - cum.gather(1, a)
+        worst = float((between[:, 0] / cum[:, -1]).max())
+    return float((gi == wi).double().mean()), len(diff), worst
+
+
 def check_kde_kernels(dev):
     """The four KDE kernels against their plain versions at M_KDE_CHECK
     rows, N = 2048 and 2000 (its last 300 points masked), Dx in {1, 2}, Dp
     in {0, 1, 2, 3, 40}: log-densities within 1e-4, picks exact with an
-    external Gumbel field and in-kernel Philox; then the pick statistics.
-    Returns the max abs error per kernel."""
+    external Gumbel field, and on the served inverse-CDF route the same
+    pick on >= 99.99 % of M_KDE_STATS rows (any other a neighbour in the
+    walk: the points between carry <= 1e-5 of the row's weight); then the
+    pick statistics. Returns the max abs error per kernel."""
     import torch
 
     from vectorizedbayesiannetwork_torch.ops import kde_fused as kf
@@ -1621,6 +1709,7 @@ def check_kde_kernels(dev):
     m = M_KDE_CHECK
     errs = dict.fromkeys(KDE_NAMES, 0.0)
     key = kf.pick_key(g, dev)
+    worst_agree = 1.0
     for n, valid in ((2048, 2048), (2000, 1700)):
         for dx in (1, 2):
             for dp in (0, 1, 2, 3, 40):
@@ -1642,19 +1731,34 @@ def check_kde_kernels(dev):
                     par = p if dp else None
                     gum = -torch.log(torch.empty((m, n), device=dev)
                                      .exponential_(generator=g))
-                    for gm in (gum, None):
-                        exact(f"vbn_kde_pick {tag} "
-                              f"{'external' if gm is not None else 'philox'}",
-                              kf.kde_pick(key, par, data_p, data_x, lm, ps, m,
-                                          gumbel=gm),
-                              kf.kde_pick_plain(key, par, data_p, data_x, lm,
-                                                ps, m, gumbel=gm))
+                    exact(f"vbn_kde_pick {tag} external Gumbel",
+                          kf.kde_pick(key, par, data_p, data_x, lm, ps, m,
+                                      gumbel=gum),
+                          kf.kde_pick_plain(key, par, data_p, data_x, lm, ps,
+                                            m, gumbel=gum))
+                    del gum
+                    # the served route, on M_KDE_STATS rows from one key
+                    pb = 1.5 * torch.randn((M_KDE_STATS, max(dp, 1)),
+                                           generator=g, device=dev)
+                    par = pb if dp else None
+                    agree = pick_agreement(
+                        kf.kde_pick(key, par, data_p, data_x, lm, ps, M_KDE_STATS),
+                        kf.kde_pick_plain(key, par, data_p, data_x, lm, ps,
+                                          M_KDE_STATS),
+                        data_x, data_p, lm, ps, par)
+                    worst_agree = min(worst_agree, agree[0])
+                    if agree[0] < 0.9999 or agree[2] > 1e-5:
+                        raise AssertionError(f"vbn_kde_pick {tag}: agreement {agree}")
                 log("kde_kernel_check", kernel=f"vbn_{name}", N=n, valid=valid,
                     Dx=dx, Dp=dp, M=m, max_abs_err=errs[name],
-                    pick="exact, both Gumbel modes" if dp <= kf._DIRECT_D else None,
+                    pick=None if dp > kf._DIRECT_D else {
+                        "external_gumbel": "exact", "rows": M_KDE_STATS,
+                        "same_pick_share": agree[0], "rows_differing": agree[1],
+                        "weight_between_differing_picks": agree[2]},
                     ok=True)
     # pick statistics over M_KDE_STATS in-kernel draws: a flat mask gives a
-    # uniform pick (chi-square), a 0.75/0.25 two-point mask its weights
+    # uniform pick (chi-square), a 0.75/0.25 two-point mask its weights, and
+    # a conditional pick for one parent row the exact categorical
     n = 2048
     vals = torch.arange(n, dtype=torch.float32, device=dev)[:, None]
     none_p = torch.zeros((n, 0), device=dev)
@@ -1670,12 +1774,35 @@ def check_kde_kernels(dev):
     frac = float((picks == 5).double().mean())
     frac_z = (frac - 0.75) / np.sqrt(0.75 * 0.25 / M_KDE_STATS)
     stray = int(((picks != 5) & (picks != 1500)).sum())
+    _x, data_p, lm = kde_support(g, n, 1, 2, 1700, dev)
+    p_row = torch.tensor([[0.3, -0.5]], device=dev)
+    probs = torch.softmax(lm.double() - ((p_row.double() - data_p.double()) ** 2)
+                          .sum(1) / (2 * 0.5 ** 2), 0)
+    picks = kf.kde_pick(kf.pick_key(g, dev), p_row.expand(M_KDE_STATS, 2)
+                        .contiguous(), data_p, vals, lm, 0.5, M_KDE_STATS)
+    cond_z = chi2_z_merged(torch.bincount(picks[:, 0].long(), minlength=n)
+                           .double().cpu().numpy(), probs.cpu().numpy())
     log("kde_pick_statistics", M=M_KDE_STATS, uniform_chi2_z=chi2_z,
-        two_point_frac=frac, two_point_z=frac_z, stray_picks=stray)
-    if abs(chi2_z) > 6 or abs(frac_z) > 6 or stray:
+        two_point_frac=frac, two_point_z=frac_z, stray_picks=stray,
+        conditional_chi2_z=cond_z, worst_same_pick_share=worst_agree)
+    if abs(chi2_z) > 6 or abs(frac_z) > 6 or stray or abs(cond_z) > 6:
         raise AssertionError(f"pick statistics off: chi2 z {chi2_z}, "
-                             f"two-point z {frac_z}, stray {stray}")
+                             f"two-point z {frac_z}, stray {stray}, "
+                             f"conditional chi2 z {cond_z}")
     return errs
+
+
+def chi2_z_merged(counts, probs):
+    """(chi-square - dof) / sd of ``counts`` against ``probs``, the cells
+    of expected count under 5 merged into one."""
+    e = probs * counts.sum()
+    small = e < 5
+    obs = np.append(counts[~small], counts[small].sum())
+    exp = np.append(e[~small], e[small].sum())
+    keep = exp > 0
+    chi2 = float(((obs[keep] - exp[keep]) ** 2 / exp[keep]).sum())
+    dof = int(keep.sum()) - 1
+    return (chi2 - dof) / np.sqrt(2 * dof)
 
 
 def kde_node(vbn, node):
@@ -1932,20 +2059,16 @@ def kde_cost(kind, m, n, dx, dp):
     pair 6 more (scale, mask, exp argument, the running sum and its compare
     with the row's threshold) and 1 exp (a root's weights do not depend on
     the row: once per support point), per row one uniform (a quarter of a
-    Philox-4x32-10 call, 25, and 3) and the copy of its Dx values.
-    ``pick_gumbel`` counts the Gumbel-argmax design instead: per pair 5 more
-    (scale, mask, Gumbel add, compare, select), a quarter Philox call and
-    the uniform (28), and 2 logs. Bytes: each input read once (queries,
-    support, mask, key), each output written once."""
+    Philox-4x32-10 call, 25, and 3) and the copy of its Dx values. Bytes:
+    each input read once (queries, support, mask, key), each output written
+    once."""
     pairs = m * n
     if kind == "root":
         return (2 * dx + 4) * pairs, 4 * (m * dx + m + n * (dx + 1)), pairs, m
-    nbytes_pick = 4 * (m * dp + n * (dp + dx + 1) + m * dx) + 16
     if kind == "pick":
         w = pairs if dp else n
-        return (2 * dp + 6) * w + (28 + dx) * m, nbytes_pick, w, m
-    if kind == "pick_gumbel":
-        return (2 * dp + 33) * pairs, nbytes_pick, 2 * pairs, m
+        return ((2 * dp + 6) * w + (28 + dx) * m,
+                4 * (m * dp + n * (dp + dx + 1) + m * dx) + 16, w, m)
     return ((2 * (dx + dp) + 8) * pairs,
             4 * (m * (dx + dp + 1) + n * (dx + dp + 1)), 2 * pairs, m)
 
@@ -2000,17 +2123,18 @@ def time_kde_kernels(flag, wide_args, launches, errs):
     def lm_of(node):
         return flag.nodes[node]._log_mask(flag.params[node])
 
-    def row(name, line, kernel, plain, library, cost, err, exact_check=False):
+    def row(name, line, kernel, plain, library, cost, err, held=None):
         """Time ``kernel()`` over its launch's M rows, then ``plain(r0, r1)``
-        over all of them in one call (held against the kernel there), then
-        ``library(r0, r1)`` over all of them, KDE_ROWS rows a call."""
+        over all of them in one call (held against the kernel there: within
+        1e-4, or by ``held(got, want)``), then ``library(r0, r1)`` over all
+        of them, KDE_ROWS rows a call."""
         total = cost[3]
         ms = cuda_ms(kernel, KDE_REPS)
         got = kernel()
         plain_ms, want = once_ms(lambda: plain(0, total),
                                  lambda: plain(0, min(r, total)))
-        if exact_check:
-            exact(f"vbn_{name} at the main shape", got, want)
+        if held is not None:
+            held(got, want)
         else:
             err = max(err, compare(f"vbn_{name} at the main shape", got, want,
                                    atol=1e-4))
@@ -2062,32 +2186,53 @@ def time_kde_kernels(flag, wide_args, launches, errs):
         kde_cost("cond", x.shape[0], dxw.shape[0], x.shape[1], p.shape[1]),
         errs["kde_cond_wide"])
 
-    # pick: W1's draw of x2 given (x0, x1), in-kernel Philox; the plain
-    # version rebuilds the same Philox field (rows from 0, so one call)
+    # pick: W1's draw of x2 given (x0, x1) on the served route; the plain
+    # version draws from the same per-row uniforms (rows from 0, one call)
     key = kf.pick_key(g, dev)
     inv2p, _ = kf.kernel_consts(2, hp2)
+    agreement = {}
 
     def lib_pick(a, b):
         u = torch.rand((b - a, dx2.shape[0]), generator=g, device=dev)
         s = -torch.cdist(par[a:b], dp2) ** 2 * float(inv2p) + lm2
         return dx2[torch.argmax(s - torch.log(-torch.log(u)), dim=1)]
 
+    def held_pick(data_p, lm, ps, parents):
+        def held(got, want):
+            agree = pick_agreement(got, want, dx2 if parents is not None else
+                                   p1["data_x"], data_p, lm, ps, parents)
+            agreement["root" if parents is None else "Dp=2"] = agree
+            if agree[0] < 0.9999 or agree[2] > 1e-5:
+                raise AssertionError(f"vbn_kde_pick at the main shape: {agree}")
+        return held
+
+    p1 = flag.params["x1"]
     out = row("kde_pick", "390",
               lambda: kf.kde_pick(key, par, dp2, dx2, lm2, hp2, m),
               lambda a, b: kf.kde_pick_plain(key, par[a:b], dp2, dx2, lm2, hp2,
                                              b - a),
               lib_pick, kde_cost("pick", m, dx2.shape[0], 1, 2),
-              errs["kde_pick"], exact_check=True)
-    out["gumbel_design_bound_ms"] = bound(
-        kde_cost("pick_gumbel", m, dx2.shape[0], 1, 2)[:3])[0]
-    p1 = flag.params["x1"]
-    root_ms = cuda_ms(lambda: kf.kde_pick(key, None, p1["data_p"], p1["data_x"],
-                                          lm_of("x1"), 1.0, m), KDE_REPS)
-    n1 = p1["data_x"].shape[0]
+              errs["kde_pick"], held=held_pick(dp2, lm2, hp2, par))
+    # the root pick (x1, W1's other draw): the CDF form
+    n1, lm1 = p1["data_x"].shape[0], lm_of("x1")
+    root = lambda: kf.kde_pick(key, None, p1["data_p"], p1["data_x"], lm1,  # noqa: E731
+                               1.0, m)
+    root_ms = cuda_ms(root, KDE_REPS)
+    got = root()
+    root_plain_ms, want = once_ms(
+        lambda: kf.kde_pick_plain(key, None, p1["data_p"], p1["data_x"], lm1,
+                                  1.0, m),
+        lambda: kf.kde_pick_plain(key, None, p1["data_p"], p1["data_x"], lm1,
+                                  1.0, r))
+    held_pick(p1["data_p"], lm1, 1.0, None)(got, want)
+    del got, want
+    root_bound = bound(kde_cost("pick", m, n1, 1, 0)[:3])
+    out["root_pick"] = {"ms": root_ms, "plain_ms": root_plain_ms,
+                        "bound_ms": root_bound[0], "bound_by": root_bound[1]}
+    out["same_pick_share"] = {k: v[0] for k, v in agreement.items()}
     log("kernel_main_shape", kernel="vbn_kde_pick", case="root (Dp=0)", M=m,
-        ms=root_ms, bound_ms=bound(kde_cost("pick", m, n1, 1, 0)[:3])[0],
-        gumbel_design_bound_ms=bound(
-            kde_cost("pick_gumbel", m, n1, 1, 0)[:3])[0])
+        ms=root_ms, plain_ms=root_plain_ms, bound_ms=root_bound[0],
+        bound_by=root_bound[1], agreement=agreement)
     return rows
 
 
@@ -2131,11 +2276,35 @@ def serve_kde(vbn_cls, defaults):
     for tag, q in (("W1 kde_flagship_lw", w1), ("W2 kde_flagship_diag", w2)):
         log("serve_profile", workload=tag, **profile_batch(
             lambda: flag.infer_posterior_moments([q]),
-            ("kde_pick_kernel", "kde_direct_kernel")))
+            ("kde_pick_", "kde_direct_kernel")))
     log("serve_profile", workload="W3 kde_gauss8_dyn", **profile_batch(
         lambda: gauss.infer_posterior_moments(qd, pad_bucket=N_KDE_DYN),
-        ("kde_pick_kernel", "kde_direct_kernel")))
+        ("kde_pick_", "kde_direct_kernel")))
     return rows
+
+
+def ptxas_report(text):
+    """Registers and spills of each entry function in nvcc's ``-Xptxas -v``
+    output: [{kernel, registers, spill_stores, spill_loads}], the kernel
+    named with its template arguments (``cat_scan_kernel<1,2>``)."""
+    out, name, spill = [], None, (0, 0)
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            k = re.search(r"\d([a-z_]+_kernel)((?:I(?:Li\d+E|Lb[01]E)+E)?)", m.group(1))
+            args = re.findall(r"L[ib](\d+)E", k.group(2)) if k else []
+            name = (k.group(1) if k else m.group(1)) + (
+                f"<{','.join(args)}>" if args else "")
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and name:
+            spill = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out.append({"kernel": name, "registers": int(m.group(1)),
+                        "spill_stores": spill[0], "spill_loads": spill[1]})
+            name, spill = None, (0, 0)
+    return out
 
 
 def main() -> int:
@@ -2149,8 +2318,8 @@ def main() -> int:
 
     secs = _build.build_all()
     log("build", seconds=secs)
-    for name in _build.SOURCES:
-        print(_build.build_log(name).strip(), flush=True)
+    log("kernel_registers", kernels=[
+        r for name in _build.SOURCES for r in ptxas_report(_build.build_log(name))])
 
     t0 = time.perf_counter()
     bn, asia_vbn = fit_asia(VBN, defaults)

@@ -11,9 +11,11 @@
   on the CPU, the chunked form for a root past 32 features) against the
   JAX one (its XLA form on the CPU) at M = 4096 + 123: 1e-4; the chunked
   pick past 32 parent features takes the nearest parent.
-- The pick's own Philox mode: deterministic for a key, uniform under a
-  flat mask (chi-square within 6 sd of its mean), and the same past one
-  row tile as over the whole field.
+- The pick's served route (inverse CDF on one Philox uniform a row):
+  deterministic for a key, uniform under a flat mask and the exact
+  categorical under parent weights (chi-square within 6 sd of its mean),
+  a two-point mask's weights, and the same past one row tile as over the
+  whole batch.
 - ``KDECPD.fit`` against the JAX fit (arrays and Scott bandwidths equal),
   the subsample past ``max_points``, and a JAX checkpoint loaded by the port
   (arrays, bandwidths, ``_log_prob_flat`` within 1e-4).
@@ -37,6 +39,7 @@ from benchmarking.gaussian_bn import (
     generate_gaussian_inference_queries,
     random_gaussian,
 )
+from chip_smoke import chi2_z_merged
 from vectorizedbayesiannetwork_torch import VBN as TVBN
 from vectorizedbayesiannetwork_torch import defaults as tdefaults
 from vectorizedbayesiannetwork_torch.config_cast import (
@@ -227,15 +230,16 @@ def test_plain_pick_philox_is_deterministic_and_uniform():
     counts = np.bincount(a[:, 0].long().numpy(), minlength=n)
     chi2 = float(((counts - m / n) ** 2 / (m / n)).sum())
     assert abs(chi2 - (n - 1)) < 6 * np.sqrt(2 * (n - 1)), chi2
-    # a row's field is the rebuilt Philox stream, row by row
-    g = kf.pick_gumbel(key, 5, n, row0=3)
-    assert torch.equal(g, kf.pick_gumbel(key, 8, n)[3:8])
+    # a row's uniform is the rebuilt Philox stream, row by row
+    u = kf.pick_uniforms(key, 5, row0=3)
+    assert torch.equal(u, kf.pick_uniforms(key, 8)[3:8])
+    assert bool(((u > 0) & (u < 1)).all())
 
 
 @pytest.mark.parametrize("dp", [0, 2])
 def test_plain_pick_tiles_rows_as_one_field(dp):
-    """Past one row tile the plain pick reads the rows' own Philox stream:
-    it equals the argmax over the whole rebuilt field."""
+    """Past one row tile the plain pick reads the rows' own Philox
+    uniforms: it equals the inverse-CDF pick over the whole batch."""
     g = np.random.default_rng(12)
     n, m = 96, 4096 + 123
     data_x, data_p = _t(_normal(g, n, 2)), _t(_normal(g, n, dp))
@@ -243,12 +247,65 @@ def test_plain_pick_tiles_rows_as_one_field(dp):
     lm = _t(_tail_mask(n, 80, hard=False))
     key = torch.tensor([77, 88])
     got = kf.kde_pick(key, parents, data_p, data_x, lm, 0.4, m)
-    scores = lm[None, :] + kf.pick_gumbel(key, m, n)
+    scores = lm[None, :]
     if dp:
         inv2p, _ = kf.kernel_consts(dp, 0.4)
-        scores = (-kf.sq_dist(parents, data_p) * inv2p + lm[None, :]
-                  + kf.pick_gumbel(key, m, n))
-    assert torch.equal(got, data_x[torch.argmax(scores, dim=1)])
+        scores = -kf.sq_dist(parents, data_p) * inv2p + lm[None, :]
+    idx = kf.inverse_cdf_pick(scores, kf.pick_uniforms(key, m))
+    assert torch.equal(got, data_x[idx])
+    assert int(idx.max()) < 80  # the soft-masked tail is never drawn here
+
+
+@pytest.mark.parametrize("root", [True, False], ids=["root", "parents"])
+def test_plain_pick_draws_the_exact_categorical(root):
+    """2^16 inverse-CDF draws for one parent row against the categorical
+    mask_n exp(-|p - P_n|^2 / 2h^2), computed in float64: chi-square
+    within 6 sd of its mean."""
+    g = np.random.default_rng(21)
+    n, m, dp, h = 200, 1 << 16, 2, 0.6
+    data_p = _normal(g, n, dp)
+    lm = np.zeros(n, np.float32)
+    lm[:50] = np.log(0.2)  # a graded mask
+    lm[180:] = np.log(np.float32(1e-20))  # a soft-masked tail
+    p_row = np.array([[0.3, -0.5]], np.float32)
+    logits = lm.astype(np.float64)
+    if not root:
+        logits = logits - ((p_row.astype(np.float64) - data_p) ** 2).sum(1) / (2 * h * h)
+    probs = np.exp(logits - logits.max())
+    probs /= probs.sum()
+    data_x = torch.arange(n, dtype=torch.float32)[:, None]
+    parents = None if root else _t(np.repeat(p_row, m, axis=0))
+    got = kf.kde_pick(torch.tensor([3, 4]), parents, _t(data_p), data_x,
+                      _t(lm), h, m)
+    counts = np.bincount(got[:, 0].long().numpy(), minlength=n).astype(np.float64)
+    z = chi2_z_merged(counts, probs)
+    assert abs(z) < 6, z
+
+
+def test_plain_pick_follows_a_conditional_two_point_mask():
+    """Two live points at equal parent distance with mask weights 0.75 and
+    0.25: the draws follow the mask, and no masked point is drawn."""
+    n, m = 40, 20000
+    lm = torch.full((n,), float(np.log(np.float32(1e-20))))
+    lm[7], lm[31] = float(np.log(0.75)), float(np.log(0.25))
+    data_p = torch.zeros((n, 1))
+    data_p[7, 0], data_p[31, 0] = 0.5, -0.5
+    data_x = torch.arange(n, dtype=torch.float32)[:, None]
+    got = kf.kde_pick(torch.tensor([9, 10]), torch.zeros((m, 1)), data_p,
+                      data_x, lm, 0.5, m)[:, 0]
+    assert set(got.long().tolist()) <= {7, 31}
+    frac = float((got == 7).double().mean())
+    assert abs(frac - 0.75) < 6 * np.sqrt(0.75 * 0.25 / m), frac
+
+
+def test_inverse_cdf_pick_edges():
+    """The walk's edges: the first point whose running sum exceeds t; zero
+    weights never drawn; rows whose weights are all 0 take point 0."""
+    scores = torch.tensor([[0.0, 0.0, -1e30, 0.0]])
+    u = torch.tensor([1e-7, 0.5, 1.0 - 2.0**-24])
+    assert kf.inverse_cdf_pick(scores, u).tolist() == [0, 1, 3]
+    rows = torch.tensor([[0.0, -1e30, 0.0], [-np.inf, -np.inf, -np.inf]])
+    assert kf.inverse_cdf_pick(rows, torch.tensor([0.6, 0.3])).tolist() == [2, 0]
 
 
 def test_chunked_pick_past_32_parent_features_takes_the_nearest_parent():
@@ -282,15 +339,16 @@ def test_pick_gumbel_stays_finite_where_the_jax_uniform_reaches_one():
     """The JAX pick kernel's uniform ((bits >> 8) + 0.5) 2^-24
     (``kde_pallas.py:404-406``) rounds to 1.0 in float32 for the top 24-bit
     value, so its Gumbel noise is +inf there and the pick ignores the mask;
-    the port clamps u below 1."""
+    the port's pick uniform is clamped below 1, so its walk never passes
+    the last running sum."""
     words = np.array([0xFFFFFFFF, 0xFFFFFE00, 0], np.uint32)
     b24 = jnp.asarray((words >> 8).astype(np.int32))
     u = (b24.astype(jnp.float32) + 0.5) * (1.0 / (1 << 24))
     assert float(u[0]) == 1.0
     assert np.isposinf(np.asarray(-jnp.log(-jnp.log(u)))[0])
-    g = kf.gumbel_from_bits(torch.as_tensor(words.astype(np.int64)))
-    assert bool(torch.isfinite(g).all())
-    assert float(g[0]) == float(-np.log(-np.log(np.float32(kf.U_MAX))))
+    got = kf.clamped_uniform(torch.as_tensor(words.astype(np.int64)))
+    assert bool(((got > 0) & (got < 1)).all())
+    assert float(got[0]) == float(np.float32(kf.U_MAX))
 
 
 # ---------------------------------------------------------------------------

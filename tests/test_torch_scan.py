@@ -28,7 +28,11 @@ from vectorizedbayesiannetwork_torch import VBN as TVBN
 from vectorizedbayesiannetwork_torch import defaults as tdefaults
 from vectorizedbayesiannetwork_torch.core.base import Query as TQuery
 from vectorizedbayesiannetwork_torch.core.plan import get_plan as t_get_plan
-from vectorizedbayesiannetwork_torch.core.rng import philox_uniforms
+from vectorizedbayesiannetwork_torch.core.rng import (
+    philox4x32_10,
+    philox_uniforms,
+    uniform_from_bits,
+)
 from vectorizedbayesiannetwork_torch.ops import sweep as tsweep
 from vectorizedbayesiannetwork_torch.ops import sweep_scan as tscan
 from vectorizedbayesiannetwork_tpu import VBN as JVBN
@@ -290,7 +294,9 @@ def test_lg_scan_plain_matches_pallas(gauss9, want):
 
 def test_scan_plain_matches_unrolled_plain_bitwise():
     """A static plan through the scan plain version draws the unrolled
-    plain version's classes, under external uniforms and under Philox."""
+    plain version's classes, under external uniforms and under Philox: the
+    scan's in-kernel stream is the grouped one, so the unrolled version
+    takes it as external uniforms there."""
     bn = asia()
     tv = TVBN({n: bn.parents[n] for n in bn.nodes}, seed=0, device="cpu")
     conf = {}
@@ -317,10 +323,11 @@ def test_scan_plain_matches_unrolled_plain_bitwise():
     u = torch.as_tensor(np.random.default_rng(4).uniform(
         1e-6, 1 - 1e-6, size=(B, tp.n_nodes, S)).astype(np.float32))
     want = ("logw", "tgt", "lpt")
+    grouped = philox_uniforms(7, B, tp.n_nodes, S, 1, "cpu", grouped=True)
     for u_ext in (u, None):
         a = tsweep.categorical_sweep_plain(
             7, fixed, tsweep._stacked_counts(tc, tpar, rows, cmax), st, S,
-            u_ext=u_ext, want=want)
+            u_ext=grouped if u_ext is None else u_ext, want=want)
         b = tscan.categorical_sweep_scan_plain(
             7, fixed | bits, tgt, tscan._flat_counts(tc, tpar),
             tscan.scan_struct_for(tp, tc), S, u_ext=u_ext, want=want)
@@ -368,12 +375,24 @@ def test_gate_reasons_match_jax(random24, gauss9, tmp_path):
 
 
 def test_shared_memory_sizing():
-    """The block size falls back from 128 threads as the value scratch
-    grows, the table moves to global memory past the per-block cap, and a
-    plan that fits no block is refused."""
-    assert tscan._cat_layout(724, 881, 309, 4, 13583) == (128, False)
-    assert tscan._cat_layout(8, 8, 6, 2, 36) == (128, True)
-    assert tscan._cat_layout(1500, 3000, 1501, 128, 0)[0] == 64
+    """The value scratch takes 2 bits a value up to 4 classes; the block
+    size falls back from 128 threads as the scratch grows; the carveout
+    keeps L1 room for the cumulative table while it holds the most blocks
+    an SM; a plan that fits no block is refused."""
+    assert tscan._scratch_bits(4) == 2 and tscan._scratch_bits(5) == 8
+    # link724: 309 slots, K = 4, a 90 KB table and metadata
+    assert tscan._cat_scan_smem(724, 309, 128, 4, 2) == 15632
+    assert tscan._cat_scan_smem(724, 309, 128, 4, 8) == 45200
+    assert tscan._cat_layout(724, 309, 4, 2, 90_000) == (128, 164, 10)
+    assert tscan._cat_layout(724, 309, 4, 8, 90_000) == (128, 164, 3)
+    # a tiny table: the same blocks at a smaller carveout
+    assert tscan._cat_layout(8, 6, 2, 2, 200) == (128, 64, 16)
+    # no carveout leaves L1 room for the table: the most blocks
+    assert tscan._cat_layout(724, 309, 4, 2, 250_000)[1:] == (228, 14)
+    assert tscan._cat_layout(1500, 1501, 128, 8, 0)[0] == 64
+    assert tscan._cat_layout(1500, 1501, 128, 8, 0,
+                             limit=100 * 1024)[0] == 32
+    assert tscan._cat_layout(1500, 1501, 128, 8, 0, limit=50 * 1024) is None
     assert tscan._lg_threads(107, 3, 64, True) == 128
     assert tscan._lg_threads(1500, 3, 900, True) == 32
     assert tscan._lg_threads(1500, 3, 1501, True) is None
@@ -383,3 +402,141 @@ def test_philox_node_offset():
     full = philox_uniforms(3, 2, 5, 1024, 2, "cpu")
     assert torch.equal(philox_uniforms(3, 2, 1, 1024, 2, "cpu", node0=3),
                        full[:, 6:8])
+    grouped = philox_uniforms(3, 2, 9, 1024, 1, "cpu", grouped=True)
+    assert torch.equal(philox_uniforms(3, 2, 3, 1024, 1, "cpu", node0=5,
+                                       grouped=True), grouped[:, 5:8])
+
+
+def test_grouped_philox_uniforms_layout():
+    """grouped=True: node i reads word i & 3 of the call with counter
+    (particle, row, i >> 2, 1); the per-node stream is (particle, row,
+    node, 0), word 0."""
+    seed, b, n, s = 77, 2, 7, 512
+    got = philox_uniforms(seed, b, n, s, 1, "cpu", row0=4, grouped=True)
+    plain = philox_uniforms(seed, b, n, s, 1, "cpu", row0=4)
+    part = torch.arange(s)
+    for r in range(b):
+        for i in range(n):
+            words = philox4x32_10(part, torch.full((s,), 4 + r),
+                                  torch.full((s,), i >> 2),
+                                  torch.ones((s,), dtype=torch.int64), seed)
+            assert torch.equal(got[r, i], uniform_from_bits(words[i & 3]))
+            zero = torch.zeros((s,), dtype=torch.int64)
+            words = philox4x32_10(part, torch.full((s,), 4 + r),
+                                  torch.full((s,), i), zero, seed)
+            assert torch.equal(plain[r, i], uniform_from_bits(words[0]))
+    assert not torch.equal(got, plain)
+
+
+def test_cat_scan_plain_draws_the_grouped_stream_across_clamped_nodes(random24):
+    """Without u_ext the plain scan draws philox_uniforms(grouped=True), also
+    where a group of four nodes is partly clamped (the kernel then draws
+    the group's call and uses the latent nodes' words) or wholly clamped
+    (the kernel skips the call)."""
+    _j, (tp, tc, tpar) = random24
+    struct = tscan.scan_struct_for(tp, tc)
+    n = tp.n_nodes
+    packed = np.zeros((B, n), np.int32)
+    packed[0, 0:4] = 1 << 16  # a whole group of evidence
+    packed[1, 5] = 1 << 17  # one do node in group 1
+    packed[2, 8:12] = (1 << 17) | 1  # a whole group set by do
+    packed[3, [1, 6, 13]] = 1 << 16
+    tgt = np.asarray([4, 9, 2, 23], np.int32)
+    want = ("logw", "tgt", "lpt")
+    args = (torch.as_tensor(packed), torch.as_tensor(tgt),
+            tscan._flat_counts(tc, tpar), struct, S)
+    a = tscan.categorical_sweep_scan_plain(13, *args, want=want, row0=2)
+    u = philox_uniforms(13, B, n, S, 1, "cpu", row0=2, grouped=True)
+    b = tscan.categorical_sweep_scan_plain(13, *args, u_ext=u, want=want)
+    for x, y in zip(a[:3], b[:3]):
+        assert torch.equal(x, y)
+
+
+def _seq_cum(row):
+    """Running sums of a count row, one float32 add per class."""
+    out, acc = [], np.float32(0.0)
+    for j, v in enumerate(row):
+        acc = np.float32(v) if j == 0 else np.float32(acc + np.float32(v))
+        out.append(acc)
+    return out
+
+
+def _port_fit(bn, seed=0):
+    tv = TVBN({n: bn.parents[n] for n in bn.nodes}, seed=seed, device="cpu")
+    conf = {}
+    for node in bn.nodes:
+        c = dict(tdefaults.cpd("categorical_table"), n_classes=bn.card(node))
+        if bn.parents[node]:
+            c["parent_n_classes"] = [bn.card(p) for p in bn.parents[node]]
+        conf[node] = c
+    tv.set_learning_method("node_wise", nodes_cpds=conf)
+    tv.fit(generate_dataset(bn, 4096, seed=seed))
+    tp = t_get_plan(tv, TQuery(target=tuple(tv.dag.topological_order())[0],
+                               evidence={}, do={}))
+    return (tp, tuple(tv.cpd_spec(n) for n in tp.topo_order),
+            tuple(tv.params[n] for n in tp.topo_order))
+
+
+@pytest.fixture(scope="module")
+def link724():
+    from benchmarking.networks import random_bn_treewidth
+
+    return _port_fit(random_bn_treewidth(724, seed=0))
+
+
+@pytest.mark.parametrize("net", ["link724", "highcard"])
+def test_cum_tables_are_the_sequential_sums(net, link724, highcard):
+    """The kernel's padded tables: each row's running sums bitwise equal to
+    a numpy float32 sequential sum, pads repeating the total, counts
+    copied with zero pads, rows at multiples of four floats."""
+    tp, tc, tpar = link724 if net == "link724" else highcard[1][1]
+    struct = tscan.scan_struct_for(tp, tc)
+    flat = tscan._flat_counts(tc, tpar)
+    cum, cnt = (t.numpy() for t in tscan.cum_tables(flat, struct))
+    rec = tscan._cat_meta_host(struct)[0]
+    eoff, rows, cards = struct[:3]
+    fl = flat.numpy()
+    for i in range(tp.n_nodes):
+        c, cp = cards[i], (cards[i] + 3) & ~3
+        assert rec[i, 0] % 4 == 0 and rec[i, 1] == c
+        for r in range(rows[i]):
+            row = fl[eoff[i] + r * c: eoff[i] + (r + 1) * c]
+            at = rec[i, 0] + r * cp
+            want = _seq_cum(row)
+            assert cum[at: at + c].tolist() == want
+            assert (cum[at + c: at + cp] == want[-1]).all()
+            np.testing.assert_array_equal(cnt[at: at + c], row)
+            assert (cnt[at + c: at + cp] == 0).all()
+    assert len(cum) == rec[-2, 0] + rows[-1] * ((cards[-1] + 3) & ~3)
+
+
+@pytest.mark.parametrize("net", ["link724", "highcard"])
+def test_cum_table_walk_gives_the_plain_classes(net, link724, highcard):
+    """The kernel's walk on the padded running sums (thresh = u * total,
+    v = sum_{j < c-1} [cum_j <= thresh]) gives the plain version's classes
+    bit for bit on external uniforms, every row of every node."""
+    tp, tc, tpar = link724 if net == "link724" else highcard[1][1]
+    struct = tscan.scan_struct_for(tp, tc)
+    flat = tscan._flat_counts(tc, tpar)
+    cum = tscan.cum_tables(flat, struct)[0]
+    rec = tscan._cat_meta_host(struct)[0]
+    eoff, rows, cards = struct[:3]
+    u = torch.as_tensor(np.random.default_rng(8).uniform(
+        1e-6, 1 - 1e-6, size=256).astype(np.float32))
+    u[0] = 1.0 - 2.0**-24
+    for i in range(tp.n_nodes):
+        c, cp, nr = cards[i], (cards[i] + 3) & ~3, rows[i]
+        tbl = flat[eoff[i]: eoff[i] + nr * c].view(nr, 1, c).expand(nr, 256, c)
+        total = tbl[..., 0]
+        for j in range(1, c):
+            total = total + tbl[..., j]
+        thresh = u * total
+        acc, walk = tbl[..., 0], torch.zeros_like(total, dtype=torch.int64)
+        for j in range(1, c):
+            walk = walk + (acc <= thresh).long()
+            acc = acc + tbl[..., j]
+        cm = cum[rec[i, 0]: rec[i, 0] + nr * cp].view(nr, 1, cp)
+        assert torch.equal(cm[..., c - 1], total[:, :1])
+        k_thresh = u * cm[..., c - 1]
+        got = (cm[..., : c - 1] <= k_thresh[..., None]).long().sum(-1)
+        assert torch.equal(got, walk), i

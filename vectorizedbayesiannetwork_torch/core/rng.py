@@ -111,7 +111,7 @@ def uniform_from_bits(bits: torch.Tensor) -> torch.Tensor:
 
 def philox_uniforms(
     seed: int, b: int, n_nodes: int, s: int, words: int, device,
-    row0: int = 0, node0: int = 0,
+    row0: int = 0, node0: int = 0, grouped: bool = False,
 ) -> torch.Tensor:
     """The sweep kernels' in-kernel uniforms as a [B, words*N, S] tensor.
 
@@ -123,12 +123,25 @@ def philox_uniforms(
     take, so feeding the result back reproduces the in-kernel random mode
     (``row0`` and ``node0`` let a caller rebuild a large batch's draws a
     slice of rows or nodes at a time).
+
+    ``grouped=True`` (one word per node only) is the categorical scan
+    kernel's stream: four nodes share one call, counter (particle, row,
+    node >> 2, 1), and node i takes word ``i & 3``. The last counter word 1
+    keeps it apart from the per-node stream.
     """
+    if grouped and words != 1:
+        raise ValueError("the grouped stream draws one word per node")
     i64 = dict(dtype=torch.int64, device=device)
+    nodes = torch.arange(node0, node0 + n_nodes, **i64)
     c0 = torch.arange(s, **i64).view(1, 1, s)
     c1 = torch.arange(row0, row0 + b, **i64).view(b, 1, 1)
-    c2 = torch.arange(node0, node0 + n_nodes, **i64).view(1, n_nodes, 1)
+    c2 = (nodes >> 2 if grouped else nodes).view(1, n_nodes, 1)
     c0, c1, c2 = torch.broadcast_tensors(c0, c1, c2)
-    out = philox4x32_10(c0, c1, c2, torch.zeros_like(c0), int(seed))
+    c3 = torch.full_like(c0, int(grouped))
+    out = philox4x32_10(c0, c1, c2, c3, int(seed))
+    if grouped:
+        pick = (nodes & 3).view(1, n_nodes, 1).expand(b, n_nodes, s)
+        return uniform_from_bits(torch.stack(out, dim=0).gather(
+            0, pick[None])[0])
     u = torch.stack([uniform_from_bits(w) for w in out[:words]], dim=2)
     return u.reshape(b, n_nodes * words, s)

@@ -22,23 +22,21 @@
 // floats, once each) and a support of kilobytes; the work is M x N pairs.
 // Per pair the root takes one exp and the conditional two (one per
 // logsumexp), on the SFU at 16 a clock per SM, beside 2 float32 operations
-// per feature and about 6 more; the pick takes two logs a pair for its
-// Gumbel noise (-log(-log u)), a Philox-4x32-10 call per four pairs and the
-// distance terms. The TPU kernels held the [TM, N] logit tiles in VMEM; here
-// no pair's value is ever stored.
+// per feature and about 6 more. The TPU kernels held the [TM, N] logit
+// tiles in VMEM; here no pair's value is ever stored.
 //
-// Design (all four): one thread per query row, 256 threads a block. The
-// block stages the support through shared memory in tiles of 256 points,
-// one contiguous row per feature (the global loads run along the [N, D]
-// rows, so they coalesce), so any N works and an unaligned or masked tail
-// needs no padding. Each thread holds its query row in registers (the
-// kernels are instantiated for the next power of two of the widest feature
-// count, up to 32) and walks the tile; all threads read the same shared
-// word at once (a broadcast). Each logsumexp is online: a running (max,
-// sum), rescaled when a larger term arrives, so either branch costs one
-// exp (__expf: the SFU's ex2 after one multiply). The result takes the JAX
-// kernels' guard max(mx, -1e30): a row whose terms all lie below -1e30
-// gives -inf, as there.
+// Design (root, conditional, and the pick's conditional form): one thread
+// per query row, 256 threads a block. The block stages the support through
+// shared memory in tiles of 256 points, one contiguous row per feature (the
+// global loads run along the [N, D] rows, so they coalesce), so any N works
+// and an unaligned or masked tail needs no padding. Each thread holds its
+// query row in registers (the kernels are instantiated for the next power
+// of two of the widest feature count, up to 32) and walks the tile; all
+// threads read the same shared word at once (a broadcast). Each logsumexp
+// is online: a running (max, sum), rescaled when a larger term arrives, so
+// either branch costs one exp (__expf: the SFU's ex2 after one multiply).
+// The result takes the JAX kernels' guard max(mx, -1e30): a row whose terms
+// all lie below -1e30 gives -inf, as there.
 //
 // vbn_kde_cond_wide (max(Dx, Dp) > 32): the features do not fit registers.
 // Per sub-tile of 32 support points the block stages the features in
@@ -49,17 +47,49 @@
 // and direct differences are exact to float32 rounding. Tensor cores (TF32
 // or 3xTF32 on the expanded form) are later work.
 //
-// vbn_kde_pick: the distance terms in the plain version's float32 order
-// with _rn intrinsics (nvcc fuses nothing), accurate logf for the Gumbel
-// noise, and a strict running argmax in index order, so the kernel picks
-// the plain version's support point. The Gumbel field is read from
-// `gumbel` [M, N] when given, else drawn: Philox-4x32-10 with key = the two
-// 32-bit words of the device tensor `key` (no host sync per node), counter
-// (row, n / 4, 0, 0), word n % 4, u = min(((bits >> 8) + 0.5) 2^-24,
-// 1 - 2^-24), g = -log(-log u); ops/kde_fused.py rebuilds it in torch. The
-// clamp departs from the TPU kernel, where the top 24-bit value rounds u to
-// exactly 1.0 and g to +inf, which picks that support point whatever its
-// mask (once in 2^24 pairs).
+// vbn_kde_pick draws, per query row, one support point from the categorical
+// with weights mask_n exp(-|p - P_n|^2 / 2h^2), then copies data_x[n*].
+// The TPU kernel draws it as a Gumbel-argmax over all N points (two logs
+// and a random word a pair). Here the served route (the model's: a device
+// key, no Gumbel field) draws it by inverse CDF on one uniform a row: with
+// s_n = -|p - P_n|^2 inv2p + log_mask_n (the plain version's float32
+// order, _rn intrinsics), m = max s_n and w_n = exp(s_n - m), it takes the
+// first n, in index order, whose running sum of w exceeds t = u * sum w.
+// If rounding keeps every running sum at or below t, it takes the last
+// point that moved the sum (never a point of negligible weight). The
+// uniform: Philox-4x32-10 with key = the two 32-bit words of the device
+// tensor `key` (no host sync per node), counter (row, 0, 0, 2), word 0,
+// u = min(((bits >> 8) + 0.5) 2^-24, 1 - 2^-24); ops/kde_fused.py's
+// pick_uniforms rebuilds it in torch.
+// - Root (Dp = 0): the weights do not depend on the row, so each block
+//   builds the CDF of the N masked weights once (expf, in double: a
+//   sequential sum per thread's chunk, a block scan of the chunk sums) in
+//   shared memory, then serves a grid-stride run of rows: one uniform and a
+//   binary search of about log2 N steps a row. It is bound by the bytes it
+//   writes. Past ROOT_CDF_MAX points the CDF leaves shared memory, and such
+//   a root takes the conditional form with Dp = 0.
+// - Conditional (Dp >= 1): one pass over the staged support tiles sums the
+//   weights, one __expf a pair, against a reference score that moves up
+//   (rescaling what was summed) only when a score passes it by RESCALE; the
+//   sums are float32 within chunks of 64 points (at most PICK_CHUNKS chunks,
+//   longer ones past 2048 points), each chunk's sum kept in the thread's
+//   column of shared memory. The chunk sums are added in float-float
+//   (TwoSum, about 2^-48 of the total) to the total and to the running sum
+//   that finds the chunk holding t; the thread then walks only that chunk,
+//   re-reading its points from global memory (the support is kilobytes, in
+//   L1). The pair work is thus one distance, one exp and one add, once.
+// Why float-float across chunks: a float32 running sum over 2048 terms
+// depends on the order of its additions, and against the plain version's
+// float64 cumsum it picked another point on about 3 rows in 10^4 (a
+// float32 form of this kernel, measured on an H100). Float32 only within a
+// chunk of 64 leaves about 2 in 10^5 (a numpy model of both sums), beside
+// the terms' own rounding (__expf against torch.exp): on such a row t lies
+// within rounding of a running sum and the two pick neighbours.
+//
+// The external-Gumbel route (`gumbel` [M, N], the JAX kernels' test hook,
+// _kde_pick_kernel_extg) keeps the Gumbel-argmax: the distance terms in the
+// plain version's float32 order with _rn intrinsics and a strict running
+// argmax in index order, so it picks the plain version's support point.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -76,7 +106,10 @@ constexpr int WN = 32;           // wide: support points per sub-tile
 constexpr int WC = 32;           // wide: features per staged chunk
 constexpr float GUARD = -1e30f;  // kde_pallas.py:66
 constexpr float U_MAX = 0.99999994039535522f;  // 1 - 2^-24
-static_assert(TILE % 4 == 0, "a Philox call covers four support points");
+constexpr int ROOT_CDF_MAX = 16384;  // root pick: CDF points in shared memory
+constexpr float RESCALE = 32.f;  // conditional pick: e^32 bounds a term
+constexpr int PICK_CHUNKS = 32;  // conditional pick: chunk sums a row
+constexpr int ROOT_BLOCKS_PER_SM = 8;
 
 // Online logsumexp: running max m and sum s of exp(v - m).
 struct Lse {
@@ -236,14 +269,217 @@ kde_wide_kernel(const float* __restrict__ x, const float* __restrict__ p,
   if (live) out[row] = num.value() - den.value();
 }
 
-template <int MD, bool EXTG>
+// The pick's uniform of query row `row` (see the note at the top).
+__device__ __forceinline__ float pick_uniform(long long row, uint64_t seed) {
+  uint32_t c[4] = {(uint32_t)row, 0u, 0u, 2u};
+  vbn::philox4x32_10(c, seed);
+  return fminf(vbn::uniform_from_bits(c[0]), U_MAX);
+}
+
+__device__ __forceinline__ uint64_t key_seed(const int64_t* __restrict__ key) {
+  return (uint64_t)(uint32_t)key[0] | ((uint64_t)(uint32_t)key[1] << 32);
+}
+
+__device__ __forceinline__ void copy_row(const float* __restrict__ data_x,
+                                         int n_star, long long row, int dx,
+                                         float* __restrict__ out) {
+  for (int f = 0; f < dx; ++f)
+    out[row * dx + f] = data_x[(size_t)n_star * dx + f];
+}
+
+// Root pick (Dp = 0, N <= ROOT_CDF_MAX): the CDF of the masked weights in
+// shared memory, in double, and a binary search per row.
 __global__ void __launch_bounds__(THREADS)
-kde_pick_kernel(const float* __restrict__ p, const float* __restrict__ data_p,
-                const float* __restrict__ data_x,
-                const float* __restrict__ log_mask,
-                const int64_t* __restrict__ key,
-                const float* __restrict__ gumbel, int m, int n, int dp, int dx,
-                float inv2p, float* __restrict__ out) {
+kde_pick_root_kernel(const float* __restrict__ data_x,
+                     const float* __restrict__ log_mask,
+                     const int64_t* __restrict__ key, long long m, int n,
+                     int dx, float* __restrict__ out) {
+  extern __shared__ double s_cdf[];  // [n]
+  __shared__ double s_part[THREADS];
+  const int tid = threadIdx.x;
+  // m0 = max_n log_mask_n (guarded, so an all -inf mask gives weights 0)
+  float mx = -INFINITY;
+  for (int j = tid; j < n; j += THREADS) mx = fmaxf(mx, log_mask[j]);
+  s_part[tid] = mx;
+  __syncthreads();
+  if (tid == 0) {
+    double v = -INFINITY;
+    for (int t = 0; t < THREADS; ++t) v = fmax(v, s_part[t]);
+    s_part[0] = fmax(v, -3.402823466e38);
+  }
+  __syncthreads();
+  const float m0 = (float)s_part[0];
+  __syncthreads();
+  // each thread sums its contiguous chunk, a scan of the chunk sums, then
+  // each thread adds its chunk's offset
+  const int chunk = (n + THREADS - 1) / THREADS;
+  const int j0 = min(tid * chunk, n), j1 = min(j0 + chunk, n);
+  double run = 0.0;
+  for (int j = j0; j < j1; ++j) {
+    run += (double)expf(__fsub_rn(log_mask[j], m0));
+    s_cdf[j] = run;
+  }
+  s_part[tid] = run;
+  __syncthreads();
+  if (tid == 0) {
+    double acc = 0.0;
+    for (int t = 0; t < THREADS; ++t) {
+      const double v = s_part[t];
+      s_part[t] = acc;
+      acc += v;
+    }
+  }
+  __syncthreads();
+  const double off = s_part[tid];
+  for (int j = j0; j < j1; ++j) s_cdf[j] += off;
+  __syncthreads();
+  const double total = s_cdf[n - 1];
+  const uint64_t seed = key_seed(key);
+  for (long long row = (long long)blockIdx.x * THREADS + tid; row < m;
+       row += (long long)gridDim.x * THREADS) {
+    const double t = (double)pick_uniform(row, seed) * total;
+    int lo = 0, hi = n;  // the first n with cdf[n] > t
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      if (s_cdf[mid] > t) hi = mid; else lo = mid + 1;
+    }
+    copy_row(data_x, lo < n ? lo : 0, row, dx, out);  // n: all weights 0
+  }
+}
+
+// (hi, lo) += w by TwoSum: hi + lo carries the running sum to about 2^-48
+// of it, so the sum of the chunk sums does not depend on rounding order.
+__device__ __forceinline__ void ff_add(float& hi, float& lo, float w) {
+  const float s = __fadd_rn(hi, w);
+  const float bb = __fsub_rn(s, hi);
+  lo = __fadd_rn(lo, __fadd_rn(__fsub_rn(hi, __fsub_rn(s, bb)), __fsub_rn(w, bb)));
+  hi = s;
+}
+
+// (hi, lo) + p > (thi, tlo), the differences taken first (exact where the
+// two sides are close).
+__device__ __forceinline__ bool ff_above(float hi, float lo, float p,
+                                         float thi, float tlo) {
+  return __fadd_rn(__fadd_rn(__fsub_rn(hi, thi), __fsub_rn(lo, tlo)), p) > 0.f;
+}
+
+// s_n = -|r - P|^2 inv2p + lm of one support point whose feature d lies at
+// pt[d * dstride] (a staged tile: stride TILE; a row of data_p: stride 1).
+template <int MD>
+__device__ __forceinline__ float pick_score(const float r[MD], const float* pt,
+                                            int dstride, float lm, int dp,
+                                            float inv2p) {
+  if (dp == 0) return lm;
+  float sq = 0.f;
+#pragma unroll
+  for (int d = 0; d < MD; ++d) {
+    if (d < dp) {
+      const float e = __fsub_rn(r[d], pt[d * dstride]);
+      sq = __fadd_rn(sq, __fmul_rn(e, e));
+    }
+  }
+  return __fadd_rn(__fmul_rn(-sq, inv2p), lm);
+}
+
+// Conditional pick (and a root past ROOT_CDF_MAX points). Pass 1 walks the
+// staged support tiles once: each weight against a reference score `ref`,
+// which moves up (rescaling what was summed) only when a score passes it by
+// RESCALE, summed in float32 within chunks of `ch` points, each chunk's sum
+// kept in the thread's column of s_chunk. Then t = u * (the chunks' sums,
+// added in float-float); the first chunk whose running sum passes t holds
+// the pick, and the thread walks only that chunk's points, re-reading them
+// from global memory (L1: the support is kilobytes).
+template <int MD>
+__global__ void __launch_bounds__(THREADS)
+kde_pick_cond_kernel(const float* __restrict__ p,
+                     const float* __restrict__ data_p,
+                     const float* __restrict__ data_x,
+                     const float* __restrict__ log_mask,
+                     const int64_t* __restrict__ key, int m, int n, int dp,
+                     int dx, float inv2p, int ch, float* __restrict__ out) {
+  extern __shared__ float smem[];
+  float* s_p = smem;                 // [dp][TILE]
+  float* s_lm = s_p + dp * TILE;     // [TILE]
+  float* s_chunk = s_lm + TILE;      // [n_chunks][THREADS]
+  const int tid = threadIdx.x;
+  const long long row = (long long)blockIdx.x * THREADS + tid;
+  const bool live = row < m;
+  float r[MD];
+#pragma unroll
+  for (int d = 0; d < MD; ++d) r[d] = (live && d < dp) ? p[row * dp + d] : 0.f;
+  const int sub = ch < TILE ? ch : TILE;  // ch divides TILE or is a multiple
+  float ref = -3.402823466e38f, lim = -3.402823466e38f, acc = 0.f;
+  int c = 0;  // chunks stored
+  for (int t0 = 0; t0 < n; t0 += TILE) {
+    const int tn = min(TILE, n - t0);
+    __syncthreads();  // the previous tile is read by every thread
+    if (dp > 0) stage(s_p, data_p + (size_t)t0 * dp, tn, dp);
+    for (int j = tid; j < tn; j += THREADS) s_lm[j] = log_mask[t0 + j];
+    __syncthreads();
+    for (int j0 = 0; j0 < tn; j0 += sub) {
+      const int j1 = min(j0 + sub, tn);
+      for (int j = j0; j < j1; ++j) {
+        const float v = pick_score<MD>(r, s_p + j, TILE, s_lm[j], dp, inv2p);
+        if (v > lim) {  // the first finite score, or one far above ref
+          const float f = __expf(__fsub_rn(ref, v));
+          for (int k = 0; k < c; ++k) s_chunk[k * THREADS + tid] *= f;
+          acc *= f;
+          ref = v;
+          lim = __fadd_rn(v, RESCALE);
+        }
+        acc = __fadd_rn(acc, __expf(__fsub_rn(v, ref)));
+      }
+      if ((t0 + j1) % ch == 0 || t0 + j1 == n) {
+        s_chunk[c * THREADS + tid] = acc;
+        acc = 0.f;
+        ++c;
+      }
+    }
+  }
+  if (!live) return;  // no barrier follows
+  float shi = 0.f, slo = 0.f;
+  for (int k = 0; k < c; ++k) ff_add(shi, slo, s_chunk[k * THREADS + tid]);
+  const float u = pick_uniform(row, key_seed(key));
+  const float thi = __fmul_rn(u, shi);
+  const float tlo = fmaf(u, slo, fmaf(u, shi, -thi));
+  // the first chunk whose running sum passes t; where rounding keeps every
+  // one at or below t, the last chunk with weight (whose first point with
+  // weight then passes the full sum's comparison)
+  float bhi = 0.f, blo = 0.f;
+  int k = 0, kw = 0;
+  for (; k < c; ++k) {
+    const float q = s_chunk[k * THREADS + tid];
+    if (ff_above(bhi, blo, q, thi, tlo)) break;
+    if (q > 0.f) kw = k;
+    ff_add(bhi, blo, q);
+  }
+  if (k == c) k = kw;
+  // walk the chunk: the first point whose running sum passes t; where
+  // rounding keeps every sum at or below t, the last point that moved it
+  const int n0 = k * ch, n1 = min(n0 + ch, n);
+  float run = 0.f;
+  int pick = -1, moved = n0;
+  for (int q = n0; q < n1 && pick < 0; ++q) {
+    const float before = run;
+    run = __fadd_rn(run, __expf(__fsub_rn(
+        pick_score<MD>(r, data_p + (size_t)q * dp, 1, log_mask[q], dp, inv2p),
+        ref)));
+    if (run != before) moved = q;
+    if (ff_above(bhi, blo, run, thi, tlo)) pick = q;
+  }
+  copy_row(data_x, pick >= 0 ? pick : moved, row, dx, out);
+}
+
+// External-Gumbel pick (the JAX kernels' test hook): argmax_n of s_n + g_mn,
+// the first index on ties.
+template <int MD>
+__global__ void __launch_bounds__(THREADS)
+kde_pick_gumbel_kernel(const float* __restrict__ p,
+                       const float* __restrict__ data_p,
+                       const float* __restrict__ data_x,
+                       const float* __restrict__ log_mask,
+                       const float* __restrict__ gumbel, int m, int n, int dp,
+                       int dx, float inv2p, float* __restrict__ out) {
   extern __shared__ float smem[];
   float* s_p = smem;              // [dp][TILE]
   float* s_lm = s_p + dp * TILE;  // [TILE]
@@ -252,9 +488,6 @@ kde_pick_kernel(const float* __restrict__ p, const float* __restrict__ data_p,
   float r[MD];
 #pragma unroll
   for (int d = 0; d < MD; ++d) r[d] = (live && d < dp) ? p[row * dp + d] : 0.f;
-  uint64_t seed = 0;
-  if (!EXTG)
-    seed = (uint64_t)(uint32_t)key[0] | ((uint64_t)(uint32_t)key[1] << 32);
   float best = -INFINITY;
   int best_n = 0;
   for (int t0 = 0; t0 < n; t0 += TILE) {
@@ -263,47 +496,17 @@ kde_pick_kernel(const float* __restrict__ p, const float* __restrict__ data_p,
     if (dp > 0) stage(s_p, data_p + (size_t)t0 * dp, tn, dp);
     for (int j = threadIdx.x; j < tn; j += THREADS) s_lm[j] = log_mask[t0 + j];
     __syncthreads();
-    for (int j = 0; j < tn; j += 4) {
-      float g[4];
-      if (EXTG) {
-#pragma unroll
-        for (int w = 0; w < 4; ++w)
-          g[w] = (live && j + w < tn) ? gumbel[row * n + t0 + j + w] : 0.f;
-      } else {
-        uint32_t c[4] = {(uint32_t)row, (uint32_t)((t0 + j) >> 2), 0u, 0u};
-        vbn::philox4x32_10(c, seed);
-#pragma unroll
-        for (int w = 0; w < 4; ++w)
-          g[w] = -logf(-logf(fminf(vbn::uniform_from_bits(c[w]), U_MAX)));
-      }
-#pragma unroll
-      for (int w = 0; w < 4; ++w) {
-        const int jj = j + w;
-        if (jj < tn) {
-          float score = s_lm[jj];
-          if (dp > 0) {
-            float sq = 0.f;
-#pragma unroll
-            for (int d = 0; d < MD; ++d) {
-              if (d < dp) {
-                const float e = __fsub_rn(r[d], s_p[d * TILE + jj]);
-                sq = __fadd_rn(sq, __fmul_rn(e, e));
-              }
-            }
-            score = __fadd_rn(__fmul_rn(-sq, inv2p), score);
-          }
-          const float v = __fadd_rn(score, g[w]);
-          if (v > best) {
-            best = v;
-            best_n = t0 + jj;
-          }
-        }
+    for (int j = 0; j < tn; ++j) {
+      const float g = live ? gumbel[row * n + t0 + j] : 0.f;
+      const float v =
+          __fadd_rn(pick_score<MD>(r, s_p + j, TILE, s_lm[j], dp, inv2p), g);
+      if (v > best) {
+        best = v;
+        best_n = t0 + j;
       }
     }
   }
-  if (live)
-    for (int f = 0; f < dx; ++f)
-      out[row * dx + f] = data_x[(size_t)best_n * dx + f];
+  if (live) copy_row(data_x, best_n, row, dx, out);
 }
 
 // The instantiation for the widest feature count md (1 .. 32): the next
@@ -352,31 +555,63 @@ cudaError_t launch_direct(const float* x, const float* p, const float* data_x,
   }
 }
 
-template <int MD, bool EXTG>
+template <int MD>
 cudaError_t go_pick(const float* p, const float* data_p, const float* data_x,
                     const float* log_mask, const int64_t* key,
                     const float* gumbel, int m, int n, int dp, int dx,
                     float inv2p, float* out, cudaStream_t st) {
   const size_t smem = (size_t)(dp + 1) * TILE * sizeof(float);
-  auto kernel = kde_pick_kernel<MD, EXTG>;
-  cudaError_t e = vbn::allow_smem(kernel, smem);
-  if (e != cudaSuccess) return e;
-  kernel<<<(m + THREADS - 1) / THREADS, THREADS, smem, st>>>(
-      p, data_p, data_x, log_mask, key, gumbel, m, n, dp, dx, inv2p, out);
+  const int grid = (m + THREADS - 1) / THREADS;
+  if (gumbel != nullptr) {
+    auto kernel = kde_pick_gumbel_kernel<MD>;
+    cudaError_t e = vbn::allow_smem(kernel, smem);
+    if (e != cudaSuccess) return e;
+    kernel<<<grid, THREADS, smem, st>>>(p, data_p, data_x, log_mask, gumbel,
+                                        m, n, dp, dx, inv2p, out);
+  } else {
+    // chunks of ch points, at most PICK_CHUNKS a row: 64 (a quarter tile)
+    // up to 2048 points, past that a whole number of tiles
+    const int ch = n <= PICK_CHUNKS * 64
+                       ? 64
+                       : TILE * ((n + PICK_CHUNKS * TILE - 1) / (PICK_CHUNKS * TILE));
+    const int n_chunks = (n + ch - 1) / ch;
+    const size_t smem_c = smem + (size_t)n_chunks * THREADS * sizeof(float);
+    auto kernel = kde_pick_cond_kernel<MD>;
+    cudaError_t e = vbn::allow_smem(kernel, smem_c);
+    if (e != cudaSuccess) return e;
+    kernel<<<grid, THREADS, smem_c, st>>>(p, data_p, data_x, log_mask, key, m,
+                                          n, dp, dx, inv2p, ch, out);
+  }
   return cudaGetLastError();
 }
 
-template <bool EXTG>
 cudaError_t launch_pick(const float* p, const float* data_p,
                         const float* data_x, const float* log_mask,
                         const int64_t* key, const float* gumbel, int m, int n,
                         int dp, int dx, float inv2p, float* out,
                         cudaStream_t st) {
-  switch (pow2_at_least(dp)) {
+  if (gumbel == nullptr && dp == 0 && n <= ROOT_CDF_MAX) {
+    int dev = 0, sms = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return e;
+    const size_t smem = (size_t)n * sizeof(double);
+    e = vbn::allow_smem(kde_pick_root_kernel, smem);
+    if (e != cudaSuccess) return e;
+    const long long blocks = ((long long)m + THREADS - 1) / THREADS;
+    const int grid = (int)(blocks < (long long)sms * ROOT_BLOCKS_PER_SM
+                               ? blocks
+                               : (long long)sms * ROOT_BLOCKS_PER_SM);
+    kde_pick_root_kernel<<<grid, THREADS, smem, st>>>(data_x, log_mask, key,
+                                                      m, n, dx, out);
+    return cudaGetLastError();
+  }
+  switch (pow2_at_least(dp > 0 ? dp : 1)) {
 #define VBN_KDE_CASE(V)                                                      \
   case V:                                                                    \
-    return go_pick<V, EXTG>(p, data_p, data_x, log_mask, key, gumbel, m, n, \
-                            dp, dx, inv2p, out, st);
+    return go_pick<V>(p, data_p, data_x, log_mask, key, gumbel, m, n, dp,  \
+                      dx, inv2p, out, st);
     VBN_KDE_CASE(1)
     VBN_KDE_CASE(2)
     VBN_KDE_CASE(4)
@@ -428,11 +663,8 @@ int vbn_kde_pick(const float* p, const float* data_p, const float* data_x,
                  const float* log_mask, const int64_t* key,
                  const float* gumbel, int m, int n, int dp, int dx,
                  float inv2p, float* out, void* stream) {
-  if (gumbel != nullptr)
-    return (int)launch_pick<true>(p, data_p, data_x, log_mask, key, gumbel, m,
-                                  n, dp, dx, inv2p, out, (cudaStream_t)stream);
-  return (int)launch_pick<false>(p, data_p, data_x, log_mask, key, gumbel, m,
-                                 n, dp, dx, inv2p, out, (cudaStream_t)stream);
+  return (int)launch_pick(p, data_p, data_x, log_mask, key, gumbel, m, n, dp,
+                          dx, inv2p, out, (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -4,7 +4,9 @@ Port of ``vectorizedbayesiannetwork_tpu/models/kde.py``: the CPD stores up
 to ``max_points`` (parents, target) pairs in fixed ``max_points``-row
 arrays with a validity mask; the log-density is a parent-kernel-weighted
 logsumexp over the stored points, and a draw picks a support point by
-parent-softmax weighting (Gumbel-argmax), then adds bandwidth noise.
+parent-softmax weighting, then adds bandwidth noise (the JAX package draws
+the pick as a Gumbel-argmax; ``vbn_kde_pick`` by inverse CDF on one
+uniform a row, the same distribution).
 ``bandwidth="scott"`` resolves Scott-rule bandwidths on the host at fit
 time, in numpy float32 as the JAX package does, so both packages resolve
 the same bandwidths from the same data.

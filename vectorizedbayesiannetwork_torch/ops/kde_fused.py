@@ -13,12 +13,13 @@ entry points (``csrc/kde.cu``) replace its four TPU kernels:
   same beyond 32 features, in direct float32 differences where the TPU
   kernel ran a bf16x3 cross-term GEMM;
 - ``vbn_kde_pick`` replaces ``kde_pallas.py:390 _kde_pick_kernel`` and
-  ``:412 _kde_pick_kernel_extg``: ``n* = argmax_n(-|p_m - dp_n|^2 / 2h_p^2
-  + log_mask_n + g_mn)``, the first index on ties, then ``data_x[n*]``.
+  ``:412 _kde_pick_kernel_extg``: one draw per query row from the
+  categorical with weights ``mask_n exp(-|p_m - dp_n|^2 / 2h_p^2)``, then
+  ``data_x[n*]``.
 
-All four are bound by operations (an exp per pair and logsumexp; for the
-pick two logs a pair and a Philox call per four pairs), not bytes; the
-source note says what the designs do about that.
+The log-densities are bound by operations (an exp per pair and
+logsumexp), not bytes; the source note says what the designs do about
+that.
 
 Beside each wrapper sits a plain PyTorch version with the same signature
 (``kde_root_plain``, ``kde_cond_plain`` for both conditional kernels,
@@ -30,19 +31,30 @@ plain version, which is how the CPU serves every KDE log-density
 launches under ``"kde_root"``, ``"kde_cond"``, ``"kde_cond_wide"`` and
 ``"kde_pick"``.
 
-The pick's Gumbel field is either given (``gumbel`` [M, N], the JAX
-kernels' test hook) or drawn in the kernel from a 64-bit Philox key held
-in a device tensor (``key``, int64 [2]: its low and high 32-bit words), so
-drawing it costs no host sync: counter (row, n // 4, 0, 0), word n % 4,
-``g = gumbel_from_bits(word)``. ``pick_gumbel`` rebuilds that field in
-torch ops, so the plain version reproduces the kernel's picks.
+The pick has two routes. The served one draws by inverse CDF on one
+uniform a row: with ``s_n = -|p - dp_n|^2 inv2p + log_mask_n`` and
+``w_n = exp(s_n - max s)``, the first n whose running sum of w exceeds
+``t = u * sum w``. The uniform comes from a 64-bit Philox key held in a
+device tensor (``key``, int64 [2]: its low and high 32-bit words), so
+drawing it costs no host sync: counter (row, 0, 0, 2), word 0, clamped
+below 1 (``pick_uniforms`` rebuilds it in torch ops). The sums are taken
+to better than float32 on both sides (float64 here, float-float or
+float64 in the kernel), so the order of the additions does not decide a
+pick; the kernel's terms (``__expf`` against a lazily moved reference)
+still round apart from ``torch.exp``'s, so on a rare row, where t lies
+within that rounding of a running sum, the two pick neighbours in the
+walk. The JAX kernel draws the same categorical as a Gumbel-argmax over
+all N points, so the two packages agree in distribution, not pick by
+pick. The other route takes the Gumbel field from outside (``gumbel``
+[M, N], the JAX kernels' test hook) and keeps the Gumbel-argmax, the
+first index on ties: there kernel, plain version and JAX kernel pick the
+same point.
 
-One departure from the JAX kernel: ``((bits >> 8) + 0.5) * 2^-24`` rounds
-to exactly 1.0 in float32 for the top 24-bit value (2^24 - 0.5 is not a
-float32), where ``-log(-log u)`` is +inf and the pick takes that point
-whatever its mask says: once in 2^24 pairs, so a padded support row is
-picked about once a million draws at N = 2048 masked points. The port
-clamps u to 1 - 2^-24, the largest float32 below 1.
+One departure from the JAX kernel: its uniform ``((bits >> 8) + 0.5) *
+2^-24`` rounds to exactly 1.0 in float32 for the top 24-bit value, where
+``-log(-log u)`` is +inf and the pick takes that point whatever its mask
+says: once in 2^24 pairs. The port's uniforms are clamped to 1 - 2^-24,
+the largest float32 below 1 (``clamped_uniform``).
 
 Not ported: the TPU layout work (``_tile_rows``, the 128-lane feature
 padding, the ``[D, N]`` support transposes, the one-hot GEMM that copies
@@ -140,46 +152,63 @@ def pick_key(gen: torch.Generator, device) -> torch.Tensor:
 U_MAX = 1.0 - 2.0**-24  # the largest float32 below 1
 
 
-def gumbel_from_bits(bits: torch.Tensor) -> torch.Tensor:
-    """Gumbel noise from 32-bit Philox words: ``-log(-log u)`` of the
-    uniform ``uniform_from_bits`` clamped below 1, so it is finite."""
-    u = torch.clamp(uniform_from_bits(bits), max=U_MAX)
-    return -torch.log(-torch.log(u))
+def clamped_uniform(bits: torch.Tensor) -> torch.Tensor:
+    """The pick's uniform from 32-bit Philox words: ``uniform_from_bits``
+    clamped to ``U_MAX``, so it never reaches 1."""
+    return torch.clamp(uniform_from_bits(bits), max=U_MAX)
 
 
-def pick_gumbel(key: torch.Tensor, m: int, n: int, row0: int = 0):
-    """The pick kernel's in-kernel Gumbel field [m, n] for query rows
-    ``row0 .. row0 + m - 1``: Philox-4x32-10 with the key's two words,
-    counter (row, j // 4, 0, 0), word j % 4, then ``gumbel_from_bits``."""
+def _key_seed(key: torch.Tensor) -> int:
     k = key.tolist()
-    seed = (int(k[0]) & 0xFFFFFFFF) | ((int(k[1]) & 0xFFFFFFFF) << 32)
+    return (int(k[0]) & 0xFFFFFFFF) | ((int(k[1]) & 0xFFFFFFFF) << 32)
+
+
+def pick_uniforms(key: torch.Tensor, m: int, row0: int = 0) -> torch.Tensor:
+    """The pick kernel's per-row uniforms [m] for query rows ``row0 ..
+    row0 + m - 1``: Philox-4x32-10 with the key's two words, counter (row,
+    0, 0, 2), word 0, clamped to ``U_MAX``."""
     i64 = dict(dtype=torch.int64, device=key.device)
-    n4 = -(-n // 4)
-    c0 = torch.arange(row0, row0 + m, **i64)[:, None].expand(m, n4)
-    c1 = torch.arange(n4, **i64)[None, :].expand(m, n4)
+    c0 = torch.arange(row0, row0 + m, **i64)
     zero = torch.zeros_like(c0)
-    words = philox4x32_10(c0, c1, zero, zero, seed)
-    g = torch.stack([gumbel_from_bits(w) for w in words], dim=2)
-    return g.reshape(m, 4 * n4)[:, :n]
+    word = philox4x32_10(c0, zero, zero, zero + 2, _key_seed(key))[0]
+    return clamped_uniform(word)
+
+
+def inverse_cdf_pick(scores: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """Index [M] of the first n whose running sum of ``exp(s_n - max s)``
+    (float32 terms, summed in float64) exceeds ``u * sum``, per row of
+    ``scores`` [M or 1, N]; 0 where every weight is 0."""
+    mx = torch.clamp(scores.max(dim=1, keepdim=True).values,
+                     min=float(np.finfo(np.float32).min))
+    cum = torch.cumsum(torch.exp(scores - mx).double(), dim=1)
+    n = cum.shape[1]
+    if cum.shape[0] == 1:  # one CDF for every row
+        cum = cum[0]
+        t = u.double() * cum[-1]
+    else:
+        t = (u.double() * cum[:, -1])[:, None].contiguous()
+    idx = torch.searchsorted(cum, t, right=True).reshape(-1)
+    return torch.where(idx >= n, 0, idx)
 
 
 def kde_pick_plain(key, parents, data_p, data_x, log_mask, p_scale: float,
                    m: int, gumbel: Optional[torch.Tensor] = None):
-    """Parent-weighted support pick -> picked ``data_x`` rows [m, Dx]."""
-    n = data_x.shape[0]
+    """Parent-weighted support pick -> picked ``data_x`` rows [m, Dx]: by
+    inverse CDF on ``pick_uniforms(key, ...)``, or the Gumbel-argmax over
+    ``gumbel`` [m, N] when given."""
     root = parents is None or parents.shape[1] == 0
     inv2p, _ = kernel_consts(0 if root else parents.shape[1], p_scale)
+    u = pick_uniforms(key, m) if gumbel is None else None
 
     def tile(r0):
         r1 = min(r0 + _CHUNK, m)
-        g = (pick_gumbel(key, r1 - r0, n, r0) if gumbel is None
-             else gumbel[r0:r1])
         if root:
-            scores = log_mask[None, :] + g
+            scores = log_mask[None, :]
         else:
             scores = -sq_dist(parents[r0:r1], data_p) * inv2p + log_mask[None, :]
-            scores = scores + g
-        return data_x[torch.argmax(scores, dim=1)]
+        if gumbel is not None:
+            return data_x[torch.argmax(scores + gumbel[r0:r1], dim=1)]
+        return data_x[inverse_cdf_pick(scores, u[r0:r1])]
 
     return torch.cat([tile(r0) for r0 in range(0, m, _CHUNK)])
 
@@ -300,8 +329,9 @@ def kde_cond_wide(x, p, data_x, data_p, log_mask, y_scale: float,
 def kde_pick(key, parents, data_p, data_x, log_mask, p_scale: float, m: int,
              gumbel: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Picked ``data_x`` rows [m, Dx] (``parents`` None for a root). CUDA
-    tensors launch ``vbn_kde_pick`` (Gumbel noise from ``key``, or
-    ``gumbel`` when given); CPU tensors run ``kde_pick_plain``."""
+    tensors launch ``vbn_kde_pick`` (inverse CDF on uniforms from ``key``,
+    or the Gumbel-argmax over ``gumbel`` when given); CPU tensors run
+    ``kde_pick_plain``."""
     if not data_x.is_cuda:
         return kde_pick_plain(key, parents, data_p, data_x, log_mask, p_scale,
                               m, gumbel)

@@ -15,9 +15,9 @@ expanded to ``|x|^2 - 2 x.t + |t|^2`` so the cross term is one matrix
 product (float32 on the card: PyTorch's default leaves TF32 off for matrix
 products), and the query rows are streamed in ``_CHUNK``-row tiles, so no
 [M, N] tensor is ever whole. ``kde_sample_indices`` also serves every pick
-on the CPU: its Gumbel noise comes from ``torch.rand``, where the plain
-pick rebuilds the kernel's Philox stream in int64 torch ops, about 15
-times slower on a CPU.
+on the CPU, as a Gumbel-argmax whose noise comes from ``torch.rand``: the
+plain pick rebuilds the kernel's Philox uniforms in int64 torch ops and
+is held against the kernel on the card.
 """
 
 from __future__ import annotations

@@ -20,9 +20,13 @@ a CUDA tensor they launch the kernel or raise. ``LAUNCHES`` (shared with
 ``"lg_scan"``.
 
 Uniforms: ``u_ext`` is ``[B, N, S]`` (categorical) or ``[B, 2N, S]`` (LG),
-the JAX layouts; without it both the kernels and the plain versions draw
-Philox-4x32-10 with counter (particle, row, node, 0), the stream of
-``ops/sweep.py``, so a static plan draws the same classes on both kernels.
+the JAX layouts. Without it the kernels and the plain versions draw
+Philox-4x32-10: the LG scan with counter (particle, row, node, 0), the
+stream of ``ops/sweep.py``; the categorical scan one call per four nodes,
+counter (particle, row, node >> 2, 1), word node & 3
+(``philox_uniforms(grouped=True)``). So a static plan draws the same
+classes on ``vbn_cat_scan`` and ``vbn_cat_sweep`` only on the same external
+uniforms; on their in-kernel streams the draws differ.
 
 Not ported, by design:
 
@@ -66,10 +70,14 @@ _DO_BIT = 1 << 17
 # A block's opt-in shared memory on an H100 (232,448 B); the launchers ask
 # the device for its own limit, the gates use this one.
 _SMEM_OPTIN = 232448
-# The table joins the block's shared memory only while the block stays
-# below this, so that two blocks still fit on an SM (228 KB each).
-_TABLE_SMEM_CAP = 100 * 1024
 _THREADS = (128, 64, 32)  # block sizes tried, largest first
+# An H100 SM's unified L1 / shared memory, the shared-memory sizes it can be
+# configured to (KB), the shared memory the runtime keeps per block, and
+# its thread and block limits.
+_SM_UNIFIED = 256 * 1024
+_CARVEOUTS_KB = (0, 8, 16, 32, 64, 100, 132, 164, 196, 228)
+_BLOCK_RESERVED = 1024
+_SM_THREADS, _SM_BLOCKS = 2048, 32
 
 
 # ---------------------------------------------------------------------------
@@ -81,14 +89,19 @@ def _a16(n: int) -> int:
     return (n + 15) & ~15
 
 
-def _cat_scan_smem(n, n_par, n_slots, threads, k, table_len) -> int:
+def _scratch_bits(cmax: int) -> int:
+    """Bits a value in ``vbn_cat_scan``'s scratch: 2 while every node has
+    at most 4 classes, else 8."""
+    return 2 if cmax <= 4 else 8
+
+
+def _cat_scan_smem(n, n_slots, threads, k, bits) -> int:
     """Shared-memory bytes of ``vbn_cat_scan`` (``cat_scan_smem`` in
-    ``csrc/sweep_scan.cu``): meta, the row's packed words, the uint8 value
-    scratch, the reduction array (k = 0: none), the table (0: global)."""
-    at = _a16(4 * (4 * n + 1 + 2 * n_par)) + _a16(4 * n) + _a16(n_slots * threads)
-    if k:
-        at += _a16(4 * (k + 1) * threads)
-    return at + 4 * table_len
+    ``csrc/sweep_scan.cu``): the row's packed words, the group flags, the
+    value scratch (``bits`` a value), the reduction array (k = 0: none)."""
+    col = (n_slots + 3) // 4 if bits == 2 else n_slots
+    at = _a16(4 * n) + _a16((n + 3) // 4) + _a16(col * threads)
+    return at + (_a16(4 * (k + 1) * threads) if k else 0)
 
 
 def _lg_scan_smem(n, pmax, n_slots, threads, red: bool) -> int:
@@ -98,13 +111,36 @@ def _lg_scan_smem(n, pmax, n_slots, threads, red: bool) -> int:
     return at + (_a16(16 * threads) if red else 0)
 
 
-def _cat_layout(n, n_par, n_slots, k, table_len, limit=_SMEM_OPTIN):
-    """(threads, table in shared memory) for ``vbn_cat_scan``, or None when
-    not even 32 threads fit ``limit``."""
+def _blocks_by_smem(threads, smem, carve_kb):
+    """Blocks an SM holds by shared memory and thread count alone."""
+    per = smem + _BLOCK_RESERVED
+    return min(carve_kb * 1024 // per, _SM_THREADS // threads, _SM_BLOCKS)
+
+
+def _cat_layout(n, n_slots, k, bits, resident, limit=_SMEM_OPTIN,
+                occupancy=None):
+    """(threads, carveout KB, blocks an SM) for ``vbn_cat_scan``, or None
+    when not even 32 threads fit ``limit``. ``resident`` is the bytes the
+    kernel reads over and over (cumulative table and metadata): the
+    carveout is the smallest that gives the most blocks an SM among those
+    that leave L1 that much room (else the most blocks). ``occupancy(threads,
+    smem, carve_kb)`` counts the blocks; by default shared memory and
+    threads alone (the wrapper asks the device, which also counts
+    registers)."""
+    occupancy = occupancy or _blocks_by_smem
     for t in _THREADS:
-        base = _cat_scan_smem(n, n_par, n_slots, t, k, 0)
-        if base <= limit:
-            return t, base + 4 * table_len <= min(limit, _TABLE_SMEM_CAP)
+        smem = _cat_scan_smem(n, n_slots, t, k, bits)
+        if smem > limit:
+            continue
+        best = None
+        for c_kb in _CARVEOUTS_KB:
+            if c_kb * 1024 < smem + _BLOCK_RESERVED:
+                continue
+            key = (_SM_UNIFIED - c_kb * 1024 >= resident,
+                   occupancy(t, smem, c_kb))
+            if best is None or key > best[0]:
+                best = (key, c_kb)
+        return t, best[1], best[0][1]
     return None
 
 
@@ -118,8 +154,8 @@ def _lg_threads(n, pmax, n_slots, red, limit=_SMEM_OPTIN):
 def scan_sweep_reason(plan, cpds, n_samples: int):
     """None when the categorical scan kernel applies, else the first
     failing condition. The JAX gate's conditions, with its SMEM budget
-    replaced by the card's shared memory: the table may stay in global
-    memory, the value scratch and metadata may not."""
+    replaced by the card's shared memory: the tables and metadata stay in
+    global memory, the value scratch must fit a block of 32 threads."""
     from ..models.categorical_table import CategoricalTableCPD
 
     if plan.n_nodes > _MAX_NODES:
@@ -142,12 +178,13 @@ def scan_sweep_reason(plan, cpds, n_samples: int):
         if not 1 <= c <= _MAX_C:
             return f"node {name!r} has {c} classes > {_MAX_C}"
     struct = scan_struct_for(plan, cpds)
-    _meta, n_par, n_slots = _cat_meta_host(struct)
-    if _cat_layout(plan.n_nodes, n_par, n_slots, struct[7], 0) is None:
-        need = _cat_scan_smem(plan.n_nodes, n_par, n_slots, 32, struct[7], 0)
+    n_slots = _compaction(struct[3])[2]
+    bits = _scratch_bits(struct[7])
+    if _cat_layout(plan.n_nodes, n_slots, struct[7], bits, 0) is None:
+        need = _cat_scan_smem(plan.n_nodes, n_slots, 32, struct[7], bits)
         return (
-            f"value scratch and metadata need {need} B of shared memory at "
-            f"32 threads > {_SMEM_OPTIN} B"
+            f"value scratch needs {need} B of shared memory at 32 threads "
+            f"> {_SMEM_OPTIN} B"
         )
     return None
 
@@ -294,19 +331,66 @@ def _csr(struct):
 
 @functools.lru_cache(maxsize=64)
 def _cat_meta_host(struct):
-    """(meta list eoff|card|smap|pstart|pslot|pstride, n_par, n_slots)."""
-    eoff, _rows, cards, pids = struct[:4]
+    """The categorical kernel's plan metadata and padded table layout:
+    (rec [N + 1, 4] {off, card, slot, pstart} with rec[N] = (0, 0, 0, P),
+    par [max(P, 1), 2] {slot, stride}, n_slots, padded length, src, col,
+    cols). Node i's rows start at ``off_i`` in the padded tables, each
+    ``round_up(card, 4)`` floats; ``src`` [padded length] is each padded
+    entry's index in the flat counts (a pad repeats its row's last class),
+    ``col`` its class column and ``cols[j]`` the padded positions of column
+    j >= 1."""
+    eoff, rows, cards, pids = struct[:4]
     smap, _ps, n_slots = _compaction(pids)
     pstart, plist, pstride = _csr(struct)
-    pslot = [int(smap[p]) for p in plist]
-    meta = list(eoff) + list(cards) + smap.tolist() + pstart + pslot + pstride
-    return meta, len(plist), n_slots
+    n = len(cards)
+    rec = np.zeros((n + 1, 4), np.int32)
+    src, col = [], []
+    at = 0
+    for i in range(n):
+        c, cp = cards[i], (cards[i] + 3) & ~3
+        rec[i] = (at, c, smap[i], pstart[i])
+        j = np.arange(cp)
+        src.append((eoff[i] + np.arange(rows[i])[:, None] * c
+                    + np.minimum(j, c - 1)[None, :]).reshape(-1))
+        col.append(np.tile(j, rows[i]))
+        at += rows[i] * cp
+    rec[n, 3] = len(plist)
+    par = np.asarray([[int(smap[p]), st] for p, st in zip(plist, pstride)]
+                     or [[0, 0]], np.int32)
+    src, col = np.concatenate(src), np.concatenate(col)
+    cols = tuple(np.flatnonzero(col == j) for j in range(1, int(col.max()) + 1))
+    return rec, par, n_slots, at, src, col, cols
 
 
 @functools.lru_cache(maxsize=64)
-def _cat_meta(struct, device: torch.device) -> torch.Tensor:
-    return torch.tensor(_cat_meta_host(struct)[0], dtype=torch.int32,
-                        device=device)
+def _cat_meta(struct, device: torch.device):
+    """(rec, par, src, pad mask, cols) of ``_cat_meta_host`` on ``device``."""
+    rec, par, _n_slots, _len, src, col, cols = _cat_meta_host(struct)
+    cards = np.asarray(struct[2])
+    node = np.repeat(np.arange(len(cards)),
+                     [r * ((c + 3) & ~3) for r, c in zip(struct[1], cards)])
+    live = col < cards[node]
+
+    def dev(a, dtype=torch.int64):
+        return torch.as_tensor(a, dtype=dtype, device=device)
+
+    return (dev(rec, torch.int32), dev(par, torch.int32), dev(src),
+            dev(live, torch.bool), tuple(dev(c) for c in cols))
+
+
+def cum_tables(flat_counts: torch.Tensor, struct):
+    """The categorical kernel's tables from the flat counts: (running sums,
+    counts), both [padded length] float32 with every CPT row padded to a
+    multiple of four floats (the layout of ``_cat_meta_host``). The running
+    sums take one float32 add per class in class order, the rounding of a
+    sequential sum; a pad repeats its row's total. The counts are 0 in the
+    pads."""
+    _rec, _par, src, live, cols = _cat_meta(struct, flat_counts.device)
+    cnt = torch.where(live, flat_counts[src], 0.0)
+    cum = cnt.clone()
+    for pos in cols:  # column j: cum_j = cum_{j-1} + cnt_j
+        cum[pos] = cum[pos - 1] + cnt[pos]
+    return cum, cnt
 
 
 @functools.lru_cache(maxsize=64)
@@ -324,12 +408,14 @@ def _lg_meta(pids, device: torch.device) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _node_uniforms(u_ext, seed, i, b, s, words, row0, device):
+def _node_uniforms(u_ext, seed, i, b, s, words, row0, device, grouped=False):
     """[B, words, S] uniforms of node i: the u_ext rows or the Philox
-    stream (counter = particle, row0 + row, node, 0)."""
+    stream (counter = particle, row0 + row, node, 0; grouped: particle,
+    row0 + row, node >> 2, 1, word node & 3)."""
     if u_ext is not None:
         return u_ext[:, words * i : words * (i + 1)]
-    return philox_uniforms(seed, b, 1, s, words, device, row0=row0, node0=i)
+    return philox_uniforms(seed, b, 1, s, words, device, row0=row0, node0=i,
+                           grouped=grouped)
 
 
 def categorical_sweep_scan_plain(
@@ -343,9 +429,10 @@ def categorical_sweep_scan_plain(
     want=("logw",),
     row0: int = 0,
 ):
-    """Same contract as ``categorical_sweep_scan``, in torch ops. ``row0``
-    offsets the Philox row counter, so a slice of a batch's rows draws
-    what those rows draw in the whole batch."""
+    """Same contract as ``categorical_sweep_scan``, in torch ops, drawing
+    the kernel's grouped Philox stream without ``u_ext``. ``row0`` offsets
+    the Philox row counter, so a slice of a batch's rows draws what those
+    rows draw in the whole batch."""
     eoff, rows, cards, pids, _strides, _te, _pmax, cmax = struct
     b, n = packed.shape
     s = n_samples
@@ -383,7 +470,8 @@ def categorical_sweep_scan_plain(
         if bool(fx_i.all()):
             val = clamped
         else:
-            u = _node_uniforms(u_ext, seed, i, b, s, 1, row0, dev)[:, 0]
+            u = _node_uniforms(u_ext, seed, i, b, s, 1, row0, dev,
+                               grouped=True)[:, 0]
             thresh = u * total
             cum = rws[..., 0]
             walk = torch.zeros((b, s), dtype=torch.int64, device=dev)
@@ -505,13 +593,15 @@ def _lib() -> ctypes.CDLL:
     lib = load("sweep_scan")
     lib.vbn_smem_optin.argtypes = [_I]
     lib.vbn_smem_optin.restype = _I
-    lib.vbn_cat_scan_smem_bytes.argtypes = [_I] * 6
+    lib.vbn_cat_scan_smem_bytes.argtypes = [_I] * 5
     lib.vbn_cat_scan_smem_bytes.restype = ctypes.c_size_t
     lib.vbn_lg_scan_smem_bytes.argtypes = [_I] * 5
     lib.vbn_lg_scan_smem_bytes.restype = ctypes.c_size_t
+    lib.vbn_cat_scan_occupancy.argtypes = [_I, _I, _I, ctypes.c_size_t, _I]
+    lib.vbn_cat_scan_occupancy.restype = _I
     lib.vbn_cat_scan.argtypes = (
-        [_P, _I, _I, _I, _P, _I, _I, _P, _P, _P, ctypes.c_uint64]
-        + [_I] * 12 + [_P] * 5
+        [_P, _P, _I, _I, _P, _P, _P, _P, _P, ctypes.c_uint64]
+        + [_I] * 14 + [_P] * 5
     )
     lib.vbn_cat_scan.restype = _I
     lib.vbn_lg_scan.argtypes = (
@@ -530,6 +620,32 @@ def _smem_limit(device_index: int) -> int:
     return v
 
 
+def _carveout_pct(c_kb: int) -> int:
+    """The carveout attribute (percent of the largest shared-memory
+    configuration) that selects the ``c_kb`` configuration."""
+    return -(-c_kb * 100 // _CARVEOUTS_KB[-1])
+
+
+@functools.lru_cache(maxsize=64)
+def cat_scan_layout(n, n_slots, k, bits, resident, red_kind, device_index):
+    """(threads, carveout KB, blocks an SM) of ``vbn_cat_scan`` on the
+    device, its blocks an SM counted by the device (registers included),
+    or None when the value scratch fits no block."""
+    lib = _lib()
+
+    def occupancy(t, smem, c_kb):
+        got = lib.vbn_cat_scan_occupancy(red_kind, bits, t, smem,
+                                         _carveout_pct(c_kb))
+        if got < 0:
+            raise RuntimeError(f"vbn_cat_scan occupancy: CUDA error {-got}")
+        return got
+
+    with torch.cuda.device(device_index):
+        return _cat_layout(n, n_slots, k, bits, resident,
+                           limit=_smem_limit(device_index),
+                           occupancy=occupancy)
+
+
 def _launch_cat_scan(seed, packed, tgt_idx, flat_counts, struct, s, u_ext,
                      want):
     n, b = len(struct[0]), packed.shape[0]
@@ -545,27 +661,32 @@ def _launch_cat_scan(seed, packed, tgt_idx, flat_counts, struct, s, u_ext,
         raise ValueError(f"n_samples {s} not a multiple of 1024")
     want_logw, want_tgt, want_lpt, red_kind, red_src = _parse_want(want)
     k = {"pmf": cmax, "mom": 3}.get(red_kind, 0)
-    _meta, n_par, n_slots = _cat_meta_host(struct)
+    kind = {"pmf": 1, "mom": 2}.get(red_kind, 0)
+    rec_h, par_h, n_slots, tab_len = _cat_meta_host(struct)[:4]
+    bits = _scratch_bits(cmax)
     dev = packed.device
-    layout = _cat_layout(n, n_par, n_slots, k, total_e,
-                         limit=_smem_limit(dev.index or 0))
+    layout = cat_scan_layout(n, n_slots, k, bits,
+                             4 * (tab_len + rec_h.size + par_h.size), kind,
+                             dev.index or 0)
     if layout is None:
         raise ValueError("vbn_cat_scan: the plan does not fit shared memory")
-    threads, tbl_in_smem = layout
+    threads, carve_kb, _blocks = layout
     ppt = _ppt(s, threads)
     nblk = s // (threads * ppt)
     outs = _outputs(b, s, nblk, k, want, dev)
-    meta = _cat_meta(struct, dev)
+    rec, par = _cat_meta(struct, dev)[:2]
+    ctab, cnt = cum_tables(flat_counts, struct)
     with torch.cuda.device(dev):
         rc = _lib().vbn_cat_scan(
-            meta.data_ptr(), n, n_par, n_slots,
-            flat_counts.data_ptr(), total_e, int(tbl_in_smem),
+            rec.data_ptr(), par.data_ptr(), n, n_slots,
+            ctab.data_ptr(), cnt.data_ptr(),
             packed.data_ptr(), tgt_idx.data_ptr(), _ptr(u_ext),
-            seed & ((1 << 64) - 1), b, s, threads, ppt,
+            seed & ((1 << 64) - 1), b, s, threads, ppt, bits,
+            _carveout_pct(carve_kb),
             int(want_logw or red_src == "logw"),
             int(want_lpt or red_src == "lpt"),
             int(want_logw), int(want_tgt), int(want_lpt),
-            {"pmf": 1, "mom": 2}.get(red_kind, 0), int(red_src == "lpt"), k,
+            kind, int(red_src == "lpt"), k,
             *[_ptr(o) for o in outs],
             torch.cuda.current_stream().cuda_stream,
         )
