@@ -4,13 +4,14 @@
 Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
 
 1. build: compile ``vectorizedbayesiannetwork_torch/csrc/*.cu`` with nvcc
-   (sm_90a) and print the build seconds and ptxas' registers and spills of
-   every kernel;
+   (sm_90a) and print the build seconds, ptxas' registers and spills of
+   every kernel, and a count of the SASS instructions (``cuobjdump``) of
+   the sweep kernels;
 2. fit: the asia network (8 categorical nodes) and the 3-node
    linear-Gaussian flagship, each on 4096 rows, on the card;
 3. kernels: each sweep kernel against its plain PyTorch version at B=8,
    S=2^16 in every ``want`` mode, on the same external uniforms and on the
-   in-kernel Philox stream;
+   in-kernel Philox stream (``vbn_cat_sweep``: the grouped one);
 4. main path: ``infer_posterior_pmf`` (asia, likelihood weighting) and
    ``infer_posterior_moments`` (flagship, Monte-Carlo marginalization) at
    B=1024 query rows and S=2^20 particles, with the launch counters reset
@@ -34,9 +35,11 @@ queries at S=2^20 with ``dynamic_masks=True``:
    bit (streams; reductions within 2e-4) at B=8, S=2^16 in every ``want``
    mode, on external uniforms and its grouped Philox stream, on the
    724-node network, a network with up to 80 classes and asia's static
-   plan; ``vbn_lg_scan`` within its tolerances on the 107-node one; and
+   plan; ``vbn_lg_scan`` within its tolerances on the 107-node one, on
+   external uniforms and its grouped stream (two nodes a Philox call); and
    ``vbn_cat_scan`` against ``vbn_cat_sweep`` bit for bit on asia's static
-   plan, both fed the same external uniforms;
+   plan, both fed the same external uniforms and each on its own in-kernel
+   stream;
 7. dynamic_main_path: ``infer_posterior_pmf`` on the 96 link-scale queries
    and ``infer_posterior_moments`` on the 96 LG queries, each with the
    launch counters reset just before and read just after; pmf rows held
@@ -47,7 +50,7 @@ queries at S=2^20 with ``dynamic_masks=True``:
    through the static plan's scan route;
 9. scan timing: each scan kernel's ms at the main-path shape, the plain
    version's over the same batch (SCAN_PLAIN_ROWS rows a call, held
-   against the kernel on every row), the bound, ``vbn_cat_scan``'s block
+   against the kernel on every row), the bound, each scan kernel's block
    size, carveout and blocks an SM, the end-to-end queries/s of both
    workloads and a profiled batch of each.
 
@@ -438,9 +441,9 @@ def cat_cost(plan_struct, counts, b, s, want, k):
     counting each integer, float and transcendental instruction as one
     operation: per latent node one 32-bit random word, a quarter of a
     Philox-4x32-10 call (10 rounds of 2 mul.lo, 2 mul.hi, 4 xor, 2 key adds:
-    100 a call, 25 a word), and the uniform (3), so 28 (the kernel's design
-    spends a whole call a node), the parent row (2 per parent), the class
-    total (c-1), the threshold (1) and the walk (3(c-1));
+    100 a call, 25 a word), and the uniform (3), so 28, the parent row (2
+    per parent), the class total (c-1), the threshold (1) and the walk
+    (3(c-1));
     per fixed node the row and total; 5 per weighted node (div, 2 max, log,
     add); per particle the reduction (3 + 2K for a histogram, 3 + 5 for
     moments). Bytes: each input read once, each output written once."""
@@ -555,7 +558,8 @@ def time_kernels(asia_vbn, lg_vbn, launches, errs):
             5, fixed, counts, st, S_MAIN, want=want),
         lambda r0, r1: sweep.categorical_sweep_plain(
             5, fixed[r0:r1], counts, st, S_MAIN, want=want,
-            u_ext=philox_uniforms(5, r1 - r0, st[0], S_MAIN, 1, fixed.device, row0=r0)),
+            u_ext=philox_uniforms(5, r1 - r0, st[0], S_MAIN, 1, fixed.device,
+                                  row0=r0, grouped=True)),
         "pmf", rtol=2e-4, shift_atol=1e-4)
     log("kernel_main_shape", kernel="vbn_cat_sweep", ms=ms, plain_ms=plain_ms,
         served_row_max_abs_err=err)
@@ -809,7 +813,8 @@ def check_scan_kernels(asia_vbn, link_vbn, link_qs, high_bn, high_vbn,
     ``want`` mode, on external uniforms and on its grouped Philox stream,
     on link724, highcard and asia's static plan; vbn_lg_scan within its
     tolerances; and vbn_cat_scan against vbn_cat_sweep bit for bit on
-    asia's static plan, both fed the same external uniforms."""
+    asia's static plan, both fed the same external uniforms, and each on
+    its own in-kernel stream."""
     import torch
 
     from vectorizedbayesiannetwork_torch.core.rng import philox_uniforms
@@ -860,7 +865,7 @@ def check_scan_kernels(asia_vbn, link_vbn, link_qs, high_bn, high_vbn,
     u = torch.rand((B_CHECK, 2 * plan.n_nodes, S_CHECK), generator=gen,
                    device=dev).clamp(1e-6, 1 - 1e-6)
     for u_ext in (u, None):
-        mode = "u_ext" if u_ext is not None else "philox"
+        mode = "u_ext" if u_ext is not None else "philox_grouped"
         ref = sweep_scan.lg_sweep_scan_plain(
             22, fixed, flags, tgt, ptab, struct, S_CHECK, u_ext=u_ext,
             want=("logw", "tgt", "lpt"))
@@ -876,8 +881,9 @@ def check_scan_kernels(asia_vbn, link_vbn, link_qs, high_bn, high_vbn,
             n_nodes=plan.n_nodes, uniforms=mode,
             wants=[list(w) for w in LG_WANTS], ok=True)
 
-    # on the same external uniforms (the scan's grouped Philox stream) the
-    # scan kernel draws the unrolled kernel's classes on a static plan
+    # on the same external uniforms (the grouped Philox stream) the scan
+    # kernel draws the unrolled kernel's classes on a static plan, and the
+    # two draw the same stream in-kernel
     plan, cpds, params, packed, tgt = asia_static_scan(asia_vbn, B_CHECK)
     fixed_i, counts, st, _ = kernel_inputs(asia_vbn, asia_query(B_CHECK), False)
     want = ("logw", "tgt", "lpt")
@@ -888,15 +894,22 @@ def check_scan_kernels(asia_vbn, link_vbn, link_qs, high_bn, high_vbn,
                                       u_ext=u, want=want)
     b = sweep_scan.categorical_sweep_scan(31, *args, u_ext=u, want=want)
     c = sweep_scan.categorical_sweep_scan(31, *args, want=want)
+    d = sweep.categorical_sweep_fused(31, fixed_i, counts, st, S_CHECK,
+                                      want=want)
     torch.cuda.synchronize()
     same = {k: bool(torch.equal(x, y)) for k, x, y in zip(want, a[:3], b[:3])}
     same_stream = {k: bool(torch.equal(x, y)) for k, x, y in zip(want, b[:3], c[:3])}
+    same_in_kernel = {k: bool(torch.equal(x, y))
+                      for k, x, y in zip(want, c[:3], d[:3])}
     log("scan_matches_unrolled", network="asia", seed=31,
         uniforms="philox_uniforms(grouped=True) as u_ext", equal=same,
-        in_kernel_stream_equal=same_stream)
-    if not all(same.values()) or not all(same_stream.values()):
+        in_kernel_stream_equal=same_stream,
+        in_kernel_streams_of_both_equal=same_in_kernel)
+    if not all(same.values()) or not all(same_stream.values()) \
+            or not all(same_in_kernel.values()):
         raise AssertionError(f"vbn_cat_scan != vbn_cat_sweep bitwise: {same}, "
-                             f"in-kernel stream: {same_stream}")
+                             f"in-kernel stream: {same_stream}, both in-kernel: "
+                             f"{same_in_kernel}")
     return errs
 
 
@@ -1105,11 +1118,16 @@ def time_scan_kernels(link_vbn, link_qs, gauss_vbn, gauss_qs, launches, errs):
         fixed.shape[0])
     err = compare_red(f"vbn_lg_scan at S={S_MAIN}", got, ref, "mom",
                       rtol=2e-3, shift_atol=2e-3)
-    threads = sweep_scan._lg_threads(
-        plan.n_nodes, struct[1], sweep_scan._compaction(struct[0])[2], True,
-        limit=sweep_scan._smem_limit(0))
+    n_slots = sweep_scan.lg_slot_map(struct[0])[2]
+    resident = sweep_scan.lg_resident_bytes(struct)
+    threads, carve_kb, blocks = sweep_scan.lg_scan_layout(
+        plan.n_nodes, n_slots, 2, resident, 0)
     log("kernel_main_shape", kernel="vbn_lg_scan", batch=N_DYN, ms=ms,
-        plain_ms=plain_ms, served_row_max_abs_err=err, threads=threads)
+        plain_ms=plain_ms, served_row_max_abs_err=err, threads=threads,
+        carveout_kb=carve_kb, blocks_per_sm=blocks,
+        resident_records_bytes=resident, value_slots=n_slots,
+        shared_bytes_per_block=sweep_scan._lg_scan_smem(
+            plan.n_nodes, n_slots, threads, True))
     lg = kernel_row(
         "vbn_lg_scan", "vectorizedbayesiannetwork_tpu/ops/sweep_scan_pallas.py:978",
         launches["lg_scan"], max(errs["lg_scan"], err), ms,
@@ -2283,18 +2301,25 @@ def serve_kde(vbn_cls, defaults):
     return rows
 
 
+def kernel_name(mangled):
+    """A kernel's mangled name as ``name<template arguments>``
+    (``cat_scan_kernel<1,2,0>``)."""
+    k = re.search(r"\d([a-z_]+_kernel)((?:I(?:Li\d+E|Lb[01]E)+E)?)", mangled)
+    if not k:
+        return mangled
+    args = re.findall(r"L[ib](\d+)E", k.group(2))
+    return k.group(1) + (f"<{','.join(args)}>" if args else "")
+
+
 def ptxas_report(text):
     """Registers and spills of each entry function in nvcc's ``-Xptxas -v``
     output: [{kernel, registers, spill_stores, spill_loads}], the kernel
-    named with its template arguments (``cat_scan_kernel<1,2>``)."""
+    named by ``kernel_name``."""
     out, name, spill = [], None, (0, 0)
     for line in text.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
-            k = re.search(r"\d([a-z_]+_kernel)((?:I(?:Li\d+E|Lb[01]E)+E)?)", m.group(1))
-            args = re.findall(r"L[ib](\d+)E", k.group(2)) if k else []
-            name = (k.group(1) if k else m.group(1)) + (
-                f"<{','.join(args)}>" if args else "")
+            name = kernel_name(m.group(1))
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m and name:
@@ -2304,6 +2329,43 @@ def ptxas_report(text):
             out.append({"kernel": name, "registers": int(m.group(1)),
                         "spill_stores": spill[0], "spill_loads": spill[1]})
             name, spill = None, (0, 0)
+    return out
+
+
+SASS_KERNELS = {"sweep": ("cat_sweep_kernel", "lg_sweep_kernel"),
+                "sweep_scan": ("cat_scan_kernel", "lg_scan_kernel")}
+SASS_OPS = ("MUFU", "IMAD", "LOP3", "FFMA", "FMUL", "FADD", "LDS", "STS",
+            "LDG", "BRA", "CALL")
+
+
+def sass_report(lib_path):
+    """Static SASS of each sweep kernel in ``lib_path`` (``cuobjdump
+    -sass``): per entry function, its instruction count and the counts of
+    the opcodes in SASS_OPS (an opcode counts under the first name it
+    starts with: IMAD.WIDE is IMAD). A count of code, not of executed
+    instructions."""
+    from pathlib import Path
+
+    from vectorizedbayesiannetwork_torch.ops import _build
+
+    tool = Path(_build.nvcc()).parent / "cuobjdump"
+    text = subprocess.run([str(tool), "-sass", str(lib_path)], check=True,
+                          capture_output=True, text=True, timeout=120).stdout
+    out, cur = [], None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            cur = {"kernel": kernel_name(m.group(1)), "instructions": 0,
+                   **{op: 0 for op in SASS_OPS}}
+            out.append(cur)
+            continue
+        m = re.match(r"\s+/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]\s+)?([A-Z][A-Z0-9_.]*)",
+                     line)
+        if m and cur is not None and m.group(1) != "NOP":
+            cur["instructions"] += 1
+            op = next((o for o in SASS_OPS if m.group(1).startswith(o)), None)
+            if op:
+                cur[op] += 1
     return out
 
 
@@ -2320,6 +2382,10 @@ def main() -> int:
     log("build", seconds=secs)
     log("kernel_registers", kernels=[
         r for name in _build.SOURCES for r in ptxas_report(_build.build_log(name))])
+    for name, kernels in SASS_KERNELS.items():
+        log("kernel_sass", source=f"csrc/{name}.cu", kernels=[
+            r for r in sass_report(_build.library_path(name))
+            if r["kernel"].split("<")[0] in kernels])
 
     t0 = time.perf_counter()
     bn, asia_vbn = fit_asia(VBN, defaults)

@@ -293,3 +293,37 @@ def test_defaults_equal_jax_yaml(kind, name):
     assert not any(isinstance(v, str) for k, v in ours.items()
                    if k not in ("cpd", "name", "alpha_mode", "prior",
                                 "default_cpd"))
+
+
+def test_load_warns_on_what_the_port_does_not_restore(tmp_path):
+    """A JAX checkpoint that names a sampling method and an update policy,
+    and holds the replay buffer's ``__update__`` arrays, loads in the port
+    with a warning for each of them; its parameters load all the same. A
+    checkpoint without them loads without a warning."""
+    import warnings
+
+    fg, farrays = flagship_setup()
+    jf = JVBN(fg, seed=0)
+    jf.set_learning_method(
+        "node_wise",
+        nodes_cpds={k: jdefaults.cpd("linear_gaussian") for k in farrays},
+    )
+    jf.fit(farrays)
+    jf.save(str(tmp_path / "plain.npz"))
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        TVBN.load(str(tmp_path / "plain.npz"), device="cpu")
+
+    jf.update(flagship_setup(n=256, seed=1)[1], update_method="replay_buffer")
+    jf.set_sampling_method("ancestral")
+    jf.save(str(tmp_path / "updated.npz"))
+    with pytest.warns(UserWarning) as caught:
+        tv = TVBN.load(str(tmp_path / "updated.npz"), device="cpu")
+    msgs = [str(w.message) for w in caught]
+    assert any("sampling method 'ancestral'" in m for m in msgs), msgs
+    assert any("update method 'replay_buffer'" in m for m in msgs), msgs
+    assert any("__update__ array" in m for m in msgs), msgs
+    for node in farrays:
+        for key, arr in jf.params[node].items():
+            np.testing.assert_array_equal(
+                tv.params[node][key].numpy(), np.asarray(arr))

@@ -332,9 +332,69 @@ def test_lg_scan_kernel_matches_plain(gauss_vbn, want):
 
 
 @pytest.mark.cuda
+def test_lg_scan_kernel_skips_zero_weights_and_clamped_pairs(gauss_vbn):
+    """A parent of fitted weight exactly 0 (left out of the records) and
+    rows whose pairs of nodes are wholly or partly clamped (a wholly
+    clamped pair skips its Philox call): the kernel within its tolerances
+    of the plain version in both uniform modes."""
+    from vectorizedbayesiannetwork_torch.ops import sweep_scan
+
+    plan, cpds, params = _canonical(gauss_vbn)
+    n = plan.n_nodes
+    struct = sweep_scan.lg_scan_struct_for(plan, cpds)
+    ptab = sweep_scan.lg_ptab_flat(cpds, params, struct[2]).clone()
+    child = next(i for i in range(n) if len(plan.parent_idx[i]) >= 2)
+    ptab.view(n, struct[2] + 2)[child, 0] = 0.0
+    flags = torch.zeros((B, n), dtype=torch.int32, device="cuda")
+    flags[0, 0:2] = 1
+    flags[1, 3] = 2
+    flags[2, 4:6] = 3
+    flags[3, [1, 6, 8]] = 1
+    fixed = torch.randn((B, n), device="cuda")
+    tgt = torch.tensor([4, 3, 2, 8], dtype=torch.int32, device="cuda")
+    u_ext = torch.rand((B, 2 * n, S), device="cuda").clamp(1e-6, 1 - 1e-6)
+    want = ("logw", "tgt", "lpt")
+    for u in (None, u_ext):
+        k_out = sweep_scan.lg_sweep_scan(
+            7, fixed, flags, tgt, ptab, struct, S, u_ext=u, want=want)
+        p_out = sweep_scan.lg_sweep_scan_plain(
+            7, fixed, flags, tgt, ptab, struct, S, u_ext=u, want=want)
+        _check(k_out, p_out, tgt_atol=2e-4, lp_atol=2e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_nodes", [9, 107])
+def test_lg_scan_layout_and_occupancy(card, n_nodes):
+    """The device's LG layout: a block size of the list, a carveout of the
+    SM's configurations that leaves L1 room for the records, at least one
+    block an SM and no more than shared memory and threads allow."""
+    from benchmarking.gaussian_bn import random_gaussian
+    from vectorizedbayesiannetwork_torch.ops import sweep_scan
+
+    bn = random_gaussian(n_nodes, seed=0)
+    vbn = VBN({n: bn.parents[n] for n in bn.nodes}, seed=0, device=card)
+    vbn.set_learning_method(
+        "node_wise",
+        nodes_cpds={n: defaults.cpd("linear_gaussian") for n in bn.nodes})
+    vbn.fit(bn.sample(512, seed=0))
+    plan, cpds, _params = _canonical(vbn)
+    struct = sweep_scan.lg_scan_struct_for(plan, cpds)
+    n_slots = sweep_scan.lg_slot_map(struct[0])[2]
+    resident = sweep_scan.lg_resident_bytes(struct)
+    for kind in (0, 2):
+        t, c_kb, blocks = sweep_scan.lg_scan_layout(
+            plan.n_nodes, n_slots, kind, resident, 0)
+        assert t in sweep_scan._THREADS and c_kb in sweep_scan._CARVEOUTS_KB
+        assert sweep_scan._SM_UNIFIED - c_kb * 1024 >= resident
+        smem = sweep_scan._lg_scan_smem(plan.n_nodes, n_slots, t, kind != 0)
+        assert 1 <= blocks <= sweep_scan._blocks_by_smem(t, smem, c_kb)
+
+
+@pytest.mark.cuda
 def test_scan_kernel_matches_unrolled_kernel_bitwise(asia_vbn):
-    """Static plan, the same external uniforms (the scan's grouped Philox
-    stream): vbn_cat_scan draws vbn_cat_sweep's classes (one walk)."""
+    """Static plan: vbn_cat_scan draws vbn_cat_sweep's classes (one walk),
+    on the same external uniforms (the grouped Philox stream) and on the
+    two kernels' own in-kernel streams."""
     from vectorizedbayesiannetwork_torch.core.rng import philox_uniforms
     from vectorizedbayesiannetwork_torch.ops import sweep_scan
 
@@ -361,13 +421,17 @@ def test_scan_kernel_matches_unrolled_kernel_bitwise(asia_vbn):
     c = sweep_scan.categorical_sweep_scan(
         11, fixed | bits, tgt, sweep_scan._flat_counts(cpds, params),
         sweep_scan.scan_struct_for(plan, cpds), S, want=want)
-    for x, y, z in zip(a[:3], b[:3], c[:3]):
-        assert torch.equal(x, y) and torch.equal(y, z)
+    d = sweep.categorical_sweep_fused(
+        11, fixed, sweep._stacked_counts(cpds, params, rows, cmax), st, S,
+        want=want)
+    for x, y, z, w in zip(a[:3], b[:3], c[:3], d[:3]):
+        assert torch.equal(x, y) and torch.equal(y, z) and torch.equal(z, w)
 
 
 @pytest.mark.cuda
 def test_scan_smem_layout_matches_the_kernels(card):
-    """The gates' shared-memory count is the one the kernels lay out."""
+    """The wrappers' shared-memory counts are the ones the kernels lay
+    out."""
     from vectorizedbayesiannetwork_torch.ops import sweep_scan
 
     lib = sweep_scan._lib()
@@ -375,10 +439,14 @@ def test_scan_smem_layout_matches_the_kernels(card):
                  (24, 15, 64, 0, 2), (6, 7, 32, 80, 8), (1500, 1501, 32, 3, 8)]:
         assert lib.vbn_cat_scan_smem_bytes(*args) == \
             sweep_scan._cat_scan_smem(*args)
-    for args in [(107, 3, 64, 128, 1), (9, 3, 6, 64, 0), (1500, 3, 900, 32, 1)]:
+    for args in [(107, 64, 128, 1), (9, 6, 64, 0), (1500, 900, 32, 1),
+                 (1, 2, 128, 1)]:
         assert lib.vbn_lg_scan_smem_bytes(*args) == \
             sweep_scan._lg_scan_smem(*args)
     assert sweep_scan._smem_limit(0) >= 48 * 1024
+    for args in [(8, 7, 2), (8, 7, 0), (80, 81, 32), (5, 3, 3)]:
+        assert sweep._lib().vbn_cat_sweep_smem_bytes(*args) == \
+            sweep._cat_sweep_smem(*args)
 
 
 @pytest.mark.cuda

@@ -35,6 +35,7 @@ from vectorizedbayesiannetwork_torch.core.rng import (
 )
 from vectorizedbayesiannetwork_torch.ops import sweep as tsweep
 from vectorizedbayesiannetwork_torch.ops import sweep_scan as tscan
+from vectorizedbayesiannetwork_torch.ops.cat_tables import cum_tables
 from vectorizedbayesiannetwork_tpu import VBN as JVBN
 from vectorizedbayesiannetwork_tpu import defaults as jdefaults
 from vectorizedbayesiannetwork_tpu.core.base import Query as JQuery
@@ -294,9 +295,8 @@ def test_lg_scan_plain_matches_pallas(gauss9, want):
 
 def test_scan_plain_matches_unrolled_plain_bitwise():
     """A static plan through the scan plain version draws the unrolled
-    plain version's classes, under external uniforms and under Philox: the
-    scan's in-kernel stream is the grouped one, so the unrolled version
-    takes it as external uniforms there."""
+    plain version's classes, under external uniforms and under Philox with
+    no external uniforms on either side: both draw the grouped stream."""
     bn = asia()
     tv = TVBN({n: bn.parents[n] for n in bn.nodes}, seed=0, device="cpu")
     conf = {}
@@ -323,11 +323,10 @@ def test_scan_plain_matches_unrolled_plain_bitwise():
     u = torch.as_tensor(np.random.default_rng(4).uniform(
         1e-6, 1 - 1e-6, size=(B, tp.n_nodes, S)).astype(np.float32))
     want = ("logw", "tgt", "lpt")
-    grouped = philox_uniforms(7, B, tp.n_nodes, S, 1, "cpu", grouped=True)
     for u_ext in (u, None):
         a = tsweep.categorical_sweep_plain(
             7, fixed, tsweep._stacked_counts(tc, tpar, rows, cmax), st, S,
-            u_ext=grouped if u_ext is None else u_ext, want=want)
+            u_ext=u_ext, want=want)
         b = tscan.categorical_sweep_scan_plain(
             7, fixed | bits, tgt, tscan._flat_counts(tc, tpar),
             tscan.scan_struct_for(tp, tc), S, u_ext=u_ext, want=want)
@@ -393,9 +392,28 @@ def test_shared_memory_sizing():
     assert tscan._cat_layout(1500, 1501, 128, 8, 0,
                              limit=100 * 1024)[0] == 32
     assert tscan._cat_layout(1500, 1501, 128, 8, 0, limit=50 * 1024) is None
-    assert tscan._lg_threads(107, 3, 64, True) == 128
-    assert tscan._lg_threads(1500, 3, 900, True) == 32
-    assert tscan._lg_threads(1500, 3, 1501, True) is None
+
+
+def test_lg_shared_memory_sizing_and_layout():
+    """vbn_lg_scan's shared memory holds the row's values and flags, a byte
+    a pair, the float scratch and the moments; the layout takes the block
+    size with the most resident threads an SM (ties to the larger block)
+    at the smallest carveout that leaves L1 room for the records."""
+    # gauss107: 40 liveness slots, 4.3 KB of records
+    assert tscan._lg_scan_smem(107, 40, 128, True) == 23456
+    assert tscan._lg_scan_smem(107, 40, 128, False) == 21408
+    assert tscan.lg_resident_bytes((((0,) * 3,) * 107, 3, 3)) == 4296
+    assert tscan._lg_layout(107, 40, True, 4296) == (128, 228, 9)
+    # the first-reference compaction's 64 slots would hold 6 blocks
+    assert tscan._lg_layout(107, 64, True, 4296) == (128, 228, 6)
+    # under a 20 KB limit only 64 threads fit
+    assert tscan._lg_layout(107, 40, True, 0, limit=20 * 1024) == (64, 228, 17)
+    # records that need 100 KB of L1 cap the carveout at 132 KB
+    assert tscan._lg_layout(107, 40, True, 100_000) == (128, 132, 5)
+    # a small plan: threads, not shared memory, cap the blocks
+    assert tscan._lg_layout(9, 6, True, 300) == (128, 100, 16)
+    assert tscan._lg_layout(1500, 1501, True, 0) == (32, 228, 1)
+    assert tscan._lg_layout(1500, 1800, True, 0) is None
 
 
 def test_philox_node_offset():
@@ -405,6 +423,30 @@ def test_philox_node_offset():
     grouped = philox_uniforms(3, 2, 9, 1024, 1, "cpu", grouped=True)
     assert torch.equal(philox_uniforms(3, 2, 3, 1024, 1, "cpu", node0=5,
                                        grouped=True), grouped[:, 5:8])
+
+
+def test_lg_grouped_philox_uniforms_layout():
+    """grouped=True with two words a node: node i reads words 2 (i & 1) and
+    2 (i & 1) + 1 of the call with counter (particle, row, i >> 1, 3), as
+    its Box-Muller pair; node0 and row0 take a slice of a larger draw."""
+    seed, b, n, s = 91, 2, 5, 512
+    got = philox_uniforms(seed, b, n, s, 2, "cpu", row0=3, grouped=True)
+    assert got.shape == (b, 2 * n, s)
+    part = torch.arange(s)
+    for r in range(b):
+        for i in range(n):
+            words = philox4x32_10(part, torch.full((s,), 3 + r),
+                                  torch.full((s,), i >> 1),
+                                  torch.full((s,), 3, dtype=torch.int64), seed)
+            for w in range(2):
+                assert torch.equal(got[r, 2 * i + w],
+                                   uniform_from_bits(words[2 * (i & 1) + w]))
+    full = philox_uniforms(seed, 5, 9, s, 2, "cpu", grouped=True)
+    assert torch.equal(full[3:5, : 2 * n], got)
+    assert torch.equal(philox_uniforms(seed, 5, 3, s, 2, "cpu", node0=5,
+                                       grouped=True), full[:, 10:16])
+    assert not torch.equal(got, philox_uniforms(seed, b, n, s, 2, "cpu",
+                                                row0=3))
 
 
 def test_grouped_philox_uniforms_layout():
@@ -452,6 +494,105 @@ def test_cat_scan_plain_draws_the_grouped_stream_across_clamped_nodes(random24):
         assert torch.equal(x, y)
 
 
+def test_lg_scan_plain_draws_the_grouped_stream_across_clamped_pairs(gauss9):
+    """Without u_ext the plain LG scan draws philox_uniforms(words=2,
+    grouped=True), also where a pair of nodes is partly clamped (the kernel
+    then draws the pair's call and uses the latent node's words) or wholly
+    clamped (the kernel skips the call)."""
+    _j, (tp, tc, tpar) = gauss9
+    struct = tscan.lg_scan_struct_for(tp, tc)
+    n = tp.n_nodes
+    rng = np.random.default_rng(6)
+    fixed = rng.normal(size=(B, n)).astype(np.float32)
+    flags = np.zeros((B, n), np.int32)
+    flags[0, 0:2] = 1  # a whole pair of evidence
+    flags[1, 3] = 2  # one do node in pair 1
+    flags[2, 4:6] = 3  # a whole pair set by do
+    flags[3, [1, 6, 8]] = 1
+    tgt = np.asarray([4, 3, 2, 8], np.int32)
+    want = ("logw", "tgt", "lpt")
+    args = (torch.as_tensor(fixed), torch.as_tensor(flags),
+            torch.as_tensor(tgt), tscan.lg_ptab_flat(tc, tpar, struct[2]),
+            struct, S)
+    a = tscan.lg_sweep_scan_plain(17, *args, want=want, row0=5)
+    u = philox_uniforms(17, B, n, S, 2, "cpu", row0=5, grouped=True)
+    b = tscan.lg_sweep_scan_plain(17, *args, u_ext=u, want=want)
+    for x, y in zip(a[:3], b[:3]):
+        assert torch.equal(x, y)
+    c = tscan.lg_sweep_scan_plain(17, *args, u_ext=philox_uniforms(
+        17, B, n, S, 2, "cpu", row0=5), want=want)
+    assert not torch.equal(a[1], c[1])
+
+
+@pytest.mark.parametrize("n_nodes", [9, 40, 107])
+def test_lg_slot_map_keeps_every_value_until_its_last_read(n_nodes):
+    """The LG kernel's liveness slots: walking the nodes in order (each
+    reads its parents' slots, then writes its own), every read finds its
+    parent's value, and the slots number the most values live at once plus
+    the trash slot; at 107 nodes (in the generator's node order) they are
+    40, the first-reference compaction's 64 less the values already read
+    for the last time."""
+    gbn = random_gaussian(n_nodes, seed=0)
+    order = list(gbn.nodes)
+    at = {name: i for i, name in enumerate(order)}
+    pmax = max(max(len(gbn.parents[v]) for v in order), 1)
+    pids = tuple(tuple([at[p] for p in gbn.parents[v]]
+                       + [0] * (pmax - len(gbn.parents[v]))) for v in order)
+    smap, pid_slots, n_slots = tscan.lg_slot_map(pids)
+    held = {}
+    for i, row_p in enumerate(pids):
+        for k, p in enumerate(row_p[: len(gbn.parents[order[i]])]):
+            assert pid_slots[i, k] == smap[p] and held[smap[p]] == p
+        held[int(smap[i])] = i
+    last = {p: i for i, row_p in enumerate(pids) for p in row_p}
+    live = max(sum(1 for p, end in last.items() if p < i <= end)
+               for i in range(n_nodes))
+    assert n_slots == live + 1 <= tscan._compaction(pids)[2]
+    assert (smap == n_slots - 1).sum() == n_nodes - len(last)
+    if n_nodes == 107:
+        assert (n_slots, tscan._compaction(pids)[2]) == (40, 64)
+
+
+def test_lg_records_walk_gives_the_plain_location(gauss9):
+    """The LG kernel's records: one per node {out slot, parent start, bias,
+    sigma} and one per parent of nonzero weight {slot, weight}, in row
+    order; walking them (loc = bias, then loc + value * weight per record)
+    gives the plain version's location bit for bit, a parent whose fitted
+    weight is exactly 0 left out as the plain version skips it."""
+    _j, (tp, tc, tpar) = gauss9
+    struct = tscan.lg_scan_struct_for(tp, tc)
+    pids, pmax, dmax = struct
+    n = tp.n_nodes
+    ptab = tscan.lg_ptab_flat(tc, tpar, dmax).clone()
+    rows = ptab.view(n, dmax + 2)
+    child = next(i for i in range(n) if len(tp.parent_idx[i]) >= 2)
+    rows[child, 0] = 0.0  # a real parent of weight exactly 0
+    rec, par = tscan.lg_records(ptab, struct)
+    smap, pid_slots, n_slots = tscan.lg_slot_map(pids)
+    keep = [(i, k) for i in range(n) for k in range(pmax)
+            if float(rows[i, k]) != 0.0]
+    assert int(rec[n, 1]) == len(keep) == sum(
+        len(p) for p in tp.parent_idx) - 1
+    assert rec[:n, 0].tolist() == smap.tolist()
+    np.testing.assert_array_equal(rec[:n, 2:].view(torch.float32).numpy(),
+                                  rows[:, dmax:].numpy())
+    assert par[: len(keep), 0].tolist() == [int(pid_slots[i, k]) for i, k in keep]
+    rng = np.random.default_rng(3)
+    vals = torch.as_tensor(rng.normal(size=(n_slots, 64)).astype(np.float32))
+    for i in range(n):
+        v = vals.clone()
+        if i == child:  # the left-out parent's value cannot reach loc
+            v[pid_slots[child, 0]] = float("nan")
+        loc = rows[i, dmax].expand(64)
+        for k in range(pmax):
+            if float(rows[i, k]) != 0.0:
+                loc = loc + v[pid_slots[i, k]] * rows[i, k]
+        walk = rec[i, 2:3].view(torch.float32).expand(64)
+        for e in range(int(rec[i, 1]), int(rec[i + 1, 1])):
+            walk = walk + v[int(par[e, 0])] * par[e, 1:2].view(torch.float32)
+        assert torch.equal(walk, loc), i
+
+
 def _seq_cum(row):
     """Running sums of a count row, one float32 add per class."""
     out, acc = [], np.float32(0.0)
@@ -486,13 +627,14 @@ def link724():
 
 @pytest.mark.parametrize("net", ["link724", "highcard"])
 def test_cum_tables_are_the_sequential_sums(net, link724, highcard):
-    """The kernel's padded tables: each row's running sums bitwise equal to
-    a numpy float32 sequential sum, pads repeating the total, counts
-    copied with zero pads, rows at multiples of four floats."""
+    """The kernels' padded tables: each row's running sums bitwise equal to
+    a numpy float32 sequential sum, pads repeating the total, rows at
+    multiples of four floats; beside them each class's log-probability,
+    the plain version's log(max(count / max(total, 1e-12), 1e-12))."""
     tp, tc, tpar = link724 if net == "link724" else highcard[1][1]
     struct = tscan.scan_struct_for(tp, tc)
     flat = tscan._flat_counts(tc, tpar)
-    cum, cnt = (t.numpy() for t in tscan.cum_tables(flat, struct))
+    cum, lpt = (t.numpy() for t in cum_tables(flat, tscan.table_layout(struct)))
     rec = tscan._cat_meta_host(struct)[0]
     eoff, rows, cards = struct[:3]
     fl = flat.numpy()
@@ -505,8 +647,10 @@ def test_cum_tables_are_the_sequential_sums(net, link724, highcard):
             want = _seq_cum(row)
             assert cum[at: at + c].tolist() == want
             assert (cum[at + c: at + cp] == want[-1]).all()
-            np.testing.assert_array_equal(cnt[at: at + c], row)
-            assert (cnt[at + c: at + cp] == 0).all()
+            prob = row / np.float32(max(want[-1], 1e-12))
+            np.testing.assert_allclose(
+                lpt[at: at + c], np.log(np.maximum(prob, np.float32(1e-12))),
+                rtol=1e-6, atol=1e-7)
     assert len(cum) == rec[-2, 0] + rows[-1] * ((cards[-1] + 3) & ~3)
 
 
@@ -518,7 +662,7 @@ def test_cum_table_walk_gives_the_plain_classes(net, link724, highcard):
     tp, tc, tpar = link724 if net == "link724" else highcard[1][1]
     struct = tscan.scan_struct_for(tp, tc)
     flat = tscan._flat_counts(tc, tpar)
-    cum = tscan.cum_tables(flat, struct)[0]
+    cum = cum_tables(flat, tscan.table_layout(struct))[0]
     rec = tscan._cat_meta_host(struct)[0]
     eoff, rows, cards = struct[:3]
     u = torch.as_tensor(np.random.default_rng(8).uniform(

@@ -237,8 +237,9 @@ def test_philox_uniforms_layout_and_range():
 
 
 def test_in_kernel_random_mode_is_philox(cat_sides):
-    """Without u_ext the plain versions draw philox_uniforms(seed): the
-    same stream the CUDA kernels generate in-kernel."""
+    """Without u_ext the plain categorical version draws
+    philox_uniforms(seed, grouped=True): the grouped stream the CUDA kernel
+    generates in-kernel (one call per four nodes), not the per-node one."""
     _, (tp, tc, tpar) = cat_sides
     plan_tuple = tsweep.plan_tuple_for(tp, tc)
     struct, rows, cmax = plan_tuple
@@ -246,10 +247,60 @@ def test_in_kernel_random_mode_is_philox(cat_sides):
     fixed = torch.zeros((B, tp.n_nodes), dtype=torch.int32)
     a = tsweep.categorical_sweep_plain(9, fixed, counts, struct, S,
                                        want=("logw", "tgt"))
-    u = philox_uniforms(9, B, tp.n_nodes, S, 1, "cpu")
+    u = philox_uniforms(9, B, tp.n_nodes, S, 1, "cpu", grouped=True)
     b = tsweep.categorical_sweep_plain(9, fixed, counts, struct, S, u_ext=u,
                                        want=("logw", "tgt"))
     assert torch.equal(a[1], b[1]) and torch.equal(a[0], b[0])
+    c = tsweep.categorical_sweep_plain(
+        9, fixed, counts, struct, S, want=("logw", "tgt"),
+        u_ext=philox_uniforms(9, B, tp.n_nodes, S, 1, "cpu"))
+    assert not torch.equal(a[1], c[1])
+
+
+def test_sweep_walks_the_scan_tables(cat_sides):
+    """vbn_cat_sweep's padded running-sum and count tables, built from the
+    stacked counts, are bit for bit the ones vbn_cat_scan builds from the
+    flat counts of the same plan, and its node records point at the same
+    rows with the same cards, parent lists and strides."""
+    from vectorizedbayesiannetwork_torch.ops import sweep_scan as tscan
+    from vectorizedbayesiannetwork_torch.ops.cat_tables import cum_tables
+
+    _, (tp, tc, tpar) = cat_sides
+    struct, rows, cmax = tsweep.plan_tuple_for(tp, tc)
+    counts = tsweep._stacked_counts(tc, tpar, rows, cmax)
+    got = cum_tables(counts.view(-1), tsweep.table_layout(struct, cmax))
+    sstruct = tscan.scan_struct_for(tp, tc)
+    want = cum_tables(tscan._flat_counts(tc, tpar), tscan.table_layout(sstruct))
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
+    rec, par, n_slots, flags, glive = tsweep._cat_meta_host(struct)
+    srec, spar = tscan._cat_meta_host(sstruct)[:2]
+    np.testing.assert_array_equal(rec[:, [0, 1, 3]], srec[:, [0, 1, 3]])
+    np.testing.assert_array_equal(par[:, 1], spar[:, 1])
+    # slots: one per parent, then the trash slot; parents read their slot
+    parents = sorted({p for ps in tp.parent_idx for p in ps})
+    assert n_slots == len(parents) + 1
+    for i in range(tp.n_nodes):
+        assert rec[i, 2] == (parents.index(i) if i in parents else len(parents))
+        for q, p in zip(range(rec[i, 3], rec[i + 1, 3]), tp.parent_idx[i]):
+            assert par[q, 0] == parents.index(p)
+    # the plan's flags, packed as the scan packs a row's; a group of four
+    # nodes is live when it holds a node to draw
+    ev, do = np.asarray(tp.evidence_mask), np.asarray(tp.do_mask)
+    np.testing.assert_array_equal(flags, (ev << 16) | (do << 17))
+    latent = ~(ev | do)
+    assert glive == sum(1 << g for g in range((tp.n_nodes + 3) // 4)
+                        if latent[4 * g: 4 * g + 4].any())
+
+
+def test_cat_sweep_shared_memory_sizing():
+    """vbn_cat_sweep's block: the row's packed words, a byte a value of
+    scratch for 128 threads, the histogram."""
+    # asia: 8 nodes, 7 slots, a 2-class target
+    assert tsweep._cat_sweep_smem(8, 7, 2) == 32 + 896 + 1536
+    assert tsweep._cat_sweep_smem(8, 7, 0) == 928
+    # 80 nodes of up to 32 classes, 81 slots
+    assert tsweep._cat_sweep_smem(80, 81, 32) == 320 + 10368 + 16896
 
 
 def test_gates_match_jax(cat_sides, lg_sides):

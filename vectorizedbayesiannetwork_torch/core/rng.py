@@ -117,31 +117,35 @@ def philox_uniforms(
 
     Counter = (particle, row, node, 0), key = ``seed``, for query rows
     ``row0 .. row0 + B - 1`` and nodes ``node0 .. node0 + N - 1``. Row
-    ``words*i + w`` holds output word ``w`` of node ``node0 + i``: one word
-    per node for the categorical sweeps, the Box-Muller pair (words 0 and
-    1) for the LG ones. This is the external-uniform layout the kernels
+    ``words*i + w`` holds output word ``w`` of node ``node0 + i``: the
+    Box-Muller pair (words 0 and 1) of ``vbn_lg_sweep``, or with one word a
+    node a categorical stream. This is the external-uniform layout the kernels
     take, so feeding the result back reproduces the in-kernel random mode
     (``row0`` and ``node0`` let a caller rebuild a large batch's draws a
     slice of rows or nodes at a time).
 
-    ``grouped=True`` (one word per node only) is the categorical scan
-    kernel's stream: four nodes share one call, counter (particle, row,
-    node >> 2, 1), and node i takes word ``i & 3``. The last counter word 1
-    keeps it apart from the per-node stream.
+    ``grouped=True`` is the stream of the kernels that share one call
+    among several nodes, its tag in the last counter word:
+
+    - ``words=1`` (``vbn_cat_scan``, ``vbn_cat_sweep``): four nodes a call,
+      counter (particle, row, node >> 2, 1), node i takes word ``i & 3``;
+    - ``words=2`` (``vbn_lg_scan``): two nodes a call, counter (particle,
+      row, node >> 1, 3), node i takes words ``2 (i & 1)`` and
+      ``2 (i & 1) + 1`` as its Box-Muller pair.
     """
-    if grouped and words != 1:
-        raise ValueError("the grouped stream draws one word per node")
+    shift, tag = {1: (2, 1), 2: (1, 3)}[words] if grouped else (0, 0)
     i64 = dict(dtype=torch.int64, device=device)
     nodes = torch.arange(node0, node0 + n_nodes, **i64)
     c0 = torch.arange(s, **i64).view(1, 1, s)
     c1 = torch.arange(row0, row0 + b, **i64).view(b, 1, 1)
-    c2 = (nodes >> 2 if grouped else nodes).view(1, n_nodes, 1)
+    c2 = (nodes >> shift).view(1, n_nodes, 1)
     c0, c1, c2 = torch.broadcast_tensors(c0, c1, c2)
-    c3 = torch.full_like(c0, int(grouped))
-    out = philox4x32_10(c0, c1, c2, c3, int(seed))
+    out = philox4x32_10(c0, c1, c2, torch.full_like(c0, tag), int(seed))
     if grouped:
-        pick = (nodes & 3).view(1, n_nodes, 1).expand(b, n_nodes, s)
-        return uniform_from_bits(torch.stack(out, dim=0).gather(
-            0, pick[None])[0])
+        first = (nodes & ((1 << shift) - 1)) * words  # the node's first word
+        stacked = torch.stack(out, dim=0)
+        out = [stacked.gather(0, (first + w).view(1, 1, n_nodes, 1)
+                              .expand(1, b, n_nodes, s))[0]
+               for w in range(words)]
     u = torch.stack([uniform_from_bits(w) for w in out[:words]], dim=2)
     return u.reshape(b, n_nodes * words, s)

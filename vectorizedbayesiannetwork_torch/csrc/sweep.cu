@@ -9,17 +9,31 @@
 // One block of 128 threads owns one query row b and a contiguous span of
 // 128 * ppt particles; each thread walks ppt particles, one per step, and
 // each particle walks the plan's nodes in topological order. The plan is
-// runtime data (small int arrays copied into shared memory), so one build
-// serves every network and query skeleton. Per-particle node values live in
-// shared memory, vals[node][thread], because they are indexed at runtime by
-// the parent lists. The CPT (categorical) or the [N, dmax + 2] parameter
-// table (LG) is copied into shared memory once per block when it fits.
+// runtime data, so one build serves every network and query skeleton.
+// Per-particle node values live in shared memory, [slot][thread], because
+// they are indexed at runtime by the parent lists.
 //
-// Random numbers: Philox-4x32-10 with key = the 64-bit seed and counter =
-// (particle, row, node, 0) (vbn_common.cuh); the categorical walk takes
-// output word 0, the LG Box-Muller pair words 0 and 1. A non-null u_ext ([B, N, S] or
-// [B, 2N, S] float32) replaces the generator, which is how the kernels are
-// held against their plain PyTorch versions.
+// vbn_cat_sweep walks as vbn_cat_scan does (cat_walk.cuh): the plan's
+// evidence and do flags are constants, so the wrapper packs them into the
+// row's words (value | ev << 16 | do << 17) and passes which groups of four
+// nodes draw as a bit mask; the grouped Philox stream (counter (particle,
+// row, i >> 2, 1), word i & 3), the padded running-sum tables walked with
+// one float4 load a node of <= 4 classes, the log-probability table and the
+// uniform __ldg records are the scan's. So on a static plan the two kernels
+// draw the same classes bit for bit, on their in-kernel streams and on the
+// same external uniforms. The value scratch takes a byte a value: at most
+// 81 slots, 10 KB a block, never what limits the blocks an SM (registers
+// are), and a byte is read and written with fewer integer instructions than
+// the scan's 2-bit packing.
+//
+// vbn_lg_sweep: Philox-4x32-10 with key = the 64-bit seed and counter =
+// (particle, row, node, 0) (vbn_common.cuh), the Box-Muller pair words 0
+// and 1; the [N, dmax + 2] parameter table is copied into shared memory
+// once per block.
+//
+// A non-null u_ext ([B, N, S] or [B, 2N, S] float32) replaces the
+// generator, which is how the kernels are held against their plain PyTorch
+// versions.
 //
 // Outputs: [B, S] float32 streams (logw / tgt / lpt) when asked for, or,
 // in reduction mode, one [K + 1] partial per block: the class histogram
@@ -29,10 +43,11 @@
 //
 // Bound on an H100: with reductions on, a kernel reads a few KB (plan,
 // tables, query rows) and writes B * nblk * (K + 1) floats (a few MB), so
-// it is bound by operations: per latent node one Philox call (10 rounds),
-// the class walk or Box-Muller transform, and a log per weighted node.
-// The design keeps every per-particle value in registers and shared memory
-// and writes nothing per particle in reduction mode.
+// it is bound by operations: per latent node a random word (a quarter
+// Philox call for a class, half a call for a Box-Muller pair), the class
+// walk or Box-Muller transform, and a log per weighted node. The designs
+// keep every per-particle value in registers and shared memory and write
+// nothing per particle in reduction mode.
 //
 // The arithmetic of the class walk is bit-exact with the TPU kernel under
 // the same uniforms: total = sum_j col(j) in class order, thresh = u*total,
@@ -41,6 +56,7 @@
 
 #include <math.h>
 
+#include "cat_walk.cuh"
 #include "vbn_common.cuh"
 
 #define VBN_THREADS 128
@@ -53,14 +69,31 @@ using vbn::uniform_from_bits;
 
 namespace {
 
-// meta (int32): off[N] card[N] flags[N] pstart[N+1] plist[P] pstride[P]
-// flags bit 0 = evidence, bit 1 = do.
-template <int RED>
-__global__ void __launch_bounds__(VBN_THREADS)
-cat_sweep_kernel(const int32_t* __restrict__ meta, int n_nodes, int n_par,
-                 int target, const float* __restrict__ table, int table_len,
-                 int cmax, int tbl_in_smem, const int32_t* __restrict__ fixed,
-                 const float* __restrict__ u_ext, uint64_t seed, int n_samples,
+// Shared memory of the categorical kernel: the row's packed words, the
+// byte value scratch, the reduction array (k = 0: none).
+__host__ __device__ __forceinline__ size_t cat_sweep_smem(int n_nodes,
+                                                          int n_slots, int k) {
+  size_t at = align16((size_t)n_nodes * 4);
+  at += align16((size_t)n_slots * VBN_THREADS);
+  if (k > 0) at += align16((size_t)(k + 1) * VBN_THREADS * 4);
+  return at;
+}
+
+// rec [N + 1] int4 {off, card, slot, pstart} (rec[N].w = P); par [P] int2
+// {slot, stride}; ctab, lpt: padded running sums and log-probabilities;
+// nflags [N] int32: ev << 16 | do << 17 of the plan; glive: bit g set when
+// group g has a node to draw; fixed [B, N] int32 clamped classes; EXT:
+// u_ext [B, N, S], else the Philox stream of key.
+template <int RED, bool EXT>
+__global__ void __launch_bounds__(VBN_THREADS, VBN_MIN_BLOCKS)
+cat_sweep_kernel(const int4* __restrict__ rec, const int2* __restrict__ par,
+                 int n_nodes, int n_slots, int target,
+                 const float* __restrict__ ctab,
+                 const float* __restrict__ lpt_tab,
+                 const int32_t* __restrict__ nflags, uint32_t glive,
+                 const int32_t* __restrict__ fixed,
+                 const float* __restrict__ u_ext, const vbn::PhiloxKey key,
+                 int n_samples,
                  int nblk, int ppt, int need_logw, int need_lpt, int want_logw,
                  int want_tgt, int want_lpt, int red_src, int k,
                  float* __restrict__ out_logw, float* __restrict__ out_tgt,
@@ -69,31 +102,17 @@ cat_sweep_kernel(const int32_t* __restrict__ meta, int n_nodes, int n_par,
   const int tid = threadIdx.x;
   const int b = blockIdx.x / nblk;
   const int blk = blockIdx.x % nblk;
-  const int meta_len = 4 * n_nodes + 1 + 2 * n_par;
 
-  int32_t* s_meta = (int32_t*)smem;
-  size_t at = align16(meta_len * sizeof(int32_t));
-  int32_t* s_fixed = (int32_t*)(smem + at);
-  at += align16(n_nodes * sizeof(int32_t));
-  int32_t* s_vals = (int32_t*)(smem + at);
-  at += align16((size_t)n_nodes * VBN_THREADS * sizeof(int32_t));
+  int32_t* s_packed = (int32_t*)smem;
+  size_t at = align16((size_t)n_nodes * 4);
+  uint8_t* s_vals = smem + at;
+  at += align16((size_t)n_slots * VBN_THREADS);
   float* s_red = (float*)(smem + at);
-  at += align16((size_t)(k + 1) * VBN_THREADS * sizeof(float));
-  float* s_tbl = (float*)(smem + at);
 
-  for (int j = tid; j < meta_len; j += VBN_THREADS) s_meta[j] = meta[j];
   for (int j = tid; j < n_nodes; j += VBN_THREADS)
-    s_fixed[j] = fixed[(size_t)b * n_nodes + j];
-  if (tbl_in_smem)
-    for (int j = tid; j < table_len; j += VBN_THREADS) s_tbl[j] = table[j];
+    s_packed[j] = (fixed[(size_t)b * n_nodes + j] & 0xFFFF) | nflags[j];
   __syncthreads();
-  const float* tbl = tbl_in_smem ? s_tbl : table;
-  const int32_t* off = s_meta;
-  const int32_t* card = off + n_nodes;
-  const int32_t* flags = card + n_nodes;
-  const int32_t* pstart = flags + n_nodes;
-  const int32_t* plist = pstart + n_nodes + 1;
-  const int32_t* pstride = plist + n_par;
+  const float* u_row = EXT ? u_ext + (size_t)b * n_nodes * n_samples : nullptr;
 
   Acc<RED> acc;
   acc.init(s_red, k);
@@ -101,46 +120,11 @@ cat_sweep_kernel(const int32_t* __restrict__ meta, int n_nodes, int n_par,
     const int s = (blk * ppt + it) * VBN_THREADS + tid;
     float logw = 0.f, lpt = 0.f;
     int tval = 0;
-    for (int i = 0; i < n_nodes; ++i) {
-      int row = 0;
-      for (int q = pstart[i]; q < pstart[i + 1]; ++q)
-        row += s_vals[plist[q] * VBN_THREADS + tid] * pstride[q];
-      const float* r = tbl + (size_t)(off[i] + row) * cmax;
-      const int c = card[i];
-      float total = r[0];
-      for (int j = 1; j < c; ++j) total = __fadd_rn(total, r[j]);
-      int v;
-      const int fl = flags[i];
-      if (fl & 3) {
-        v = s_fixed[i];
-      } else {
-        float u;
-        if (u_ext != nullptr) {
-          u = u_ext[((size_t)b * n_nodes + i) * n_samples + s];
-        } else {
-          uint32_t ctr[4] = {(uint32_t)s, (uint32_t)b, (uint32_t)i, 0u};
-          philox4x32_10(ctr, seed);
-          u = uniform_from_bits(ctr[0]);
-        }
-        const float thresh = __fmul_rn(u, total);
-        float cum = r[0];
-        v = 0;
-        for (int j = 1; j < c; ++j) {
-          v += (cum <= thresh) ? 1 : 0;
-          cum = __fadd_rn(cum, r[j]);
-        }
-      }
-      s_vals[i * VBN_THREADS + tid] = v;
-      const bool ev = (fl & 1) && need_logw;
-      const bool tg = (i == target) && need_lpt;
-      if (ev || tg) {
-        const float prob = __fdiv_rn(r[v], fmaxf(total, 1e-12f));
-        const float lp = logf(fmaxf(prob, 1e-12f));
-        if (ev) logw = __fadd_rn(logw, lp);
-        if (tg) lpt = lp;
-      }
-      if (i == target) tval = v;
-    }
+    vbn::cat_particle<8, EXT>(rec, par, n_nodes, ctab, lpt_tab, s_packed,
+                                 s_vals, VBN_THREADS, tid,
+                                 vbn::GroupMask{glive}, target, u_row, key, b,
+                                 s, n_samples, need_logw, need_lpt, logw, lpt,
+                                 tval);
     const size_t o = (size_t)b * n_samples + s;
     if (want_logw) out_logw[o] = logw;
     if (want_tgt) out_tgt[o] = (float)tval;
@@ -251,13 +235,8 @@ lg_sweep_kernel(const int32_t* __restrict__ meta, int n_nodes, int n_par,
 
 extern "C" {
 
-// Shared-memory bytes the categorical kernel needs (without / with table).
-size_t vbn_cat_smem_bytes(int n_nodes, int n_par, int k, int table_len) {
-  size_t at = align16((4 * n_nodes + 1 + 2 * n_par) * sizeof(int32_t));
-  at += align16(n_nodes * sizeof(int32_t));
-  at += align16((size_t)n_nodes * VBN_THREADS * sizeof(int32_t));
-  at += align16((size_t)(k + 1) * VBN_THREADS * sizeof(float));
-  return at + (size_t)table_len * sizeof(float);
+size_t vbn_cat_sweep_smem_bytes(int n_nodes, int n_slots, int k) {
+  return cat_sweep_smem(n_nodes, n_slots, k);
 }
 
 size_t vbn_lg_smem_bytes(int n_nodes, int n_par, int dmax) {
@@ -270,38 +249,37 @@ size_t vbn_lg_smem_bytes(int n_nodes, int n_par, int dmax) {
 
 // red_kind: 0 none, 1 pmf (K = k classes), 2 moments (K = 3).
 // red_src: 0 logw, 1 lpt. Returns cudaGetLastError() after the launch.
-int vbn_cat_sweep(const int32_t* meta, int n_nodes, int n_par, int target,
-                  const float* table, int table_len, int cmax, int tbl_in_smem,
-                  const int32_t* fixed, const float* u_ext, uint64_t seed,
-                  int batch, int n_samples, int ppt, int need_logw,
-                  int need_lpt, int want_logw, int want_tgt, int want_lpt,
-                  int red_kind, int red_src, int k, float* out_logw,
-                  float* out_tgt, float* out_lpt, float* out_red,
-                  void* stream) {
+int vbn_cat_sweep(const int4* rec, const int2* par, int n_nodes, int n_slots,
+                  int target, const float* ctab, const float* lpt,
+                  const int32_t* nflags, uint32_t glive, const int32_t* fixed,
+                  const float* u_ext, uint64_t seed, int batch, int n_samples,
+                  int ppt, int need_logw, int need_lpt,
+                  int want_logw, int want_tgt, int want_lpt, int red_kind,
+                  int red_src, int k, float* out_logw, float* out_tgt,
+                  float* out_lpt, float* out_red, void* stream) {
   const int nblk = n_samples / (VBN_THREADS * ppt);
   const int grid = batch * nblk;
   const int kk = red_kind == 0 ? 0 : k;
-  const size_t smem =
-      vbn_cat_smem_bytes(n_nodes, n_par, kk, tbl_in_smem ? table_len : 0);
+  const size_t smem = cat_sweep_smem(n_nodes, n_slots, kk);
   cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t e = cudaSuccess;
-#define VBN_CAT(R)                                                            \
-  e = allow_smem(cat_sweep_kernel<R>, smem);                                   \
-  if (e != cudaSuccess) return (int)e;                                        \
-  cat_sweep_kernel<R><<<grid, VBN_THREADS, smem, st>>>(                       \
-      meta, n_nodes, n_par, target, table, table_len, cmax, tbl_in_smem,      \
-      fixed, u_ext, seed, n_samples, nblk, ppt, need_logw, need_lpt,          \
-      want_logw, want_tgt, want_lpt, red_src, kk, out_logw, out_tgt, out_lpt, \
-      out_red);
-  if (red_kind == 1) {
-    VBN_CAT(1)
-  } else if (red_kind == 2) {
-    VBN_CAT(2)
-  } else {
-    VBN_CAT(0)
+  const vbn::PhiloxKey key = vbn::philox_key(seed);
+  const bool ext = u_ext != nullptr;
+  cudaError_t e = cudaErrorInvalidValue;
+#define VBN_CAT(R, X)                                                        \
+  if (red_kind == R && ext == X) {                                           \
+    e = allow_smem(cat_sweep_kernel<R, X>, smem);                            \
+    if (e != cudaSuccess) return (int)e;                                     \
+    cat_sweep_kernel<R, X><<<grid, VBN_THREADS, smem, st>>>(                 \
+        rec, par, n_nodes, n_slots, target, ctab, lpt, nflags, glive, fixed, \
+        u_ext, key, n_samples, nblk, ppt, need_logw, need_lpt, want_logw,    \
+        want_tgt, want_lpt, red_src, kk, out_logw, out_tgt, out_lpt,         \
+        out_red);                                                            \
+    return (int)cudaGetLastError();                                          \
   }
+  VBN_CAT(0, false) VBN_CAT(1, false) VBN_CAT(2, false)
+  VBN_CAT(0, true) VBN_CAT(1, true) VBN_CAT(2, true)
 #undef VBN_CAT
-  return (int)cudaGetLastError();
+  return (int)e;
 }
 
 int vbn_lg_sweep(const int32_t* meta, int n_nodes, int n_par, int target,

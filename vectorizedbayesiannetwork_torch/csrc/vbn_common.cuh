@@ -1,7 +1,7 @@
 // Pieces shared by the port's sweep kernels (sweep.cu, sweep_scan.cu).
 //
 // Random numbers: Philox-4x32-10 (Salmon et al., SC'11) with key = the
-// 64-bit seed; callers pass the counter (particle, row, node, 0). Uniforms
+// 64-bit seed; callers pass the counter (particle, row, node, tag). Uniforms
 // are ((bits >> 8) + 0.5) * 2^-24, as in the TPU kernels' _uniform_from_bits,
 // and core/rng.py reproduces both in torch ops.
 
@@ -13,20 +13,44 @@
 
 namespace vbn {
 
-__device__ __forceinline__ void philox4x32_10(uint32_t c[4], uint64_t seed) {
+// The ten round keys of Philox-4x32-10 for one seed (k + r * the Weyl
+// constants). The redesigned sweeps take them as a kernel parameter, which
+// lives in the constant bank: a call then spends no instruction on the key
+// schedule, each round's key an operand of its three-input xor.
+struct PhiloxKey {
+  uint32_t k0[10], k1[10];
+};
+
+__host__ __device__ __forceinline__ PhiloxKey philox_key(uint64_t seed) {
+  PhiloxKey key;
   uint32_t k0 = (uint32_t)seed, k1 = (uint32_t)(seed >> 32);
+#pragma unroll
+  for (int r = 0; r < 10; ++r) {
+    key.k0[r] = k0;
+    key.k1[r] = k1;
+    k0 += 0x9E3779B9u;
+    k1 += 0xBB67AE85u;
+  }
+  return key;
+}
+
+__device__ __forceinline__ void philox4x32_10(uint32_t c[4],
+                                              const PhiloxKey& key) {
 #pragma unroll
   for (int r = 0; r < 10; ++r) {
     uint32_t hi0 = __umulhi(0xD2511F53u, c[0]), lo0 = 0xD2511F53u * c[0];
     uint32_t hi1 = __umulhi(0xCD9E8D57u, c[2]), lo1 = 0xCD9E8D57u * c[2];
-    uint32_t n0 = hi1 ^ c[1] ^ k0, n2 = hi0 ^ c[3] ^ k1;
+    uint32_t n0 = hi1 ^ c[1] ^ key.k0[r], n2 = hi0 ^ c[3] ^ key.k1[r];
     c[0] = n0;
     c[1] = lo1;
     c[2] = n2;
     c[3] = lo0;
-    k0 += 0x9E3779B9u;
-    k1 += 0xBB67AE85u;
   }
+}
+
+// The same with the key schedule computed in the kernel.
+__device__ __forceinline__ void philox4x32_10(uint32_t c[4], uint64_t seed) {
+  philox4x32_10(c, philox_key(seed));
 }
 
 __device__ __forceinline__ float uniform_from_bits(uint32_t x) {
@@ -36,6 +60,12 @@ __device__ __forceinline__ float uniform_from_bits(uint32_t x) {
 __host__ __device__ __forceinline__ size_t align16(size_t n) {
   return (n + 15) & ~size_t(15);
 }
+
+// Launch bounds of the redesigned sweeps: 128 threads, at least 8 blocks an
+// SM (their layouts hold 8-10), so at most 64 registers, which they fit
+// without spilling. Without the minimum, ptxas picks 32 or 40 registers
+// for them and moves long-lived per-thread values to local memory.
+#define VBN_MIN_BLOCKS 8
 
 // Dynamic shared memory above 48 KB must be allowed per kernel first.
 template <typename K>

@@ -23,7 +23,10 @@ Uniforms: ``u_ext`` is ``[B, N, S]`` (categorical) or ``[B, 2N, S]`` (LG,
 rows 2i and 2i+1 the Box-Muller pair), the JAX layout. Without it both the
 kernels and the plain versions draw Philox-4x32-10 from ``seed``
 (``core.rng.philox_uniforms``), so the in-kernel random mode is comparable
-bit for bit too.
+bit for bit too: the categorical sweep the grouped stream of
+``vbn_cat_scan`` (one call per four nodes, ``grouped=True``), so the two
+draw the same classes on a static plan; the LG sweep one call a node,
+counter (particle, row, node, 0).
 
 Reductions return ``(sums [B, K], m [B])``: ``sums`` are the class
 histogram (K = the target's classes) or the moments (sum w, sum w x,
@@ -42,12 +45,12 @@ import numpy as np
 import torch
 
 from ..core.rng import philox_uniforms
+from .cat_tables import cum_tables, padded_layout
 
 _MAX_C = 32  # classes per node
 _MAX_ROWS_X_C = 2048  # CPT rows x classes per node
 _MAX_NODES = 80
 _THREADS = 128  # threads per block (VBN_THREADS in csrc/sweep.cu)
-_SMEM_LIMIT = 200 * 1024  # keep the CPT in shared memory below this
 _HALF_LOG_2PI = 0.9189385332046727
 
 # Kernel launches by wrapper; the scan kernels (ops/sweep_scan.py), the
@@ -237,13 +240,14 @@ def categorical_sweep_plain(
     u_ext: Optional[torch.Tensor] = None,  # [B, N, S] float32
     want=("logw", "lpt"),
 ):
-    """Same contract as ``categorical_sweep_fused``, in torch ops."""
+    """Same contract as ``categorical_sweep_fused``, in torch ops, drawing
+    the kernel's grouped Philox stream without ``u_ext``."""
     (n_nodes, parent_idx, ev_mask, do_mask, target_idx, offs, pstates,
      cards, strides) = plan_tuple
     b, s = fixed_idx.shape[0], n_samples
     dev = fixed_idx.device
     if u_ext is None:
-        u_ext = philox_uniforms(seed, b, n_nodes, s, 1, dev)
+        u_ext = philox_uniforms(seed, b, n_nodes, s, 1, dev, grouped=True)
     want_logw, want_tgt, want_lpt, red_kind, red_src = _parse_want(want)
     need_logw = want_logw or red_src == "logw"
     need_lpt = want_lpt or red_src == "lpt"
@@ -363,11 +367,11 @@ def _lib() -> ctypes.CDLL:
     from ._build import load
 
     lib = load("sweep")
-    lib.vbn_cat_smem_bytes.argtypes = [_I, _I, _I, _I]
-    lib.vbn_cat_smem_bytes.restype = ctypes.c_size_t
+    lib.vbn_cat_sweep_smem_bytes.argtypes = [_I, _I, _I]
+    lib.vbn_cat_sweep_smem_bytes.restype = ctypes.c_size_t
     lib.vbn_cat_sweep.argtypes = (
-        [_P, _I, _I, _I, _P, _I, _I, _I, _P, _P, ctypes.c_uint64]
-        + [_I] * 11 + [_P] * 5
+        [_P, _P, _I, _I, _I, _P, _P, _P, ctypes.c_uint32, _P, _P,
+         ctypes.c_uint64] + [_I] * 11 + [_P] * 5
     )
     lib.vbn_cat_sweep.restype = _I
     lib.vbn_lg_sweep.argtypes = (
@@ -383,17 +387,62 @@ def _ppt(n_samples: int, threads: int = _THREADS) -> int:
     return 16 if n_samples % (threads * 16) == 0 else 8
 
 
+def _a16(n: int) -> int:
+    return (n + 15) & ~15
+
+
+def _cat_sweep_smem(n, n_slots, k) -> int:
+    """Shared-memory bytes of ``vbn_cat_sweep`` (``cat_sweep_smem``): the
+    row's packed words, the byte value scratch, the reduction array (k = 0:
+    none)."""
+    at = _a16(4 * n) + _a16(n_slots * _THREADS)
+    return at + (_a16(4 * (k + 1) * _THREADS) if k else 0)
+
+
+def table_layout(plan_struct, cmax: int):
+    """The padded-table layout (``ops/cat_tables.py``) of the stacked
+    counts: node i's rows start at row ``offs_i`` of the [rows, cmax]
+    table, ``cmax`` floats apart."""
+    n, offs, pstates, cards = (plan_struct[0], plan_struct[5], plan_struct[6],
+                               plan_struct[7])
+    return pstates, cards, tuple(o * cmax for o in offs), (cmax,) * n
+
+
 @functools.lru_cache(maxsize=64)
-def _cat_meta(plan_struct, device: torch.device) -> torch.Tensor:
-    """off[N] card[N] flags[N] pstart[N+1] plist[P] pstride[P] (int32)."""
-    (n, parent_idx, ev_mask, do_mask, _t, offs, _ps, cards,
+def _cat_meta_host(plan_struct):
+    """The categorical kernel's plan metadata (the layout of
+    ``ops/sweep_scan.py::_cat_meta_host``): rec [N + 1, 4] {off, card, slot,
+    pstart} with rec[N] = (0, 0, 0, P), par [max(P, 1), 2] {slot, stride},
+    n_slots, the node flags [N] (ev << 16 | do << 17) and the live-group
+    mask (bit g: group g has a node to draw). Only parents get a scratch
+    slot; the other nodes share one trash slot."""
+    (n, parent_idx, ev_mask, do_mask, _t, _offs, _ps, cards,
      strides) = plan_struct
-    flags = [int(e) | (int(d) << 1) for e, d in zip(ev_mask, do_mask)]
-    pstart = np.cumsum([0] + [len(p) for p in parent_idx]).tolist()
-    plist = [p for ps in parent_idx for p in ps]
-    pstride = [s for ss in strides for s in ss]
-    meta = list(offs) + list(cards) + flags + pstart + plist + pstride
-    return torch.tensor(meta, dtype=torch.int32, device=device)
+    referenced = sorted({p for ps in parent_idx for p in ps})
+    slot_of = {p: k for k, p in enumerate(referenced)}
+    off = padded_layout(*table_layout(plan_struct, max(cards)))[0]
+    rec = np.zeros((n + 1, 4), np.int32)
+    par, at = [], 0
+    for i in range(n):
+        rec[i] = (off[i], cards[i], slot_of.get(i, len(referenced)), at)
+        par += [[slot_of[p], st] for p, st in zip(parent_idx[i], strides[i])]
+        at += len(parent_idx[i])
+    rec[n, 3] = at
+    flags = np.asarray([(int(e) << 16) | (int(d) << 17)
+                        for e, d in zip(ev_mask, do_mask)], np.int32)
+    glive = 0
+    for i in range(n):
+        if not (ev_mask[i] or do_mask[i]):
+            glive |= 1 << (i >> 2)
+    return (rec, np.asarray(par or [[0, 0]], np.int32), len(referenced) + 1,
+            flags, glive)
+
+
+@functools.lru_cache(maxsize=64)
+def _cat_meta(plan_struct, device: torch.device):
+    """(rec, par, node flags) of ``_cat_meta_host`` on ``device``."""
+    rec, par, _n_slots, flags, _glive = _cat_meta_host(plan_struct)
+    return tuple(torch.as_tensor(a, device=device) for a in (rec, par, flags))
 
 
 @functools.lru_cache(maxsize=64)
@@ -450,15 +499,13 @@ def _launch_categorical(seed, fixed_idx, counts, plan_struct, s, u_ext, want):
     nblk = s // (_THREADS * ppt)
     k = cards[target] if red_kind == "pmf" else 3
     outs = _outputs(b, s, nblk, k, want, fixed_idx.device)
-    meta = _cat_meta(plan_struct, fixed_idx.device)
-    n_par = sum(len(p) for p in plan_struct[1])
-    lib = _lib()
-    table_len = total_rows * cmax
-    smem = lib.vbn_cat_smem_bytes(n, n_par, k if red_kind else 0, table_len)
+    n_slots, _flags, glive = _cat_meta_host(plan_struct)[2:]
+    rec, par, flags = _cat_meta(plan_struct, fixed_idx.device)
+    ctab, lpt = cum_tables(counts.view(-1), table_layout(plan_struct, cmax))
     with torch.cuda.device(fixed_idx.device):
-        rc = lib.vbn_cat_sweep(
-            meta.data_ptr(), n, n_par, target,
-            counts.data_ptr(), table_len, cmax, int(smem <= _SMEM_LIMIT),
+        rc = _lib().vbn_cat_sweep(
+            rec.data_ptr(), par.data_ptr(), n, n_slots, target,
+            ctab.data_ptr(), lpt.data_ptr(), flags.data_ptr(), glive,
             fixed_idx.data_ptr(), _ptr(u_ext), seed & ((1 << 64) - 1),
             b, s, ppt,
             int(want_logw or red_src == "logw"),

@@ -21,12 +21,12 @@ a CUDA tensor they launch the kernel or raise. ``LAUNCHES`` (shared with
 
 Uniforms: ``u_ext`` is ``[B, N, S]`` (categorical) or ``[B, 2N, S]`` (LG),
 the JAX layouts. Without it the kernels and the plain versions draw
-Philox-4x32-10: the LG scan with counter (particle, row, node, 0), the
-stream of ``ops/sweep.py``; the categorical scan one call per four nodes,
-counter (particle, row, node >> 2, 1), word node & 3
-(``philox_uniforms(grouped=True)``). So a static plan draws the same
-classes on ``vbn_cat_scan`` and ``vbn_cat_sweep`` only on the same external
-uniforms; on their in-kernel streams the draws differ.
+grouped Philox-4x32-10 streams (``philox_uniforms(grouped=True)``): the
+categorical scan one call per four nodes, counter (particle, row,
+node >> 2, 1), word node & 3, the stream of ``vbn_cat_sweep`` too, so a
+static plan draws the same classes on both kernels; the LG scan one call
+per two nodes, counter (particle, row, node >> 1, 3), words 2 (node & 1)
+and 2 (node & 1) + 1 its Box-Muller pair.
 
 Not ported, by design:
 
@@ -51,9 +51,11 @@ import numpy as np
 import torch
 
 from ..core.rng import philox_uniforms
+from .cat_tables import cum_tables, padded_layout
 from .sweep import (
     _HALF_LOG_2PI,
     LAUNCHES,
+    _a16,
     _check,
     _combine_reduction,
     _outputs,
@@ -85,10 +87,6 @@ _SM_THREADS, _SM_BLOCKS = 2048, 32
 # ---------------------------------------------------------------------------
 
 
-def _a16(n: int) -> int:
-    return (n + 15) & ~15
-
-
 def _scratch_bits(cmax: int) -> int:
     """Bits a value in ``vbn_cat_scan``'s scratch: 2 while every node has
     at most 4 classes, else 8."""
@@ -104,10 +102,11 @@ def _cat_scan_smem(n, n_slots, threads, k, bits) -> int:
     return at + (_a16(4 * (k + 1) * threads) if k else 0)
 
 
-def _lg_scan_smem(n, pmax, n_slots, threads, red: bool) -> int:
-    """Shared-memory bytes of ``vbn_lg_scan`` (``lg_scan_smem``)."""
-    at = _a16(4 * n * (1 + pmax)) + 2 * _a16(4 * n) + _a16(4 * n * (pmax + 2))
-    at += _a16(4 * n_slots * threads)
+def _lg_scan_smem(n, n_slots, threads, red: bool) -> int:
+    """Shared-memory bytes of ``vbn_lg_scan`` (``lg_scan_smem``): the row's
+    clamped values and flags, the pair flags, the float value scratch, the
+    moments array."""
+    at = 2 * _a16(4 * n) + _a16((n + 1) // 2) + _a16(4 * n_slots * threads)
     return at + (_a16(16 * threads) if red else 0)
 
 
@@ -117,38 +116,55 @@ def _blocks_by_smem(threads, smem, carve_kb):
     return min(carve_kb * 1024 // per, _SM_THREADS // threads, _SM_BLOCKS)
 
 
+def _best_carveout(t, smem, resident, occupancy):
+    """((L1 keeps ``resident`` bytes, blocks an SM), carveout KB) of blocks
+    of ``t`` threads and ``smem`` bytes: the smallest carveout that gives
+    the most blocks among those that leave L1 that much room (else the
+    most blocks)."""
+    best = None
+    for c_kb in _CARVEOUTS_KB:
+        if c_kb * 1024 < smem + _BLOCK_RESERVED:
+            continue
+        key = (_SM_UNIFIED - c_kb * 1024 >= resident, occupancy(t, smem, c_kb))
+        if best is None or key > best[0]:
+            best = (key, c_kb)
+    return best
+
+
 def _cat_layout(n, n_slots, k, bits, resident, limit=_SMEM_OPTIN,
                 occupancy=None):
     """(threads, carveout KB, blocks an SM) for ``vbn_cat_scan``, or None
-    when not even 32 threads fit ``limit``. ``resident`` is the bytes the
-    kernel reads over and over (cumulative table and metadata): the
-    carveout is the smallest that gives the most blocks an SM among those
-    that leave L1 that much room (else the most blocks). ``occupancy(threads,
-    smem, carve_kb)`` counts the blocks; by default shared memory and
-    threads alone (the wrapper asks the device, which also counts
-    registers)."""
+    when not even 32 threads fit ``limit``: the largest block that fits, at
+    ``_best_carveout``. ``resident`` is the bytes the kernel reads over and
+    over (cumulative table and metadata). ``occupancy(threads, smem,
+    carve_kb)`` counts the blocks; by default shared memory and threads
+    alone (the wrapper asks the device, which also counts registers)."""
     occupancy = occupancy or _blocks_by_smem
     for t in _THREADS:
         smem = _cat_scan_smem(n, n_slots, t, k, bits)
+        if smem <= limit:
+            (_l1, blocks), c_kb = _best_carveout(t, smem, resident, occupancy)
+            return t, c_kb, blocks
+    return None
+
+
+def _lg_layout(n, n_slots, red, resident, limit=_SMEM_OPTIN, occupancy=None):
+    """(threads, carveout KB, blocks an SM) for ``vbn_lg_scan``, or None
+    when not even 32 threads fit ``limit``: of the block sizes that fit,
+    the one with the most resident threads an SM at ``_best_carveout``
+    (ties to the larger block, whose row copy is shared by more threads).
+    ``resident`` is the bytes of its records; ``occupancy`` as for
+    ``_cat_layout``."""
+    occupancy = occupancy or _blocks_by_smem
+    best = None
+    for t in _THREADS:
+        smem = _lg_scan_smem(n, n_slots, t, red)
         if smem > limit:
             continue
-        best = None
-        for c_kb in _CARVEOUTS_KB:
-            if c_kb * 1024 < smem + _BLOCK_RESERVED:
-                continue
-            key = (_SM_UNIFIED - c_kb * 1024 >= resident,
-                   occupancy(t, smem, c_kb))
-            if best is None or key > best[0]:
-                best = (key, c_kb)
-        return t, best[1], best[0][1]
-    return None
-
-
-def _lg_threads(n, pmax, n_slots, red, limit=_SMEM_OPTIN):
-    for t in _THREADS:
-        if _lg_scan_smem(n, pmax, n_slots, t, red) <= limit:
-            return t
-    return None
+        (l1, blocks), c_kb = _best_carveout(t, smem, resident, occupancy)
+        if best is None or (l1, blocks * t) > best[0]:
+            best = ((l1, blocks * t), (t, c_kb, blocks))
+    return None if best is None else best[1]
 
 
 def scan_sweep_reason(plan, cpds, n_samples: int):
@@ -204,13 +220,13 @@ def lg_scan_reason(plan, cpds, n_samples: int):
             return f"node {name!r} has output_dim {cpd.output_dim} != 1"
         if cpd.input_dim != len(plan.parent_idx[i]):
             return f"node {name!r} has multi-dim parents (w table misaligns)"
-    pids, pmax, _dmax = lg_scan_struct_for(plan, cpds)
-    n_slots = _compaction(pids)[2]
-    if _lg_threads(plan.n_nodes, pmax, n_slots, True) is None:
-        need = _lg_scan_smem(plan.n_nodes, pmax, n_slots, 32, True)
+    pids, _pmax, _dmax = lg_scan_struct_for(plan, cpds)
+    n_slots = lg_slot_map(pids)[2]
+    if _lg_layout(plan.n_nodes, n_slots, True, 0) is None:
+        need = _lg_scan_smem(plan.n_nodes, n_slots, 32, True)
         return (
-            f"value scratch and metadata need {need} B of shared memory at "
-            f"32 threads > {_SMEM_OPTIN} B"
+            f"value scratch needs {need} B of shared memory at 32 threads "
+            f"> {_SMEM_OPTIN} B"
         )
     return None
 
@@ -275,6 +291,39 @@ def _compaction(pids):
     return smap, pid_slots, len(referenced) + 1
 
 
+@functools.lru_cache(maxsize=64)
+def lg_slot_map(pids):
+    """The LG kernel's value-scratch slots, given by liveness: a node that
+    some later node reads holds a slot from its draw to its last reader,
+    and a slot freed by a node's last read serves the next node that needs
+    one (the node drawn at that step included: it reads its parents before
+    it writes). Every other node writes one shared trash slot, the last.
+    The padded parent id 0 counts as a read, as in ``_compaction``, so the
+    map holds for any weights. Returns (smap [N], pid_slots [N, pmax] the
+    parents' slots, n_slots)."""
+    n = len(pids)
+    last = {}
+    for i, row_p in enumerate(pids):
+        for p in row_p:
+            last[int(p)] = i
+    owner_end, free, smap, top = {}, [], np.zeros((n,), np.int32), 0
+    for i in range(n):
+        for slot in owner_end.pop(i, []):  # slots whose last reader is i
+            free.append(slot)
+        if last.get(i, -1) > i:
+            if free:
+                smap[i] = free.pop()
+            else:
+                smap[i], top = top, top + 1
+            owner_end.setdefault(last[i], []).append(int(smap[i]))
+        else:
+            smap[i] = -1
+    smap[smap < 0] = top
+    pid_slots = np.asarray([[smap[int(p)] for p in row_p] for row_p in pids],
+                           np.int32)
+    return smap, pid_slots, top + 1
+
+
 def _flat_counts(cpds, params_tuple):
     """All nodes' count tables, row-major, concatenated flat [E + 8] (the
     JAX layout, whose trailing zero pad the CUDA kernel does not read)."""
@@ -329,78 +378,75 @@ def _csr(struct):
     return pstart, plist, pstride
 
 
+def table_layout(struct):
+    """The padded-table layout (``ops/cat_tables.py``) of a scan structure:
+    node i's CPT rows start at its entry offset in the flat counts, one
+    card apart."""
+    eoff, rows, cards = struct[:3]
+    return rows, cards, eoff, cards
+
+
 @functools.lru_cache(maxsize=64)
 def _cat_meta_host(struct):
-    """The categorical kernel's plan metadata and padded table layout:
-    (rec [N + 1, 4] {off, card, slot, pstart} with rec[N] = (0, 0, 0, P),
-    par [max(P, 1), 2] {slot, stride}, n_slots, padded length, src, col,
-    cols). Node i's rows start at ``off_i`` in the padded tables, each
-    ``round_up(card, 4)`` floats; ``src`` [padded length] is each padded
-    entry's index in the flat counts (a pad repeats its row's last class),
-    ``col`` its class column and ``cols[j]`` the padded positions of column
-    j >= 1."""
-    eoff, rows, cards, pids = struct[:4]
+    """The categorical kernel's plan metadata: (rec [N + 1, 4] {off, card,
+    slot, pstart} with rec[N] = (0, 0, 0, P), par [max(P, 1), 2] {slot,
+    stride}, n_slots, padded table length). Node i's rows start at
+    ``off_i`` in the padded tables (``cat_tables.padded_layout``)."""
+    cards, pids = struct[2], struct[3]
     smap, _ps, n_slots = _compaction(pids)
     pstart, plist, pstride = _csr(struct)
+    off, src = padded_layout(*table_layout(struct))[:2]
     n = len(cards)
     rec = np.zeros((n + 1, 4), np.int32)
-    src, col = [], []
-    at = 0
-    for i in range(n):
-        c, cp = cards[i], (cards[i] + 3) & ~3
-        rec[i] = (at, c, smap[i], pstart[i])
-        j = np.arange(cp)
-        src.append((eoff[i] + np.arange(rows[i])[:, None] * c
-                    + np.minimum(j, c - 1)[None, :]).reshape(-1))
-        col.append(np.tile(j, rows[i]))
-        at += rows[i] * cp
-    rec[n, 3] = len(plist)
+    rec[:n, 0] = off
+    rec[:n, 1] = cards
+    rec[:n, 2] = smap
+    rec[:, 3] = pstart
     par = np.asarray([[int(smap[p]), st] for p, st in zip(plist, pstride)]
                      or [[0, 0]], np.int32)
-    src, col = np.concatenate(src), np.concatenate(col)
-    cols = tuple(np.flatnonzero(col == j) for j in range(1, int(col.max()) + 1))
-    return rec, par, n_slots, at, src, col, cols
+    return rec, par, n_slots, len(src)
 
 
 @functools.lru_cache(maxsize=64)
 def _cat_meta(struct, device: torch.device):
-    """(rec, par, src, pad mask, cols) of ``_cat_meta_host`` on ``device``."""
-    rec, par, _n_slots, _len, src, col, cols = _cat_meta_host(struct)
-    cards = np.asarray(struct[2])
-    node = np.repeat(np.arange(len(cards)),
-                     [r * ((c + 3) & ~3) for r, c in zip(struct[1], cards)])
-    live = col < cards[node]
-
-    def dev(a, dtype=torch.int64):
-        return torch.as_tensor(a, dtype=dtype, device=device)
-
-    return (dev(rec, torch.int32), dev(par, torch.int32), dev(src),
-            dev(live, torch.bool), tuple(dev(c) for c in cols))
-
-
-def cum_tables(flat_counts: torch.Tensor, struct):
-    """The categorical kernel's tables from the flat counts: (running sums,
-    counts), both [padded length] float32 with every CPT row padded to a
-    multiple of four floats (the layout of ``_cat_meta_host``). The running
-    sums take one float32 add per class in class order, the rounding of a
-    sequential sum; a pad repeats its row's total. The counts are 0 in the
-    pads."""
-    _rec, _par, src, live, cols = _cat_meta(struct, flat_counts.device)
-    cnt = torch.where(live, flat_counts[src], 0.0)
-    cum = cnt.clone()
-    for pos in cols:  # column j: cum_j = cum_{j-1} + cnt_j
-        cum[pos] = cum[pos - 1] + cnt[pos]
-    return cum, cnt
+    """(rec, par) of ``_cat_meta_host`` on ``device``."""
+    rec, par = _cat_meta_host(struct)[:2]
+    return (torch.as_tensor(rec, device=device),
+            torch.as_tensor(par, device=device))
 
 
 @functools.lru_cache(maxsize=64)
-def _lg_meta(pids, device: torch.device) -> torch.Tensor:
-    """smap [N] | parent slot ids [N * pmax] (int32)."""
-    smap, pid_slots, _n = _compaction(pids)
-    return torch.tensor(
-        smap.tolist() + pid_slots.reshape(-1).tolist(), dtype=torch.int32,
-        device=device,
-    )
+def _lg_slots(pids, device: torch.device):
+    """(smap [N + 1], the parent slots [N * pmax]) of ``lg_slot_map`` on
+    ``device``, int32 (smap's last entry 0: the end record's)."""
+    smap, pid_slots, _n = lg_slot_map(pids)
+    return (torch.tensor(smap.tolist() + [0], dtype=torch.int32, device=device),
+            torch.as_tensor(pid_slots.reshape(-1), device=device))
+
+
+def lg_records(ptab_flat: torch.Tensor, struct):
+    """The LG kernel's records, built on the parameter rows' device without
+    a host sync: (rec [N + 1, 4] int32 {out slot, parent start, bias,
+    sigma}, bias and sigma as float bits, rec[N, 1] = P; par [N * pmax, 2]
+    int32 {slot, weight bits}). The first P entries of ``par`` are each
+    node's parents whose weight is not 0, in node order and row order; a
+    padded slot has weight 0 and, with a parent of fitted weight exactly 0,
+    is left out, as the plain version skips both products."""
+    pids, pmax, dmax = struct
+    n = len(pids)
+    smap, slots = _lg_slots(pids, ptab_flat.device)
+    rows = ptab_flat.view(n, dmax + 2)
+    w = rows[:, :pmax].contiguous()
+    keep = (w != 0).view(-1)
+    order = torch.sort((~keep).to(torch.int32), stable=True).indices
+    par = torch.stack([slots, w.view(torch.int32).view(-1)], 1)[order]
+    start = torch.zeros((n + 1,), dtype=torch.int64, device=ptab_flat.device)
+    start[1:] = torch.cumsum(keep.view(n, pmax).sum(1), 0)
+    rec = torch.zeros((n + 1, 4), dtype=torch.int32, device=ptab_flat.device)
+    rec[:, 0] = smap
+    rec[:, 1] = start
+    rec[:n, 2:] = rows[:, dmax:].contiguous().view(torch.int32)
+    return rec, par.contiguous()
 
 
 # ---------------------------------------------------------------------------
@@ -408,14 +454,14 @@ def _lg_meta(pids, device: torch.device) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _node_uniforms(u_ext, seed, i, b, s, words, row0, device, grouped=False):
-    """[B, words, S] uniforms of node i: the u_ext rows or the Philox
-    stream (counter = particle, row0 + row, node, 0; grouped: particle,
-    row0 + row, node >> 2, 1, word node & 3)."""
+def _node_uniforms(u_ext, seed, i, b, s, words, row0, device):
+    """[B, words, S] uniforms of node i: the u_ext rows or the kernels'
+    grouped Philox stream (``philox_uniforms(grouped=True)``) for query
+    rows row0 .. row0 + B - 1."""
     if u_ext is not None:
         return u_ext[:, words * i : words * (i + 1)]
     return philox_uniforms(seed, b, 1, s, words, device, row0=row0, node0=i,
-                           grouped=grouped)
+                           grouped=True)
 
 
 def categorical_sweep_scan_plain(
@@ -470,8 +516,7 @@ def categorical_sweep_scan_plain(
         if bool(fx_i.all()):
             val = clamped
         else:
-            u = _node_uniforms(u_ext, seed, i, b, s, 1, row0, dev,
-                               grouped=True)[:, 0]
+            u = _node_uniforms(u_ext, seed, i, b, s, 1, row0, dev)[:, 0]
             thresh = u * total
             cum = rws[..., 0]
             walk = torch.zeros((b, s), dtype=torch.int64, device=dev)
@@ -517,7 +562,10 @@ def lg_sweep_scan_plain(
     want=("logw",),
     row0: int = 0,
 ):
-    """Same contract as ``lg_sweep_scan``, in torch ops."""
+    """Same contract as ``lg_sweep_scan``, in torch ops, drawing the
+    kernel's grouped Philox stream (two nodes a call) without ``u_ext``;
+    ``row0`` offsets its row counter as in
+    ``categorical_sweep_scan_plain``."""
     pids, pmax, dmax = struct
     b, n = fixed_vals.shape
     s = n_samples
@@ -541,7 +589,8 @@ def lg_sweep_scan_plain(
     for i in range(n):
         loc = ptab[i, dmax].expand(b, s)
         for k in range(pmax):
-            # a padded slot has weight 0: gated, as in the kernels
+            # a padded slot has weight 0: skipped with any weight of 0, as
+            # the kernel's records leave both out
             if w_h[i * width + k] != 0.0:
                 loc = loc + vals[pids[i][k]] * ptab[i, k]
         sigma = ptab[i, dmax + 1]
@@ -595,18 +644,20 @@ def _lib() -> ctypes.CDLL:
     lib.vbn_smem_optin.restype = _I
     lib.vbn_cat_scan_smem_bytes.argtypes = [_I] * 5
     lib.vbn_cat_scan_smem_bytes.restype = ctypes.c_size_t
-    lib.vbn_lg_scan_smem_bytes.argtypes = [_I] * 5
+    lib.vbn_lg_scan_smem_bytes.argtypes = [_I] * 4
     lib.vbn_lg_scan_smem_bytes.restype = ctypes.c_size_t
     lib.vbn_cat_scan_occupancy.argtypes = [_I, _I, _I, ctypes.c_size_t, _I]
     lib.vbn_cat_scan_occupancy.restype = _I
+    lib.vbn_lg_scan_occupancy.argtypes = [_I, _I, ctypes.c_size_t, _I]
+    lib.vbn_lg_scan_occupancy.restype = _I
     lib.vbn_cat_scan.argtypes = (
         [_P, _P, _I, _I, _P, _P, _P, _P, _P, ctypes.c_uint64]
         + [_I] * 14 + [_P] * 5
     )
     lib.vbn_cat_scan.restype = _I
     lib.vbn_lg_scan.argtypes = (
-        [_P, _I, _I, _I, _P, _P, _P, _P, _P, ctypes.c_uint64]
-        + [_I] * 11 + [_P] * 5
+        [_P, _P, _I, _I, _P, _P, _P, _P, ctypes.c_uint64]
+        + [_I] * 12 + [_P] * 5
     )
     lib.vbn_lg_scan.restype = _I
     return lib
@@ -622,8 +673,10 @@ def _smem_limit(device_index: int) -> int:
 
 def _carveout_pct(c_kb: int) -> int:
     """The carveout attribute (percent of the largest shared-memory
-    configuration) that selects the ``c_kb`` configuration."""
-    return -(-c_kb * 100 // _CARVEOUTS_KB[-1])
+    configuration) that selects the ``c_kb`` configuration: the driver
+    takes the smallest configuration that holds the percent, so the percent
+    is rounded down (rounded up, 32 KB would ask for 34.2 KB and get 64)."""
+    return c_kb * 100 // _CARVEOUTS_KB[-1]
 
 
 @functools.lru_cache(maxsize=64)
@@ -632,18 +685,47 @@ def cat_scan_layout(n, n_slots, k, bits, resident, red_kind, device_index):
     device, its blocks an SM counted by the device (registers included),
     or None when the value scratch fits no block."""
     lib = _lib()
-
-    def occupancy(t, smem, c_kb):
-        got = lib.vbn_cat_scan_occupancy(red_kind, bits, t, smem,
-                                         _carveout_pct(c_kb))
-        if got < 0:
-            raise RuntimeError(f"vbn_cat_scan occupancy: CUDA error {-got}")
-        return got
-
+    occupancy = _occupancy_of(
+        lambda t, smem, pct: lib.vbn_cat_scan_occupancy(red_kind, bits, t,
+                                                        smem, pct),
+        "vbn_cat_scan")
     with torch.cuda.device(device_index):
         return _cat_layout(n, n_slots, k, bits, resident,
                            limit=_smem_limit(device_index),
                            occupancy=occupancy)
+
+
+def _occupancy_of(query, name):
+    """``occupancy(threads, smem, carve_kb)`` from a library query that
+    returns blocks an SM or a negative CUDA error."""
+    def occupancy(t, smem, c_kb):
+        got = query(t, smem, _carveout_pct(c_kb))
+        if got < 0:
+            raise RuntimeError(f"{name} occupancy: CUDA error {-got}")
+        return got
+
+    return occupancy
+
+
+@functools.lru_cache(maxsize=64)
+def lg_scan_layout(n, n_slots, red_kind, resident, device_index):
+    """(threads, carveout KB, blocks an SM) of ``vbn_lg_scan`` on the
+    device (``_lg_layout`` with the device's occupancy), or None when the
+    value scratch fits no block."""
+    lib = _lib()
+    occupancy = _occupancy_of(
+        lambda t, smem, pct: lib.vbn_lg_scan_occupancy(red_kind, t, smem, pct),
+        "vbn_lg_scan")
+    with torch.cuda.device(device_index):
+        return _lg_layout(n, n_slots, red_kind != 0, resident,
+                          limit=_smem_limit(device_index), occupancy=occupancy)
+
+
+def lg_resident_bytes(struct) -> int:
+    """Bytes of the LG kernel's records: 16 a node and the end record, 8
+    for each of the N * pmax parent entries."""
+    n, pmax = len(struct[0]), struct[1]
+    return 16 * (n + 1) + 8 * n * pmax
 
 
 def _launch_cat_scan(seed, packed, tgt_idx, flat_counts, struct, s, u_ext,
@@ -674,12 +756,12 @@ def _launch_cat_scan(seed, packed, tgt_idx, flat_counts, struct, s, u_ext,
     ppt = _ppt(s, threads)
     nblk = s // (threads * ppt)
     outs = _outputs(b, s, nblk, k, want, dev)
-    rec, par = _cat_meta(struct, dev)[:2]
-    ctab, cnt = cum_tables(flat_counts, struct)
+    rec, par = _cat_meta(struct, dev)
+    ctab, lpt = cum_tables(flat_counts, table_layout(struct))
     with torch.cuda.device(dev):
         rc = _lib().vbn_cat_scan(
             rec.data_ptr(), par.data_ptr(), n, n_slots,
-            ctab.data_ptr(), cnt.data_ptr(),
+            ctab.data_ptr(), lpt.data_ptr(),
             packed.data_ptr(), tgt_idx.data_ptr(), _ptr(u_ext),
             seed & ((1 << 64) - 1), b, s, threads, ppt, bits,
             _carveout_pct(carve_kb),
@@ -715,25 +797,28 @@ def _launch_lg_scan(seed, fixed_vals, flags, tgt_idx, ptab_flat, struct, s,
     want_logw, want_tgt, want_lpt, red_kind, red_src = _parse_want(want)
     if red_kind == "pmf":
         raise ValueError("pmf reduction undefined for continuous LG targets")
-    n_slots = _compaction(pids)[2]
+    n_slots = lg_slot_map(pids)[2]
     dev = fixed_vals.device
-    threads = _lg_threads(n, pmax, n_slots, red_kind is not None,
-                          limit=_smem_limit(dev.index or 0))
-    if threads is None:
+    kind = 2 if red_kind == "mom" else 0
+    layout = lg_scan_layout(n, n_slots, kind, lg_resident_bytes(struct),
+                            dev.index or 0)
+    if layout is None:
         raise ValueError("vbn_lg_scan: the plan does not fit shared memory")
+    threads, carve_kb, _blocks = layout
     ppt = _ppt(s, threads)
     nblk = s // (threads * ppt)
     outs = _outputs(b, s, nblk, 3, want, dev)
-    meta = _lg_meta(pids, dev)
+    rec, par = lg_records(ptab_flat, struct)
     with torch.cuda.device(dev):
         rc = _lib().vbn_lg_scan(
-            meta.data_ptr(), n, pmax, n_slots, ptab_flat.data_ptr(),
+            rec.data_ptr(), par.data_ptr(), n, n_slots,
             fixed_vals.data_ptr(), flags.data_ptr(), tgt_idx.data_ptr(),
             _ptr(u_ext), seed & ((1 << 64) - 1), b, s, threads, ppt,
+            _carveout_pct(carve_kb),
             int(want_logw or red_src == "logw"),
             int(want_lpt or red_src == "lpt"),
             int(want_logw), int(want_tgt), int(want_lpt),
-            2 if red_kind == "mom" else 0, int(red_src == "lpt"),
+            kind, int(red_src == "lpt"),
             *[_ptr(o) for o in outs],
             torch.cuda.current_stream().cuda_stream,
         )

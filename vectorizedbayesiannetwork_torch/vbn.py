@@ -416,6 +416,10 @@ class VBN:
         its ``cpd_key``, ``init_kwargs`` and ``extra_state``, and its params
         as tensors on ``device``. Learning/inference configs are restored
         where this port has the method; others are skipped with a warning.
+        The port has no sampling methods, update policies or amortized
+        networks yet: a checkpoint that names a sampling or update method,
+        or holds ``__update__`` / ``__amortized__`` arrays, loads without
+        them and warns.
         """
         checkpoint_path = (
             os.path.join(path, "checkpoint.npz") if os.path.isdir(path) else path
@@ -460,12 +464,29 @@ class VBN:
                 )
             else:
                 vbn.set_inference_method(name, **(cfg.get("params") or {}))
+        for slot in ("sampling", "update"):
+            name = (config.get(slot) or {}).get("name")
+            if name:
+                warnings.warn(
+                    f"checkpoint {slot} method {name!r} is not in this port "
+                    "yet; left unset",
+                    stacklevel=2,
+                )
 
         node_arrays: Dict[str, Dict[str, np.ndarray]] = {}
+        dropped: Dict[str, int] = {}
         for full_key, arr in arrays.items():
             owner, pkey = full_key.split("\x1f", 1)
-            if not owner.startswith("__"):
+            if owner.startswith("__"):
+                dropped[owner] = dropped.get(owner, 0) + 1
+            else:
                 node_arrays.setdefault(owner, {})[pkey] = arr
+        for owner, count in sorted(dropped.items()):
+            warnings.warn(
+                f"checkpoint holds {count} {owner} array(s) that this port "
+                "does not restore yet; dropped",
+                stacklevel=2,
+            )
         for node, info in structure.get("nodes", {}).items():
             cpd_key = info.get("cpd_key")
             if cpd_key not in CPD_REGISTRY:
