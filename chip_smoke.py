@@ -6,12 +6,15 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
 1. build: compile ``vectorizedbayesiannetwork_torch/csrc/*.cu`` with nvcc
    (sm_90a) and print the build seconds, ptxas' registers and spills of
    every kernel, and a count of the SASS instructions (``cuobjdump``) of
-   the sweep kernels;
+   the sweep kernels and the KDE log-density kernel;
 2. fit: the asia network (8 categorical nodes) and the 3-node
    linear-Gaussian flagship, each on 4096 rows, on the card;
 3. kernels: each sweep kernel against its plain PyTorch version at B=8,
    S=2^16 in every ``want`` mode, on the same external uniforms and on the
-   in-kernel Philox stream (``vbn_cat_sweep``: the grouped one);
+   in-kernel grouped Philox stream; then ``vbn_lg_sweep`` against
+   ``vbn_lg_scan`` bit for bit on the flagship's static plan, both fed the
+   same external uniforms and each on its own in-kernel stream
+   (``lg_scan_matches_unrolled``);
 4. main path: ``infer_posterior_pmf`` (asia, likelihood weighting) and
    ``infer_posterior_moments`` (flagship, Monte-Carlo marginalization) at
    B=1024 query rows and S=2^20 particles, with the launch counters reset
@@ -114,6 +117,14 @@ Then the KDE slice (KDE CPDs, max_points 2048 and Scott bandwidths, the
 Prints a JSON line of kernel results (all twelve kernels), the card's name
 and power limit, and last ``{"ok": true, "device": {...}}``. Any failure
 exits nonzero. The script imports nothing of JAX or of the JAX package.
+
+``python3 chip_smoke.py --parent DIR`` also times, before those last lines,
+the kernels of another checkout's port package at DIR (for example the
+parent commit's ``vectorizedbayesiannetwork_torch/``, unpacked with ``git
+archive`` into a directory ``.gitignore`` lists) beside this one's, in
+turns in one process (``compare_builds``): ``vbn_lg_sweep``,
+``vbn_kde_cond`` and ``vbn_kde_root`` at their main-path shapes, flagship
+MCM and W3 queries/s.
 """
 
 from __future__ import annotations
@@ -354,6 +365,53 @@ def check_kernels(asia_vbn, lg_vbn):
     return errs
 
 
+def check_lg_sweep_matches_scan(lg_vbn):
+    """vbn_lg_sweep against vbn_lg_scan bit for bit on the flagship's
+    static plan (x2 | x0, x1) at B_CHECK x S_CHECK: both fed the same
+    external uniforms (the grouped Philox stream), and each on its own
+    in-kernel stream."""
+    import torch
+
+    from vectorizedbayesiannetwork_torch.core.plan import get_plan
+    from vectorizedbayesiannetwork_torch.core.rng import philox_uniforms
+    from vectorizedbayesiannetwork_torch.ops import sweep, sweep_scan
+
+    q = flagship_query(B_CHECK)
+    plan = get_plan(lg_vbn, lg_vbn._normalize_query(q))
+    cpds = tuple(lg_vbn.cpd_spec(n) for n in plan.topo_order)
+    params = tuple(lg_vbn.params[n] for n in plan.topo_order)
+    fixed, ptab, st, dmax = kernel_inputs(lg_vbn, q, True)
+    dev = fixed.device
+    flags = (torch.tensor(plan.evidence_mask, device=dev).int()
+             | (torch.tensor(plan.do_mask, device=dev).int() << 1)
+             ).expand(B_CHECK, -1).contiguous()
+    tgt = torch.full((B_CHECK,), plan.target_idx, dtype=torch.int32, device=dev)
+    struct = sweep_scan.lg_scan_struct_for(plan, cpds)
+    args = (fixed, flags, tgt, sweep_scan.lg_ptab_flat(cpds, params, struct[2]),
+            struct, S_CHECK)
+    want = ("logw", "tgt", "lpt")
+    u = philox_uniforms(32, B_CHECK, plan.n_nodes, S_CHECK, 2, dev, grouped=True)
+    a = sweep.lg_sweep_fused(32, fixed, ptab, st, dmax, S_CHECK, u_ext=u,
+                             want=want)
+    b = sweep_scan.lg_sweep_scan(32, *args, u_ext=u, want=want)
+    c = sweep_scan.lg_sweep_scan(32, *args, want=want)
+    d = sweep.lg_sweep_fused(32, fixed, ptab, st, dmax, S_CHECK, want=want)
+    torch.cuda.synchronize()
+    same = {k: bool(torch.equal(x, y)) for k, x, y in zip(want, a[:3], b[:3])}
+    same_stream = {k: bool(torch.equal(x, y)) for k, x, y in zip(want, b[:3], c[:3])}
+    same_in_kernel = {k: bool(torch.equal(x, y))
+                      for k, x, y in zip(want, c[:3], d[:3])}
+    log("lg_scan_matches_unrolled", network="flagship", seed=32,
+        uniforms="philox_uniforms(words=2, grouped=True) as u_ext", equal=same,
+        in_kernel_stream_equal=same_stream,
+        in_kernel_streams_of_both_equal=same_in_kernel)
+    if not all(same.values()) or not all(same_stream.values()) \
+            or not all(same_in_kernel.values()):
+        raise AssertionError(f"vbn_lg_scan != vbn_lg_sweep bitwise: {same}, "
+                             f"in-kernel stream: {same_stream}, both in-kernel: "
+                             f"{same_in_kernel}")
+
+
 def fitted_discrete_bn(bn, vbn, floor=0.0):
     """DiscreteBN whose CPTs are the port's normalized counts, each entry
     at least ``floor``."""
@@ -485,7 +543,7 @@ def lg_cost(plan_struct, dmax, b, s, want):
         if (ev[i] and red.endswith("logw")) or (i == t and red.endswith("lpt")):
             per += 8
     per += 8
-    nblk = s // (sweep._THREADS * sweep._ppt(s))  # blocks per row
+    nblk = s // (sweep._THREADS * sweep._lg_ppt(s))  # blocks per row
     meta = 2 * n + 1 + sum(len(p) for p in parent_idx)
     nbytes = 4 * (b * n + n * (dmax + 2) + meta + b * nblk * 4)
     return per * b * s, nbytes
@@ -576,7 +634,8 @@ def time_kernels(asia_vbn, lg_vbn, launches, errs):
             6, fixed, ptab, st, dmax, S_MAIN, want=want),
         lambda r0, r1: sweep.lg_sweep_plain(
             6, fixed[r0:r1], ptab, st, dmax, S_MAIN, want=want,
-            u_ext=philox_uniforms(6, r1 - r0, st[0], S_MAIN, 2, fixed.device, row0=r0)),
+            u_ext=philox_uniforms(6, r1 - r0, st[0], S_MAIN, 2, fixed.device,
+                                  row0=r0, grouped=True)),
         "mom", rtol=2e-3, shift_atol=2e-3)
     log("kernel_main_shape", kernel="vbn_lg_sweep", ms=ms, plain_ms=plain_ms,
         served_row_max_abs_err=err)
@@ -2301,6 +2360,105 @@ def serve_kde(vbn_cls, defaults):
     return rows
 
 
+def load_parent(root):
+    """The port package of another checkout at ``root`` (for example the
+    parent commit's, unpacked with ``git archive``), imported under the name
+    ``vbn_parent``; it builds its own kernels into ``root/build/kernels``."""
+    import importlib
+    import importlib.util
+    from pathlib import Path
+
+    init = Path(root).resolve() / "vectorizedbayesiannetwork_torch" / "__init__.py"
+    spec = importlib.util.spec_from_file_location(
+        "vbn_parent", init, submodule_search_locations=[str(init.parent)])
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules["vbn_parent"] = mod
+    spec.loader.exec_module(mod)
+    for sub in ("defaults", "ops.sweep", "ops.kde_fused", "ops._build"):
+        importlib.import_module(f"vbn_parent.{sub}")
+    return mod
+
+
+def compare_builds(root):
+    """The kernels this checkout redesigned beside another checkout's build
+    of them (``--parent root``), in one process on one card, in turns
+    (other, this, this, other): vbn_lg_sweep at the flagship's main shape,
+    vbn_kde_cond at W2's and vbn_kde_root at W1's (CUDA events, each held
+    against the other build's output), then flagship MCM and W3 queries/s
+    served by each package end to end."""
+    import torch
+
+    from vectorizedbayesiannetwork_torch import VBN, defaults
+    from vectorizedbayesiannetwork_torch.ops import kde_fused as kf
+    from vectorizedbayesiannetwork_torch.ops import sweep
+
+    par = load_parent(root)
+    log("compare_builds", parent=str(root),
+        build_seconds=par.ops._build.build_all(["sweep", "kde"]))
+
+    def turns(metric, other, this):
+        got = [other(), this(), this(), other()]
+        log("compare_builds", metric=metric, parent=[got[0], got[3]],
+            this=[got[1], got[2]])
+
+    def held(name, a, b, atol):
+        err = float((a.double() - b.double()).abs().nan_to_num(0.0).max())
+        if err > atol:
+            raise AssertionError(f"{name}: builds differ by {err}")
+
+    # vbn_lg_sweep at the flagship's main shape
+    lg_vbn = fit_flagship(VBN, defaults)
+    fixed, ptab, st, dmax = kernel_inputs(lg_vbn, flagship_query(B_MAIN), True)
+
+    def lg(mod):
+        return mod.lg_sweep_fused(6, fixed, ptab, st, dmax, S_MAIN,
+                                  want=("mom_lpt",))
+
+    held("vbn_lg_sweep served rows", served_rows("mom", lg(par.ops.sweep)[3][0]),
+         served_rows("mom", lg(sweep)[3][0]), 2e-3)
+    turns("vbn_lg_sweep_ms", lambda: cuda_ms(lambda: lg(par.ops.sweep), 5),
+          lambda: cuda_ms(lambda: lg(sweep), 5))
+
+    # vbn_kde_cond at W2's shape and vbn_kde_root at W1's
+    flag = fit_kde(VBN, defaults, [("x0", "x2"), ("x1", "x2")], flagship_data())
+    dev = fixed.device
+    g = torch.Generator(device=dev).manual_seed(5)
+    m = B_KDE * S_KDE
+    ev = torch.linspace(-1, 1, B_KDE, device=dev).repeat_interleave(S_KDE)[:, None]
+    pcols = torch.cat([ev, torch.randn((m, 1), generator=g, device=dev)], 1)
+    p0, p2 = flag.params["x0"], flag.params["x2"]
+    lm0 = flag.nodes["x0"]._log_mask(p0)
+    lm2 = flag.nodes["x2"]._log_mask(p2)
+    hy0 = flag.nodes["x0"]._y_scale()
+    hy2, hp2 = flag.nodes["x2"]._y_scale(), flag.nodes["x2"]._p_scale()
+    for name, fn in (
+            ("vbn_kde_cond", lambda mod: mod.kde_cond(
+                ev, pcols, p2["data_x"], p2["data_p"], lm2, hy2, hp2)),
+            ("vbn_kde_root", lambda mod: mod.kde_root(
+                ev, p0["data_x"], lm0, hy0))):
+        held(name, fn(par.ops.kde_fused), fn(kf), 1e-4)
+        turns(f"{name}_ms", lambda: cuda_ms(lambda: fn(par.ops.kde_fused), KDE_REPS),
+              lambda: cuda_ms(lambda: fn(kf), KDE_REPS))
+
+    # end to end: flagship MCM and W3 on each package
+    ql = flagship_query(B_MAIN)
+    serve = {}
+    for tag, mod in (("parent", par), ("this", None)):
+        vbn_cls = mod.VBN if mod else VBN
+        dfl = mod.defaults if mod else defaults
+        fl = fit_flagship(vbn_cls, dfl)
+        fl.set_inference_method("monte_carlo_marginalization", n_samples=S_MAIN)
+        _gbn, gauss, _qs, qd = gauss8_kde(vbn_cls, dfl)
+        serve[tag] = (
+            lambda fl=fl: end_to_end_qps(
+                lambda: fl.infer_posterior_moments([ql] * REPS), B_MAIN)[0],
+            lambda gauss=gauss, qd=qd: dynamic_qps(
+                lambda: gauss.infer_posterior_moments(qd, pad_bucket=N_KDE_DYN),
+                N_KDE_DYN)[0])
+    turns("flagship_mcm_moments_qps", serve["parent"][0], serve["this"][0])
+    turns("w3_kde_gauss8_dyn_qps", serve["parent"][1], serve["this"][1])
+
+
 def kernel_name(mangled):
     """A kernel's mangled name as ``name<template arguments>``
     (``cat_scan_kernel<1,2,0>``)."""
@@ -2333,13 +2491,14 @@ def ptxas_report(text):
 
 
 SASS_KERNELS = {"sweep": ("cat_sweep_kernel", "lg_sweep_kernel"),
-                "sweep_scan": ("cat_scan_kernel", "lg_scan_kernel")}
+                "sweep_scan": ("cat_scan_kernel", "lg_scan_kernel"),
+                "kde": ("kde_direct_kernel",)}
 SASS_OPS = ("MUFU", "IMAD", "LOP3", "FFMA", "FMUL", "FADD", "LDS", "STS",
             "LDG", "BRA", "CALL")
 
 
 def sass_report(lib_path):
-    """Static SASS of each sweep kernel in ``lib_path`` (``cuobjdump
+    """Static SASS of each kernel in ``lib_path`` (``cuobjdump
     -sass``): per entry function, its instruction count and the counts of
     the opcodes in SASS_OPS (an opcode counts under the first name it
     starts with: IMAD.WIDE is IMAD). A count of code, not of executed
@@ -2369,9 +2528,16 @@ def sass_report(lib_path):
     return out
 
 
-def main() -> int:
+def main(argv) -> int:
+    import argparse
+
     import torch
 
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--parent", metavar="DIR",
+                    help="also time the redesigned kernels of the checkout at "
+                         "DIR beside this one's (compare_builds)")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -2397,6 +2563,7 @@ def main() -> int:
 
     errs = check_kernels(asia_vbn, lg_vbn)
     log("kernel_check_done", max_abs_err=errs)
+    check_lg_sweep_matches_scan(lg_vbn)
 
     torch.cuda.reset_peak_memory_stats()
     launches = serve_main_path(bn, asia_vbn, lg_vbn)
@@ -2425,6 +2592,8 @@ def main() -> int:
     kernels += scan_rows
     kernels += serve_resampling(bn, asia_vbn, lg_vbn, link)
     kernels += serve_kde(VBN, defaults)
+    if args.parent:
+        compare_builds(args.parent)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -2444,4 +2613,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -429,6 +429,44 @@ def test_scan_kernel_matches_unrolled_kernel_bitwise(asia_vbn):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("query", ["mcm_x2_given_x0_x1", "lw_x0_given_x2"])
+def test_lg_scan_kernel_matches_unrolled_kernel_bitwise(lg_vbn, query):
+    """The flagship's static plan: vbn_lg_scan draws vbn_lg_sweep's values
+    (one walk, lg_walk.cuh) bit for bit, on the same external uniforms (the
+    grouped Philox stream) and on the two kernels' own in-kernel streams."""
+    from vectorizedbayesiannetwork_torch.core.rng import philox_uniforms
+    from vectorizedbayesiannetwork_torch.ops import sweep_scan
+
+    ev = torch.linspace(-1, 1, B).reshape(B, 1).numpy()
+    q = (dict(target="x2", evidence={"x0": ev, "x1": -ev})
+         if query.startswith("mcm") else dict(target="x0", evidence={"x2": ev}))
+    plan, cpds, params = _plan(lg_vbn, do={}, **q)
+    st, dmax = sweep.lg_plan_tuple_for(plan, cpds)
+    ptab = sweep.lg_param_table(cpds, params, dmax,
+                                tuple(c.min_scale for c in cpds))
+    fixed = torch.zeros((B, plan.n_nodes), device="cuda")
+    for i, name in enumerate(plan.topo_order):
+        if name in q["evidence"]:
+            fixed[:, i] = torch.as_tensor(q["evidence"][name][:, 0])
+    flags = (torch.tensor(plan.evidence_mask, device="cuda").int()
+             | (torch.tensor(plan.do_mask, device="cuda").int() << 1)
+             ).expand(B, -1).contiguous()
+    tgt = torch.full((B,), plan.target_idx, dtype=torch.int32, device="cuda")
+    struct = sweep_scan.lg_scan_struct_for(plan, cpds)
+    flat = sweep_scan.lg_ptab_flat(cpds, params, struct[2])
+    want = ("logw", "tgt", "lpt")
+    u = philox_uniforms(13, B, plan.n_nodes, S, 2, "cuda", grouped=True)
+    a = sweep.lg_sweep_fused(13, fixed, ptab, st, dmax, S, u_ext=u, want=want)
+    b = sweep_scan.lg_sweep_scan(13, fixed, flags, tgt, flat, struct, S,
+                                 u_ext=u, want=want)
+    c = sweep_scan.lg_sweep_scan(13, fixed, flags, tgt, flat, struct, S,
+                                 want=want)
+    d = sweep.lg_sweep_fused(13, fixed, ptab, st, dmax, S, want=want)
+    for x, y, z, w in zip(a[:3], b[:3], c[:3], d[:3]):
+        assert torch.equal(x, y) and torch.equal(y, z) and torch.equal(z, w)
+
+
+@pytest.mark.cuda
 def test_scan_smem_layout_matches_the_kernels(card):
     """The wrappers' shared-memory counts are the ones the kernels lay
     out."""
@@ -693,7 +731,8 @@ def test_kde_root_kernel_matches_plain(card, dx, n, valid):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dx,dp", [(1, 1), (1, 2), (2, 3), (3, 17)])
+@pytest.mark.parametrize("dx,dp", [(1, 1), (1, 2), (2, 3), (3, 17), (1, 4),
+                                   (1, 8), (2, 16)])
 @pytest.mark.parametrize("n,valid", [(2048, 2048), (2000, 1700)])
 def test_kde_cond_kernel_matches_plain(card, dx, dp, n, valid):
     data_x, data_p, lm = _kde_support(n, dx, dp, valid)
@@ -703,6 +742,32 @@ def test_kde_cond_kernel_matches_plain(card, dx, dp, n, valid):
     assert sweep.LAUNCHES["kde_cond"] == before + 1
     want = kf.kde_cond_plain(x, p, data_x, data_p, lm, 0.3, 0.4)
     torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["far", "all_masked"])
+@pytest.mark.parametrize("dx,dp", [(1, 0), (2, 0), (1, 2), (2, 8), (1, 16)])
+def test_kde_direct_kernels_far_rows_and_masked_support(card, case, dx, dp):
+    """vbn_kde_root (dp 0) and vbn_kde_cond within 1e-4 of their plain
+    versions on query rows moved out of the support by 10 scale units over
+    their features (every term far below 0: the lazily moved references
+    rescale many times), and on a support masked everywhere (-inf: the root
+    gives -inf, the conditional -inf - -inf = NaN, on both sides)."""
+    data_x, data_p, lm = _kde_support(2000, dx, max(dp, 1), 1700)
+    x, p = _kde_queries(dx, max(dp, 1))
+    if case == "far":
+        x = x + 0.3 * float(np.sqrt(100.0 / dx))
+        p = p + 0.4 * float(np.sqrt(100.0 / max(dp, 1)))
+    else:
+        lm = torch.full_like(lm, float("-inf"))
+    if dp == 0:
+        got = kf.kde_root(x, data_x, lm, 0.3)
+        want = kf.kde_root_plain(x, data_x, lm, 0.3)
+    else:
+        got = kf.kde_cond(x, p, data_x, data_p, lm, 0.3, 0.4)
+        want = kf.kde_cond_plain(x, p, data_x, data_p, lm, 0.3, 0.4)
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=0,
+                               equal_nan=case == "all_masked")
 
 
 @pytest.mark.cuda

@@ -118,6 +118,166 @@ def test_cond_plain_matches_pallas(dx, dp, valid):
                                rtol=1e-5)
 
 
+# ---------------------------------------------------------------------------
+# the direct kernels' logsumexp form (csrc/kde.cu, kde_direct_kernel), as a
+# numpy float32 model, against the plain versions
+# ---------------------------------------------------------------------------
+
+_F = np.float32
+_TILE = 256  # support points per staged tile
+_LSE_MARGIN = _F(32.0)  # 2^32 bounds a term before the reference moves
+_GUARD = _F(-1e30)
+_GUARD2 = _F(_GUARD * _F(kf.LOG2E))
+
+
+def _fma(a, b, c):
+    """fmaf: the product exact, one rounding to float32."""
+    return (np.float64(a) * np.float64(b) + np.float64(c)).astype(_F)
+
+
+def _lse2_add(ref, s, v, rows):
+    """Lse2::add on the ``rows`` selected: move the reference to a term
+    that passes it by the margin (rescaling the sum), then add 2^(v - ref)."""
+    a = (v - ref).astype(_F)
+    move = rows & (a > _LSE_MARGIN)
+    s[move] *= np.exp2(-a[move])
+    ref[move] = v[move]
+    a[move] = 0.0
+    s[rows] += np.exp2(a[rows])
+
+
+def _lse2_value(ref, s, offset):
+    out = ((ref + _F(offset) + np.log2(s)) * _F(np.log(2.0))).astype(_F)
+    out = np.where(ref == _GUARD2, _GUARD + np.log2(s) * _F(np.log(2.0)), out)
+    return np.where(s > 0, out, -np.inf).astype(_F)
+
+
+def _direct_model(x, data_x, lm, y_scale, p=None, data_p=None, p_scale=None):
+    """The direct kernels' arithmetic in numpy float32, row-parallel: base-2
+    terms from coordinates scaled by ``direct_consts``, four points at a
+    time against lazily moved references, the four sent down the rescaling
+    path when their largest exponent passes the margin."""
+    cond = p is not None
+    m, dx = x.shape
+    sy, cy = kf.direct_consts(dx, y_scale)
+    q = (x * sy).astype(_F)
+    c_stage, c_num = cy, _F(0.0)
+    if cond:
+        sp, cp = kf.direct_consts(p.shape[1], p_scale)
+        r = (p * sp).astype(_F)
+        c_stage, c_num = cp, cy
+    ref_n, s_n = np.full(m, _GUARD2, _F), np.zeros(m, _F)
+    ref_p, s_p = np.full(m, _GUARD2, _F), np.zeros(m, _F)
+    with np.errstate(all="ignore"):
+        for t0 in range(0, data_x.shape[0], _TILE):
+            tn = min(_TILE, data_x.shape[0] - t0)
+            tn4 = (tn + 3) & ~3
+            X = np.zeros((tn4, dx), _F)
+            X[:tn] = data_x[t0:t0 + tn] * sy
+            L = np.full(tn4, -np.inf, _F)
+            L[:tn] = _fma(lm[t0:t0 + tn], _F(kf.LOG2E), c_stage)
+            if cond:
+                P = np.zeros((tn4, p.shape[1]), _F)
+                P[:tn] = data_p[t0:t0 + tn] * sp
+            for j in range(0, tn4, 4):
+                kp = np.repeat(L[None, j:j + 4], m, 0)
+                if cond:
+                    for d in range(P.shape[1]):
+                        e = (r[:, d:d + 1] - P[None, j:j + 4, d]).astype(_F)
+                        kp = _fma(-e, e, kp)
+                an = (kp - ref_n[:, None]).astype(_F)
+                ap = (kp - ref_p[:, None]).astype(_F)
+                for d in range(dx):
+                    e = (q[:, d:d + 1] - X[None, j:j + 4, d]).astype(_F)
+                    an = _fma(-e, e, an)
+                mx = np.fmax.reduce(an, 1)
+                if cond:
+                    mx = np.fmax(mx, np.fmax.reduce(ap, 1))
+                slow = mx > _LSE_MARGIN
+                for k in range(4):
+                    if cond:
+                        s_p[~slow] += np.exp2(ap[~slow, k])
+                    s_n[~slow] += np.exp2(an[~slow, k])
+                for k in range(4):
+                    sq = np.zeros(m, _F)
+                    for d in range(dx):
+                        e = (q[:, d] - X[j + k, d]).astype(_F)
+                        sq = _fma(e, e, sq)
+                    if cond:
+                        _lse2_add(ref_p, s_p, kp[:, k], slow)
+                    _lse2_add(ref_n, s_n, (kp[:, k] - sq).astype(_F), slow)
+        num = _lse2_value(ref_n, s_n, c_num)
+        return num - _lse2_value(ref_p, s_p, 0.0) if cond else num
+
+
+_DIRECT_CASES = ["near", "far", "max_last", "hard_tail", "all_masked",
+                 "under_guard", "at_guard"]
+
+
+def _direct_case(case, dx, dp, g):
+    """(x, p, data_x, data_p, log_mask) of one model case on n = 301 points
+    (a ragged last tile of 45, padded to 48): queries near the support; 5
+    scale units outside it (every term far below 0, the references moved
+    many times); the support sorted farthest first (each row's largest
+    terms arrive last); a tail at the JAX tests' hard mask -1e30; every
+    point masked (-inf), under the guard (-2e30) or at it (-1e30)."""
+    n, m = 301, 64
+    data_x, data_p = _normal(g, n, dx), _normal(g, n, dp)
+    x, p = 1.5 * _normal(g, m, dx), 1.5 * _normal(g, m, dp)
+    lm = np.zeros(n, _F)
+    if case == "far":
+        x, p = x + _F(5.0), p + _F(5.0)
+    elif case == "max_last":
+        x, p = (0.3 * x + 2.5).astype(_F), (0.3 * p + 2.5).astype(_F)
+        order = np.argsort(data_x.sum(1) + data_p.sum(1))
+        data_x, data_p = data_x[order], data_p[order]
+    elif case == "hard_tail":
+        lm = _tail_mask(n, 250)
+    else:
+        lm[:] = {"all_masked": -np.inf, "under_guard": -2e30,
+                 "at_guard": -1e30}.get(case, 0.0)
+    return x, p, data_x, data_p, lm
+
+
+@pytest.mark.parametrize("case", _DIRECT_CASES)
+@pytest.mark.parametrize("dx,dp", [(1, 0), (2, 0), (1, 2), (2, 3)])
+def test_direct_kernel_lse_form_matches_plain(case, dx, dp):
+    """The base-2 lazy-reference logsumexp of vbn_kde_root and vbn_kde_cond,
+    modelled in numpy float32, against kde_root_plain and kde_cond_plain
+    (the JAX kernels' max-first float32 form) within 1e-4: rows near and
+    far from the support, rows whose maximum arrives last, a hard-masked
+    tail; a fully masked support gives -inf (the conditional -inf - -inf,
+    NaN, on both sides), so does one under the -1e30 guard, and one at the
+    guard gives the guard (the conditional 0)."""
+    g = np.random.default_rng(7)
+    x, p, data_x, data_p, lm = _direct_case(case, dx, max(dp, 1), g)
+    if dp == 0:
+        got = _direct_model(x, data_x, lm, 0.5)
+        want = kf.kde_root_plain(_t(x), _t(data_x), _t(lm), 0.5).numpy()
+    else:
+        got = _direct_model(x, data_x, lm, 0.5, p, data_p, 0.5)
+        want = kf.kde_cond_plain(_t(x), _t(p), _t(data_x), _t(data_p), _t(lm),
+                                 0.5, 0.5).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-4, rtol=0)
+    if case in ("all_masked", "under_guard"):
+        assert np.isnan(want).all() if dp else (want == -np.inf).all()
+    if case == "at_guard":
+        assert (want == 0).all() if dp else (want == _GUARD).all()
+
+
+def test_direct_consts_are_the_base2_kernel_consts():
+    """sqrt(log2 e / 2h^2) squared and log2(e) * const, from kernel_consts'
+    float32 values."""
+    for d, h in [(1, 0.3), (2, 0.5), (17, 1.7)]:
+        inv2, const = kf.kernel_consts(d, h)
+        scale, c2 = kf.direct_consts(d, h)
+        assert scale.dtype == c2.dtype == np.float32
+        np.testing.assert_allclose(np.float64(scale) ** 2,
+                                   np.float64(inv2) * kf.LOG2E, rtol=1e-6)
+        np.testing.assert_allclose(c2, np.float64(const) * kf.LOG2E,
+                                   rtol=1e-6)
+
+
 def test_wide_plain_matches_pallas():
     g = np.random.default_rng(2)
     n, m, d = 128, 64, jkp._DIRECT_D + 4

@@ -334,6 +334,54 @@ def test_scan_plain_matches_unrolled_plain_bitwise():
             assert torch.equal(x, y)
 
 
+@pytest.mark.parametrize("query", ["mcm_x2_given_x0_x1", "lw_x0_given_x2"])
+def test_lg_scan_plain_matches_unrolled_plain_bitwise(query):
+    """The flagship (x0 -> x2 <- x1) on a static plan: the LG scan plain
+    version draws the unrolled LG plain version's values bit for bit, under
+    external uniforms and under Philox with no external uniforms on either
+    side (both draw the grouped stream, two nodes a call), as vbn_lg_scan
+    and vbn_lg_sweep share one walk."""
+    rng = np.random.default_rng(0)
+    x0, x1 = rng.normal(size=4096), rng.normal(size=4096)
+    x2 = 0.5 * x0 - 0.2 * x1 + 0.1 * rng.normal(size=4096)
+    tv = TVBN([("x0", "x2"), ("x1", "x2")], seed=0, device="cpu")
+    tv.set_learning_method("node_wise", nodes_cpds={
+        k: tdefaults.cpd("linear_gaussian") for k in ("x0", "x1", "x2")})
+    tv.fit({"x0": x0, "x1": x1, "x2": x2})
+    ev = np.linspace(-1, 1, B, dtype=np.float32).reshape(B, 1)
+    q = (dict(target="x2", evidence={"x0": ev, "x1": -ev})
+         if query.startswith("mcm") else dict(target="x0", evidence={"x2": ev}))
+    tp = t_get_plan(tv, TQuery(do={}, **q))
+    tc = tuple(tv.cpd_spec(n) for n in tp.topo_order)
+    tpar = tuple(tv.params[n] for n in tp.topo_order)
+    st, dmax = tsweep.lg_plan_tuple_for(tp, tc)
+    ptab = tsweep.lg_param_table(tc, tpar, dmax, tuple(c.min_scale for c in tc))
+    fixed = torch.zeros((B, tp.n_nodes))
+    for i, name in enumerate(tp.topo_order):
+        if name in q["evidence"]:
+            fixed[:, i] = torch.as_tensor(q["evidence"][name][:, 0])
+    flags = (torch.tensor(tp.evidence_mask).int()
+             | (torch.tensor(tp.do_mask).int() << 1)).expand(B, -1).contiguous()
+    tgt = torch.full((B,), tp.target_idx, dtype=torch.int32)
+    struct = tscan.lg_scan_struct_for(tp, tc)
+    u = torch.as_tensor(np.random.default_rng(4).uniform(
+        1e-6, 1 - 1e-6, size=(B, 2 * tp.n_nodes, S)).astype(np.float32))
+    for want in (("logw", "tgt", "lpt"), ("mom_logw",), ("mom_lpt",)):
+        for u_ext in (u, None):
+            a = tsweep.lg_sweep_plain(7, fixed, ptab, st, dmax, S,
+                                      u_ext=u_ext, want=want)
+            b = tscan.lg_sweep_scan_plain(
+                7, fixed, flags, tgt, tscan.lg_ptab_flat(tc, tpar, struct[2]),
+                struct, S, u_ext=u_ext, want=want)
+            for x, y in zip(a[:3], b[:3]):
+                assert (x is None) == (y is None)
+                assert x is None or torch.equal(x, y)
+            assert (a[3] is None) == (b[3] is None)
+            if a[3] is not None:
+                assert torch.equal(a[3][0], b[3][0])
+                assert torch.equal(a[3][1], b[3][1])
+
+
 def test_gate_reasons_match_jax(random24, gauss9, tmp_path):
     """The port's gates give the JAX reasons, except where the JAX one is
     its 1 MB SMEM budget: the card reads a large table from global memory."""
@@ -591,6 +639,27 @@ def test_lg_records_walk_gives_the_plain_location(gauss9):
         for e in range(int(rec[i, 1]), int(rec[i + 1, 1])):
             walk = walk + v[int(par[e, 0])] * par[e, 1:2].view(torch.float32)
         assert torch.equal(walk, loc), i
+
+
+def test_lg_densities_give_the_plain_log_density(gauss9):
+    """The LG kernels' density pairs {1 / sigma, log(sigma) + log(2 pi) / 2}:
+    -zz^2 / 2 - the second, zz = (v - loc) * the first, is the plain
+    versions' -zz^2 / 2 - log(sigma) - log(2 pi) / 2 with zz = (v - loc) /
+    sigma, within float32 rounding."""
+    _j, (tp, tc, tpar) = gauss9
+    struct = tscan.lg_scan_struct_for(tp, tc)
+    dmax = struct[2]
+    ptab = tscan.lg_ptab_flat(tc, tpar, dmax)
+    dens = tscan.lg_densities(ptab, struct)
+    sigma = ptab.view(tp.n_nodes, dmax + 2)[:, dmax + 1]
+    assert dens.shape == (tp.n_nodes, 2) and dens.dtype == torch.float32
+    diff = torch.as_tensor(np.random.default_rng(8).normal(
+        size=(64, tp.n_nodes)).astype(np.float32)) * sigma
+    zz = diff * dens[:, 0]
+    got = -0.5 * zz * zz - dens[:, 1]
+    zp = diff / sigma
+    want = -0.5 * zp * zp - torch.log(sigma) - tscan._HALF_LOG_2PI
+    torch.testing.assert_close(got, want, atol=2e-6, rtol=0)
 
 
 def _seq_cum(row):

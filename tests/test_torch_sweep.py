@@ -257,6 +257,98 @@ def test_in_kernel_random_mode_is_philox(cat_sides):
     assert not torch.equal(a[1], c[1])
 
 
+def _lg_inputs(lg_sides):
+    _, (tp, tc, tpar) = lg_sides
+    struct, dmax = tsweep.lg_plan_tuple_for(tp, tc)
+    ptab = tsweep.lg_param_table(tc, tpar, dmax,
+                                 tuple(c.min_scale for c in tc))
+    fixed = torch.full((B, tp.n_nodes), 0.5)
+    return tp, tc, tpar, struct, dmax, ptab, fixed
+
+
+def test_lg_plain_draws_the_grouped_stream(lg_sides):
+    """Without u_ext the plain LG version draws philox_uniforms(words=2,
+    grouped=True): vbn_lg_scan's stream (two nodes a call, tag 3), which
+    the CUDA kernel now draws in-kernel, not the per-node one."""
+    tp, _tc, _tpar, struct, dmax, ptab, fixed = _lg_inputs(lg_sides)
+    want = ("logw", "tgt", "lpt")
+    a = tsweep.lg_sweep_plain(9, fixed, ptab, struct, dmax, S, want=want)
+    u = philox_uniforms(9, B, tp.n_nodes, S, 2, "cpu", grouped=True)
+    b = tsweep.lg_sweep_plain(9, fixed, ptab, struct, dmax, S, u_ext=u,
+                              want=want)
+    for x, y in zip(a[:3], b[:3]):
+        assert torch.equal(x, y)
+    c = tsweep.lg_sweep_plain(
+        9, fixed, ptab, struct, dmax, S, want=want,
+        u_ext=philox_uniforms(9, B, tp.n_nodes, S, 2, "cpu"))
+    assert not torch.equal(a[1], c[1])
+
+
+def test_lg_plain_skips_a_zero_weight(lg_sides):
+    """A parent of weight exactly 0 is left out of the location, as the
+    kernel's records leave it out: an infinite clamped value there gives a
+    finite location, where inf * 0 would give NaN."""
+    tp, _tc, _tpar, struct, dmax, ptab, fixed = _lg_inputs(lg_sides)
+    child = next(i for i in range(tp.n_nodes) if tp.parent_idx[i])
+    parent = tp.parent_idx[child][0]
+    ptab = ptab.clone()
+    ptab[child, 0] = 0.0
+    fixed = fixed.clone()
+    fixed[:, parent] = float("inf")
+    plan = (tp.n_nodes, tp.parent_idx,
+            tuple(i == parent for i in range(tp.n_nodes)),
+            (False,) * tp.n_nodes, child)
+    _logw, tgt, _lpt, _red = tsweep.lg_sweep_plain(
+        3, fixed, ptab, plan, dmax, S, want=("tgt",))
+    assert bool(torch.isfinite(tgt).all())
+
+
+def test_lg_sweep_walks_the_scan_records(lg_sides):
+    """vbn_lg_sweep's records (structure, node and parent records, value
+    slots) are the ones vbn_lg_scan builds for the same plan; its flags
+    are the plan's, ev | do << 1, and a pair of nodes is live when it holds
+    a node to draw."""
+    from vectorizedbayesiannetwork_torch.ops import sweep_scan as tscan
+
+    tp, tc, tpar, struct, dmax, ptab, _fixed = _lg_inputs(lg_sides)
+    sstruct = tscan.lg_scan_struct_for(tp, tc)
+    assert tsweep.lg_struct(struct, dmax) == sstruct
+    got = tsweep.lg_records(ptab.view(-1), sstruct)
+    want = tscan.lg_records(tscan.lg_ptab_flat(tc, tpar, sstruct[2]), sstruct)
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
+    flags, plive = tsweep._lg_flags_host(struct)
+    ev, do = np.asarray(tp.evidence_mask), np.asarray(tp.do_mask)
+    np.testing.assert_array_equal(flags, ev | (do << 1))
+    latent = ~(ev | do)
+    assert plive == sum(1 << q for q in range((tp.n_nodes + 1) // 2)
+                        if latent[2 * q: 2 * q + 2].any())
+
+
+def test_load_parent_imports_a_second_copy_of_the_port(lg_sides, tmp_path):
+    """chip_smoke.py --parent: load_parent imports another checkout's port
+    package under its own name, with its own kernel build directory, and
+    its plain versions compute what this checkout's do."""
+    import shutil
+    from pathlib import Path
+
+    from chip_smoke import load_parent
+
+    root = Path(__file__).resolve().parents[1]
+    shutil.copytree(root / "vectorizedbayesiannetwork_torch",
+                    tmp_path / "vectorizedbayesiannetwork_torch",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    par = load_parent(tmp_path)
+    assert par.__name__ == "vbn_parent"
+    assert par.ops._build.BUILD_DIR == tmp_path / "build" / "kernels"
+    _tp, _tc, _tpar, struct, dmax, ptab, fixed = _lg_inputs(lg_sides)
+    want = ("logw", "tgt", "lpt")
+    a = par.ops.sweep.lg_sweep_plain(4, fixed, ptab, struct, dmax, S, want=want)
+    b = tsweep.lg_sweep_plain(4, fixed, ptab, struct, dmax, S, want=want)
+    for x, y in zip(a[:3], b[:3]):
+        assert torch.equal(x, y)
+
+
 def test_sweep_walks_the_scan_tables(cat_sides):
     """vbn_cat_sweep's padded running-sum and count tables, built from the
     stacked counts, are bit for bit the ones vbn_cat_scan builds from the

@@ -115,14 +115,17 @@ def philox_uniforms(
 ) -> torch.Tensor:
     """The sweep kernels' in-kernel uniforms as a [B, words*N, S] tensor.
 
-    Counter = (particle, row, node, 0), key = ``seed``, for query rows
-    ``row0 .. row0 + B - 1`` and nodes ``node0 .. node0 + N - 1``. Row
-    ``words*i + w`` holds output word ``w`` of node ``node0 + i``: the
-    Box-Muller pair (words 0 and 1) of ``vbn_lg_sweep``, or with one word a
-    node a categorical stream. This is the external-uniform layout the kernels
-    take, so feeding the result back reproduces the in-kernel random mode
-    (``row0`` and ``node0`` let a caller rebuild a large batch's draws a
-    slice of rows or nodes at a time).
+    Key = ``seed``, for query rows ``row0 .. row0 + B - 1`` and nodes
+    ``node0 .. node0 + N - 1``. Row ``words*i + w`` holds word ``w`` of node
+    ``node0 + i``: an LG node's Box-Muller pair (``words=2``), or with one
+    word a node a categorical stream. This is the external-uniform layout
+    the kernels take, so feeding the result back as ``u_ext`` reproduces an
+    in-kernel random mode (``row0`` and ``node0`` let a caller rebuild a
+    large batch's draws a slice of rows or nodes at a time).
+
+    By default one call a node, counter (particle, row, node, 0), words 0
+    and 1: a stream no kernel draws in-kernel, kept as a fixed source of
+    external uniforms.
 
     ``grouped=True`` is the stream of the kernels that share one call
     among several nodes, its tag in the last counter word:

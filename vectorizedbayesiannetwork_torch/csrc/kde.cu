@@ -25,18 +25,41 @@
 // per feature and about 6 more. The TPU kernels held the [TM, N] logit
 // tiles in VMEM; here no pair's value is ever stored.
 //
-// Design (root, conditional, and the pick's conditional form): one thread
-// per query row, 256 threads a block. The block stages the support through
-// shared memory in tiles of 256 points, one contiguous row per feature (the
-// global loads run along the [N, D] rows, so they coalesce), so any N works
-// and an unaligned or masked tail needs no padding. Each thread holds its
-// query row in registers (the kernels are instantiated for the next power
-// of two of the widest feature count, up to 32) and walks the tile; all
-// threads read the same shared word at once (a broadcast). Each logsumexp
-// is online: a running (max, sum), rescaled when a larger term arrives, so
-// either branch costs one exp (__expf: the SFU's ex2 after one multiply).
-// The result takes the JAX kernels' guard max(mx, -1e30): a row whose terms
-// all lie below -1e30 gives -inf, as there.
+// Design of the root and the conditional (vbn_kde_root, vbn_kde_cond; one
+// template, kde_direct_kernel): one thread per query row, 256 threads a
+// block. The block stages the support through shared memory in tiles of
+// 256 points, one contiguous row per feature (the global loads run along
+// the [N, D] rows, so they coalesce), so any N works; a tile's ragged end
+// is padded to four points of mask -inf. The kernel is instantiated for the
+// next powers of two of Dx and Dp (MX, MP <= 32); the features past Dx and
+// Dp are zeros in the query registers and the staged rows, so the pair
+// loop has no feature guards. Per pair the SFU's exps bound it, so
+// everything else is cut down to an FFMA chain and one ex2 a term:
+// - The base-2 domain. The wrapper passes c = sqrt(log2(e) / 2h^2) and
+//   log2(e) * const; the kernel scales the query in registers and the
+//   staged support by c, and stages log2(e) * log_mask + const_p (the
+//   root: + const_y), so a term is kp2 = mask2_n - sum_d (c r_d - c P_nd)^2
+//   and kp2 - sum_d (c q_d - c X_nd)^2: one FADD and one FFMA a feature,
+//   then ex2.approx.ftz (one MUFU.EX2, no multiply by log2(e)). The result
+//   takes one multiply by ln 2.
+// - A lazy reference in place of the online max. Each logsumexp sums
+//   2^(v - ref) against a reference that moves (rescaling what was summed)
+//   only when a term passes it by LSE_MARGIN (2^32 bounds a term). Four
+//   points' exponents are formed first; one compare of their largest with
+//   the margin sends the four, rarely, down the rescaling path, so the
+//   common path has no data-dependent branch per term. The reference starts
+//   at the JAX kernels' guard -1e30 (in base 2): a term under it never
+//   moves it and adds 0, so a row whose terms all lie below -1e30 gives
+//   -inf, as max(mx, -1e30) does there, and a -inf mask adds nothing.
+// - Vectorised shared loads: four consecutive points of one feature are
+//   one 16-byte word ([f][TILE] layout), read by every thread at once (a
+//   broadcast): one LDS.128 per feature and per mask for four pairs.
+// - Registers: __launch_bounds__ with a minimum of blocks by the widths
+//   (kde_min_blocks), so ptxas keeps the query rows and the four points'
+//   exponents in registers without spilling.
+//
+// The pick's conditional form stages the support the same way, unscaled
+// (stage), and keeps its own sums (below).
 //
 // vbn_kde_cond_wide (max(Dx, Dp) > 32): the features do not fit registers.
 // Per sub-tile of 32 support points the block stages the features in
@@ -110,8 +133,20 @@ constexpr int ROOT_CDF_MAX = 16384;  // root pick: CDF points in shared memory
 constexpr float RESCALE = 32.f;  // conditional pick: e^32 bounds a term
 constexpr int PICK_CHUNKS = 32;  // conditional pick: chunk sums a row
 constexpr int ROOT_BLOCKS_PER_SM = 8;
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.69314718055994531f;
+constexpr float GUARD2 = GUARD * LOG2E;  // the guard in base 2
+constexpr float LSE_MARGIN = 32.f;       // direct kernels: 2^32 bounds a term
 
-// Online logsumexp: running max m and sum s of exp(v - m).
+// Blocks an SM the direct kernels are built for: registers hold MX + MP
+// query features, ~30 other values and the staged words in flight, so 64
+// registers a thread up to 8 features, 128 up to 32, then 255.
+__host__ __device__ constexpr int kde_min_blocks(int mx, int mp) {
+  return mx + mp <= 8 ? 4 : mx + mp <= 32 ? 2 : 1;
+}
+
+// Online logsumexp (the wide kernel): running max m and sum s of
+// exp(v - m).
 struct Lse {
   float m, s;
   __device__ __forceinline__ void init() {
@@ -141,65 +176,145 @@ __device__ __forceinline__ void stage(float* s, const float* __restrict__ src,
   }
 }
 
-// Root (COND false) and conditional KDE for max(Dx, Dp) <= MD <= 32.
-template <int MD, bool COND>
-__global__ void __launch_bounds__(THREADS)
+using vbn::ex2;
+
+// Base-2 logsumexp of the direct kernels: s = sum 2^(v - ref), the
+// reference moved only when a term passes it by LSE_MARGIN. The pair loop
+// adds to s directly; add() is the rescaling path.
+struct Lse2 {
+  float ref, s;
+  __device__ __forceinline__ void init() {
+    ref = GUARD2;
+    s = 0.f;
+  }
+  __device__ __forceinline__ void add(float v) {
+    float a = v - ref;
+    if (a > LSE_MARGIN) {  // the first term over the guard, or one far above
+      s *= ex2(-a);
+      ref = v;
+      a = 0.f;
+    }
+    s += ex2(a);
+  }
+  // ln(sum 2^(v + offset)): -inf when every term lies under the guard, the
+  // guard itself when the terms that count lie at it (never moved), as
+  // max(mx, -1e30) + log(sum) gives
+  __device__ __forceinline__ float value(float offset) const {
+    if (!(s > 0.f)) return -INFINITY;
+    if (ref == GUARD2) return GUARD + log2f(s) * LN2;
+    return (ref + offset + log2f(s)) * LN2;
+  }
+};
+
+// Rows [0, tn) of a row-major [., d] block at src, times `scale`, into
+// s[f * TILE + j] for f < M and j < tn4; features f >= d and points
+// j >= tn are 0.
+template <int M>
+__device__ __forceinline__ void stage_scaled(float* s,
+                                             const float* __restrict__ src,
+                                             int tn, int tn4, int d,
+                                             float scale) {
+  for (int i = threadIdx.x; i < tn4 * M; i += blockDim.x) {
+    const int j = i / M, f = i - j * M;
+    s[f * TILE + j] = (j < tn && f < d) ? src[j * d + f] * scale : 0.f;
+  }
+}
+
+// Root (COND false) and conditional KDE for Dx <= MX and Dp <= MP, MX and
+// MP powers of two up to 32. sy, sp: the coordinate scales; c_stage: the
+// constant staged with the mask (const_p, or the root's const_y); c_num:
+// the numerator's other constant (const_y, or 0 for the root); all base 2.
+template <int MX, int MP, bool COND>
+__global__ void __launch_bounds__(THREADS, kde_min_blocks(MX, COND ? MP : 0))
 kde_direct_kernel(const float* __restrict__ x, const float* __restrict__ p,
                   const float* __restrict__ data_x,
                   const float* __restrict__ data_p,
                   const float* __restrict__ log_mask, int m, int n, int dx,
-                  int dp, float inv2y, float inv2p, float const_y,
-                  float const_p, float* __restrict__ out) {
-  extern __shared__ float smem[];
-  float* s_x = smem;               // [dx][TILE]
-  float* s_p = s_x + dx * TILE;    // [dp][TILE]
-  float* s_lm = s_p + dp * TILE;   // [TILE]
+                  int dp, float sy, float sp, float c_stage, float c_num,
+                  float* __restrict__ out) {
+  extern __shared__ __align__(16) float smem[];
+  float* s_x = smem;                          // [MX][TILE]
+  float* s_p = s_x + MX * TILE;               // [MP][TILE] (COND)
+  float* s_lm = s_p + (COND ? MP : 0) * TILE; // [TILE]
   const long long row = (long long)blockIdx.x * THREADS + threadIdx.x;
   const bool live = row < m;
-  float q[MD], r[MD];
+  float q[MX], r[MP];
 #pragma unroll
-  for (int d = 0; d < MD; ++d) {
-    q[d] = (live && d < dx) ? x[row * dx + d] : 0.f;
-    r[d] = (COND && live && d < dp) ? p[row * dp + d] : 0.f;
-  }
-  Lse num, den;
+  for (int d = 0; d < MX; ++d)
+    q[d] = (live && d < dx) ? x[row * dx + d] * sy : 0.f;
+#pragma unroll
+  for (int d = 0; d < MP; ++d)
+    r[d] = (COND && live && d < dp) ? p[row * dp + d] * sp : 0.f;
+  Lse2 num, den;
   num.init();
   den.init();
   for (int t0 = 0; t0 < n; t0 += TILE) {
-    const int tn = min(TILE, n - t0);
+    const int tn = min(TILE, n - t0), tn4 = (tn + 3) & ~3;
     __syncthreads();  // the previous tile is read by every thread
-    stage(s_x, data_x + (size_t)t0 * dx, tn, dx);
-    if (COND) stage(s_p, data_p + (size_t)t0 * dp, tn, dp);
-    for (int j = threadIdx.x; j < tn; j += THREADS) s_lm[j] = log_mask[t0 + j];
+    stage_scaled<MX>(s_x, data_x + (size_t)t0 * dx, tn, tn4, dx, sy);
+    if (COND) stage_scaled<MP>(s_p, data_p + (size_t)t0 * dp, tn, tn4, dp, sp);
+    for (int j = threadIdx.x; j < tn4; j += THREADS)
+      s_lm[j] = j < tn ? fmaf(log_mask[t0 + j], LOG2E, c_stage) : -INFINITY;
     __syncthreads();
-    for (int j = 0; j < tn; ++j) {
-      float sy = 0.f;
+    for (int j = 0; j < tn4; j += 4) {
+      const float4 lm = *(const float4*)(s_lm + j);
+      float kp[4] = {lm.x, lm.y, lm.z, lm.w};
+      if (COND) {
 #pragma unroll
-      for (int d = 0; d < MD; ++d) {
-        if (d < dx) {
-          const float e = q[d] - s_x[d * TILE + j];
-          sy = fmaf(e, e, sy);
+        for (int d = 0; d < MP; ++d) {
+          const float4 v = *(const float4*)(s_p + d * TILE + j);
+          float e;
+          e = r[d] - v.x; kp[0] = fmaf(-e, e, kp[0]);
+          e = r[d] - v.y; kp[1] = fmaf(-e, e, kp[1]);
+          e = r[d] - v.z; kp[2] = fmaf(-e, e, kp[2]);
+          e = r[d] - v.w; kp[3] = fmaf(-e, e, kp[3]);
         }
       }
-      const float ky = fmaf(-sy, inv2y, const_y);
-      if (COND) {
-        float sp = 0.f;
+      float an[4], ap[4];
 #pragma unroll
-        for (int d = 0; d < MD; ++d) {
-          if (d < dp) {
-            const float e = r[d] - s_p[d * TILE + j];
-            sp = fmaf(e, e, sp);
+      for (int k = 0; k < 4; ++k) {
+        an[k] = kp[k] - num.ref;
+        ap[k] = kp[k] - den.ref;
+      }
+#pragma unroll
+      for (int d = 0; d < MX; ++d) {
+        const float4 v = *(const float4*)(s_x + d * TILE + j);
+        float e;
+        e = q[d] - v.x; an[0] = fmaf(-e, e, an[0]);
+        e = q[d] - v.y; an[1] = fmaf(-e, e, an[1]);
+        e = q[d] - v.z; an[2] = fmaf(-e, e, an[2]);
+        e = q[d] - v.w; an[3] = fmaf(-e, e, an[3]);
+      }
+      float mx = fmaxf(fmaxf(an[0], an[1]), fmaxf(an[2], an[3]));
+      if (COND) mx = fmaxf(mx, fmaxf(fmaxf(ap[0], ap[1]), fmaxf(ap[2], ap[3])));
+      if (mx > LSE_MARGIN) {
+        // rare: a term passes its reference by the margin (every row's
+        // first term over the guard): the four points one by one, their
+        // support read again (volatile: reusing the loads above would keep
+        // every difference of the four points live across the branch)
+        const volatile float* vx = s_x;
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          float sq = 0.f;
+#pragma unroll
+          for (int d = 0; d < MX; ++d) {
+            const float e = q[d] - vx[d * TILE + j + k];
+            sq = fmaf(e, e, sq);
           }
+          if (COND) den.add(kp[k]);
+          num.add(kp[k] - sq);
         }
-        const float kp = fmaf(-sp, inv2p, const_p) + s_lm[j];
-        den.add(kp);
-        num.add(kp + ky);
       } else {
-        num.add(ky + s_lm[j]);
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          if (COND) den.s += ex2(ap[k]);
+          num.s += ex2(an[k]);
+        }
       }
     }
   }
-  if (live) out[row] = COND ? num.value() - den.value() : num.value();
+  if (live)
+    out[row] = COND ? num.value(c_num) - den.value(0.f) : num.value(0.f);
 }
 
 // Squared distances of one query row (q_row, d features) to the WN support
@@ -509,40 +624,70 @@ kde_pick_gumbel_kernel(const float* __restrict__ p,
   if (live) copy_row(data_x, best_n, row, dx, out);
 }
 
-// The instantiation for the widest feature count md (1 .. 32): the next
-// power of two, or -1 past 32.
+// The instantiation for a feature count md (1 .. 32): the next power of
+// two, or -1 past 32.
 inline int pow2_at_least(int md) {
   int v = 1;
   while (v < md) v <<= 1;
   return v <= 32 ? v : -1;
 }
 
-template <int MD, bool COND>
+template <int MX, int MP, bool COND>
 cudaError_t go_direct(const float* x, const float* p, const float* data_x,
                       const float* data_p, const float* log_mask, int m, int n,
-                      int dx, int dp, float inv2y, float inv2p, float const_y,
-                      float const_p, float* out, cudaStream_t st) {
-  const size_t smem = (size_t)(dx + dp + 1) * TILE * sizeof(float);
-  auto kernel = kde_direct_kernel<MD, COND>;
+                      int dx, int dp, float sy, float sp, float c_stage,
+                      float c_num, float* out, cudaStream_t st) {
+  const size_t smem = (size_t)(MX + (COND ? MP : 0) + 1) * TILE * sizeof(float);
+  auto kernel = kde_direct_kernel<MX, MP, COND>;
   cudaError_t e = vbn::allow_smem(kernel, smem);
   if (e != cudaSuccess) return e;
   kernel<<<(m + THREADS - 1) / THREADS, THREADS, smem, st>>>(
-      x, p, data_x, data_p, log_mask, m, n, dx, dp, inv2y, inv2p, const_y,
-      const_p, out);
+      x, p, data_x, data_p, log_mask, m, n, dx, dp, sy, sp, c_stage, c_num,
+      out);
   return cudaGetLastError();
+}
+
+// The instantiation for MX = pow2(dx); MP = pow2(dp) for the conditional.
+template <int MX, bool COND>
+cudaError_t launch_direct_mp(const float* x, const float* p,
+                             const float* data_x, const float* data_p,
+                             const float* log_mask, int m, int n, int dx,
+                             int dp, float sy, float sp, float c_stage,
+                             float c_num, float* out, cudaStream_t st) {
+  if constexpr (!COND) {
+    return go_direct<MX, 1, false>(x, p, data_x, data_p, log_mask, m, n, dx,
+                                   dp, sy, sp, c_stage, c_num, out, st);
+  } else {
+    switch (pow2_at_least(dp)) {
+#define VBN_KDE_CASE(V)                                                     \
+  case V:                                                                   \
+    return go_direct<MX, V, COND>(x, p, data_x, data_p, log_mask, m, n, dx, \
+                                  dp, sy, sp, c_stage, c_num, out, st);
+    VBN_KDE_CASE(1)
+    VBN_KDE_CASE(2)
+    VBN_KDE_CASE(4)
+    VBN_KDE_CASE(8)
+    VBN_KDE_CASE(16)
+    VBN_KDE_CASE(32)
+#undef VBN_KDE_CASE
+      default:
+        return cudaErrorInvalidValue;
+    }
+  }
 }
 
 template <bool COND>
 cudaError_t launch_direct(const float* x, const float* p, const float* data_x,
                           const float* data_p, const float* log_mask, int m,
-                          int n, int dx, int dp, float inv2y, float inv2p,
-                          float const_y, float const_p, float* out,
+                          int n, int dx, int dp, float sy, float sp,
+                          float c_stage, float c_num, float* out,
                           cudaStream_t st) {
-  switch (pow2_at_least(dx > dp ? dx : dp)) {
+  switch (pow2_at_least(dx)) {
 #define VBN_KDE_CASE(V)                                                     \
   case V:                                                                   \
-    return go_direct<V, COND>(x, p, data_x, data_p, log_mask, m, n, dx, dp, \
-                              inv2y, inv2p, const_y, const_p, out, st);
+    return launch_direct_mp<V, COND>(x, p, data_x, data_p, log_mask, m, n,  \
+                                     dx, dp, sy, sp, c_stage, c_num, out,   \
+                                     st);
     VBN_KDE_CASE(1)
     VBN_KDE_CASE(2)
     VBN_KDE_CASE(4)
@@ -631,21 +776,22 @@ extern "C" {
 // Each returns cudaGetLastError() after its launch (or the error that kept
 // it from launching); stream is a cudaStream_t passed as an integer.
 
+// The direct kernels take the base-2 constants (ops/kde_fused.py::
+// direct_consts): sy, sp = sqrt(log2(e) / 2h^2), cy, cp = log2(e) * const.
 int vbn_kde_root(const float* x, const float* data_x, const float* log_mask,
-                 int m, int n, int dx, float inv2y, float const_y, float* out,
+                 int m, int n, int dx, float sy, float cy, float* out,
                  void* stream) {
   return (int)launch_direct<false>(x, nullptr, data_x, nullptr, log_mask, m, n,
-                                   dx, 0, inv2y, 0.f, const_y, 0.f, out,
+                                   dx, 0, sy, 0.f, cy, 0.f, out,
                                    (cudaStream_t)stream);
 }
 
 int vbn_kde_cond(const float* x, const float* p, const float* data_x,
                  const float* data_p, const float* log_mask, int m, int n,
-                 int dx, int dp, float inv2y, float inv2p, float const_y,
-                 float const_p, float* out, void* stream) {
+                 int dx, int dp, float sy, float sp, float cy, float cp,
+                 float* out, void* stream) {
   return (int)launch_direct<true>(x, p, data_x, data_p, log_mask, m, n, dx, dp,
-                                  inv2y, inv2p, const_y, const_p, out,
-                                  (cudaStream_t)stream);
+                                  sy, sp, cp, cy, out, (cudaStream_t)stream);
 }
 
 int vbn_kde_cond_wide(const float* x, const float* p, const float* data_x,

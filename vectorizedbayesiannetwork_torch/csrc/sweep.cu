@@ -26,10 +26,17 @@
 // are), and a byte is read and written with fewer integer instructions than
 // the scan's 2-bit packing.
 //
-// vbn_lg_sweep: Philox-4x32-10 with key = the 64-bit seed and counter =
-// (particle, row, node, 0) (vbn_common.cuh), the Box-Muller pair words 0
-// and 1; the [N, dmax + 2] parameter table is copied into shared memory
-// once per block.
+// vbn_lg_sweep walks as vbn_lg_scan does (lg_walk.cuh): the grouped Philox
+// stream (counter (particle, row, i >> 1, 3), node i words 2 (i & 1) and
+// 2 (i & 1) + 1, a call a pair of nodes), the per-node and per-parent
+// records built on the device (real parents of nonzero weight only), the
+// value slots by liveness, one MUFU rsqrt and one MUFU cos, per-node
+// density pairs. The plan's flags are constants: the block copies them
+// beside the row's clamped values into shared memory, and the wrapper
+// passes which pairs of nodes draw as a bit mask. So on a static plan the
+// two kernels draw the same values bit for bit, on their in-kernel streams
+// and on the same external uniforms. A thread walks 64 particles where S
+// allows it (ops/sweep.py::_lg_ppt).
 //
 // A non-null u_ext ([B, N, S] or [B, 2N, S] float32) replaces the
 // generator, which is how the kernels are held against their plain PyTorch
@@ -57,6 +64,7 @@
 #include <math.h>
 
 #include "cat_walk.cuh"
+#include "lg_walk.cuh"
 #include "vbn_common.cuh"
 
 #define VBN_THREADS 128
@@ -64,8 +72,6 @@
 using vbn::Acc;
 using vbn::align16;
 using vbn::allow_smem;
-using vbn::philox4x32_10;
-using vbn::uniform_from_bits;
 
 namespace {
 
@@ -135,100 +141,77 @@ cat_sweep_kernel(const int4* __restrict__ rec, const int2* __restrict__ par,
     acc.block_store(s_red, out_red + ((size_t)b * nblk + blk) * (k + 1));
 }
 
-// meta (int32): flags[N] pstart[N+1] plist[P]; ptab [N, dmax + 2] rows are
-// [w_0 .. w_{d-1}, 0 pad, bias, sigma].
-template <int RED>
-__global__ void __launch_bounds__(VBN_THREADS)
-lg_sweep_kernel(const int32_t* __restrict__ meta, int n_nodes, int n_par,
-                int target, const float* __restrict__ ptab, int dmax,
-                const float* __restrict__ fixed, const float* __restrict__ u_ext,
-                uint64_t seed, int n_samples, int nblk, int ppt, int need_logw,
-                int need_lpt, int want_logw, int want_tgt, int want_lpt,
-                int red_src, float* __restrict__ out_logw,
-                float* __restrict__ out_tgt, float* __restrict__ out_lpt,
-                float* __restrict__ out_red) {
+// Shared memory of the LG kernel, in the order the kernel lays it out: the
+// row's clamped values, the plan's flags, the float value scratch, the
+// moments array.
+__host__ __device__ __forceinline__ size_t lg_sweep_smem(int n_nodes,
+                                                         int n_slots,
+                                                         int red) {
+  size_t at = 2 * align16((size_t)n_nodes * 4);
+  at += align16((size_t)n_slots * VBN_THREADS * 4);
+  if (red) at += align16((size_t)4 * VBN_THREADS * 4);
+  return at;
+}
+
+// rec [N + 1] int4 {out slot, parent start, bias, sigma} (bias and sigma as
+// float bits; rec[N].y = P ends the last parent list); par [P] int2 {slot,
+// weight bits}; dens [N] {1 / sigma, log(sigma) + log(2 pi) / 2};
+// nflags [N] int32: ev | do << 1 of the plan; plive: bit p set when pair p
+// has a node to draw; fixed [B, N] float32 clamped values; EXT: u_ext
+// [B, 2N, S], else the Philox stream of key.
+template <int RED, bool EXT>
+__global__ void __launch_bounds__(VBN_THREADS, VBN_MIN_BLOCKS)
+lg_sweep_kernel(const int4* __restrict__ rec, const int2* __restrict__ par,
+                const float2* __restrict__ dens, int n_nodes, int n_slots,
+                int target,
+                const int32_t* __restrict__ nflags, uint64_t plive,
+                const float* __restrict__ fixed,
+                const float* __restrict__ u_ext, const vbn::PhiloxKey key,
+                int n_samples, int nblk, int ppt, int need_logw, int need_lpt,
+                int want_logw, int want_tgt, int want_lpt, int red_src,
+                float* __restrict__ out_logw, float* __restrict__ out_tgt,
+                float* __restrict__ out_lpt, float* __restrict__ out_red) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int tid = threadIdx.x;
   const int b = blockIdx.x / nblk;
   const int blk = blockIdx.x % nblk;
-  const int meta_len = 2 * n_nodes + 1 + n_par;
-  const int width = dmax + 2;
-  const int k = 3;
 
-  int32_t* s_meta = (int32_t*)smem;
-  size_t at = align16(meta_len * sizeof(int32_t));
-  float* s_fixed = (float*)(smem + at);
-  at += align16(n_nodes * sizeof(float));
-  float* s_ptab = (float*)(smem + at);
-  at += align16((size_t)n_nodes * width * sizeof(float));
+  float* s_fixed = (float*)smem;
+  size_t at = align16((size_t)n_nodes * 4);
+  int32_t* s_flags = (int32_t*)(smem + at);
+  at += align16((size_t)n_nodes * 4);
   float* s_vals = (float*)(smem + at);
-  at += align16((size_t)n_nodes * VBN_THREADS * sizeof(float));
+  at += align16((size_t)n_slots * VBN_THREADS * 4);
   float* s_red = (float*)(smem + at);
 
-  for (int j = tid; j < meta_len; j += VBN_THREADS) s_meta[j] = meta[j];
-  for (int j = tid; j < n_nodes; j += VBN_THREADS)
+  for (int j = tid; j < n_nodes; j += VBN_THREADS) {
     s_fixed[j] = fixed[(size_t)b * n_nodes + j];
-  for (int j = tid; j < n_nodes * width; j += VBN_THREADS) s_ptab[j] = ptab[j];
+    s_flags[j] = nflags[j];
+  }
   __syncthreads();
-  const int32_t* flags = s_meta;
-  const int32_t* pstart = flags + n_nodes;
-  const int32_t* plist = pstart + n_nodes + 1;
-  const float two_pi = 6.28318530717958647692f;
-  const float half_log_2pi = 0.9189385332046727f;
+  const float* u_row =
+      EXT ? u_ext + (size_t)b * 2 * n_nodes * n_samples : nullptr;
 
+  const bool want_any = want_logw || want_tgt || want_lpt;
   Acc<RED> acc;
-  acc.init(s_red, k);
+  acc.init(s_red, 3);
   for (int it = 0; it < ppt; ++it) {
     const int s = (blk * ppt + it) * VBN_THREADS + tid;
     float logw = 0.f, lpt = 0.f, tval = 0.f;
-    for (int i = 0; i < n_nodes; ++i) {
-      const float* prow = s_ptab + i * width;
-      float loc = prow[dmax];
-      for (int q = pstart[i]; q < pstart[i + 1]; ++q)
-        loc = __fadd_rn(loc, __fmul_rn(s_vals[plist[q] * VBN_THREADS + tid],
-                                       prow[q - pstart[i]]));
-      const float sigma = prow[dmax + 1];
-      const int fl = flags[i];
-      float v;
-      if (fl & 3) {
-        v = s_fixed[i];
-      } else {
-        float u1, u2;
-        if (u_ext != nullptr) {
-          const size_t base = ((size_t)b * 2 * n_nodes + 2 * i) * n_samples + s;
-          u1 = u_ext[base];
-          u2 = u_ext[base + n_samples];
-        } else {
-          uint32_t ctr[4] = {(uint32_t)s, (uint32_t)b, (uint32_t)i, 0u};
-          philox4x32_10(ctr, seed);
-          u1 = uniform_from_bits(ctr[0]);
-          u2 = uniform_from_bits(ctr[1]);
-        }
-        const float z = __fmul_rn(sqrtf(__fmul_rn(-2.f, logf(u1))),
-                                  cosf(__fmul_rn(two_pi, u2)));
-        v = __fadd_rn(loc, __fmul_rn(sigma, z));
-      }
-      s_vals[i * VBN_THREADS + tid] = v;
-      const bool ev = (fl & 1) && need_logw;
-      const bool tg = (i == target) && need_lpt;
-      if (ev || tg) {
-        const float zz = __fdiv_rn(__fsub_rn(v, loc), sigma);
-        const float lp = __fsub_rn(
-            __fsub_rn(__fmul_rn(__fmul_rn(-0.5f, zz), zz), logf(sigma)),
-            half_log_2pi);
-        if (ev) logw = __fadd_rn(logw, lp);
-        if (tg) lpt = lp;
-      }
-      if (i == target) tval = v;
+    vbn::lg_particle<EXT>(rec, par, dens, n_nodes, s_fixed, s_flags, s_vals,
+                          VBN_THREADS, tid, vbn::PairMask{plive}, target,
+                          u_row, key, b, s, n_samples, need_logw, need_lpt,
+                          logw, lpt, tval);
+    if (want_any) {  // reduction mode stores nothing a particle
+      const size_t o = (size_t)b * n_samples + s;
+      if (want_logw) out_logw[o] = logw;
+      if (want_tgt) out_tgt[o] = tval;
+      if (want_lpt) out_lpt[o] = lpt;
     }
-    const size_t o = (size_t)b * n_samples + s;
-    if (want_logw) out_logw[o] = logw;
-    if (want_tgt) out_tgt[o] = tval;
-    if (want_lpt) out_lpt[o] = lpt;
     if (RED != 0) acc.add(red_src == 0 ? logw : lpt, 0, tval);
   }
   if (RED != 0)
-    acc.block_store(s_red, out_red + ((size_t)b * nblk + blk) * (k + 1));
+    acc.block_store(s_red, out_red + ((size_t)b * nblk + blk) * 4);
 }
 
 }  // namespace
@@ -237,14 +220,6 @@ extern "C" {
 
 size_t vbn_cat_sweep_smem_bytes(int n_nodes, int n_slots, int k) {
   return cat_sweep_smem(n_nodes, n_slots, k);
-}
-
-size_t vbn_lg_smem_bytes(int n_nodes, int n_par, int dmax) {
-  size_t at = align16((2 * n_nodes + 1 + n_par) * sizeof(int32_t));
-  at += align16(n_nodes * sizeof(float));
-  at += align16((size_t)n_nodes * (dmax + 2) * sizeof(float));
-  at += align16((size_t)n_nodes * VBN_THREADS * sizeof(float));
-  return at + (size_t)4 * VBN_THREADS * sizeof(float);
 }
 
 // red_kind: 0 none, 1 pmf (K = k classes), 2 moments (K = 3).
@@ -282,32 +257,34 @@ int vbn_cat_sweep(const int4* rec, const int2* par, int n_nodes, int n_slots,
   return (int)e;
 }
 
-int vbn_lg_sweep(const int32_t* meta, int n_nodes, int n_par, int target,
-                 const float* ptab, int dmax, const float* fixed,
-                 const float* u_ext, uint64_t seed, int batch, int n_samples,
-                 int ppt, int need_logw, int need_lpt, int want_logw,
-                 int want_tgt, int want_lpt, int red_kind, int red_src,
-                 float* out_logw, float* out_tgt, float* out_lpt,
-                 float* out_red, void* stream) {
+// red_kind: 0 none, 2 moments.
+int vbn_lg_sweep(const int4* rec, const int2* par, const float2* dens,
+                 int n_nodes, int n_slots, int target, const int32_t* nflags,
+                 uint64_t plive, const float* fixed, const float* u_ext, uint64_t seed,
+                 int batch, int n_samples, int ppt, int need_logw,
+                 int need_lpt, int want_logw, int want_tgt, int want_lpt,
+                 int red_kind, int red_src, float* out_logw, float* out_tgt,
+                 float* out_lpt, float* out_red, void* stream) {
   const int nblk = n_samples / (VBN_THREADS * ppt);
   const int grid = batch * nblk;
-  const size_t smem = vbn_lg_smem_bytes(n_nodes, n_par, dmax);
+  const size_t smem = lg_sweep_smem(n_nodes, n_slots, red_kind == 2);
   cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t e = cudaSuccess;
-#define VBN_LG(R)                                                           \
-  e = allow_smem(lg_sweep_kernel<R>, smem);                                  \
-  if (e != cudaSuccess) return (int)e;                                      \
-  lg_sweep_kernel<R><<<grid, VBN_THREADS, smem, st>>>(                      \
-      meta, n_nodes, n_par, target, ptab, dmax, fixed, u_ext, seed,         \
-      n_samples, nblk, ppt, need_logw, need_lpt, want_logw, want_tgt,       \
-      want_lpt, red_src, out_logw, out_tgt, out_lpt, out_red);
-  if (red_kind == 2) {
-    VBN_LG(2)
-  } else {
-    VBN_LG(0)
+  const vbn::PhiloxKey key = vbn::philox_key(seed);
+  const bool ext = u_ext != nullptr;
+  cudaError_t e = cudaErrorInvalidValue;
+#define VBN_LG(R, X)                                                         \
+  if ((red_kind == 2) == (R == 2) && ext == X) {                             \
+    e = allow_smem(lg_sweep_kernel<R, X>, smem);                             \
+    if (e != cudaSuccess) return (int)e;                                     \
+    lg_sweep_kernel<R, X><<<grid, VBN_THREADS, smem, st>>>(                  \
+        rec, par, dens, n_nodes, n_slots, target, nflags, plive, fixed,      \
+        u_ext, key, n_samples, nblk, ppt, need_logw, need_lpt, want_logw,    \
+        want_tgt, want_lpt, red_src, out_logw, out_tgt, out_lpt, out_red);   \
+    return (int)cudaGetLastError();                                          \
   }
+  VBN_LG(0, false) VBN_LG(2, false) VBN_LG(0, true) VBN_LG(2, true)
 #undef VBN_LG
-  return (int)cudaGetLastError();
+  return (int)e;
 }
 
 }  // extern "C"

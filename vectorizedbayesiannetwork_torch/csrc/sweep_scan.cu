@@ -41,50 +41,27 @@
 //
 // vbn_lg_scan. Bound by operations as well: per drawn node two uniforms
 // (half a Philox call), Box-Muller (log, sqrt, cos) and the location, a
-// multiply-add per parent. The design:
-//
-// - Random numbers: Philox-4x32-10 with counter (particle, row, i >> 1, 3)
-//   and the seed's round keys from the constant bank; node i takes words
-//   2 (i & 1) and 2 (i & 1) + 1 as its Box-Muller pair (u1, u2), so one call
-//   serves two nodes. A pair whose two nodes are both clamped in this row
-//   skips its call (the block's branch: the flags are the row's), and the
-//   next pair's call is issued before the current pair's parent loops and
-//   Box-Muller. philox_uniforms(words=2, grouped=True) is the same stream
-//   in torch ops. The external-uniform route is its own instantiation, so
-//   the in-kernel one carries no predicated loads.
-// - Records instead of padded rows: one 16-byte record a node {out slot,
-//   parent start, bias, sigma} and one 8-byte record a parent {slot,
-//   weight}, read with uniform __ldg loads from L1. The wrapper builds them
-//   on the device from the parameter rows, leaving out every padded slot
-//   and every parent whose weight is exactly 0 (the plain version skips
-//   those products too), so the parent loop (not unrolled: ~1.6 parents a
-//   node) walks only real parents and no product can meet an unwritten slot.
-// - Box-Muller: z = r cospi(2 u2), r = sqrt(-2 log u1) as r2 rsqrt(r2) (0
-//   when u1 = 1). cospif needs no general range reduction (2 u2 lies in
-//   (0, 2]), where cosf(2 pi u2) pays one; the IEEE sqrtf and the weighted
-//   node's IEEE division carry slow-path calls, one MUFU.RSQ and __fdividef
-//   none (a few ulp, far inside the plain version's tolerances). logf stays
-//   the accurate one: __logf's absolute error near u1 = 1 would reach ~1e-3
-//   in z.
-// - Shared memory holds only the row's clamped values and flags, a byte
-//   per pair (live or not), the float value scratch and the moments. The
-//   scratch slots go by liveness (ops/sweep_scan.py::lg_slot_map): a value
-//   holds its slot from its draw to its last reader, so gauss107's plan
-//   needs 34 slots where one slot per referenced node takes 64. The
-//   wrapper picks the block size and the carveout for the most resident
-//   threads an SM while L1 keeps room for the records
-//   (ops/sweep_scan.py::_lg_layout).
+// multiply-add per parent. Its walk is lg_walk.cuh's, shared with
+// vbn_lg_sweep: grouped Philox (two nodes a call, counter (particle, row,
+// i >> 1, 3)), per-node and per-parent records read with uniform __ldg
+// loads, one MUFU rsqrt and one MUFU cos in Box-Muller, per-node density
+// pairs for the weighted node, value slots by liveness. Here a pair is
+// live when the row draws one of its nodes (a byte per pair in shared
+// memory).
+// - Shared memory holds only the row's clamped values and flags, the pair
+//   flags, the float value scratch and the moments. The wrapper picks the
+//   block size and the carveout for the most resident threads an SM while
+//   L1 keeps room for the records (ops/sweep_scan.py::_lg_layout).
 //
 #include <math.h>
 
 #include "cat_walk.cuh"
+#include "lg_walk.cuh"
 #include "vbn_common.cuh"
 
 using vbn::Acc;
 using vbn::align16;
 using vbn::allow_smem;
-using vbn::philox4x32_10;
-using vbn::uniform_from_bits;
 using vbn::vals_col;
 
 namespace {
@@ -165,19 +142,6 @@ cat_scan_kernel(const int4* __restrict__ rec, const int2* __restrict__ par,
     acc.block_store(s_red, out_red + ((size_t)b * nblk + blk) * (k + 1));
 }
 
-// MUFU.RSQ alone: the Box-Muller radius squared is 0 (the caller's case) or
-// at least 1.1e-7, never denormal, so rsqrtf's denormal scaling is not
-// needed.
-__device__ __forceinline__ float rsqrt_approx(float x) {
-#if defined(__CUDA_ARCH__)
-  float y;
-  asm("rsqrt.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-#else
-  return rsqrtf(x);
-#endif
-}
-
 // Shared memory of the LG kernel, in the order the kernel lays it out: the
 // row's clamped values and flags, the pair flags, the float value scratch,
 // the moments array.
@@ -194,12 +158,14 @@ __host__ __device__ __forceinline__ size_t lg_scan_smem(int n_nodes,
 // rec [N + 1] int4 {out slot, parent start, bias, sigma} (bias and sigma as
 // float bits; rec[N].y = P ends the last parent list); par [P] int2 {slot,
 // weight bits}: each node's parents of nonzero weight, in its row's order;
+// dens [N] {1 / sigma, log(sigma) + log(2 pi) / 2};
 // fixed [B, N] float32, flags [B, N] int32 (ev | do << 1), tgt_idx [B];
 // EXT: u_ext [B, 2N, S], else the Philox stream of key.
 template <int RED, bool EXT>
 __global__ void __launch_bounds__(128, VBN_MIN_BLOCKS)
 lg_scan_kernel(const int4* __restrict__ rec, const int2* __restrict__ par,
-               int n_nodes, int n_slots, const float* __restrict__ fixed,
+               const float2* __restrict__ dens, int n_nodes, int n_slots,
+               const float* __restrict__ fixed,
                const int32_t* __restrict__ flags,
                const int32_t* __restrict__ tgt_idx,
                const float* __restrict__ u_ext, const vbn::PhiloxKey key,
@@ -237,83 +203,22 @@ lg_scan_kernel(const int4* __restrict__ rec, const int2* __restrict__ par,
   __syncthreads();
   const int ti = tgt_idx[b];
   const float* u_row = EXT ? u_ext + (size_t)b * 2 * n_nodes * n_samples : nullptr;
-  const float half_log_2pi = 0.9189385332046727f;
 
+  const bool want_any = want_logw || want_tgt || want_lpt;
   Acc<RED> acc;
   acc.init(s_red, 3);
   for (int it = 0; it < ppt; ++it) {
     const int s = (blk * ppt + it) * T + tid;
     float logw = 0.f, lpt = 0.f, tval = 0.f;
-    uint32_t w[4] = {0u, 0u, 0u, 0u};
-    if (!EXT && s_plive[0]) {
-      uint32_t c[4] = {(uint32_t)s, (uint32_t)b, 0u, 3u};
-      philox4x32_10(c, key);
-#pragma unroll
-      for (int q = 0; q < 4; ++q) w[q] = c[q];
+    vbn::lg_particle<EXT>(rec, par, dens, n_nodes, s_fixed, s_flags, s_vals, T, tid,
+                          vbn::PairBytes{s_plive}, ti, u_row, key, b, s,
+                          n_samples, need_logw, need_lpt, logw, lpt, tval);
+    if (want_any) {  // reduction mode stores nothing a particle
+      const size_t o = (size_t)b * n_samples + s;
+      if (want_logw) out_logw[o] = logw;
+      if (want_tgt) out_tgt[o] = tval;
+      if (want_lpt) out_lpt[o] = lpt;
     }
-    for (int p = 0; p < n_pairs; ++p) {
-      // the next pair's words, ahead of this pair's parent loops
-      uint32_t nw[4] = {0u, 0u, 0u, 0u};
-      if (!EXT && p + 1 < n_pairs && s_plive[p + 1]) {
-        uint32_t c[4] = {(uint32_t)s, (uint32_t)b, (uint32_t)(p + 1), 3u};
-        philox4x32_10(c, key);
-#pragma unroll
-        for (int q = 0; q < 4; ++q) nw[q] = c[q];
-      }
-#pragma unroll
-      for (int q = 0; q < 2; ++q) {
-        const int i = 2 * p + q;
-        if (i >= n_nodes) break;
-        const int4 r = __ldg(rec + i);
-        const int pend = __ldg(&rec[i + 1].y);
-        float loc = __int_as_float(r.z);
-#pragma unroll 1
-        for (int k = r.y; k < pend; ++k) {
-          const int2 pp = __ldg(par + k);
-          loc = __fadd_rn(loc, __fmul_rn(s_vals[pp.x * T + tid],
-                                         __int_as_float(pp.y)));
-        }
-        const float sigma = __int_as_float(r.w);
-        const int fl = s_flags[i];
-        float v;
-        if (fl) {
-          v = s_fixed[i];
-        } else {
-          float u1, u2;
-          if (EXT) {
-            const size_t at_u = (size_t)2 * i * n_samples + s;
-            u1 = u_row[at_u];
-            u2 = u_row[at_u + n_samples];
-          } else {
-            u1 = uniform_from_bits(w[2 * q]);
-            u2 = uniform_from_bits(w[2 * q + 1]);
-          }
-          // r = sqrt(-2 log u1) as r2 * rsqrt(r2) (u1 = 1 gives r2 = 0)
-          const float r2 = __fmul_rn(-2.f, logf(u1));
-          const float rad = r2 > 0.f ? __fmul_rn(r2, rsqrt_approx(r2)) : 0.f;
-          const float z = __fmul_rn(rad, cospif(__fmul_rn(2.f, u2)));
-          v = __fadd_rn(loc, __fmul_rn(sigma, z));
-        }
-        s_vals[r.x * T + tid] = v;
-        const bool ev = (fl & 1) && need_logw;
-        const bool tg = (i == ti) && need_lpt;
-        if (ev || tg) {
-          const float zz = __fdividef(__fsub_rn(v, loc), sigma);
-          const float lp = __fsub_rn(
-              __fsub_rn(__fmul_rn(__fmul_rn(-0.5f, zz), zz), logf(sigma)),
-              half_log_2pi);
-          if (ev) logw = __fadd_rn(logw, lp);
-          if (tg) lpt = lp;
-        }
-        if (i == ti) tval = v;
-      }
-#pragma unroll
-      for (int q = 0; q < 4; ++q) w[q] = nw[q];
-    }
-    const size_t o = (size_t)b * n_samples + s;
-    if (want_logw) out_logw[o] = logw;
-    if (want_tgt) out_tgt[o] = tval;
-    if (want_lpt) out_lpt[o] = lpt;
     if (RED != 0) acc.add(red_src == 0 ? logw : lpt, 0, tval);
   }
   if (RED != 0)
@@ -432,9 +337,9 @@ int vbn_cat_scan(const int4* rec, const int2* par, int n_nodes, int n_slots,
 }
 
 // red_kind: 0 none, 2 moments; carveout: percent.
-int vbn_lg_scan(const int4* rec, const int2* par, int n_nodes, int n_slots,
-                const float* fixed, const int32_t* flags,
-                const int32_t* tgt_idx, const float* u_ext, uint64_t seed,
+int vbn_lg_scan(const int4* rec, const int2* par, const float2* dens,
+                int n_nodes, int n_slots, const float* fixed,
+                const int32_t* flags, const int32_t* tgt_idx, const float* u_ext, uint64_t seed,
                 int batch, int n_samples, int threads, int ppt, int carveout,
                 int need_logw, int need_lpt, int want_logw, int want_tgt,
                 int want_lpt, int red_kind, int red_src, float* out_logw,
@@ -452,7 +357,7 @@ int vbn_lg_scan(const int4* rec, const int2* par, int n_nodes, int n_slots,
     e = configure(lg_scan_kernel<R, X>, smem, carveout);                     \
     if (e != cudaSuccess) return (int)e;                                     \
     lg_scan_kernel<R, X><<<grid, threads, smem, st>>>(                       \
-        rec, par, n_nodes, n_slots, fixed, flags, tgt_idx, u_ext, key,       \
+        rec, par, dens, n_nodes, n_slots, fixed, flags, tgt_idx, u_ext, key, \
         n_samples, nblk, ppt, need_logw, need_lpt, want_logw, want_tgt,      \
         want_lpt, red_src, out_logw, out_tgt, out_lpt, out_red);             \
     return (int)cudaGetLastError();                                          \

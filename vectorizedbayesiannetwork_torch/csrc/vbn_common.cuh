@@ -78,19 +78,44 @@ cudaError_t allow_smem(K kernel, size_t smem) {
   return cudaSuccess;
 }
 
-// Reduction state of one thread: running max shift and shifted sums.
+// 2^x on the SFU: one MUFU.EX2 (-inf gives 0; ftz: results under 2^-126
+// give 0).
+__device__ __forceinline__ float ex2(float x) {
+#if defined(__CUDA_ARCH__)
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+#else
+  return exp2f(x);
+#endif
+}
+
+constexpr float ACC_LOG2E = 1.4426950408889634f;
+constexpr float ACC_MARGIN = 20.f;  // e^20 bounds a weight against ref
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// Reduction state of one thread: the largest source so far (m, the shift
+// the block reports) and the sums of exp(src - ref) against a reference
+// that moves, rescaling what was summed, only when a weight passes it by
+// e^ACC_MARGIN (the first weight included), so a particle costs one
+// ex2.approx and no data-dependent branch; block_store rescales to m.
 // RED == 1: class histogram, sums in this thread's column of the shared
-// [K][T] array after the [T] max row (red = m[T] | sums[K][T]);
+// [K][T] array after a [T] row (red = row[T] | sums[K][T]);
 // RED == 2: moments (sum w, sum w x, sum w x^2) in registers.
 template <int RED>
 struct Acc {
-  float m;
+  float m, ref;
   float s[3];
   float* col;
   int k, T, tid;
 
   __device__ __forceinline__ void init(float* red, int k_) {
-    m = -INFINITY;
+    m = ref = -INFINITY;
     s[0] = s[1] = s[2] = 0.f;
     k = k_;
     T = blockDim.x;
@@ -101,47 +126,72 @@ struct Acc {
   }
 
   __device__ __forceinline__ void add(float src, int cls, float x) {
-    if (src == -INFINITY) return;  // weight 0
-    if (src > m) {
-      const float sc = expf(m - src);  // 0 on the first particle
+    float a = src - ref;
+    if (!(a <= ACC_MARGIN) || src == -INFINITY) {  // rare
+      if (src == -INFINITY) return;  // weight 0
+      const float sc = ex2((ref - src) * ACC_LOG2E);  // 0 on the first
       if (RED == 1) {
         for (int j = 0; j < k; ++j) col[j * T] *= sc;
       } else {
 #pragma unroll
         for (int j = 0; j < 3; ++j) s[j] *= sc;
       }
-      m = src;
+      ref = src;
+      a = 0.f;
     }
-    const float e = expf(src - m);
+    m = fmaxf(m, src);
+    const float e = ex2(a * ACC_LOG2E);
     if (RED == 1) {
       col[cls * T] += e;
     } else {
+      const float ex = e * x;
       s[0] += e;
-      s[1] += e * x;
-      s[2] += e * x * x;
+      s[1] += ex;
+      s[2] = fmaf(ex, x, s[2]);
     }
   }
 
-  // Fold the block's threads into out[0..K-1] (sums) and out[K] (max).
+  // Fold the block's threads into out[0..K-1] (sums) and out[K] (max),
+  // every warp at work: the block max by shuffles and a [warps] row in
+  // shared memory, one exp a thread to rescale its sums to it (from ref),
+  // then the
+  // sums added across the block (RED == 1: a warp per class reads the
+  // class's column; RED == 2: shuffles, then the warps' partials).
   __device__ __forceinline__ void block_store(float* red, float* out) {
-    float* sm = red;      // [T]
-    float* ss = red + T;  // [K][T]
-    sm[tid] = m;
-    if (RED == 2)
-      for (int j = 0; j < 3; ++j) ss[j * T + tid] = s[j];
+    const int lane = tid & 31, warp = tid >> 5, nw = T >> 5;
+    float mb = m;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      mb = fmaxf(mb, __shfl_xor_sync(0xffffffffu, mb, o));
+    if (lane == 0) red[warp] = mb;
     __syncthreads();
-    for (int j = tid; j <= k; j += T) {
-      float mb = -INFINITY;
-      for (int t = 0; t < T; ++t) mb = fmaxf(mb, sm[t]);
-      if (j < k) {
+    mb = red[0];
+    for (int w = 1; w < nw; ++w) mb = fmaxf(mb, red[w]);
+    const float sc = ref > -INFINITY ? expf(ref - mb) : 0.f;  // 0: no weight
+    float* part = red + T;
+    if (RED == 1) {
+      for (int j = 0; j < k; ++j) col[j * T] *= sc;
+      __syncthreads();
+      for (int j = warp; j < k; j += nw) {
         float sum = 0.f;
-        for (int t = 0; t < T; ++t)
-          if (sm[t] > -INFINITY) sum += expf(sm[t] - mb) * ss[j * T + t];
-        out[j] = sum;
-      } else {
-        out[k] = mb;
+        for (int t = lane; t < T; t += 32) sum += part[j * T + t];
+        sum = warp_sum(sum);
+        if (lane == 0) out[j] = sum;
+      }
+    } else {
+      float v[3];
+#pragma unroll
+      for (int j = 0; j < 3; ++j) v[j] = warp_sum(s[j] * sc);
+      if (lane == 0)
+        for (int j = 0; j < 3; ++j) part[j * nw + warp] = v[j];
+      __syncthreads();
+      if (tid < 3) {
+        float sum = 0.f;
+        for (int w = 0; w < nw; ++w) sum += part[tid * nw + w];
+        out[tid] = sum;
       }
     }
+    if (tid == 0) out[k] = mb;
   }
 };
 

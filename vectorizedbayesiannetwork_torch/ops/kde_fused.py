@@ -91,6 +91,19 @@ def kernel_consts(d: int, scale: float):
     return np.float32(inv2), np.float32(const)
 
 
+LOG2E = 1.4426950408889634
+
+
+def direct_consts(d: int, scale: float):
+    """(sqrt(log2(e) / 2h^2), log2(e) * const) as float32: ``kernel_consts``
+    in the base-2 domain of ``vbn_kde_root`` and ``vbn_kde_cond``, which
+    scale the coordinates by the first (so a squared difference is already
+    the base-2 exponent's) and stage the second with the mask."""
+    inv2, const = kernel_consts(d, scale)
+    return (np.float32(np.sqrt(np.float64(inv2) * LOG2E)),
+            np.float32(np.float64(const) * LOG2E))
+
+
 def sq_dist(q: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
     """sum_d (q_md - t_nd)^2 -> [M, N], one feature after another, each
     step rounded on its own (the kernels' order, no fused multiply-add)."""
@@ -271,11 +284,11 @@ def kde_root(x, data_x, log_mask, y_scale: float) -> torch.Tensor:
     m, n, dx = _support(x, data_x, log_mask, "kde_root")
     if dx > _DIRECT_D:
         raise ValueError(f"kde_root: Dx={dx} > {_DIRECT_D}")
-    inv2y, const_y = kernel_consts(dx, y_scale)
+    sy, cy = direct_consts(dx, y_scale)
     out = torch.empty((m,), dtype=torch.float32, device=x.device)
     _run(_lib().vbn_kde_root, "vbn_kde_root", x.device, x.data_ptr(),
-         data_x.data_ptr(), log_mask.data_ptr(), m, n, dx, float(inv2y),
-         float(const_y), out.data_ptr())
+         data_x.data_ptr(), log_mask.data_ptr(), m, n, dx, float(sy),
+         float(cy), out.data_ptr())
     LAUNCHES["kde_root"] += 1
     return out
 
@@ -291,13 +304,14 @@ def _launch_cond(entry: str, x, p, data_x, data_p, log_mask, y_scale,
     if not wide and max(dx, dp) > _DIRECT_D:
         raise ValueError(f"{entry}: max(Dx, Dp) = {max(dx, dp)} > "
                          f"{_DIRECT_D}; use kde_cond_wide")
-    inv2y, const_y = kernel_consts(dx, y_scale)
-    inv2p, const_p = kernel_consts(dp, p_scale)
+    # the wide kernel takes kernel_consts, the direct one their base-2 form
+    consts = kernel_consts if wide else direct_consts
+    ay, cy = consts(dx, y_scale)
+    ap, cp = consts(dp, p_scale)
     out = torch.empty((m,), dtype=torch.float32, device=x.device)
     _run(getattr(_lib(), entry), entry, x.device, x.data_ptr(), p.data_ptr(),
          data_x.data_ptr(), data_p.data_ptr(), log_mask.data_ptr(), m, n, dx,
-         dp, float(inv2y), float(inv2p), float(const_y), float(const_p),
-         out.data_ptr())
+         dp, float(ay), float(ap), float(cy), float(cp), out.data_ptr())
     return out
 
 

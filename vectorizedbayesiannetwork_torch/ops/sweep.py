@@ -23,10 +23,11 @@ Uniforms: ``u_ext`` is ``[B, N, S]`` (categorical) or ``[B, 2N, S]`` (LG,
 rows 2i and 2i+1 the Box-Muller pair), the JAX layout. Without it both the
 kernels and the plain versions draw Philox-4x32-10 from ``seed``
 (``core.rng.philox_uniforms``), so the in-kernel random mode is comparable
-bit for bit too: the categorical sweep the grouped stream of
-``vbn_cat_scan`` (one call per four nodes, ``grouped=True``), so the two
-draw the same classes on a static plan; the LG sweep one call a node,
-counter (particle, row, node, 0).
+bit for bit too. Each sweep draws the grouped stream of its scan kernel
+(``grouped=True``), so on a static plan the two draw the same values: the
+categorical sweep ``vbn_cat_scan``'s (one call per four nodes), the LG
+sweep ``vbn_lg_scan``'s (one call per two nodes, counter (particle, row,
+node >> 1, 3)).
 
 Reductions return ``(sums [B, K], m [B])``: ``sums`` are the class
 histogram (K = the target's classes) or the moments (sum w, sum w x,
@@ -46,12 +47,12 @@ import torch
 
 from ..core.rng import philox_uniforms
 from .cat_tables import cum_tables, padded_layout
+from .lg_records import _HALF_LOG_2PI, lg_densities, lg_records, lg_slot_map
 
 _MAX_C = 32  # classes per node
 _MAX_ROWS_X_C = 2048  # CPT rows x classes per node
 _MAX_NODES = 80
 _THREADS = 128  # threads per block (VBN_THREADS in csrc/sweep.cu)
-_HALF_LOG_2PI = 0.9189385332046727
 
 # Kernel launches by wrapper; the scan kernels (ops/sweep_scan.py), the
 # resampling kernels (ops/scan.py, ops/resample_merge.py) and the KDE kernels
@@ -309,23 +310,28 @@ def lg_sweep_plain(
     u_ext: Optional[torch.Tensor] = None,  # [B, 2N, S] float32
     want=("logw", "lpt"),
 ):
-    """Same contract as ``lg_sweep_fused``, in torch ops."""
+    """Same contract as ``lg_sweep_fused``, in torch ops, drawing the
+    kernel's grouped Philox stream (two nodes a call) without ``u_ext``.
+    A parent of weight exactly 0 is skipped, as the kernel's records leave
+    it out."""
     n_nodes, parent_idx, ev_mask, do_mask, target_idx = plan_tuple
     b, s = fixed_vals.shape[0], n_samples
     dev = fixed_vals.device
     if u_ext is None:
-        u_ext = philox_uniforms(seed, b, n_nodes, s, 2, dev)
+        u_ext = philox_uniforms(seed, b, n_nodes, s, 2, dev, grouped=True)
     want_logw, want_tgt, want_lpt, red_kind, red_src = _parse_want(want)
     need_logw = want_logw or red_src == "logw"
     need_lpt = want_lpt or red_src == "lpt"
     two_pi = torch.tensor(2.0 * np.pi, dtype=torch.float32, device=dev)
+    w_h = param_table.cpu().tolist()
     vals = [None] * n_nodes
     logw = torch.zeros((b, s), dtype=torch.float32, device=dev)
     lpt = torch.zeros((b, s), dtype=torch.float32, device=dev)
     for i in range(n_nodes):
         loc = param_table[i, dmax].expand(b, s)
         for k, p in enumerate(parent_idx[i]):
-            loc = loc + vals[p] * param_table[i, k]
+            if w_h[i][k] != 0.0:
+                loc = loc + vals[p] * param_table[i, k]
         sigma = param_table[i, dmax + 1]
         if ev_mask[i] or do_mask[i]:
             val = fixed_vals[:, i : i + 1].expand(b, s)
@@ -375,7 +381,7 @@ def _lib() -> ctypes.CDLL:
     )
     lib.vbn_cat_sweep.restype = _I
     lib.vbn_lg_sweep.argtypes = (
-        [_P, _I, _I, _I, _P, _I, _P, _P, ctypes.c_uint64]
+        [_P, _P, _P, _I, _I, _I, _P, ctypes.c_uint64, _P, _P, ctypes.c_uint64]
         + [_I] * 10 + [_P] * 5
     )
     lib.vbn_lg_sweep.restype = _I
@@ -385,6 +391,13 @@ def _lib() -> ctypes.CDLL:
 def _ppt(n_samples: int, threads: int = _THREADS) -> int:
     """Particles per thread: a block spans threads * ppt particles."""
     return 16 if n_samples % (threads * 16) == 0 else 8
+
+
+def _lg_ppt(n_samples: int) -> int:
+    """Particles per thread of ``vbn_lg_sweep``: 64 where S allows it, so a
+    block's row copy and fold are spread over 8192 particles (faster than
+    16 on the flagship's B = 1024, S = 2^20 on an H100), else ``_ppt``'s."""
+    return 64 if n_samples % (_THREADS * 64) == 0 else _ppt(n_samples)
 
 
 def _a16(n: int) -> int:
@@ -445,15 +458,31 @@ def _cat_meta(plan_struct, device: torch.device):
     return tuple(torch.as_tensor(a, device=device) for a in (rec, par, flags))
 
 
+def lg_struct(plan_struct, dmax: int):
+    """The records' structure (``ops/lg_records.py``) of an LG plan:
+    (pids [N][dmax] padded with 0, pmax, dmax), ``lg_scan_struct_for``'s
+    for the same plan."""
+    pids = tuple(tuple(p) + (0,) * (dmax - len(p)) for p in plan_struct[1])
+    return pids, dmax, dmax
+
+
 @functools.lru_cache(maxsize=64)
-def _lg_meta(plan_struct, device: torch.device) -> torch.Tensor:
-    """flags[N] pstart[N+1] plist[P] (int32)."""
-    n, parent_idx, ev_mask, do_mask, _t = plan_struct
-    flags = [int(e) | (int(d) << 1) for e, d in zip(ev_mask, do_mask)]
-    pstart = np.cumsum([0] + [len(p) for p in parent_idx]).tolist()
-    plist = [p for ps in parent_idx for p in ps]
-    return torch.tensor(flags + pstart + plist, dtype=torch.int32,
-                        device=device)
+def _lg_flags_host(plan_struct):
+    """(node flags [N] int32 ev | do << 1, live-pair mask: bit p set when
+    pair p has a node to draw) of an LG plan."""
+    n, _parents, ev_mask, do_mask, _t = plan_struct
+    flags = np.asarray([int(e) | (int(d) << 1)
+                        for e, d in zip(ev_mask, do_mask)], np.int32)
+    plive = 0
+    for i in range(n):
+        if flags[i] == 0:
+            plive |= 1 << (i >> 1)
+    return flags, plive
+
+
+@functools.lru_cache(maxsize=64)
+def _lg_flags(plan_struct, device: torch.device) -> torch.Tensor:
+    return torch.as_tensor(_lg_flags_host(plan_struct)[0], device=device)
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -535,16 +564,20 @@ def _launch_lg(seed, fixed_vals, ptab, plan_tuple, dmax, s, u_ext, want):
     want_logw, want_tgt, want_lpt, red_kind, red_src = _parse_want(want)
     if red_kind == "pmf":
         raise ValueError("pmf reduction undefined for continuous LG targets")
-    ppt = _ppt(s)
+    ppt = _lg_ppt(s)
     nblk = s // (_THREADS * ppt)
-    outs = _outputs(b, s, nblk, 3, want, fixed_vals.device)
-    meta = _lg_meta(plan_tuple, fixed_vals.device)
-    n_par = sum(len(p) for p in plan_tuple[1])
-    lib = _lib()
-    with torch.cuda.device(fixed_vals.device):
-        rc = lib.vbn_lg_sweep(
-            meta.data_ptr(), n, n_par, plan_tuple[4],
-            ptab.data_ptr(), dmax,
+    dev = fixed_vals.device
+    outs = _outputs(b, s, nblk, 3, want, dev)
+    struct = lg_struct(plan_tuple, dmax)
+    n_slots = lg_slot_map(struct[0])[2]
+    _flags, plive = _lg_flags_host(plan_tuple)
+    rec, par = lg_records(ptab.view(-1), struct)
+    dens = lg_densities(ptab.view(-1), struct)
+    with torch.cuda.device(dev):
+        rc = _lib().vbn_lg_sweep(
+            rec.data_ptr(), par.data_ptr(), dens.data_ptr(), n, n_slots,
+            plan_tuple[4],
+            _lg_flags(plan_tuple, dev).data_ptr(), plive,
             fixed_vals.data_ptr(), _ptr(u_ext), seed & ((1 << 64) - 1),
             b, s, ppt,
             int(want_logw or red_src == "logw"),

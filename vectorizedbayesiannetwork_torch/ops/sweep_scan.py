@@ -52,8 +52,14 @@ import torch
 
 from ..core.rng import philox_uniforms
 from .cat_tables import cum_tables, padded_layout
-from .sweep import (
+from .lg_records import (
     _HALF_LOG_2PI,
+    lg_densities,
+    lg_records,
+    lg_resident_bytes,
+    lg_slot_map,
+)
+from .sweep import (
     LAUNCHES,
     _a16,
     _check,
@@ -291,39 +297,6 @@ def _compaction(pids):
     return smap, pid_slots, len(referenced) + 1
 
 
-@functools.lru_cache(maxsize=64)
-def lg_slot_map(pids):
-    """The LG kernel's value-scratch slots, given by liveness: a node that
-    some later node reads holds a slot from its draw to its last reader,
-    and a slot freed by a node's last read serves the next node that needs
-    one (the node drawn at that step included: it reads its parents before
-    it writes). Every other node writes one shared trash slot, the last.
-    The padded parent id 0 counts as a read, as in ``_compaction``, so the
-    map holds for any weights. Returns (smap [N], pid_slots [N, pmax] the
-    parents' slots, n_slots)."""
-    n = len(pids)
-    last = {}
-    for i, row_p in enumerate(pids):
-        for p in row_p:
-            last[int(p)] = i
-    owner_end, free, smap, top = {}, [], np.zeros((n,), np.int32), 0
-    for i in range(n):
-        for slot in owner_end.pop(i, []):  # slots whose last reader is i
-            free.append(slot)
-        if last.get(i, -1) > i:
-            if free:
-                smap[i] = free.pop()
-            else:
-                smap[i], top = top, top + 1
-            owner_end.setdefault(last[i], []).append(int(smap[i]))
-        else:
-            smap[i] = -1
-    smap[smap < 0] = top
-    pid_slots = np.asarray([[smap[int(p)] for p in row_p] for row_p in pids],
-                           np.int32)
-    return smap, pid_slots, top + 1
-
-
 def _flat_counts(cpds, params_tuple):
     """All nodes' count tables, row-major, concatenated flat [E + 8] (the
     JAX layout, whose trailing zero pad the CUDA kernel does not read)."""
@@ -413,40 +386,6 @@ def _cat_meta(struct, device: torch.device):
     rec, par = _cat_meta_host(struct)[:2]
     return (torch.as_tensor(rec, device=device),
             torch.as_tensor(par, device=device))
-
-
-@functools.lru_cache(maxsize=64)
-def _lg_slots(pids, device: torch.device):
-    """(smap [N + 1], the parent slots [N * pmax]) of ``lg_slot_map`` on
-    ``device``, int32 (smap's last entry 0: the end record's)."""
-    smap, pid_slots, _n = lg_slot_map(pids)
-    return (torch.tensor(smap.tolist() + [0], dtype=torch.int32, device=device),
-            torch.as_tensor(pid_slots.reshape(-1), device=device))
-
-
-def lg_records(ptab_flat: torch.Tensor, struct):
-    """The LG kernel's records, built on the parameter rows' device without
-    a host sync: (rec [N + 1, 4] int32 {out slot, parent start, bias,
-    sigma}, bias and sigma as float bits, rec[N, 1] = P; par [N * pmax, 2]
-    int32 {slot, weight bits}). The first P entries of ``par`` are each
-    node's parents whose weight is not 0, in node order and row order; a
-    padded slot has weight 0 and, with a parent of fitted weight exactly 0,
-    is left out, as the plain version skips both products."""
-    pids, pmax, dmax = struct
-    n = len(pids)
-    smap, slots = _lg_slots(pids, ptab_flat.device)
-    rows = ptab_flat.view(n, dmax + 2)
-    w = rows[:, :pmax].contiguous()
-    keep = (w != 0).view(-1)
-    order = torch.sort((~keep).to(torch.int32), stable=True).indices
-    par = torch.stack([slots, w.view(torch.int32).view(-1)], 1)[order]
-    start = torch.zeros((n + 1,), dtype=torch.int64, device=ptab_flat.device)
-    start[1:] = torch.cumsum(keep.view(n, pmax).sum(1), 0)
-    rec = torch.zeros((n + 1, 4), dtype=torch.int32, device=ptab_flat.device)
-    rec[:, 0] = smap
-    rec[:, 1] = start
-    rec[:n, 2:] = rows[:, dmax:].contiguous().view(torch.int32)
-    return rec, par.contiguous()
 
 
 # ---------------------------------------------------------------------------
@@ -656,7 +595,7 @@ def _lib() -> ctypes.CDLL:
     )
     lib.vbn_cat_scan.restype = _I
     lib.vbn_lg_scan.argtypes = (
-        [_P, _P, _I, _I, _P, _P, _P, _P, ctypes.c_uint64]
+        [_P, _P, _P, _I, _I, _P, _P, _P, _P, ctypes.c_uint64]
         + [_I] * 12 + [_P] * 5
     )
     lib.vbn_lg_scan.restype = _I
@@ -719,13 +658,6 @@ def lg_scan_layout(n, n_slots, red_kind, resident, device_index):
     with torch.cuda.device(device_index):
         return _lg_layout(n, n_slots, red_kind != 0, resident,
                           limit=_smem_limit(device_index), occupancy=occupancy)
-
-
-def lg_resident_bytes(struct) -> int:
-    """Bytes of the LG kernel's records: 16 a node and the end record, 8
-    for each of the N * pmax parent entries."""
-    n, pmax = len(struct[0]), struct[1]
-    return 16 * (n + 1) + 8 * n * pmax
 
 
 def _launch_cat_scan(seed, packed, tgt_idx, flat_counts, struct, s, u_ext,
@@ -809,9 +741,10 @@ def _launch_lg_scan(seed, fixed_vals, flags, tgt_idx, ptab_flat, struct, s,
     nblk = s // (threads * ppt)
     outs = _outputs(b, s, nblk, 3, want, dev)
     rec, par = lg_records(ptab_flat, struct)
+    dens = lg_densities(ptab_flat, struct)
     with torch.cuda.device(dev):
         rc = _lib().vbn_lg_scan(
-            rec.data_ptr(), par.data_ptr(), n, n_slots,
+            rec.data_ptr(), par.data_ptr(), dens.data_ptr(), n, n_slots,
             fixed_vals.data_ptr(), flags.data_ptr(), tgt_idx.data_ptr(),
             _ptr(u_ext), seed & ((1 << 64) - 1), b, s, threads, ppt,
             _carveout_pct(carve_kb),
