@@ -5,8 +5,9 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
 
 1. build: compile ``vectorizedbayesiannetwork_torch/csrc/*.cu`` with nvcc
    (sm_90a) and print the build seconds, ptxas' registers and spills of
-   every kernel, and a count of the SASS instructions (``cuobjdump``) of
-   the sweep kernels and the KDE log-density kernel;
+   every kernel (a spill fails the run), and a count of the SASS
+   instructions (``cuobjdump``) of the sweep kernels, the cumsum's two
+   passes and the KDE log-density kernels;
 2. fit: the asia network (8 categorical nodes) and the 3-node
    linear-Gaussian flagship, each on 4096 rows, on the card;
 3. kernels: each sweep kernel against its plain PyTorch version at B=8,
@@ -94,7 +95,9 @@ Then the KDE slice (KDE CPDs, max_points 2048 and Scott bandwidths, the
     >= 99.99 % of 2^20 rows (any other a neighbour in the walk); the pick
     statistics over 2^20 draws (a flat mask uniform and a conditional pick
     the exact categorical within 6 sd by chi-square, a 0.75/0.25 two-point
-    mask);
+    mask); ``vbn_kde_cond_wide`` with wide targets at Scott bandwidths,
+    queries one bandwidth off the support in every feature, within 1e-4
+    (and both it and the plain version against float64, logged);
 16. kde_main_path: the KDE flagship (all three nodes KDE, 4096 rows): W1 LW
     x2 | x0 and W2 LW x0 | x2 (B=8, S=2^20), and MCM x2 | x0, x1, each with
     the counters reset just before and read just after, each held within
@@ -111,8 +114,9 @@ Then the KDE slice (KDE CPDs, max_points 2048 and Scott bandwidths, the
     (``torch.cdist`` with ``torch.logsumexp``, or with Gumbel noise and
     ``argmax``) over all of them, 2^16 rows a call; the bound of the
     function (SFU exps at 16 a clock per SM; for the pick, one draw a row
-    from its categorical); the root pick's own ms and bound; W1-W3
-    queries/s and profiled W1, W2 and W3 batches.
+    from its categorical; the feature multiply-adds at the TF32 tensor
+    rate); the root pick's own ms and bound; W1-W4 queries/s and profiled
+    W1, W2, W3 and W4 batches.
 
 Prints a JSON line of kernel results (all twelve kernels), the card's name
 and power limit, and last ``{"ok": true, "device": {...}}``. Any failure
@@ -122,9 +126,9 @@ exits nonzero. The script imports nothing of JAX or of the JAX package.
 the kernels of another checkout's port package at DIR (for example the
 parent commit's ``vectorizedbayesiannetwork_torch/``, unpacked with ``git
 archive`` into a directory ``.gitignore`` lists) beside this one's, in
-turns in one process (``compare_builds``): ``vbn_lg_sweep``,
-``vbn_kde_cond`` and ``vbn_kde_root`` at their main-path shapes, flagship
-MCM and W3 queries/s.
+turns in one process (``compare_builds``): ``vbn_kde_cond_wide`` at W4's
+launch, ``vbn_cumsum`` at B=8, S=2^20 in both modes, W4 and flagship RIS
+queries/s.
 """
 
 from __future__ import annotations
@@ -144,6 +148,7 @@ B_PLAIN = 8  # rows per plain-version call: it makes [B, S] tensors per node
 REPS = 12
 WINDOWS = 5
 PEAK_OPS = 67e12  # H100 SXM float32 outside the tensor cores, op/s
+PEAK_TF32 = 495e12  # H100 SXM dense TF32 on the tensor cores, flop/s
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3, byte/s
 PEAK_SFU = 132 * 16 * 1.98e9  # H100 SXM special-function results (exp, log), /s
 N_DYN = 96  # heterogeneous single-row queries per served batch
@@ -574,14 +579,16 @@ def at_main_shape(kernel, plain, kind, *, rtol, shift_atol):
 
 
 def bound(cost):
-    """(bound ms, what bounds it) of ``cost``, (operations, bytes) or
-    (operations, bytes, SFU operations): the largest of the operations at
-    PEAK_OPS, the SFU operations (exp, log) at PEAK_SFU and the bytes at
-    PEAK_BYTES."""
-    ops, nbytes, *sfu = cost
+    """(bound ms, what bounds it) of ``cost``, (operations, bytes),
+    (operations, bytes, SFU operations) or (operations, bytes, SFU
+    operations, tensor-core flops): the largest of the operations at
+    PEAK_OPS, the SFU operations (exp, log) at PEAK_SFU, the flops that
+    multiply-adds the tensor cores could take at PEAK_TF32, and the bytes
+    at PEAK_BYTES."""
+    ops, nbytes, *extra = cost
     t_ops, t_bytes = ops / PEAK_OPS * 1e3, nbytes / PEAK_BYTES * 1e3
-    if sfu:
-        t_ops = max(t_ops, sfu[0] / PEAK_SFU * 1e3)
+    for n, peak in zip(extra, (PEAK_SFU, PEAK_TF32)):
+        t_ops = max(t_ops, n / peak * 1e3)
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
@@ -589,7 +596,7 @@ def kernel_row(name, replaces, launches, err, ms, plain_ms, cost,
                source="vectorizedbayesiannetwork_torch/csrc/sweep.cu",
                library_ms=None):
     """One entry of the kernel line; ``cost`` as ``bound`` takes it."""
-    ops, nbytes, *sfu = cost
+    ops, nbytes, *extra = cost
     bound_ms, bound_by = bound(cost)
     row = {
         "name": name, "route": "cuda", "source": source,
@@ -598,8 +605,8 @@ def kernel_row(name, replaces, launches, err, ms, plain_ms, cost,
         "bound_by": bound_by, "library_ms": library_ms, "ops": ops,
         "bytes": nbytes,
     }
-    if sfu:
-        row["sfu_ops"] = sfu[0]
+    for key, n in zip(("sfu_ops", "tf32_flops"), extra):
+        row[key] = n
     return row
 
 
@@ -1680,7 +1687,8 @@ def serve_resampling(bn, asia_vbn, lg_vbn, link):
                                 n_samples=S_RIS, resample_method="systematic")
     serve = method_qps(lg_vbn, q, B_RIS)[2]
     log("serve_profile", workload="flagship RIS systematic", **profile_batch(
-        serve, ("cumsum_kernel", "cum_index_kernel", "merge_kernel")))
+        serve, ("cumsum_tile_kernel", "cumsum_kernel", "cum_index_kernel",
+                "merge_kernel")))
     return kernels
 
 
@@ -1770,14 +1778,70 @@ def pick_agreement(got, want, data_x, data_p, lm, p_scale, parents=None):
     return float((gi == wi).double().mean()), len(diff), worst
 
 
+def kde_cond_float64(x, p, data_x, data_p, log_mask, y_scale, p_scale):
+    """``lse_n(kp + ky) - lse_n(kp)`` in float64, 1024 rows at a time."""
+    import torch
+
+    from vectorizedbayesiannetwork_torch.ops import kde_fused as kf
+
+    inv2y, cy = kf.kernel_consts(x.shape[1], y_scale)
+    inv2p, cp = kf.kernel_consts(p.shape[1], p_scale)
+    dx, dp, lm = data_x.double(), data_p.double(), log_mask.double()
+    out = []
+    for r in range(0, x.shape[0], 1024):
+        kp = (-torch.cdist(p[r:r + 1024].double(), dp) ** 2 * inv2p + cp
+              + lm[None])
+        ky = -torch.cdist(x[r:r + 1024].double(), dx) ** 2 * inv2y + cy
+        out.append(torch.logsumexp(kp + ky, 1) - torch.logsumexp(kp, 1))
+    return torch.cat(out)
+
+
+def check_wide_off_support(dev, m):
+    """vbn_kde_cond_wide with wide targets (the GEMM takes them) at Scott
+    bandwidths, its m query rows one bandwidth off a support point in every
+    feature: within 1e-4 of the plain version; both also against float64
+    (the terms lie far below 0, the outputs at 50-80). Returns the max abs
+    error against the plain version."""
+    import torch
+
+    from vectorizedbayesiannetwork_torch.ops import kde_fused as kf
+
+    g = torch.Generator(device=dev).manual_seed(98)
+    worst = 0.0
+    for dx, dp in ((35, 3), (40, 8), (40, 40)):
+        n, valid = 2000, 1700
+        data_x, data_p, lm = kde_support(g, n, dx, dp, valid, dev)
+        rate = float(valid) ** (-1.0 / (dx + dp + 4))
+        ys = rate * float(data_x[:valid].std(0).mean())
+        ps = rate * float(data_p[:valid].std(0).mean())
+        idx = torch.randint(0, valid, (m,), generator=g, device=dev)
+        x = data_x[idx] + ys * torch.sign(
+            torch.randn((m, dx), generator=g, device=dev))
+        p = data_p[idx] + ps * torch.sign(
+            torch.randn((m, dp), generator=g, device=dev))
+        got = kf.kde_cond_wide(x, p, data_x, data_p, lm, ys, ps)
+        want = kf.kde_cond_plain(x, p, data_x, data_p, lm, ys, ps)
+        ref = kde_cond_float64(x, p, data_x, data_p, lm, ys, ps)
+        err = compare(f"vbn_kde_cond_wide off the support Dx={dx} Dp={dp}",
+                      got, want, atol=1e-4)
+        worst = max(worst, err)
+        log("kde_kernel_check", kernel="vbn_kde_cond_wide", case="off_support",
+            N=n, valid=valid, Dx=dx, Dp=dp, M=m, max_abs_err=err,
+            kernel_vs_float64=float((got.double() - ref).abs().max()),
+            plain_vs_float64=float((want.double() - ref).abs().max()),
+            max_abs_out=float(ref.abs().max()), ok=True)
+    return worst
+
+
 def check_kde_kernels(dev):
     """The four KDE kernels against their plain versions at M_KDE_CHECK
     rows, N = 2048 and 2000 (its last 300 points masked), Dx in {1, 2}, Dp
     in {0, 1, 2, 3, 40}: log-densities within 1e-4, picks exact with an
     external Gumbel field, and on the served inverse-CDF route the same
     pick on >= 99.99 % of M_KDE_STATS rows (any other a neighbour in the
-    walk: the points between carry <= 1e-5 of the row's weight); then the
-    pick statistics. Returns the max abs error per kernel."""
+    walk: the points between carry <= 1e-5 of the row's weight); the wide
+    conditional with wide targets off the support (``check_wide_off_support``);
+    then the pick statistics. Returns the max abs error per kernel."""
     import torch
 
     from vectorizedbayesiannetwork_torch.ops import kde_fused as kf
@@ -1833,6 +1897,8 @@ def check_kde_kernels(dev):
                         "same_pick_share": agree[0], "rows_differing": agree[1],
                         "weight_between_differing_picks": agree[2]},
                     ok=True)
+    errs["kde_cond_wide"] = max(errs["kde_cond_wide"],
+                                check_wide_off_support(dev, m))
     # pick statistics over M_KDE_STATS in-kernel draws: a flat mask gives a
     # uniform pick (chi-square), a 0.75/0.25 two-point mask its weights, and
     # a conditional pick for one parent row the exact categorical
@@ -2088,6 +2154,12 @@ def serve_kde_dynamic(gbn, vbn, queries, qd, total):
     add_launches(total, launches)
 
 
+def w4_query():
+    """W4's query: LW t | y at B_KDE rows (y = linspace(-1, 1))."""
+    return {"target": "t", "evidence": {
+        "y": np.linspace(-1, 1, B_KDE).reshape(B_KDE, 1).astype(np.float32)}}
+
+
 def serve_kde_wide(vbn, total):
     """W4: LW t | y on the 40-parent-feature KDE node, B_KDE rows at
     S_KDE_DYN; the wide kernel's launch recorded, and held against its
@@ -2096,8 +2168,7 @@ def serve_kde_wide(vbn, total):
     from vectorizedbayesiannetwork_torch.ops import kde_kernel
 
     vbn.set_inference_method("likelihood_weighting", n_samples=S_KDE_DYN)
-    q = {"target": "t", "evidence": {
-        "y": np.linspace(-1, 1, B_KDE).reshape(B_KDE, 1).astype(np.float32)}}
+    q = w4_query()
     rec = {}
     launch = kde_kernel.kde_cond_wide
 
@@ -2127,27 +2198,30 @@ def serve_kde_wide(vbn, total):
 
 
 def kde_cost(kind, m, n, dx, dp):
-    """(float32 operations, bytes, SFU operations, M) of one KDE launch's
-    function, per pair of a query row and a support point: 2 per feature
-    (difference, multiply-add), then for the root 4 more (scale, mask, the
-    online logsumexp's compare and exp argument) and 1 exp; for the
-    conditional kernels 8 more and 2 exps. The pick's function is one draw
-    a row from the parent-softmax categorical, whatever the design: per
-    pair 6 more (scale, mask, exp argument, the running sum and its compare
-    with the row's threshold) and 1 exp (a root's weights do not depend on
-    the row: once per support point), per row one uniform (a quarter of a
-    Philox-4x32-10 call, 25, and 3) and the copy of its Dx values. Bytes:
-    each input read once (queries, support, mask, key), each output written
-    once."""
+    """(float32 operations, bytes, SFU operations, tensor-core flops, M) of
+    one KDE launch's function, per pair of a query row and a support point.
+    The log-densities: a multiply-add per feature (2 flops, one TF32 pass
+    on the tensor cores, which can take them: the function's count, not a
+    design's three passes), then for the root 4 more float32 operations
+    (scale, mask, the logsumexp's compare and exp argument) and 1 exp; for
+    the conditional kernels 8 more and 2 exps. The pick's function is one
+    draw a row from the parent-softmax categorical, whatever the design: 2
+    float32 operations per feature and 6 more a pair (scale, mask, exp
+    argument, the running sum and its compare with the row's threshold)
+    and 1 exp (a root's weights do not depend on the row: once per support
+    point), per row one uniform (a quarter of a Philox-4x32-10 call, 25,
+    and 3) and the copy of its Dx values. Bytes: each input read once
+    (queries, support, mask, key), each output written once."""
     pairs = m * n
     if kind == "root":
-        return (2 * dx + 4) * pairs, 4 * (m * dx + m + n * (dx + 1)), pairs, m
+        return 4 * pairs, 4 * (m * dx + m + n * (dx + 1)), pairs, 2 * dx * pairs, m
     if kind == "pick":
         w = pairs if dp else n
         return ((2 * dp + 6) * w + (28 + dx) * m,
-                4 * (m * dp + n * (dp + dx + 1) + m * dx) + 16, w, m)
-    return ((2 * (dx + dp) + 8) * pairs,
-            4 * (m * (dx + dp + 1) + n * (dx + dp + 1)), 2 * pairs, m)
+                4 * (m * dp + n * (dp + dx + 1) + m * dx) + 16, w, 0, m)
+    return (8 * pairs, 4 * (m * (dx + dp + 1) + n * (dx + dp + 1)), 2 * pairs,
+            2 * (dx + dp) * pairs, m)
+
 
 
 def once_ms(fn, warm):
@@ -2205,7 +2279,7 @@ def time_kde_kernels(flag, wide_args, launches, errs):
         over all of them in one call (held against the kernel there: within
         1e-4, or by ``held(got, want)``), then ``library(r0, r1)`` over all
         of them, KDE_ROWS rows a call."""
-        total = cost[3]
+        total = cost[4]
         ms = cuda_ms(kernel, KDE_REPS)
         got = kernel()
         plain_ms, want = once_ms(lambda: plain(0, total),
@@ -2218,8 +2292,10 @@ def time_kde_kernels(flag, wide_args, launches, errs):
         del got, want
         lib_ms = library_ms(library, total)
         out = kernel_row(f"vbn_{name}", tpu + line, launches.get(name, 0), err,
-                         ms, plain_ms, cost[:3], src, lib_ms)
-        out.update(M=total)
+                         ms, plain_ms, cost[:4], src, lib_ms)
+        # the bound with every feature operation at the float32 rate
+        out.update(M=total, fp32_features_bound_ms=bound(
+            (cost[0] + cost[3], cost[1], cost[2]))[0])
         log("kernel_main_shape", kernel=f"vbn_{name}", M=total, ms=ms,
             plain_ms=plain_ms, library_ms=lib_ms, bound_ms=out["bound_ms"])
         rows.append(out)
@@ -2303,7 +2379,7 @@ def time_kde_kernels(flag, wide_args, launches, errs):
                                   1.0, r))
     held_pick(p1["data_p"], lm1, 1.0, None)(got, want)
     del got, want
-    root_bound = bound(kde_cost("pick", m, n1, 1, 0)[:3])
+    root_bound = bound(kde_cost("pick", m, n1, 1, 0)[:4])
     out["root_pick"] = {"ms": root_ms, "plain_ms": root_plain_ms,
                         "bound_ms": root_bound[0], "bound_by": root_bound[1]}
     out["same_pick_share"] = {k: v[0] for k, v in agreement.items()}
@@ -2347,9 +2423,12 @@ def serve_kde(vbn_cls, defaults):
         out[tag] = dynamic_qps(lambda: flag.infer_posterior_moments([q]), B_KDE)
     out["w3_kde_gauss8_dyn"] = dynamic_qps(
         lambda: gauss.infer_posterior_moments(qd, pad_bucket=N_KDE_DYN), N_KDE_DYN)
+    q4 = w4_query()
+    out["w4_kde_wide"] = dynamic_qps(
+        lambda: wide.infer_posterior_moments([q4]), B_KDE)
     log("end_to_end_kde", **{f"{k}_qps": v[0] for k, v in out.items()},
         **{f"{k}_window_qps": v[1] for k, v in out.items()},
-        S={"w1": S_KDE, "w2": S_KDE, "w3": S_KDE_DYN})
+        S={"w1": S_KDE, "w2": S_KDE, "w3": S_KDE_DYN, "w4": S_KDE_DYN})
     for tag, q in (("W1 kde_flagship_lw", w1), ("W2 kde_flagship_diag", w2)):
         log("serve_profile", workload=tag, **profile_batch(
             lambda: flag.infer_posterior_moments([q]),
@@ -2357,6 +2436,9 @@ def serve_kde(vbn_cls, defaults):
     log("serve_profile", workload="W3 kde_gauss8_dyn", **profile_batch(
         lambda: gauss.infer_posterior_moments(qd, pad_bucket=N_KDE_DYN),
         ("kde_pick_", "kde_direct_kernel")))
+    log("serve_profile", workload="W4 kde_wide", **profile_batch(
+        lambda: wide.infer_posterior_moments([q4]),
+        ("kde_pick_", "kde_wide_kernel", "kde_wide_prep", "kde_wide_mean")))
     return rows
 
 
@@ -2374,7 +2456,7 @@ def load_parent(root):
     mod = importlib.util.module_from_spec(spec)
     sys.modules["vbn_parent"] = mod
     spec.loader.exec_module(mod)
-    for sub in ("defaults", "ops.sweep", "ops.kde_fused", "ops._build"):
+    for sub in ("defaults", "ops.sweep", "ops.scan", "ops.kde_fused", "ops._build"):
         importlib.import_module(f"vbn_parent.{sub}")
     return mod
 
@@ -2382,19 +2464,20 @@ def load_parent(root):
 def compare_builds(root):
     """The kernels this checkout redesigned beside another checkout's build
     of them (``--parent root``), in one process on one card, in turns
-    (other, this, this, other): vbn_lg_sweep at the flagship's main shape,
-    vbn_kde_cond at W2's and vbn_kde_root at W1's (CUDA events, each held
-    against the other build's output), then flagship MCM and W3 queries/s
-    served by each package end to end."""
+    (other, this, this, other): vbn_kde_cond_wide at W4's recorded launch
+    (each build's output held within 1e-4 of the other's), vbn_cumsum at
+    RIS's B = 8, S = 2^20 in both modes (quantized weights: bit for bit),
+    then W1, W2, W4 and flagship RIS queries/s served by each package end
+    to end (moments held within 0.05 sd of the other build's)."""
     import torch
 
     from vectorizedbayesiannetwork_torch import VBN, defaults
     from vectorizedbayesiannetwork_torch.ops import kde_fused as kf
-    from vectorizedbayesiannetwork_torch.ops import sweep
+    from vectorizedbayesiannetwork_torch.ops import scan
 
     par = load_parent(root)
     log("compare_builds", parent=str(root),
-        build_seconds=par.ops._build.build_all(["sweep", "kde"]))
+        build_seconds=par.ops._build.build_all(["resample", "kde"]))
 
     def turns(metric, other, this):
         got = [other(), this(), this(), other()]
@@ -2406,57 +2489,65 @@ def compare_builds(root):
         if err > atol:
             raise AssertionError(f"{name}: builds differ by {err}")
 
-    # vbn_lg_sweep at the flagship's main shape
-    lg_vbn = fit_flagship(VBN, defaults)
-    fixed, ptab, st, dmax = kernel_inputs(lg_vbn, flagship_query(B_MAIN), True)
+    # vbn_kde_cond_wide at W4's launch, recorded from this package's serve
+    wide = fit_kde(VBN, defaults, [("z", "y"), ("t", "y")], wide_data())
+    args, _ = serve_kde_wide(wide, {})
+    held("vbn_kde_cond_wide", par.ops.kde_fused.kde_cond_wide(*args),
+         kf.kde_cond_wide(*args), 1e-4)
+    turns("vbn_kde_cond_wide_ms",
+          lambda: cuda_ms(lambda: par.ops.kde_fused.kde_cond_wide(*args), KDE_REPS),
+          lambda: cuda_ms(lambda: kf.kde_cond_wide(*args), KDE_REPS))
 
-    def lg(mod):
-        return mod.lg_sweep_fused(6, fixed, ptab, st, dmax, S_MAIN,
-                                  want=("mom_lpt",))
+    # vbn_cumsum at RIS's shape, both modes
+    w = torch.as_tensor(quantized_profile("dirichlet", B_RIS, S_RIS),
+                        device=args[0].device)
+    for mono in (False, True):
+        exact(f"vbn_cumsum monotone={mono} between builds",
+              par.ops.scan.cumsum_rows(w, mono), scan.cumsum_rows(w, mono))
+        turns(f"vbn_cumsum_monotone_{mono}_ms",
+              lambda: cuda_ms(lambda: par.ops.scan.cumsum_rows(w, mono), RIS_REPS),
+              lambda: cuda_ms(lambda: scan.cumsum_rows(w, mono), RIS_REPS))
 
-    held("vbn_lg_sweep served rows", served_rows("mom", lg(par.ops.sweep)[3][0]),
-         served_rows("mom", lg(sweep)[3][0]), 2e-3)
-    turns("vbn_lg_sweep_ms", lambda: cuda_ms(lambda: lg(par.ops.sweep), 5),
-          lambda: cuda_ms(lambda: lg(sweep), 5))
-
-    # vbn_kde_cond at W2's shape and vbn_kde_root at W1's
-    flag = fit_kde(VBN, defaults, [("x0", "x2"), ("x1", "x2")], flagship_data())
-    dev = fixed.device
-    g = torch.Generator(device=dev).manual_seed(5)
-    m = B_KDE * S_KDE
-    ev = torch.linspace(-1, 1, B_KDE, device=dev).repeat_interleave(S_KDE)[:, None]
-    pcols = torch.cat([ev, torch.randn((m, 1), generator=g, device=dev)], 1)
-    p0, p2 = flag.params["x0"], flag.params["x2"]
-    lm0 = flag.nodes["x0"]._log_mask(p0)
-    lm2 = flag.nodes["x2"]._log_mask(p2)
-    hy0 = flag.nodes["x0"]._y_scale()
-    hy2, hp2 = flag.nodes["x2"]._y_scale(), flag.nodes["x2"]._p_scale()
-    for name, fn in (
-            ("vbn_kde_cond", lambda mod: mod.kde_cond(
-                ev, pcols, p2["data_x"], p2["data_p"], lm2, hy2, hp2)),
-            ("vbn_kde_root", lambda mod: mod.kde_root(
-                ev, p0["data_x"], lm0, hy0))):
-        held(name, fn(par.ops.kde_fused), fn(kf), 1e-4)
-        turns(f"{name}_ms", lambda: cuda_ms(lambda: fn(par.ops.kde_fused), KDE_REPS),
-              lambda: cuda_ms(lambda: fn(kf), KDE_REPS))
-
-    # end to end: flagship MCM and W3 on each package
-    ql = flagship_query(B_MAIN)
-    serve = {}
+    # end to end: W1, W2, W4 and flagship RIS on each package
+    w1, w2, _ = kde_flagship_queries()
+    q4, qr = w4_query(), flagship_diag_query()
+    serve, rows = {}, {}
     for tag, mod in (("parent", par), ("this", None)):
         vbn_cls = mod.VBN if mod else VBN
         dfl = mod.defaults if mod else defaults
-        fl = fit_flagship(vbn_cls, dfl)
-        fl.set_inference_method("monte_carlo_marginalization", n_samples=S_MAIN)
-        _gbn, gauss, _qs, qd = gauss8_kde(vbn_cls, dfl)
-        serve[tag] = (
-            lambda fl=fl: end_to_end_qps(
-                lambda: fl.infer_posterior_moments([ql] * REPS), B_MAIN)[0],
-            lambda gauss=gauss, qd=qd: dynamic_qps(
-                lambda: gauss.infer_posterior_moments(qd, pad_bucket=N_KDE_DYN),
-                N_KDE_DYN)[0])
-    turns("flagship_mcm_moments_qps", serve["parent"][0], serve["this"][0])
-    turns("w3_kde_gauss8_dyn_qps", serve["parent"][1], serve["this"][1])
+        flag = fit_kde(vbn_cls, dfl, [("x0", "x2"), ("x1", "x2")],
+                       flagship_data())
+        flag.set_inference_method("likelihood_weighting", n_samples=S_KDE)
+        w4 = fit_kde(vbn_cls, dfl, [("z", "y"), ("t", "y")], wide_data())
+        w4.set_inference_method("likelihood_weighting", n_samples=S_KDE_DYN)
+        ris = fit_flagship(vbn_cls, dfl)
+        ris.set_inference_method("resampled_importance_sampling",
+                                 n_samples=S_RIS, resample_method="systematic")
+        w, smp = ris.infer_posterior(qr)
+        stats = ris._posterior_stats(w, smp.float())
+        rows[tag] = {
+            "W1": flag.infer_posterior_moments([w1])[0],
+            "W2": flag.infer_posterior_moments([w2])[0],
+            "W4": w4.infer_posterior_moments([q4])[0],
+            "RIS": np.stack([stats[k].cpu().numpy()[:, 0]
+                             for k in ("mean", "std")], 1)}
+        serve[tag] = {
+            "w1_kde_flagship_lw": lambda f=flag: dynamic_qps(
+                lambda: f.infer_posterior_moments([w1]), B_KDE)[0],
+            "w2_kde_flagship_diag": lambda f=flag: dynamic_qps(
+                lambda: f.infer_posterior_moments([w2]), B_KDE)[0],
+            "w4_kde_wide": lambda w4=w4: dynamic_qps(
+                lambda: w4.infer_posterior_moments([q4]), B_KDE)[0],
+            "flagship_ris_systematic": lambda ris=ris: method_qps(
+                ris, qr, B_RIS)[0]}
+    for name in rows["this"]:
+        a, b = rows["parent"][name], rows["this"][name]
+        gap = float(np.abs(a - b).max() / np.abs(b[:, 1]).min())
+        log("compare_builds", workload=name, moments_gap_over_std=gap)
+        if gap > 0.05:
+            raise AssertionError(f"{name}: builds' moments differ by {gap} sd")
+    for metric in serve["this"]:
+        turns(f"{metric}_qps", serve["parent"][metric], serve["this"][metric])
 
 
 def kernel_name(mangled):
@@ -2492,7 +2583,8 @@ def ptxas_report(text):
 
 SASS_KERNELS = {"sweep": ("cat_sweep_kernel", "lg_sweep_kernel"),
                 "sweep_scan": ("cat_scan_kernel", "lg_scan_kernel"),
-                "kde": ("kde_direct_kernel",)}
+                "resample": ("cumsum_tile_kernel", "cumsum_kernel"),
+                "kde": ("kde_direct_kernel", "kde_wide_kernel")}
 SASS_OPS = ("MUFU", "IMAD", "LOP3", "FFMA", "FMUL", "FADD", "LDS", "STS",
             "LDG", "BRA", "CALL")
 
@@ -2546,8 +2638,12 @@ def main(argv) -> int:
 
     secs = _build.build_all()
     log("build", seconds=secs)
-    log("kernel_registers", kernels=[
-        r for name in _build.SOURCES for r in ptxas_report(_build.build_log(name))])
+    regs = [r for name in _build.SOURCES
+            for r in ptxas_report(_build.build_log(name))]
+    log("kernel_registers", kernels=regs)
+    spilled = [r["kernel"] for r in regs if r["spill_stores"] or r["spill_loads"]]
+    if spilled:
+        raise AssertionError(f"kernels spill registers: {spilled}")
     for name, kernels in SASS_KERNELS.items():
         log("kernel_sass", source=f"csrc/{name}.cu", kernels=[
             r for r in sass_report(_build.library_path(name))

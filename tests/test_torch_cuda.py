@@ -37,6 +37,8 @@ from vectorizedbayesiannetwork_torch.core.plan import get_plan
 from vectorizedbayesiannetwork_torch.ops import kde_fused as kf
 from vectorizedbayesiannetwork_torch.ops import sweep
 
+from test_torch_tf32 import mma_tf32, tf32
+
 B, S = 4, 2048
 CAT_WANTS = [("logw", "lpt"), ("logw", "tgt"), ("lpt",), ("pmf_logw",),
              ("pmf_lpt",), ("mom_logw",), ("mom_lpt",)]
@@ -546,6 +548,10 @@ def _vals(d, b=RB, s=RS, seed=0):
 @pytest.mark.cuda
 @pytest.mark.parametrize("monotone", [False, True])
 def test_cumsum_kernel_matches_plain(card, monotone):
+    """Exact on quantized weights; within rtol 1e-5 on uniform rows of one
+    tile and of many (RIS's B = 8, S = 2^20; S = 2^22 + 7, a ragged last
+    tile), and within 1e-4 of the row total of float64 prefix sums at
+    S = 2^22 + 7; the same launch repeated gives the same bits."""
     from vectorizedbayesiannetwork_torch.ops import scan
 
     before = sweep.LAUNCHES["cumsum"]
@@ -553,14 +559,18 @@ def test_cumsum_kernel_matches_plain(card, monotone):
     assert torch.equal(scan.cumsum_rows(w, monotone),
                        scan.cumsum_rows_plain(w, monotone))
     g = torch.Generator(device="cuda").manual_seed(1)
-    for shape in [(3, 70000), (2, 2049), (1, 100)]:
+    shapes = [(3, 70000), (2, 2049), (1, 100), (8, 1 << 20), (2, (1 << 22) + 7)]
+    for shape in shapes:
         x = torch.rand(shape, generator=g, device="cuda")
         got = scan.cumsum_rows(x, monotone)
         torch.testing.assert_close(got, scan.cumsum_rows_plain(x, monotone),
                                    rtol=1e-5, atol=0)
         if monotone:
             assert bool((got.diff(dim=1) >= 0).all())
-    assert sweep.LAUNCHES["cumsum"] == before + 4
+    ref = torch.cumsum(x.double(), dim=1)
+    assert float(((got.double() - ref).abs() / ref[:, -1:]).max()) <= 1e-4
+    assert torch.equal(scan.cumsum_rows(x, monotone), got)  # deterministic
+    assert sweep.LAUNCHES["cumsum"] == before + len(shapes) + 2
 
 
 @pytest.mark.cuda
@@ -771,17 +781,69 @@ def test_kde_direct_kernels_far_rows_and_masked_support(card, case, dx, dp):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dx,dp", [(1, 40), (2, 33), (35, 3), (1, 2)])
-def test_kde_cond_wide_kernel_matches_plain(card, dx, dp):
-    data_x, data_p, lm = _kde_support(2000, dx, dp, 1700)
+@pytest.mark.parametrize("case", ["near", "offset", "ragged", "all_masked",
+                                  "off_support"])
+@pytest.mark.parametrize("dx,dp", [(1, 40), (2, 33), (35, 3), (1, 2), (40, 40)])
+def test_kde_cond_wide_kernel_matches_plain(card, case, dx, dp):
+    """vbn_kde_cond_wide (3xTF32 on centred data) within 1e-4 of the plain
+    version: N = 2000 with 1700 live; support and queries offset by +20 in
+    every feature; N = 2017 with 1900 live (not a whole number of the
+    kernel's 32-point tiles); every point masked (-inf: NaN on both
+    sides); at Scott bandwidths, queries one bandwidth off a support point
+    in every feature (each term then far below 0, where the tensor core's
+    truncation once cost more than 1e-4 with a wide target)."""
+    n, valid = (2017, 1900) if case == "ragged" else (2000, 1700)
+    data_x, data_p, lm = _kde_support(n, dx, dp, valid)
     x, p = _kde_queries(dx, dp)
     # wide supports spread the squared distances: scales of their order
     ys, ps = 0.5 * np.sqrt(dx), 0.5 * np.sqrt(dp)
+    if case == "offset":
+        x, p, data_x, data_p = (a + 20.0 for a in (x, p, data_x, data_p))
+    elif case == "all_masked":
+        lm = torch.full_like(lm, float("-inf"))
+    elif case == "off_support":
+        rate = float(valid) ** (-1.0 / (dx + dp + 4))
+        ys = rate * float(data_x[:valid].std(0).mean())
+        ps = rate * float(data_p[:valid].std(0).mean())
+        g = torch.Generator(device="cuda").manual_seed(2)
+        idx = torch.randint(0, valid, (KM,), generator=g, device="cuda")
+        x = data_x[idx] + ys * torch.sign(torch.randn(
+            (KM, dx), generator=g, device="cuda"))
+        p = data_p[idx] + ps * torch.sign(torch.randn(
+            (KM, dp), generator=g, device="cuda"))
     before = sweep.LAUNCHES["kde_cond_wide"]
     got = kf.kde_cond_wide(x, p, data_x, data_p, lm, ys, ps)
     assert sweep.LAUNCHES["kde_cond_wide"] == before + 1
     want = kf.kde_cond_plain(x, p, data_x, data_p, lm, ys, ps)
-    torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=0,
+                               equal_nan=case == "all_masked")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["normal", "wide_exponents", "cancelling"])
+def test_tf32_mma_matches_the_tensor_core_model(card, kind):
+    """The wide kernel's mma.sync (``vbn_kde_mma_probe``) bit for bit
+    against ``test_torch_tf32.mma_tf32`` (truncation, not rounding to
+    nearest) on 2048 random m16n8k8 tiles: normal operands; operands and
+    accumulators spread over 2^-12 .. 2^12; accumulators that cancel the
+    products to 1e-3."""
+    g = np.random.default_rng(0)
+    w = 2048
+    a = tf32(g.normal(size=(w, 16, 8)).astype(np.float32))
+    b = tf32(g.normal(size=(w, 8, 8)).astype(np.float32))
+    c = (g.normal(size=(w, 16, 8)) * 8).astype(np.float32)
+    if kind == "wide_exponents":
+        a = tf32(a * np.exp2(g.integers(-12, 12, a.shape)).astype(np.float32))
+        c = c * np.exp2(g.integers(-12, 12, c.shape)).astype(np.float32)
+    elif kind == "cancelling":
+        c = (-(a.astype(np.float64) @ b) * (1 + 1e-3)).astype(np.float32)
+    t = [torch.from_numpy(v).to(card) for v in (a, b, c)]
+    d = torch.empty_like(t[2])
+    kf._run(kf._lib().vbn_kde_mma_probe, "vbn_kde_mma_probe", card,
+            *(v.data_ptr() for v in t), d.data_ptr(), w)
+    want = np.stack([mma_tf32(c[i], a[i], b[i].T) for i in range(w)])
+    np.testing.assert_array_equal(d.cpu().numpy().view(np.uint32),
+                                  want.view(np.uint32))
 
 
 KM_PICK = 1 << 20  # rows of the inverse-CDF pick's agreement check

@@ -7,6 +7,13 @@
   the JAX test's own tolerance: its kernel takes the cross terms through a
   bf16x3 GEMM (about 5e-4 from the exact form), where the port subtracts
   directly; picks on the same external Gumbel field exactly.
+- The arithmetic of the direct kernels (base-2 lazy-reference logsumexp)
+  and of the wide kernel (the expanded distance in 3xTF32 on data centred
+  on the support's mean, each k-step's MMAs from zero on the tensor core's
+  own rounding (``test_torch_tf32.py``), norms rounded once, the clamp at
+  0, the quad's merged states) as numpy float32 models, against the plain
+  versions within 1e-4; the wide form without the centring fails that
+  check, and chaining the MMAs through their accumulator loses more.
 - The port's ``kde_log_prob`` (``ops/kde_kernel.py``: the plain versions
   on the CPU, the chunked form for a root past 32 features) against the
   JAX one (its XLA form on the CPU) at M = 4096 + 123: 1e-4; the chunked
@@ -39,7 +46,7 @@ from benchmarking.gaussian_bn import (
     generate_gaussian_inference_queries,
     random_gaussian,
 )
-from chip_smoke import chi2_z_merged
+from chip_smoke import chi2_z_merged, kde_cond_float64
 from vectorizedbayesiannetwork_torch import VBN as TVBN
 from vectorizedbayesiannetwork_torch import defaults as tdefaults
 from vectorizedbayesiannetwork_torch.config_cast import (
@@ -56,6 +63,8 @@ from vectorizedbayesiannetwork_tpu import defaults as jdefaults
 from vectorizedbayesiannetwork_tpu.models.kde import KDECPD as JKDE
 from vectorizedbayesiannetwork_tpu.ops import kde_kernel as jkk
 from vectorizedbayesiannetwork_tpu.ops import kde_pallas as jkp
+
+from test_torch_tf32 import mma_tf32, tf32, tf32_split
 
 S = 4096  # particles per query row in the whole-slice checks
 
@@ -276,6 +285,248 @@ def test_direct_consts_are_the_base2_kernel_consts():
                                    np.float64(inv2) * kf.LOG2E, rtol=1e-6)
         np.testing.assert_allclose(c2, np.float64(const) * kf.LOG2E,
                                    rtol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# the wide kernel's arithmetic (csrc/kde.cu, kde_wide_kernel), as a numpy
+# float32 model, against the plain version
+# ---------------------------------------------------------------------------
+
+_WIDE_DIRECT_DX = 2  # targets up to this take direct differences
+_WIDE_LIVE_MASK = -30.0  # points the support's mean counts
+
+
+def _sq_norm(a):
+    """Row squared norms of float32 features, summed in double and rounded
+    once (the kernel's)."""
+    return (a.astype(np.float64) ** 2).sum(1).astype(_F)
+
+
+def _wide_chains(dx, dp):
+    """The kernel's layout and accumulators an n8 tile (``wide_layout``,
+    ``wide_chains``): (chains, step). step: the GEMM takes the target
+    (more than two target features), and each k-step's MMAs start from
+    zero; else the k-steps chain through one accumulator, or two while
+    registers allow (W4's shape)."""
+    dxd = dx if dx <= _WIDE_DIRECT_DX else 0
+    kt = -(-dp // 8) + (0 if dxd else -(-dx // 8))
+    ks, chunked = (max(kt, 5), False) if kt <= 6 else (4, True)
+    need = 8 * ks + (4 * (dxd - 1) if dxd else 16) + (16 if chunked else 0)
+    return (2 if need <= 40 else 1), dxd == 0
+
+
+def _mma_cross(a, b, chains, step):
+    """a @ b.T as the kernel's 3xTF32 mma.sync on the tensor core's own
+    rounding (``mma_tf32``): k-steps of 8 features, each operand split
+    into TF32 big and small parts. ``step``: each k-step's small.big,
+    big.small and big.big from zero, its sum added to a float32
+    accumulator (rounded to nearest). Else chained, the tensor core
+    truncating against the running sums: with two ``chains`` small.big and
+    big.small into one accumulator and big.big into the other, added at
+    the end; with one, all three in that order into one."""
+    ab, as_ = tf32_split(a)
+    bb, bs = tf32_split(b)
+    acc = [np.zeros((a.shape[0], b.shape[0]), _F) for _ in range(chains)]
+    for k0 in range(0, a.shape[1], 8):
+        k = slice(k0, k0 + 8)
+        if step:
+            s = np.zeros_like(acc[0])
+            for x, y in ((as_, bb), (ab, bs), (ab, bb)):
+                s = mma_tf32(s, x[:, k], y[:, k])
+            acc[0] = (acc[0] + s).astype(_F)
+        else:
+            for i, x, y in ((chains - 1, as_, bb), (0, ab, bb),
+                            (chains - 1, ab, bs)):
+                acc[i] = mma_tf32(acc[i], x[:, k], y[:, k])
+    return acc[0] if chains == 1 else (acc[0] + acc[1]).astype(_F)
+
+
+def _wide_model(x, p, data_x, data_p, lm, y_scale, p_scale, centre=True,
+                chained=False):
+    """The wide kernel's arithmetic in numpy float32: queries and support
+    centred on the support's mean over its live points (``centre``) and
+    scaled to base 2; the cross terms in 3xTF32 (``_mma_cross``; a wide
+    target's k-steps ``chained`` through the accumulator on request); norms
+    rounded once from double; -|q - P|^2 = 2 q.P - |P|^2 - |q|^2 clamped at 0; a target of up
+    to two features by direct differences. Each row's columns go to the
+    four threads of a quad by (n % 8) // 2, two at a time, each with its
+    own base-2 lazy references (both rescaled where an exponent passes
+    the margin), merged as the quad's shuffles merge them."""
+    m, dx = x.shape
+    dp = p.shape[1]
+    sy, cy = kf.direct_consts(dx, y_scale)
+    sp, cp = kf.direct_consts(dp, p_scale)
+    live = lm > _WIDE_LIVE_MASK
+    live = live if live.any() else np.ones_like(live)
+
+    def centred(q, data, scale):
+        mu = data[live].mean(0, dtype=_F) if centre else _F(0.0)
+        return (((q - mu).astype(_F) * scale).astype(_F),
+                ((data - mu).astype(_F) * scale).astype(_F))
+
+    chains, step = _wide_chains(dx, dp)
+
+    def neg_dist2(q, data):  # -|q - P|^2 in base 2, clamped at 0
+        cross = _mma_cross(q, 2 * data, chains, step and not chained)
+        return np.minimum((cross - _sq_norm(data)[None, :]
+                           - _sq_norm(q)[:, None]).astype(_F), _F(0.0))
+
+    with np.errstate(all="ignore"):
+        kp = (neg_dist2(*centred(p, data_p, sp))
+              + _fma(lm, _F(kf.LOG2E), cp)[None, :]).astype(_F)
+        direct = dx <= _WIDE_DIRECT_DX
+        ux = None if direct else neg_dist2(*centred(x, data_x, sy))
+        qx, bx = (x * sy).astype(_F), (data_x * sy).astype(_F)
+        pad = -data_x.shape[0] % 8
+        kp = np.pad(kp, ((0, 0), (0, pad)), constant_values=-np.inf)
+        if ux is not None:
+            ux = np.pad(ux, ((0, 0), (0, pad)))
+        bx = np.pad(bx, ((0, pad), (0, 0)))
+        ref_d, s_d = np.full((m, 4), _GUARD2, _F), np.zeros((m, 4), _F)
+        ref_n, s_n = np.full((m, 4), _GUARD2, _F), np.zeros((m, 4), _F)
+        for c0 in range(0, kp.shape[1], 8):
+            k = kp[:, c0:c0 + 8].reshape(m, 4, 2)
+            cols = [k[..., c] for c in range(2)]
+            vn_abs = []
+            for c in range(2):
+                v = cols[c]
+                if ux is not None:
+                    v = (v + ux[:, c0 + c:c0 + 8:2]).astype(_F)
+                else:
+                    for f in range(dx):
+                        e = (qx[:, f:f + 1] - bx[c0 + c:c0 + 8:2, f][None, :]
+                             ).astype(_F)
+                        v = _fma(-e, e, v)
+                vn_abs.append(v)
+            vp = [(cols[c] - ref_d).astype(_F) for c in range(2)]
+            vn = []
+            for c in range(2):
+                v = (cols[c] - ref_n).astype(_F)
+                if ux is not None:
+                    v = (v + ux[:, c0 + c:c0 + 8:2]).astype(_F)
+                else:
+                    for f in range(dx):
+                        e = (qx[:, f:f + 1] - bx[c0 + c:c0 + 8:2, f][None, :]
+                             ).astype(_F)
+                        v = _fma(-e, e, v)
+                vn.append(v)
+            slow = np.fmax.reduce(vp + vn) > _LSE_MARGIN
+            for c in range(2):
+                s_d[~slow] += np.exp2(vp[c][~slow])
+                s_n[~slow] += np.exp2(vn[c][~slow])
+            for c in range(2):
+                _lse2_add(ref_d, s_d, cols[c], slow)
+                _lse2_add(ref_n, s_n, vn_abs[c], slow)
+
+        def merge(ref, s):  # shuffles across lanes t ^ 1, then t ^ 2
+            for o in (1, 2):
+                idx = np.arange(4) ^ o
+                r = np.fmax(ref, ref[:, idx])
+                s = (s * np.exp2(ref - r) + s[:, idx] * np.exp2(ref[:, idx] - r)
+                     ).astype(_F)
+                ref = r
+            return ref[:, 0], s[:, 0]
+
+        return (_lse2_value(*merge(ref_n, s_n), cy)
+                - _lse2_value(*merge(ref_d, s_d), 0.0))
+
+
+def _wide_case(case, dx, dp, g):
+    """(x, p, data_x, data_p, log_mask, y_scale, p_scale) of one wide case
+    on N = 2048 points with Scott bandwidths (W4's 40 parent features,
+    a target from the parents plus noise): queries near support points
+    (a jitter of one bandwidth); the same offset by +20 in every feature;
+    a tail at the hard mask -1e30; every point masked (-inf); queries one
+    bandwidth off a support point in every feature (``off_support``)."""
+    n, m = 2048, 192
+    data_p = _normal(g, n, dp)
+    data_x = (data_p[:, :1] + 0.1 * data_p.mean(1, keepdims=True)
+              + 0.1 * _normal(g, n, 1))
+    if dx > 1:
+        data_x = np.concatenate([data_x, _normal(g, n, dx - 1)], 1)
+    data_x = data_x.astype(_F)
+    rate = float(n) ** (-1.0 / (dx + dp + 4))
+    ps = rate * float(np.mean(data_p.std(0)))
+    ys = rate * float(np.mean(data_x.std(0)))
+    idx = g.integers(0, n, m)
+    p = (data_p[idx] + ps * _normal(g, m, dp)).astype(_F)
+    x = (data_x[idx] + ys * _normal(g, m, dx)).astype(_F)
+    lm = np.zeros(n, _F)
+    if case == "offset":
+        x, p, data_x, data_p = (a + _F(20.0) for a in (x, p, data_x, data_p))
+    elif case == "hard_tail":
+        lm[1700:] = -1e30
+    elif case == "all_masked":
+        lm[:] = -np.inf
+    elif case == "off_support":
+        p = (data_p[idx] + ps * np.sign(_normal(g, m, dp))).astype(_F)
+        x = (data_x[idx] + ys * np.sign(_normal(g, m, dx))).astype(_F)
+    return x, p, data_x, data_p, lm, ys, ps
+
+
+@pytest.mark.parametrize("case", ["near", "offset", "hard_tail", "all_masked",
+                                  "off_support"])
+@pytest.mark.parametrize("dx,dp", [(1, 40), (35, 3), (40, 40)])
+def test_wide_kernel_tf32_form_matches_plain(case, dx, dp):
+    """vbn_kde_cond_wide's 3xTF32 expanded form on centred data, modelled
+    in numpy float32 on the tensor core's rounding, against kde_cond_plain
+    within 1e-4: W4's shape (Dx = 1 by direct differences, Dp = 40), and
+    targets wide enough for the GEMM; near the support, offset by +20 in
+    every feature, with a hard-masked tail, fully masked (NaN on both
+    sides), and one bandwidth off the support in every feature."""
+    g = np.random.default_rng(17)
+    x, p, data_x, data_p, lm, ys, ps = _wide_case(case, dx, dp, g)
+    got = _wide_model(x, p, data_x, data_p, lm, ys, ps)
+    want = kf.kde_cond_plain(_t(x), _t(p), _t(data_x), _t(data_p), _t(lm),
+                             ys, ps).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-4, rtol=0)
+    if case == "all_masked":
+        assert np.isnan(want).all()
+
+
+@pytest.mark.parametrize("dx,dp", [(1, 40), (40, 40)])
+def test_wide_kernel_tf32_form_needs_centring(dx, dp):
+    """The same form without the centring fails the 1e-4 check on the
+    offset case: the norms and the cross term then grow with the offset
+    and cancel. So the model test can fail."""
+    g = np.random.default_rng(17)
+    x, p, data_x, data_p, lm, ys, ps = _wide_case("offset", dx, dp, g)
+    want = kf.kde_cond_plain(_t(x), _t(p), _t(data_x), _t(data_p), _t(lm),
+                             ys, ps).numpy()
+    err = np.abs(_wide_model(x, p, data_x, data_p, lm, ys, ps, centre=False)
+                 - want).max()
+    assert err > 1e-4
+
+
+@pytest.mark.parametrize("dx,dp", [(35, 3), (40, 40)])
+def test_wide_kernel_chained_mmas_lose_more(dx, dp):
+    """Chaining every k-step's MMAs through one accumulator, where the
+    tensor core truncates each product against the running cross term,
+    lands at least half again as far from float64 as the kernel's
+    per-k-step sums, with a wide target off the support."""
+    g = np.random.default_rng(17)
+    case = _wide_case("off_support", dx, dp, g)
+    ref = kde_cond_float64(*(_t(a) for a in case[:5]), *case[5:]).numpy()
+    err = [np.abs(_wide_model(*case, chained=c) - ref).max()
+           for c in (False, True)]
+    assert err[1] > 1.5 * err[0]
+
+
+def test_tf32_rounding_is_round_to_nearest_away():
+    """The model's cvt.rna.tf32.f32: 10 mantissa bits kept, a tie (bit 12
+    alone set) rounded away from zero on both signs, big + small within
+    2^-22 of the value."""
+    one = _F(1.0)
+    ulp = _F(2.0 ** -10)
+    tie = _F(1.0 + 2.0 ** -11)
+    np.testing.assert_array_equal(tf32(np.array([tie, -tie])),
+                                  np.array([one + ulp, -(one + ulp)], _F))
+    v = np.random.default_rng(3).normal(size=1000).astype(_F)
+    big, small = tf32_split(v)
+    assert (big.view(np.uint32) & 0x1FFF == 0).all()
+    assert (small.view(np.uint32) & 0x1FFF == 0).all()
+    assert np.all(np.abs((big.astype(np.float64) + small) - v)
+                  <= 2.0 ** -22 * np.abs(v))
 
 
 def test_wide_plain_matches_pallas():

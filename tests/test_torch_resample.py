@@ -7,6 +7,11 @@ S=2048, D=5; S=1024 and 2^16 for the gate and high-u0 cases). Both sides
 get the same inputs, made with numpy, and the same uniforms or Exp(1)
 draws.
 
+``vbn_cumsum``'s two-pass grouping (tiles of 8192 entries, their totals
+scanned in one fixed order) is modelled in numpy float32 and held against
+the plain version: bit for bit on quantized weights, within rtol 1e-5 on
+uniform rows of many tiles.
+
 Exactness: the weights are integer multiples of 2^-23 summing to exactly
 1, so both packages' ``_norm_cum`` give the same CDF bit for bit whatever
 order they sum in, and the merges then agree exactly. Where the two sides
@@ -75,6 +80,110 @@ def test_cumsum_plain_matches_pallas(shape, monotone):
     np.testing.assert_allclose(got, want, rtol=1e-6, atol=0)
     if monotone:
         assert (np.diff(got, axis=1) >= 0).all()
+
+
+# vbn_cumsum's grouping (csrc/resample.cu: a reduce-then-scan over tiles of
+# 8192 entries), as a numpy float32 model, against the plain version
+_CS_TILE = 8192  # entries a tile: 8 entries a thread of 1024
+
+
+def _shfl_scan(v):
+    """Inclusive Hillis-Steele scan over the last axis (32 lanes), float32:
+    the warp-shuffle scan of the kernel."""
+    lane = np.arange(v.shape[-1])
+    for d in (1, 2, 4, 8, 16):
+        y = np.concatenate([np.zeros_like(v[..., :d]), v[..., :-d]], -1)
+        v = np.where(lane >= d, (v + y).astype(np.float32), v)
+    return v
+
+
+def _tile_scan_model(t):
+    """tile_scan on tiles [T, 8192] (zeros past S): each warp's 32 entries
+    of each sub-chunk j by shuffles, then warp 0's scan of the 256 warp
+    totals (8 a lane in sequence, the lanes by shuffles); returns the local
+    inclusive prefix sums [T, 8192] and the tiles' totals [T]."""
+    f32 = np.float32
+    w = _shfl_scan(t.reshape(-1, 8, 32, 32))  # [tile, j, warp, lane]
+    parts = w[..., 31].reshape(-1, 32, 8)  # partial j*32 + warp, 8 a lane
+    tex = np.zeros_like(parts)
+    run = np.zeros(parts.shape[:2], f32)
+    for i in range(8):
+        tex[..., i] = run
+        run = (run + parts[..., i]).astype(f32)
+    incl = _shfl_scan(run)
+    excl = np.concatenate([np.zeros_like(incl[:, :1]), incl[:, :-1]], 1)
+    pex = (excl[..., None] + tex).astype(f32).reshape(-1, 8, 32, 1)
+    return (pex + w).astype(f32).reshape(-1, _CS_TILE), incl[:, 31]
+
+
+def _cumsum_model(x, monotone):
+    """vbn_cumsum's two passes on [B, S] float32: the tiles' local scans,
+    their totals scanned in one fixed order (a contiguous run a lane, the
+    runs by shuffles, then each run walked from its lane's prefix), the
+    outputs fl(e_j + l_i); with ``monotone``, the running max seeded with
+    max over j' < j of fl(e_j' + max l_j'). Returns (out, per-row list of
+    (e [tiles], locals [tiles, 8192], valid mask))."""
+    f32 = np.float32
+    b, s = x.shape
+    tiles = -(-s // _CS_TILE)
+    out = np.empty_like(x)
+    parts = []
+    for r in range(b):
+        t = np.zeros(tiles * _CS_TILE, f32)
+        t[:s] = x[r]
+        local, total = _tile_scan_model(t.reshape(tiles, _CS_TILE))
+        valid = (np.arange(tiles * _CS_TILE) < s).reshape(tiles, _CS_TILE)
+        per = -(-tiles // 32)
+        runs = np.zeros(32, f32)
+        for lane in range(32):
+            for j in range(lane * per, min(lane * per + per, tiles)):
+                runs[lane] = f32(runs[lane] + total[j])
+        incl = _shfl_scan(runs)
+        e = np.zeros(tiles, f32)
+        for lane in range(32):
+            acc = f32(0.0) if lane == 0 else incl[lane - 1]
+            for j in range(lane * per, min(lane * per + per, tiles)):
+                e[j] = acc
+                acc = f32(acc + total[j])
+        o = (e[:, None] + local).astype(f32)
+        if monotone:
+            top = np.where(valid, local, -np.inf).max(1)
+            prev = np.maximum.accumulate(
+                np.concatenate([[-np.inf], (e + top).astype(f32)[:-1]]))
+            o = np.maximum(prev[:, None], np.maximum.accumulate(o, 1))
+        out[r] = o.reshape(-1)[:s]
+        parts.append((e, local, valid))
+    return out, parts
+
+
+@pytest.mark.parametrize("monotone", [False, True])
+def test_cumsum_two_pass_model_equals_plain_on_quantized_weights(monotone):
+    """Multiples of 2^-23 summing to 1, rows of 3 tiles and a ragged fourth:
+    the two-pass grouping is exact too, so it equals the plain version (and
+    torch.cumsum) bit for bit."""
+    w = np.concatenate([quantized_profile(p, 1, 3 * _CS_TILE + 77)
+                        for p in PROFILES])
+    got, _ = _cumsum_model(w, monotone)
+    np.testing.assert_array_equal(got, cumsum_rows(_t(w), monotone).numpy())
+
+
+@pytest.mark.parametrize("shape", [(3, 70000), (2, 33 * _CS_TILE + 5)])
+@pytest.mark.parametrize("monotone", [False, True])
+def test_cumsum_two_pass_model_matches_plain(shape, monotone):
+    """Uniform rows spanning many tiles (past 32 tiles a lane takes a run
+    of two), with a ragged last tile: within rtol 1e-5 of the plain
+    version; monotone rows nondecreasing, and the carried maximum of each
+    tile, fl(e + max l), equal to the largest of its outputs fl(e + l)."""
+    x = np.random.default_rng(4).uniform(size=shape).astype(np.float32)
+    got, parts = _cumsum_model(x, monotone)
+    np.testing.assert_allclose(got, cumsum_rows(_t(x), monotone).numpy(),
+                               rtol=1e-5, atol=0)
+    if monotone:
+        assert (np.diff(got, axis=1) >= 0).all()
+    for e, local, valid in parts:
+        outs = np.where(valid, (e[:, None] + local).astype(np.float32), -np.inf)
+        top = np.where(valid, local, -np.inf).max(1)
+        np.testing.assert_array_equal((e + top).astype(np.float32), outs.max(1))
 
 
 # ---------------------------------------------------------------------------

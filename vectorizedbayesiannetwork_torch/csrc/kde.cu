@@ -21,8 +21,9 @@
 // Bound: operations. The bytes are the queries and outputs (M x (Dx + Dp + 1)
 // floats, once each) and a support of kilobytes; the work is M x N pairs.
 // Per pair the root takes one exp and the conditional two (one per
-// logsumexp), on the SFU at 16 a clock per SM, beside 2 float32 operations
-// per feature and about 6 more. The TPU kernels held the [TM, N] logit
+// logsumexp), on the SFU at 16 a clock per SM, beside a multiply-add per
+// feature (2 float32 operations, or tensor-core work at the TF32 rate)
+// and about 6 more. The TPU kernels held the [TM, N] logit
 // tiles in VMEM; here no pair's value is ever stored.
 //
 // Design of the root and the conditional (vbn_kde_root, vbn_kde_cond; one
@@ -61,15 +62,71 @@
 // The pick's conditional form stages the support the same way, unscaled
 // (stage), and keeps its own sums (below).
 //
-// vbn_kde_cond_wide (max(Dx, Dp) > 32): the features do not fit registers.
-// Per sub-tile of 32 support points the block stages the features in
-// chunks of 32 through shared memory (padded a column against bank
-// conflicts), each thread holds a chunk of its query row in registers and
-// accumulates the 32 squared distances in registers, in plain float32: the
-// TPU kernel's bf16x3 cross-term GEMM existed for the MXU's bf16 inputs,
-// and direct differences are exact to float32 rounding. Tensor cores (TF32
-// or 3xTF32 on the expanded form) are later work.
-//
+// vbn_kde_cond_wide (max(Dx, Dp) > 32): past 32 features a pair's two
+// float32 operations a feature outweigh its two exps, so the features go
+// to the tensor cores, by the expanded form |q - P|^2 = |q|^2 + |P|^2 -
+// 2 q.P, in the same base-2 domain as the direct kernels:
+// - The cross term by mma.sync m16n8k8 in TF32, three passes (big.big +
+//   big.small + small.big, each operand split by cvt.rna.tf32.f32 into a
+//   big part and the rounded rest), float32 accumulators: about float32
+//   accuracy, where one TF32 pass misses the 1e-4 check by two orders.
+// - The tensor core does not round to nearest: it aligns the products and
+//   C to the largest exponent among them (a product's the sum of its
+//   factors'), drops the bits past 25 below it, toward zero, and truncates
+//   the sum (measured bit for bit on an H100; tests/test_torch_tf32.py
+//   models it). Chained through C across the k-steps, each product loses
+//   up to a quarter ulp of the running cross term, always toward zero.
+//   The parents' errors enter both logsumexps and mostly cancel, so the
+//   parents' k-steps chain, the big products' sum apart from the small
+//   ones' where registers allow (two chains of dependent MMAs, not one;
+//   wide_chains). The target's errors enter one logsumexp: with 35-40
+//   target features and queries off the support they reached the 1e-4
+//   check. So when the GEMM takes the target (mma3's STEP), each k-step's
+//   three MMAs, the parents' too, start from zero, a product then loses at
+//   most a quarter ulp of the k-step's largest, and the k-step's sum is
+//   added to the accumulator by an FADD, rounded to nearest. The MMAs
+//   are volatile asm, kept in program order: ptxas otherwise held every
+//   k-step's sum at once and spilled.
+// - Queries and support centred on the support's mean (over its live
+//   points; kde_wide_mean_kernel, once a call) before the split: the
+//   norms and the cross term then stay of the order of the spread, not of
+//   the offset, which would cancel (+20 in every feature costs 1e-2).
+// - The norms are summed in double from the centred float32 values and
+//   rounded once. A target of at most WIDE_DIRECT_DX features (W4's one)
+//   takes direct differences in the epilogue; a wider one joins the GEMM's
+//   features after the parents', into accumulators of its own (the
+//   numerator needs both sums, the denominator the parents' alone).
+// - kde_wide_prep_kernel prepares the support once a call: its fragments
+//   already doubled and split, in the m16n8k8 B layout, and a record a
+//   point {-|P|^2, staged mask, target features} (the padding's mask
+//   -inf).
+// - Tiles: a block of eight warps takes 128 query rows, one m16 tile a
+//   warp, whose fragments (big and small) stay in registers for up to
+//   WKS_MAX k-steps (48 features; W4's 40 are five; fewer are padded to
+//   WKS_MIN, as the served widths, past 32 features, never are). The
+//   support goes by in stages of 128 points, copied into shared memory by
+//   cp.async while the block works on the stage before (one LDS.128 a
+//   lane a k-step and n8 tile feeds three MMAs). In a stage the n8 tiles
+//   go one after another, the next one's MMAs started before this one's
+//   terms. Past WKS_MAX k-steps the features go in chunks of WKS_CHUNK
+//   (stages of 32 points), the query fragments loaded again for each
+//   chunk.
+// - Epilogue as in kde_direct_kernel: a term is -|q - P|^2 = 2 q.P -
+//   |P|^2 - |q|^2, clamped at 0 where rounding leaves it above, plus the
+//   staged mask; one ex2.approx a logsumexp against a lazily moved
+//   reference (Lse2, same guard semantics), the slow path taken when a
+//   thread's eight exponents pass the margin. A row's columns lie on a
+//   quad of threads, each with its own states, merged by shuffles at the
+//   end.
+// The squared distances never leave registers; the bound is the two exps
+// a pair, as for the direct conditional, with the feature work at the
+// TF32 tensor rate. Measured apart (H100), the three passes alone take
+// about as long as the terms alone, and the two add rather than overlap:
+// an mma.sync warp runs its epilogue only after its MMAs, in order.
+// wgmma (asynchronous, A from registers) overlapped them a little better,
+// but its accumulators spilled at two blocks an SM and ran slower at one;
+// A from shared memory would free those registers (later work).
+
 // vbn_kde_pick draws, per query row, one support point from the categorical
 // with weights mask_n exp(-|p - P_n|^2 / 2h^2), then copies data_x[n*].
 // The TPU kernel draws it as a Gumbel-argmax over all N points (two logs
@@ -124,9 +181,16 @@ namespace {
 
 constexpr int THREADS = 256;     // query rows per block
 constexpr int TILE = 256;        // support points per shared-memory tile
-constexpr int WIDE_THREADS = 128;
-constexpr int WN = 32;           // wide: support points per sub-tile
-constexpr int WC = 32;           // wide: features per staged chunk
+constexpr int WIDE_THREADS = 256;  // wide: eight warps of 16 query rows
+constexpr int WIDE_ROWS = 128;     // wide: query rows per block
+constexpr int WT_RESIDENT = 128;   // wide: support points a stage
+constexpr int WT_CHUNKED = 32;     // wide: the same, features in chunks
+constexpr int WKS_MAX = 6;         // wide: k-steps of query fragments in registers
+constexpr int WKS_MIN = 5;         // wide: the same, at least (past 32 features)
+constexpr int WKS_CHUNK = 4;       // wide: k-steps a chunk past WKS_MAX
+constexpr int WIDE_DIRECT_DX = 2;  // wide: targets up to this take direct differences
+constexpr int WIDE_PREP_THREADS = 256;
+constexpr float WIDE_LIVE_MASK = -30.f;  // wide: points the mean counts
 constexpr float GUARD = -1e30f;  // kde_pallas.py:66
 constexpr float U_MAX = 0.99999994039535522f;  // 1 - 2^-24
 constexpr int ROOT_CDF_MAX = 16384;  // root pick: CDF points in shared memory
@@ -145,27 +209,11 @@ __host__ __device__ constexpr int kde_min_blocks(int mx, int mp) {
   return mx + mp <= 8 ? 4 : mx + mp <= 32 ? 2 : 1;
 }
 
-// Online logsumexp (the wide kernel): running max m and sum s of
-// exp(v - m).
-struct Lse {
-  float m, s;
-  __device__ __forceinline__ void init() {
-    m = -INFINITY;
-    s = 0.f;
-  }
-  __device__ __forceinline__ void add(float v) {
-    if (v == -INFINITY) return;  // weight 0
-    if (v > m) {
-      s = s * __expf(m - v) + 1.f;  // 0 * 0 + 1 on the first term
-      m = v;
-    } else {
-      s += __expf(v - m);
-    }
-  }
-  __device__ __forceinline__ float value() const {
-    return m < GUARD ? -INFINITY : m + logf(s);
-  }
-};
+// The conditional pick at 32 features holds them and its sums in
+// registers; without a minimum of blocks ptxas spilled 16 bytes there.
+__host__ __device__ constexpr int kde_pick_min_blocks(int md) {
+  return md > 16 ? 2 : 1;
+}
 
 // Rows [0, tn) of a row-major [., d] block at src into s[f * TILE + j].
 __device__ __forceinline__ void stage(float* s, const float* __restrict__ src,
@@ -317,71 +365,471 @@ kde_direct_kernel(const float* __restrict__ x, const float* __restrict__ p,
     out[row] = COND ? num.value(c_num) - den.value(0.f) : num.value(0.f);
 }
 
-// Squared distances of one query row (q_row, d features) to the WN support
-// points [t0, t0 + tn) of `data`, into acc[WN]; every thread of the block
-// calls it (it stages through s_f).
-__device__ __forceinline__ void wide_sq(const float* __restrict__ q_row,
-                                        bool live,
-                                        const float* __restrict__ data, int d,
-                                        int t0, int tn, float (*s_f)[WN + 1],
-                                        float acc[WN]) {
+// ---------------------------------------------------------------------------
+// vbn_kde_cond_wide: squared distances by the expanded form on the tensor
+// cores (see the note at the top)
+// ---------------------------------------------------------------------------
+
+// One call's layout. The GEMM's features are the parents' (kp k-steps of
+// 8, zeros past Dp), then, when Dx passes WIDE_DIRECT_DX, the target's
+// (zeros past Dx); a target of dxd <= WIDE_DIRECT_DX features takes direct
+// differences instead. Up to WKS_MAX k-steps the kernel holds all of a
+// row's query fragments in registers (ks = kt, at least WKS_MIN); past
+// that it takes them in chunks of WKS_CHUNK k-steps (kt_pad, a whole
+// number of chunks; the padding zeros). The scratch the wrapper allocates
+// holds the support's fragments [n_pad / 8 n8 tiles][kt_pad][32 lanes]
+// float4, its records [n_pad] float4 {-|P_p|^2, mask, f0, f1} (f: the
+// direct target features, or -|P_x|^2 when the GEMM takes the target) and
+// the feature means [dp + dx], in that order.
+struct WideLayout {
+  int dxd, kp, kt, ks, kt_pad, nchunks, n_pad;
+  size_t rec, mu, floats;  // float offsets into the scratch
+};
+
+__host__ __device__ inline WideLayout wide_layout(int n, int dx, int dp) {
+  WideLayout l;
+  l.dxd = dx <= WIDE_DIRECT_DX ? dx : 0;
+  l.kp = (dp + 7) / 8;
+  l.kt = l.kp + (l.dxd ? 0 : (dx + 7) / 8);
+  l.ks = l.kt <= WKS_MAX ? (l.kt > WKS_MIN ? l.kt : WKS_MIN) : WKS_CHUNK;
+  l.kt_pad = (l.kt + l.ks - 1) / l.ks * l.ks;
+  l.nchunks = l.kt_pad / l.ks;
+  l.n_pad = (n + WT_RESIDENT - 1) / WT_RESIDENT * WT_RESIDENT;
+  l.rec = (size_t)(l.n_pad / 8) * l.kt_pad * 32 * 4;
+  l.mu = l.rec + 4 * (size_t)l.n_pad;
+  l.floats = l.mu + dp + dx;
+  return l;
+}
+
+__device__ __forceinline__ uint32_t tf32(float v) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(v));
+  return r;
+}
+
+// d += a b on the tensor cores: m16n8k8, TF32 inputs, float32 accumulators
+// (volatile: the MMAs stay in program order).
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+               "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
+               : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// One k-step of 3xTF32 with b = {big b0, big b1, small b0, small b1}
+// (small.small, 2^-22 of the product, is left out). STEP: small.big,
+// big.small, then big.big from zero, the k-step's sum added to d[0] by an
+// FADD (see the note at the top). Else chained: big.big into d[0],
+// small.big and big.small into d[C - 1]; two accumulators (C = 2) halve
+// the chain of dependent MMAs and keep the small products' sum apart from
+// the big.
+template <int C, bool STEP>
+__device__ __forceinline__ void mma3(float (&d)[C][4], const uint32_t (&ab)[4],
+                                     const uint32_t (&as)[4], float4 b) {
+  const uint32_t bb0 = __float_as_uint(b.x), bb1 = __float_as_uint(b.y);
+  if (STEP) {
+    float k[4] = {0.f, 0.f, 0.f, 0.f};
+    mma_tf32(k, as, bb0, bb1);
+    mma_tf32(k, ab, __float_as_uint(b.z), __float_as_uint(b.w));
+    mma_tf32(k, ab, bb0, bb1);
 #pragma unroll
-  for (int j = 0; j < WN; ++j) acc[j] = 0.f;
-  for (int c0 = 0; c0 < d; c0 += WC) {
-    const int dc = min(WC, d - c0);
-    __syncthreads();  // s_f is free
-    for (int i = threadIdx.x; i < WN * WC; i += blockDim.x) {
-      const int j = i / WC, f = i - j * WC;
-      s_f[f][j] = (j < tn && f < dc) ? data[(size_t)(t0 + j) * d + c0 + f] : 0.f;
+    for (int e = 0; e < 4; ++e) d[0][e] += k[e];
+    return;
+  }
+  mma_tf32(d[C - 1], as, bb0, bb1);
+  mma_tf32(d[0], ab, bb0, bb1);
+  mma_tf32(d[C - 1], ab, __float_as_uint(b.z), __float_as_uint(b.w));
+}
+
+// An n8 tile's cross term from its accumulators: the big sum plus the small.
+template <int C>
+__device__ __forceinline__ float cross(const float (&d)[C][4], int e) {
+  return C > 1 ? d[0][e] + d[C - 1][e] : d[0][e];
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(s), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N));
+}
+
+// Feature f of a row in the GEMM's order (parents, then dxg target
+// features), centred on the support's mean and scaled to base 2; 0 in the
+// padding.
+__device__ __forceinline__ float wide_feature(const float* __restrict__ p_row,
+                                             const float* __restrict__ x_row,
+                                             const float* __restrict__ mu,
+                                             int f, int kp, int dp, int dxg,
+                                             float sp, float sy) {
+  if (f < kp * 8) return f < dp ? (p_row[f] - mu[f]) * sp : 0.f;
+  f -= kp * 8;
+  return f < dxg ? (x_row[f] - mu[dp + f]) * sy : 0.f;
+}
+
+// The squared norm of a row's features [f0, f1) in the GEMM's order, summed
+// in double and rounded once (the features as the GEMM takes them).
+__device__ __forceinline__ float wide_norm(const float* __restrict__ p_row,
+                                           const float* __restrict__ x_row,
+                                           const float* __restrict__ mu,
+                                           int f0, int f1, int kp, int dp,
+                                           int dxg, float sp, float sy) {
+  double acc = 0.0;
+  for (int f = f0; f < f1; ++f) {
+    const double v = wide_feature(p_row, x_row, mu, f, kp, dp, dxg, sp, sy);
+    acc = fma(v, v, acc);
+  }
+  return (float)acc;
+}
+
+// Column means of the support over the points whose mask passes
+// WIDE_LIVE_MASK (over all points where none does): one block a column,
+// a fixed-order tree sum. The parents' columns, then the target's when
+// the GEMM takes them.
+__global__ void __launch_bounds__(WIDE_PREP_THREADS)
+kde_wide_mean_kernel(const float* __restrict__ data_p,
+                     const float* __restrict__ data_x,
+                     const float* __restrict__ log_mask, int n, int dp,
+                     int dx, float* __restrict__ mu) {
+  __shared__ float s_sum[WIDE_PREP_THREADS], s_live[WIDE_PREP_THREADS],
+      s_all[WIDE_PREP_THREADS];
+  const int c = blockIdx.x, tid = threadIdx.x;
+  const float* src = c < dp ? data_p + c : data_x + (c - dp);
+  const int d = c < dp ? dp : dx;
+  float sum = 0.f, live = 0.f, all = 0.f;
+  for (int j = tid; j < n; j += WIDE_PREP_THREADS) {
+    const float v = src[(size_t)j * d];
+    all += v;
+    if (log_mask[j] > WIDE_LIVE_MASK) {
+      sum += v;
+      live += 1.f;
+    }
+  }
+  s_sum[tid] = sum;
+  s_live[tid] = live;
+  s_all[tid] = all;
+  __syncthreads();
+  for (int w = WIDE_PREP_THREADS / 2; w > 0; w >>= 1) {
+    if (tid < w) {
+      s_sum[tid] += s_sum[tid + w];
+      s_live[tid] += s_live[tid + w];
+      s_all[tid] += s_all[tid + w];
     }
     __syncthreads();
-    float qc[WC];
-#pragma unroll
-    for (int f = 0; f < WC; ++f) qc[f] = (live && f < dc) ? q_row[c0 + f] : 0.f;
-#pragma unroll
-    for (int f = 0; f < WC; ++f) {
-#pragma unroll
-      for (int j = 0; j < WN; ++j) {
-        const float e = qc[f] - s_f[f][j];
-        acc[j] = fmaf(e, e, acc[j]);
-      }
+  }
+  if (tid == 0)
+    mu[c] = s_live[0] > 0.f ? s_sum[0] / s_live[0] : s_all[0] / (float)n;
+}
+
+// One thread a support point (n_pad of them; the padding has mask -inf):
+// its record {-|P_p|^2, mask, f0, f1} (the squared norm of its centred,
+// scaled parents; the mask and constant in base 2; its scaled direct
+// target features, or -|P_x|^2), and its fragments: the centred, scaled
+// features doubled (so the product is the 2 q.P of the expanded form) and
+// split into TF32 big and small parts, in the m16n8k8 B layout (lane
+// 4 (j % 8) + t holds features 8k + t and 8k + t + 4).
+__global__ void __launch_bounds__(WIDE_PREP_THREADS)
+kde_wide_prep_kernel(const float* __restrict__ data_x,
+                     const float* __restrict__ data_p,
+                     const float* __restrict__ log_mask, int n, int dx,
+                     int dp, WideLayout l, float sy, float sp, float c_stage,
+                     float* __restrict__ scratch) {
+  const int j = blockIdx.x * WIDE_PREP_THREADS + threadIdx.x;
+  if (j >= l.n_pad) return;
+  const bool live = j < n;
+  const int dxg = l.dxd ? 0 : dx;
+  const float* mu = scratch + l.mu;
+  const float* pr = data_p + (size_t)(live ? j : 0) * dp;
+  const float* xr = data_x + (size_t)(live ? j : 0) * dx;
+  float4 rec = make_float4(0.f, -INFINITY, 0.f, 0.f);
+  if (live) {
+    rec.x = -wide_norm(pr, xr, mu, 0, dp, l.kp, dp, dxg, sp, sy);
+    rec.y = fmaf(log_mask[j], LOG2E, c_stage);
+    if (l.dxd) {
+      rec.z = xr[0] * sy;
+      if (l.dxd > 1) rec.w = xr[1] * sy;
+    } else {
+      rec.z = -wide_norm(pr, xr, mu, 8 * l.kp, 8 * l.kp + dx, l.kp, dp, dxg,
+                         sp, sy);
+    }
+  }
+  reinterpret_cast<float4*>(scratch + l.rec)[j] = rec;
+  float4* frag = reinterpret_cast<float4*>(scratch);
+  const int lane0 = 4 * (j % 8);
+  for (int k = 0; k < l.kt_pad; ++k) {
+    for (int t = 0; t < 4; ++t) {
+      float v[2];
+      for (int i = 0; i < 2; ++i)
+        v[i] = live ? 2.f * wide_feature(pr, xr, mu, 8 * k + t + 4 * i, l.kp,
+                                         dp, dxg, sp, sy)
+                    : 0.f;
+      const uint32_t b0 = tf32(v[0]), b1 = tf32(v[1]);
+      frag[((size_t)(j / 8) * l.kt_pad + k) * 32 + lane0 + t] =
+          make_float4(__uint_as_float(b0), __uint_as_float(b1),
+                      __uint_as_float(tf32(v[0] - __uint_as_float(b0))),
+                      __uint_as_float(tf32(v[1] - __uint_as_float(b1))));
     }
   }
 }
 
-__global__ void __launch_bounds__(WIDE_THREADS)
-kde_wide_kernel(const float* __restrict__ x, const float* __restrict__ p,
-                const float* __restrict__ data_x,
-                const float* __restrict__ data_p,
-                const float* __restrict__ log_mask, int m, int n, int dx, int dp,
-                float inv2y, float inv2p, float const_y, float const_p,
-                float* __restrict__ out) {
-  __shared__ float s_f[WC][WN + 1];
-  __shared__ float s_lm[WN];
-  const long long row = (long long)blockIdx.x * WIDE_THREADS + threadIdx.x;
-  const bool live = row < m;
-  const float* q_x = x + (live ? row * dx : 0);
-  const float* q_p = p + (live ? row * dp : 0);
-  Lse num, den;
-  num.init();
-  den.init();
-  for (int t0 = 0; t0 < n; t0 += WN) {
-    const int tn = min(WN, n - t0);
-    __syncthreads();  // the previous sub-tile's s_lm is read by every thread
-    if (threadIdx.x < tn) s_lm[threadIdx.x] = log_mask[t0 + threadIdx.x];
-    float kp[WN], ky[WN];
-    wide_sq(q_p, live, data_p, dp, t0, tn, s_f, kp);  // syncs: s_lm visible
-    wide_sq(q_x, live, data_x, dx, t0, tn, s_f, ky);
+// The numerator's term from v = the denominator's (or it less a
+// reference): plus the target's -|q - P|^2, from the GEMM (clamped at 0)
+// or by direct differences.
+template <int DXD, int NX>
+__device__ __forceinline__ float wide_num(float v, float acc_x, float4 r,
+                                          const float (&ax)[NX], float qx) {
+  if (DXD == 0) return v + fminf(acc_x + r.z - qx, 0.f);
 #pragma unroll
-    for (int j = 0; j < WN; ++j) {
-      if (j < tn) {
-        const float a = fmaf(-kp[j], inv2p, const_p) + s_lm[j];
-        den.add(a);
-        num.add(a + fmaf(-ky[j], inv2y, const_y));
-      }
+  for (int f = 0; f < DXD; ++f) {
+    const float d = ax[f] - (f ? r.w : r.z);
+    v = fmaf(-d, d, v);
+  }
+  return v;
+}
+
+// The four pairs of one thread in an m16n8 tile: rows g and g + 8 (h),
+// columns col and col + 1 (c, records r[c]); accumulator e = 2h + c.
+// acc[0] holds 2 q.P of the parents, acc[1] of the target (DXD = 0); qd,
+// qx: the rows' squared norms; ax: their direct target features. A term:
+// -|q - P|^2 = 2 q.P - |P|^2 - |q|^2, clamped at 0, plus the mask.
+template <int DXD, int C, int NX = DXD ? DXD : 1>
+__device__ __forceinline__ void wide_terms(const float (&acc)[2][C][4],
+                                           const float4 (&r)[2],
+                                           const float (&ax)[2][NX],
+                                           const float (&qd)[2],
+                                           const float (&qx)[2],
+                                           Lse2 (&den)[2], Lse2 (&num)[2]) {
+  float acc_p[4], acc_x[4], kp[4], vp[4], vn[4];  // kp: the denominator's terms
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const int h = e >> 1, c = e & 1;
+    acc_p[e] = cross<C>(acc[0], e);
+    acc_x[e] = DXD ? 0.f : cross<C>(acc[1], e);
+    kp[e] = fminf(acc_p[e] + r[c].x - qd[h], 0.f) + r[c].y;
+    vp[e] = kp[e] - den[h].ref;
+    vn[e] = wide_num<DXD>(kp[e] - num[h].ref, acc_x[e], r[c], ax[h], qx[h]);
+  }
+  const float mx = fmaxf(fmaxf(fmaxf(vp[0], vp[1]), fmaxf(vp[2], vp[3])),
+                         fmaxf(fmaxf(vn[0], vn[1]), fmaxf(vn[2], vn[3])));
+  if (mx > LSE_MARGIN) {
+    // rare: a term passes its reference by the margin (every row's first
+    // terms over the guard): the four one by one
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int h = e >> 1, c = e & 1;
+      den[h].add(kp[e]);
+      num[h].add(wide_num<DXD>(kp[e], acc_x[e], r[c], ax[h], qx[h]));
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      den[e >> 1].s += ex2(vp[e]);
+      num[e >> 1].s += ex2(vn[e]);
     }
   }
-  if (live) out[row] = num.value() - den.value();
+}
+
+// The four lanes of a quad hold one row's columns: merge their states.
+__device__ __forceinline__ void quad_merge(Lse2& a) {
+#pragma unroll
+  for (int o = 1; o <= 2; o <<= 1) {
+    const float r2 = __shfl_xor_sync(0xffffffffu, a.ref, o);
+    const float s2 = __shfl_xor_sync(0xffffffffu, a.s, o);
+    const float r = fmaxf(a.ref, r2);
+    a.s = a.s * ex2(a.ref - r) + s2 * ex2(r2 - r);
+    a.ref = r;
+  }
+}
+
+// Accumulators an n8 tile: two (the big products apart from the small)
+// while the query fragments (8 registers a k-step), the accumulators and
+// the target features fit the 128 registers of two blocks an SM; past
+// that ptxas spilled, and one accumulator leaves room. When the GEMM
+// takes the target (dxd = 0: STEP) it is always one, the k-step's sum
+// taking the second's registers.
+__host__ __device__ constexpr int wide_chains(int ks, int dxd, bool chunked) {
+  return 8 * ks + (dxd ? 4 * (dxd - 1) : 16) + (chunked ? 16 : 0) <= 40 ? 2
+                                                                        : 1;
+}
+
+// Support points a stage: WT_RESIDENT, half of it at WKS_MAX k-steps held
+// at once (the unrolled stage's addresses spilled there), WT_CHUNKED in
+// chunks.
+__host__ __device__ constexpr int wide_tile(int ks, bool chunked) {
+  return chunked ? WT_CHUNKED : ks < WKS_MAX ? WT_RESIDENT : WT_RESIDENT / 2;
+}
+
+// Dynamic shared memory of the wide kernel: two stages of fragments and
+// two tiles of records (more than the 48 KB of static shared memory).
+template <int KS, bool CHUNKED>
+constexpr size_t wide_smem() {
+  constexpr int wt = wide_tile(KS, CHUNKED);
+  return (2 * (wt / 8) * KS * 32 + 2 * wt) * sizeof(float4);
+}
+
+// The wide conditional: KS k-steps of query fragments in registers, DXD
+// target features by direct differences (0: the GEMM takes the target);
+// CHUNKED: the features in nchunks chunks of KS k-steps, else all at once.
+// Each warp takes 16 query rows (one m16 tile), the block 128. The support
+// goes by in stages (a tile of WT points, and a chunk of its features),
+// each copied into shared memory by cp.async while the block works on the
+// one before. Held at once (not CHUNKED), the n8 tiles of a stage go one
+// after another, the next one's MMAs started before this one's terms (the
+// tensor cores may work while the epilogue runs); in chunks, every n8 tile's
+// accumulators carry over the chunks and the terms follow the last.
+template <int KS, int DXD, bool CHUNKED>
+__global__ void __launch_bounds__(WIDE_THREADS, 2)
+kde_wide_kernel(const float* __restrict__ x, const float* __restrict__ p,
+                const float* __restrict__ scratch, int m, int dx, int dp,
+                WideLayout l, float sy, float sp, float c_num,
+                float* __restrict__ out) {
+  constexpr bool XG = DXD == 0;
+  constexpr int NX = DXD ? DXD : 1;
+  constexpr int C = wide_chains(KS, DXD, CHUNKED);
+  constexpr int WT = wide_tile(KS, CHUNKED);
+  constexpr int WNB = WT / 8;
+  constexpr int STAGE = WNB * KS * 32;  // float4 of fragments a stage
+  static_assert(STAGE % WIDE_THREADS == 0, "a stage is whole float4s a thread");
+  // wide_smem<KS, CHUNKED>() bytes: the fragments [stage & 1][n8 tile]
+  // [k-step][lane], then the records [tile & 1][point]
+  extern __shared__ float4 s_wide[];
+  float4* const s_rec = s_wide + 2 * STAGE;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int dxg = XG ? dx : 0;
+  const float* mu = scratch + l.mu;
+  const float4* frag = reinterpret_cast<const float4*>(scratch);
+  const float4* rec = reinterpret_cast<const float4*>(scratch + l.rec);
+  // this thread's rows: row0 + 8 h
+  const long long row0 = (long long)blockIdx.x * WIDE_ROWS + warp * 16 + g;
+  float qd[2], qx[2], ax[2][NX];
+  Lse2 den[2], num[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const long long r = row0 + 8 * h;
+    const bool live = r < m;
+    const float* pr = p + (live ? r : 0) * dp;
+    const float* xr = x + (live ? r : 0) * dx;
+    qd[h] = live ? wide_norm(pr, xr, mu, 0, dp, l.kp, dp, dxg, sp, sy) : 0.f;
+    qx[h] = live && XG ? wide_norm(pr, xr, mu, 8 * l.kp, 8 * l.kp + dx, l.kp,
+                                   dp, dxg, sp, sy)
+                       : 0.f;
+#pragma unroll
+    for (int f = 0; f < NX; ++f) ax[h][f] = (DXD && live) ? xr[f] * sy : 0.f;
+    den[h].init();
+    num[h].init();
+  }
+  // the query fragments (m16n8k8 A layout: a_i at row g + 8 (i & 1),
+  // feature 8k + t + 4 (i >> 1)), split into TF32 big and small parts
+  uint32_t a_big[KS][4], a_small[KS][4];
+  auto load_a = [&](int k0) {
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const long long r = row0 + 8 * (i & 1);
+        const float v =
+            r < m ? wide_feature(p + r * dp, x + r * dx, mu,
+                                 8 * (k0 + ks) + t + 4 * (i >> 1), l.kp, dp,
+                                 dxg, sp, sy)
+                  : 0.f;
+        a_big[ks][i] = tf32(v);
+        a_small[ks][i] = tf32(v - __uint_as_float(a_big[ks][i]));
+      }
+    }
+  };
+  // stage st: tile st / nchunks, chunk st % nchunks
+  auto fetch = [&](int st) {
+    const int tile = st / l.nchunks, c = st - tile * l.nchunks;
+#pragma unroll
+    for (int it = 0; it < STAGE / WIDE_THREADS; ++it) {
+      const int i = it * WIDE_THREADS + tid;
+      const int nb = i / (KS * 32), k = (i / 32) % KS;
+      cp_async16(s_wide + (st & 1) * STAGE + i,
+                 frag + ((size_t)(tile * WNB + nb) * l.kt_pad + c * KS + k) * 32 +
+                     (i & 31));
+    }
+    if (c == 0 && tid < WT)
+      cp_async16(s_rec + (tile & 1) * WT + tid, rec + (size_t)tile * WT + tid);
+    cp_async_commit();
+  };
+  // the MMAs of n8 tile nb, k-steps k0.. of this stage, into acc (p, x)
+  auto mmas = [&](const float4* sf, int nb, int k0, float (&acc)[2][C][4]) {
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+      const float4 b = sf[(nb * KS + ks) * 32 + lane];
+      if (!XG || k0 + ks < l.kp)
+        mma3<C, XG>(acc[0], a_big[ks], a_small[ks], b);
+      else
+        mma3<C, XG>(acc[1], a_big[ks], a_small[ks], b);
+    }
+  };
+  auto terms = [&](const float4* sr, int nb, const float (&acc)[2][C][4]) {
+    const int col = nb * 8 + 2 * t;
+    const float4 r[2] = {sr[col], sr[col + 1]};
+    wide_terms<DXD, C>(acc, r, ax, qd, qx, den, num);
+  };
+  auto zero = [](float (&acc)[2][C][4]) {
+#pragma unroll
+    for (int i = 0; i < 2 * C * 4; ++i) acc[i / (C * 4)][(i / 4) % C][i % 4] = 0.f;
+  };
+  const int stages = l.n_pad / WT * l.nchunks;
+  // [n8 tile (chunked) or its parity][parents, target][chain][element]
+  float acc[CHUNKED ? WNB : 2][2][C][4];
+  if (!CHUNKED) load_a(0);
+  fetch(0);
+  for (int st = 0; st < stages; ++st) {
+    const int tile = st / l.nchunks, c = st - tile * l.nchunks;
+    if (st + 1 < stages) {
+      fetch(st + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // stage st is in shared memory for every warp
+    const float4* sf = s_wide + (st & 1) * STAGE;
+    const float4* sr = s_rec + (tile & 1) * WT;
+    if (!CHUNKED) {
+      zero(acc[0]);
+      mmas(sf, 0, 0, acc[0]);
+#pragma unroll
+      for (int nb = 0; nb < WNB; ++nb) {
+        if (nb + 1 < WNB) {
+          zero(acc[(nb + 1) & 1]);
+          mmas(sf, nb + 1, 0, acc[(nb + 1) & 1]);
+        }
+        terms(sr, nb, acc[nb & 1]);
+      }
+    } else {
+      if (c == 0) {
+#pragma unroll
+        for (int nb = 0; nb < (CHUNKED ? WNB : 2); ++nb) zero(acc[nb]);
+      }
+      load_a(c * KS);
+#pragma unroll
+      for (int nb = 0; nb < (CHUNKED ? WNB : 2); ++nb) mmas(sf, nb, c * KS, acc[nb]);
+      if (c == l.nchunks - 1) {
+#pragma unroll
+        for (int nb = 0; nb < (CHUNKED ? WNB : 2); ++nb) terms(sr, nb, acc[nb]);
+      }
+    }
+    __syncthreads();  // every warp is done with stage st's buffers
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    quad_merge(den[h]);
+    quad_merge(num[h]);
+    const long long r = row0 + 8 * h;
+    if (t == 0 && r < m) out[r] = num[h].value(c_num) - den[h].value(0.f);
+  }
 }
 
 // The pick's uniform of query row `row` (see the note at the top).
@@ -505,7 +953,7 @@ __device__ __forceinline__ float pick_score(const float r[MD], const float* pt,
 // the pick, and the thread walks only that chunk's points, re-reading them
 // from global memory (L1: the support is kilobytes).
 template <int MD>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, kde_pick_min_blocks(MD))
 kde_pick_cond_kernel(const float* __restrict__ p,
                      const float* __restrict__ data_p,
                      const float* __restrict__ data_x,
@@ -700,6 +1148,95 @@ cudaError_t launch_direct(const float* x, const float* p, const float* data_x,
   }
 }
 
+template <int KS, int DXD, bool CHUNKED>
+cudaError_t go_wide(const float* x, const float* p, const float* scratch,
+                    int m, int dx, int dp, const WideLayout& l, float sy,
+                    float sp, float c_num, float* out, cudaStream_t st) {
+  auto kernel = kde_wide_kernel<KS, DXD, CHUNKED>;
+  constexpr size_t smem = wide_smem<KS, CHUNKED>();
+  cudaError_t e = vbn::allow_smem(kernel, smem);
+  if (e != cudaSuccess) return e;
+  kernel<<<(m + WIDE_ROWS - 1) / WIDE_ROWS, WIDE_THREADS, smem, st>>>(
+      x, p, scratch, m, dx, dp, l, sy, sp, c_num, out);
+  return cudaGetLastError();
+}
+
+template <int DXD>
+cudaError_t launch_wide_ks(const float* x, const float* p,
+                           const float* scratch, int m, int dx, int dp,
+                           const WideLayout& l, float sy, float sp,
+                           float c_num, float* out, cudaStream_t st) {
+  if (l.nchunks > 1)
+    return go_wide<WKS_CHUNK, DXD, true>(x, p, scratch, m, dx, dp, l, sy, sp,
+                                         c_num, out, st);
+  switch (l.ks) {
+#define VBN_WIDE_CASE(V)                                                   \
+  case V:                                                                  \
+    return go_wide<V, DXD, false>(x, p, scratch, m, dx, dp, l, sy, sp,     \
+                                  c_num, out, st);
+    VBN_WIDE_CASE(5)
+    VBN_WIDE_CASE(6)
+#undef VBN_WIDE_CASE
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+// The wide conditional's three launches: the support's means, its
+// records and fragments, then the kernel.
+cudaError_t launch_wide(const float* x, const float* p, const float* data_x,
+                        const float* data_p, const float* log_mask, int m,
+                        int n, int dx, int dp, float sy, float sp,
+                        float c_stage, float c_num, float* scratch,
+                        float* out, cudaStream_t st) {
+  const WideLayout l = wide_layout(n, dx, dp);
+  kde_wide_mean_kernel<<<dp + (l.dxd ? 0 : dx), WIDE_PREP_THREADS, 0, st>>>(
+      data_p, data_x, log_mask, n, dp, dx, scratch + l.mu);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  kde_wide_prep_kernel<<<(l.n_pad + WIDE_PREP_THREADS - 1) / WIDE_PREP_THREADS,
+                         WIDE_PREP_THREADS, 0, st>>>(
+      data_x, data_p, log_mask, n, dx, dp, l, sy, sp, c_stage, scratch);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  switch (l.dxd) {
+    case 0:
+      return launch_wide_ks<0>(x, p, scratch, m, dx, dp, l, sy, sp, c_num, out, st);
+    case 1:
+      return launch_wide_ks<1>(x, p, scratch, m, dx, dp, l, sy, sp, c_num, out, st);
+    case 2:
+      return launch_wide_ks<2>(x, p, scratch, m, dx, dp, l, sy, sp, c_num, out, st);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+// A test hook: d = c + a b by one mma_tf32 a warp (the wide kernel's
+// instruction), `warps` tiles of a [16 x 8] row-major, b [8 x 8] (b[k][n]),
+// c and d [16 x 8], the inputs already TF32. The tests hold it bit for bit
+// against their model of the tensor core's rounding.
+__global__ void kde_mma_probe_kernel(const float* __restrict__ a,
+                                     const float* __restrict__ b,
+                                     const float* __restrict__ c,
+                                     float* __restrict__ d) {
+  const int lane = threadIdx.x, g = lane >> 2, t = lane & 3;
+  a += blockIdx.x * 128;
+  b += blockIdx.x * 64;
+  c += blockIdx.x * 128;
+  d += blockIdx.x * 128;
+  const uint32_t af[4] = {
+      __float_as_uint(a[g * 8 + t]), __float_as_uint(a[(g + 8) * 8 + t]),
+      __float_as_uint(a[g * 8 + t + 4]), __float_as_uint(a[(g + 8) * 8 + t + 4])};
+  // accumulator e at row g + 8 (e >> 1), column 2t + (e & 1)
+  float acc[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) acc[e] = c[(g + 8 * (e >> 1)) * 8 + 2 * t + (e & 1)];
+  mma_tf32(acc, af, __float_as_uint(b[t * 8 + g]),
+           __float_as_uint(b[(t + 4) * 8 + g]));
+#pragma unroll
+  for (int e = 0; e < 4; ++e) d[(g + 8 * (e >> 1)) * 8 + 2 * t + (e & 1)] = acc[e];
+}
+
 template <int MD>
 cudaError_t go_pick(const float* p, const float* data_p, const float* data_x,
                     const float* log_mask, const int64_t* key,
@@ -794,15 +1331,18 @@ int vbn_kde_cond(const float* x, const float* p, const float* data_x,
                                   sy, sp, cp, cy, out, (cudaStream_t)stream);
 }
 
+// The wide conditional takes the base-2 constants too, and a scratch of
+// vbn_kde_cond_wide_scratch(n, dx, dp) floats (16-byte aligned).
+long long vbn_kde_cond_wide_scratch(int n, int dx, int dp) {
+  return (long long)wide_layout(n, dx, dp).floats;
+}
+
 int vbn_kde_cond_wide(const float* x, const float* p, const float* data_x,
                       const float* data_p, const float* log_mask, int m, int n,
-                      int dx, int dp, float inv2y, float inv2p, float const_y,
-                      float const_p, float* out, void* stream) {
-  kde_wide_kernel<<<(m + WIDE_THREADS - 1) / WIDE_THREADS, WIDE_THREADS, 0,
-                    (cudaStream_t)stream>>>(x, p, data_x, data_p, log_mask, m,
-                                            n, dx, dp, inv2y, inv2p, const_y,
-                                            const_p, out);
-  return (int)cudaGetLastError();
+                      int dx, int dp, float sy, float sp, float cy, float cp,
+                      float* scratch, float* out, void* stream) {
+  return (int)launch_wide(x, p, data_x, data_p, log_mask, m, n, dx, dp, sy, sp,
+                          cp, cy, scratch, out, (cudaStream_t)stream);
 }
 
 int vbn_kde_pick(const float* p, const float* data_p, const float* data_x,
@@ -811,6 +1351,12 @@ int vbn_kde_pick(const float* p, const float* data_p, const float* data_x,
                  float inv2p, float* out, void* stream) {
   return (int)launch_pick(p, data_p, data_x, log_mask, key, gumbel, m, n, dp,
                           dx, inv2p, out, (cudaStream_t)stream);
+}
+
+int vbn_kde_mma_probe(const float* a, const float* b, const float* c,
+                      float* d, int warps, void* stream) {
+  kde_mma_probe_kernel<<<warps, 32, 0, (cudaStream_t)stream>>>(a, b, c, d);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

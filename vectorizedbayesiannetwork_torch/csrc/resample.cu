@@ -9,18 +9,33 @@
 // and vbn_spg replaces
 //   vectorizedbayesiannetwork_tpu/ops/resample_pallas.py:531 _spg_kernel.
 //
-// vbn_cumsum: inclusive scan of each row of a [B, S] float32 array, one
-// block of 1024 threads per row. The block walks its row in chunks of
-// 8 x 1024 entries: every thread issues its 8 coalesced loads at once, each
-// warp scans its 32 entries of a sub-chunk with shuffles, warp 0 scans the
-// 256 warp totals, and the running total carries from chunk to chunk in a
-// register (the loop takes the place of the TPU kernel's sequential grid).
-// With `monotone`, the same pattern runs an exact running max over the
-// prefix sums (max is associative in floating point), so the output is
-// nondecreasing. On weights that are multiples of 2^-23 summing to at most
-// 2, every partial sum is exact, so any grouping gives torch.cumsum's bits.
-// Bound: bytes (one read and one write of the row). At B = 8 only 8 of the
-// 132 SMs work; a reduce-then-scan over many blocks would use them all.
+// vbn_cumsum: inclusive scan of each row of a [B, S] float32 array, a
+// deterministic reduce-then-scan over tiles of CS_TILE = 8192 entries, a
+// block of 1024 threads a tile (B x S / 8192 blocks, so every SM works at
+// RIS's B = 8, S = 2^20: 1024 blocks). Both passes scan their tile the
+// same way (tile_scan: every thread starts its 8 coalesced loads at once,
+// each warp scans its 32 entries of a sub-chunk with shuffles, warp 0
+// scans the 256 warp totals), so a tile's local prefix sums l_i are the
+// same bits in both.
+// - Pass 1 (cumsum_tile_kernel) writes each tile's total and the largest
+//   of its l_i to a [B, tiles] scratch the wrapper allocates.
+// - Pass 2 (cumsum_kernel): warp 0 scans the row's tile totals in one fixed
+//   order (a contiguous run a lane, then the lanes' totals by shuffles), the
+//   same in every block, so tile j's exclusive prefix e_j is the same bits
+//   wherever it is computed; the block writes fl(e_j + l_i). With
+//   `monotone`, the running max of those outputs: within the tile by the
+//   same shuffle pattern, seeded with the largest output of the earlier
+//   tiles, max over j' < j of fl(e_j' + max l) (round-to-nearest addition
+//   is monotone, so that is the largest of their outputs): an exact running
+//   max over the kernel's own prefix sums, nondecreasing, with no chained
+//   look-back between blocks. A decoupled look-back would group the sums by
+//   which predecessor published first, so two runs could differ in the last
+//   bit; this grouping does not depend on timing, and reruns are bitwise
+//   equal.
+// On weights that are multiples of 2^-23 summing to at most 2, every
+// partial sum is exact, so any grouping gives torch.cumsum's bits.
+// Bound: bytes (one read and one write of the row); the second pass reads
+// the row again, mostly from L2 (RIS's 33.5 MB fits the 50 MB).
 //
 // vbn_cum_index: the search index of the merge kernels. The TPU kernel
 // builds, per 512-entry window of the CDF, a header (supercolumn lasts,
@@ -62,6 +77,7 @@ constexpr int T = 512;           // output positions per tile (threads a block)
 constexpr int CS_THREADS = 1024;  // vbn_cumsum threads per block
 constexpr int CS_ITEMS = 8;       // entries per thread per chunk
 constexpr int CS_WARPS = CS_THREADS / 32;
+constexpr int CS_TILE = CS_THREADS * CS_ITEMS;  // vbn_cumsum entries per tile
 constexpr int IDX_THREADS = 256;
 constexpr float POS_MAX = 0.99999994039535522f;  // 1 - 2^-24
 static_assert(T == W, "a block of T threads loads its window pair 2 per thread");
@@ -116,72 +132,151 @@ __device__ __forceinline__ float scan_partials(float* buf, float seed,
   return MAX ? fmaxf(seed, total) : __fadd_rn(seed, total);
 }
 
+// The local inclusive scan of tile `tile` of row xr: v[j] = the prefix sum
+// within the tile up to entry tile * CS_TILE + j * CS_THREADS + tid (entries
+// past s count 0). Every thread of the block calls it; it leaves the tile's
+// total in *s_total.
+__device__ __forceinline__ void tile_scan(const float* __restrict__ xr,
+                                          long long s, long long base,
+                                          float (&v)[CS_ITEMS], float* s_part,
+                                          float* s_total) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+#pragma unroll
+  for (int j = 0; j < CS_ITEMS; ++j) {
+    const long long e = base + (long long)j * CS_THREADS + tid;
+    v[j] = e < s ? xr[e] : 0.f;
+  }
+#pragma unroll
+  for (int j = 0; j < CS_ITEMS; ++j) {
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const float y = __shfl_up_sync(0xffffffffu, v[j], d);
+      if (lane >= d) v[j] = __fadd_rn(v[j], y);
+    }
+    if (lane == 31) s_part[j * CS_WARPS + warp] = v[j];
+  }
+  __syncthreads();
+  if (warp == 0) {
+    const float total = scan_partials<false>(s_part, 0.f, lane);
+    if (lane == 0) *s_total = total;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < CS_ITEMS; ++j)
+    v[j] = __fadd_rn(s_part[j * CS_WARPS + warp], v[j]);
+}
+
+// Pass 1: tile (blockIdx.y) of row (blockIdx.x): its total and the largest
+// of its local prefix sums into part[row * tiles + tile].
 __global__ void __launch_bounds__(CS_THREADS)
+cumsum_tile_kernel(const float* __restrict__ x, long long s, int tiles,
+                   float2* __restrict__ part) {
+  __shared__ float s_part[CS_ITEMS * CS_WARPS];
+  __shared__ float s_max[CS_WARPS];
+  __shared__ float s_total;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int row = blockIdx.x, tile = blockIdx.y;
+  const long long base = (long long)tile * CS_TILE;
+  float v[CS_ITEMS];
+  tile_scan(x + (size_t)row * (size_t)s, s, base, v, s_part, &s_total);
+  float mx = -INFINITY;
+#pragma unroll
+  for (int j = 0; j < CS_ITEMS; ++j)
+    if (base + (long long)j * CS_THREADS + tid < s) mx = fmaxf(mx, v[j]);
+#pragma unroll
+  for (int d = 16; d > 0; d >>= 1)
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, d));
+  if (lane == 0) s_max[warp] = mx;
+  __syncthreads();
+  if (warp == 0) {
+    mx = s_max[lane];
+#pragma unroll
+    for (int d = 16; d > 0; d >>= 1)
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, d));
+    if (lane == 0) part[(size_t)row * tiles + tile] = make_float2(s_total, mx);
+  }
+}
+
+// Warp 0 of pass 2: the exclusive prefix e of tile `tile` over the row's
+// tile totals, in one fixed order (lane L sums its contiguous run of
+// `per` totals, the lanes' sums are scanned by shuffles, then each run is
+// walked again from its lane's prefix), and the largest output of the
+// earlier tiles, max over j < tile of fl(e_j + max l_j) (-inf for tile 0).
+__device__ __forceinline__ void tile_prefix(const float2* __restrict__ part,
+                                            int tiles, int tile, int lane,
+                                            float* s_carry) {
+  const int per = (tiles + 31) / 32, j0 = lane * per;
+  const int j1 = min(j0 + per, tiles);
+  float run = 0.f;
+  for (int j = j0; j < j1; ++j) run = __fadd_rn(run, part[j].x);
+  float incl = run;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const float y = __shfl_up_sync(0xffffffffu, incl, d);
+    if (lane >= d) incl = __fadd_rn(incl, y);
+  }
+  float e = __shfl_up_sync(0xffffffffu, incl, 1);
+  if (lane == 0) e = 0.f;
+  float mx = -INFINITY;
+  for (int j = j0; j < j1 && j <= tile; ++j) {
+    const float2 pj = part[j];
+    if (j == tile) {
+      s_carry[0] = e;
+    } else {
+      mx = fmaxf(mx, __fadd_rn(e, pj.y));
+      e = __fadd_rn(e, pj.x);
+    }
+  }
+#pragma unroll
+  for (int d = 16; d > 0; d >>= 1)
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, d));
+  if (lane == 0) s_carry[1] = mx;
+}
+
+// Pass 2: tile (blockIdx.y) of row (blockIdx.x): fl(e + l_i), then with
+// `monotone` the running max seeded with the earlier tiles' largest output.
+__global__ void __launch_bounds__(CS_THREADS, 1)  // ptxas spilled at its own pick
 cumsum_kernel(const float* __restrict__ x, float* __restrict__ out,
-              long long s, int monotone) {
+              long long s, int tiles, const float2* __restrict__ part,
+              int monotone) {
   __shared__ float s_part[CS_ITEMS * CS_WARPS];
   __shared__ float s_carry[2];
+  __shared__ float s_total;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const float* xr = x + (size_t)blockIdx.x * (size_t)s;
-  float* outr = out + (size_t)blockIdx.x * (size_t)s;
-  float carry = 0.f, carry_max = -INFINITY;
-  for (long long base = 0; base < s;
-       base += (long long)CS_THREADS * CS_ITEMS) {
-    float v[CS_ITEMS];
+  const int row = blockIdx.x, tile = blockIdx.y;
+  const long long base = (long long)tile * CS_TILE;
+  if (warp == 0)
+    tile_prefix(part + (size_t)row * tiles, tiles, tile, lane, s_carry);
+  float v[CS_ITEMS];
+  tile_scan(x + (size_t)row * (size_t)s, s, base, v, s_part, &s_total);
+  const float e = s_carry[0];  // written before tile_scan's barriers
+#pragma unroll
+  for (int j = 0; j < CS_ITEMS; ++j) v[j] = __fadd_rn(e, v[j]);
+  if (monotone) {
+    __syncthreads();  // every thread has read its offsets
 #pragma unroll
     for (int j = 0; j < CS_ITEMS; ++j) {
-      const long long e = base + (long long)j * CS_THREADS + tid;
-      v[j] = e < s ? xr[e] : 0.f;
-    }
-#pragma unroll
-    for (int j = 0; j < CS_ITEMS; ++j) {
+      float m = v[j];
 #pragma unroll
       for (int d = 1; d < 32; d <<= 1) {
-        const float y = __shfl_up_sync(0xffffffffu, v[j], d);
-        if (lane >= d) v[j] = __fadd_rn(v[j], y);
+        const float y = __shfl_up_sync(0xffffffffu, m, d);
+        if (lane >= d) m = fmaxf(m, y);
       }
-      if (lane == 31) s_part[j * CS_WARPS + warp] = v[j];
+      if (lane == 31) s_part[j * CS_WARPS + warp] = m;
+      v[j] = m;  // the running max within the warp
     }
     __syncthreads();
-    if (warp == 0) {
-      const float next = scan_partials<false>(s_part, carry, lane);
-      if (lane == 0) s_carry[0] = next;
-    }
+    if (warp == 0) scan_partials<true>(s_part, s_carry[1], lane);
     __syncthreads();
 #pragma unroll
     for (int j = 0; j < CS_ITEMS; ++j)
-      v[j] = __fadd_rn(s_part[j * CS_WARPS + warp], v[j]);
-    carry = s_carry[0];
-    if (monotone) {
-      __syncthreads();  // every thread has read its offsets
+      v[j] = fmaxf(v[j], s_part[j * CS_WARPS + warp]);
+  }
+  float* outr = out + (size_t)row * (size_t)s;
 #pragma unroll
-      for (int j = 0; j < CS_ITEMS; ++j) {
-        float m = v[j];
-#pragma unroll
-        for (int d = 1; d < 32; d <<= 1) {
-          const float y = __shfl_up_sync(0xffffffffu, m, d);
-          if (lane >= d) m = fmaxf(m, y);
-        }
-        if (lane == 31) s_part[j * CS_WARPS + warp] = m;
-        v[j] = m;  // the running max within the warp
-      }
-      __syncthreads();
-      if (warp == 0) {
-        const float next = scan_partials<true>(s_part, carry_max, lane);
-        if (lane == 0) s_carry[1] = next;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int j = 0; j < CS_ITEMS; ++j)
-        v[j] = fmaxf(v[j], s_part[j * CS_WARPS + warp]);
-      carry_max = s_carry[1];
-    }
-#pragma unroll
-    for (int j = 0; j < CS_ITEMS; ++j) {
-      const long long e = base + (long long)j * CS_THREADS + tid;
-      if (e < s) outr[e] = v[j];
-    }
-    __syncthreads();  // s_part is rewritten by the next chunk
+  for (int j = 0; j < CS_ITEMS; ++j) {
+    const long long i = base + (long long)j * CS_THREADS + tid;
+    if (i < s) outr[i] = v[j];
   }
 }
 
@@ -269,10 +364,22 @@ extern "C" {
 // Each returns cudaGetLastError() after its launch; stream is a
 // cudaStream_t passed as an integer by the caller.
 
+// vbn_cumsum's scratch: floats per row (two a tile).
+long long vbn_cumsum_scratch(long long s) {
+  return 2 * ((s + CS_TILE - 1) / CS_TILE);
+}
+
 int vbn_cumsum(const float* x, float* out, int b, long long s, int monotone,
-               void* stream) {
-  cumsum_kernel<<<b, CS_THREADS, 0, (cudaStream_t)stream>>>(x, out, s,
-                                                            monotone);
+               float* scratch, void* stream) {
+  const int tiles = (int)((s + CS_TILE - 1) / CS_TILE);
+  float2* part = reinterpret_cast<float2*>(scratch);
+  const dim3 grid(b, tiles);
+  cumsum_tile_kernel<<<grid, CS_THREADS, 0, (cudaStream_t)stream>>>(
+      x, s, tiles, part);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  cumsum_kernel<<<grid, CS_THREADS, 0, (cudaStream_t)stream>>>(
+      x, out, s, tiles, part, monotone);
   return (int)cudaGetLastError();
 }
 

@@ -10,8 +10,9 @@ entry points (``csrc/kde.cu``) replace its four TPU kernels:
 - ``vbn_kde_cond`` replaces ``kde_pallas.py:106 _kde_cond_kernel_direct``:
   the conditional ``lse_n(kp + ky) - lse_n(kp)``, max(Dx, Dp) <= 32;
 - ``vbn_kde_cond_wide`` replaces ``kde_pallas.py:72 _kde_cond_kernel``: the
-  same beyond 32 features, in direct float32 differences where the TPU
-  kernel ran a bf16x3 cross-term GEMM;
+  same beyond 32 features, its cross terms on the tensor cores in 3xTF32
+  on data centred on the support's mean, where the TPU kernel ran a bf16x3
+  cross-term GEMM;
 - ``vbn_kde_pick`` replaces ``kde_pallas.py:390 _kde_pick_kernel`` and
   ``:412 _kde_pick_kernel_extg``: one draw per query row from the
   categorical with weights ``mask_n exp(-|p_m - dp_n|^2 / 2h_p^2)``, then
@@ -228,17 +229,20 @@ def kde_pick_plain(key, parents, data_p, data_x, log_mask, p_scale: float,
 
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
-    """``csrc/kde.cu`` with the argument types of its four entry points."""
+    """``csrc/kde.cu`` with the argument types of its entry points."""
     from ._build import load
 
     lib = load("kde")
     lib.vbn_kde_root.argtypes = [_P, _P, _P, _I, _I, _I, _F, _F, _P, _P]
     cond = [_P] * 5 + [_I] * 4 + [_F] * 4 + [_P, _P]
     lib.vbn_kde_cond.argtypes = cond
-    lib.vbn_kde_cond_wide.argtypes = cond
+    lib.vbn_kde_cond_wide.argtypes = cond[:-2] + [_P, _P, _P]
+    lib.vbn_kde_cond_wide_scratch.argtypes = [_I, _I, _I]
+    lib.vbn_kde_cond_wide_scratch.restype = ctypes.c_longlong
     lib.vbn_kde_pick.argtypes = [_P] * 6 + [_I] * 4 + [_F, _P, _P]
+    lib.vbn_kde_mma_probe.argtypes = [_P] * 4 + [_I, _P]  # a test hook
     for fn in (lib.vbn_kde_root, lib.vbn_kde_cond, lib.vbn_kde_cond_wide,
-               lib.vbn_kde_pick):
+               lib.vbn_kde_pick, lib.vbn_kde_mma_probe):
         fn.restype = _I
     return lib
 
@@ -304,14 +308,18 @@ def _launch_cond(entry: str, x, p, data_x, data_p, log_mask, y_scale,
     if not wide and max(dx, dp) > _DIRECT_D:
         raise ValueError(f"{entry}: max(Dx, Dp) = {max(dx, dp)} > "
                          f"{_DIRECT_D}; use kde_cond_wide")
-    # the wide kernel takes kernel_consts, the direct one their base-2 form
-    consts = kernel_consts if wide else direct_consts
-    ay, cy = consts(dx, y_scale)
-    ap, cp = consts(dp, p_scale)
+    sy, cy = direct_consts(dx, y_scale)
+    sp, cp = direct_consts(dp, p_scale)
     out = torch.empty((m,), dtype=torch.float32, device=x.device)
+    extra = []
+    if wide:  # its scratch: the support's fragments, records and means
+        scratch = torch.empty((_lib().vbn_kde_cond_wide_scratch(n, dx, dp),),
+                              dtype=torch.float32, device=x.device)
+        extra = [scratch.data_ptr()]
     _run(getattr(_lib(), entry), entry, x.device, x.data_ptr(), p.data_ptr(),
          data_x.data_ptr(), data_p.data_ptr(), log_mask.data_ptr(), m, n, dx,
-         dp, float(ay), float(ap), float(cy), float(cp), out.data_ptr())
+         dp, float(sy), float(sp), float(cy), float(cp), *extra,
+         out.data_ptr())
     return out
 
 

@@ -2,12 +2,13 @@
 
 Port of ``vectorizedbayesiannetwork_tpu/ops/scan_pallas.py``. The CUDA
 kernel ``vbn_cumsum`` (``csrc/resample.cu``) replaces
-``scan_pallas.py:33 _cumsum_kernel``: one block per row walks the row in
-chunks and carries the running total in a register, where the TPU kernel
-carried it in SMEM across a sequential grid. With ``monotone=True`` an
-exact running-max pass makes each row nondecreasing, which the merge
-kernels (``ops/resample_merge.py``) need of a CDF. The kernel is bound by
-bytes (one read and one write of the array); the source note says what its
+``scan_pallas.py:33 _cumsum_kernel``: a deterministic reduce-then-scan over
+tiles of 8192 entries, a block a tile (the TPU kernel carried the running
+total in SMEM across a sequential grid); the wrapper allocates the [B,
+tiles] scratch of the tiles' totals. With ``monotone=True`` an exact
+running max makes each row nondecreasing, which the merge kernels
+(``ops/resample_merge.py``) need of a CDF. The kernel is bound by bytes
+(one read and one write of the array); the source note says what its
 design does about that.
 
 ``cumsum_rows`` launches the kernel for a CUDA tensor and raises on what it
@@ -15,7 +16,9 @@ does not take; for a CPU tensor it runs the plain version
 ``cumsum_rows_plain`` (``torch.cumsum``, then ``torch.cummax`` when
 monotone). On weights that are multiples of 2^-23 summing to at most 2
 every grouping of the sums is exact, so there the kernel equals the plain
-version bit for bit; elsewhere they differ in the last bits of a sum.
+version bit for bit; elsewhere they differ in the last bits of a sum. The
+kernel's grouping does not depend on timing, so a launch repeated on the
+same input gives the same bits.
 ``LAUNCHES["cumsum"]`` (``ops/sweep.py``) counts the launches.
 
 Not ported: ``cumsum_available`` and its ``VBN_CUMSUM_PALLAS`` flag, which
@@ -50,7 +53,9 @@ def _lib() -> ctypes.CDLL:
     from ._build import load
 
     lib = load("resample")
-    lib.vbn_cumsum.argtypes = [_P, _P, _I, _L, _I, _P]
+    lib.vbn_cumsum.argtypes = [_P, _P, _I, _L, _I, _P, _P]
+    lib.vbn_cumsum_scratch.argtypes = [_L]
+    lib.vbn_cumsum_scratch.restype = _L
     lib.vbn_cum_index.argtypes = [_P, _I, _L, _P, _L, _L, _I, _P, _P, _P]
     lib.vbn_srg.argtypes = [_P, _I, _L, _P, _P, _P, ctypes.c_float, _P, _I,
                             _P, _P]
@@ -70,9 +75,11 @@ def _launch_cumsum(x: torch.Tensor, monotone: bool) -> torch.Tensor:
     if b < 1 or s < 1:
         raise ValueError(f"cumsum_rows: empty array {tuple(x.shape)}")
     out = torch.empty_like(x)
+    part = torch.empty((b, _lib().vbn_cumsum_scratch(s)), dtype=torch.float32,
+                       device=x.device)  # the tiles' totals and maxima
     with torch.cuda.device(x.device):
         rc = _lib().vbn_cumsum(
-            x.data_ptr(), out.data_ptr(), b, s, int(monotone),
+            x.data_ptr(), out.data_ptr(), b, s, int(monotone), part.data_ptr(),
             torch.cuda.current_stream().cuda_stream,
         )
     if rc != 0:
