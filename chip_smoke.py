@@ -7,7 +7,7 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    (sm_90a) and print the build seconds, ptxas' registers and spills of
    every kernel (a spill fails the run), and a count of the SASS
    instructions (``cuobjdump``) of the sweep kernels, the cumsum's two
-   passes and the KDE log-density kernels;
+   passes, the merge kernel and the KDE log-density kernels;
 2. fit: the asia network (8 categorical nodes) and the 3-node
    linear-Gaussian flagship, each on 4096 rows, on the card;
 3. kernels: each sweep kernel against its plain PyTorch version at B=8,
@@ -61,11 +61,12 @@ queries at S=2^20 with ``dynamic_masks=True``:
 Then the resampling slice (resampled and plain importance sampling):
 
 10. resample_kernels: ``vbn_cumsum``, ``vbn_cum_index``, ``vbn_srg`` and
-    ``vbn_spg`` against their plain versions at B=8, S=2^16 on six weight
-    profiles quantized to multiples of 2^-23 (D=1 and D=5; exact), the
-    high-u0 case and multinomial order statistics (exact), and at S=2^22
-    on unquantized weights, where ``norm_cum`` takes the monotone cumsum
-    and both merges read the kernel's CDF (exact given it);
+    ``vbn_spg`` against their plain versions at B=8, S=2^16 and S=2^20 on
+    six weight profiles quantized to multiples of 2^-23 (D=1, 3 and 5;
+    ``vbn_spg`` at S_out = S/2, S and 2S; exact), the high-u0 case and
+    multinomial order statistics (exact), and at S=2^22 on unquantized
+    weights, where ``norm_cum`` takes the monotone cumsum and both merges
+    read the kernel's CDF (D=1, 3 and 5; exact given it);
 11. ris_main_path: RIS on the flagship diagnosis query (x0 | x2, B=8) at
     S=2^20 systematic, S=2^20 multinomial and S=2^22 systematic, each with
     the counters reset just before and read just after (one resampling
@@ -80,9 +81,12 @@ Then the resampling slice (resampled and plain importance sampling):
     launches: the IS sweep and its per-row LW fallback);
 14. resample_timing: each resampling kernel held exactly against its plain
     version at B=8, S=2^20 (D=1, and D=3 for ``vbn_srg``; ``vbn_cumsum``
-    also on multinomial's [B, S+1] Exp draws), then its ms there, its plain
-    version's and one PyTorch call's, the byte bound, the monotone pass's
-    cost, RIS and IS queries/s, and a profiled RIS batch.
+    also on multinomial's [B, S+1] Exp draws), then its device ms there
+    (``torch.profiler`` events under the kernels' names: these kernels are
+    shorter than their wrappers' host path) beside the wrapper's
+    CUDA-event ms (``wrapper_ms``), its plain version's and one PyTorch
+    call's, the byte bound, the merge's grid, the monotone pass's cost, RIS
+    and IS queries/s, and a profiled RIS batch.
 
 Then the KDE slice (KDE CPDs, max_points 2048 and Scott bandwidths, the
 ``vbn_kde_lw_dyn`` preset's fit):
@@ -126,9 +130,9 @@ exits nonzero. The script imports nothing of JAX or of the JAX package.
 the kernels of another checkout's port package at DIR (for example the
 parent commit's ``vectorizedbayesiannetwork_torch/``, unpacked with ``git
 archive`` into a directory ``.gitignore`` lists) beside this one's, in
-turns in one process (``compare_builds``): ``vbn_kde_cond_wide`` at W4's
-launch, ``vbn_cumsum`` at B=8, S=2^20 in both modes, W4 and flagship RIS
-queries/s.
+turns in one process (``compare_builds``): ``vbn_srg`` (D=1 and 3) and
+``vbn_spg`` at B=8, S=2^20 (device ms, the builds equal bit for bit), and
+flagship RIS systematic and multinomial queries/s.
 """
 
 from __future__ import annotations
@@ -1228,6 +1232,37 @@ def profile_batch(serve, kernels=("scan_kernel",)):
             "device_events": len(dev), "idle_share": 1.0 - busy / wall}
 
 
+def device_ms(fn, reps, kernels):
+    """Device ms a call of ``fn`` launches under ``kernels`` (one launch of
+    each a call): over ``reps`` calls after a warm-up, the mean duration of
+    the torch.profiler device events whose names hold each name, summed
+    over the names. For kernels shorter than their wrapper's host path,
+    where CUDA events around the wrapper time the host's enqueue. The
+    profiler can drop device events late in a long process, so a
+    mean over the events it kept; a window with none of some name is taken
+    again (at most three), then it fails."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        dev = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+        us = {k: [e.time_range.elapsed_us() for e in dev if k in e.name]
+              for k in kernels}
+        if all(us.values()):
+            return sum(float(np.mean(v)) for v in us.values()) / 1e3
+        log("device_ms_retry", kernels=kernels, device_events=len(dev),
+            matched={k: len(v) for k, v in us.items()})
+    raise AssertionError(f"device_ms: no device events of {kernels}")
+
+
 def dynamic_qps(serve, b=N_DYN):
     """queries/s of one served batch of ``b`` queries, best of
     SCAN_WINDOWS (each window one batch, ending in the rows' fetch)."""
@@ -1348,32 +1383,34 @@ def check_resample_kernels(dev):
     from vectorizedbayesiannetwork_torch.ops import resample_merge as rm
     from vectorizedbayesiannetwork_torch.ops import scan
 
-    b, s = B_CHECK, S_CHECK
+    b = B_CHECK
     g = torch.Generator(device=dev).manual_seed(2024)
     errs = {"cumsum": 0.0, "cum_index": 0.0, "srg": 0.0, "spg": 0.0}
-    for name in PROFILES:
+    for s, name in ((s, n) for s in (S_CHECK, S_RIS) for n in PROFILES):
         w = torch.as_tensor(quantized_profile(name, b, s), device=dev)
         for mono in (False, True):
-            exact(f"vbn_cumsum {name} monotone={mono}",
+            exact(f"vbn_cumsum {name} S={s} monotone={mono}",
                   scan.cumsum_rows(w, mono), scan.cumsum_rows_plain(w, mono))
         cum = rm.norm_cum(w)
         u0 = torch.rand((b, 1), generator=g, device=dev)
-        pos = torch.sort(torch.rand((b, s), generator=g, device=dev)).values
+        pos = torch.sort(torch.rand((b, 2 * s), generator=g, device=dev)).values
         pos[:, 0], pos[:, -1] = 0.0, 1.0
         sys_q = rm.systematic_positions(u0, s, rm.T)
         for q in (sys_q, pos[:, :: rm.T]):
-            exact(f"vbn_cum_index {name}", rm.cum_index(cum, q),
+            exact(f"vbn_cum_index {name} S={s}", rm.cum_index(cum, q),
                   rm.cum_index_plain(cum, q))
         index = rm.cum_index(cum, sys_q)
-        for d in (1, 5):
+        for d in (1, 3, 5):
             vals = torch.randn((b, s, d), generator=g, device=dev)
-            exact(f"vbn_srg {name} D={d}", rm.srg(u0, cum, vals, index),
+            exact(f"vbn_srg {name} S={s} D={d}", rm.srg(u0, cum, vals, index),
                   rm.srg_plain(u0, cum, vals))
-            for s_out in (s, s // 2):
-                p = pos[:, :s_out]
-                exact(f"vbn_spg {name} D={d} S_out={s_out}",
+            for s_out in (s, s // 2, 2 * s):
+                p = pos[:, :: 2 * s // s_out]  # spanning [0, 1)
+                exact(f"vbn_spg {name} S={s} D={d} S_out={s_out}",
                       rm.sorted_gather(cum, p, vals), rm.spg_plain(cum, p, vals))
-        log("resample_kernel_check", profile=name, B=b, S=s, D=[1, 5], ok=True)
+        log("resample_kernel_check", profile=name, B=b, S=s, D=[1, 3, 5],
+            spg_S_out=[s, s // 2, 2 * s], ok=True)
+    s = S_CHECK  # the checks below are exact at S = 2^16
     # high u0: (S-1+u0)/S rounds to 1.0; the clamp keeps a real particle
     w = torch.full((2, s), 1.0 / s, device=dev)
     vals = torch.arange(1, s + 1, dtype=torch.float32, device=dev)
@@ -1411,12 +1448,13 @@ def check_resample_kernels(dev):
     cum = rm.norm_cum(w)
     u0 = torch.rand((B_RIS, 1), generator=g, device=dev)
     index = rm.cum_index(cum, rm.systematic_positions(u0, big, rm.T))
-    vals = torch.randn((B_RIS, big, 1), generator=g, device=dev)
-    exact("vbn_srg S=2^22", rm.srg(u0, cum, vals, index),
-          rm.srg_plain(u0, cum, vals))
     pos = torch.sort(torch.rand((B_RIS, big), generator=g, device=dev)).values
-    exact("vbn_spg S=2^22", rm.sorted_gather(cum, pos, vals),
-          rm.spg_plain(cum, pos, vals))
+    for d in (1, 3, 5):
+        vals = torch.randn((B_RIS, big, d), generator=g, device=dev)
+        exact(f"vbn_srg S=2^22 D={d}", rm.srg(u0, cum, vals, index),
+              rm.srg_plain(u0, cum, vals))
+        exact(f"vbn_spg S=2^22 D={d}", rm.sorted_gather(cum, pos, vals),
+              rm.spg_plain(cum, pos, vals))
     log("resample_kernel_check", case="S=2^22 monotone", B=B_RIS, S=big,
         cumsum_err_over_total_vs_float64=rel,
         cumsum_kernel_vs_plain_max_abs=errs["cumsum"], ok=True)
@@ -1534,11 +1572,16 @@ def serve_is(lg_vbn, link):
         raise AssertionError(f"IS link median KL {acc['kl_median']} > 2e-3")
 
 
+CUMSUM_KERNELS = ("cumsum_tile_kernel", "cumsum_kernel")  # a call's two passes
+
+
 def time_resample_kernels(dev, launches, errs):
     """Each resampling kernel at B=8, S=2^20 (the RIS main path's shape):
     held exactly against its plain version there (``vbn_srg`` at D=1 and
-    D=3, as the flagship and asia's first event give it), then its ms, its
-    plain version's, one PyTorch call's, and the byte bound."""
+    D=3, as the flagship and asia's first event give it), then its device
+    ms (``device_ms``: these kernels are shorter than their wrappers' host
+    path) beside the wrapper's CUDA-event ms (``wrapper_ms``), its plain
+    version's and one PyTorch call's ms (CUDA events), and the byte bound."""
     import torch
 
     from vectorizedbayesiannetwork_torch.ops import resample_merge as rm
@@ -1559,17 +1602,26 @@ def time_resample_kernels(dev, launches, errs):
                   scan.cumsum_rows(x, mono), scan.cumsum_rows_plain(x, mono))
     rows = []
 
+    def timed(name, replaces, fn, kernels, err, plain, lib, cost, **extra):
+        row = kernel_row(name, tpu + replaces, launches.get(name[4:], 0), err,
+                         device_ms(fn, RIS_REPS, kernels),
+                         cuda_ms(plain, RIS_REPS), cost, src,
+                         cuda_ms(lib, RIS_REPS))
+        row["wrapper_ms"] = cuda_ms(fn, RIS_REPS)
+        row.update(extra)
+        return row
+
     # monotone, as norm_cum calls it: a sum and a max per entry; the sum
     # alone (the JAX _norm_cum's branch for S <= 2^20) timed beside it
-    sum_only = cuda_ms(lambda: scan.cumsum_rows(w, False), RIS_REPS)
-    ms = cuda_ms(lambda: scan.cumsum_rows(w, True), RIS_REPS)
-    log("cumsum_monotone_cost", B=b, S=s, monotone_ms=ms,
-        sum_only_ms=sum_only, extra_ms=ms - sum_only)
-    plain = cuda_ms(lambda: scan.cumsum_rows_plain(w, True), RIS_REPS)
-    lib = cuda_ms(lambda: torch.cumsum(w, dim=1), RIS_REPS)
-    rows.append(kernel_row("vbn_cumsum", tpu + "scan_pallas.py:33",
-                           launches.get("cumsum", 0), errs["cumsum"], ms, plain,
-                           (2 * b * s, 8 * b * s), src, lib))
+    sum_only = device_ms(lambda: scan.cumsum_rows(w, False), RIS_REPS,
+                         CUMSUM_KERNELS)
+    rows.append(timed(
+        "vbn_cumsum", "scan_pallas.py:33",
+        lambda: scan.cumsum_rows(w, True), CUMSUM_KERNELS, errs["cumsum"],
+        lambda: scan.cumsum_rows_plain(w, True),
+        lambda: torch.cumsum(w, dim=1), (2 * b * s, 8 * b * s)))
+    log("cumsum_monotone_cost", B=b, S=s, monotone_ms=rows[-1]["ms"],
+        sum_only_ms=sum_only, extra_ms=rows[-1]["ms"] - sum_only)
 
     cum = rm.norm_cum(w)
     u0 = torch.rand((b, 1), generator=g, device=dev)
@@ -1580,15 +1632,13 @@ def time_resample_kernels(dev, launches, errs):
     for tag, qq in (("systematic", q), ("multinomial", pos[:, :: rm.T])):
         exact(f"vbn_cum_index at S=2^20 {tag}", rm.cum_index(cum, qq),
               rm.cum_index_plain(cum, qq))
-    ms = cuda_ms(lambda: rm.cum_index(cum, q), RIS_REPS)
-    plain = cuda_ms(lambda: rm.cum_index_plain(cum, q), RIS_REPS)
-    lib = cuda_ms(lambda: torch.searchsorted(cum[:, rm.W - 1 :: rm.W], q,
-                                             right=True), RIS_REPS)
     steps = int(np.ceil(np.log2(kw)))
-    rows.append(kernel_row("vbn_cum_index", tpu + "resample_pallas.py:250",
-                           launches.get("cum_index", 0), errs["cum_index"], ms,
-                           plain, (b * k * steps, 4 * (2 * b * kw + 2 * b * k)),
-                           src, lib))
+    rows.append(timed(
+        "vbn_cum_index", "resample_pallas.py:250",
+        lambda: rm.cum_index(cum, q), ("cum_index_kernel",), errs["cum_index"],
+        lambda: rm.cum_index_plain(cum, q),
+        lambda: torch.searchsorted(cum[:, rm.W - 1 :: rm.W], q, right=True),
+        (b * k * steps, 4 * (2 * b * kw + 2 * b * k))))
 
     index = rm.cum_index(cum, q)
     u = rm.systematic_positions(u0, s)
@@ -1597,40 +1647,41 @@ def time_resample_kernels(dev, launches, errs):
         vals = torch.randn((b, s, d), generator=g, device=dev)
         exact(f"vbn_srg at S=2^20 D={d}", rm.srg(u0, cum, vals, index),
               rm.srg_plain(u0, cum, vals))
-        ms = cuda_ms(lambda: rm.srg(u0, cum, vals, index), RIS_REPS)
-        plain = cuda_ms(lambda: rm.srg_plain(u0, cum, vals), RIS_REPS)
-        lib = cuda_ms(lambda: vals.gather(1, torch.searchsorted(
-            cum, u, right=True).clamp_(max=s - 1)[..., None].expand(-1, -1, d)),
-            RIS_REPS)
         nbytes = 4 * (b * s + b * s * d + b + b * k + b * kw + b * s * d)
-        row = kernel_row("vbn_srg", tpu + "resample_pallas.py:472",
-                         launches.get("srg", 0), errs["srg"], ms, plain,
-                         (merge_ops, nbytes), src, lib)
-        row["D"] = d
+        row = timed(
+            "vbn_srg", "resample_pallas.py:472",
+            lambda: rm.srg(u0, cum, vals, index), ("merge_kernel",),
+            errs["srg"], lambda: rm.srg_plain(u0, cum, vals),
+            lambda: vals.gather(1, torch.searchsorted(cum, u, right=True)
+                                .clamp_(max=s - 1)[..., None].expand(-1, -1, d)),
+            (merge_ops, nbytes), D=d, grid=rm.merge_grid(b, s, d))
         if d == 1:
             rows.append(row)
         else:
-            log("kernel_main_shape", kernel="vbn_srg", D=d, ms=ms,
-                plain_ms=plain, library_ms=lib, bound_ms=row["bound_ms"])
+            log("kernel_main_shape", kernel="vbn_srg", D=d, ms=row["ms"],
+                wrapper_ms=row["wrapper_ms"], plain_ms=row["plain_ms"],
+                library_ms=row["library_ms"], bound_ms=row["bound_ms"],
+                grid=row["grid"])
 
     vals = torch.randn((b, s, 1), generator=g, device=dev)
     index = rm.cum_index(cum, pos[:, :: rm.T])
-    ms = cuda_ms(lambda: rm.spg(cum, pos, vals, index), RIS_REPS)
-    plain = cuda_ms(lambda: rm.spg_plain(cum, pos, vals), RIS_REPS)
-    lib = cuda_ms(lambda: vals.gather(1, torch.searchsorted(
-        cum, pos, right=True).clamp_(max=s - 1)[..., None]), RIS_REPS)
     exact("vbn_spg at S=2^20", rm.spg(cum, pos, vals, index),
           rm.spg_plain(cum, pos, vals))
     log("resample_kernel_check", case="S=2^20 main shape", B=b, S=s,
         cumsum_shapes=[[b, s], [b, s + 1]], srg_D=[1, 3], spg_D=[1], ok=True)
     nbytes = 4 * (b * s + 2 * b * s + b * k + b * kw + b * s)
-    rows.append(kernel_row("vbn_spg", tpu + "resample_pallas.py:531",
-                           launches.get("spg", 0), errs["spg"], ms, plain,
-                           (merge_ops, nbytes), src, lib))
+    rows.append(timed(
+        "vbn_spg", "resample_pallas.py:531",
+        lambda: rm.spg(cum, pos, vals, index), ("merge_kernel",), errs["spg"],
+        lambda: rm.spg_plain(cum, pos, vals),
+        lambda: vals.gather(1, torch.searchsorted(cum, pos, right=True)
+                            .clamp_(max=s - 1)[..., None]),
+        (merge_ops, nbytes), grid=rm.merge_grid(b, s, 1, systematic=False)))
     for r in rows:
         log("kernel_main_shape", kernel=r["name"], ms=r["ms"],
-            plain_ms=r["plain_ms"], library_ms=r["library_ms"],
-            bound_ms=r["bound_ms"])
+            wrapper_ms=r["wrapper_ms"], plain_ms=r["plain_ms"],
+            library_ms=r["library_ms"], bound_ms=r["bound_ms"],
+            grid=r.get("grid"))
     return rows
 
 
@@ -2456,7 +2507,8 @@ def load_parent(root):
     mod = importlib.util.module_from_spec(spec)
     sys.modules["vbn_parent"] = mod
     spec.loader.exec_module(mod)
-    for sub in ("defaults", "ops.sweep", "ops.scan", "ops.kde_fused", "ops._build"):
+    for sub in ("defaults", "ops.sweep", "ops.scan", "ops.resample_merge",
+                "ops._build"):
         importlib.import_module(f"vbn_parent.{sub}")
     return mod
 
@@ -2464,86 +2516,77 @@ def load_parent(root):
 def compare_builds(root):
     """The kernels this checkout redesigned beside another checkout's build
     of them (``--parent root``), in one process on one card, in turns
-    (other, this, this, other): vbn_kde_cond_wide at W4's recorded launch
-    (each build's output held within 1e-4 of the other's), vbn_cumsum at
-    RIS's B = 8, S = 2^20 in both modes (quantized weights: bit for bit),
-    then W1, W2, W4 and flagship RIS queries/s served by each package end
-    to end (moments held within 0.05 sd of the other build's)."""
+    (other, this, this, other): ``vbn_srg`` (D = 1 and 3) and ``vbn_spg``
+    at RIS's B = 8, S = 2^20 on quantized weights, each build's output held
+    bit for bit against the other's, device ms (``device_ms``); then
+    flagship RIS systematic and multinomial queries/s served by each
+    package end to end (moments held within 0.05 sd of the other build's)."""
     import torch
 
     from vectorizedbayesiannetwork_torch import VBN, defaults
-    from vectorizedbayesiannetwork_torch.ops import kde_fused as kf
+    from vectorizedbayesiannetwork_torch.ops import resample_merge as rm
     from vectorizedbayesiannetwork_torch.ops import scan
 
     par = load_parent(root)
+    prm = par.ops.resample_merge
     log("compare_builds", parent=str(root),
-        build_seconds=par.ops._build.build_all(["resample", "kde"]))
+        build_seconds=par.ops._build.build_all(["resample"]))
 
     def turns(metric, other, this):
         got = [other(), this(), this(), other()]
         log("compare_builds", metric=metric, parent=[got[0], got[3]],
             this=[got[1], got[2]])
 
-    def held(name, a, b, atol):
-        err = float((a.double() - b.double()).abs().nan_to_num(0.0).max())
-        if err > atol:
-            raise AssertionError(f"{name}: builds differ by {err}")
+    # the merge kernel at RIS's shape: systematic (D = 1, 3) and sorted
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(9)
+    b, s = B_RIS, S_RIS
+    cum = rm.norm_cum(torch.as_tensor(quantized_profile("dirichlet", b, s),
+                                      device=dev))
+    u0 = torch.rand((b, 1), generator=g, device=dev)
+    e = torch.empty((b, s + 1), device=dev).exponential_(generator=g)
+    c = scan.cumsum_rows(e, monotone=True)
+    pos = (c[:, :s] / c[:, -1:]).contiguous()
+    cases = []
+    for d in (1, 3):
+        vals = torch.randn((b, s, d), generator=g, device=dev)
+        cases.append((f"vbn_srg_D{d}", rm.systematic_positions(u0, s, rm.T),
+                      lambda m, i, v=vals: m.srg(u0, cum, v, i)))
+    vals = torch.randn((b, s, 1), generator=g, device=dev)
+    cases.append(("vbn_spg_D1", pos[:, :: rm.T],
+                  lambda m, i: m.spg(cum, pos, vals, i)))
+    for name, q, call in cases:
+        index, p_index = rm.cum_index(cum, q), prm.cum_index(cum, q)
+        exact(f"{name} index between builds", p_index, index)
+        exact(f"{name} between builds", call(prm, p_index), call(rm, index))
+        turns(f"{name}_device_ms",
+              lambda: device_ms(lambda: call(prm, p_index), RIS_REPS,
+                                ("merge_kernel",)),
+              lambda: device_ms(lambda: call(rm, index), RIS_REPS,
+                                ("merge_kernel",)))
 
-    # vbn_kde_cond_wide at W4's launch, recorded from this package's serve
-    wide = fit_kde(VBN, defaults, [("z", "y"), ("t", "y")], wide_data())
-    args, _ = serve_kde_wide(wide, {})
-    held("vbn_kde_cond_wide", par.ops.kde_fused.kde_cond_wide(*args),
-         kf.kde_cond_wide(*args), 1e-4)
-    turns("vbn_kde_cond_wide_ms",
-          lambda: cuda_ms(lambda: par.ops.kde_fused.kde_cond_wide(*args), KDE_REPS),
-          lambda: cuda_ms(lambda: kf.kde_cond_wide(*args), KDE_REPS))
-
-    # vbn_cumsum at RIS's shape, both modes
-    w = torch.as_tensor(quantized_profile("dirichlet", B_RIS, S_RIS),
-                        device=args[0].device)
-    for mono in (False, True):
-        exact(f"vbn_cumsum monotone={mono} between builds",
-              par.ops.scan.cumsum_rows(w, mono), scan.cumsum_rows(w, mono))
-        turns(f"vbn_cumsum_monotone_{mono}_ms",
-              lambda: cuda_ms(lambda: par.ops.scan.cumsum_rows(w, mono), RIS_REPS),
-              lambda: cuda_ms(lambda: scan.cumsum_rows(w, mono), RIS_REPS))
-
-    # end to end: W1, W2, W4 and flagship RIS on each package
-    w1, w2, _ = kde_flagship_queries()
-    q4, qr = w4_query(), flagship_diag_query()
+    # end to end: flagship RIS, systematic and multinomial, on each package
+    qr = flagship_diag_query()
     serve, rows = {}, {}
     for tag, mod in (("parent", par), ("this", None)):
         vbn_cls = mod.VBN if mod else VBN
         dfl = mod.defaults if mod else defaults
-        flag = fit_kde(vbn_cls, dfl, [("x0", "x2"), ("x1", "x2")],
-                       flagship_data())
-        flag.set_inference_method("likelihood_weighting", n_samples=S_KDE)
-        w4 = fit_kde(vbn_cls, dfl, [("z", "y"), ("t", "y")], wide_data())
-        w4.set_inference_method("likelihood_weighting", n_samples=S_KDE_DYN)
-        ris = fit_flagship(vbn_cls, dfl)
-        ris.set_inference_method("resampled_importance_sampling",
-                                 n_samples=S_RIS, resample_method="systematic")
-        w, smp = ris.infer_posterior(qr)
-        stats = ris._posterior_stats(w, smp.float())
-        rows[tag] = {
-            "W1": flag.infer_posterior_moments([w1])[0],
-            "W2": flag.infer_posterior_moments([w2])[0],
-            "W4": w4.infer_posterior_moments([q4])[0],
-            "RIS": np.stack([stats[k].cpu().numpy()[:, 0]
-                             for k in ("mean", "std")], 1)}
-        serve[tag] = {
-            "w1_kde_flagship_lw": lambda f=flag: dynamic_qps(
-                lambda: f.infer_posterior_moments([w1]), B_KDE)[0],
-            "w2_kde_flagship_diag": lambda f=flag: dynamic_qps(
-                lambda: f.infer_posterior_moments([w2]), B_KDE)[0],
-            "w4_kde_wide": lambda w4=w4: dynamic_qps(
-                lambda: w4.infer_posterior_moments([q4]), B_KDE)[0],
-            "flagship_ris_systematic": lambda ris=ris: method_qps(
-                ris, qr, B_RIS)[0]}
+        rows[tag], serve[tag] = {}, {}
+        for method in ("systematic", "multinomial"):
+            ris = fit_flagship(vbn_cls, dfl)
+            ris.set_inference_method("resampled_importance_sampling",
+                                     n_samples=S_RIS, resample_method=method)
+            w, smp = ris.infer_posterior(qr)
+            stats = ris._posterior_stats(w, smp.float())
+            rows[tag][method] = np.stack([stats[k].cpu().numpy()[:, 0]
+                                          for k in ("mean", "std")], 1)
+            serve[tag][f"flagship_ris_{method}"] = (
+                lambda ris=ris: method_qps(ris, qr, B_RIS)[0])
     for name in rows["this"]:
         a, b = rows["parent"][name], rows["this"][name]
         gap = float(np.abs(a - b).max() / np.abs(b[:, 1]).min())
-        log("compare_builds", workload=name, moments_gap_over_std=gap)
+        log("compare_builds", workload=f"flagship_ris_{name}",
+            moments_gap_over_std=gap)
         if gap > 0.05:
             raise AssertionError(f"{name}: builds' moments differ by {gap} sd")
     for metric in serve["this"]:
@@ -2583,7 +2626,8 @@ def ptxas_report(text):
 
 SASS_KERNELS = {"sweep": ("cat_sweep_kernel", "lg_sweep_kernel"),
                 "sweep_scan": ("cat_scan_kernel", "lg_scan_kernel"),
-                "resample": ("cumsum_tile_kernel", "cumsum_kernel"),
+                "resample": ("cumsum_tile_kernel", "cumsum_kernel",
+                             "merge_kernel"),
                 "kde": ("kde_direct_kernel", "kde_wide_kernel")}
 SASS_OPS = ("MUFU", "IMAD", "LOP3", "FFMA", "FMUL", "FADD", "LDS", "STS",
             "LDG", "BRA", "CALL")

@@ -590,13 +590,18 @@ def test_cum_index_kernel_matches_plain(card, name):
     assert sweep.LAUNCHES["cum_index"] == before + 2
 
 
+# merge_kernel's run ends: 2 and 3 tiles a row (S = 1536), and 129
+MERGE_SIZES = [RS, 1024, 1536, (1 << 16) + 512]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [1, 5])
+@pytest.mark.parametrize("d", [1, 3, 5, 512])
+@pytest.mark.parametrize("s", MERGE_SIZES)
 @pytest.mark.parametrize("name", PROFILES)
-def test_srg_kernel_matches_plain(card, name, d):
+def test_srg_kernel_matches_plain(card, name, s, d):
     from vectorizedbayesiannetwork_torch.ops import resample_merge as rm
 
-    w, vals = _weights(name), _vals(d)
+    w, vals = _weights(name, s=s), _vals(d, s=s)
     g = torch.Generator(device="cuda").manual_seed(3)
     u0 = torch.rand((RB, 1), generator=g, device="cuda")
     before = dict(sweep.LAUNCHES)
@@ -626,22 +631,58 @@ def test_srg_kernel_high_u0_and_smallest_size(card):
     assert torch.equal(got, rm.srg_plain(u0, rm.norm_cum(w), vals))
 
 
+# (S_in, S_out): S_out = S/2 (rounded down to a tile), S and 2S
+SPG_SIZES = [(RS, RS), (RS, 1024)] + [
+    (s, so) for s in MERGE_SIZES[1:]
+    for so in (max(512, s // 2 // 512 * 512), s, 2 * s)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("s_out", [RS, 1024])
+@pytest.mark.parametrize("d", [1, 3, 5, 512])
+@pytest.mark.parametrize("s, s_out", SPG_SIZES)
 @pytest.mark.parametrize("name", PROFILES)
-def test_spg_kernel_matches_plain(card, name, s_out):
+def test_spg_kernel_matches_plain(card, name, s, s_out, d):
     from vectorizedbayesiannetwork_torch.ops import resample_merge as rm
 
-    cum = rm.norm_cum(_weights(name))
+    cum = rm.norm_cum(_weights(name, s=s))
     g = torch.Generator(device="cuda").manual_seed(4)
     pos = torch.sort(torch.rand((RB, s_out), generator=g, device="cuda")).values
     pos[:, 0], pos[:, -1] = 0.0, 1.0
-    vals = _vals(5)
+    vals = _vals(d, s=s)
     before = sweep.LAUNCHES["spg"]
     got = rm.sorted_gather(cum, pos, vals)
     assert sweep.LAUNCHES["spg"] == before + 1
-    assert got.shape == (RB, s_out, 5)
+    assert got.shape == (RB, s_out, d)
     assert torch.equal(got, rm.spg_plain(cum, pos, vals))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [1, 3, 5])
+def test_merge_kernel_fallbacks_and_pointer_jumps(card, d):
+    """Positions the staged pair does not hold: unsorted positions (before
+    the pair; pointers that move back), crowded weights (past the pair) and
+    a dead stretch that pointers leap over (the pair loaded after its
+    tile), through the wrapper and on a misaligned view of the values
+    (copied to 16 bytes): spg_plain's output bit for bit."""
+    from vectorizedbayesiannetwork_torch.ops import resample_merge as rm
+
+    s = (1 << 16) + 512
+    w = _weights("dirichlet", s=s)
+    w[:, 1000:40000] = 0.0
+    w[:, 50000:50008] = 0.05
+    cum = rm.norm_cum(w / w.sum(dim=1, keepdim=True))
+    g = torch.Generator(device="cuda").manual_seed(6)
+    pos = torch.sort(torch.rand((RB, s), generator=g, device="cuda")).values
+    vals = torch.randn((RB * s * d + 1,), generator=g, device="cuda")
+    vals = vals[1:].view(RB, s, d)  # 4 bytes past an allocation
+    for p in (pos, pos[:, torch.randperm(s, generator=g, device="cuda")]):
+        index = rm.cum_index(cum, p[:, :: rm.T])
+        got = rm.spg(cum, p.contiguous(), vals, index)
+        assert torch.equal(got, rm.spg_plain(cum, p, vals))
+    u0 = torch.rand((RB, 1), generator=g, device="cuda")
+    index = rm.cum_index(cum, rm.systematic_positions(u0, s, rm.T))
+    assert torch.equal(rm.srg(u0, cum, vals, index),
+                       rm.srg_plain(u0, cum, vals))
 
 
 @pytest.mark.cuda

@@ -315,6 +315,207 @@ def test_multinomial_gather_with_shared_draws_equals_pallas(name):
 
 
 # ---------------------------------------------------------------------------
+# kernels 7 and 8 on the card: merge_kernel's schedule, as a numpy model
+# ---------------------------------------------------------------------------
+
+_W, _T, _NS, _RUN_MAX, _STAGE_D = 512, 512, 4, 128, 4
+# block slots of the card (SMs x blocks an SM) that launch_merge divides the
+# tiles by: one tile a run, runs ending inside a row, whole rows (RUN_MAX)
+_SLOTS = (1 << 30, 7, 2)
+_MERGE_SIZES = (1024, 1536, (1 << 16) + 512)  # 2, 3 and 129 tiles a row
+
+
+def _merge_run(b, k_tiles, slots):
+    """Tiles a run, as launch_merge sizes them: ceil(B K / slots) in
+    [1, RUN_MAX]."""
+    return min(max(-(-b * k_tiles // slots), 1), _RUN_MAX)
+
+
+def _merge_model(cum, lasts, ptrs, u, values, run):
+    """merge_kernel on numpy arrays: ``u`` [B, S_out] the clamped positions,
+    ``ptrs`` [B, S_out/512] the index's window pointers. Each (row, run)
+    block keeps a ring of NS slots (window tag, CDF copy, values copy for
+    D <= STAGE_D). A stage writes its slot at once, before the tile in use
+    is resolved (the earliest a cp.async can land), so a schedule that
+    overwrote the pair in use or read a window it did not stage gives wrong
+    outputs; the pair's tags are also asserted. Each position resolves from
+    the staged pair by the kernel's branchless search, or by the global
+    fallbacks (before the pair: c[p*512 - 1] > u; past it: 1024 entries
+    <= u). Returns (out [B, S_out, D], counts: positions by route, windows
+    staged, windows the runs' pairs cover, pairs loaded after their tile)."""
+    b, s = cum.shape
+    kw, d = s // _W, values.shape[2]
+    k_tiles = u.shape[1] // _T
+    ds = d if d <= _STAGE_D else 0
+    out = np.empty((b, u.shape[1], d), np.float32)
+    st = dict(stage=0, before=0, past=0, windows=0, cover=0, later=0)
+    for row in range(b):
+        c, v = cum[row], values[row]
+        for k0 in range(0, k_tiles, run):
+            n = min(run, k_tiles - k0)
+            sp = np.clip(ptrs[row, k0:k0 + n], 0, kw - 2).astype(np.int64)
+            prev = np.where(sp > 0, c[np.maximum(sp * _W - 1, 0)], -np.inf)
+            st["cover"] += len(set(sp.tolist()) | set((sp + 1).tolist()))
+            tag = np.full(_NS, -1)
+            ring_c = np.full((_NS, _W), np.nan, np.float32)
+            ring_v = np.full((_NS, _W, d), np.nan, np.float32)
+
+            def stage(w):
+                tag[w % _NS] = w
+                ring_c[w % _NS] = c[w * _W:(w + 1) * _W]
+                if ds:
+                    ring_v[w % _NS] = v[w * _W:(w + 1) * _W]
+                st["windows"] += 1
+
+            p = int(sp[0])
+            stage(p)
+            stage(p + 1)
+            for r in range(n):
+                k = k0 + r
+                pn, later = p, False
+                if r + 1 < n:
+                    pn = int(sp[r + 1])
+                    if p <= pn <= p + _NS - 2:
+                        for w in range(max(p + 2, pn), pn + 2):
+                            stage(w)
+                    else:
+                        later = True
+                sa, sb = p % _NS, (p + 1) % _NS
+                assert tag[sa] == p and tag[sb] == p + 1, "pair not staged"
+                pair = np.concatenate([ring_c[sa], ring_c[sb]])
+                uu = u[row, k * _T:(k + 1) * _T]
+                base = np.where(pair[_W - 1] <= uu, _W, 0)
+                i = np.zeros(_T, np.int64)
+                step = _W // 2
+                while step:
+                    i += step * (pair[base + i + step - 1] <= uu)
+                    step //= 2
+                lo = base + i + (pair[base + i] <= uu)
+                before = uu < prev[r]
+                past = ~before & (lo == 2 * _W)
+                staged = ~before & ~past
+                rank = p * _W + lo
+                w0 = p * _W
+                rank[before] = np.searchsorted(c[:w0], uu[before], "right")
+                for j in np.flatnonzero(past):
+                    w = p + 2 + np.searchsorted(lasts[row, p + 2:], uu[j],
+                                                "right")
+                    rank[j] = s if w == kw else w * _W + np.searchsorted(
+                        c[w * _W:(w + 1) * _W], uu[j], "right")
+                anc = np.minimum(rank, s - 1)
+                got = v[anc]
+                if ds:
+                    slot = (p + lo[staged] // _W) % _NS
+                    got[staged] = ring_v[slot, lo[staged] % _W]
+                out[row, k * _T:(k + 1) * _T] = got
+                st["stage"] += int(staged.sum())
+                st["before"] += int(before.sum())
+                st["past"] += int(past.sum())
+                if later:
+                    stage(pn)
+                    stage(pn + 1)
+                    st["later"] += 1
+                p = pn
+    return out, st
+
+
+def _model_values(s, d, seed, b=B):
+    """Column 0 the particle's index (exact in float32), the rest normal."""
+    v = _values(seed, b, s, d)
+    v[:, :, 0] = np.arange(s, dtype=np.float32)
+    return v
+
+
+# D = 512 at the two small sizes only: the model copies the values
+_MERGE_CASES = [(s, d) for s in _MERGE_SIZES for d in (1, 3, 5, 512)
+                if s * d < (1 << 20)]
+
+
+@pytest.mark.parametrize("s, d", _MERGE_CASES)
+@pytest.mark.parametrize("name", PROFILES)
+def test_merge_model_equals_plain_systematic(name, s, d):
+    """vbn_srg's schedule: every run length, ragged last runs, and S = 1536
+    (three tiles a row) give srg_plain's output bit for bit; a run stages
+    each window its pairs cover exactly once (systematic pointers never
+    move back)."""
+    w = quantized_profile(name, B, s)
+    u0 = np.random.default_rng(s + d).uniform(size=(B, 1)).astype(np.float32)
+    vals = _model_values(s, d, PROFILES.index(name))
+    cum = tmerge.norm_cum(_t(w))
+    u = tmerge.systematic_positions(_t(u0), s)
+    lasts, ptrs = tmerge.cum_index_plain(cum, u[:, ::_T])
+    want = tmerge.srg_plain(_t(u0), cum, _t(vals)).numpy()
+    for slots in _SLOTS:
+        run = _merge_run(B, s // _T, slots)
+        got, st = _merge_model(cum.numpy(), lasts.numpy(), ptrs.numpy(),
+                               u.numpy(), vals, run)
+        np.testing.assert_array_equal(got, want)
+        assert st["windows"] == st["cover"] and st["before"] == 0
+
+
+def _sorted_positions(s_out, seed):
+    pos = np.sort(np.random.default_rng(seed).uniform(size=(B, s_out)), 1)
+    pos = pos.astype(np.float32)
+    pos[:, 0], pos[:, -1] = 0.0, 1.0
+    return pos
+
+
+@pytest.mark.parametrize("s", _MERGE_SIZES)
+@pytest.mark.parametrize("name", PROFILES)
+def test_merge_model_equals_plain_sorted(name, s):
+    """vbn_spg's schedule at S_out = S/2 (rounded down to a tile, at least
+    one), S and 2S, D = 1 and 5: spg_plain's output bit for bit; sorted
+    positions stage each covered window once."""
+    w = quantized_profile(name, B, s)
+    cum = tmerge.norm_cum(_t(w))
+    for s_out in (max(_T, s // 2 // _T * _T), s, 2 * s):
+        pos = _sorted_positions(s_out, s_out + PROFILES.index(name))
+        lasts, ptrs = tmerge.cum_index_plain(cum, _t(pos)[:, ::_T])
+        u = np.clip(pos, 0.0, tmerge.POS_MAX)
+        for d in (1, 5):
+            vals = _model_values(s, d, d)
+            want = tmerge.spg_plain(cum, _t(pos), _t(vals)).numpy()
+            for slots in _SLOTS:
+                run = _merge_run(B, s_out // _T, slots)
+                got, st = _merge_model(cum.numpy(), lasts.numpy(),
+                                       ptrs.numpy(), u, vals, run)
+                np.testing.assert_array_equal(got, want)
+                assert st["windows"] == st["cover"]
+
+
+def test_merge_model_fallbacks_and_pointer_jumps():
+    """Positions the pair does not hold: unsorted positions (before the
+    pair, and pointers that move back), crowded weights (past the pair),
+    and pointers that leap more than two windows (the pair loaded after
+    the tile): each route taken, and the output still spg_plain's."""
+    s = (1 << 16) + 512
+    w = quantized_profile("dirichlet", B, s)
+    w[:, 1000:40000] = 0.0  # a dead stretch: pointers leap over it
+    w[:, 50000:50008] = 0.05  # crowded: a tile's positions past its pair
+    w = w / w.sum(axis=1, keepdims=True)
+    cum = tmerge.norm_cum(_t(w))
+    pos = _sorted_positions(s, 5)
+    pos = np.random.default_rng(6).permuted(pos, axis=1)  # unsorted
+    lasts, ptrs = tmerge.cum_index_plain(cum, _t(pos)[:, ::_T])
+    vals = _model_values(s, 3, 7)
+    want = tmerge.spg_plain(cum, _t(pos), _t(vals)).numpy()
+    got, st = _merge_model(cum.numpy(), lasts.numpy(), ptrs.numpy(),
+                           np.clip(pos, 0.0, tmerge.POS_MAX), vals,
+                           _merge_run(B, s // _T, 7))
+    np.testing.assert_array_equal(got, want)
+    assert min(st["before"], st["past"], st["later"], st["stage"]) > 0
+    # sorted positions over the same weights: leaps, no position before
+    pos = _sorted_positions(s, 8)
+    lasts, ptrs = tmerge.cum_index_plain(cum, _t(pos)[:, ::_T])
+    got, st = _merge_model(cum.numpy(), lasts.numpy(), ptrs.numpy(),
+                           np.clip(pos, 0.0, tmerge.POS_MAX), vals,
+                           _merge_run(B, s // _T, 7))
+    np.testing.assert_array_equal(
+        got, tmerge.spg_plain(cum, _t(pos), _t(vals)).numpy())
+    assert st["later"] > 0 and st["past"] > 0 and st["before"] == 0
+
+
+# ---------------------------------------------------------------------------
 # ops/resample.py: the index forms for the shapes the gate refuses
 # ---------------------------------------------------------------------------
 

@@ -49,21 +49,39 @@
 // _window_pointers of resample_pallas.py:83), one thread per entry, the
 // pointer by binary search over the lasts (the CDF is nondecreasing).
 //
-// vbn_srg / vbn_spg: one block of 512 threads per tile of 512 output
-// positions. The block loads the pointed window pair of the CDF (1024
-// entries) into shared memory; each thread takes one position
-// (systematic: (k*512 + lane) * (1/S) + u0 * (1/S), in that float32 order
-// with _rn intrinsics so nvcc fuses nothing; sorted: read from pos), clamps
-// it to [0, 1 - 2^-24], and counts the CDF entries <= it:
-// ancestor = #{i : cum_i <= u} = searchsorted(cum, u, 'right'), clipped to
-// S - 1. A position beyond the pair (crowded weights) continues by binary
-// search over the lasts and then inside one window in global memory; one
-// before the pair (unsorted positions) by binary search in global memory,
-// so the count is exact for any position. The block then copies the D
-// values of its 512 ancestors with consecutive threads on consecutive
-// output floats (ancestors are nondecreasing, so reads coalesce too).
-// Bound: bytes (the CDF, the values and the output once each).
-//
+// vbn_srg / vbn_spg: one template, merge_kernel<SYS, DS>. The function:
+// each output position u (systematic: (k*512 + lane) * (1/S) + u0 * (1/S),
+// in that float32 order with _rn intrinsics so nvcc fuses nothing; sorted:
+// read from pos), clamped to [0, 1 - 2^-24], takes the ancestor
+// #{i : cum_i <= u} = searchsorted(cum, u, 'right'), clipped to S - 1, and
+// the output copies that ancestor's D values. Bound: bytes (the CDF, the
+// values, the positions and the output once each); a chain of dependent
+// loads per tile (pointer, window, search, values) makes a naive design
+// latency-bound instead, so the design keeps loads in flight:
+// - Runs: a block of MT = 128 threads owns a run of consecutive output
+//   tiles (512 positions each) of one row. The grid is sized once per
+//   process and device from the SM count and the kernel's occupancy, so
+//   the runs fill the card in one wave (at most RUN_MAX tiles a run); a
+//   run never crosses rows, and the last run of a row may be shorter.
+// - A ring of NS = 4 shared windows (slot = window & 3) holds the CDF and,
+//   for D <= STAGE_D (DS > 0), the same windows' values. While a block
+//   resolves tile r from its pair (p, p+1), cp.async brings in tile r+1's
+//   pair: only the windows not staged yet, so a run reads each window once.
+//   A pair that moves back, or more than NS - 2 windows ahead, would
+//   overwrite the pair in use: it is loaded after the tile (one stall).
+// - Each thread takes PPT = 4 positions, t + 128 j, and resolves each by
+//   its own 11-step branchless search of the pair, the four interleaved,
+//   so positions need not be sorted; neighbouring threads search
+//   neighbouring entries, so the searches meet few bank conflicts. A position below the window before
+//   the pair (c[p*512 - 1], read once per tile at the run's start) takes a
+//   binary search of the CDF in global memory; one past the pair, a search
+//   of the window lasts and then inside one window: the count is exact for
+//   any position and any pointer (pointers are clamped to [0, S/512 - 2]).
+// - Staged values: the gather reads shared memory and consecutive threads
+//   store consecutive positions. Wider D stages the ancestors instead
+//   and copies the values with consecutive threads on consecutive output
+//   floats (ancestors are nondecreasing for sorted positions, so the reads
+//   coalesce too).
 // Offsets into [B, S, D] arrays are 64-bit: B*S*D passes 2^31 at D = 512.
 
 #include <cuda_runtime.h>
@@ -73,14 +91,21 @@
 namespace {
 
 constexpr int W = 512;           // CDF entries per window
-constexpr int T = 512;           // output positions per tile (threads a block)
+constexpr int T = 512;           // output positions per tile
 constexpr int CS_THREADS = 1024;  // vbn_cumsum threads per block
 constexpr int CS_ITEMS = 8;       // entries per thread per chunk
 constexpr int CS_WARPS = CS_THREADS / 32;
 constexpr int CS_TILE = CS_THREADS * CS_ITEMS;  // vbn_cumsum entries per tile
 constexpr int IDX_THREADS = 256;
 constexpr float POS_MAX = 0.99999994039535522f;  // 1 - 2^-24
-static_assert(T == W, "a block of T threads loads its window pair 2 per thread");
+constexpr int MT = 128;          // merge threads a block
+constexpr int PPT = T / MT;      // merge positions a thread
+constexpr int NS = 4;            // merge ring: shared windows a block
+constexpr int RUN_MAX = MT;      // merge tiles a run (one pointer a thread)
+constexpr int STAGE_D = 4;       // widest D whose values the ring stages
+constexpr int MAX_DEVICES = 64;  // devices whose merge grid is cached
+static_assert(T == W && T % MT == 0, "a tile is PPT rounds of MT positions");
+static_assert((NS & (NS - 1)) == 0, "slot = window & (NS - 1)");
 
 __device__ __forceinline__ float clamp_pos(float u) {
   return fminf(fmaxf(u, 0.f), POS_MAX);
@@ -302,60 +327,256 @@ cum_index_kernel(const float* __restrict__ cum, long long s, int kw,
   ptrs[(size_t)b * k + i] = min(lo, kw - 2);
 }
 
-// SYS: systematic positions from u0 [B]; else sorted positions pos [B, n_out].
-template <bool SYS>
-__global__ void __launch_bounds__(T)
+// 16 bytes global -> shared, asynchronous (cp.async.cg: L2 only).
+__device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
+  const unsigned dst = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+               "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Window w of the row's CDF (and, with DS > 0, its 512 x DS values) into
+// ring slot w & (NS - 1): one 16-byte copy a thread per 2 KB.
+template <int DS>
+__device__ __forceinline__ void stage_window(const float* c, const float* vb,
+                                             long long w, float* s_cum,
+                                             float* s_val, int t) {
+  const int slot = (int)(w & (NS - 1));
+  cp_async16(s_cum + slot * W + 4 * t, c + w * W + 4 * t);
+#pragma unroll
+  for (int i = 0; i < DS; ++i)
+    cp_async16(s_val + slot * W * DS + (i * MT + t) * 4,
+               vb + w * W * DS + (i * MT + t) * 4);
+}
+
+// SYS: systematic positions from u0 [B]; else positions pos [B, n_out].
+// DS: D when the ring stages the values (1..STAGE_D), else 0 (runtime d).
+// Grid (runs, B): block x takes tiles [x * run, x * run + run) of row y.
+// At DS >= 3 the ring caps an SM at 6 blocks, so 80 registers cost nothing
+// (at 64, merge_kernel<1,3> spilled).
+template <bool SYS, int DS>
+__global__ void __launch_bounds__(MT, DS >= 3 ? 6 : 8)
 merge_kernel(const float* __restrict__ cum, long long s, int kw,
              const float* __restrict__ lasts, const int32_t* __restrict__ ptrs,
-             int k_tiles, const float* __restrict__ u0, float inv_s,
+             int k_tiles, int run, const float* __restrict__ u0, float inv_s,
              const float* __restrict__ pos, long long n_out,
              const float* __restrict__ values, int d,
              float* __restrict__ out) {
-  __shared__ float s_cum[2 * W];
-  __shared__ int32_t s_anc[T];
-  const int k = blockIdx.x, b = blockIdx.y, t = threadIdx.x;
+  extern __shared__ __align__(16) float s_ring[];  // NS x W CDF, NS x W x DS
+  __shared__ int32_t s_ptr[RUN_MAX];
+  __shared__ float s_prev[RUN_MAX];
+  __shared__ int32_t s_anc[DS > 0 ? 1 : T];
+  float* s_cum = s_ring;
+  float* s_val = s_ring + NS * W;
+  const int t = threadIdx.x, b = blockIdx.y;
+  const int k0 = blockIdx.x * run;
+  const int n = min(run, k_tiles - k0);
+  const int dd = DS > 0 ? DS : d;
   const float* c = cum + (size_t)b * (size_t)s;
-  const int p = ptrs[(size_t)b * k_tiles + k];
-  const long long w0 = (long long)p * W;
-  s_cum[t] = c[w0 + t];
-  s_cum[t + W] = c[w0 + W + t];
-  float u;
+  const float* vb = values + (size_t)b * (size_t)s * dd;
+  if (t < n)
+    s_ptr[t] = min(max(ptrs[(size_t)b * k_tiles + k0 + t], 0), kw - 2);
+  __syncthreads();
+  int p = s_ptr[0];
+  stage_window<DS>(c, vb, p, s_cum, s_val, t);
+  stage_window<DS>(c, vb, p + 1, s_cum, s_val, t);
+  cp_async_commit();
+  if (t < n) {  // the CDF entry before each tile's pair
+    const long long w0 = (long long)s_ptr[t] * W;
+    s_prev[t] = w0 > 0 ? c[w0 - 1] : -INFINITY;
+  }
+  const float* pr = SYS ? nullptr : pos + (size_t)b * (size_t)n_out + t;
+  float next[PPT];
+  float u0s = 0.f;
   if (SYS) {
-    const float u0s = __fmul_rn(u0[b], inv_s);
-    u = fminf(__fadd_rn(__fmul_rn((float)(k * T + t), inv_s), u0s), POS_MAX);
-  } else {
-    u = clamp_pos(pos[(size_t)b * (size_t)n_out + (size_t)k * T + t]);
+    u0s = __fmul_rn(u0[b], inv_s);
+  } else {  // the positions of the run's first tile; each tile loads the next's
+#pragma unroll
+    for (int j = 0; j < PPT; ++j) next[j] = pr[(size_t)k0 * T + MT * j];
   }
-  __syncthreads();
-  long long rank;
-  if (p > 0 && c[w0 - 1] > u) {
-    rank = upper_bound(c, 0, w0, u);  // before the pair
-  } else {
-    int lo = 0, hi = 2 * W;
-    while (lo < hi) {
-      const int mid = (lo + hi) >> 1;
-      if (s_cum[mid] <= u)
-        lo = mid + 1;
-      else
-        hi = mid;
+  for (int r = 0; r < n; ++r) {
+    const int k = k0 + r;
+    float u[PPT];
+    if (SYS) {
+#pragma unroll
+      for (int j = 0; j < PPT; ++j)
+        u[j] = fminf(__fadd_rn(__fmul_rn((float)(k * T + MT * j + t), inv_s),
+                               u0s),
+                     POS_MAX);
+    } else {
+#pragma unroll
+      for (int j = 0; j < PPT; ++j) {
+        u[j] = clamp_pos(next[j]);
+        if (r + 1 < n) next[j] = pr[(size_t)(k + 1) * T + MT * j];
+      }
     }
-    if (lo < 2 * W) {
-      rank = w0 + lo;
-    } else {  // past the pair: the window by its last entry, then the entry
-      const float* lr = lasts + (size_t)b * kw;
-      const long long w = upper_bound(lr, p + 2, kw, u);
-      rank = w == kw ? s : upper_bound(c, w * W, w * W + W, u);
+    cp_async_wait_all();
+    __syncthreads();  // tile r's pair is staged; tile r - 1 is done
+    int pn = p;       // tile r + 1's pair: prefetch the windows it lacks
+    bool later = false;
+    if (r + 1 < n) {
+      pn = s_ptr[r + 1];
+      if (pn >= p && pn <= p + NS - 2) {
+        for (int w = max(p + 2, pn); w < pn + 2; ++w)
+          stage_window<DS>(c, vb, w, s_cum, s_val, t);
+        cp_async_commit();
+      } else {
+        later = true;  // it would overwrite the pair in use
+      }
     }
-  }
-  s_anc[t] = (int32_t)(rank < s ? rank : s - 1);
-  __syncthreads();
-  const float* vb = values + (size_t)b * (size_t)s * d;
-  float* ob = out + ((size_t)b * (size_t)n_out + (size_t)k * T) * d;
-  for (int i = t; i < T * d; i += T) {
-    const int j = i / d, f = i - j * d;
-    ob[i] = vb[(size_t)s_anc[j] * d + f];
+    // branchless search of the pair: the first step picks the window
+    const float prev = s_prev[r];
+    const int oa = (p & (NS - 1)) * W, ob = ((p + 1) & (NS - 1)) * W;
+    const float last_a = s_cum[oa + W - 1];
+    int off[PPT], cnt[PPT];
+#pragma unroll
+    for (int j = 0; j < PPT; ++j) {
+      const bool in_b = last_a <= u[j];
+      off[j] = in_b ? ob : oa;
+      cnt[j] = in_b ? W : 0;
+    }
+    int i[PPT] = {0, 0, 0, 0};
+#pragma unroll
+    for (int step = W / 2; step > 0; step >>= 1) {
+#pragma unroll
+      for (int j = 0; j < PPT; ++j)
+        if (s_cum[off[j] + i[j] + step - 1] <= u[j]) i[j] += step;
+    }
+    const long long w0 = (long long)p * W;
+    long long anc[PPT];
+    int loc[PPT];  // index in the pair, or -1 where the pair is not it
+#pragma unroll
+    for (int j = 0; j < PPT; ++j) {
+      const int lo = cnt[j] + i[j] + (s_cum[off[j] + i[j]] <= u[j]);
+      long long rank;
+      loc[j] = -1;
+      if (u[j] < prev) {
+        rank = upper_bound(c, 0, w0, u[j]);  // before the pair
+      } else if (lo < 2 * W) {
+        rank = w0 + lo;
+        loc[j] = lo;
+      } else {  // past the pair: the window by its last entry, then the entry
+        const float* lr = lasts + (size_t)b * kw;
+        const long long w = upper_bound(lr, p + 2, kw, u[j]);
+        rank = w == kw ? s : upper_bound(c, w * W, w * W + W, u[j]);
+      }
+      anc[j] = rank < s ? rank : s - 1;
+    }
+    if (DS > 0) {
+      float* ot = out + ((size_t)b * (size_t)n_out + (size_t)k * T + t) * DS;
+#pragma unroll
+      for (int j = 0; j < PPT; ++j) {
+        const int l = loc[j];
+        float* oj = ot + MT * j * DS;
+        if (l >= 0) {
+          const int so = ((p + (l >> 9)) & (NS - 1)) * W + (l & (W - 1));
+#pragma unroll
+          for (int f = 0; f < DS; ++f) oj[f] = s_val[so * DS + f];
+        } else {
+#pragma unroll
+          for (int f = 0; f < DS; ++f) oj[f] = vb[anc[j] * DS + f];
+        }
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < PPT; ++j) s_anc[MT * j + t] = (int32_t)anc[j];
+      __syncthreads();
+      float* ot = out + ((size_t)b * (size_t)n_out + (size_t)k * T) * d;
+      for (int e = t; e < T * d; e += MT) {
+        const int j = e / d, f = e - j * d;
+        ot[e] = vb[(size_t)s_anc[j] * d + f];
+      }
+    }
+    if (later) {
+      __syncthreads();  // every thread is done with the pair in use
+      stage_window<DS>(c, vb, pn, s_cum, s_val, t);
+      stage_window<DS>(c, vb, pn + 1, s_cum, s_val, t);
+      cp_async_commit();
+    }
+    p = pn;
   }
 }
+
+constexpr size_t merge_smem(int ds) {
+  return (size_t)NS * W * (1 + ds) * sizeof(float);
+}
+
+// Launch merge_kernel<SYS, DS> on tiles of S_out / 512 positions. The grid
+// is sized from the SM count and the kernel's blocks an SM, read once per
+// process and device: runs of ceil(tiles / slots) tiles, at most RUN_MAX.
+template <bool SYS, int DS>
+cudaError_t launch_merge(const float* cum, int b, long long s_in,
+                         const float* lasts, const int32_t* ptrs,
+                         const float* u0, float inv_s, const float* pos,
+                         long long s_out, const float* values, int d,
+                         float* out, cudaStream_t st, int* grid_out) {
+  static int slots_cache[MAX_DEVICES];  // SMs x blocks an SM; 0 = not read
+  auto kernel = merge_kernel<SYS, DS>;
+  const size_t smem = merge_smem(DS);
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  int slots = dev < MAX_DEVICES ? slots_cache[dev] : 0;
+  if (slots == 0) {
+    int sms = 0, per_sm = 0;
+    e = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             (int)cudaSharedmemCarveoutMaxShared);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, MT,
+                                                        smem);
+    if (e != cudaSuccess) return e;
+    slots = sms * (per_sm > 0 ? per_sm : 1);
+    if (dev < MAX_DEVICES) slots_cache[dev] = slots;
+  }
+  const int k_tiles = (int)(s_out / T);
+  long long run = ((long long)b * k_tiles + slots - 1) / slots;
+  run = run < 1 ? 1 : (run > RUN_MAX ? RUN_MAX : run);
+  const int runs = (int)((k_tiles + run - 1) / run);
+  if (grid_out) {
+    grid_out[0] = runs;
+    grid_out[1] = (int)run;
+    grid_out[2] = slots;
+    return cudaSuccess;
+  }
+  kernel<<<dim3(runs, b), MT, smem, st>>>(cum, s_in, (int)(s_in / W), lasts,
+                                         ptrs, k_tiles, (int)run, u0, inv_s,
+                                         pos, s_out, values, d, out);
+  return cudaGetLastError();
+}
+
+template <bool SYS>
+cudaError_t merge_by_d(const float* cum, int b, long long s_in,
+                       const float* lasts, const int32_t* ptrs,
+                       const float* u0, float inv_s, const float* pos,
+                       long long s_out, const float* values, int d, float* out,
+                       cudaStream_t st, int* grid_out) {
+  switch (d) {
+#define VBN_MERGE_CASE(DS)                                                   \
+  case DS:                                                                   \
+    return launch_merge<SYS, DS>(cum, b, s_in, lasts, ptrs, u0, inv_s, pos, \
+                                 s_out, values, d, out, st, grid_out);
+    VBN_MERGE_CASE(1)
+    VBN_MERGE_CASE(2)
+    VBN_MERGE_CASE(3)
+    VBN_MERGE_CASE(4)
+#undef VBN_MERGE_CASE
+    default:
+      return launch_merge<SYS, 0>(cum, b, s_in, lasts, ptrs, u0, inv_s, pos,
+                                  s_out, values, d, out, st, grid_out);
+  }
+}
+static_assert(STAGE_D == 4, "merge_by_d stages D = 1..4");
 
 }  // namespace
 
@@ -397,23 +618,29 @@ int vbn_cum_index(const float* cum, int b, long long s, const float* q,
 int vbn_srg(const float* cum, int b, long long s, const float* lasts,
             const int32_t* ptrs, const float* u0, float inv_s,
             const float* values, int d, float* out, void* stream) {
-  const int k_tiles = (int)(s / T);
-  dim3 grid(k_tiles, b);
-  merge_kernel<true><<<grid, T, 0, (cudaStream_t)stream>>>(
-      cum, s, (int)(s / W), lasts, ptrs, k_tiles, u0, inv_s, nullptr, s,
-      values, d, out);
-  return (int)cudaGetLastError();
+  return (int)merge_by_d<true>(cum, b, s, lasts, ptrs, u0, inv_s, nullptr, s,
+                               values, d, out, (cudaStream_t)stream, nullptr);
 }
 
 int vbn_spg(const float* cum, int b, long long s_in, const float* lasts,
             const int32_t* ptrs, const float* pos, long long s_out,
             const float* values, int d, float* out, void* stream) {
-  const int k_tiles = (int)(s_out / T);
-  dim3 grid(k_tiles, b);
-  merge_kernel<false><<<grid, T, 0, (cudaStream_t)stream>>>(
-      cum, s_in, (int)(s_in / W), lasts, ptrs, k_tiles, nullptr, 0.f, pos,
-      s_out, values, d, out);
-  return (int)cudaGetLastError();
+  return (int)merge_by_d<false>(cum, b, s_in, lasts, ptrs, nullptr, 0.f, pos,
+                                s_out, values, d, out, (cudaStream_t)stream,
+                                nullptr);
+}
+
+// The merge's grid for B rows of S_out positions and D columns, as
+// vbn_srg / vbn_spg would launch it: grid[0] runs a row, grid[1] tiles a
+// run, grid[2] the card's block slots (SMs x blocks an SM). Launches
+// nothing.
+int vbn_merge_grid(int b, long long s_out, int d, int sys, int* grid) {
+  return (int)(sys ? merge_by_d<true>(nullptr, b, s_out, nullptr, nullptr,
+                                      nullptr, 0.f, nullptr, s_out, nullptr,
+                                      d, nullptr, 0, grid)
+                   : merge_by_d<false>(nullptr, b, s_out, nullptr, nullptr,
+                                       nullptr, 0.f, nullptr, s_out, nullptr,
+                                       d, nullptr, 0, grid));
 }
 
 }  // extern "C"

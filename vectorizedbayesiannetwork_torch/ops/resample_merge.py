@@ -24,9 +24,19 @@ resampling event the path launches three hand-written CUDA kernels
 - ``vbn_spg`` replaces ``resample_pallas.py:531 _spg_kernel`` (positions
   read from ``pos``; S_out may differ from S_in).
 
-All three are bound by bytes; the source note says what their design does
-about it. The wrappers (``cum_index``, ``srg``, ``spg``, and ``cumsum_rows``
-of ``ops/scan.py``) launch their kernel for CUDA tensors and raise on what
+All three are bound by bytes. ``vbn_srg`` and ``vbn_spg`` are one
+template, ``merge_kernel``, built against the latency of its chain of
+dependent loads (pointer, CDF window, search, values): a block owns a run
+of consecutive tiles of one row (the grid sized from the SM count, one
+wave), stages the CDF windows (and, for D <= 4, their values) in a ring of
+four shared windows with ``cp.async``, prefetching the next tile's windows
+while it resolves the current one, so a run reads each window once; each
+thread resolves four positions by their own searches of the staged pair,
+and a position outside the pair takes an exact search in global memory
+(the source note of ``csrc/resample.cu`` has the details,
+``tests/test_torch_resample.py`` a numpy model of the schedule). The
+wrappers (``cum_index``, ``srg``, ``spg``, and ``cumsum_rows`` of
+``ops/scan.py``) launch their kernel for CUDA tensors and raise on what
 it does not take; for CPU tensors they run the plain versions
 (``cum_index_plain``, ``srg_plain``, ``spg_plain``), which compute the
 same function in torch ops (``torch.searchsorted`` and a gather, the
@@ -49,8 +59,8 @@ kernels. Randomness (``u0`` [B, 1] or the Exp(1) draws
 
 Not ported: the ``VBN_SRG_PREBUILD``/``VBN_SRG_TPI``/``VBN_SRG_ABLATE`` and
 ``VBN_RESAMPLE_PALLAS`` probes and switches, ``_tiles_per_instance`` and
-``_srg_ablate`` (TPU schedule experiments and cost ablations; here one
-block resolves one tile), the in-register layout builders
+``_srg_ablate`` (TPU schedule experiments and cost ablations; here the
+grid is sized from the card), the in-register layout builders
 (``_hier_header``, ``_hier_vrows``, ``_build_block``) that the transposed
 layout needed, and the mesh resampler (``ops/resample_distributed.py``,
 ROADMAP queue 1 item 14).
@@ -177,6 +187,26 @@ def _launch_cum_index(cum, queries):
     return lasts, ptrs
 
 
+def _aligned(x: torch.Tensor) -> torch.Tensor:
+    """``x``, or a copy of it where its data does not start on 16 bytes:
+    the merge kernel stages the CDF and the values with 16-byte
+    ``cp.async``."""
+    return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
+def merge_grid(b: int, s_out: int, d: int, systematic: bool = True):
+    """(runs a row, tiles a run, block slots of the card) of the merge
+    kernel's launch for B rows of S_out positions and D columns, as
+    ``vbn_srg`` / ``vbn_spg`` size it on the current CUDA device."""
+    import ctypes
+
+    grid = (ctypes.c_int * 3)()
+    rc = _lib().vbn_merge_grid(b, s_out, d, int(systematic), grid)
+    if rc != 0:
+        raise RuntimeError(f"vbn_merge_grid failed: CUDA error {rc}")
+    return tuple(grid)
+
+
 def _check_index(index, b, s, k):
     lasts, ptrs = index
     _check(lasts, "lasts", torch.float32, (b, s // W))
@@ -191,6 +221,7 @@ def _launch_srg(u0, cum, values, index):
     _check(values, "values", torch.float32, (b, s, d))
     _check(u0, "u0", torch.float32, (b, 1))
     _check_index(index, b, s, s // T)
+    cum, values = _aligned(cum), _aligned(values)
     out = torch.empty_like(values)
     with torch.cuda.device(cum.device):
         rc = _lib().vbn_srg(
@@ -215,6 +246,7 @@ def _launch_spg(cum, pos, values, index):
     _check(pos, "pos", torch.float32, (b, s_out))
     _check(values, "values", torch.float32, (b, s_in, d))
     _check_index(index, b, s_in, s_out // T)
+    cum, values = _aligned(cum), _aligned(values)
     out = torch.empty((b, s_out, d), dtype=torch.float32, device=cum.device)
     with torch.cuda.device(cum.device):
         rc = _lib().vbn_spg(

@@ -48,8 +48,8 @@ def cumsum_rows_plain(x: torch.Tensor, monotone: bool = False) -> torch.Tensor:
 
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
-    """``csrc/resample.cu`` with the argument types of its four entry
-    points (``ops/resample_merge.py`` launches the other three)."""
+    """``csrc/resample.cu`` with the argument types of its entry points
+    (``ops/resample_merge.py`` calls all but ``vbn_cumsum``)."""
     from ._build import load
 
     lib = load("resample")
@@ -60,7 +60,9 @@ def _lib() -> ctypes.CDLL:
     lib.vbn_srg.argtypes = [_P, _I, _L, _P, _P, _P, ctypes.c_float, _P, _I,
                             _P, _P]
     lib.vbn_spg.argtypes = [_P, _I, _L, _P, _P, _P, _L, _P, _I, _P, _P]
-    for fn in (lib.vbn_cumsum, lib.vbn_cum_index, lib.vbn_srg, lib.vbn_spg):
+    lib.vbn_merge_grid.argtypes = [_I, _L, _I, _I, _P]
+    for fn in (lib.vbn_cumsum, lib.vbn_cum_index, lib.vbn_srg, lib.vbn_spg,
+               lib.vbn_merge_grid):
         fn.restype = _I
     return lib
 
