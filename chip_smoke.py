@@ -60,8 +60,9 @@ queries at S=2^20 with ``dynamic_masks=True``:
 
 Then the resampling slice (resampled and plain importance sampling):
 
-10. resample_kernels: ``vbn_cumsum``, ``vbn_cum_index``, ``vbn_srg`` and
-    ``vbn_spg`` against their plain versions at B=8, S=2^16 and S=2^20 on
+10. resample_kernels: ``vbn_cumsum``, ``vbn_cum_index`` (the merge's tile
+    pointer routine on its own entry point), ``vbn_srg`` and ``vbn_spg``
+    against their plain versions at B=8, S=2^16 and S=2^20 on
     six weight profiles quantized to multiples of 2^-23 (D=1, 3 and 5;
     ``vbn_spg`` at S_out = S/2, S and 2S; exact), the high-u0 case and
     multinomial order statistics (exact), and at S=2^22 on unquantized
@@ -70,9 +71,9 @@ Then the resampling slice (resampled and plain importance sampling):
 11. ris_main_path: RIS on the flagship diagnosis query (x0 | x2, B=8) at
     S=2^20 systematic, S=2^20 multinomial and S=2^22 systematic, each with
     the counters reset just before and read just after (one resampling
-    event: one ``cumsum``, one ``cum_index`` and one ``srg``, or two
-    ``cumsum`` and one ``spg``), moments against the closed form, peak
-    memory;
+    event: one ``cumsum`` and one ``srg``, or two ``cumsum`` and one
+    ``spg``; no ``cum_index``: the merge derives its tile pointers), moments
+    against the closed form, peak memory;
 12. ris_asia: asia P(lung | xray, dysp), B=8, S=2^20, ess_threshold 0.99
     (two events, the first over 3 live nodes), pmf against the exact
     posterior of the fitted CPTs;
@@ -122,6 +123,20 @@ Then the KDE slice (KDE CPDs, max_points 2048 and Scott bandwidths, the
     rate); the root pick's own ms and bound; W1-W4 queries/s and profiled
     W1, W2, W3 and W4 batches.
 
+Then the exact engines, which run no hand kernel (plain torch on the card):
+
+20. exact_main_path: ``categorical_exact`` on asia P(dysp | smoke, asia)
+    at B=1024 (joint-state enumeration) and on 96 queries each of insurance
+    and alarm (``benchmarking/midsize.py:128,135``; the queries of
+    ``generate_inference_queries(bn, 96, seed=0)``; junction tree), pmf
+    rows within 1e-5 of variable elimination on the fitted CPTs;
+    ``gaussian_exact`` on the flagship at B=1024 and gauss107's 96 queries
+    (closed-form conditioning, float32 matmuls without TF32), moments
+    within 1e-4 of the posterior std of the fitted network's float64 closed
+    form; each with the counters reset just before and read just after (no
+    launch), queries/s (best of 3 windows), peak memory and a profiled
+    batch.
+
 Prints a JSON line of kernel results (all twelve kernels), the card's name
 and power limit, and last ``{"ok": true, "device": {...}}``. Any failure
 exits nonzero. The script imports nothing of JAX or of the JAX package.
@@ -131,8 +146,10 @@ the kernels of another checkout's port package at DIR (for example the
 parent commit's ``vectorizedbayesiannetwork_torch/``, unpacked with ``git
 archive`` into a directory ``.gitignore`` lists) beside this one's, in
 turns in one process (``compare_builds``): ``vbn_srg`` (D=1 and 3) and
-``vbn_spg`` at B=8, S=2^20 (device ms, the builds equal bit for bit), and
-flagship RIS systematic and multinomial queries/s.
+``vbn_spg`` at B=8, S=2^20 (device ms, the builds equal bit for bit; where
+the other build still launches ``vbn_cum_index`` before its merge, the two
+kernels' device ms summed, and each alone), and flagship RIS systematic and
+multinomial queries/s.
 """
 
 from __future__ import annotations
@@ -142,6 +159,7 @@ import re
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 
@@ -1232,7 +1250,7 @@ def profile_batch(serve, kernels=("scan_kernel",)):
             "device_events": len(dev), "idle_share": 1.0 - busy / wall}
 
 
-def device_ms(fn, reps, kernels):
+def device_ms(fn, reps, kernels, split=False):
     """Device ms a call of ``fn`` launches under ``kernels`` (one launch of
     each a call): over ``reps`` calls after a warm-up, the mean duration of
     the torch.profiler device events whose names hold each name, summed
@@ -1240,7 +1258,8 @@ def device_ms(fn, reps, kernels):
     where CUDA events around the wrapper time the host's enqueue. The
     profiler can drop device events late in a long process, so a
     mean over the events it kept; a window with none of some name is taken
-    again (at most three), then it fails."""
+    again (at most three), then it fails. ``split``: a dict of each name's
+    ms in place of their sum."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1257,7 +1276,8 @@ def device_ms(fn, reps, kernels):
         us = {k: [e.time_range.elapsed_us() for e in dev if k in e.name]
               for k in kernels}
         if all(us.values()):
-            return sum(float(np.mean(v)) for v in us.values()) / 1e3
+            ms = {k: float(np.mean(v)) / 1e3 for k, v in us.items()}
+            return ms if split else sum(ms.values())
         log("device_ms_retry", kernels=kernels, device_events=len(dev),
             matched={k: len(v) for k, v in us.items()})
     raise AssertionError(f"device_ms: no device events of {kernels}")
@@ -1395,14 +1415,18 @@ def check_resample_kernels(dev):
         u0 = torch.rand((b, 1), generator=g, device=dev)
         pos = torch.sort(torch.rand((b, 2 * s), generator=g, device=dev)).values
         pos[:, 0], pos[:, -1] = 0.0, 1.0
+        # tile heads, and out of order; ties with the window lasts; the
+        # ends of [0, 1 - 2^-24]
+        lasts = cum[:, rm.W - 1 :: rm.W]
+        ends = torch.tensor([0.0, rm.POS_MAX], device=dev).expand(b, 2)
         sys_q = rm.systematic_positions(u0, s, rm.T)
-        for q in (sys_q, pos[:, :: rm.T]):
+        for q in (sys_q, sys_q.flip(1), pos[:, :: rm.T],
+                  torch.cat([lasts, ends], 1)):
             exact(f"vbn_cum_index {name} S={s}", rm.cum_index(cum, q),
                   rm.cum_index_plain(cum, q))
-        index = rm.cum_index(cum, sys_q)
         for d in (1, 3, 5):
             vals = torch.randn((b, s, d), generator=g, device=dev)
-            exact(f"vbn_srg {name} S={s} D={d}", rm.srg(u0, cum, vals, index),
+            exact(f"vbn_srg {name} S={s} D={d}", rm.srg(u0, cum, vals),
                   rm.srg_plain(u0, cum, vals))
             for s_out in (s, s // 2, 2 * s):
                 p = pos[:, :: 2 * s // s_out]  # spanning [0, 1)
@@ -1447,11 +1471,13 @@ def check_resample_kernels(dev):
     errs["cumsum"] = float((k_cum - p_cum).abs().max())
     cum = rm.norm_cum(w)
     u0 = torch.rand((B_RIS, 1), generator=g, device=dev)
-    index = rm.cum_index(cum, rm.systematic_positions(u0, big, rm.T))
+    q = rm.systematic_positions(u0, big, rm.T)
+    exact("vbn_cum_index S=2^22", rm.cum_index(cum, q),
+          rm.cum_index_plain(cum, q))
     pos = torch.sort(torch.rand((B_RIS, big), generator=g, device=dev)).values
     for d in (1, 3, 5):
         vals = torch.randn((B_RIS, big, d), generator=g, device=dev)
-        exact(f"vbn_srg S=2^22 D={d}", rm.srg(u0, cum, vals, index),
+        exact(f"vbn_srg S=2^22 D={d}", rm.srg(u0, cum, vals),
               rm.srg_plain(u0, cum, vals))
         exact(f"vbn_spg S=2^22 D={d}", rm.sorted_gather(cum, pos, vals),
               rm.spg_plain(cum, pos, vals))
@@ -1500,7 +1526,7 @@ def serve_ris(lg_vbn):
         torch.cuda.synchronize()
         merge = "srg" if method == "systematic" else "spg"
         launches = read_launches({"cumsum": 1 if merge == "srg" else 2,
-                                  "cum_index": 1, merge: 1})
+                                  merge: 1})
         mem = torch.cuda.max_memory_allocated()
         resampled = lg_vbn._inference._last_resampled
         acc = diag_accuracy(lg_vbn, q, w, samples)
@@ -1529,7 +1555,7 @@ def serve_ris_asia(bn, asia_vbn):
                                   n_samples=S_RIS, ess_threshold=0.99)
     reset_launches()
     w, samples = asia_vbn.infer_posterior(q)
-    launches = read_launches({"cumsum": 2, "cum_index": 2, "srg": 2})
+    launches = read_launches({"cumsum": 2, "srg": 2})
     fit = fitted_discrete_bn(bn, asia_vbn)
     err = 0.0
     x = samples[:, :, 0].long()
@@ -1632,25 +1658,28 @@ def time_resample_kernels(dev, launches, errs):
     for tag, qq in (("systematic", q), ("multinomial", pos[:, :: rm.T])):
         exact(f"vbn_cum_index at S=2^20 {tag}", rm.cum_index(cum, qq),
               rm.cum_index_plain(cum, qq))
+    # the pointer routine runs inside every merge launch of the served path
+    # (its launches), and alone here, on its own entry point
     steps = int(np.ceil(np.log2(kw)))
     rows.append(timed(
         "vbn_cum_index", "resample_pallas.py:250",
         lambda: rm.cum_index(cum, q), ("cum_index_kernel",), errs["cum_index"],
         lambda: rm.cum_index_plain(cum, q),
         lambda: torch.searchsorted(cum[:, rm.W - 1 :: rm.W], q, right=True),
-        (b * k * steps, 4 * (2 * b * kw + 2 * b * k))))
+        (b * k * steps, 4 * (2 * b * kw + 2 * b * k)),
+        launched_in="merge_kernel"))
+    rows[-1]["launches"] = launches.get("srg", 0) + launches.get("spg", 0)
 
-    index = rm.cum_index(cum, q)
     u = rm.systematic_positions(u0, s)
     merge_ops = b * s * (int(np.log2(2 * rm.W)) + 3)
     for d in (1, 3):
         vals = torch.randn((b, s, d), generator=g, device=dev)
-        exact(f"vbn_srg at S=2^20 D={d}", rm.srg(u0, cum, vals, index),
+        exact(f"vbn_srg at S=2^20 D={d}", rm.srg(u0, cum, vals),
               rm.srg_plain(u0, cum, vals))
-        nbytes = 4 * (b * s + b * s * d + b + b * k + b * kw + b * s * d)
+        nbytes = 4 * (b * s + b * s * d + b + b * s * d)
         row = timed(
             "vbn_srg", "resample_pallas.py:472",
-            lambda: rm.srg(u0, cum, vals, index), ("merge_kernel",),
+            lambda: rm.srg(u0, cum, vals), ("merge_kernel",),
             errs["srg"], lambda: rm.srg_plain(u0, cum, vals),
             lambda: vals.gather(1, torch.searchsorted(cum, u, right=True)
                                 .clamp_(max=s - 1)[..., None].expand(-1, -1, d)),
@@ -1664,15 +1693,14 @@ def time_resample_kernels(dev, launches, errs):
                 grid=row["grid"])
 
     vals = torch.randn((b, s, 1), generator=g, device=dev)
-    index = rm.cum_index(cum, pos[:, :: rm.T])
-    exact("vbn_spg at S=2^20", rm.spg(cum, pos, vals, index),
+    exact("vbn_spg at S=2^20", rm.spg(cum, pos, vals),
           rm.spg_plain(cum, pos, vals))
     log("resample_kernel_check", case="S=2^20 main shape", B=b, S=s,
         cumsum_shapes=[[b, s], [b, s + 1]], srg_D=[1, 3], spg_D=[1], ok=True)
-    nbytes = 4 * (b * s + 2 * b * s + b * k + b * kw + b * s)
+    nbytes = 4 * (b * s + 2 * b * s + b * s)
     rows.append(timed(
         "vbn_spg", "resample_pallas.py:531",
-        lambda: rm.spg(cum, pos, vals, index), ("merge_kernel",), errs["spg"],
+        lambda: rm.spg(cum, pos, vals), ("merge_kernel",), errs["spg"],
         lambda: rm.spg_plain(cum, pos, vals),
         lambda: vals.gather(1, torch.searchsorted(cum, pos, right=True)
                             .clamp_(max=s - 1)[..., None]),
@@ -1738,8 +1766,7 @@ def serve_resampling(bn, asia_vbn, lg_vbn, link):
                                 n_samples=S_RIS, resample_method="systematic")
     serve = method_qps(lg_vbn, q, B_RIS)[2]
     log("serve_profile", workload="flagship RIS systematic", **profile_batch(
-        serve, ("cumsum_tile_kernel", "cumsum_kernel", "cum_index_kernel",
-                "merge_kernel")))
+        serve, ("cumsum_tile_kernel", "cumsum_kernel", "merge_kernel")))
     return kernels
 
 
@@ -2493,6 +2520,153 @@ def serve_kde(vbn_cls, defaults):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# The exact engines: categorical_exact and gaussian_exact (no hand kernel)
+# ---------------------------------------------------------------------------
+
+
+def exact_rows(qs, pmf, spans, fit, order=None):
+    """Max abs error of each served pmf row (normalized) against variable
+    elimination on ``fit``."""
+    from benchmarking.exact import exact_posterior
+
+    err = 0.0
+    for (lo, hi, _t), (t, ev) in zip(spans, qs):
+        gt = np.asarray(exact_posterior(fit, t, ev, elim_order=order))
+        rows = pmf[lo:hi, : gt.size].astype(np.float64)
+        rows = rows / rows.sum(axis=1, keepdims=True)
+        err = max(err, float(np.abs(rows - gt[None]).max()))
+    return err
+
+
+def serve_exact(vbn_cls, defaults, bn, asia_vbn, lg_vbn):
+    """Phase exact_main_path: categorical_exact on asia (B=1024,
+    enumeration) and on 96 queries each of insurance and alarm (junction
+    tree), gaussian_exact on the flagship (B=1024) and on gauss107's 96
+    queries (closed-form conditioning), through the public entry points on
+    the card; launch counters reset just before each and read just after
+    (the engines launch no hand kernel); pmf rows within 1e-5 of variable
+    elimination on the fitted CPTs (floored at 1e-12, as the engines floor
+    them), moments within 1e-4 of the posterior std of the fitted network's
+    float64 closed form; queries/s (best of 3 windows), peak memory and a
+    profiled batch of each. Float32 matmuls at full precision (no TF32)."""
+    import torch
+    from benchmarking.exact import min_fill_order
+    from benchmarking.gaussian_bn import gaussian_ground_truth, random_gaussian
+    from benchmarking.midsize import alarm, insurance
+    from benchmarking.query_gen import generate_inference_queries
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+
+    def served(tag, vbn, serve, b, check):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        rows, spans = serve()
+        launches = read_launches({})
+        mem = torch.cuda.max_memory_allocated()
+        if not np.isfinite(rows).all():
+            raise AssertionError(f"{tag}: rows not finite")
+        acc = check(rows, spans)
+        qps, windows = dynamic_qps(serve, b)
+        log("exact_main_path", workload=tag, method=vbn._inference_config["name"],
+            rows=list(rows.shape), launches=launches,
+            path=vbn._last_summary_path, fallback=vbn._inference._last_fallback,
+            max_memory_allocated_bytes=mem, qps=qps, window_qps=windows, **acc)
+        log("serve_profile", workload=f"exact {tag}", **profile_batch(serve, ()))
+        if vbn._last_summary_path != "fused" or vbn._inference._last_fallback:
+            raise AssertionError(f"{tag}: not served by the exact engine")
+        out[tag] = qps
+
+    # categorical_exact: asia by enumeration, insurance and alarm by the
+    # junction tree
+    asia_vbn.set_inference_method("categorical_exact")
+    qa = asia_query(B_MAIN)
+    ev = qa["evidence"]
+    asia_qs = [("dysp", {"smoke": int(ev["smoke"][r, 0]),
+                         "asia": int(ev["asia"][r, 0])}) for r in range(B_MAIN)]
+    asia_fit = fitted_discrete_bn(bn, asia_vbn, floor=1e-12)
+
+    def asia_check(rows, spans):
+        spans1 = [(r, r + 1, spans[0][2]) for r in range(B_MAIN)]
+        err = exact_rows(asia_qs, rows, spans1, asia_fit)
+        if err > 1e-5:
+            raise AssertionError(f"asia exact pmf off by {err}")
+        return {"pmf_max_abs_err": err}
+
+    served("asia_b1024", asia_vbn,
+           lambda: asia_vbn.infer_posterior_pmf([qa], n_classes=2), B_MAIN,
+           asia_check)
+    for net in (insurance, alarm):
+        nbn = net(0)
+        vbn = fit_discrete(vbn_cls, defaults, nbn)
+        vbn.set_inference_method("categorical_exact")
+        gen = generate_inference_queries(nbn, N_DYN, seed=0)
+        qs = [(q.target, q.evidence) for q in gen]
+        served_qs = [as_query(t, e) for t, e in qs]
+        k = max(nbn.card(n) for n in nbn.nodes)
+        fit = fitted_discrete_bn(nbn, vbn, floor=1e-12)
+
+        def check(rows, spans, qs=qs, fit=fit):
+            err = exact_rows(qs, rows, spans, fit, min_fill_order(fit))
+            if err > 1e-5:
+                raise AssertionError(f"{fit.name} exact pmf off by {err}")
+            return {"pmf_max_abs_err": err, "queries": len(qs)}
+
+        served(f"{nbn.name}_96", vbn,
+               lambda vbn=vbn, q=served_qs, k=k: vbn.infer_posterior_pmf(
+                   q, n_classes=k, pad_bucket=N_DYN), N_DYN, check)
+        if not vbn._inference._jtree_cache:
+            raise AssertionError(f"{nbn.name}: no junction tree was built")
+
+    # gaussian_exact: the flagship and gauss107, closed-form conditioning
+    lg_vbn.set_inference_method("gaussian_exact")
+    ql = flagship_query(B_MAIN)
+    p = lg_vbn.params["x2"]
+    w = p["weight"][:, 0].double().cpu().numpy()
+    sigma = float(np.sqrt(max(float(p["var"][0]),
+                              lg_vbn.nodes["x2"].min_scale ** 2)))
+    mean_cf = (ql["evidence"]["x0"][:, 0] * w[0] + ql["evidence"]["x1"][:, 0]
+               * w[1] + float(p["bias"][0]))
+
+    def flag_check(rows, spans):
+        err = {"dmean_over_std": float(np.abs(rows[:, 0] - mean_cf).max() / sigma),
+               "dstd_over_std": float(np.abs(rows[:, 1] - sigma).max() / sigma)}
+        if max(err.values()) > 1e-4:
+            raise AssertionError(f"flagship exact moments off: {err}")
+        return err
+
+    served("flagship_b1024", lg_vbn,
+           lambda: lg_vbn.infer_posterior_moments([ql]), B_MAIN, flag_check)
+    gbn = random_gaussian(107, seed=0)
+    gvbn = fit_gaussian(vbn_cls, defaults, gbn)
+    gvbn.set_inference_method("gaussian_exact")
+    gqs = gauss_queries(gbn)
+    truth = gaussian_ground_truth(fitted_gaussian_bn(gvbn), [
+        types.SimpleNamespace(query_id=str(i), target=t, evidence=ev, do={})
+        for i, (t, ev) in enumerate(gqs)])
+    ref = np.array([[r["mean"], r["std"]] for r in truth])
+
+    def gauss_check(rows, spans):
+        got = rows[[lo for lo, _hi, _t in spans]].astype(np.float64)
+        err = {"dmean_over_std": float(np.max(np.abs(got[:, 0] - ref[:, 0])
+                                              / ref[:, 1])),
+               "dstd_over_std": float(np.max(np.abs(got[:, 1] - ref[:, 1])
+                                             / ref[:, 1]))}
+        if max(err.values()) > 1e-4:
+            raise AssertionError(f"gauss107 exact moments off: {err}")
+        return err
+
+    served("gauss107_96", gvbn,
+           lambda: gvbn.infer_posterior_moments(
+               [as_query(t, ev) for t, ev in gqs], pad_bucket=N_DYN), N_DYN,
+           gauss_check)
+    log("end_to_end_exact", **{f"{k}_qps": v for k, v in out.items()})
+    asia_vbn.set_inference_method("likelihood_weighting", n_samples=S_MAIN)
+    lg_vbn.set_inference_method("monte_carlo_marginalization", n_samples=S_MAIN)
+
+
 def load_parent(root):
     """The port package of another checkout at ``root`` (for example the
     parent commit's, unpacked with ``git archive``), imported under the name
@@ -2518,9 +2692,13 @@ def compare_builds(root):
     of them (``--parent root``), in one process on one card, in turns
     (other, this, this, other): ``vbn_srg`` (D = 1 and 3) and ``vbn_spg``
     at RIS's B = 8, S = 2^20 on quantized weights, each build's output held
-    bit for bit against the other's, device ms (``device_ms``); then
+    bit for bit against the other's, and the pointer routine's, device ms
+    (``device_ms``; a build that still launches ``vbn_cum_index`` before
+    its merge is timed over both launches, each kernel's share logged); then
     flagship RIS systematic and multinomial queries/s served by each
     package end to end (moments held within 0.05 sd of the other build's)."""
+    import inspect
+
     import torch
 
     from vectorizedbayesiannetwork_torch import VBN, defaults
@@ -2547,23 +2725,37 @@ def compare_builds(root):
     e = torch.empty((b, s + 1), device=dev).exponential_(generator=g)
     c = scan.cumsum_rows(e, monotone=True)
     pos = (c[:, :s] / c[:, -1:]).contiguous()
+    # a build whose merge takes an index (lasts, pointers) launches
+    # vbn_cum_index before it on the served path: its time is both kernels'
+    indexed = "index" in inspect.signature(prm.srg).parameters
     cases = []
     for d in (1, 3):
         vals = torch.randn((b, s, d), generator=g, device=dev)
         cases.append((f"vbn_srg_D{d}", rm.systematic_positions(u0, s, rm.T),
-                      lambda m, i, v=vals: m.srg(u0, cum, v, i)))
+                      lambda m, *i, v=vals: m.srg(u0, cum, v, *i)))
     vals = torch.randn((b, s, 1), generator=g, device=dev)
     cases.append(("vbn_spg_D1", pos[:, :: rm.T],
-                  lambda m, i: m.spg(cum, pos, vals, i)))
+                  lambda m, *i: m.spg(cum, pos, vals, *i)))
+    kernels = ("merge_kernel", "cum_index_kernel") if indexed else (
+        "merge_kernel",)
     for name, q, call in cases:
-        index, p_index = rm.cum_index(cum, q), prm.cum_index(cum, q)
-        exact(f"{name} index between builds", p_index, index)
-        exact(f"{name} between builds", call(prm, p_index), call(rm, index))
-        turns(f"{name}_device_ms",
-              lambda: device_ms(lambda: call(prm, p_index), RIS_REPS,
-                                ("merge_kernel",)),
-              lambda: device_ms(lambda: call(rm, index), RIS_REPS,
-                                ("merge_kernel",)))
+        exact(f"{name} index between builds", prm.cum_index(cum, q),
+              rm.cum_index(cum, q))
+
+        def other():
+            return call(prm, prm.cum_index(cum, q)) if indexed else call(prm)
+
+        exact(f"{name} between builds", other(), call(rm))
+        split = {}
+
+        def timed_other():
+            split.update(device_ms(other, RIS_REPS, kernels, split=True))
+            return sum(split.values())
+
+        turns(f"{name}_device_ms", timed_other,
+              lambda: device_ms(lambda: call(rm), RIS_REPS, ("merge_kernel",)))
+        log("compare_builds", metric=f"{name}_parent_device_ms_by_kernel",
+            parent_last_turn=split)
 
     # end to end: flagship RIS, systematic and multinomial, on each package
     qr = flagship_diag_query()
@@ -2732,6 +2924,7 @@ def main(argv) -> int:
     kernels += scan_rows
     kernels += serve_resampling(bn, asia_vbn, lg_vbn, link)
     kernels += serve_kde(VBN, defaults)
+    serve_exact(VBN, defaults, bn, asia_vbn, lg_vbn)
     if args.parent:
         compare_builds(args.parent)
 

@@ -529,7 +529,8 @@ def test_launch_refuses_what_the_kernel_does_not_take(asia_vbn):
 
 
 # ---------------------------------------------------------------------------
-# Resampling kernels: vbn_cumsum, vbn_cum_index, vbn_srg, vbn_spg
+# Resampling kernels: vbn_cumsum, vbn_cum_index (the merge's pointer
+# routine on its own entry point), vbn_srg, vbn_spg
 # ---------------------------------------------------------------------------
 
 
@@ -583,11 +584,14 @@ def test_cum_index_kernel_matches_plain(card, name):
     u0 = torch.rand((RB, 1), generator=g, device="cuda")
     pos = torch.sort(torch.rand((RB, RS), generator=g, device="cuda")).values
     before = sweep.LAUNCHES["cum_index"]
-    for q in (rm.systematic_positions(u0, RS, rm.T), pos[:, :: rm.T]):
+    ends = torch.tensor([0.0, rm.POS_MAX], device="cuda").expand(RB, 2)
+    ties = torch.cat([cum[:, rm.W - 1 :: rm.W], ends], 1)  # window lasts
+    heads = rm.systematic_positions(u0, RS, rm.T)
+    for q in (heads, heads.flip(1), pos[:, :: rm.T], ties):
         got = rm.cum_index(cum, q)
         want = rm.cum_index_plain(cum, q)
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
-    assert sweep.LAUNCHES["cum_index"] == before + 2
+    assert sweep.LAUNCHES["cum_index"] == before + 4
 
 
 # merge_kernel's run ends: 2 and 3 tiles a row (S = 1536), and 129
@@ -607,7 +611,7 @@ def test_srg_kernel_matches_plain(card, name, s, d):
     before = dict(sweep.LAUNCHES)
     got = rm.systematic_resample_gather(w, vals, u0=u0)
     assert sweep.LAUNCHES["srg"] == before["srg"] + 1
-    assert sweep.LAUNCHES["cum_index"] == before["cum_index"] + 1
+    assert sweep.LAUNCHES["cum_index"] == before["cum_index"]  # in the merge
     assert sweep.LAUNCHES["cumsum"] == before["cumsum"] + 1
     assert torch.equal(got, rm.srg_plain(u0, rm.norm_cum(w), vals))
 
@@ -660,9 +664,9 @@ def test_spg_kernel_matches_plain(card, name, s, s_out, d):
 @pytest.mark.parametrize("d", [1, 3, 5])
 def test_merge_kernel_fallbacks_and_pointer_jumps(card, d):
     """Positions the staged pair does not hold: unsorted positions (before
-    the pair; pointers that move back), crowded weights (past the pair) and
-    a dead stretch that pointers leap over (the pair loaded after its
-    tile), through the wrapper and on a misaligned view of the values
+    the pair; pointers that move back), crowded weights (past the pair),
+    positions on the window lasts (ties past the pair) and a dead stretch
+    that pointers leap over (the pair loaded after its tile), through the wrapper and on a misaligned view of the values
     (copied to 16 bytes): spg_plain's output bit for bit."""
     from vectorizedbayesiannetwork_torch.ops import resample_merge as rm
 
@@ -675,14 +679,15 @@ def test_merge_kernel_fallbacks_and_pointer_jumps(card, d):
     pos = torch.sort(torch.rand((RB, s), generator=g, device="cuda")).values
     vals = torch.randn((RB * s * d + 1,), generator=g, device="cuda")
     vals = vals[1:].view(RB, s, d)  # 4 bytes past an allocation
-    for p in (pos, pos[:, torch.randperm(s, generator=g, device="cuda")]):
-        index = rm.cum_index(cum, p[:, :: rm.T])
-        got = rm.spg(cum, p.contiguous(), vals, index)
+    lasts = cum[:, rm.W - 1 :: rm.W]  # positions on them: ties past the pair
+    ties = torch.sort(lasts[:, torch.randint(0, lasts.shape[1], (s,),
+                                             generator=g, device="cuda")]).values
+    for p in (pos, pos[:, torch.randperm(s, generator=g, device="cuda")],
+              ties):
+        got = rm.spg(cum, p.contiguous(), vals)
         assert torch.equal(got, rm.spg_plain(cum, p, vals))
     u0 = torch.rand((RB, 1), generator=g, device="cuda")
-    index = rm.cum_index(cum, rm.systematic_positions(u0, s, rm.T))
-    assert torch.equal(rm.srg(u0, cum, vals, index),
-                       rm.srg_plain(u0, cum, vals))
+    assert torch.equal(rm.srg(u0, cum, vals), rm.srg_plain(u0, cum, vals))
 
 
 @pytest.mark.cuda
@@ -700,7 +705,7 @@ def test_multinomial_gather_goes_through_the_kernels(card):
     got = rm.multinomial_resample_gather(w, vals, e=e)
     after = dict(sweep.LAUNCHES)
     assert {k: after[k] - before[k] for k in ("cumsum", "cum_index", "spg")} \
-        == {"cumsum": 2, "cum_index": 1, "spg": 1}
+        == {"cumsum": 2, "cum_index": 0, "spg": 1}
     c = scan.cumsum_rows_plain(e, monotone=True)
     pos = c[:, :RS] / c[:, -1:]
     assert torch.equal(got, rm.spg_plain(rm.norm_cum(w), pos, vals))
@@ -725,7 +730,8 @@ def test_merge_wrappers_refuse_what_the_kernels_do_not_take(card):
 @pytest.mark.parametrize("method", ["systematic", "multinomial"])
 def test_ris_resampling_events_launch_the_kernels(lg_vbn, method):
     """Flagship diagnosis (x0 | x2): one resampling event per call, each
-    one cumsum (two for multinomial), one index and one merge launch."""
+    one cumsum (two for multinomial) and one merge launch; no index launch:
+    the merge derives its tile pointers."""
     q = {"target": "x0", "evidence": {
         "x2": np.linspace(-1, 1, B).reshape(B, 1).astype(np.float32)}}
     lg_vbn.set_inference_method("resampled_importance_sampling", n_samples=S,
@@ -736,8 +742,7 @@ def test_ris_resampling_events_launch_the_kernels(lg_vbn, method):
     assert lg_vbn._inference._last_resampled
     merge = "srg" if method == "systematic" else "spg"
     got = {k: after[k] - before[k] for k in after if after[k] != before[k]}
-    assert got == {"cumsum": 1 if merge == "srg" else 2, "cum_index": 1,
-                   merge: 1}
+    assert got == {"cumsum": 1 if merge == "srg" else 2, merge: 1}
     mean = lg_vbn._posterior_stats(w, s)["mean"][:, 0].cpu().numpy()
     assert np.all(np.diff(mean) > 0)  # x0 | x2 rises with x2
     lg_vbn.set_inference_method("monte_carlo_marginalization", n_samples=S)
@@ -1013,3 +1018,38 @@ def test_kde_serving_goes_through_the_kernels(kde_vbn, dynamic):
     assert kde_vbn._last_summary_path == ("fused" if dynamic else "stream")
     assert mom.shape == (B, 2) and np.isfinite(mom).all()
     assert np.all(np.diff(mom[:, 0]) > 0)  # x2 | x0 rises with x0
+
+
+# ---------------------------------------------------------------------------
+# Exact engines on the card (no hand kernel): the same rows as on the CPU
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["categorical_exact", "gaussian_exact"])
+def test_exact_engines_on_the_card_match_the_cpu(asia_vbn, lg_vbn, method,
+                                                tmp_path):
+    """asia pmf rows (enumeration) within 1e-5, flagship moments (closed
+    form, float32 matmuls without TF32) within 1e-5 absolute; no launch."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    vbn = asia_vbn if method == "categorical_exact" else lg_vbn
+    vbn.set_inference_method(method)
+    vbn.save(str(tmp_path / "m.npz"))
+    cpu = VBN.load(str(tmp_path / "m.npz"), device="cpu")
+    if method == "categorical_exact":
+        q = {"target": "lung", "evidence": {
+            "xray": (np.arange(B) % 2).reshape(B, 1).astype(np.float32),
+            "dysp": np.ones((B, 1), np.float32)}}
+        serve = lambda v: v.infer_posterior_pmf([q], n_classes=2)[0]
+    else:
+        q = {"target": "x0", "evidence": {
+            "x2": np.linspace(-1, 1, B).reshape(B, 1).astype(np.float32)}}
+        serve = lambda v: v.infer_posterior_moments([q])[0]
+    before = dict(sweep.LAUNCHES)
+    got = serve(vbn)
+    assert dict(sweep.LAUNCHES) == before
+    assert vbn._last_summary_path == "fused"
+    np.testing.assert_allclose(got, serve(cpu), atol=1e-5)
+    vbn.set_inference_method(
+        "likelihood_weighting" if method == "categorical_exact"
+        else "monte_carlo_marginalization", n_samples=S)

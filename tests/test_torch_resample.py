@@ -331,30 +331,118 @@ def _merge_run(b, k_tiles, slots):
     return min(max(-(-b * k_tiles // slots), 1), _RUN_MAX)
 
 
-def _merge_model(cum, lasts, ptrs, u, values, run):
-    """merge_kernel on numpy arrays: ``u`` [B, S_out] the clamped positions,
-    ``ptrs`` [B, S_out/512] the index's window pointers. Each (row, run)
-    block keeps a ring of NS slots (window tag, CDF copy, values copy for
-    D <= STAGE_D). A stage writes its slot at once, before the tile in use
-    is resolved (the earliest a cp.async can land), so a schedule that
-    overwrote the pair in use or read a window it did not stage gives wrong
-    outputs; the pair's tags are also asserted. Each position resolves from
-    the staged pair by the kernel's branchless search, or by the global
-    fallbacks (before the pair: c[p*512 - 1] > u; past it: 1024 entries
-    <= u). Returns (out [B, S_out, D], counts: positions by route, windows
-    staged, windows the runs' pairs cover, pairs loaded after their tile)."""
+_CG, _C_MAX = 16, 2048  # csrc/resample.cu's run_pointers
+
+
+def _pointer_model(cum, heads, c_max=_C_MAX):
+    """run_pointers (csrc/resample.cu) on numpy: for each position of
+    ``heads`` [B, K] (clamped), the window pointer min(#{w : lasts[w] <= u},
+    kw - 2) and the CDF entry before its pair, c[p*512 - 1] (-inf at p = 0),
+    as the kernel derives them: a coarse sample of the lasts (every g-th,
+    g = max(16, ceil(kw / c_max)), whole groups only) searched by bisection
+    puts the count in a bracket of g - 1 lasts, counted 15 at a time, the
+    largest last <= u kept on the way; a clamped pointer reads its entry.
+    Returns (ptrs int32, prev float32), each [B, K]."""
+    b, s = cum.shape
+    kw = s // _W
+    g = max(_CG, -(-kw // c_max))
+    lasts = cum[:, _W - 1 :: _W]
+    ptrs = np.empty(heads.shape, np.int32)
+    prev = np.empty(heads.shape, np.float32)
+    for row in range(b):
+        coarse = lasts[row, g - 1 : kw // g * g : g]
+        for k, u in enumerate(np.clip(heads[row], 0.0, tmerge.POS_MAX)):
+            lo, hi = 0, coarse.size
+            while lo < hi:
+                mid = (lo + hi) // 2
+                lo, hi = (mid + 1, hi) if coarse[mid] <= u else (lo, mid)
+            last = coarse[lo - 1] if lo > 0 else -np.inf
+            w0 = lo * g
+            w1 = min(w0 + g - 1, kw)
+            count = w0
+            for base in range(w0, w1, _CG - 1):
+                for lw in lasts[row, base : min(base + _CG - 1, w1)]:
+                    if lw <= u:
+                        count, last = count + 1, lw
+            p = min(count, kw - 2)
+            if p < count:
+                last = cum[row, p * _W - 1] if p > 0 else -np.inf
+            ptrs[row, k], prev[row, k] = p, last
+    return ptrs, prev
+
+
+def _pointer_cdfs(s):
+    """[B + 3, S] normalized CDFs (norm_cum) with every hard case of the
+    pointer count: the six profiles (all mass last or first, dead
+    256-blocks), zero-weight windows in long runs (flat lasts, ties across
+    many coarse entries), and one heavy window a row (a jump)."""
+    w = np.concatenate([quantized_profile(n, 1, s) for n in PROFILES]
+                       + [quantized_profile("dirichlet", 3, s)])
+    w[-3, s // 4 : 3 * s // 4] = 0.0  # a run of zero windows mid-row
+    w[-2, : s - 2 * _W] = 0.0  # all mass in the last two windows
+    w[-1, 5 * _W : 6 * _W] += 1.0  # one window holds half the mass
+    return tmerge.norm_cum(_t(w / w.sum(axis=1, keepdims=True))).numpy()
+
+
+@pytest.mark.parametrize("c_max", [_C_MAX, 4])
+@pytest.mark.parametrize("s", [1024, 1536, 1 << 15, (1 << 16) + 512])
+def test_pointer_model_equals_cum_index_plain(s, c_max):
+    """The merge's in-kernel pointer derivation (coarse sample, bracket,
+    clamp) gives cum_index_plain's pointers bit for bit, on tile heads,
+    sorted positions and the same out of order, the window lasts themselves
+    (ties) and the floats just below them, flat and zero-weight windows,
+    and positions at 0 and 1 - 2^-24; its CDF entry before the pair is
+    c[p*512 - 1]. c_max = 4 forces brackets of more than 15 lasts
+    (g = ceil(kw / 4)), which the card meets past S = 2^24."""
+    cum = _pointer_cdfs(s)
+    b = cum.shape[0]
+    rng = np.random.default_rng(s)
+    lasts = cum[:, _W - 1 :: _W]
+    ends = np.tile(np.float32([0.0, tmerge.POS_MAX, 1.0, -1.0]), (b, 1))
+    u0 = rng.uniform(size=(b, 1)).astype(np.float32)
+    sys_heads = tmerge.systematic_positions(_t(u0), s, _T).numpy()
+    sorted_pos = np.sort(rng.uniform(size=(b, 300)), axis=1).astype(np.float32)
+    for heads in (sys_heads, sorted_pos, rng.permuted(sorted_pos, axis=1),
+                  np.concatenate([lasts, ends], 1),
+                  np.nextafter(lasts, np.float32(-1.0))):
+        ptrs, prev = _pointer_model(cum, heads, c_max)
+        want = tmerge.cum_index_plain(_t(cum), _t(heads))[1].numpy()
+        np.testing.assert_array_equal(ptrs, want)
+        idx = np.maximum(ptrs.astype(np.int64) * _W - 1, 0)
+        before = np.where(ptrs > 0, np.take_along_axis(cum, idx, 1), -np.inf)
+        np.testing.assert_array_equal(prev, before.astype(np.float32))
+
+
+def _merge_model(cum, u, values, run):
+    """merge_kernel on numpy arrays: ``u`` [B, S_out] the clamped positions.
+    Each (row, run) block derives its tiles' window pointers and the CDF
+    entries before their pairs from the tiles' first positions
+    (``_pointer_model``), and keeps a ring of NS slots (window tag, CDF
+    copy, values copy for D <= STAGE_D). A stage writes its slot at once,
+    before the tile in use is resolved (the earliest a cp.async can land),
+    so a schedule that overwrote the pair in use or read a window it did
+    not stage gives wrong outputs; the pair's tags are also asserted. Each
+    position resolves from the staged pair by the kernel's branchless
+    search, or by the global fallbacks (before the pair: c[p*512 - 1] > u;
+    past it: 1024 entries <= u, then the next window unless its last is
+    <= u, else a search of the lasts read in place).
+    Returns (out [B, S_out, D], counts: positions by route, windows staged,
+    windows the runs' pairs cover, pairs loaded after their tile)."""
     b, s = cum.shape
     kw, d = s // _W, values.shape[2]
     k_tiles = u.shape[1] // _T
     ds = d if d <= _STAGE_D else 0
+    lasts = cum[:, _W - 1 :: _W]
+    ptrs, prevs = _pointer_model(cum, u[:, ::_T])
     out = np.empty((b, u.shape[1], d), np.float32)
-    st = dict(stage=0, before=0, past=0, windows=0, cover=0, later=0)
+    st = dict(stage=0, before=0, past=0, past_far=0, windows=0, cover=0,
+              later=0)
     for row in range(b):
         c, v = cum[row], values[row]
         for k0 in range(0, k_tiles, run):
             n = min(run, k_tiles - k0)
-            sp = np.clip(ptrs[row, k0:k0 + n], 0, kw - 2).astype(np.int64)
-            prev = np.where(sp > 0, c[np.maximum(sp * _W - 1, 0)], -np.inf)
+            sp = ptrs[row, k0:k0 + n].astype(np.int64)
+            prev = prevs[row, k0:k0 + n]
             st["cover"] += len(set(sp.tolist()) | set((sp + 1).tolist()))
             tag = np.full(_NS, -1)
             ring_c = np.full((_NS, _W), np.nan, np.float32)
@@ -398,8 +486,11 @@ def _merge_model(cum, lasts, ptrs, u, values, run):
                 w0 = p * _W
                 rank[before] = np.searchsorted(c[:w0], uu[before], "right")
                 for j in np.flatnonzero(past):
-                    w = p + 2 + np.searchsorted(lasts[row, p + 2:], uu[j],
-                                                "right")
+                    w = p + 2  # the next window, unless its last is <= u
+                    if w < kw and lasts[row, w] <= uu[j]:
+                        w = p + 3 + np.searchsorted(lasts[row, p + 3:], uu[j],
+                                                    "right")
+                        st["past_far"] += 1
                     rank[j] = s if w == kw else w * _W + np.searchsorted(
                         c[w * _W:(w + 1) * _W], uu[j], "right")
                 anc = np.minimum(rank, s - 1)
@@ -443,12 +534,10 @@ def test_merge_model_equals_plain_systematic(name, s, d):
     vals = _model_values(s, d, PROFILES.index(name))
     cum = tmerge.norm_cum(_t(w))
     u = tmerge.systematic_positions(_t(u0), s)
-    lasts, ptrs = tmerge.cum_index_plain(cum, u[:, ::_T])
     want = tmerge.srg_plain(_t(u0), cum, _t(vals)).numpy()
     for slots in _SLOTS:
         run = _merge_run(B, s // _T, slots)
-        got, st = _merge_model(cum.numpy(), lasts.numpy(), ptrs.numpy(),
-                               u.numpy(), vals, run)
+        got, st = _merge_model(cum.numpy(), u.numpy(), vals, run)
         np.testing.assert_array_equal(got, want)
         assert st["windows"] == st["cover"] and st["before"] == 0
 
@@ -470,15 +559,13 @@ def test_merge_model_equals_plain_sorted(name, s):
     cum = tmerge.norm_cum(_t(w))
     for s_out in (max(_T, s // 2 // _T * _T), s, 2 * s):
         pos = _sorted_positions(s_out, s_out + PROFILES.index(name))
-        lasts, ptrs = tmerge.cum_index_plain(cum, _t(pos)[:, ::_T])
         u = np.clip(pos, 0.0, tmerge.POS_MAX)
         for d in (1, 5):
             vals = _model_values(s, d, d)
             want = tmerge.spg_plain(cum, _t(pos), _t(vals)).numpy()
             for slots in _SLOTS:
                 run = _merge_run(B, s_out // _T, slots)
-                got, st = _merge_model(cum.numpy(), lasts.numpy(),
-                                       ptrs.numpy(), u, vals, run)
+                got, st = _merge_model(cum.numpy(), u, vals, run)
                 np.testing.assert_array_equal(got, want)
                 assert st["windows"] == st["cover"]
 
@@ -496,23 +583,30 @@ def test_merge_model_fallbacks_and_pointer_jumps():
     cum = tmerge.norm_cum(_t(w))
     pos = _sorted_positions(s, 5)
     pos = np.random.default_rng(6).permuted(pos, axis=1)  # unsorted
-    lasts, ptrs = tmerge.cum_index_plain(cum, _t(pos)[:, ::_T])
     vals = _model_values(s, 3, 7)
     want = tmerge.spg_plain(cum, _t(pos), _t(vals)).numpy()
-    got, st = _merge_model(cum.numpy(), lasts.numpy(), ptrs.numpy(),
-                           np.clip(pos, 0.0, tmerge.POS_MAX), vals,
-                           _merge_run(B, s // _T, 7))
+    got, st = _merge_model(cum.numpy(), np.clip(pos, 0.0, tmerge.POS_MAX),
+                           vals, _merge_run(B, s // _T, 7))
     np.testing.assert_array_equal(got, want)
     assert min(st["before"], st["past"], st["later"], st["stage"]) > 0
+    assert 0 < st["past_far"] < st["past"]  # both past-the-pair routes
     # sorted positions over the same weights: leaps, no position before
     pos = _sorted_positions(s, 8)
-    lasts, ptrs = tmerge.cum_index_plain(cum, _t(pos)[:, ::_T])
-    got, st = _merge_model(cum.numpy(), lasts.numpy(), ptrs.numpy(),
-                           np.clip(pos, 0.0, tmerge.POS_MAX), vals,
-                           _merge_run(B, s // _T, 7))
+    got, st = _merge_model(cum.numpy(), np.clip(pos, 0.0, tmerge.POS_MAX),
+                           vals, _merge_run(B, s // _T, 7))
     np.testing.assert_array_equal(
         got, tmerge.spg_plain(cum, _t(pos), _t(vals)).numpy())
     assert st["later"] > 0 and st["past"] > 0 and st["before"] == 0
+    # positions on the window lasts themselves (ties), over the dead stretch
+    # whose lasts are equal: past the pair, the next window's last ties
+    lasts = cum.numpy()[:, _W - 1 :: _W]
+    rng = np.random.default_rng(9)
+    pos = np.sort(np.stack([rng.choice(r, s) for r in lasts]), axis=1)
+    got, st = _merge_model(cum.numpy(), np.clip(pos, 0.0, tmerge.POS_MAX),
+                           vals, _merge_run(B, s // _T, 7))
+    np.testing.assert_array_equal(
+        got, tmerge.spg_plain(cum, _t(pos), _t(vals)).numpy())
+    assert st["past_far"] > 0
 
 
 # ---------------------------------------------------------------------------

@@ -11,7 +11,10 @@ hand-written CUDA sweep kernels: the unrolled ones (``ops/sweep.py``,
 sampling on the CUDA resampling kernels (``ops/scan.py``,
 ``ops/resample_merge.py``, ``csrc/resample.cu``); KDE log-densities and
 draws on the CUDA KDE kernels (``ops/kde_kernel.py``, ``ops/kde_fused.py``,
-``csrc/kde.cu``). It runs on a CUDA device unless the caller passes
+``csrc/kde.cu``); the exact engines ``categorical_exact`` (enumeration,
+junction tree) and ``gaussian_exact`` (closed-form linear-Gaussian
+conditioning), and per-node CPD handles (``VBN.cpd``), in plain torch on
+the device. It runs on a CUDA device unless the caller passes
 ``device="cpu"``. Importing the package populates the registries; it never
 imports JAX or the JAX package.
 """

@@ -8,18 +8,33 @@ static, host-side spec object; its tensor state is a plain dict of tensors
 Flat primitives that the inference sweep calls on ``[B*S, ...]`` tensors:
   - ``_sample_flat(params, gen, parents2d|None, m) -> [m, Dout]``
   - ``_log_prob_flat(params, x2d, parents2d|None) -> [m]``
+
+and the public ``[B, S, D]`` API over them (``sample``, ``log_prob``,
+``forward``) that ``core/handle.py`` calls.
 """
 
 from __future__ import annotations
 
 from abc import ABC, abstractmethod
 from dataclasses import dataclass, field
-from typing import Any, Dict, Optional
+from typing import Any, Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
 
 Params = Dict[str, torch.Tensor]
+
+
+class CPDOutput(NamedTuple):
+    samples: torch.Tensor  # [B, S, Dx]
+    log_prob: torch.Tensor  # [B, S]
+    pdf: torch.Tensor  # [B, S]
+
+
+def _as_tensor(value, device) -> torch.Tensor:
+    if isinstance(value, torch.Tensor):
+        return value.to(device=device, dtype=torch.float32)
+    return torch.as_tensor(np.asarray(value, np.float32), device=device)
 
 
 @dataclass
@@ -86,6 +101,64 @@ class BaseCPD(ABC):
     ) -> torch.Tensor:
         """x [m, Dout], parents [m, Din] or None -> [m]."""
 
+    # -- public [B, S, D] API -------------------------------------------------
+    def _coerce_parents(self, parents, n_samples: int, device):
+        """Parents as ([B*S, Din] or None, B, S): 1-D and 2-D parents are
+        one row set broadcast over the S samples, 3-D ones [B, S or 1, Din]."""
+        if self.input_dim == 0:
+            if parents is None:
+                return None, 1, n_samples
+            arr = _as_tensor(parents, device)
+            return None, int(arr.shape[0]) if arr.ndim >= 1 else 1, n_samples
+        if parents is None:
+            raise ValueError("parents cannot be None when input_dim > 0")
+        arr = _as_tensor(parents, device)
+        if arr.ndim == 1:
+            arr = arr.reshape(-1, 1)
+        if arr.ndim == 2:
+            arr = arr[:, None, :].expand(-1, n_samples, -1)
+        if arr.ndim != 3:
+            raise ValueError(f"Expected parents 1D/2D/3D, got {tuple(arr.shape)}")
+        if arr.shape[1] != n_samples:
+            if arr.shape[1] != 1:
+                raise ValueError(
+                    f"parents sample axis {arr.shape[1]} != n_samples {n_samples}"
+                )
+            arr = arr.expand(-1, n_samples, -1)
+        if arr.shape[-1] != self.input_dim:
+            raise ValueError(
+                f"Expected parent dim {self.input_dim}, got {arr.shape[-1]}"
+            )
+        b, s, d = arr.shape
+        return arr.reshape(b * s, d), b, s
+
+    def sample(self, params: Params, gen: torch.Generator, parents,
+               n_samples: int) -> torch.Tensor:
+        """[B, S, Dout] draws given parents (see ``_coerce_parents``)."""
+        flat, b, s = self._coerce_parents(parents, n_samples, gen.device)
+        return self._sample_flat(params, gen, flat, b * s).reshape(
+            b, s, self.output_dim)
+
+    def log_prob(self, params: Params, x, parents) -> torch.Tensor:
+        """[B, S] log-densities of x [B, S, Dout] (or [B, Dout], S = 1)."""
+        dev = next(_leaves(params), torch.empty(0)).device
+        arr = _as_tensor(x, dev)
+        if arr.ndim <= 2:
+            arr = (arr.reshape(1, 1) if arr.ndim == 0 else
+                   arr.reshape(-1, 1) if arr.ndim == 1 else arr)[:, None, :]
+        b, s, d = arr.shape
+        if d != self.output_dim:
+            raise ValueError(f"Expected x dim {self.output_dim}, got {d}")
+        flat, _, _ = self._coerce_parents(parents, s, dev)
+        return self._log_prob_flat(params, arr.reshape(b * s, d), flat
+                                   ).reshape(b, s)
+
+    def forward(self, params: Params, gen: torch.Generator, parents,
+                n_samples: int) -> CPDOutput:
+        samples = self.sample(params, gen, parents, n_samples)
+        log_prob = self.log_prob(params, samples, parents)
+        return CPDOutput(samples, log_prob, torch.exp(log_prob))
+
     def get_init_kwargs(self) -> Dict[str, Any]:
         return {}
 
@@ -94,3 +167,15 @@ class BaseCPD(ABC):
 
     def set_extra_state(self, state: Optional[Dict[str, Any]]) -> None:
         return None
+
+
+def _leaves(tree):
+    """The tensors of a nested dict/list of params, depth first."""
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _leaves(v)
+    elif tree is not None:
+        yield tree

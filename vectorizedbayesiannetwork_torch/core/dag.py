@@ -13,7 +13,7 @@ networkx's order, which fixes the mixed-radix layout of categorical CPTs.
 
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from typing import Dict, List, Set, Tuple
 
 
 def _read_graph(graph):
@@ -80,6 +80,16 @@ class StaticDAG:
         self._topo: Tuple[str, ...] = tuple(topo)
         self._parents = {n: tuple(parents[n]) for n in topo}
         self._children = {n: tuple(children[n]) for n in topo}
+        level: Dict[str, int] = {}
+        for node in topo:
+            level[node] = 1 + max((level[p] for p in self._parents[node]),
+                                  default=-1)
+        levels: List[List[str]] = [[] for _ in range(1 + max(level.values(),
+                                                             default=0))]
+        for node in topo:
+            levels[level[node]].append(node)
+        self._levels = tuple(tuple(lv) for lv in levels)
+        self._level_of = level
 
     def nodes(self) -> Tuple[str, ...]:
         return self._topo
@@ -91,11 +101,37 @@ class StaticDAG:
     def topological_order(self) -> Tuple[str, ...]:
         return self._topo
 
+    def topological_levels(self) -> Tuple[Tuple[str, ...], ...]:
+        """Maximal antichains in topological order: level(n) = 1 + the
+        deepest level of n's parents, roots 0."""
+        return self._levels
+
     def parents(self, node: str) -> Tuple[str, ...]:
         return self._parents[node]
 
     def children(self, node: str) -> Tuple[str, ...]:
         return self._children[node]
+
+    def level_of(self, node: str) -> int:
+        return self._level_of[node]
+
+    def _reach(self, node: str, step: Dict[str, Tuple[str, ...]]) -> Set[str]:
+        seen: Set[str] = set()
+        stack = list(step[node])
+        while stack:
+            n = stack.pop()
+            if n not in seen:
+                seen.add(n)
+                stack.extend(step[n])
+        return seen
+
+    def descendants(self, node: str) -> Set[str]:
+        """Every node reachable from ``node`` (itself excluded)."""
+        return self._reach(node, self._children)
+
+    def ancestors(self, node: str) -> Set[str]:
+        """Every node from which ``node`` is reachable (itself excluded)."""
+        return self._reach(node, self._parents)
 
     def __contains__(self, node: str) -> bool:
         return node in self._parents

@@ -1,8 +1,8 @@
 """Component registries, populated by decorators (duplicate keys refused).
 
 Same surface as ``vectorizedbayesiannetwork_tpu/core/registry.py`` for the
-components this port has: two CPD families, one learner and four inference
-methods are registered; the sampling and update registries come with their
+components this port has: three CPD families, one learner and six
+inference methods are registered; the sampling and update registries come with their
 slices.
 """
 

@@ -37,17 +37,27 @@
 // Bound: bytes (one read and one write of the row); the second pass reads
 // the row again, mostly from L2 (RIS's 33.5 MB fits the 50 MB).
 //
-// vbn_cum_index: the search index of the merge kernels. The TPU kernel
-// builds, per 512-entry window of the CDF, a header (supercolumn lasts,
-// the CDF transposed to 8 sublanes, column lasts) and a transposed copy of
-// the values, because its vector unit resolves a rank with in-register lane
+// The merge's tile pointers. The TPU kernel _prebuild_kernel builds, per
+// 512-entry window of the CDF, a header (supercolumn lasts, the CDF
+// transposed to 8 sublanes, column lasts) and a transposed copy of the
+// values, because its vector unit resolves a rank with in-register lane
 // gathers of 8 candidates. A CUDA thread indexes shared memory directly, so
-// the Hopper merge needs neither the transposed CDF nor the transposed
-// values: this kernel writes only each window's last CDF entry
-// (lasts [B, S/512]) and each output tile's window pointer
-// (ptrs [B, K] = min(#{w : lasts[w] <= q_k}, S/512 - 2), the
-// _window_pointers of resample_pallas.py:83), one thread per entry, the
-// pointer by binary search over the lasts (the CDF is nondecreasing).
+// the Hopper merge needs neither; what it needs of an index is each output
+// tile's window pointer, min(#{w : lasts[w] <= q_k}, S/512 - 2) (the
+// _window_pointers of resample_pallas.py:83), where lasts[w] = c[w*512 + 511]
+// and q_k is the tile's first position. merge_kernel derives its run's
+// pointers itself, at the run's start, with run_pointers: the block stages
+// a coarse sample of the lasts (every G-th, G = max(16, ceil(kw / 2048)))
+// into shared memory in one round trip; each thread counts the coarse
+// entries <= q by a shared-memory search, which puts its count in a bracket
+// of G - 1 lasts, and counts those, loaded together from the CDF in place
+// (a second round trip). The same count yields c[p*512 - 1], the CDF entry
+// before the pair (a load only where the pointer is clamped). A pointer is
+// a hint: the merge is exact for any pointer (below). vbn_cum_index is the
+// routine's own entry point (cum_index_kernel calls run_pointers on runs of
+// 128 queries): it writes the lasts and the pointers of any queries, so the
+// routine is held bit for bit against its plain version; the served path
+// does not launch it.
 //
 // vbn_srg / vbn_spg: one template, merge_kernel<SYS, DS>. The function:
 // each output position u (systematic: (k*512 + lane) * (1/S) + u0 * (1/S),
@@ -59,7 +69,8 @@
 // loads per tile (pointer, window, search, values) makes a naive design
 // latency-bound instead, so the design keeps loads in flight:
 // - Runs: a block of MT = 128 threads owns a run of consecutive output
-//   tiles (512 positions each) of one row. The grid is sized once per
+//   tiles (512 positions each) of one row, and derives the run's tile
+//   pointers at its start (run_pointers, above). The grid is sized once per
 //   process and device from the SM count and the kernel's occupancy, so
 //   the runs fill the card in one wave (at most RUN_MAX tiles a run); a
 //   run never crosses rows, and the last run of a row may be shorter.
@@ -74,9 +85,13 @@
 //   so positions need not be sorted; neighbouring threads search
 //   neighbouring entries, so the searches meet few bank conflicts. A position below the window before
 //   the pair (c[p*512 - 1], read once per tile at the run's start) takes a
-//   binary search of the CDF in global memory; one past the pair, a search
-//   of the window lasts and then inside one window: the count is exact for
-//   any position and any pointer (pointers are clamped to [0, S/512 - 2]).
+//   binary search of the CDF in global memory; one past the pair, the
+//   window just past it when its last (read in place, c[w*512 + 511])
+//   exceeds the position, else a search of the lasts, and then a search
+//   inside the window: the count is exact for any position and any pointer
+//   (pointers are clamped to [0, S/512 - 2]). Positions past the pair are
+//   rare, but a search of the lasts holds its warp for 11 dependent loads;
+//   most land in the next window, where one load settles them.
 // - Staged values: the gather reads shared memory and consecutive threads
 //   store consecutive positions. Wider D stages the ancestors instead
 //   and copies the values with consecutive threads on consecutive output
@@ -96,7 +111,6 @@ constexpr int CS_THREADS = 1024;  // vbn_cumsum threads per block
 constexpr int CS_ITEMS = 8;       // entries per thread per chunk
 constexpr int CS_WARPS = CS_THREADS / 32;
 constexpr int CS_TILE = CS_THREADS * CS_ITEMS;  // vbn_cumsum entries per tile
-constexpr int IDX_THREADS = 256;
 constexpr float POS_MAX = 0.99999994039535522f;  // 1 - 2^-24
 constexpr int MT = 128;          // merge threads a block
 constexpr int PPT = T / MT;      // merge positions a thread
@@ -104,6 +118,8 @@ constexpr int NS = 4;            // merge ring: shared windows a block
 constexpr int RUN_MAX = MT;      // merge tiles a run (one pointer a thread)
 constexpr int STAGE_D = 4;       // widest D whose values the ring stages
 constexpr int MAX_DEVICES = 64;  // devices whose merge grid is cached
+constexpr int CG = 16;           // least windows per coarse entry
+constexpr int C_MAX = NS * W;    // most coarse entries (the ring's CDF slots)
 static_assert(T == W && T % MT == 0, "a tile is PPT rounds of MT positions");
 static_assert((NS & (NS - 1)) == 0, "slot = window & (NS - 1)");
 
@@ -123,6 +139,78 @@ __device__ __forceinline__ long long upper_bound(const float* __restrict__ a,
       hi = mid;
   }
   return lo;
+}
+
+// #{w in [lo, hi) : c[w*W + W-1] <= u} + lo: the window lasts, read in place.
+// Not inlined: the merge takes it rarely, and inlined into its four
+// positions' fallbacks it spilled merge_kernel<0,1> at 64 registers.
+__device__ __noinline__ int upper_bound_lasts(const float* __restrict__ c,
+                                              int lo, int hi, float u) {
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (c[(size_t)mid * W + (W - 1)] <= u)
+      lo = mid + 1;
+    else
+      hi = mid;
+  }
+  return lo;
+}
+
+// Windows per coarse entry for kw windows: at least CG, and at most C_MAX
+// entries (kw / g of them, whole groups only).
+__device__ __forceinline__ int coarse_stride(int kw) {
+  return max(CG, (kw + C_MAX - 1) / C_MAX);
+}
+
+// The window pointers of a block's run of n <= MT positions (thread t < n
+// holds head t, clamped): s_ptr[t] = min(#{w : lasts[w] <= head}, kw - 2)
+// and s_prev[t] = c[s_ptr[t]*W - 1] (-inf for 0), where lasts[w] =
+// c[w*W + W-1] is read in place. Every thread of the block calls it. The
+// block stages a coarse sample of the lasts, entry m the last of window
+// m*g + g - 1 (m < kw / g), into s_coarse (one round trip); each thread
+// t < n counts the entries <= its head by bisection, cm, which puts its
+// count in [cm*g, cm*g + g - 1] (the lasts are nondecreasing), and counts
+// that bracket's lasts, loaded together CG - 1 at a time (a second round
+// trip); the largest last <= head is lasts[count - 1]. It ends in a
+// barrier, after which s_coarse may be reused.
+__device__ __forceinline__ void run_pointers(const float* __restrict__ c,
+                                             int kw, float head, int t, int n,
+                                             float* s_coarse, int32_t* s_ptr,
+                                             float* s_prev) {
+  const int g = coarse_stride(kw), nc = kw / g;
+  for (int m = t; m < nc; m += MT)
+    s_coarse[m] = c[((size_t)m * g + g - 1) * W + (W - 1)];
+  __syncthreads();
+  if (t < n) {
+    int cm = 0, hi = nc;
+    while (cm < hi) {
+      const int mid = (cm + hi) >> 1;
+      if (s_coarse[mid] <= head)
+        cm = mid + 1;
+      else
+        hi = mid;
+    }
+    float last = cm > 0 ? s_coarse[cm - 1] : -INFINITY;
+    const int w0 = cm * g, w1 = min(w0 + g - 1, kw);
+    int count = w0;
+    for (int base = w0; base < w1; base += CG - 1) {
+      float l[CG - 1];
+#pragma unroll
+      for (int i = 0; i < CG - 1; ++i)
+        l[i] = base + i < w1 ? c[(size_t)(base + i) * W + (W - 1)] : INFINITY;
+#pragma unroll
+      for (int i = 0; i < CG - 1; ++i)
+        if (l[i] <= head) {
+          ++count;
+          last = l[i];
+        }
+    }
+    const int p = min(count, kw - 2);
+    if (p < count) last = p > 0 ? c[(size_t)p * W - 1] : -INFINITY;
+    s_ptr[t] = p;
+    s_prev[t] = last;
+  }
+  __syncthreads();
 }
 
 // Exclusive scan by warp 0 of the CS_ITEMS * CS_WARPS block partials in
@@ -305,26 +393,25 @@ cumsum_kernel(const float* __restrict__ x, float* __restrict__ out,
   }
 }
 
-__global__ void __launch_bounds__(IDX_THREADS)
+// vbn_cum_index: block x of row y writes lasts[w] and the pointers of
+// queries i, for w, i in [x*MT, x*MT + MT), the queries taken as a merge
+// block takes its run's tile heads (run_pointers).
+__global__ void __launch_bounds__(MT)
 cum_index_kernel(const float* __restrict__ cum, long long s, int kw,
                  const float* __restrict__ q, long long q_row,
                  long long q_col, int k, float* __restrict__ lasts,
                  int32_t* __restrict__ ptrs) {
-  const int b = blockIdx.y;
-  const int i = blockIdx.x * IDX_THREADS + threadIdx.x;
+  __shared__ float s_coarse[C_MAX];
+  __shared__ int32_t s_ptr[MT];
+  __shared__ float s_prev[MT];
+  const int b = blockIdx.y, t = threadIdx.x;
+  const int i = blockIdx.x * MT + t, n = min(MT, k - blockIdx.x * MT);
   const float* c = cum + (size_t)b * (size_t)s;
+  const float head =
+      t < n ? clamp_pos(q[(size_t)b * q_row + (size_t)i * q_col]) : 0.f;
+  run_pointers(c, kw, head, t, n, s_coarse, s_ptr, s_prev);
   if (i < kw) lasts[(size_t)b * kw + i] = c[(size_t)i * W + (W - 1)];
-  if (i >= k) return;
-  const float u = clamp_pos(q[(size_t)b * q_row + (size_t)i * q_col]);
-  int lo = 0, hi = kw;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (c[(size_t)mid * W + (W - 1)] <= u)
-      lo = mid + 1;
-    else
-      hi = mid;
-  }
-  ptrs[(size_t)b * k + i] = min(lo, kw - 2);
+  if (t < n) ptrs[(size_t)b * k + i] = s_ptr[t];
 }
 
 // 16 bytes global -> shared, asynchronous (cp.async.cg: L2 only).
@@ -365,7 +452,6 @@ __device__ __forceinline__ void stage_window(const float* c, const float* vb,
 template <bool SYS, int DS>
 __global__ void __launch_bounds__(MT, DS >= 3 ? 6 : 8)
 merge_kernel(const float* __restrict__ cum, long long s, int kw,
-             const float* __restrict__ lasts, const int32_t* __restrict__ ptrs,
              int k_tiles, int run, const float* __restrict__ u0, float inv_s,
              const float* __restrict__ pos, long long n_out,
              const float* __restrict__ values, int d,
@@ -382,26 +468,27 @@ merge_kernel(const float* __restrict__ cum, long long s, int kw,
   const int dd = DS > 0 ? DS : d;
   const float* c = cum + (size_t)b * (size_t)s;
   const float* vb = values + (size_t)b * (size_t)s * dd;
-  if (t < n)
-    s_ptr[t] = min(max(ptrs[(size_t)b * k_tiles + k0 + t], 0), kw - 2);
-  __syncthreads();
+  const float* pr = SYS ? nullptr : pos + (size_t)b * (size_t)n_out + t;
+  float next[PPT];
+  float u0s = 0.f;
+  float head = 0.f;  // thread t < n: tile k0 + t's first position
+  if (SYS) {
+    u0s = __fmul_rn(u0[b], inv_s);
+    head = fminf(__fadd_rn(__fmul_rn((float)((k0 + t) * T), inv_s), u0s),
+                 POS_MAX);
+  } else {  // the positions of the run's first tile; each tile loads the next's
+#pragma unroll
+    for (int j = 0; j < PPT; ++j) next[j] = pr[(size_t)k0 * T + MT * j];
+    if (t < n) head = clamp_pos(pos[(size_t)b * (size_t)n_out +
+                                    (size_t)(k0 + t) * T]);
+  }
+  // The run's tile pointers; the coarse sample lives in the ring's CDF
+  // slots until the first stage.
+  run_pointers(c, kw, head, t, n, s_cum, s_ptr, s_prev);
   int p = s_ptr[0];
   stage_window<DS>(c, vb, p, s_cum, s_val, t);
   stage_window<DS>(c, vb, p + 1, s_cum, s_val, t);
   cp_async_commit();
-  if (t < n) {  // the CDF entry before each tile's pair
-    const long long w0 = (long long)s_ptr[t] * W;
-    s_prev[t] = w0 > 0 ? c[w0 - 1] : -INFINITY;
-  }
-  const float* pr = SYS ? nullptr : pos + (size_t)b * (size_t)n_out + t;
-  float next[PPT];
-  float u0s = 0.f;
-  if (SYS) {
-    u0s = __fmul_rn(u0[b], inv_s);
-  } else {  // the positions of the run's first tile; each tile loads the next's
-#pragma unroll
-    for (int j = 0; j < PPT; ++j) next[j] = pr[(size_t)k0 * T + MT * j];
-  }
   for (int r = 0; r < n; ++r) {
     const int k = k0 + r;
     float u[PPT];
@@ -463,10 +550,13 @@ merge_kernel(const float* __restrict__ cum, long long s, int kw,
       } else if (lo < 2 * W) {
         rank = w0 + lo;
         loc[j] = lo;
-      } else {  // past the pair: the window by its last entry, then the entry
-        const float* lr = lasts + (size_t)b * kw;
-        const long long w = upper_bound(lr, p + 2, kw, u[j]);
-        rank = w == kw ? s : upper_bound(c, w * W, w * W + W, u[j]);
+      } else {  // past the pair: the window by its last entry (most often
+                // the next one: one load), then the entry
+        int w = p + 2;
+        if (w < kw && c[(size_t)w * W + (W - 1)] <= u[j])
+          w = upper_bound_lasts(c, p + 3, kw, u[j]);
+        const long long e = (long long)w * W;
+        rank = w == kw ? s : upper_bound(c, e, e + W, u[j]);
       }
       anc[j] = rank < s ? rank : s - 1;
     }
@@ -514,7 +604,6 @@ constexpr size_t merge_smem(int ds) {
 // process and device: runs of ceil(tiles / slots) tiles, at most RUN_MAX.
 template <bool SYS, int DS>
 cudaError_t launch_merge(const float* cum, int b, long long s_in,
-                         const float* lasts, const int32_t* ptrs,
                          const float* u0, float inv_s, const float* pos,
                          long long s_out, const float* values, int d,
                          float* out, cudaStream_t st, int* grid_out) {
@@ -549,31 +638,30 @@ cudaError_t launch_merge(const float* cum, int b, long long s_in,
     grid_out[2] = slots;
     return cudaSuccess;
   }
-  kernel<<<dim3(runs, b), MT, smem, st>>>(cum, s_in, (int)(s_in / W), lasts,
-                                         ptrs, k_tiles, (int)run, u0, inv_s,
-                                         pos, s_out, values, d, out);
+  kernel<<<dim3(runs, b), MT, smem, st>>>(cum, s_in, (int)(s_in / W), k_tiles,
+                                         (int)run, u0, inv_s, pos, s_out,
+                                         values, d, out);
   return cudaGetLastError();
 }
 
 template <bool SYS>
 cudaError_t merge_by_d(const float* cum, int b, long long s_in,
-                       const float* lasts, const int32_t* ptrs,
                        const float* u0, float inv_s, const float* pos,
                        long long s_out, const float* values, int d, float* out,
                        cudaStream_t st, int* grid_out) {
   switch (d) {
 #define VBN_MERGE_CASE(DS)                                                   \
   case DS:                                                                   \
-    return launch_merge<SYS, DS>(cum, b, s_in, lasts, ptrs, u0, inv_s, pos, \
-                                 s_out, values, d, out, st, grid_out);
+    return launch_merge<SYS, DS>(cum, b, s_in, u0, inv_s, pos, s_out, values, \
+                                 d, out, st, grid_out);
     VBN_MERGE_CASE(1)
     VBN_MERGE_CASE(2)
     VBN_MERGE_CASE(3)
     VBN_MERGE_CASE(4)
 #undef VBN_MERGE_CASE
     default:
-      return launch_merge<SYS, 0>(cum, b, s_in, lasts, ptrs, u0, inv_s, pos,
-                                  s_out, values, d, out, st, grid_out);
+      return launch_merge<SYS, 0>(cum, b, s_in, u0, inv_s, pos, s_out, values,
+                                  d, out, st, grid_out);
   }
 }
 static_assert(STAGE_D == 4, "merge_by_d stages D = 1..4");
@@ -609,25 +697,24 @@ int vbn_cum_index(const float* cum, int b, long long s, const float* q,
                   int32_t* ptrs, void* stream) {
   const int kw = (int)(s / W);
   const int n = kw > k ? kw : k;
-  dim3 grid((n + IDX_THREADS - 1) / IDX_THREADS, b);
-  cum_index_kernel<<<grid, IDX_THREADS, 0, (cudaStream_t)stream>>>(
+  dim3 grid((n + MT - 1) / MT, b);
+  cum_index_kernel<<<grid, MT, 0, (cudaStream_t)stream>>>(
       cum, s, kw, q, q_row, q_col, k, lasts, ptrs);
   return (int)cudaGetLastError();
 }
 
-int vbn_srg(const float* cum, int b, long long s, const float* lasts,
-            const int32_t* ptrs, const float* u0, float inv_s,
-            const float* values, int d, float* out, void* stream) {
-  return (int)merge_by_d<true>(cum, b, s, lasts, ptrs, u0, inv_s, nullptr, s,
-                               values, d, out, (cudaStream_t)stream, nullptr);
+int vbn_srg(const float* cum, int b, long long s, const float* u0,
+            float inv_s, const float* values, int d, float* out,
+            void* stream) {
+  return (int)merge_by_d<true>(cum, b, s, u0, inv_s, nullptr, s, values, d,
+                               out, (cudaStream_t)stream, nullptr);
 }
 
-int vbn_spg(const float* cum, int b, long long s_in, const float* lasts,
-            const int32_t* ptrs, const float* pos, long long s_out,
-            const float* values, int d, float* out, void* stream) {
-  return (int)merge_by_d<false>(cum, b, s_in, lasts, ptrs, nullptr, 0.f, pos,
-                                s_out, values, d, out, (cudaStream_t)stream,
-                                nullptr);
+int vbn_spg(const float* cum, int b, long long s_in, const float* pos,
+            long long s_out, const float* values, int d, float* out,
+            void* stream) {
+  return (int)merge_by_d<false>(cum, b, s_in, nullptr, 0.f, pos, s_out,
+                                values, d, out, (cudaStream_t)stream, nullptr);
 }
 
 // The merge's grid for B rows of S_out positions and D columns, as
@@ -635,12 +722,12 @@ int vbn_spg(const float* cum, int b, long long s_in, const float* lasts,
 // run, grid[2] the card's block slots (SMs x blocks an SM). Launches
 // nothing.
 int vbn_merge_grid(int b, long long s_out, int d, int sys, int* grid) {
-  return (int)(sys ? merge_by_d<true>(nullptr, b, s_out, nullptr, nullptr,
-                                      nullptr, 0.f, nullptr, s_out, nullptr,
-                                      d, nullptr, 0, grid)
-                   : merge_by_d<false>(nullptr, b, s_out, nullptr, nullptr,
-                                       nullptr, 0.f, nullptr, s_out, nullptr,
-                                       d, nullptr, 0, grid));
+  return (int)(sys ? merge_by_d<true>(nullptr, b, s_out, nullptr, 0.f,
+                                      nullptr, s_out, nullptr, d, nullptr, 0,
+                                      grid)
+                   : merge_by_d<false>(nullptr, b, s_out, nullptr, 0.f,
+                                       nullptr, s_out, nullptr, d, nullptr, 0,
+                                       grid));
 }
 
 }  // extern "C"

@@ -61,6 +61,11 @@ _CATALOG: Dict[str, Dict[str, Dict]] = {
             "clamp_obs": True,
         },
         "importance_sampling": {"n_samples": 1024},
+        "gaussian_exact": {
+            "n_samples": 512, "stddevs": 4.0, "min_scale": 1e-6,
+            "fallback": "likelihood_weighting",
+        },
+        "categorical_exact": {"fallback": "likelihood_weighting"},
     },
 }
 

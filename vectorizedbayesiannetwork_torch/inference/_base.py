@@ -10,7 +10,7 @@ here runs the programs one after the other, and the mask-dynamic methods
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, List, Optional, Sequence, Tuple, Union
+from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -35,6 +35,17 @@ class Program:
 
 
 class Method:
+    def _built(self, vbn, plan: InferencePlan, tag: Tuple,
+               build: Callable[[], Callable]) -> Callable:
+        """``build()``'s function, made once per (plan, CPD signatures,
+        tag)."""
+        cache: Dict[Tuple, Callable] = self.__dict__.setdefault("_fn_cache", {})
+        key = (plan, tuple(vbn.cpd_spec(n).static_signature()
+                           for n in plan.topo_order)) + tuple(tag)
+        if key not in cache:
+            cache[key] = build()
+        return cache[key]
+
     def make_program(self, vbn, query: Query, **kwargs) -> Optional[Program]:
         return None
 

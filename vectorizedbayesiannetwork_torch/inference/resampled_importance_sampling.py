@@ -10,8 +10,8 @@ not" decision is a per-row ``where`` select between resampled and original
 particles, so nothing waits on the host mid-sweep.
 
 Each resampling event runs the merge path of ``ops/resample_merge.py``
-(one ``vbn_cumsum``, one ``vbn_cum_index`` and one ``vbn_srg`` launch on
-the card; multinomial: two cumsums and ``vbn_spg``) where
+(one ``vbn_cumsum`` and one ``vbn_srg`` launch on the card; multinomial:
+two cumsums and ``vbn_spg``) where
 ``srg_supported`` admits the shape, else the index form of
 ``ops/resample.py``. Node draws come from the call's ``torch.Generator``;
 each resampling event draws from its own sub-stream,

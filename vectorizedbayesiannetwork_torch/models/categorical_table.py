@@ -5,7 +5,8 @@ declared-or-inferred parent/class supports (resolved on the host at fit
 time into static spec state), mixed-radix parent indexing, counts by one
 scatter-add with ``alpha_mode`` in {per_class, total_mass} and ``prior`` in
 {uniform, global}, class-mask padding for ragged supports, and inverse-CDF
-sampling over the count rows.
+sampling over the count rows. ``categorical_probs`` and ``support_values``
+are the protocol the exact engines and ``core/handle.py`` read.
 """
 
 from __future__ import annotations
@@ -275,6 +276,23 @@ class CategoricalTableCPD(BaseCPD):
         if pidx is None:
             return cnt[0].expand(m, cnt.shape[1])
         return cnt[torch.clamp(pidx, max=cnt.shape[0] - 1)]
+
+    def categorical_probs(self, params: Params, parents) -> torch.Tensor:
+        """Class probabilities given flat parents [M, Din] (None for a root:
+        M = 1): [M, C] for one output column, else [M, Dout, C]; each
+        probability floored at 1e-12 as the log-density floors it."""
+        m = 1 if parents is None else parents.shape[0]
+        pidx = self._parents_to_index(params, parents, m)
+        rows = torch.stack(
+            [self._rows(params, pidx, d, m) for d in range(self.output_dim)], 1
+        )  # [M, Dout, C]
+        probs = rows / torch.clamp(rows.sum(-1, keepdim=True), min=1e-12)
+        probs = torch.exp(torch.log(torch.clamp(probs, min=1e-12)))
+        return probs[:, 0] if self.output_dim == 1 else probs
+
+    def support_values(self, params: Params) -> torch.Tensor:
+        """[Dout, C] class values (the exact engines' support grid)."""
+        return params["class_values"]
 
     def _sample_flat(self, params, gen, parents, m):
         """Inverse-CDF draw: class = #{j >= 1 : cum_{j-1} <= u * total}."""

@@ -5,6 +5,8 @@ closed-form ridge fit by augmented least squares, ``min_scale`` floor at
 evaluation time, reparameterized sampling and the diagonal Gaussian
 log-density. The solve runs in float64 on the params' device and the
 params are stored in float32, as the JAX package keeps them.
+``conditional_params`` is the protocol ``gaussian_exact`` and
+``core/handle.py`` read.
 """
 
 from __future__ import annotations
@@ -116,3 +118,10 @@ class LinearGaussianCPD(BaseCPD):
         loc = self._loc(params, parents, x.shape[0])
         scale = self._scale(params).expand_as(loc)
         return diag_gaussian_log_prob(x, loc, scale)
+
+    def conditional_params(self, params: Params, parents):
+        """(loc, scale), each [M, Dout], of the conditional Gaussian given
+        flat parents [M, Din] (None for a root: M = 1)."""
+        m = 1 if parents is None else parents.shape[0]
+        loc = self._loc(params, parents, m)
+        return loc, self._scale(params).expand_as(loc)

@@ -7,41 +7,46 @@ nondecreasing in ``j``: ancestor = ``searchsorted(cum, u_j, 'right')``,
 with ``u_j`` clamped to ``1 - 2^-24`` so it always lands on a real
 particle. Multinomial resampling rides the same merge with sorted uniform
 order statistics (normalized partial sums of S+1 Exp(1) draws). Per
-resampling event the path launches three hand-written CUDA kernels
+resampling event the path launches one hand-written CUDA merge kernel
 (``csrc/resample.cu``), besides the cumsum of ``ops/scan.py``:
 
-- ``vbn_cum_index`` replaces ``resample_pallas.py:250 _prebuild_kernel``.
-  The TPU kernel builds, per 512-entry window, a search header and a copy
-  of the values transposed to 8 sublanes, because the TPU's vector unit
-  resolves a rank by in-register lane gathers of 8 candidates at a time.
-  A CUDA thread indexes shared memory directly, so the Hopper merge needs
-  no transposed CDF and no transposed values: ``vbn_cum_index`` writes only
-  each window's last CDF entry (``lasts [B, S/512]``) and each output
-  tile's window pointer (``ptrs [B, K]``, the ``_window_pointers`` of
-  ``resample_pallas.py:83``).
 - ``vbn_srg`` replaces ``resample_pallas.py:472 _srg_kernel`` (systematic
   positions computed in the kernel, in the JAX float32 order);
 - ``vbn_spg`` replaces ``resample_pallas.py:531 _spg_kernel`` (positions
   read from ``pos``; S_out may differ from S_in).
 
+``resample_pallas.py:250 _prebuild_kernel`` builds, per 512-entry window,
+a search header and a copy of the values transposed to 8 sublanes, because
+the TPU's vector unit resolves a rank by in-register lane gathers of 8
+candidates at a time. A CUDA thread indexes shared memory directly, so the
+Hopper merge needs no transposed CDF and no transposed values, only each
+output tile's window pointer (``_window_pointers`` of
+``resample_pallas.py:83``), and it derives those itself at each run's
+start from a coarse sample of the window lasts (``tile_pointer`` in
+``csrc/resample.cu``). ``vbn_cum_index`` is that routine's own entry
+point, launched only to hold it against ``cum_index_plain``: it writes
+each window's last CDF entry (``lasts [B, S/512]``) and each query's
+window pointer (``ptrs [B, K]``).
+
 All three are bound by bytes. ``vbn_srg`` and ``vbn_spg`` are one
 template, ``merge_kernel``, built against the latency of its chain of
-dependent loads (pointer, CDF window, search, values): a block owns a run
+dependent loads (pointers, CDF window, search, values): a block owns a run
 of consecutive tiles of one row (the grid sized from the SM count, one
-wave), stages the CDF windows (and, for D <= 4, their values) in a ring of
-four shared windows with ``cp.async``, prefetching the next tile's windows
-while it resolves the current one, so a run reads each window once; each
-thread resolves four positions by their own searches of the staged pair,
-and a position outside the pair takes an exact search in global memory
-(the source note of ``csrc/resample.cu`` has the details,
-``tests/test_torch_resample.py`` a numpy model of the schedule). The
-wrappers (``cum_index``, ``srg``, ``spg``, and ``cumsum_rows`` of
-``ops/scan.py``) launch their kernel for CUDA tensors and raise on what
-it does not take; for CPU tensors they run the plain versions
-(``cum_index_plain``, ``srg_plain``, ``spg_plain``), which compute the
-same function in torch ops (``torch.searchsorted`` and a gather, the
-``_xla`` references of the JAX module). ``LAUNCHES`` (``ops/sweep.py``)
-counts ``"cumsum"``, ``"cum_index"``, ``"srg"`` and ``"spg"``.
+wave), derives the run's pointers, stages the CDF windows (and, for
+D <= 4, their values) in a ring of four shared windows with ``cp.async``,
+prefetching the next tile's windows while it resolves the current one, so
+a run reads each window once; each thread resolves four positions by their
+own searches of the staged pair, and a position outside the pair takes an
+exact search in global memory (the source note of ``csrc/resample.cu`` has
+the details, ``tests/test_torch_resample.py`` a numpy model of the
+pointers and the schedule). The wrappers (``cum_index``, ``srg``, ``spg``,
+and ``cumsum_rows`` of ``ops/scan.py``) launch their kernel for CUDA
+tensors and raise on what it does not take; for CPU tensors they run the
+plain versions (``cum_index_plain``, ``srg_plain``, ``spg_plain``), which
+compute the same function in torch ops (``torch.searchsorted`` and a
+gather, the ``_xla`` references of the JAX module). ``LAUNCHES``
+(``ops/sweep.py``) counts ``"cumsum"``, ``"cum_index"``, ``"srg"`` and
+``"spg"``.
 
 ``norm_cum`` departs from the JAX ``_norm_cum`` in one point. For
 S <= 2^20 the JAX function rounds the normalized weights to multiples of
@@ -68,7 +73,7 @@ ROADMAP queue 1 item 14).
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional
 
 import numpy as np
 import torch
@@ -207,26 +212,19 @@ def merge_grid(b: int, s_out: int, d: int, systematic: bool = True):
     return tuple(grid)
 
 
-def _check_index(index, b, s, k):
-    lasts, ptrs = index
-    _check(lasts, "lasts", torch.float32, (b, s // W))
-    _check(ptrs, "ptrs", torch.int32, (b, k))
-
-
-def _launch_srg(u0, cum, values, index):
+def _launch_srg(u0, cum, values):
     b, s = cum.shape
     d = values.shape[-1]
     _need_gate(s, d)
     _check(cum, "cum", torch.float32, (b, s))
     _check(values, "values", torch.float32, (b, s, d))
     _check(u0, "u0", torch.float32, (b, 1))
-    _check_index(index, b, s, s // T)
     cum, values = _aligned(cum), _aligned(values)
     out = torch.empty_like(values)
     with torch.cuda.device(cum.device):
         rc = _lib().vbn_srg(
-            cum.data_ptr(), b, s, index[0].data_ptr(), index[1].data_ptr(),
-            u0.data_ptr(), float(np.float32(1.0 / s)), values.data_ptr(), d,
+            cum.data_ptr(), b, s, u0.data_ptr(), float(np.float32(1.0 / s)),
+            values.data_ptr(), d,
             out.data_ptr(), torch.cuda.current_stream().cuda_stream,
         )
     if rc != 0:
@@ -235,7 +233,7 @@ def _launch_srg(u0, cum, values, index):
     return out
 
 
-def _launch_spg(cum, pos, values, index):
+def _launch_spg(cum, pos, values):
     b, s_in = cum.shape
     s_out, d = pos.shape[1], values.shape[-1]
     _need_gate(s_in, d)
@@ -245,13 +243,12 @@ def _launch_spg(cum, pos, values, index):
     _check(cum, "cum", torch.float32, (b, s_in))
     _check(pos, "pos", torch.float32, (b, s_out))
     _check(values, "values", torch.float32, (b, s_in, d))
-    _check_index(index, b, s_in, s_out // T)
     cum, values = _aligned(cum), _aligned(values)
     out = torch.empty((b, s_out, d), dtype=torch.float32, device=cum.device)
     with torch.cuda.device(cum.device):
         rc = _lib().vbn_spg(
-            cum.data_ptr(), b, s_in, index[0].data_ptr(), index[1].data_ptr(),
-            pos.data_ptr(), s_out, values.data_ptr(), d, out.data_ptr(),
+            cum.data_ptr(), b, s_in, pos.data_ptr(), s_out, values.data_ptr(),
+            d, out.data_ptr(),
             torch.cuda.current_stream().cuda_stream,
         )
     if rc != 0:
@@ -266,26 +263,27 @@ def _launch_spg(cum, pos, values, index):
 
 
 def cum_index(cum: torch.Tensor, queries: torch.Tensor):
-    """(lasts [B, S/W], ptrs [B, K]): ``vbn_cum_index`` or
-    ``cum_index_plain``. ``queries`` may be a strided view."""
+    """(lasts [B, S/W], ptrs [B, K]): ``vbn_cum_index`` (the merge's
+    pointer routine on its own) or ``cum_index_plain``. ``queries`` may be
+    a strided view."""
     if cum.is_cuda:
         return _launch_cum_index(cum, queries)
     return cum_index_plain(cum, queries)
 
 
-def srg(u0, cum, values, index: Tuple[torch.Tensor, torch.Tensor]):
-    """Systematic resample-gather on a normalized CDF and its index ->
-    [B, S, D]: ``vbn_srg`` or ``srg_plain``."""
+def srg(u0, cum, values):
+    """Systematic resample-gather on a normalized CDF -> [B, S, D]:
+    ``vbn_srg`` or ``srg_plain``."""
     if cum.is_cuda:
-        return _launch_srg(u0, cum, values, index)
+        return _launch_srg(u0, cum, values)
     return srg_plain(u0, cum, values)
 
 
-def spg(cum, pos, values, index: Tuple[torch.Tensor, torch.Tensor]):
-    """Sorted-position gather on a normalized CDF and its index ->
-    [B, S_out, D]: ``vbn_spg`` or ``spg_plain``."""
+def spg(cum, pos, values):
+    """Sorted-position gather on a normalized CDF -> [B, S_out, D]:
+    ``vbn_spg`` or ``spg_plain``."""
     if cum.is_cuda:
-        return _launch_spg(cum, pos, values, index)
+        return _launch_spg(cum, pos, values)
     return spg_plain(cum, pos, values)
 
 
@@ -297,14 +295,11 @@ def systematic_resample_gather(
     generator: Optional[torch.Generator] = None,
 ) -> torch.Tensor:
     """Systematic resampling of ``values`` by ``weights`` -> [B, S, D]:
-    one cumsum, one index and one merge launch on the card."""
-    b, s = weights.shape
+    one cumsum and one merge launch on the card."""
     if u0 is None:
-        u0 = torch.rand((b, 1), generator=generator, device=weights.device)
+        u0 = torch.rand((weights.shape[0], 1), generator=generator, device=weights.device)
     u0 = u0.float().contiguous()
-    cum = norm_cum(weights)
-    index = cum_index(cum, systematic_positions(u0, s, T))
-    return srg(u0, cum, values.float().contiguous(), index)
+    return srg(u0, norm_cum(weights), values.float().contiguous())
 
 
 def systematic_resample_gather_plain(weights, values, *, u0):
@@ -317,10 +312,8 @@ def sorted_gather(cum: torch.Tensor, pos: torch.Tensor, values: torch.Tensor):
     """Inverse-CDF pick for sorted positions -> [B, S_out, D]:
     ``values[searchsorted(cum, clip(pos, 0, 1 - 2^-24), 'right')]``. The
     CDF is nondecreasing and normalized (last entry 1.0)."""
-    pos = pos.float().contiguous()
-    index = cum_index(cum, pos[:, ::T])
-    return spg(cum.float().contiguous(), pos, values.float().contiguous(),
-               index)
+    return spg(cum.float().contiguous(), pos.float().contiguous(),
+               values.float().contiguous())
 
 
 def multinomial_resample_gather(
@@ -336,7 +329,7 @@ def multinomial_resample_gather(
     statistics of S iid U(0, 1) draws, so picks through the merge give a
     multiset of ancestors distributed as ``torch.multinomial`` draws (only
     the particle order differs, and resampled particles are exchangeable).
-    Two cumsum launches, one index and one merge launch on the card."""
+    Two cumsum launches and one merge launch on the card."""
     b, s = weights.shape
     cum = norm_cum(weights)
     if e is None:

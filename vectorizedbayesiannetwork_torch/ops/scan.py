@@ -57,9 +57,8 @@ def _lib() -> ctypes.CDLL:
     lib.vbn_cumsum_scratch.argtypes = [_L]
     lib.vbn_cumsum_scratch.restype = _L
     lib.vbn_cum_index.argtypes = [_P, _I, _L, _P, _L, _L, _I, _P, _P, _P]
-    lib.vbn_srg.argtypes = [_P, _I, _L, _P, _P, _P, ctypes.c_float, _P, _I,
-                            _P, _P]
-    lib.vbn_spg.argtypes = [_P, _I, _L, _P, _P, _P, _L, _P, _I, _P, _P]
+    lib.vbn_srg.argtypes = [_P, _I, _L, _P, ctypes.c_float, _P, _I, _P, _P]
+    lib.vbn_spg.argtypes = [_P, _I, _L, _P, _L, _P, _I, _P, _P]
     lib.vbn_merge_grid.argtypes = [_I, _L, _I, _I, _P]
     for fn in (lib.vbn_cumsum, lib.vbn_cum_index, lib.vbn_srg, lib.vbn_spg,
                lib.vbn_merge_grid):

@@ -4,7 +4,8 @@ Port of ``vectorizedbayesiannetwork_tpu/vbn.py`` for the fit -> serve path:
 method setters (str / dict / callable), ``fit``, ``infer_posterior``,
 ``infer_posterior_many`` (one fused sweep in ``dynamic_masks`` mode, else
 sequential), the fused ``infer_posterior_pmf`` / ``_moments`` with
-their stream fallback, ``_posterior_stats``, and ``save`` / ``load`` in the
+their stream fallback, ``_posterior_stats``, the per-node CPD handles
+(``cpd`` / ``get_cpd`` / ``get_cpds``), and ``save`` / ``load`` in the
 JAX package's checkpoint format (an ``.npz`` of flattened params with a
 ``__structure__`` JSON entry), so a model fitted by either package serves
 in the other. Model state is a dict of params per node on one device;
@@ -25,6 +26,7 @@ import torch
 
 from .core.base import Query
 from .core.dag import StaticDAG
+from .core.handle import CPDHandle
 from .core.registry import CPD_REGISTRY, INFERENCE_REGISTRY, LEARNING_REGISTRY
 from .core.rng import Draw, KeyStream
 from .core.utils import (
@@ -328,6 +330,16 @@ class VBN:
             )
         infer_batch_size(evidence, do)
         return Query(target=target, evidence=evidence, do=do)
+
+    # ----------------- CPD access -----------------
+    def cpd(self, node: str) -> CPDHandle:
+        return CPDHandle(self, node)
+
+    def get_cpd(self, node: str) -> CPDHandle:
+        return CPDHandle(self, node)
+
+    def get_cpds(self) -> Dict[str, CPDHandle]:
+        return {node: CPDHandle(self, node) for node in self.dag.nodes()}
 
     # ----------------- persistence -----------------
     def save(self, path: str, *, include_configs: bool = True,
