@@ -101,8 +101,9 @@ Then the KDE slice (KDE CPDs, max_points 2048 and Scott bandwidths, the
     statistics over 2^20 draws (a flat mask uniform and a conditional pick
     the exact categorical within 6 sd by chi-square, a 0.75/0.25 two-point
     mask); ``vbn_kde_cond_wide`` with wide targets at Scott bandwidths,
-    queries one bandwidth off the support in every feature, within 1e-4
-    (and both it and the plain version against float64, logged);
+    queries one bandwidth off the support in every feature and queries far
+    off it (log-densities past 100, ``far_queries``), within 1e-4 (and both
+    it and the plain version against float64, logged);
 16. kde_main_path: the KDE flagship (all three nodes KDE, 4096 rows): W1 LW
     x2 | x0 and W2 LW x0 | x2 (B=8, S=2^20), and MCM x2 | x0, x1, each with
     the counters reset just before and read just after, each held within
@@ -136,6 +137,30 @@ Then the exact engines, which run no hand kernel (plain torch on the card):
     form; each with the counters reset just before and read just after (no
     launch), queries/s (best of 3 windows), peak memory and a profiled
     batch.
+
+Then the neural CPDs, whose MLP products are torch's (no hand kernel of
+their own; RIS over them launches the resampling kernels):
+
+21. neural_main_path: first the bf16 product (bf16 inputs, float32 out
+    through ``torch.mm(..., out_dtype=)``); (a) tpu_study.py's
+    configuration 2, ``gaussian_nn`` x0, x1 and ``mdn`` x2 (3 components,
+    30 epochs, batch 1024, lr 1e-2) on the flagship's rows, x0 | x2 =
+    linspace(-1, 1, 8) by IS at S=2^18 and RIS at S=2^20 (one
+    ``vbn_cumsum`` and one ``vbn_srg`` launch), each (mean, std) within
+    0.05 std of a float64 grid over (x0, x1) of the fitted model; (b) W3's
+    network and 96 queries with ``gaussian_nn`` and ``mdn`` (5 components;
+    the ``vbn_gnn_lw_dyn`` / ``vbn_mdn_lw_dyn`` fit) and ``rff_gaussian``
+    (256 features), LW ``dynamic_masks=True`` at S=2^16, KL to the true
+    posterior logged, and ``gaussian_exact`` on the ``gaussian_nn`` fit;
+    (c) asia with ``categorical_embedded_softmax`` (``vbn_emb_lw``), its
+    mean KL to the true CPTs within 2x ``categorical_table``'s + 1e-3, and
+    (d) tpu_study.py's discretized flagship with ``softmax_nn`` (8
+    classes): LW pmf rows (B=8, S=2^20) within 5e-3 of
+    ``categorical_exact`` on the same model; each fit's seconds per node
+    and per optimizer step, device launches per step, and every family on
+    the card against the CPU over 2^16 rows (float32 within 1e-5 of scale;
+    bf16 within rtol 0.05, atol 0.15), each served batch with the counters
+    reset just before and read just after.
 
 Prints a JSON line of kernel results (all twelve kernels), the card's name
 and power limit, and last ``{"ok": true, "device": {...}}``. Any failure
@@ -1226,11 +1251,12 @@ def time_scan_kernels(link_vbn, link_qs, gauss_vbn, gauss_qs, launches, errs):
     return [cat, lg]
 
 
-def profile_batch(serve, kernels=("scan_kernel",)):
+def profile_batch(serve, kernels=("scan_kernel",), top=0):
     """One served batch under torch.profiler: its wall ms (host clock, to
     the rows' fetch), the device's busy ms (kernels and copies), the ms of
-    the device events whose names hold each of ``kernels``, and the
-    device's idle share of the wall time."""
+    the device events whose names hold each of ``kernels``, the device's
+    idle share of the wall time, and with ``top`` the device ms of the
+    ``top`` longest event names (summed over their events)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1246,6 +1272,12 @@ def profile_batch(serve, kernels=("scan_kernel",)):
     busy = sum(e.time_range.elapsed_us() for e in dev) / 1e3
     named = {f"{k}_ms": sum(e.time_range.elapsed_us() for e in dev
                             if k in e.name) / 1e3 for k in kernels}
+    by_name = {}
+    for e in dev:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    longest = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
+    if longest:
+        named["top_device_ms"] = [[k[:72], v / 1e3] for k, v in longest]
     return {"wall_ms": wall, "device_busy_ms": busy, **named,
             "device_events": len(dev), "idle_share": 1.0 - busy / wall}
 
@@ -1874,12 +1906,45 @@ def kde_cond_float64(x, p, data_x, data_p, log_mask, y_scale, p_scale):
     return torch.cat(out)
 
 
+FAR_TERM = 120.0  # a far query's target term at its own support point
+FAR_OUT = (100.0, 160.0)  # the far rows' |log-density|
+
+
+def far_queries(data_x, data_p, idx, ys, ps, gen, ref_fn):
+    """Queries far off the support: support point ``idx`` moved by k
+    bandwidths in every target feature, k = sqrt(2 FAR_TERM / Dx) at first
+    (that point's target term -FAR_TERM), and by one bandwidth in every
+    parent feature, each move's sign at random. Kept are the rows whose
+    float64 log-density ``ref_fn(x, p)`` lies in -FAR_OUT (past 100, short
+    of 160: toward 200 the plain version itself drifts to ~9e-5 from
+    float64, and 1e-4 against it stops measuring the kernel); while fewer
+    than a quarter are kept (nearer points lift a row of a narrow target),
+    k grows by a tenth. Returns (x, p, ref) of the kept rows."""
+    import torch
+
+    m, dx, dp = idx.shape[0], data_x.shape[1], data_p.shape[1]
+    dev = data_x.device
+    sx = torch.sign(torch.randn((m, dx), generator=gen, device=dev))
+    p = data_p[idx] + ps * torch.sign(
+        torch.randn((m, dp), generator=gen, device=dev))
+    k = (2.0 * FAR_TERM / dx) ** 0.5
+    for _ in range(40):
+        x = data_x[idx] + k * ys * sx
+        ref = ref_fn(x, p)
+        keep = (ref.abs() > FAR_OUT[0]) & (ref.abs() < FAR_OUT[1])
+        if int(keep.sum()) >= m // 4:
+            return x[keep], p[keep], ref[keep]
+        k *= 1.1
+    raise AssertionError("no far query set with a quarter of its rows past 100")
+
+
 def check_wide_off_support(dev, m):
     """vbn_kde_cond_wide with wide targets (the GEMM takes them) at Scott
-    bandwidths, its m query rows one bandwidth off a support point in every
-    feature: within 1e-4 of the plain version; both also against float64
-    (the terms lie far below 0, the outputs at 50-80). Returns the max abs
-    error against the plain version."""
+    bandwidths: its m query rows one bandwidth off a support point in every
+    feature (outputs at 50-80, each term far below 0), and far off the
+    support (``far_queries``: outputs past 100); within 1e-4 of the plain
+    version and of float64 (the plain version against float64 logged).
+    Returns the max abs error against the plain version."""
     import torch
 
     from vectorizedbayesiannetwork_torch.ops import kde_fused as kf
@@ -1892,22 +1957,33 @@ def check_wide_off_support(dev, m):
         rate = float(valid) ** (-1.0 / (dx + dp + 4))
         ys = rate * float(data_x[:valid].std(0).mean())
         ps = rate * float(data_p[:valid].std(0).mean())
-        idx = torch.randint(0, valid, (m,), generator=g, device=dev)
-        x = data_x[idx] + ys * torch.sign(
-            torch.randn((m, dx), generator=g, device=dev))
-        p = data_p[idx] + ps * torch.sign(
-            torch.randn((m, dp), generator=g, device=dev))
-        got = kf.kde_cond_wide(x, p, data_x, data_p, lm, ys, ps)
-        want = kf.kde_cond_plain(x, p, data_x, data_p, lm, ys, ps)
-        ref = kde_cond_float64(x, p, data_x, data_p, lm, ys, ps)
-        err = compare(f"vbn_kde_cond_wide off the support Dx={dx} Dp={dp}",
-                      got, want, atol=1e-4)
-        worst = max(worst, err)
-        log("kde_kernel_check", kernel="vbn_kde_cond_wide", case="off_support",
-            N=n, valid=valid, Dx=dx, Dp=dp, M=m, max_abs_err=err,
-            kernel_vs_float64=float((got.double() - ref).abs().max()),
-            plain_vs_float64=float((want.double() - ref).abs().max()),
-            max_abs_out=float(ref.abs().max()), ok=True)
+        for case in ("off_support", "far"):
+            idx = torch.randint(0, valid, (m,), generator=g, device=dev)
+            ref_fn = lambda x, p: kde_cond_float64(  # noqa: E731
+                x, p, data_x, data_p, lm, ys, ps)
+            if case == "far":
+                x, p, ref = far_queries(data_x, data_p, idx, ys, ps, g, ref_fn)
+            else:
+                x = data_x[idx] + ys * torch.sign(
+                    torch.randn((m, dx), generator=g, device=dev))
+                p = data_p[idx] + ps * torch.sign(
+                    torch.randn((m, dp), generator=g, device=dev))
+                ref = ref_fn(x, p)
+            got = kf.kde_cond_wide(x, p, data_x, data_p, lm, ys, ps)
+            want = kf.kde_cond_plain(x, p, data_x, data_p, lm, ys, ps)
+            err = compare(f"vbn_kde_cond_wide {case} Dx={dx} Dp={dp}",
+                          got, want, atol=1e-4)
+            worst = max(worst, err)
+            k64 = float((got.double() - ref).abs().max())
+            log("kde_kernel_check", kernel="vbn_kde_cond_wide", case=case,
+                N=n, valid=valid, Dx=dx, Dp=dp, M=int(x.shape[0]),
+                max_abs_err=err, kernel_vs_float64=k64,
+                plain_vs_float64=float((want.double() - ref).abs().max()),
+                min_abs_out=float(ref.abs().min()),
+                max_abs_out=float(ref.abs().max()), ok=True)
+            if not k64 <= 1e-4:
+                raise AssertionError(f"vbn_kde_cond_wide {case} Dx={dx} "
+                                     f"Dp={dp}: {k64} from float64")
     return worst
 
 
@@ -2198,6 +2274,21 @@ def gauss8_kde(vbn_cls, defaults):
     return gbn, vbn, queries, qd
 
 
+def gauss_kl(gbn, queries, mom, spans):
+    """KL of each served (mean, std) against the true Gaussian posterior,
+    over the on-manifold and empty queries."""
+    kls = []
+    for q, (lo, _hi, _t) in zip(queries, spans):
+        if q.evidence_mode == "off_manifold":
+            continue
+        m, s = gbn.conditional(q.target, q.evidence)
+        s1, s2 = max(float(mom[lo][1]), 1e-6), max(s, 1e-6)
+        kls.append(float(np.log(s2 / s1) + (s1**2 + (float(mom[lo][0]) - m) ** 2)
+                         / (2 * s2**2) - 0.5))
+    return {"kl_median": float(np.median(kls)), "kl_mean": float(np.mean(kls)),
+            "kl_max": float(np.max(kls)), "queries_scored": len(kls)}
+
+
 def serve_kde_dynamic(gbn, vbn, queries, qd, total):
     """W3: the 96 queries as one mask-dynamic batch; KL against the exact
     posterior over the on-manifold and empty queries."""
@@ -2213,16 +2304,7 @@ def serve_kde_dynamic(gbn, vbn, queries, qd, total):
     mem = torch.cuda.max_memory_allocated()
     if mom.shape != (N_KDE_DYN, 2) or not np.isfinite(mom).all():
         raise AssertionError(f"W3 moments rows bad: {mom.shape}")
-    kls = []
-    for q, (lo, _hi, _t) in zip(queries, spans):
-        if q.evidence_mode == "off_manifold":
-            continue
-        m, s = gbn.conditional(q.target, q.evidence)
-        s1, s2 = max(float(mom[lo][1]), 1e-6), max(s, 1e-6)
-        kls.append(float(np.log(s2 / s1) + (s1**2 + (float(mom[lo][0]) - m) ** 2)
-                         / (2 * s2**2) - 0.5))
-    acc = {"kl_median": float(np.median(kls)), "kl_mean": float(np.mean(kls)),
-           "kl_max": float(np.max(kls)), "queries_scored": len(kls)}
+    acc = gauss_kl(gbn, queries, mom, spans)
     log("kde_dynamic", workload="W3 kde_gauss8_dyn", queries=N_KDE_DYN,
         S=S_KDE_DYN, launches=launches, summary_path=vbn._last_summary_path,
         max_memory_allocated_bytes=mem, limits={"kl_median": 0.02, "kl_mean": 0.1},
@@ -2667,6 +2749,454 @@ def serve_exact(vbn_cls, defaults, bn, asia_vbn, lg_vbn):
     lg_vbn.set_inference_method("monte_carlo_marginalization", n_samples=S_MAIN)
 
 
+# ---------------------------------------------------------------------------
+# The neural CPD slice: gaussian_nn, mdn, rff_gaussian, softmax_nn and
+# categorical_embedded_softmax (MLP products in torch, no hand kernel of
+# their own; RIS over them launches the resampling kernels)
+# ---------------------------------------------------------------------------
+
+B_NN = 8
+S_NN_IS, S_NN_RIS = 1 << 18, 1 << 20  # (a): tpu_study.py's IS depth; RIS
+S_NN_DYN = 1 << 16  # (b): W3's depth
+NN_ROWS = 1 << 16  # card-vs-CPU rows per family
+# tpu_study.py:137 (configurations 2 and 3)
+STUDY_FIT = {"epochs": 30, "batch_size": 1024, "lr": 1e-2, "weight_decay": 0.0}
+# presets.py vbn_gnn_lw_dyn / vbn_mdn_lw_dyn
+DYN_FIT = {"epochs": 60, "batch_size": 512, "lr": 3e-3}
+# presets.py _EMB_FIT (vbn_emb_lw)
+EMB_FIT = {"epochs": 200, "batch_size": 512, "lr": 5e-3, "weight_decay": 1e-3}
+
+
+def timed_fit(tag, vbn, data):
+    """Fit on the card; logs seconds per node and per optimizer step (the
+    steps summed over the nodes' optimizer states)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    vbn.fit(data)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    steps = sum(int(p["opt"]["step"]) for p in vbn.params.values()
+                if p.get("opt") is not None)
+    rec = {"fit_s": secs, "nodes": len(vbn.nodes),
+           "fit_s_per_node": secs / len(vbn.nodes), "optimizer_steps": steps,
+           "fit_ms_per_step": 1e3 * secs / steps if steps else None}
+    log("neural_fit", workload=tag, **rec)
+    return rec
+
+
+def launches_per_step(tag, cpd, parents, x, fit_kw):
+    """Device kernels an optimizer step launches: a profiled fit of 3
+    epochs less one of 1 epoch, over the steps between them."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    n = x.shape[0]
+    n_batches = -(-n // min(int(fit_kw["batch_size"]), n))
+    counts = []
+    for epochs in (1, 3):
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        params = cpd.init(torch.device("cuda"), gen=gen)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            cpd.fit(params, parents, x, device=torch.device("cuda"), gen=gen,
+                    **dict(fit_kw, epochs=epochs))
+            torch.cuda.synchronize()
+        counts.append(sum(1 for e in prof.events()
+                          if e.device_type == torch.autograd.DeviceType.CUDA))
+    per = (counts[1] - counts[0]) / (2 * n_batches)
+    log("neural_launches_per_step", workload=tag, cpd=cpd.registry_key,
+        device_events_1_epoch=counts[0], device_events_3_epochs=counts[1],
+        steps_between=2 * n_batches, launches_per_step=per)
+    return per
+
+
+def params_to(params, fn):
+    from vectorizedbayesiannetwork_torch.models._optim import tree_map
+
+    return tree_map(fn, params)
+
+
+def nn_rows(data, parents, node, noise=0.0):
+    """NN_ROWS fixed (parents [NN_ROWS, Din], x [NN_ROWS, 1]) rows on the
+    card, drawn with replacement from a fit's data, the parents jittered by
+    ``noise`` times a standard normal: card-vs-CPU inputs."""
+    import torch
+
+    g = np.random.default_rng(4)
+    idx = g.integers(0, len(data[node]), NN_ROWS)
+    par = np.stack([np.asarray(data[p], np.float32).reshape(-1)
+                    for p in parents], 1)[idx]
+    par = (par + noise * g.standard_normal(par.shape)).astype(np.float32)
+    x = np.asarray(data[node], np.float32).reshape(-1, 1)[idx]
+    return torch.as_tensor(par, device="cuda"), torch.as_tensor(x, device="cuda")
+
+
+def card_vs_cpu(tag, cpd, params, parents, x):
+    """The same params on the card and on the CPU over the same rows: each
+    protocol method and the log-density in float32 within 1e-5 of its
+    scale; for the MLP families, ``compute_dtype="bfloat16"`` on both
+    (``torch.mm(..., out_dtype=torch.float32)`` on the card, bf16-rounded
+    inputs multiplied in float32 on the CPU) within the JAX package's bf16
+    tolerance (rtol 0.05, atol 0.15: tests/test_compute_dtype.py:70-73),
+    and bf16 against float32 logged."""
+    import copy
+
+    import torch
+
+    def methods(c, prm, par, xx):
+        out = {"log_prob": c._log_prob_flat(prm, xx, par)}
+        if hasattr(c, "categorical_probs"):
+            out["categorical_probs"] = c.categorical_probs(prm, par)
+        if hasattr(c, "mixture_params"):
+            out.update(zip(("logits", "loc", "scale"),
+                           c.mixture_params(prm, par)))
+        if hasattr(c, "conditional_params"):
+            out.update(zip(("cond_loc", "cond_scale"),
+                           c.conditional_params(prm, par)))
+        return out
+
+    cpu_params = params_to(params, lambda t: t.cpu())
+    with torch.no_grad():
+        card = methods(cpd, params, parents, x)
+        cpu = methods(cpd, cpu_params, parents.cpu(), x.cpu())
+        errs = {}
+        for k, want in cpu.items():
+            got = card[k].cpu()
+            errs[k] = float((got - want).abs().max()
+                            / max(float(want.abs().max()), 1e-30))
+        rec = {"rows": int(x.shape[0]), "rel_err": errs}
+        if hasattr(cpd, "compute_dtype"):
+            bf = copy.copy(cpd)
+            bf.compute_dtype = "bfloat16"
+            lp16 = bf._log_prob_flat(params, x, parents).cpu()
+            cpu16 = bf._log_prob_flat(cpu_params, x.cpu(), parents.cpu())
+            rec["bf16_card_vs_cpu_max_abs"] = float((lp16 - cpu16).abs().max())
+            rec["bf16_vs_float32_max_abs"] = float(
+                (lp16 - cpu["log_prob"]).abs().max())
+            torch.testing.assert_close(lp16, cpu16, rtol=0.05, atol=0.15)
+    log("neural_card_vs_cpu", workload=tag, cpd=cpd.registry_key, **rec,
+        limit=1e-5)
+    bad = {k: v for k, v in errs.items() if not v <= 1e-5}
+    if bad:
+        raise AssertionError(f"{tag}: card vs CPU past 1e-5: {bad}")
+
+
+def check_bf16_product(dev):
+    """The bf16 path's product on the card: bf16 inputs through
+    ``torch.mm(..., out_dtype=torch.float32)``, held against the same bf16
+    inputs multiplied in float64 (a float32 sum: ~1e-6 of the scale; a
+    bf16-rounded output would be ~1e-3 off)."""
+    import torch
+
+    from vectorizedbayesiannetwork_torch.models import _mlp
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    h = torch.randn((NN_ROWS, 64), generator=g, device=dev)
+    w = torch.randn((64, 64), generator=g, device=dev)
+    out = _mlp._bf16_product(h, w)
+    ref = h.bfloat16().double() @ w.bfloat16().double()
+    scale = float(ref.abs().max())
+    err = float((out.double() - ref).abs().max()) / scale
+    rounded = float(((h.bfloat16() @ w.bfloat16()).double() - ref).abs().max()
+                    ) / scale
+    log("neural_bf16_product", dtype=str(out.dtype), rel_err=err,
+        bf16_output_rel_err=rounded, torch_version=torch.__version__)
+    if out.dtype != torch.float32 or not err < 1e-5 < rounded:
+        raise AssertionError(f"bf16 product not float32-out: {err}, {rounded}")
+
+
+def nn_flagship_reference(vbn, x2_vals, n_grid=1201, half=6.0):
+    """(mean, std) of x0 | x2 = v for each v, in float64 on a 2-D grid over
+    (x0, x1) of the fitted model's own densities p(x0) p(x1) p(x2 | x0,
+    x1): each root's grid its fitted loc +- ``half`` of its scale."""
+    import torch
+
+    from vectorizedbayesiannetwork_torch.ops.gauss import LOG_2PI
+
+    p64 = {n: params_to(vbn.params[n], lambda t: t.double()) for n in vbn.nodes}
+    grids, logps = [], []
+    for node in ("x0", "x1"):
+        loc, scale = vbn.nodes[node].conditional_params(p64[node], None)
+        loc, scale = float(loc.reshape(-1)[0]), float(scale.reshape(-1)[0])
+        gr = loc + scale * torch.linspace(-half, half, n_grid,
+                                          dtype=torch.float64, device=vbn.device)
+        z = (gr - loc) / scale
+        grids.append(gr)
+        logps.append(-0.5 * (z * z + LOG_2PI) - np.log(scale))
+    g0, g1 = grids
+    pts = torch.stack(torch.meshgrid(g0, g1, indexing="ij"), -1).reshape(-1, 2)
+    mdn = vbn.nodes["x2"]
+    logits, loc, scale = mdn.mixture_params(p64["x2"], pts)
+    out = []
+    for v in x2_vals:
+        x = torch.full((pts.shape[0], 1), float(v), dtype=torch.float64,
+                       device=vbn.device)
+        lp2 = mdn._mixture_log_prob(logits, loc, scale, x).reshape(n_grid, n_grid)
+        joint = logps[0][:, None] + logps[1][None, :] + lp2
+        post = torch.logsumexp(joint, dim=1)
+        w = torch.softmax(post, dim=0)
+        mean = float((w * g0).sum())
+        out.append((mean, float(torch.sqrt((w * (g0 - mean) ** 2).sum()))))
+    return np.array(out)
+
+
+def served_moments(vbn, q):
+    w, samples = vbn.infer_posterior(q)
+    st = vbn._posterior_stats(w, samples.float())
+    return np.stack([st["mean"][:, 0].double().cpu().numpy(),
+                     st["std"][:, 0].double().cpu().numpy()], 1)
+
+
+def neural_flagship(vbn_cls, defaults, fits):
+    """(a) tpu_study.py:135-152: gaussian_nn x0, x1 and mdn x2 (3
+    components) fitted on the flagship's rows; x0 | x2 = linspace(-1, 1, 8)
+    by IS at S=2^18 and RIS at S=2^20, each (mean, std) within 0.05 of the
+    posterior std of a float64 grid reference of the fitted model. RIS
+    launches vbn_cumsum and vbn_srg once each; returns those launches."""
+    import torch
+
+    vbn = vbn_cls([("x0", "x2"), ("x1", "x2")], seed=0)
+    conf = {k: {**defaults.cpd("gaussian_nn"), "fit": dict(STUDY_FIT)}
+            for k in ("x0", "x1")}
+    conf["x2"] = {**defaults.cpd("mdn"), "n_components": 3,
+                  "fit": dict(STUDY_FIT)}
+    vbn.set_learning_method("node_wise", nodes_cpds=conf)
+    data = flagship_data()
+    fits["a_flagship_gnn_mdn"] = timed_fit("a flagship gaussian_nn+mdn", vbn, data)
+    q = flagship_diag_query(B_NN)
+    ref = nn_flagship_reference(vbn, q["evidence"]["x2"][:, 0])
+    total = {}
+    rows = {}
+    for method, s, kw, expect in (
+            ("importance_sampling", S_NN_IS, {}, {}),
+            ("resampled_importance_sampling", S_NN_RIS,
+             {"ess_threshold": 0.5, "resample_method": "systematic"},
+             {"cumsum": 1, "srg": 1})):
+        vbn.set_inference_method(method, n_samples=s, **kw)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        got = served_moments(vbn, q)
+        launches = read_launches(expect)
+        mem = torch.cuda.max_memory_allocated()
+        dmean = float(np.max(np.abs(got[:, 0] - ref[:, 0]) / ref[:, 1]))
+        dstd = float(np.max(np.abs(got[:, 1] - ref[:, 1]) / ref[:, 1]))
+        qps, windows, serve = method_qps(vbn, q, B_NN)
+        rec = {"S": s, "B": B_NN, "launches": launches,
+               "dmean_over_std": dmean, "dstd_over_std": dstd, "limit": 0.05,
+               "queries_per_s": qps, "window_qps": windows,
+               "max_memory_allocated_bytes": mem}
+        if method == "resampled_importance_sampling":
+            rec["resampled"] = bool(vbn._inference._last_resampled)
+            if not rec["resampled"]:
+                raise AssertionError("RIS did not resample the neural flagship")
+        log("neural_main_path", workload=f"a flagship {method}", **rec)
+        if not (dmean <= 0.05 and dstd <= 0.05):
+            raise AssertionError(f"(a) {method} off the grid reference: "
+                                 f"{dmean}, {dstd}")
+        if method == "importance_sampling":
+            log("serve_profile", workload="a flagship gaussian_nn+mdn IS",
+                **profile_batch(serve, (), top=6))
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        rows[method] = got.tolist()
+    log("neural_flagship_reference", grid_moments=ref.tolist(), served=rows)
+    card_vs_cpu("a mdn x2", vbn.nodes["x2"], vbn.params["x2"],
+                *nn_rows(data, ["x0", "x1"], "x2", noise=0.1))
+    launches_per_step("a mdn x2", vbn.nodes["x2"],
+                      np.stack([data["x0"], data["x1"]], 1), data["x2"],
+                      STUDY_FIT)
+    return total
+
+
+def neural_gauss8(vbn_cls, defaults, fits):
+    """(b) W3's network and queries with gaussian_nn (vbn_gnn_lw_dyn),
+    mdn (5 components, vbn_mdn_lw_dyn) and rff_gaussian (256 features):
+    each the 96 queries by LW dynamic_masks=True at S=2^16, KL to the true
+    posterior; gaussian_exact's answers on the gaussian_nn fit."""
+    import torch
+    from benchmarking.gaussian_bn import (
+        generate_gaussian_inference_queries,
+        random_gaussian,
+    )
+
+    gbn = random_gaussian(8, seed=0)
+    data = gbn.sample(4096, seed=1)
+    queries = generate_gaussian_inference_queries(gbn, n_queries=N_DYN, seed=2)
+    qd = [{"target": q.target,
+           "evidence": {k: np.array([[float(v)]], np.float32)
+                        for k, v in q.evidence.items()}} for q in queries]
+    parents = {n: gbn.parents[n] for n in gbn.nodes}
+    confs = {
+        "gaussian_nn": {**defaults.cpd("gaussian_nn"), "fit": dict(DYN_FIT)},
+        "mdn": {**defaults.cpd("mdn"), "n_components": 5, "fit": dict(DYN_FIT)},
+        "rff_gaussian": {**defaults.cpd("rff_gaussian"), "n_features": 256},
+    }
+    child = next(n for n in gbn.nodes if gbn.parents[n])
+    for fam, conf in confs.items():
+        vbn = vbn_cls(parents, seed=0)
+        vbn.set_learning_method("node_wise",
+                                nodes_cpds={n: dict(conf) for n in gbn.nodes})
+        fits[f"b_gauss8_{fam}"] = timed_fit(f"b gauss8 {fam}", vbn, data)
+        vbn.set_inference_method("likelihood_weighting", n_samples=S_NN_DYN,
+                                 dynamic_masks=True)
+        serve = lambda: vbn.infer_posterior_moments(qd, pad_bucket=N_DYN)  # noqa: E731
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        mom, spans = serve()
+        launches = read_launches({})
+        mem = torch.cuda.max_memory_allocated()
+        if mom.shape != (N_DYN, 2) or not np.isfinite(mom).all():
+            raise AssertionError(f"(b) {fam} moments rows bad")
+        qps, windows = dynamic_qps(serve)
+        log("neural_main_path", workload=f"b gauss8 {fam} LW dynamic",
+            queries=N_DYN, S=S_NN_DYN, launches=launches,
+            summary_path=vbn._last_summary_path, queries_per_s=qps,
+            window_qps=windows, max_memory_allocated_bytes=mem,
+            **gauss_kl(gbn, queries, mom, spans))
+        card_vs_cpu(f"b {fam} {child}", vbn.nodes[child], vbn.params[child],
+                    *nn_rows(data, gbn.parents[child], child, noise=0.1))
+        log("serve_profile", workload=f"b gauss8 {fam} LW dynamic",
+            **profile_batch(serve, (), top=6))
+        if fam != "gaussian_nn":
+            continue
+        launches_per_step(f"b gaussian_nn {child}", vbn.nodes[child],
+                          np.stack([data[p] for p in gbn.parents[child]], 1),
+                          data[child], DYN_FIT)
+        vbn.set_inference_method("gaussian_exact")
+        mom, spans = vbn.infer_posterior_moments(qd)
+        grid = sum(1 for q in queries if q.target not in q.evidence and all(
+            p in q.evidence for p in gbn.parents[q.target]))
+        log("neural_main_path", workload="b gauss8 gaussian_nn gaussian_exact",
+            queries=N_DYN, grid_served=grid, fallback="likelihood_weighting",
+            summary_path=vbn._last_summary_path,
+            **gauss_kl(gbn, queries, mom, spans))
+
+
+def cpt_kl(vbn, bn):
+    """Mean over nodes of the mean KL of each true CPT row to the fitted
+    conditional (tests/test_emb_accuracy.py's measure)."""
+    kls = []
+    for node in bn.nodes:
+        cards = [bn.card(p) for p in bn.parents[node]]
+        rows = (np.array(np.meshgrid(*[np.arange(c) for c in cards],
+                                     indexing="ij")).reshape(len(cards), -1)
+                .T.astype(np.float32) if cards else None)
+        probs = vbn.cpd(node).conditional(rows)["probs"].cpu().numpy()
+        true = np.asarray(bn.cpts[node]).reshape(-1, bn.card(node))
+        probs = probs.reshape(true.shape)
+        kl = np.sum(true * (np.log(np.maximum(true, 1e-12))
+                            - np.log(np.maximum(probs, 1e-12))), axis=-1)
+        kls.append(float(np.mean(kl)))
+    return float(np.mean(kls))
+
+
+def pmf_against_exact(tag, vbn, q, k):
+    """LW pmf rows (B_NN, S=2^20, counters read) against categorical_exact
+    on the same fitted model: max abs err <= 5e-3; queries/s of LW."""
+    import torch
+
+    vbn.set_inference_method("likelihood_weighting", n_samples=S_MAIN)
+    serve = lambda: vbn.infer_posterior_pmf([q], n_classes=k)  # noqa: E731
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    pmf, _ = serve()
+    launches = read_launches({})
+    mem = torch.cuda.max_memory_allocated()
+    path = vbn._last_summary_path
+    qps, windows = dynamic_qps(serve, B_NN)
+    profile = profile_batch(serve, (), top=6)
+    vbn.set_inference_method("categorical_exact")
+    ex, _ = vbn.infer_posterior_pmf([q], n_classes=k)
+    if vbn._inference._last_fallback:
+        raise AssertionError(f"{tag}: categorical_exact fell back")
+    norm = lambda r: r / r.sum(axis=1, keepdims=True)  # noqa: E731
+    err = float(np.abs(norm(pmf.astype(np.float64))
+                       - norm(ex.astype(np.float64))).max())
+    log("neural_main_path", workload=f"{tag} LW pmf", B=B_NN, S=S_MAIN,
+        launches=launches, summary_path=path,
+        max_abs_err_vs_categorical_exact=err, limit=5e-3, queries_per_s=qps,
+        window_qps=windows, max_memory_allocated_bytes=mem)
+    log("serve_profile", workload=f"{tag} LW pmf", **profile)
+    if not err <= 5e-3:
+        raise AssertionError(f"{tag}: LW pmf off categorical_exact by {err}")
+
+
+def neural_discrete(vbn_cls, defaults, bn, asia_vbn, fits):
+    """(c) asia with categorical_embedded_softmax (vbn_emb_lw:
+    embedding_dim 8, hidden [64, 64], _EMB_FIT) on asia's 4096 rows: mean
+    KL to the true CPTs within 2x categorical_table's + 1e-3 (the table fit
+    on the same rows); LW P(dysp | smoke, asia) against categorical_exact.
+    (d) the discretized flagship with softmax_nn (8 classes,
+    tpu_study.py:154-170): LW pmf of x2 | x0 against categorical_exact."""
+    import torch
+    from benchmarking.data_gen import generate_dataset
+
+    data = {k: np.asarray(v, np.float32).reshape(-1, 1)
+            for k, v in generate_dataset(bn, 4096, seed=0).items()}
+    emb = vbn_cls({n: bn.parents[n] for n in bn.nodes}, seed=0)
+    emb.set_learning_method("node_wise", nodes_cpds={
+        n: {**defaults.cpd("categorical_embedded_softmax"), "embedding_dim": 8,
+            "fit": dict(EMB_FIT)} for n in bn.nodes})
+    fits["c_asia_emb"] = timed_fit("c asia categorical_embedded_softmax", emb,
+                                   data)
+    kl_emb, kl_tab = cpt_kl(emb, bn), cpt_kl(asia_vbn, bn)
+    log("neural_fit_accuracy", workload="c asia categorical_embedded_softmax",
+        kl_emb=kl_emb, kl_table=kl_tab, limit=2.0 * kl_tab + 1e-3)
+    if not kl_emb <= 2.0 * kl_tab + 1e-3:
+        raise AssertionError(f"(c) embedded KL {kl_emb} vs table {kl_tab}")
+    pmf_against_exact("c asia categorical_embedded_softmax", emb,
+                      asia_query(B_NN), 2)
+    node = "dysp"
+    card_vs_cpu(f"c {node}", emb.nodes[node], emb.params[node],
+                *nn_rows(data, bn.parents[node], node))
+    launches_per_step(f"c categorical_embedded_softmax {node}", emb.nodes[node],
+                      np.concatenate([data[p] for p in bn.parents[node]], 1),
+                      data[node], EMB_FIT)
+
+    flag = {k: np.rint(np.clip(v * 2 + 4, 0, 7)).astype(np.float32)
+            for k, v in flagship_data().items()}
+    sm = vbn_cls([("x0", "x2"), ("x1", "x2")], seed=0)
+    sm.set_learning_method("node_wise", nodes_cpds={
+        k: {**defaults.cpd("softmax_nn"), "n_classes": 8,
+            "fit": dict(STUDY_FIT)} for k in flag})
+    fits["d_flagship_softmax"] = timed_fit("d discretized flagship softmax_nn",
+                                           sm, flag)
+    q = {"target": "x2", "evidence": {
+        "x0": np.arange(B_NN, dtype=np.float32).reshape(B_NN, 1)}}
+    pmf_against_exact("d flagship softmax_nn", sm, q, 8)
+    card_vs_cpu("d x2", sm.nodes["x2"], sm.params["x2"],
+                *nn_rows(flag, ["x0", "x1"], "x2"))
+    launches_per_step("d softmax_nn x2", sm.nodes["x2"],
+                      np.stack([flag["x0"], flag["x1"]], 1), flag["x2"],
+                      STUDY_FIT)
+
+
+def serve_neural(vbn_cls, defaults, bn, asia_vbn):
+    """Phase neural_main_path: paths (a)-(d) above, each fit timed, each
+    served batch with the counters reset just before and read just after,
+    card against CPU on every family; returns the resampling kernels'
+    launches (RIS in (a))."""
+    import torch
+
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    check_bf16_product(torch.device("cuda"))
+    fits = {}
+    launches = neural_flagship(vbn_cls, defaults, fits)
+    neural_gauss8(vbn_cls, defaults, fits)
+    neural_discrete(vbn_cls, defaults, bn, asia_vbn, fits)
+    steps = sum(f["optimizer_steps"] for f in fits.values())
+    fit_s = sum(f["fit_s"] for f in fits.values())
+    log("neural_done", seconds=time.perf_counter() - t0, fit_s=fit_s,
+        optimizer_steps=steps, launches=launches)
+    return launches
+
+
 def load_parent(root):
     """The port package of another checkout at ``root`` (for example the
     parent commit's, unpacked with ``git archive``), imported under the name
@@ -2925,6 +3455,11 @@ def main(argv) -> int:
     kernels += serve_resampling(bn, asia_vbn, lg_vbn, link)
     kernels += serve_kde(VBN, defaults)
     serve_exact(VBN, defaults, bn, asia_vbn, lg_vbn)
+    neural = serve_neural(VBN, defaults, bn, asia_vbn)
+    for row in kernels:
+        key = {"vbn_cumsum": "cumsum", "vbn_srg": "srg"}.get(row["name"])
+        if key:
+            row["launches_neural_main_path"] = neural.get(key, 0)
     if args.parent:
         compare_builds(args.parent)
 

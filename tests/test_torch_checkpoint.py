@@ -274,7 +274,9 @@ def test_port_save_loads_in_jax(fitted):
 
 
 @pytest.mark.parametrize("kind,name", [
-    ("cpd", "categorical_table"), ("cpd", "linear_gaussian"),
+    ("cpd", "categorical_table"), ("cpd", "linear_gaussian"), ("cpd", "kde"),
+    ("cpd", "gaussian_nn"), ("cpd", "mdn"), ("cpd", "rff_gaussian"),
+    ("cpd", "softmax_nn"), ("cpd", "categorical_embedded_softmax"),
     ("learning", "node_wise"), ("inference", "likelihood_weighting"),
     ("inference", "monte_carlo_marginalization"),
 ])
@@ -292,7 +294,8 @@ def test_defaults_equal_jax_yaml(kind, name):
     assert ours == theirs
     assert not any(isinstance(v, str) for k, v in ours.items()
                    if k not in ("cpd", "name", "alpha_mode", "prior",
-                                "default_cpd"))
+                                "default_cpd", "bandwidth", "activation",
+                                "binning", "within_bin", "class_weighting"))
 
 
 def test_load_warns_on_what_the_port_does_not_restore(tmp_path):

@@ -30,7 +30,14 @@ import torch
 
 from benchmarking.data_gen import generate_dataset
 from benchmarking.networks import asia
-from chip_smoke import PROFILES, chi2_z_merged, pick_agreement, quantized_profile
+from chip_smoke import (
+    PROFILES,
+    chi2_z_merged,
+    far_queries,
+    kde_cond_float64,
+    pick_agreement,
+    quantized_profile,
+)
 from vectorizedbayesiannetwork_torch import VBN, defaults
 from vectorizedbayesiannetwork_torch.core.base import Query
 from vectorizedbayesiannetwork_torch.core.plan import get_plan
@@ -828,7 +835,7 @@ def test_kde_direct_kernels_far_rows_and_masked_support(card, case, dx, dp):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", ["near", "offset", "ragged", "all_masked",
-                                  "off_support"])
+                                  "off_support", "far_off_support"])
 @pytest.mark.parametrize("dx,dp", [(1, 40), (2, 33), (35, 3), (1, 2), (40, 40)])
 def test_kde_cond_wide_kernel_matches_plain(card, case, dx, dp):
     """vbn_kde_cond_wide (3xTF32 on centred data) within 1e-4 of the plain
@@ -837,7 +844,8 @@ def test_kde_cond_wide_kernel_matches_plain(card, case, dx, dp):
     kernel's 32-point tiles); every point masked (-inf: NaN on both
     sides); at Scott bandwidths, queries one bandwidth off a support point
     in every feature (each term then far below 0, where the tensor core's
-    truncation once cost more than 1e-4 with a wide target)."""
+    truncation once cost more than 1e-4 with a wide target), and queries
+    further off, whose log-densities pass 100 (``far_queries``)."""
     n, valid = (2017, 1900) if case == "ragged" else (2000, 1700)
     data_x, data_p, lm = _kde_support(n, dx, dp, valid)
     x, p = _kde_queries(dx, dp)
@@ -847,16 +855,22 @@ def test_kde_cond_wide_kernel_matches_plain(card, case, dx, dp):
         x, p, data_x, data_p = (a + 20.0 for a in (x, p, data_x, data_p))
     elif case == "all_masked":
         lm = torch.full_like(lm, float("-inf"))
-    elif case == "off_support":
+    elif case in ("off_support", "far_off_support"):
         rate = float(valid) ** (-1.0 / (dx + dp + 4))
         ys = rate * float(data_x[:valid].std(0).mean())
         ps = rate * float(data_p[:valid].std(0).mean())
         g = torch.Generator(device="cuda").manual_seed(2)
         idx = torch.randint(0, valid, (KM,), generator=g, device="cuda")
-        x = data_x[idx] + ys * torch.sign(torch.randn(
-            (KM, dx), generator=g, device="cuda"))
-        p = data_p[idx] + ps * torch.sign(torch.randn(
-            (KM, dp), generator=g, device="cuda"))
+        if case == "far_off_support":
+            x, p, ref = far_queries(data_x, data_p, idx, ys, ps, g, (
+                lambda x_, p_: kde_cond_float64(x_, p_, data_x, data_p, lm,
+                                                ys, ps)))
+            assert float(ref.abs().min()) > 100.0
+        else:
+            x = data_x[idx] + ys * torch.sign(torch.randn(
+                (KM, dx), generator=g, device="cuda"))
+            p = data_p[idx] + ps * torch.sign(torch.randn(
+                (KM, dp), generator=g, device="cuda"))
     before = sweep.LAUNCHES["kde_cond_wide"]
     got = kf.kde_cond_wide(x, p, data_x, data_p, lm, ys, ps)
     assert sweep.LAUNCHES["kde_cond_wide"] == before + 1
@@ -1053,3 +1067,115 @@ def test_exact_engines_on_the_card_match_the_cpu(asia_vbn, lg_vbn, method,
     vbn.set_inference_method(
         "likelihood_weighting" if method == "categorical_exact"
         else "monte_carlo_marginalization", n_samples=S)
+
+
+# ---------------------------------------------------------------------------
+# Neural CPDs on the card (torch products, no hand kernel of their own)
+# ---------------------------------------------------------------------------
+
+NN_FIT = {"epochs": 5, "batch_size": 256, "lr": 1e-2}
+NN_FAMILIES = {
+    "gaussian_nn": {"hidden_dims": [32, 32]},
+    "mdn": {"hidden_dims": [32, 32], "n_components": 3},
+    "rff_gaussian": {"n_features": 256},
+    "softmax_nn": {"hidden_dims": [32, 32], "n_classes": 8},
+    "categorical_embedded_softmax": {"hidden_dims": [64, 64],
+                                     "embedding_dim": 8},
+}
+
+
+def _nn_rows(family, n=2048, seed=0):
+    g = np.random.default_rng(seed)
+    x0, x1 = g.normal(size=n), g.normal(size=n)
+    data = {"x0": x0, "x1": x1, "x2": 0.5 * x0 - 0.2 * x1 + 0.1 * g.normal(size=n)}
+    if family in ("softmax_nn", "categorical_embedded_softmax"):
+        data = {k: np.rint(np.clip(v * 2 + 4, 0, 7)) for k, v in data.items()}
+    return {k: v.astype(np.float32) for k, v in data.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", sorted(NN_FAMILIES))
+def test_neural_cpd_on_the_card_matches_the_cpu(card, family, tmp_path):
+    """A port fit on the card, its params moved to the CPU: log-densities
+    and the protocol methods within 1e-5 of their scale in float32 (no
+    TF32), and bf16 products on both sides within the JAX package's bf16
+    tolerance (rtol 0.05, atol 0.15)."""
+    import copy
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    data = _nn_rows(family)
+    vbn = VBN({"x0": [], "x1": [], "x2": ["x0", "x1"]}, seed=0, device=card)
+    vbn.set_learning_method("node_wise", nodes_cpds={
+        k: dict(defaults.cpd(family), **NN_FAMILIES[family], fit=NN_FIT)
+        for k in data})
+    vbn.fit(data)
+    cpd, params = vbn.nodes["x2"], vbn.params["x2"]
+    vbn.save(str(tmp_path / "m.npz"))
+    cpu_params = VBN.load(str(tmp_path / "m.npz"), device="cpu").params["x2"]
+    par = torch.as_tensor(np.stack([data["x0"], data["x1"]], 1))
+    x = torch.as_tensor(data["x2"][:, None])
+
+    def methods(c, p, pa, xx):
+        out = {"log_prob": c._log_prob_flat(p, xx, pa)}
+        for name in ("categorical_probs", "conditional_params",
+                     "mixture_params"):
+            if hasattr(c, name):
+                res = getattr(c, name)(p, pa)
+                res = res if isinstance(res, tuple) else (res,)
+                out.update({f"{name}{i}": r for i, r in enumerate(res)})
+        return out
+
+    got = methods(cpd, params, par.to(card), x.to(card))
+    want = methods(cpd, cpu_params, par, x)
+    for k, w in want.items():
+        scale = float(w.abs().max())
+        assert float((got[k].cpu() - w).abs().max()) <= 1e-5 * scale, k
+    if hasattr(cpd, "compute_dtype"):
+        bf = copy.copy(cpd)
+        bf.compute_dtype = "bfloat16"
+        torch.testing.assert_close(
+            bf._log_prob_flat(params, x.to(card), par.to(card)).cpu(),
+            bf._log_prob_flat(cpu_params, x, par), rtol=0.05, atol=0.15)
+
+
+@pytest.mark.cuda
+def test_bf16_product_takes_bf16_inputs_and_gives_float32(card):
+    from vectorizedbayesiannetwork_torch.models import _mlp
+
+    g = torch.Generator(device="cuda").manual_seed(5)
+    h = torch.randn((4096, 64), generator=g, device="cuda")
+    w = torch.randn((64, 32), generator=g, device="cuda")
+    out = _mlp._bf16_product(h, w)
+    assert out.dtype == torch.float32
+    ref = h.bfloat16().double() @ w.bfloat16().double()
+    scale = float(ref.abs().max())
+    assert float((out.double() - ref).abs().max()) <= 1e-5 * scale
+    rounded = (h.bfloat16() @ w.bfloat16()).double()
+    assert float((rounded - ref).abs().max()) > 1e-5 * scale
+
+
+@pytest.mark.cuda
+def test_ris_over_neural_cpds_launches_the_resampling_kernels(card):
+    """RIS on a gaussian_nn + mdn flagship resamples through vbn_cumsum
+    and vbn_srg; IS and LW over it launch no hand kernel."""
+    data = _nn_rows("gaussian_nn")
+    vbn = VBN({"x0": [], "x1": [], "x2": ["x0", "x1"]}, seed=0, device=card)
+    conf = {k: dict(defaults.cpd("gaussian_nn"), fit=NN_FIT) for k in data}
+    conf["x2"] = dict(defaults.cpd("mdn"), n_components=3, fit=NN_FIT)
+    vbn.set_learning_method("node_wise", nodes_cpds=conf)
+    vbn.fit(data)
+    q = {"target": "x0", "evidence": {
+        "x2": np.linspace(-1, 1, B).reshape(B, 1).astype(np.float32)}}
+    for method, kw, launched in (
+            ("resampled_importance_sampling", {"ess_threshold": 0.5},
+             {"cumsum": 1, "srg": 1}),
+            ("importance_sampling", {}, {}),
+            ("likelihood_weighting", {}, {})):
+        vbn.set_inference_method(method, n_samples=1 << 16, **kw)
+        before = dict(sweep.LAUNCHES)
+        w, samples = vbn.infer_posterior(q)
+        torch.cuda.synchronize()
+        diff = {k: v - before[k] for k, v in sweep.LAUNCHES.items()
+                if v != before[k]}
+        assert diff == launched, method
+        assert torch.isfinite(samples).all() and not w.requires_grad

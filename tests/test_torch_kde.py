@@ -46,7 +46,7 @@ from benchmarking.gaussian_bn import (
     generate_gaussian_inference_queries,
     random_gaussian,
 )
-from chip_smoke import chi2_z_merged, kde_cond_float64
+from chip_smoke import chi2_z_merged, far_queries, kde_cond_float64
 from vectorizedbayesiannetwork_torch import VBN as TVBN
 from vectorizedbayesiannetwork_torch import defaults as tdefaults
 from vectorizedbayesiannetwork_torch.config_cast import (
@@ -437,7 +437,9 @@ def _wide_case(case, dx, dp, g):
     a target from the parents plus noise): queries near support points
     (a jitter of one bandwidth); the same offset by +20 in every feature;
     a tail at the hard mask -1e30; every point masked (-inf); queries one
-    bandwidth off a support point in every feature (``off_support``)."""
+    bandwidth off a support point in every feature (``off_support``);
+    further off in every target feature, log-densities past 100
+    (``far_off_support``, ``chip_smoke.far_queries``)."""
     n, m = 2048, 192
     data_p = _normal(g, n, dp)
     data_x = (data_p[:, :1] + 0.1 * data_p.mean(1, keepdims=True)
@@ -461,11 +463,17 @@ def _wide_case(case, dx, dp, g):
     elif case == "off_support":
         p = (data_p[idx] + ps * np.sign(_normal(g, m, dp))).astype(_F)
         x = (data_x[idx] + ys * np.sign(_normal(g, m, dx))).astype(_F)
+    elif case == "far_off_support":
+        x, p, _ = (a.numpy() for a in far_queries(
+            _t(data_x), _t(data_p), torch.as_tensor(idx), ys, ps,
+            torch.Generator().manual_seed(int(g.integers(1 << 30))),
+            lambda x, p: kde_cond_float64(x, p, _t(data_x), _t(data_p),
+                                          _t(lm), ys, ps)))
     return x, p, data_x, data_p, lm, ys, ps
 
 
 @pytest.mark.parametrize("case", ["near", "offset", "hard_tail", "all_masked",
-                                  "off_support"])
+                                  "off_support", "far_off_support"])
 @pytest.mark.parametrize("dx,dp", [(1, 40), (35, 3), (40, 40)])
 def test_wide_kernel_tf32_form_matches_plain(case, dx, dp):
     """vbn_kde_cond_wide's 3xTF32 expanded form on centred data, modelled
@@ -473,7 +481,9 @@ def test_wide_kernel_tf32_form_matches_plain(case, dx, dp):
     within 1e-4: W4's shape (Dx = 1 by direct differences, Dp = 40), and
     targets wide enough for the GEMM; near the support, offset by +20 in
     every feature, with a hard-masked tail, fully masked (NaN on both
-    sides), and one bandwidth off the support in every feature."""
+    sides), one bandwidth off the support in every feature, and far off
+    it, where the log-densities pass 100 (both there also against
+    float64, printed)."""
     g = np.random.default_rng(17)
     x, p, data_x, data_p, lm, ys, ps = _wide_case(case, dx, dp, g)
     got = _wide_model(x, p, data_x, data_p, lm, ys, ps)
@@ -482,6 +492,14 @@ def test_wide_kernel_tf32_form_matches_plain(case, dx, dp):
     np.testing.assert_allclose(got, want, atol=1e-4, rtol=0)
     if case == "all_masked":
         assert np.isnan(want).all()
+    if case == "far_off_support":
+        ref = kde_cond_float64(_t(x), _t(p), _t(data_x), _t(data_p), _t(lm),
+                               ys, ps).numpy()
+        assert np.abs(ref).min() > 100.0
+        print(f"far Dx={dx} Dp={dp}: |out| {np.abs(ref).min():.1f}-"
+              f"{np.abs(ref).max():.1f}, model vs float64 "
+              f"{np.abs(got - ref).max():.2e}, plain vs float64 "
+              f"{np.abs(want - ref).max():.2e}")
 
 
 @pytest.mark.parametrize("dx,dp", [(1, 40), (40, 40)])

@@ -1,7 +1,7 @@
 """Typed coercion of config hyperparameters against declarative kind specs.
 
-Copy of ``vectorizedbayesiannetwork_tpu/config_cast.py`` for the CPD
-families this port provides. Users may pass numbers as strings ("1e-3"),
+Copy of ``vectorizedbayesiannetwork_tpu/config_cast.py``, with the schemas
+of all eight CPD families. Users may pass numbers as strings ("1e-3"),
 numpy scalars or 0-d arrays; schema-covered keys are cast to Python
 ints/floats/bools/lists, unknown keys pass through, and a value that cannot
 be interpreted raises ``ValueError``.
@@ -112,7 +112,22 @@ FIT_SCHEMA: Dict[str, str] = {
     "max_grad_norm": "float",
 }
 
+_MLP_KEYS = {"hidden_dims": "list[int]"}
+_CATEGORICAL_KEYS = {"n_classes": "int", "parent_n_classes": "list[int]"}
+
 CPD_SCHEMAS: Dict[str, Dict[str, str]] = {
+    "gaussian_nn": {**_MLP_KEYS, "min_scale": "float"},
+    "softmax_nn": {
+        "n_classes": "int",
+        **_MLP_KEYS,
+        "label_smoothing": "float",
+        "min_bin_width": "float",
+        "within_bin_scale": "float",
+        "within_bin_clip": "bool",
+        "debug": "bool",
+        "debug_every": "int",
+    },
+    "mdn": {"n_components": "int", **_MLP_KEYS, "min_scale": "float"},
     "kde": {
         "bandwidth": "float_or_str",
         "parent_bandwidth": "float_or_str",
@@ -120,11 +135,24 @@ CPD_SCHEMAS: Dict[str, Dict[str, str]] = {
         "min_scale": "float",
     },
     "linear_gaussian": {"ridge": "float", "min_scale": "float"},
+    "rff_gaussian": {
+        "n_features": "int",
+        "lengthscale": "float",
+        "ridge": "float",
+        "min_scale": "float",
+        "use_bias": "bool",
+    },
     "categorical_table": {
-        "n_classes": "int",
-        "parent_n_classes": "list[int]",
+        **_CATEGORICAL_KEYS,
         "alpha": "float",
         "alpha_mode": "str",
         "prior": "str",
+    },
+    "categorical_embedded_softmax": {
+        **_CATEGORICAL_KEYS,
+        "embedding_dim": "int",
+        **_MLP_KEYS,
+        "label_smoothing": "float",
+        "max_grad_norm": "float",
     },
 }

@@ -70,8 +70,11 @@ class BaseCPD(ABC):
         )
 
     @abstractmethod
-    def init(self, device: torch.device) -> Params:
-        """Create the initial parameter dict on ``device``."""
+    def init(self, device: torch.device,
+             gen: Optional[torch.Generator] = None) -> Params:
+        """Create the initial parameter dict on ``device``; families with
+        random initial weights draw them from ``gen`` (the fit's
+        generator)."""
 
     @abstractmethod
     def fit(

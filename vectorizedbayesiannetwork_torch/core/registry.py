@@ -1,9 +1,11 @@
 """Component registries, populated by decorators (duplicate keys refused).
 
 Same surface as ``vectorizedbayesiannetwork_tpu/core/registry.py`` for the
-components this port has: three CPD families, one learner and six
-inference methods are registered; the sampling and update registries come with their
-slices.
+components this port has: all eight CPD families (``categorical_table``,
+``linear_gaussian``, ``kde``, ``gaussian_nn``, ``mdn``, ``rff_gaussian``,
+``softmax_nn``, ``categorical_embedded_softmax``), one learner and six
+inference methods are registered; the sampling and update registries come
+with their slices.
 """
 
 from __future__ import annotations

@@ -49,6 +49,61 @@ _CATALOG: Dict[str, Dict[str, Dict]] = {
             "update": {"n_steps": 1, "batch_size": 4096, "lr": 1e-3,
                        "weight_decay": 0.0},
         },
+        "gaussian_nn": {
+            "hidden_dims": [32, 32],
+            "activation": "relu",
+            "min_scale": 1e-4,
+            "fit": {"epochs": 100, "batch_size": 4096, "lr": 1e-3,
+                    "weight_decay": 0.0},
+            "update": {"n_steps": 1, "batch_size": 128, "lr": 1e-3,
+                       "weight_decay": 0.0},
+        },
+        "mdn": {
+            "n_components": 5,
+            "hidden_dims": [32, 32],
+            "activation": "relu",
+            "min_scale": 1e-4,
+            "fit": {"epochs": 100, "batch_size": 4096, "lr": 1e-3,
+                    "weight_decay": 0.0},
+            "update": {"n_steps": 1, "batch_size": 4096, "lr": 1e-3,
+                       "weight_decay": 0.0},
+        },
+        "rff_gaussian": {
+            "n_features": 256,
+            "lengthscale": 1.0,
+            "ridge": 1e-6,
+            "min_scale": 1e-3,
+            "use_bias": True,
+            "fit": {"epochs": 1, "batch_size": 4096, "lr": 1e-3,
+                    "weight_decay": 0.0},
+            "update": {"n_steps": 1, "batch_size": 128, "lr": 1e-3,
+                       "weight_decay": 0.0},
+        },
+        "softmax_nn": {
+            "n_classes": 8,
+            "hidden_dims": [32, 32],
+            "activation": "relu",
+            "label_smoothing": 0.0,
+            "min_bin_width": 1e-12,
+            "binning": "quantile",
+            "within_bin": "triangular",
+            "fit": {"epochs": 100, "batch_size": 4096, "lr": 1e-3,
+                    "weight_decay": 0.0},
+            "update": {"n_steps": 1, "batch_size": 128, "lr": 1e-3,
+                       "weight_decay": 0.0},
+        },
+        "categorical_embedded_softmax": {
+            "n_classes": 0,
+            "embedding_dim": 8,
+            "hidden_dims": [64, 64],
+            "activation": "relu",
+            "label_smoothing": 0.0,
+            "class_weighting": "none",
+            "fit": {"epochs": 50, "batch_size": 4096, "lr": 1e-3,
+                    "weight_decay": 0.0},
+            "update": {"n_steps": 1, "batch_size": 128, "lr": 1e-3,
+                       "weight_decay": 0.0},
+        },
     },
     "learning": {"node_wise": {"default_cpd": "gaussian_nn"}},
     "inference": {

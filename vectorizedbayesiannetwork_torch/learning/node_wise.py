@@ -4,11 +4,14 @@ Port of ``vectorizedbayesiannetwork_tpu/learning/node_wise.py``: per-node
 config validation (``cpd`` required, training keys banned at the top
 level, ``fit``/``update`` must be dicts), parent-column concatenation,
 registry-based CPD construction with schema-coerced kwargs, then
-``cpd.fit`` on the VBN's device with a ``torch.Generator`` of its own,
-folded from the VBN seed and ``1000 + node_idx`` as the JAX package folds
-its fit keys (the KDE CPD subsamples with it). The JAX package's opt-in grouped fit
-(``VBN_FIT_GROUP``) serves only neural CPDs, which this port does not
-have yet.
+``cpd.init`` and ``cpd.fit`` on the VBN's device with a ``torch.Generator``
+of the node's own, folded from the VBN seed and ``1000 + node_idx`` as the
+JAX package folds its fit keys (the neural CPDs draw their initial
+weights and minibatch orders from it, the KDE CPD its subsample). A node
+left out of ``nodes_cpds`` gets ``default_cpd``, ``gaussian_nn`` unless
+the learner is told otherwise. The JAX package's opt-in grouped fit of
+same-signature neural nodes (``VBN_FIT_GROUP``, ``fit_many``) is not
+ported (ROADMAP).
 """
 
 from __future__ import annotations
@@ -94,10 +97,11 @@ class NodeWiseLearner:
             input_dim = 0 if parent_arr is None else parent_arr.shape[-1]
             cpd = build_cpd(node, conf, input_dim, x.shape[-1], vbn.seed)
             fit_kwargs = coerce_numbers(dict(conf.get("fit") or {}), FIT_SCHEMA)
-            params = cpd.init(vbn.device)
+            gen = fold(root, 1000 + node_idx).generator
+            params = cpd.init(vbn.device, gen=gen)
             vbn.params[node] = cpd.fit(
-                params, parent_arr, x, device=vbn.device,
-                gen=fold(root, 1000 + node_idx).generator, **fit_kwargs
+                params, parent_arr, x, device=vbn.device, gen=gen,
+                **fit_kwargs
             )
             vbn.nodes[node] = cpd
             if verbosity >= 2:

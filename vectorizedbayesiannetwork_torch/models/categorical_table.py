@@ -159,7 +159,7 @@ class CategoricalTableCPD(BaseCPD):
             s *= card
         return s
 
-    def init(self, device) -> Params:
+    def init(self, device, gen=None) -> Params:
         return {}
 
     @staticmethod

@@ -1,0 +1,151 @@
+"""Neural Gaussian CPD: MLP -> (loc, softplus scale), with standardization.
+
+Port of ``vectorizedbayesiannetwork_tpu/models/gaussian_nn.py``: parents
+and target standardized once before training (``stats``), Adam NLL
+minibatch training (``_train.py``) with the optimizer state kept in the
+params as ``opt``, a root fast path with learnable (loc, log_scale), the
+``min_scale`` softplus floor, and loc/scale denormalized at evaluation.
+``compute_dtype="bfloat16"`` serves through bf16 products with float32
+outputs; training stays float32, as in the JAX package.
+``conditional_params`` is the protocol ``gaussian_exact``'s grid path and
+``core/handle.py`` read.
+
+Not ported yet: ``update`` / ``update_program`` (ROADMAP queue 1, item 11)
+and the grouped ``fit_many`` (off by default in the JAX package).
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import torch
+
+from ..core.base import BaseCPD, Params
+from ..core.registry import register_cpd
+from ..ops.gauss import diag_gaussian_log_prob, safe_softplus, standardize_stats
+from ._mlp import check_activation, mlp_apply, mlp_init, resolve_compute_dtype
+from ._train import as_rows, fit_minibatch_nll
+
+
+@register_cpd("gaussian_nn")
+class GaussianNNCPD(BaseCPD):
+    def __init__(
+        self,
+        input_dim: int,
+        output_dim: int,
+        *,
+        seed: Optional[int] = None,
+        hidden_dims: Sequence[int] = (32, 32),
+        activation: str = "relu",
+        min_scale: float = 1e-3,
+        compute_dtype: str = "float32",
+        **_ignored,
+    ) -> None:
+        super().__init__(input_dim, output_dim, seed=seed)
+        self.hidden_dims = tuple(int(h) for h in hidden_dims)
+        self.activation = check_activation(str(activation))
+        self.min_scale = float(min_scale)
+        resolve_compute_dtype(compute_dtype)
+        self.compute_dtype = str(compute_dtype)
+
+    def get_init_kwargs(self):
+        return {
+            "hidden_dims": list(self.hidden_dims),
+            "activation": self.activation,
+            "min_scale": self.min_scale,
+            "compute_dtype": self.compute_dtype,
+        }
+
+    def _static_fields(self) -> tuple:
+        return (self.hidden_dims, self.activation, self.min_scale,
+                self.compute_dtype)
+
+    # -- lifecycle ----------------------------------------------------------
+    def init(self, device, gen: Optional[torch.Generator] = None) -> Params:
+        f32 = dict(dtype=torch.float32, device=device)
+        if self.input_dim == 0:
+            net = {"loc": torch.zeros((self.output_dim,), **f32),
+                   "log_scale": torch.zeros((self.output_dim,), **f32)}
+        else:
+            net = mlp_init(gen, self.input_dim, self.hidden_dims,
+                           self.output_dim * 2, device)
+        return {
+            "net": net,
+            "stats": {
+                "mean_x": torch.zeros((self.input_dim,), **f32),
+                "std_x": torch.ones((self.input_dim,), **f32),
+                "mean_y": torch.zeros((self.output_dim,), **f32),
+                "std_y": torch.ones((self.output_dim,), **f32),
+            },
+            "opt": None,
+        }
+
+    def _standardization(self, parents: Optional[torch.Tensor], x):
+        f32 = dict(dtype=torch.float32, device=x.device)
+        if parents is None or parents.numel() == 0:
+            mean_x = torch.zeros((self.input_dim,), **f32)
+            std_x = torch.ones((self.input_dim,), **f32)
+        else:
+            mean_x, std_x = standardize_stats(parents)
+        mean_y, std_y = standardize_stats(x)
+        return {"mean_x": mean_x, "std_x": std_x,
+                "mean_y": mean_y, "std_y": std_y}
+
+    def _nll(self, net, parents, x):
+        """Mean NLL in normalized units of normalized rows."""
+        loc, scale = self._loc_scale_norm(net, parents, x.shape[0])
+        return -torch.mean(diag_gaussian_log_prob(x, loc, scale))
+
+    def _loc_scale_norm(self, net, parents, m: int, dt=None):
+        """(loc, scale) in normalized target units from normalized parents."""
+        if self.input_dim == 0:
+            loc = net["loc"].expand(m, self.output_dim)
+            scale = safe_softplus(net["log_scale"], self.min_scale).expand(
+                m, self.output_dim)
+            return loc, scale
+        out = mlp_apply(net, parents, self.activation, dt)
+        loc = out[..., : self.output_dim]
+        scale = safe_softplus(out[..., self.output_dim :], self.min_scale)
+        return loc, scale
+
+    def fit(self, params, parents, x, *, device, gen=None, epochs: int = 1,
+            lr: float = 1e-3, batch_size: int = 128,
+            weight_decay: float = 0.0, max_grad_norm=None, **_kwargs):
+        x = as_rows(x, self.output_dim, device)
+        p = None if parents is None else as_rows(parents, self.input_dim,
+                                                 device)
+        stats = self._standardization(p, x)
+        xn = (x - stats["mean_y"]) / stats["std_y"]
+        pn = None if p is None else (p - stats["mean_x"]) / stats["std_x"]
+        net, opt = fit_minibatch_nll(
+            self._nll, params["net"], params.get("opt"), gen, pn, xn,
+            epochs=epochs, batch_size=batch_size, lr=lr,
+            weight_decay=weight_decay, max_grad_norm=max_grad_norm,
+        )
+        return {"net": net, "stats": stats, "opt": opt}
+
+    # -- flat primitives -----------------------------------------------------
+    def _denorm_params(self, params, parents, m: int):
+        stats = params["stats"]
+        pn = (None if self.input_dim == 0
+              else (parents - stats["mean_x"]) / stats["std_x"])
+        loc_n, scale_n = self._loc_scale_norm(
+            params["net"], pn, m, resolve_compute_dtype(self.compute_dtype))
+        return (loc_n * stats["std_y"] + stats["mean_y"],
+                scale_n * stats["std_y"])
+
+    def _sample_flat(self, params, gen, parents, m):
+        loc, scale = self._denorm_params(params, parents, m)
+        eps = torch.randn((m, self.output_dim), generator=gen,
+                          device=loc.device, dtype=loc.dtype)
+        return loc + eps * scale
+
+    def _log_prob_flat(self, params, x, parents):
+        loc, scale = self._denorm_params(params, parents, x.shape[0])
+        return diag_gaussian_log_prob(x, loc, scale)
+
+    def conditional_params(self, params: Params, parents):
+        """(loc, scale), each [M, Dout], given flat parents [M, Din] (None
+        for a root: M = 1)."""
+        m = 1 if parents is None else parents.shape[0]
+        return self._denorm_params(params, parents, m)

@@ -116,7 +116,7 @@ class KDECPD(BaseCPD):
                 self.min_scale)
 
     # -- lifecycle ----------------------------------------------------------
-    def init(self, device) -> Params:
+    def init(self, device, gen=None) -> Params:
         f32 = dict(dtype=torch.float32, device=device)
         m = self.max_points
         return {

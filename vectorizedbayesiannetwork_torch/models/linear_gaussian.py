@@ -63,7 +63,7 @@ class LinearGaussianCPD(BaseCPD):
     def _static_fields(self) -> tuple:
         return (self.ridge, self.min_scale)
 
-    def init(self, device) -> Params:
+    def init(self, device, gen=None) -> Params:
         f32 = dict(dtype=torch.float32, device=device)
         return {
             "weight": torch.zeros((self.input_dim, self.output_dim), **f32),

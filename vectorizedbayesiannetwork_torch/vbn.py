@@ -10,7 +10,8 @@ JAX package's checkpoint format (an ``.npz`` of flattened params with a
 ``__structure__`` JSON entry), so a model fitted by either package serves
 in the other. Model state is a dict of params per node on one device;
 ``device=None`` means the CUDA card, and the CPU is used only when asked
-for (``device="cpu"``).
+for (``device="cpu"``). Queries are served under ``torch.no_grad()``, and a
+fit stores its params detached, so no autograd graph reaches serving.
 """
 
 from __future__ import annotations
@@ -177,12 +178,14 @@ class VBN:
                 f"Call set_inference_method(...) before {what}()."
             )
 
+    @torch.no_grad()
     def infer_posterior(self, query, **kwargs) -> Tuple[torch.Tensor, torch.Tensor]:
         """(pdf [B, S], samples [B, S, D]) tensors on the VBN's device."""
         self._require_inference("infer_posterior")
         q = self._normalize_query(query)
         return self._inference.infer_posterior(self, q, **kwargs)
 
+    @torch.no_grad()
     def infer_posterior_many(self, queries, **kwargs):
         """Answer several queries; a list of (pdf, samples) pairs in input
         order. A method in ``dynamic_masks`` mode runs them as one sweep;
@@ -197,6 +200,7 @@ class VBN:
             ]
         return results
 
+    @torch.no_grad()
     def infer_posterior_pmf(self, queries, *, n_classes, **kwargs):
         """Discrete posterior pmf rows ``(rows [sum B, n_classes], spans)``.
 
@@ -216,6 +220,7 @@ class VBN:
             out = self._reduce_from_stream(qs, "pmf", int(n_classes), kwargs)
         return out
 
+    @torch.no_grad()
     def infer_posterior_moments(self, queries, **kwargs):
         """Posterior (mean, std) rows ``(rows [sum B, 2], spans)``."""
         self._require_inference("infer_posterior_moments")
