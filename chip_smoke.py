@@ -162,6 +162,39 @@ their own; RIS over them launches the resampling kernels):
     bf16 within rtol 0.05, atol 0.15), each served batch with the counters
     reset just before and read just after.
 
+Then sampling and the online update policies (the samplers and policies
+are torch ops, the KDE paths run the KDE kernels):
+
+22. sampling_main_path: (s1) ancestral over (d)'s ``softmax_nn`` network,
+    x2 with no evidence, 2^20 draws, the class histogram against
+    ``categorical_exact``'s marginal by a merged chi-square z (<= 6);
+    (s2) Gibbs over the KDE flagship (max_points 2048) at W2's query
+    (x0 | x2 = linspace(-1, 1, 8); 256 draws, burn-in 20, 64 chains;
+    ``tpu_study.py:179-192``), launching ``vbn_kde_pick`` and
+    ``vbn_kde_cond``, means within 5 standard errors (64 chains' batch
+    means) and stds within 15 % of W2's float64 reference, and a profiled
+    call; (s3) Gibbs on the LG flagship, x2 | x0 = 0.5, one chain of 1024
+    draws (burn-in 50, thinning 5; ``gibbs_micro.py``) on the hoisted and
+    the keyed noise route, each against ``gaussian_exact``; (s4) HMC and
+    NUTS on the LG flagship as ``tests/test_sampling.py`` sets them (x0 |
+    x2 = 0.5, 400 draws, burn-in 50, step 0.2, 8 chains, 8 leapfrogs; NUTS
+    at most depth 6, and adapting from a step of 5) against
+    ``gaussian_exact``, then HMC and NUTS over the KDE flagship at W2's
+    query (64 chains) against its reference, launching ``vbn_kde_root`` and
+    ``vbn_kde_cond`` in every gradient evaluation, and the KDE
+    log-density's autograd.Function on the card against autograd of the
+    plain version (2^14 rows, within 1e-5 of the gradient's scale); each
+    with the counters reset just before and read just after, ms, draws/s,
+    leapfrogs and device kernels a transition, and peak memory;
+23. update_main_path (u1): ms per update call of r2_measure.py's four
+    workloads (LG ``streaming_stats``, 8192 fit rows; ``gaussian_nn``
+    ``online_sgd`` and ``ema``, 4096; ``categorical_table``
+    ``streaming_stats``, 8 classes; 1024 update rows) and KDE
+    ``streaming_stats`` on the flagship (max_points 2048, the Gumbel top-k
+    route), each first update of a fresh fit held against the same update
+    on the CPU (closed forms within 1e-5, counts exactly, neural on full
+    batches within 1e-5 of scale; KDE as a uniform subset of the pool).
+
 Prints a JSON line of kernel results (all twelve kernels), the card's name
 and power limit, and last ``{"ok": true, "device": {...}}``. Any failure
 exits nonzero. The script imports nothing of JAX or of the JAX package.
@@ -182,6 +215,7 @@ from __future__ import annotations
 import json
 import re
 import subprocess
+from collections import Counter
 import sys
 import time
 import types
@@ -3174,13 +3208,14 @@ def neural_discrete(vbn_cls, defaults, bn, asia_vbn, fits):
     launches_per_step("d softmax_nn x2", sm.nodes["x2"],
                       np.stack([flag["x0"], flag["x1"]], 1), flag["x2"],
                       STUDY_FIT)
+    return sm
 
 
 def serve_neural(vbn_cls, defaults, bn, asia_vbn):
     """Phase neural_main_path: paths (a)-(d) above, each fit timed, each
     served batch with the counters reset just before and read just after,
     card against CPU on every family; returns the resampling kernels'
-    launches (RIS in (a))."""
+    launches (RIS in (a)) and (d)'s fitted softmax_nn network."""
     import torch
 
     t0 = time.perf_counter()
@@ -3189,12 +3224,530 @@ def serve_neural(vbn_cls, defaults, bn, asia_vbn):
     fits = {}
     launches = neural_flagship(vbn_cls, defaults, fits)
     neural_gauss8(vbn_cls, defaults, fits)
-    neural_discrete(vbn_cls, defaults, bn, asia_vbn, fits)
+    sm = neural_discrete(vbn_cls, defaults, bn, asia_vbn, fits)
     steps = sum(f["optimizer_steps"] for f in fits.values())
     fit_s = sum(f["fit_s"] for f in fits.values())
     log("neural_done", seconds=time.perf_counter() - t0, fit_s=fit_s,
         optimizer_steps=steps, launches=launches)
-    return launches
+    return launches, sm
+
+
+# ---------------------------------------------------------------------------
+# Sampling (ancestral, Gibbs, HMC, NUTS) and the online update policies
+# ---------------------------------------------------------------------------
+
+S1_DRAWS = 1 << 20  # tpu_study.py:162-177: softmax_nn ancestral
+S2 = {"n_samples": 256, "burn_in": 20, "n_chains": 64}  # tpu_study.py:179-192
+S3 = {"n_samples": 1024, "burn_in": 50, "n_steps": 5}  # gibbs_micro.py:22-50
+S4 = {"n_samples": 400, "burn_in": 50, "step_size": 0.2, "n_chains": 8,
+      "n_leapfrog": 8}  # tests/test_sampling.py:71-150
+S4_NUTS_DEPTH = 6  # NUTS's max_tree_depth here: at most 63 leapfrogs a step
+S4_KDE = {"n_samples": 256, "burn_in": 50, "step_size": 0.2, "n_chains": 64,
+          "n_leapfrog": 8}  # HMC over the KDE flagship at (s2)'s query
+M_GRAD = 1 << 14  # rows of the KDE gradient check
+U1_REPS = 8  # timed update calls (r2_measure.py:67-79)
+
+
+class keyed_route:
+    """Hide ``_noise_spec`` from the given CPD classes, so Gibbs draws its
+    noise step by step (the route the JAX package's test forces by
+    ``monkeypatch.delattr``)."""
+
+    def __init__(self, *classes):
+        self.classes = classes
+
+    def __enter__(self):
+        self.saved = [(c, c.__dict__["_noise_spec"]) for c in self.classes]
+        for c, _ in self.saved:
+            delattr(c, "_noise_spec")
+
+    def __exit__(self, *exc):
+        for c, fn in self.saved:
+            c._noise_spec = fn
+
+
+def timed(fn):
+    """(fn()'s result, its seconds to a synchronized card, peak bytes)."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, torch.cuda.max_memory_allocated()
+
+
+def batch_means_se(draws, chains, draw_major):
+    """Per row: the standard error of the mean from the chains' means
+    (``draws`` [B, n]; Gibbs lays a row out draw-major, HMC chain-major),
+    or with one chain from 32 batches of consecutive draws."""
+    b, n = draws.shape
+    if chains == 1:
+        groups = draws[:, : n - n % 32].reshape(b, 32, -1).mean(axis=2)
+    elif draw_major:
+        groups = draws.reshape(b, -1, chains).mean(axis=1)
+    else:
+        groups = draws.reshape(b, chains, -1).mean(axis=2)
+    return groups.std(axis=1, ddof=1) / np.sqrt(groups.shape[1])
+
+
+def hold_moments(tag, draws, want, se, *, limit_se=5.0, abs_limit=None,
+                 hold_std=True):
+    """Means within ``limit_se`` standard errors of ``want`` (or within
+    ``abs_limit``); with ``hold_std``, stds within 15 % plus ``limit_se``
+    standard errors of the mean."""
+    mean, std = draws.mean(axis=1), draws.std(axis=1)
+    dmean = np.abs(mean - want[:, 0])
+    dstd = np.abs(std - want[:, 1])
+    lim = abs_limit if abs_limit is not None else limit_se * se
+    ok = bool(np.all(dmean <= lim) and (
+        not hold_std or np.all(dstd <= 0.15 * want[:, 1] + limit_se * se)))
+    rec = {"mean": mean.tolist(), "std": std.tolist(),
+           "reference": want.tolist(), "se": se.tolist(),
+           "max_dmean_over_se": float(np.max(dmean / se)),
+           "max_dstd_over_std": float(np.max(dstd / want[:, 1])),
+           "mean_limit": np.atleast_1d(lim).tolist()}
+    if not ok:
+        raise AssertionError(f"{tag}: draws off the reference: {rec}")
+    return rec
+
+
+def device_events_per_call(fn):
+    """Device kernels (torch.profiler events) one call of ``fn`` runs."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
+def sampling_s1(sm):
+    """(s1) ancestral over (d)'s softmax_nn network, x2 with no evidence,
+    2^20 draws: the class histogram against categorical_exact's marginal
+    by a merged chi-square z (limit 6)."""
+    q = {"target": "x2", "evidence": {}}
+    sm.set_sampling_method("ancestral")
+    sm.sample(q, n_samples=1 << 10)
+    reset_launches()
+    draws, secs, mem = timed(lambda: sm.sample(q, n_samples=S1_DRAWS))
+    launches = read_launches({})
+    sm.set_inference_method("categorical_exact")
+    ex, _ = sm.infer_posterior_pmf([q], n_classes=8)
+    probs = ex[0].astype(np.float64) / ex[0].sum()
+    vals = draws[0, :, 0].cpu().numpy()
+    counts = np.bincount(np.clip(np.rint(vals), 0, 7).astype(np.int64),
+                         minlength=8)
+    z = chi2_z_merged(counts.astype(np.float64), probs)
+    log("sampling_main_path", workload="s1 softmax_nn ancestral", draws=S1_DRAWS,
+        ms=1e3 * secs, draws_per_s=S1_DRAWS / secs, launches=launches,
+        max_memory_allocated_bytes=mem, chi2_z=z, limit=6.0,
+        frequencies=(counts / counts.sum()).tolist(), exact=probs.tolist(),
+        on_class_values=bool(np.all(vals == np.rint(vals))))
+    if not z <= 6.0 or not np.all(vals == np.rint(vals)):
+        raise AssertionError(f"(s1) draws off categorical_exact: z={z}")
+
+
+def sampling_s2(flag, ref_w2, total):
+    """(s2) Gibbs over the KDE flagship, W2's query: the keyed route (KDE
+    has no noise split): per step a pick for each latent node's candidates
+    and its child's conditional for their scores."""
+    _, w2, _ = kde_flagship_queries()
+    flag.set_sampling_method("gibbs")
+    flag.sample(w2, **dict(S2, n_samples=64, burn_in=2))
+    steps = S2["burn_in"] + -(-S2["n_samples"] // S2["n_chains"])
+    expect = {"kde_pick": 2 + 2 * steps, "kde_cond": 2 * steps}
+    reset_launches()
+    draws, secs, mem = timed(lambda: flag.sample(w2, **S2))
+    launches = read_launches(expect)
+    add_launches(total, launches)
+    d = draws[..., 0].cpu().numpy().astype(np.float64)
+    se = batch_means_se(d, S2["n_chains"], draw_major=True)
+    acc = hold_moments("(s2) Gibbs over KDE", d, ref_w2, se)
+    prof = profile_batch(lambda: flag.sample(w2, **S2),
+                         ("kde_pick_", "kde_direct_kernel"))
+    n_draws = B_KDE * S2["n_samples"]
+    log("sampling_main_path", workload="s2 KDE Gibbs", B=B_KDE, **S2,
+        ms=1e3 * secs, draws_per_s=n_draws / secs, steps=steps,
+        launches=launches, hoisted=flag._sampling._last_hoisted,
+        max_memory_allocated_bytes=mem, **acc)
+    log("serve_profile", workload="s2 KDE Gibbs", **prof)
+
+
+def sampling_s3(vbn_cls, defaults):
+    """(s3) Gibbs on the 3-node LG, x2 | x0 = 0.5, one chain: hoisted noise,
+    then the keyed route; each mean against gaussian_exact within 5
+    standard errors (32 batch means)."""
+    from vectorizedbayesiannetwork_torch.models.linear_gaussian import (
+        LinearGaussianCPD,
+    )
+
+    vbn = fit_flagship(vbn_cls, defaults)
+    q = {"target": "x2", "evidence": {"x0": [[0.5]]}}
+    vbn.set_inference_method("gaussian_exact")
+    want, _ = vbn.infer_posterior_moments([q])
+    vbn.set_sampling_method("gibbs")
+    for route in ("hoisted", "keyed"):
+        run = lambda: vbn.sample(q, **S3)  # noqa: E731
+        if route == "keyed":
+            with keyed_route(LinearGaussianCPD):
+                vbn.sample(q, n_samples=8, burn_in=2)
+                reset_launches()
+                draws, secs, mem = timed(run)
+        else:
+            vbn.sample(q, n_samples=8, burn_in=2)
+            reset_launches()
+            draws, secs, mem = timed(run)
+        launches = read_launches({})
+        if vbn._sampling._last_hoisted != (route == "hoisted"):
+            raise AssertionError(f"(s3) took the wrong noise route: {route}")
+        d = draws[..., 0].cpu().numpy().astype(np.float64)
+        acc = hold_moments(f"(s3) Gibbs LG {route}", d, want,
+                           batch_means_se(d, 1, draw_major=True))
+        steps = S3["burn_in"] + S3["n_samples"] * S3["n_steps"]
+        log("sampling_main_path", workload=f"s3 LG Gibbs {route}", **S3,
+            ms=1e3 * secs, ms_per_step=1e3 * secs / steps, launches=launches,
+            max_memory_allocated_bytes=mem, **acc)
+
+
+def sampling_s4(vbn_cls, defaults, flag, ref_w2, total):
+    """(s4) HMC and NUTS on the LG flagship, x0 | x2 = 0.5, against
+    gaussian_exact (the JAX test's limits on the mean: 0.15, and 0.2
+    adapting from a step of 5; NUTS's std within 15 %; HMC's std only
+    logged: at this step and trajectory its leapfrog map turns the
+    posterior's stiff direction by nearly half a period, so each chain
+    swings about the mean with the amplitude it started with, in either
+    package); HMC and NUTS over the KDE flagship at W2's query against its
+    float64 reference (means within 5 standard errors of 64 chains' means;
+    NUTS's stds within 15 % and 5 of them, HMC's logged, as on the LG); the
+    KDE gradient on the card against autograd of the plain version."""
+    import torch
+
+    lg = fit_flagship(vbn_cls, defaults)
+    q = {"target": "x0", "evidence": {"x2": [[0.5]]}}
+    lg.set_inference_method("gaussian_exact")
+    want, _ = lg.infer_posterior_moments([q])
+    runs = (("hmc", dict(S4), 0.15),
+            ("nuts", dict(S4, max_tree_depth=S4_NUTS_DEPTH), 0.15),
+            ("nuts", dict(S4, max_tree_depth=S4_NUTS_DEPTH, step_size=5.0,
+                          adapt_step_size=True), 0.2))
+    for name, kw, limit in runs:
+        lg.set_sampling_method(name)
+        lg.sample(q, **dict(kw, n_samples=16, burn_in=2))
+        reset_launches()
+        draws, secs, mem = timed(lambda: lg.sample(q, **kw))
+        launches = read_launches({})
+        transitions = kw["burn_in"] + -(-kw["n_samples"] // kw["n_chains"])
+        leapfrogs = lg._sampling._leapfrogs
+        d = draws[..., 0].cpu().numpy().astype(np.float64)
+        acc = hold_moments(f"(s4) {name} LG", d, want,
+                           batch_means_se(d, kw["n_chains"], draw_major=False),
+                           abs_limit=limit, hold_std=name == "nuts")
+        # a profiled call of 5 transitions: burn-in 4, one draw a chain
+        events = device_events_per_call(
+            lambda: lg.sample(q, **dict(kw, n_samples=kw["n_chains"],
+                                        burn_in=4)))
+        log("sampling_main_path", workload=f"s4 LG {name}",
+            adapt=bool(kw.get("adapt_step_size")), ms=1e3 * secs,
+            ms_per_transition=1e3 * secs / transitions,
+            leapfrogs_per_transition=leapfrogs / transitions,
+            device_kernels_per_transition=events / 5, launches=launches,
+            max_memory_allocated_bytes=mem, **acc)
+
+    _, w2, _ = kde_flagship_queries()
+    nuts_kw = {k: v for k, v in S4_KDE.items() if k != "n_leapfrog"}
+    for name, kw in (("hmc", S4_KDE),
+                     ("nuts", dict(nuts_kw, max_tree_depth=S4_NUTS_DEPTH))):
+        flag.set_sampling_method(name)
+        flag.sample(w2, **dict(kw, n_samples=64, burn_in=2))
+        transitions = kw["burn_in"] + -(-kw["n_samples"] // kw["n_chains"])
+        reset_launches()
+        draws, secs, mem = timed(lambda: flag.sample(w2, **kw))
+        # a gradient evaluation a leapfrog, and one at each transition's
+        # start; each evaluates x0's and x1's root density and x2's
+        # conditional; the init sweep picks x0 and x1
+        evals = transitions + flag._sampling._leapfrogs
+        launches = read_launches({"kde_pick": 2, "kde_root": 2 * evals,
+                                  "kde_cond": evals})
+        add_launches(total, launches)
+        d = draws[..., 0].cpu().numpy().astype(np.float64)
+        acc = hold_moments(f"(s4) {name} over KDE", d, ref_w2,
+                           batch_means_se(d, kw["n_chains"], draw_major=False),
+                           hold_std=name == "nuts")
+        log("sampling_main_path", workload=f"s4 KDE {name}", B=B_KDE, **kw,
+            ms=1e3 * secs, ms_per_transition=1e3 * secs / transitions,
+            leapfrogs_per_transition=flag._sampling._leapfrogs / transitions,
+            draws_per_s=B_KDE * kw["n_samples"] / secs,
+            launches_per_transition={k: v / transitions
+                                     for k, v in launches.items() if v},
+            launches=launches, max_memory_allocated_bytes=mem, **acc)
+        if name == "hmc":
+            log("serve_profile", workload="s4 KDE HMC", **profile_batch(
+                lambda: flag.sample(w2, **kw), ("kde_direct_kernel",)))
+    check_kde_gradient(flag)
+    torch.cuda.synchronize()
+
+
+def check_kde_gradient(flag):
+    """The KDE log-density's autograd.Function on the card, at the KDE
+    flagship's x2 | x0, x1 support (N = 2048, W2's node) and at x0's root
+    support, M_GRAD rows: its forward is the kernel (one launch), its
+    backward within 1e-5 of the gradient's scale of ``torch.autograd`` of
+    the plain version; the forward's and backward's ms at HMC's M."""
+    import torch
+
+    from vectorizedbayesiannetwork_torch.ops import kde_fused as kf
+    from vectorizedbayesiannetwork_torch.ops import kde_kernel as kk
+
+    dev = flag.device
+    g = torch.Generator(device=dev).manual_seed(7)
+    for node, entry in (("x2", "kde_cond"), ("x0", "kde_root")):
+        cpd, p = flag.nodes[node], flag.params[node]
+        lm = cpd._log_mask(p)
+        ys, ps = cpd._y_scale(), cpd._p_scale()
+        dp = cpd.input_dim
+        x = torch.randn((M_GRAD, 1), generator=g, device=dev)
+        par = (torch.randn((M_GRAD, dp), generator=g, device=dev)
+               if dp else None)
+        w = torch.randn((M_GRAD,), generator=g, device=dev)
+        args = (p["data_x"], p["data_p"], lm, ys, ps)
+
+        def grads(fn, xx, pp):
+            xx = xx.clone().requires_grad_(True)
+            pp = pp.clone().requires_grad_(True) if pp is not None else None
+            out = fn(xx, pp)
+            return out.detach(), torch.autograd.grad(
+                (out * w).sum(), [xx] + ([pp] if pp is not None else []))
+
+        reset_launches()
+        out, got = grads(lambda a, b: kk.kde_log_prob(a, b, *args), x, par)
+        launches = read_launches({entry: 1})
+        if dp:
+            plain = lambda a, b: kf.kde_cond_plain(a, b, *args)  # noqa: E731
+        else:
+            plain = lambda a, b: (kf.kde_root_plain(a, args[0], lm, ys)  # noqa: E731
+                                  - torch.log(torch.clamp(torch.exp(lm).sum(),
+                                                          min=1.0)))
+        ref_out, ref = grads(plain, x, par)
+        fwd_err = float((out - ref_out).abs().max())
+        rel = max(float((a - b).abs().max() / b.abs().max())
+                  for a, b in zip(got, ref))
+        m = B_KDE * S4_KDE["n_chains"]
+        xs, ps_ = x[:m], (par[:m] if dp else None)
+        fwd_ms = cuda_ms(lambda: kk.kde_log_prob(xs, ps_, *args), 5)
+
+        def fwd_bwd():
+            xx = xs.clone().requires_grad_(True)
+            torch.autograd.grad(kk.kde_log_prob(xx, ps_, *args).sum(), xx)
+
+        both_ms = cuda_ms(fwd_bwd, 5)
+        log("kde_gradient_check", node=node, kernel=f"vbn_{entry}", M=M_GRAD,
+            N=int(p["data_x"].shape[0]), launches=launches,
+            forward_max_abs_err=fwd_err, grad_max_rel_err=rel, limit=1e-5,
+            forward_ms_at_hmc_m=fwd_ms, forward_backward_ms_at_hmc_m=both_ms,
+            hmc_m=m)
+        if not (fwd_err <= 1e-4 and rel <= 1e-5):
+            raise AssertionError(
+                f"KDE gradient on the card off: {fwd_err}, {rel}")
+
+
+def serve_sampling(vbn_cls, defaults, sm):
+    """Phases s1-s4; returns the KDE kernels' launches of s2 and s4."""
+    import torch
+
+    t0 = time.perf_counter()
+    sampling_s1(sm)
+    flag = fit_kde(vbn_cls, defaults, [("x0", "x2"), ("x1", "x2")],
+                   flagship_data())
+    v = kde_flagship_queries()[1]["evidence"]["x2"][:, 0].astype(np.float64)
+    ref_w2 = kde_reference(flag, "w2", v)
+    total = {}
+    sampling_s2(flag, ref_w2, total)
+    sampling_s3(vbn_cls, defaults)
+    sampling_s4(vbn_cls, defaults, flag, ref_w2, total)
+    torch.cuda.synchronize()
+    log("sampling_done", seconds=time.perf_counter() - t0, launches=total)
+    return total
+
+
+def update_workloads(vbn_cls, defaults):
+    """r2_measure.py:83-101's four workloads (tag, dag, nodes_cpds, fit
+    rows, update rows), plus KDE streaming_stats on the flagship at
+    max_points 2048 (tpu_study.py:200-205's update of 1024 rows), fitted on
+    4096 rows and updated on 1024 others (rows a KDE already holds would
+    enter its support twice)."""
+    g = np.random.default_rng(0)
+    n = 8192
+    x0, x1 = g.normal(size=n), g.normal(size=n)
+    x2 = 0.6 * x0 - 0.3 * x1 + 0.1 * g.normal(size=n)
+    df = {"x0": x0, "x1": x1, "x2": x2}
+    head = lambda d, k: {c: v[:k] for c, v in d.items()}  # noqa: E731
+    chain = [("x0", "x2"), ("x1", "x2")]
+    nn_conf = defaults.cpd("gaussian_nn")
+    a = g.integers(0, 8, size=n)
+    b = (a + g.integers(0, 4, size=n)) % 8
+    dfd = {"a": a.astype(np.float64), "b": b.astype(np.float64)}
+    ct = dict(defaults.cpd("categorical_table"), n_classes=8)
+    kde = dict(defaults.cpd("kde"), max_points=KDE_POINTS)
+    return (
+        ("lg_streaming_stats", chain,
+         {k: defaults.cpd("linear_gaussian") for k in df}, df,
+         "streaming_stats", head(df, 1024)),
+        ("nn_online_sgd", chain, {k: dict(nn_conf) for k in df},
+         head(df, 4096), "online_sgd", head(df, 1024)),
+        ("nn_ema", chain, {k: dict(nn_conf) for k in df}, head(df, 4096),
+         "ema", head(df, 1024)),
+        ("ct_streaming_stats", [("a", "b")],
+         {"a": ct, "b": dict(ct, parent_n_classes=[8])}, dfd,
+         "streaming_stats", head(dfd, 1024)),
+        ("kde_streaming_stats", chain, {k: dict(kde) for k in df},
+         head(df, 4096), "streaming_stats",
+         {c: v[4096:5120] for c, v in df.items()}),
+    )
+
+
+def flat_params(tree, prefix=""):
+    import torch
+
+    out = {}
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            out.update(flat_params(v, f"{prefix}{k}/"))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            out.update(flat_params(v, f"{prefix}#{i}/"))
+    elif isinstance(tree, torch.Tensor):
+        out[prefix[:-1]] = tree.detach().cpu().double().numpy()
+    return out
+
+
+def update_card_vs_cpu(tag, vbn_cls, vbn, frame, policy, path):
+    """One more update of the card's model and of its checkpoint loaded on
+    the CPU, the neural ones on full batches (the minibatch order comes
+    from each device's generator): closed forms within 1e-5 of scale
+    (categorical counts exactly), neural within 1e-5 of scale (float32
+    rounding); KDE's Gumbel top-k draws on each device's generator, so its
+    support is held as a uniform subset (``max_points`` rows, each kept no
+    more often than the pool holds it, the new rows' share within 5 sd of
+    a hypergeometric draw) and the updated log-densities card against CPU
+    within 1e-4."""
+    import torch
+
+    nodes_cpds = vbn._learning_config["nodes_cpds"]
+    for conf in nodes_cpds.values():
+        if conf["cpd"] in ("gaussian_nn", "mdn"):
+            conf["update"] = dict(conf["update"], batch_size=1 << 20)
+    vbn.save(path)
+    cpu = vbn_cls.load(path, device="cpu")
+    pool = {n: flat_params(vbn.params[n]) for n in vbn.nodes}
+    vbn.update(frame, update_method=policy)
+    cpu.update(frame, update_method=policy)
+    rec = {"route": vbn._last_update_route}
+    if tag.startswith("kde"):
+        share, err = [], 0.0
+        for node, cpd in vbn.nodes.items():
+            got = flat_params(vbn.params[node])
+            keep = got["valid"] > 0
+            rows = np.concatenate([got["data_p"], got["data_x"]], 1)[keep]
+            before = pool[node]
+            old = np.concatenate([before["data_p"], before["data_x"]], 1)[
+                before["valid"] > 0]
+            new = np.concatenate(
+                [np.stack([np.asarray(frame[p], np.float32)
+                           for p in vbn.dag.parents(node)], 1)
+                 if cpd.input_dim else np.zeros((len(frame[node]), 0)),
+                 np.asarray(frame[node], np.float32).reshape(-1, 1)],
+                1).astype(np.float64)
+            n_pool, n_new = old.shape[0] + new.shape[0], new.shape[0]
+            if rows.shape[0] != min(cpd.max_points, n_pool):
+                raise AssertionError(f"{tag} {node}: {rows.shape[0]} rows kept")
+            # a kept row no more often than the pool holds it (float32
+            # data can hold a value twice)
+            pool_count = Counter(map(tuple, np.concatenate([old, new])))
+            kept_count = Counter(map(tuple, rows))
+            if any(c > pool_count.get(r, 0) for r, c in kept_count.items()):
+                raise AssertionError(f"{tag} {node}: a row not from the pool")
+            new_set = set(map(tuple, new))
+            from_new = sum(1 for r in map(tuple, rows) if r in new_set)
+            k = rows.shape[0]
+            mu = k * n_new / n_pool
+            sd = np.sqrt(k * (n_new / n_pool) * (1 - n_new / n_pool)
+                         * (n_pool - k) / max(n_pool - 1, 1))
+            share.append((from_new - mu) / max(sd, 1e-9))
+            if abs(share[-1]) > 5.0:
+                raise AssertionError(f"{tag} {node}: new-row share z {share[-1]}")
+            x = torch.linspace(-2, 2, 256).reshape(-1, 1)
+            par = (torch.zeros((256, cpd.input_dim)) if cpd.input_dim else None)
+            card_lp = cpd._log_prob_flat(
+                vbn.params[node], x.to(vbn.device),
+                None if par is None else par.to(vbn.device))
+            cpu_params = {k2: v.cpu() for k2, v in vbn.params[node].items()}
+            cpu_lp = cpd._log_prob_flat(cpu_params, x, par)
+            err = max(err, float((card_lp.cpu() - cpu_lp).abs().max()))
+            if err > 1e-4:
+                raise AssertionError(f"{tag} {node}: card vs CPU {err}")
+        rec.update(new_row_share_z=share, card_vs_cpu_log_density_max_abs=err)
+        return rec
+    worst = 0.0
+    for node in vbn.nodes:
+        a, b = flat_params(vbn.params[node]), flat_params(cpu.params[node])
+        for key in b:
+            scale = max(float(np.abs(b[key]).max(initial=0.0)), 1.0)
+            worst = max(worst, float(np.abs(a[key] - b[key]).max(initial=0.0))
+                        / scale)
+    limit = 0.0 if tag.startswith("ct") else 1e-5
+    rec.update(card_vs_cpu_max_rel=worst, limit=limit)
+    if worst > limit:
+        raise AssertionError(f"{tag}: card vs CPU {worst} > {limit}")
+    return rec
+
+
+def serve_updates(vbn_cls, defaults):
+    """(u1) ms per update call on the card (fit, an update to pick the
+    policy, a warm one, then U1_REPS timed), each workload's first update
+    of a fresh fit held against the same update on the CPU
+    (``update_card_vs_cpu``)."""
+    import os
+    import tempfile
+
+    import torch
+
+    t0 = time.perf_counter()
+    os.makedirs("build", exist_ok=True)
+    with tempfile.TemporaryDirectory(dir="build") as tmp:
+        for i, (tag, dag, conf, data, policy, frame) in enumerate(
+                update_workloads(vbn_cls, defaults)):
+            def fitted():
+                v = vbn_cls(dag, seed=0)
+                v.set_learning_method("node_wise", nodes_cpds=conf)
+                v.fit(data)
+                return v
+
+            vbn = fitted()
+            vbn.update(frame, update_method=policy)
+            vbn.update(frame)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches()
+            t1 = time.perf_counter()
+            for _ in range(U1_REPS):
+                vbn.update(frame)
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t1) / U1_REPS
+            launches = read_launches({})
+            mem = torch.cuda.max_memory_allocated()
+            events = device_events_per_call(lambda: vbn.update(frame))
+            check = update_card_vs_cpu(tag, vbn_cls, fitted(), frame, policy,
+                                       os.path.join(tmp, f"{i}.npz"))
+            log("update_main_path", workload=tag, policy=policy,
+                update_rows=len(next(iter(frame.values()))),
+                ms_per_update=ms, device_kernels_per_update=events,
+                launches=launches, max_memory_allocated_bytes=mem, **check)
+    log("update_done", seconds=time.perf_counter() - t0)
 
 
 def load_parent(root):
@@ -3455,11 +4008,17 @@ def main(argv) -> int:
     kernels += serve_resampling(bn, asia_vbn, lg_vbn, link)
     kernels += serve_kde(VBN, defaults)
     serve_exact(VBN, defaults, bn, asia_vbn, lg_vbn)
-    neural = serve_neural(VBN, defaults, bn, asia_vbn)
+    neural, sm = serve_neural(VBN, defaults, bn, asia_vbn)
+    sampling = serve_sampling(VBN, defaults, sm)
+    serve_updates(VBN, defaults)
     for row in kernels:
         key = {"vbn_cumsum": "cumsum", "vbn_srg": "srg"}.get(row["name"])
         if key:
             row["launches_neural_main_path"] = neural.get(key, 0)
+        key = {"vbn_kde_root": "kde_root", "vbn_kde_cond": "kde_cond",
+               "vbn_kde_pick": "kde_pick"}.get(row["name"])
+        if key:
+            row["launches_sampling_main_path"] = sampling.get(key, 0)
     if args.parent:
         compare_builds(args.parent)
 

@@ -301,8 +301,10 @@ def test_defaults_equal_jax_yaml(kind, name):
 def test_load_warns_on_what_the_port_does_not_restore(tmp_path):
     """A JAX checkpoint that names a sampling method and an update policy,
     and holds the replay buffer's ``__update__`` arrays, loads in the port
-    with a warning for each of them; its parameters load all the same. A
-    checkpoint without them loads without a warning."""
+    with no warning: the port restores them. A checkpoint of an amortized
+    fit still warns for its ``__amortized__`` arrays and its
+    ``amortized_spec``, which the port does not restore yet. Parameters
+    load all the same."""
     import warnings
 
     fg, farrays = flagship_setup()
@@ -320,12 +322,35 @@ def test_load_warns_on_what_the_port_does_not_restore(tmp_path):
     jf.update(flagship_setup(n=256, seed=1)[1], update_method="replay_buffer")
     jf.set_sampling_method("ancestral")
     jf.save(str(tmp_path / "updated.npz"))
-    with pytest.warns(UserWarning) as caught:
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
         tv = TVBN.load(str(tmp_path / "updated.npz"), device="cpu")
+    assert tv._sampling_config["name"] == "ancestral"
+    assert tv._update_config["name"] == "replay_buffer"
+    for node in farrays:
+        for got, want in zip(tv._update_policy._buffer[node],
+                             jf._update_policy._buffer[node]):
+            np.testing.assert_array_equal(got, want)
+
+    ja = JVBN(fg, seed=0)
+    ja.set_learning_method(
+        "amortized",
+        nodes_cpds={k: jdefaults.cpd("linear_gaussian") for k in farrays},
+        epochs=1, batch_size=512, hidden_dims=[8], n_do_sets=1,
+    )
+    ja.fit(flagship_setup(n=512)[1])
+    ja.save(str(tmp_path / "amortized.npz"))
+    with pytest.warns(UserWarning) as caught:
+        ta = TVBN.load(str(tmp_path / "amortized.npz"), device="cpu")
     msgs = [str(w.message) for w in caught]
-    assert any("sampling method 'ancestral'" in m for m in msgs), msgs
-    assert any("update method 'replay_buffer'" in m for m in msgs), msgs
-    assert any("__update__ array" in m for m in msgs), msgs
+    assert any("__amortized__ array" in m for m in msgs), msgs
+    assert any("amortized_spec" in m for m in msgs), msgs
+    assert not any("__update__" in m or "sampling" in m or "update method" in m
+                   for m in msgs), msgs
+    for node in farrays:
+        for key, arr in ja.params[node].items():
+            np.testing.assert_array_equal(
+                ta.params[node][key].numpy(), np.asarray(arr))
     for node in farrays:
         for key, arr in jf.params[node].items():
             np.testing.assert_array_equal(

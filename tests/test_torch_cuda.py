@@ -1179,3 +1179,76 @@ def test_ris_over_neural_cpds_launches_the_resampling_kernels(card):
                 if v != before[k]}
         assert diff == launched, method
         assert torch.isfinite(samples).all() and not w.requires_grad
+
+
+# ---------------------------------------------------------------------------
+# Sampling on the card: the KDE log-density's gradient, Gibbs and HMC
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dx,dp,entry", [(2, 0, "kde_root"), (1, 2, "kde_cond"),
+                                          (2, 40, "kde_cond_wide")])
+def test_kde_gradient_on_the_card_matches_plain_autograd(card, dx, dp, entry):
+    """With a gradient wanted, the forward still launches its kernel (one
+    launch, within 1e-4 of the plain version); the closed-form backward
+    holds ``torch.autograd`` of the plain version on the card within 1e-5
+    relative to the gradient's scale."""
+    from vectorizedbayesiannetwork_torch.ops import kde_kernel as kk
+
+    data_x, data_p, lm = _kde_support(2000, dx, dp, 1700)
+    x, p = _kde_queries(dx, max(dp, 1))
+    x, p = x[:512].contiguous(), p[:512, :dp].contiguous() if dp else None
+    w = torch.linspace(-1, 1, 512, device="cuda")
+    tx = x.clone().requires_grad_(True)
+    tp = p.clone().requires_grad_(True) if dp else None
+    before = dict(sweep.LAUNCHES)
+    out = kk.kde_log_prob(tx, tp, data_x, data_p, lm, 0.35, 0.6)
+    got = torch.autograd.grad((out * w).sum(), [tx] + ([tp] if dp else []))
+    torch.cuda.synchronize()
+    diff = {k: v - before[k] for k, v in sweep.LAUNCHES.items()
+            if v != before[k]}
+    assert diff == {entry: 1}
+    px = x.clone().requires_grad_(True)
+    pp = p.clone().requires_grad_(True) if dp else None
+    if dp:
+        plain = kf.kde_cond_plain(px, pp, data_x, data_p, lm, 0.35, 0.6)
+    else:
+        plain = kf.kde_root_plain(px, data_x, lm, 0.35) - torch.log(
+            torch.exp(lm).sum())
+    torch.testing.assert_close(out.detach(), plain.detach(), atol=1e-4, rtol=0)
+    ref = torch.autograd.grad((plain * w).sum(), [px] + ([pp] if dp else []))
+    for a, b in zip(got, ref):
+        scale = float(b.abs().max())
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5 * scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["gibbs", "hmc"])
+def test_mcmc_over_kde_goes_through_the_kernels(kde_vbn, name):
+    """Gibbs (candidates by ``vbn_kde_pick``, scores by ``vbn_kde_cond``)
+    and HMC (the joint log-density by ``vbn_kde_root`` and ``vbn_kde_cond``
+    and its closed-form backward) on the KDE flagship: the launches counted,
+    the draws finite and rising with x2."""
+    q = {"target": "x0", "evidence": {
+        "x2": np.linspace(-1, 1, B).reshape(B, 1).astype(np.float32)}}
+    kde_vbn.set_sampling_method(name)
+    kw = ({"burn_in": 5, "n_chains": 16} if name == "gibbs" else
+          {"burn_in": 5, "n_chains": 16, "step_size": 0.1, "n_leapfrog": 4})
+    before = dict(sweep.LAUNCHES)
+    s = kde_vbn.sample(q, n_samples=64, **kw)
+    torch.cuda.synchronize()
+    diff = {k: v - before[k] for k, v in sweep.LAUNCHES.items()
+            if v != before[k]}
+    steps = 5 + 4  # burn-in + draws a chain
+    if name == "gibbs":
+        # the init sweep picks 2 nodes; each step 2 latent nodes x (1 pick,
+        # 1 child's conditional)
+        assert diff == {"kde_pick": 2 + 2 * steps, "kde_cond": 2 * steps}
+    else:
+        evals = 1 + 4  # a transition's gradient evaluations
+        assert diff == {"kde_pick": 2, "kde_root": 2 * evals * steps,
+                        "kde_cond": evals * steps}
+    assert tuple(s.shape) == (B, 64, 1) and torch.isfinite(s).all()
+    means = s[..., 0].mean(dim=1).cpu().numpy()
+    assert means[-1] > means[0]

@@ -14,7 +14,9 @@ draws on the CUDA KDE kernels (``ops/kde_kernel.py``, ``ops/kde_fused.py``,
 ``csrc/kde.cu``); the exact engines ``categorical_exact`` (enumeration,
 junction tree) and ``gaussian_exact`` (closed-form linear-Gaussian
 conditioning), and per-node CPD handles (``VBN.cpd``), in plain torch on
-the device. It runs on a CUDA device unless the caller passes
+the device; sampling (ancestral, Gibbs, HMC, NUTS, ``VBN.sample``) and
+the online update policies (``VBN.update``). It runs on a CUDA device
+unless the caller passes
 ``device="cpu"``. Importing the package populates the registries; it never
 imports JAX or the JAX package.
 """
@@ -25,15 +27,21 @@ from .core.registry import (
     CPD_REGISTRY,
     INFERENCE_REGISTRY,
     LEARNING_REGISTRY,
+    SAMPLING_REGISTRY,
+    UPDATE_REGISTRY,
     register_cpd,
     register_inference,
     register_learning,
+    register_sampling,
+    register_update,
 )
 from .defaults import defaults
 
 from . import models  # noqa: F401  (CPD families)
 from . import learning  # noqa: F401
 from . import inference  # noqa: F401
+from . import sampling  # noqa: F401
+from . import update  # noqa: F401
 
 from .vbn import VBN, __version__, params_from_numpy
 

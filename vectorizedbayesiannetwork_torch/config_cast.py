@@ -112,6 +112,14 @@ FIT_SCHEMA: Dict[str, str] = {
     "max_grad_norm": "float",
 }
 
+UPDATE_SCHEMA: Dict[str, str] = {
+    "lr": "float",
+    "n_steps": "int",
+    "batch_size": "int",
+    "weight_decay": "float",
+    "max_grad_norm": "float",
+}
+
 _MLP_KEYS = {"hidden_dims": "list[int]"}
 _CATEGORICAL_KEYS = {"n_classes": "int", "parent_n_classes": "list[int]"}
 

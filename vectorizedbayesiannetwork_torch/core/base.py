@@ -17,7 +17,7 @@ from __future__ import annotations
 
 from abc import ABC, abstractmethod
 from dataclasses import dataclass, field
-from typing import Any, Dict, NamedTuple, Optional
+from typing import Any, Callable, Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -87,6 +87,38 @@ class BaseCPD(ABC):
         **kwargs,
     ) -> Params:
         """Fit from host data; returns new params on ``device``."""
+
+    def update(
+        self,
+        params: Params,
+        parents: Optional[np.ndarray],
+        x: np.ndarray,
+        *,
+        device: torch.device,
+        gen: Optional[torch.Generator] = None,
+        **kwargs,
+    ) -> Params:
+        """Online update from host data; the default refits (closed-form
+        CPDs), the gradient CPDs continue training from their ``opt``
+        state."""
+        return self.fit(params, parents, x, device=device, gen=gen, **kwargs)
+
+    def update_program(self, conf: Dict) -> Optional[Callable]:
+        """``fn(params, gen, parents, x, *, device) -> params``, the
+        update as a function of fixed-shape inputs that refines no spec
+        field, or None when the update needs host work (spec refinement,
+        data-dependent shapes). The update policies take this route when
+        every node has one (``update/policies.py``); the port runs it
+        eagerly like ``update``, but the route still decides the function
+        (the KDE program re-subsamples by a fixed-shape Gumbel top-k)."""
+        return None
+
+    def update_host_precheck(
+        self, params: Params, parents: Optional[np.ndarray], x: np.ndarray
+    ) -> None:
+        """Host-side (numpy) validation run before the program route;
+        raises where the eager ``update`` would."""
+        return None
 
     @abstractmethod
     def _sample_flat(

@@ -1,7 +1,8 @@
 """Static inference plan: the host-side description of a query program.
 
 Counterpart of ``vectorizedbayesiannetwork_tpu/core/plan.py``: topo order,
-packed-tensor slices, parent indices and evidence/do masks, built once per
+packed-tensor slices, parent and children indices (Gibbs scores a node's
+Markov blanket through the children) and evidence/do masks, built once per
 (DAG, CPD specs, target, evidence keys, do keys) and cached on the VBN.
 All fields are hashable Python ints/tuples; packed query rows are numpy.
 """
@@ -28,6 +29,7 @@ class InferencePlan:
     evidence_mask: Tuple[bool, ...]
     do_mask: Tuple[bool, ...]
     target_idx: int
+    children_idx: Tuple[Tuple[int, ...], ...]
 
     @property
     def n_nodes(self) -> int:
@@ -72,6 +74,9 @@ def build_plan(vbn, query: Query) -> InferencePlan:
         evidence_mask=tuple(n in ev for n in topo),
         do_mask=tuple(n in do for n in topo),
         target_idx=node_to_idx[query.target],
+        children_idx=tuple(
+            tuple(node_to_idx[c] for c in dag.children(n)) for n in topo
+        ),
     )
 
 

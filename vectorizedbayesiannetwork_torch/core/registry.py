@@ -3,9 +3,10 @@
 Same surface as ``vectorizedbayesiannetwork_tpu/core/registry.py`` for the
 components this port has: all eight CPD families (``categorical_table``,
 ``linear_gaussian``, ``kde``, ``gaussian_nn``, ``mdn``, ``rff_gaussian``,
-``softmax_nn``, ``categorical_embedded_softmax``), one learner and six
-inference methods are registered; the sampling and update registries come
-with their slices.
+``softmax_nn``, ``categorical_embedded_softmax``), one learner, six
+inference methods, four samplers (``ancestral``, ``gibbs``, ``hmc``,
+``nuts``) and four update policies (``streaming_stats``, ``online_sgd``,
+``ema``, ``replay_buffer``) are registered.
 """
 
 from __future__ import annotations
@@ -15,6 +16,8 @@ from typing import Callable, Dict, Type
 CPD_REGISTRY: Dict[str, Type] = {}
 LEARNING_REGISTRY: Dict[str, Type] = {}
 INFERENCE_REGISTRY: Dict[str, Type] = {}
+SAMPLING_REGISTRY: Dict[str, Type] = {}
+UPDATE_REGISTRY: Dict[str, Type] = {}
 
 
 def _make_register(registry: Dict[str, Type], kind: str) -> Callable:
@@ -34,3 +37,5 @@ def _make_register(registry: Dict[str, Type], kind: str) -> Callable:
 register_cpd = _make_register(CPD_REGISTRY, "cpd")
 register_learning = _make_register(LEARNING_REGISTRY, "learning")
 register_inference = _make_register(INFERENCE_REGISTRY, "inference")
+register_sampling = _make_register(SAMPLING_REGISTRY, "sampling")
+register_update = _make_register(UPDATE_REGISTRY, "update")

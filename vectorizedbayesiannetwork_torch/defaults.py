@@ -122,6 +122,18 @@ _CATALOG: Dict[str, Dict[str, Dict]] = {
         },
         "categorical_exact": {"fallback": "likelihood_weighting"},
     },
+    "sampling": {
+        "ancestral": {"n_samples": 512},
+        "gibbs": {"n_samples": 512, "burn_in": 50, "n_steps": 5},
+        "hmc": {"n_samples": 512},
+        "nuts": {"n_samples": 512},
+    },
+    "update": {
+        "ema": {"alpha": 0.1},
+        "online_sgd": {},
+        "replay_buffer": {"max_size": 2000, "replay_ratio": 0.5},
+        "streaming_stats": {},
+    },
 }
 
 
@@ -166,6 +178,14 @@ class Defaults:
     @staticmethod
     def inference(ref) -> Dict:
         return {"name": ref, **_lookup("inference", ref)}
+
+    @staticmethod
+    def sampling(ref) -> Dict:
+        return {"name": ref, **_lookup("sampling", ref)}
+
+    @staticmethod
+    def update(ref) -> Dict:
+        return {"name": ref, **_lookup("update", ref)}
 
 
 defaults = Defaults()

@@ -11,7 +11,11 @@ bounds, drawn from the caller's ``torch.Generator``.
 float32 output, as JAX's ``preferred_element_type=float32``: on the card
 ``torch.mm(..., out_dtype=torch.float32)``; on the CPU, which has no such
 product, the inputs rounded to bf16 and multiplied in float32. Float32
-products run at full precision: the port never turns TF32 on.
+products run at full precision: the port never turns TF32 on. The bf16
+product is a ``torch.autograd.Function`` (``BF16Product``) with a float32
+backward on the bf16-rounded operands, so HMC and NUTS can differentiate a
+bf16 network's log-density on either device (the card's
+``torch.mm(..., out_dtype=)`` is not relied on for a backward).
 """
 
 from __future__ import annotations
@@ -60,12 +64,30 @@ def mlp_init(
     return {"layers": layers}
 
 
+class BF16Product(torch.autograd.Function):
+    """``a @ b`` of bf16 operands with a float32 output; the backward
+    multiplies the float32 cotangent by the other operand in float32
+    (autograd rounds each gradient to its bf16 operand's dtype, as JAX's
+    autodiff of ``preferred_element_type=float32`` does)."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        if a.is_cuda:
+            return torch.mm(a, b, out_dtype=torch.float32)
+        return a.float() @ b.float()
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        ga = g @ b.float().T if ctx.needs_input_grad[0] else None
+        gb = a.float().T @ g if ctx.needs_input_grad[1] else None
+        return ga, gb
+
+
 def _bf16_product(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """bf16 inputs, float32 output (no rounding of the output to bf16)."""
-    a, b = h.to(torch.bfloat16), w.to(torch.bfloat16)
-    if h.is_cuda:
-        return torch.mm(a, b, out_dtype=torch.float32)
-    return a.float() @ b.float()
+    return BF16Product.apply(h.to(torch.bfloat16), w.to(torch.bfloat16))
 
 
 def mlp_apply(

@@ -31,7 +31,11 @@ def tree_leaves(tree, like=None) -> List[torch.Tensor]:
     (default: the tree's own); ``None`` entries hold no tensor."""
     like = tree if like is None else like
     if isinstance(like, dict):
-        return [t for k in like for t in tree_leaves(tree[k], like[k])]
+        # a subtree with no tensor (a root's empty ``emb``) is not saved
+        # in a checkpoint, so ``tree`` may lack it
+        return [t for k in like for t in tree_leaves(
+            tree[k] if k in tree or tree_leaves(like[k]) else like[k],
+            like[k])]
     if isinstance(like, (list, tuple)):
         return [t for a, b in zip(tree, like) for t in tree_leaves(a, b)]
     return [] if like is None else [tree]

@@ -24,8 +24,11 @@ supports, as in the JAX package. A draw picks a class by Gumbel-argmax
 over the masked logits, as the JAX package does (from the caller's
 generator: the same distribution, not the same draws).
 
-Not ported yet: ``update`` / ``update_program`` and
-``update_host_precheck`` (ROADMAP queue 1, item 11).
+``update`` is the fit's training for ``n_steps`` epochs with the optional
+``ema_alpha`` shadow (it continues from the stored params while the
+supports are unchanged); with declared supports ``update_program`` trains
+against the stored support tables, after ``update_host_precheck`` checks
+the rows lie in them.
 """
 
 from __future__ import annotations
@@ -254,9 +257,8 @@ class CategoricalEmbeddedSoftmaxCPD(BaseCPD):
         # torch cross_entropy(weight=...) mean: sum(w * ce) / sum(w)
         return torch.sum(w * ce) / torch.clamp(torch.sum(w), min=1e-12)
 
-    def fit(self, params, parents, x, *, device, gen=None, epochs: int = 1,
-            lr: float = 1e-3, batch_size: int = 128,
-            weight_decay: float = 0.0, max_grad_norm=None, **_kwargs):
+    def _train(self, params, parents, x, *, device, gen, steps, batch_size,
+               lr, weight_decay, max_grad_norm, ema_alpha=None):
         x_np = np.asarray(x, np.float32).reshape(-1, self.output_dim)
         n = x_np.shape[0]
         p_np = (np.zeros((n, 0), np.float32) if parents is None
@@ -305,15 +307,94 @@ class CategoricalEmbeddedSoftmaxCPD(BaseCPD):
         net_emb = {"net": params["net"], "emb": params.get("emb", {})}
         new_net_emb, opt = fit_minibatch_nll(
             self._nll, net_emb, params.get("opt"), gen, parent_idx,
-            targets.float(), epochs=epochs, batch_size=batch_size, lr=lr,
+            targets.float(), epochs=steps, batch_size=batch_size, lr=lr,
             weight_decay=weight_decay,
             max_grad_norm=(max_grad_norm if max_grad_norm is not None
                            else self.max_grad_norm),
-            aux=aux,
+            aux=aux, ema_alpha=ema_alpha,
         )
         self.ready = True
         return {**params, "net": new_net_emb["net"],
                 "emb": new_net_emb["emb"], "opt": opt}
+
+    def fit(self, params, parents, x, *, device, gen=None, epochs: int = 1,
+            lr: float = 1e-3, batch_size: int = 128,
+            weight_decay: float = 0.0, max_grad_norm=None, **_kwargs):
+        return self._train(params, parents, x, device=device, gen=gen,
+                           steps=epochs, batch_size=batch_size, lr=lr,
+                           weight_decay=weight_decay,
+                           max_grad_norm=max_grad_norm)
+
+    def update(self, params, parents, x, *, device, gen=None, lr=1e-3,
+               n_steps: int = 1, batch_size: int = 128,
+               weight_decay: float = 0.0, max_grad_norm=None,
+               ema_alpha=None, **_kwargs):
+        return self._train(params, parents, x, device=device, gen=gen,
+                           steps=n_steps, batch_size=batch_size, lr=lr,
+                           weight_decay=weight_decay,
+                           max_grad_norm=max_grad_norm, ema_alpha=ema_alpha)
+
+    def update_program(self, conf):
+        """Training against the stored support tables, for a fitted node
+        with DECLARED supports; None otherwise (the eager update may
+        refine the supports from the data)."""
+        if not self.ready or self.n_classes <= 0:
+            return None
+        if self.input_dim > 0 and self.parent_n_classes is None:
+            return None
+        conf = dict(conf)
+        c = int(self.resolved_classes)
+
+        def fn(params, gen, parents, x, *, device):
+            x_t = torch.as_tensor(
+                np.asarray(x, np.float32).reshape(-1, self.output_dim),
+                device=device)
+            n = x_t.shape[0]
+            p_t = (torch.zeros((n, 0), dtype=torch.float32, device=device)
+                   if parents is None else torch.as_tensor(
+                       np.asarray(parents, np.float32).reshape(n, -1),
+                       device=device))
+            parent_idx = self._parents_to_indices(params, p_t).float()
+            targets = self._targets_to_indices(params, x_t)
+            if self.class_weighting == "inverse_freq":
+                counts = torch.bincount(targets.reshape(-1), minlength=c
+                                        ).float()
+                w = counts.sum() / torch.clamp(counts, min=1.0)
+                w = w / torch.clamp(w.mean(), min=1e-12)
+            else:
+                w = torch.ones((c,), dtype=torch.float32, device=device)
+            aux = {"class_weights": w, "class_mask": params["class_mask"]}
+            net_emb = {"net": params["net"], "emb": params.get("emb", {})}
+            mgn = conf.get("max_grad_norm")
+            new_net_emb, opt = fit_minibatch_nll(
+                self._nll, net_emb, params.get("opt"), gen, parent_idx,
+                targets.float(), epochs=conf.get("n_steps", 1),
+                batch_size=conf.get("batch_size", 128),
+                lr=conf.get("lr", 1e-3),
+                weight_decay=conf.get("weight_decay", 0.0),
+                max_grad_norm=mgn if mgn is not None else self.max_grad_norm,
+                aux=aux, ema_alpha=conf.get("ema_alpha"),
+            )
+            return {**params, "net": new_net_emb["net"],
+                    "emb": new_net_emb["emb"], "opt": opt}
+
+        return fn
+
+    def update_host_precheck(self, params, parents, x) -> None:
+        """The declared-support membership checks the eager path raises."""
+        x_np = np.asarray(x, np.float32).reshape(-1, self.output_dim)
+        support = np.arange(max(self.n_classes, 1), dtype=np.float32)
+        for d in range(self.output_dim):
+            if not np.isin(x_np[:, d], support).all():
+                raise ValueError(
+                    f"Found values outside support for target dim {d}.")
+        if self.input_dim and parents is not None:
+            p_np = np.asarray(parents, np.float32).reshape(-1, self.input_dim)
+            for d, card in enumerate(self.parent_n_classes or []):
+                if not np.isin(p_np[:, d],
+                               np.arange(int(card), dtype=np.float32)).all():
+                    raise ValueError(
+                        f"Found values outside support for parent {d}.")
 
     # -- protocol and flat primitives -------------------------------------------
     def _logits_flat(self, params, parents, m: int):

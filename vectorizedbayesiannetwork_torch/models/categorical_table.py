@@ -7,6 +7,14 @@ scatter-add with ``alpha_mode`` in {per_class, total_mass} and ``prior`` in
 {uniform, global}, class-mask padding for ragged supports, and inverse-CDF
 sampling over the count rows. ``categorical_probs`` and ``support_values``
 are the protocol the exact engines and ``core/handle.py`` read.
+
+``_noise_spec`` / ``_sample_flat_noise`` take the inverse CDF's uniforms
+from outside, so Gibbs draws all its steps' noise in one call (the JAX
+package takes a Gumbel field there for C = 1 or C >= 128; the port draws
+every C by inverse CDF, as its ``_sample_flat`` does: the same
+distribution). ``update`` refits (the base class's default); with declared
+supports ``update_program`` recounts against the stored support tables,
+after ``update_host_precheck`` checks the rows lie in them.
 """
 
 from __future__ import annotations
@@ -294,18 +302,79 @@ class CategoricalTableCPD(BaseCPD):
         """[Dout, C] class values (the exact engines' support grid)."""
         return params["class_values"]
 
+    def _inverse_cdf(self, params, pidx, d: int, u, m: int):
+        """Class = #{j >= 1 : cum_{j-1} <= u * total} of output dim ``d``."""
+        cum = torch.cumsum(self._rows(params, pidx, d, m), dim=-1)
+        thresh = u * cum[:, -1]
+        idx = (cum[:, :-1] <= thresh[:, None]).sum(-1)
+        return params["class_values"][d][idx]
+
     def _sample_flat(self, params, gen, parents, m):
-        """Inverse-CDF draw: class = #{j >= 1 : cum_{j-1} <= u * total}."""
+        """Inverse-CDF draw, one uniform a row and output dim."""
         pidx = self._parents_to_index(params, parents, m)
-        cv = params["class_values"]  # [Dout, C]
-        cols = []
+        dev = params["class_values"].device
+        return torch.stack([
+            self._inverse_cdf(params, pidx, d,
+                              torch.rand((m,), generator=gen, device=dev), m)
+            for d in range(self.output_dim)], dim=-1)
+
+    def _noise_spec(self, params, m):
+        return ((m, self.output_dim), "uniform")
+
+    def _sample_flat_noise(self, params, noise, parents, m):
+        pidx = self._parents_to_index(params, parents, m)
+        return torch.stack([
+            self._inverse_cdf(params, pidx, d, noise[:, d].float(), m)
+            for d in range(self.output_dim)], dim=-1)
+
+    # -- online update -------------------------------------------------------
+    def update_program(self, conf):
+        """The recount against the stored supports, for DECLARED supports
+        (``n_classes`` and, with parents, ``parent_n_classes``); None when
+        a support is inferred (the eager update may refine it from the
+        data) or the node is not fitted yet."""
+        if self.n_classes <= 0 or (
+            self.input_dim > 0 and self.parent_n_classes is None
+        ):
+            return None
+        if self.input_dim > 0 and not self.parent_cards:
+            return None
+        p_states = int(self._parent_states)
+        c = int(self.resolved_classes)
+
+        def fn(params, gen, parents, x, *, device):
+            x_t = torch.as_tensor(
+                np.asarray(x, np.float32).reshape(-1, self.output_dim),
+                device=device)
+            n = x_t.shape[0]
+            p_t = (torch.zeros((n, 0), dtype=torch.float32, device=device)
+                   if parents is None else torch.as_tensor(
+                       np.asarray(parents, np.float32).reshape(n, -1),
+                       device=device))
+            counts = _accumulate_counts(
+                p_t, x_t, params["class_values"], params["class_mask"],
+                params["parent_values"], params["parent_mask"],
+                torch.as_tensor(self._strides, dtype=torch.int64,
+                                device=device),
+                p_states=p_states, c=c, alpha=self.alpha,
+                alpha_mode=self.alpha_mode, prior=self.prior,
+            )
+            return {**params, "counts": counts}
+
+        return fn
+
+    def update_host_precheck(self, params, parents, x) -> None:
+        """The declared-support membership checks the eager fit raises."""
+        x_np = np.asarray(x, np.float32).reshape(-1, self.output_dim)
+        support = np.arange(max(self.n_classes, 1), dtype=np.float32)
         for d in range(self.output_dim):
-            cum = torch.cumsum(self._rows(params, pidx, d, m), dim=-1)
-            u = torch.rand((m,), generator=gen, device=cv.device)
-            thresh = u * cum[:, -1]
-            idx = (cum[:, :-1] <= thresh[:, None]).sum(-1)
-            cols.append(cv[d][idx])
-        return torch.stack(cols, dim=-1)
+            self._check_in_support(x_np[:, d], support, f"target dim {d}")
+        if self.input_dim and parents is not None:
+            p_np = np.asarray(parents, np.float32).reshape(-1, self.input_dim)
+            for d, card in enumerate(self.parent_n_classes or []):
+                self._check_in_support(
+                    p_np[:, d], np.arange(int(card), dtype=np.float32),
+                    f"parent {d}")
 
     def _log_prob_flat(self, params, x, parents):
         m = x.shape[0]

@@ -22,8 +22,12 @@ A fit with more than ``max_points`` rows keeps a uniform subset drawn with
 ``torch.randperm`` from the fit's generator: the same distribution as the
 JAX package's ``jax.random.permutation``, not the same subset.
 
-Not ported yet: ``update`` and ``update_program``, which wait for the
-update policies (ROADMAP queue 1, item 11).
+``update`` appends the new rows to the stored ones and stores them all
+while they fit in ``max_points``, else a uniform subset (``_pack``);
+``update_program`` keeps the ``max_points`` rows' shape and re-subsamples
+the stored and new rows by a Gumbel top-k over the valid ones: the same
+distribution (a uniform subset, all of them when they fit), the rows in
+another order. Neither re-resolves the bandwidths.
 """
 
 from __future__ import annotations
@@ -160,6 +164,41 @@ class KDECPD(BaseCPD):
         ``max_points``. Training keys are accepted and unused."""
         self._resolve_bandwidths(parents, np.asarray(x))
         return self._pack(gen, parents, x, device)
+
+    def update(self, params, parents, x, *, device, gen=None, **_training):
+        n_old = int(params["valid"].sum().item())
+        x = np.asarray(x, np.float32).reshape(-1, self.output_dim)
+        xs = np.concatenate([params["data_x"][:n_old].cpu().numpy(), x])
+        if not self.input_dim:
+            return self._pack(gen, None, xs, device)
+        p = np.asarray(parents, np.float32).reshape(x.shape[0], -1)
+        ps = np.concatenate([params["data_p"][:n_old].cpu().numpy(), p])
+        return self._pack(gen, ps, xs, device)
+
+    def update_program(self, conf):
+        """The fixed-shape update: a Gumbel top-k over the stored and new
+        rows, the invalid ones last."""
+
+        def fn(params, gen, parents, x, *, device):
+            f32 = dict(dtype=torch.float32, device=device)
+            x = torch.as_tensor(np.asarray(x, np.float32), **f32)
+            x = x.reshape(x.shape[0], -1)
+            n_new = x.shape[0]
+            p = (torch.zeros((n_new, 0), **f32) if parents is None else
+                 torch.as_tensor(np.asarray(parents, np.float32), **f32
+                                 ).reshape(n_new, -1))
+            pool_p = torch.cat([params["data_p"], p])
+            pool_x = torch.cat([params["data_x"], x])
+            pool_v = torch.cat([params["valid"], torch.ones((n_new,), **f32)])
+            u = torch.clamp(torch.rand(pool_v.shape, generator=gen,
+                                       device=device),
+                            min=float(np.finfo(np.float32).tiny))
+            g = torch.where(pool_v > 0, -torch.log(-torch.log(u)), -1e30)
+            idx = torch.topk(g, self.max_points).indices
+            return {"data_p": pool_p[idx], "data_x": pool_x[idx],
+                    "valid": pool_v[idx]}
+
+        return fn
 
     # -- kernels ----------------------------------------------------------
     def _y_scale(self) -> float:

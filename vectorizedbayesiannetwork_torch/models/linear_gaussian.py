@@ -6,7 +6,10 @@ evaluation time, reparameterized sampling and the diagonal Gaussian
 log-density. The solve runs in float64 on the params' device and the
 params are stored in float32, as the JAX package keeps them.
 ``conditional_params`` is the protocol ``gaussian_exact`` and
-``core/handle.py`` read.
+``core/handle.py`` read. ``_noise_spec`` / ``_sample_flat_noise`` split a
+draw into parent-independent noise and its transform, so Gibbs draws all
+its steps' noise in one call (``sampling/gibbs.py``). ``update`` refits
+(the base class's default), and so does ``update_program``.
 """
 
 from __future__ import annotations
@@ -113,6 +116,22 @@ class LinearGaussianCPD(BaseCPD):
             dtype=loc.dtype,
         )
         return loc + eps * self._scale(params)
+
+    def _noise_spec(self, params, m):
+        return ((m, self.output_dim), "normal")
+
+    def _sample_flat_noise(self, params, noise, parents, m):
+        loc = self._loc(params, parents, m)
+        return loc + noise.to(loc.dtype) * self._scale(params)
+
+    def update_program(self, conf):
+        """The refit is a function of fixed-shape inputs."""
+        conf = dict(conf)
+
+        def fn(params, gen, parents, x, *, device):
+            return self.fit(params, parents, x, device=device, **conf)
+
+        return fn
 
     def _log_prob_flat(self, params, x, parents):
         loc = self._loc(params, parents, x.shape[0])

@@ -9,8 +9,10 @@ caller's generator: the same distribution, not the same draws), then a
 Gaussian within it.
 ``mixture_params`` is the protocol ``core/handle.py`` reads.
 
-Not ported yet: ``update`` / ``update_program`` (ROADMAP queue 1, item 11)
-and the grouped ``fit_many`` (off by default in the JAX package).
+``update`` continues Adam from the stored ``opt`` state for ``n_steps``
+epochs with the optional ``ema_alpha`` shadow; ``update_program`` is the
+same function. Not ported: the grouped ``fit_many`` (off by default in
+the JAX package).
 """
 
 from __future__ import annotations
@@ -122,18 +124,45 @@ class MDNCPD(BaseCPD):
         logits, loc, scale = self.mixture_params(net, parents)
         return -torch.mean(self._mixture_log_prob(logits, loc, scale, x))
 
-    def fit(self, params, parents, x, *, device, gen=None, epochs: int = 1,
-            lr: float = 1e-3, batch_size: int = 128,
-            weight_decay: float = 0.0, max_grad_norm=None, **_kwargs):
+    def _train(self, params, parents, x, *, device, gen, steps, batch_size,
+               lr, weight_decay, max_grad_norm, ema_alpha=None):
         x = as_rows(x, self.output_dim, device)
         p = None if parents is None else as_rows(parents, self.input_dim,
                                                  device)
         net, opt = fit_minibatch_nll(
             self._nll, params["net"], params.get("opt"), gen, p, x,
-            epochs=epochs, batch_size=batch_size, lr=lr,
+            epochs=steps, batch_size=batch_size, lr=lr,
             weight_decay=weight_decay, max_grad_norm=max_grad_norm,
+            ema_alpha=ema_alpha,
         )
         return {"net": net, "opt": opt}
+
+    def fit(self, params, parents, x, *, device, gen=None, epochs: int = 1,
+            lr: float = 1e-3, batch_size: int = 128,
+            weight_decay: float = 0.0, max_grad_norm=None, **_kwargs):
+        return self._train(params, parents, x, device=device, gen=gen,
+                           steps=epochs, batch_size=batch_size, lr=lr,
+                           weight_decay=weight_decay,
+                           max_grad_norm=max_grad_norm)
+
+    def update(self, params, parents, x, *, device, gen=None, lr=1e-3,
+               n_steps: int = 1, batch_size: int = 128,
+               weight_decay: float = 0.0, max_grad_norm=None,
+               ema_alpha=None, **_kwargs):
+        return self._train(params, parents, x, device=device, gen=gen,
+                           steps=n_steps, batch_size=batch_size, lr=lr,
+                           weight_decay=weight_decay,
+                           max_grad_norm=max_grad_norm, ema_alpha=ema_alpha)
+
+    def update_program(self, conf):
+        """The Adam update is a function of fixed-shape inputs."""
+        conf = dict(conf)
+
+        def fn(params, gen, parents, x, *, device):
+            return self.update(params, parents, x, device=device, gen=gen,
+                               **conf)
+
+        return fn
 
     # -- flat primitives -----------------------------------------------------
     def _mixtures(self, params, parents, m: int):

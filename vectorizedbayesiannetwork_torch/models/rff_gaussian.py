@@ -16,8 +16,8 @@ the coefficients, into the mean: ~1e-3 on the gauss8 network, and not the
 same on the card as on the CPU. ``conditional_params`` is the protocol
 ``gaussian_exact``'s grid path and ``core/handle.py`` read.
 
-Not ported yet: ``update_program`` (ROADMAP queue 1, item 11; the JAX
-package's update is a refit).
+``update`` refits on the new rows (the base class's default, as in the
+JAX package), and so does ``update_program``.
 """
 
 from __future__ import annotations
@@ -153,6 +153,15 @@ class RFFGaussianCPD(BaseCPD):
             "var": (var_norm * std_y.double() ** 2).float(),
             "stats": stats,
         }
+
+    def update_program(self, conf):
+        """The refit is a function of fixed-shape inputs."""
+        conf = dict(conf)
+
+        def fn(params, gen, parents, x, *, device):
+            return self.fit(params, parents, x, device=device, **conf)
+
+        return fn
 
     # -- flat primitives -----------------------------------------------------
     def _scale(self, params: Params) -> torch.Tensor:

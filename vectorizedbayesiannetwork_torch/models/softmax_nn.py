@@ -20,8 +20,11 @@ Port of ``vectorizedbayesiannetwork_tpu/models/softmax_nn.py``:
 A draw picks a bin by Gumbel-argmax, as the JAX package does (from the
 caller's generator: the same distribution, not the same draws).
 
-Not ported yet: ``update`` (bin expansion on new data; ROADMAP queue 1,
-item 11). Not ported: ``debug_mode`` (a dict of four settings) and the
+``update`` continues Adam from the stored ``opt`` state for ``n_steps``
+epochs (the root refits its histogram), keeping the bins but for the
+JAX package's expansion: new rows past the stored range rebuild the edges
+over the widened range; a discrete dimension refuses values outside its
+classes. Not ported: ``debug_mode`` (a dict of four settings) and the
 fixed ``temperature`` of 1, by which the JAX package divides its logits.
 """
 
@@ -220,6 +223,55 @@ class SoftmaxNNCPD(BaseCPD):
         }
         return {k: torch.as_tensor(v, device=device) for k, v in arrays.items()}
 
+    def _refresh_bins(self, params, x_flat: np.ndarray, device, *,
+                      allow_expand: bool, force: bool):
+        """The fit's bins (``force``, or none yet), else the stored ones:
+        discrete dimensions checked against their classes and, with
+        ``allow_expand``, the edges rebuilt over a range the rows widen
+        (the JAX package's ``_refresh_bins``)."""
+        if force or not self.bins_ready:
+            return self._bins(x_flat, device)
+        bins = params["bins"]
+        is_discrete = bins["is_discrete"].cpu().numpy() > 0.5
+        cv = bins["class_values"].cpu().numpy()
+        for dim in np.where(is_discrete)[0]:
+            if not np.isin(x_flat[:, dim], cv[dim]).all():
+                raise ValueError(
+                    "Found values outside discrete class set during update.")
+        if not allow_expand:
+            return bins
+        vmin_old = bins["vmin"].cpu().numpy()
+        vmax_old = bins["vmax"].cpu().numpy()
+        new_vmin = np.minimum(vmin_old, x_flat.min(axis=0))
+        new_vmax = np.maximum(vmax_old, x_flat.max(axis=0))
+        if not ((new_vmin < vmin_old).any() or (new_vmax > vmax_old).any()):
+            return bins
+        _, _, edges, _, _, _ = self._compute_bins_host(x_flat)
+        min_range = self.min_bin_width * self.n_classes
+        span = new_vmax - new_vmin
+        new_vmax = np.where(span < min_range, new_vmin + min_range, new_vmax)
+        if self.binning == "uniform":
+            width = np.maximum((new_vmax - new_vmin) / self.n_classes,
+                               self.min_bin_width)
+            q = np.arange(self.n_classes + 1, dtype=np.float64)
+            edges = new_vmin[:, None] + width[:, None] * q[None, :]
+        else:
+            edges[:, 0] = new_vmin
+            edges[:, -1] = new_vmax
+        if self.min_bin_width > 0:
+            for i in range(1, edges.shape[1]):
+                edges[:, i] = np.maximum(edges[:, i],
+                                         edges[:, i - 1] + self.min_bin_width)
+        centers = 0.5 * (edges[:, :-1] + edges[:, 1:])
+        sample_values = np.where(is_discrete[:, None], cv, centers)
+        arrays = {
+            "vmin": new_vmin, "vmax": new_vmax, "edges": edges,
+            "centers": centers, "sample_values": sample_values,
+        }
+        return {**bins, **{k: torch.as_tensor(v.astype(np.float32),
+                                              device=device)
+                           for k, v in arrays.items()}}
+
     # -- bin mapping (device) -------------------------------------------------
     def _x_to_bin(self, bins, x: torch.Tensor) -> torch.Tensor:
         """x [M, Dout] -> int64 bin/class indices [M, Dout]."""
@@ -269,11 +321,12 @@ class SoftmaxNNCPD(BaseCPD):
             log_probs = log_probs * aux["class_weights"][None, None, :]
         return -torch.mean(torch.sum(one_hot * log_probs, dim=-1))
 
-    def fit(self, params, parents, x, *, device, gen=None, epochs: int = 1,
-            lr: float = 1e-3, batch_size: int = 128,
-            weight_decay: float = 0.0, max_grad_norm=None, **_kwargs):
+    def _train(self, params, parents, x, *, device, gen, steps, batch_size,
+               lr, weight_decay, max_grad_norm, allow_expand, force_bins,
+               ema_alpha=None):
         x_np = np.asarray(x, np.float32).reshape(-1, self.output_dim)
-        bins = self._bins(x_np, device)
+        bins = self._refresh_bins(params, x_np, device,
+                                  allow_expand=allow_expand, force=force_bins)
         params = {**params, "bins": bins}
         x_t = torch.as_tensor(x_np, device=device)
         targets = self._x_to_bin(bins, x_t)
@@ -298,10 +351,30 @@ class SoftmaxNNCPD(BaseCPD):
         net, opt = fit_minibatch_nll(
             self._nll, params["net"], params.get("opt"), gen,
             as_rows(parents, self.input_dim, device), targets.float(),
-            epochs=epochs, batch_size=batch_size, lr=lr,
+            epochs=steps, batch_size=batch_size, lr=lr,
             weight_decay=weight_decay, max_grad_norm=max_grad_norm, aux=aux,
+            ema_alpha=ema_alpha,
         )
         return {**params, "net": net, "opt": opt}
+
+    def fit(self, params, parents, x, *, device, gen=None, epochs: int = 1,
+            lr: float = 1e-3, batch_size: int = 128,
+            weight_decay: float = 0.0, max_grad_norm=None, **_kwargs):
+        return self._train(params, parents, x, device=device, gen=gen,
+                           steps=epochs, batch_size=batch_size, lr=lr,
+                           weight_decay=weight_decay,
+                           max_grad_norm=max_grad_norm, allow_expand=False,
+                           force_bins=True)
+
+    def update(self, params, parents, x, *, device, gen=None, lr=1e-3,
+               n_steps: int = 1, batch_size: int = 128,
+               weight_decay: float = 0.0, max_grad_norm=None,
+               ema_alpha=None, **_kwargs):
+        return self._train(params, parents, x, device=device, gen=gen,
+                           steps=n_steps, batch_size=batch_size, lr=lr,
+                           weight_decay=weight_decay,
+                           max_grad_norm=max_grad_norm, allow_expand=True,
+                           force_bins=False, ema_alpha=ema_alpha)
 
     # -- protocol and flat primitives -------------------------------------------
     def support_values(self, params: Params) -> torch.Tensor:

@@ -18,6 +18,17 @@ products), and the query rows are streamed in ``_CHUNK``-row tiles, so no
 on the CPU, as a Gumbel-argmax whose noise comes from ``torch.rand``: the
 plain pick rebuilds the kernel's Philox uniforms in int64 torch ops and
 is held against the kernel on the card.
+
+``kde_log_prob`` is differentiable in the queries and the parents (HMC
+and NUTS take the gradient of the joint log-density): when autograd wants
+either, the dispatch runs inside ``KDELogProb``, a
+``torch.autograd.Function`` whose forward is the same dispatch (the kernel
+on the card, never the plain version because a gradient is wanted) and
+whose backward is the closed form in ``_CHUNK``-row tiles. The JAX
+package's Pallas kernels have no backward either; its gradient is XLA's
+autodiff of the plain form (``kde_kernel.py:91-117`` there). The support
+(``data_x``, ``data_p``, ``log_mask``) takes no gradient: fits never
+differentiate it.
 """
 
 from __future__ import annotations
@@ -34,6 +45,8 @@ from .kde_fused import (
     kde_cond,
     kde_cond_wide,
     kde_root,
+    kernel_consts,
+    sq_dist,
 )
 
 
@@ -50,16 +63,7 @@ def _pairwise_kernel_logits(q: torch.Tensor, data: torch.Tensor,
     return -sq * inv2s2 + const
 
 
-def kde_log_prob(
-    x: torch.Tensor,  # [M, Dx]
-    parents: Optional[torch.Tensor],  # [M, Dp] or None (root)
-    data_x: torch.Tensor,  # [N, Dx]
-    data_p: torch.Tensor,  # [N, Dp]
-    log_mask: torch.Tensor,  # [N] (0 valid, very negative invalid)
-    y_scale: float,
-    p_scale: float,
-) -> torch.Tensor:
-    """Conditional KDE log density -> [M]."""
+def _kde_log_prob(x, parents, data_x, data_p, log_mask, y_scale, p_scale):
     if parents is None or data_p.shape[-1] == 0:
         log_n_eff = torch.log(torch.clamp(torch.exp(log_mask).sum(), min=1.0))
         if x.shape[-1] <= _DIRECT_D:
@@ -75,6 +79,90 @@ def kde_log_prob(
     fn = kde_cond_wide if wide else kde_cond
     return fn(x.contiguous(), parents.contiguous(), data_x, data_p, log_mask,
               y_scale, p_scale)
+
+
+def _pull(w, q, data, two_inv2):
+    """``sum_n w_mn (t_nd - q_md) * 2 inv2`` [M, D], feature by feature."""
+    return torch.stack(
+        [(w * (data[None, :, d] - q[:, d : d + 1])).sum(dim=1)
+         for d in range(q.shape[1])], dim=1) * two_inv2
+
+
+def kde_log_prob_grad(g, x, parents, data_x, data_p, log_mask,
+                      y_scale: float, p_scale: float, want_x=True,
+                      want_p=True):
+    """The closed-form gradient of ``kde_log_prob`` scaled by ``g`` [M]:
+    (d/dx [M, Dx] or None, d/dparents [M, Dp] or None). With
+    ``w_num = softmax_n(kp + ky)`` and ``w_den = softmax_n(kp)``: d/dx =
+    ``sum_n w_num (t_n - x) / h_y^2``, d/dp = ``sum_n (w_num - w_den)
+    (t^p_n - p) / h_p^2`` (a root: ``w = softmax_n(ky + log_mask)``)."""
+    root = parents is None or data_p.shape[-1] == 0
+    inv2y, cy = (float(v) for v in kernel_consts(x.shape[1], y_scale))
+    if not root:
+        inv2p, cp = (float(v) for v in kernel_consts(parents.shape[1],
+                                                       p_scale))
+    gx, gp = [], []
+    for r0 in range(0, x.shape[0], _CHUNK):
+        r1 = min(r0 + _CHUNK, x.shape[0])
+        xt, gt = x[r0:r1], g[r0:r1, None]
+        ky = -sq_dist(xt, data_x) * inv2y + cy
+        if root:
+            w_num = torch.softmax(ky + log_mask[None, :], dim=1)
+        else:
+            pt = parents[r0:r1]
+            kp = -sq_dist(pt, data_p) * inv2p + cp + log_mask[None, :]
+            w_num = torch.softmax(kp + ky, dim=1)
+            if want_p:
+                w_den = torch.softmax(kp, dim=1)
+                gp.append(gt * _pull(w_num - w_den, pt, data_p, 2.0 * inv2p))
+        if want_x:
+            gx.append(gt * _pull(w_num, xt, data_x, 2.0 * inv2y))
+    return (torch.cat(gx) if want_x else None,
+            torch.cat(gp) if gp else None)
+
+
+class KDELogProb(torch.autograd.Function):
+    """``kde_log_prob`` with the closed-form backward of
+    ``kde_log_prob_grad``; the forward is the dispatch as it stands."""
+
+    @staticmethod
+    def forward(ctx, x, parents, data_x, data_p, log_mask, y_scale, p_scale):
+        ctx.save_for_backward(x, parents, data_x, data_p, log_mask)
+        ctx.scales = (y_scale, p_scale)
+        return _kde_log_prob(x, parents, data_x, data_p, log_mask, y_scale,
+                             p_scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, parents, data_x, data_p, log_mask = ctx.saved_tensors
+        gx, gp = kde_log_prob_grad(
+            g, x, parents, data_x, data_p, log_mask, *ctx.scales,
+            want_x=ctx.needs_input_grad[0],
+            want_p=ctx.needs_input_grad[1])
+        return gx, gp, None, None, None, None, None
+
+
+def kde_log_prob(
+    x: torch.Tensor,  # [M, Dx]
+    parents: Optional[torch.Tensor],  # [M, Dp] or None (root)
+    data_x: torch.Tensor,  # [N, Dx]
+    data_p: torch.Tensor,  # [N, Dp]
+    log_mask: torch.Tensor,  # [N] (0 valid, very negative invalid)
+    y_scale: float,
+    p_scale: float,
+) -> torch.Tensor:
+    """Conditional KDE log density -> [M]; differentiable in ``x`` and
+    ``parents`` through ``KDELogProb``."""
+    if torch.is_grad_enabled():
+        if any(t.requires_grad for t in (data_x, data_p, log_mask)):
+            raise ValueError(
+                "kde_log_prob: the support (data_x, data_p, log_mask) takes "
+                "no gradient; detach it")
+        if x.requires_grad or (parents is not None and parents.requires_grad):
+            return KDELogProb.apply(x, parents, data_x, data_p, log_mask,
+                                    y_scale, p_scale)
+    return _kde_log_prob(x, parents, data_x, data_p, log_mask, y_scale,
+                         p_scale)
 
 
 def kde_sample_indices(

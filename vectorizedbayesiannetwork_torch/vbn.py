@@ -1,7 +1,8 @@
 """Main user-facing API: the VBN class, on PyTorch.
 
-Port of ``vectorizedbayesiannetwork_tpu/vbn.py`` for the fit -> serve path:
-method setters (str / dict / callable), ``fit``, ``infer_posterior``,
+Port of ``vectorizedbayesiannetwork_tpu/vbn.py``: method setters (str /
+dict / callable), ``fit``, ``update`` (the online update policies),
+``sample`` (ancestral, Gibbs, HMC, NUTS), ``infer_posterior``,
 ``infer_posterior_many`` (one fused sweep in ``dynamic_masks`` mode, else
 sequential), the fused ``infer_posterior_pmf`` / ``_moments`` with
 their stream fallback, ``_posterior_stats``, the per-node CPD handles
@@ -11,7 +12,10 @@ JAX package's checkpoint format (an ``.npz`` of flattened params with a
 in the other. Model state is a dict of params per node on one device;
 ``device=None`` means the CUDA card, and the CPU is used only when asked
 for (``device="cpu"``). Queries are served under ``torch.no_grad()``, and a
-fit stores its params detached, so no autograd graph reaches serving.
+fit stores its params detached, so no autograd graph reaches serving;
+``sample`` runs with autograd on (HMC and NUTS differentiate the joint
+log-density in the latent values) and returns detached draws, and
+``update`` trains with autograd where a policy trains.
 """
 
 from __future__ import annotations
@@ -28,7 +32,13 @@ import torch
 from .core.base import Query
 from .core.dag import StaticDAG
 from .core.handle import CPDHandle
-from .core.registry import CPD_REGISTRY, INFERENCE_REGISTRY, LEARNING_REGISTRY
+from .core.registry import (
+    CPD_REGISTRY,
+    INFERENCE_REGISTRY,
+    LEARNING_REGISTRY,
+    SAMPLING_REGISTRY,
+    UPDATE_REGISTRY,
+)
 from .core.rng import Draw, KeyStream
 from .core.utils import (
     df_to_array_dict,
@@ -40,6 +50,9 @@ from .core.utils import (
 )
 
 __version__ = "0.1.0"
+
+_UPDATE_TRAINING_KEYS = {"lr", "n_steps", "batch_size", "weight_decay"}
+_UPDATE_POLICY_INIT_KEYS = {"max_size", "replay_ratio"}
 
 
 def _serialize_nodes_cpds(nodes_cpds: Optional[Dict]) -> Dict[str, Dict]:
@@ -76,6 +89,15 @@ def _resolve_method_arg(method, registry: Dict[str, type], label: str):
     return key, params
 
 
+def _refuse_training_keys(params: Dict) -> None:
+    bad = sorted(set(params) & _UPDATE_TRAINING_KEYS)
+    if bad:
+        raise ValueError(
+            "Update training hyperparameters are defined per-CPD under "
+            f"nodes_cpds[node]['update']. Remove from update(): {bad}."
+        )
+
+
 class VBN:
     """Vectorized Bayesian Network on PyTorch (CUDA unless asked otherwise)."""
 
@@ -89,8 +111,12 @@ class VBN:
         self._plan_cache: Dict = {}
         self._learning = None
         self._inference = None
+        self._sampling = None
+        self._update_policy = None
         self._learning_config: Optional[Dict[str, Any]] = None
         self._inference_config: Optional[Dict[str, Any]] = None
+        self._sampling_config: Optional[Dict[str, Any]] = None
+        self._update_config: Optional[Dict[str, Any]] = None
         self._last_summary_path: Optional[str] = None
 
     # ----------------- internal plumbing -----------------
@@ -143,6 +169,11 @@ class VBN:
             "inference", INFERENCE_REGISTRY, "inference method", method, kwargs
         )
 
+    def set_sampling_method(self, method, **kwargs):
+        self._install_method(
+            "sampling", SAMPLING_REGISTRY, "sampling method", method, kwargs
+        )
+
     # ----------------- fit -----------------
     def _prepare_data(self, data) -> Dict[str, np.ndarray]:
         """Dict of arrays, or a DataFrame-like object (``.columns``)."""
@@ -170,6 +201,52 @@ class VBN:
         arrays = self._prepare_data(data)
         self._plan_cache.clear()
         self._learning.fit(self, arrays, verbose=verbosity, **kwargs)
+
+    @torch.enable_grad()
+    def update(self, data, update_method=None, *,
+               verbosity: Optional[int] = None, **kwargs):
+        """Online update of every node from new rows by an update policy
+        (``streaming_stats``, ``online_sgd``, ``ema``, ``replay_buffer``);
+        the first call names the policy, later calls may reuse it. The
+        training hyperparameters are per node, under
+        ``nodes_cpds[node]['update']``."""
+        if not self.nodes:
+            raise RuntimeError("Call fit(...) before update(...).")
+        verbosity = resolve_verbosity(
+            verbosity if verbosity is not None else kwargs.pop("verbose", None)
+        )
+        arrays = self._prepare_data(data)
+        if update_method is not None:
+            name, base_params = _resolve_method_arg(
+                update_method, UPDATE_REGISTRY, "update method"
+            )
+            params = {**base_params, **kwargs}
+            _refuse_training_keys(params)
+            update_cls = UPDATE_REGISTRY[name]
+            init_kwargs = {k: v for k, v in params.items()
+                           if k in _UPDATE_POLICY_INIT_KEYS}
+            if not isinstance(self._update_policy, update_cls):
+                self._update_policy = update_cls(**init_kwargs)
+            else:
+                for k, v in init_kwargs.items():
+                    setattr(self._update_policy, k, v)
+            policy_kwargs = {k: v for k, v in params.items()
+                             if k not in _UPDATE_POLICY_INIT_KEYS}
+            self._update_config = {
+                "name": name,
+                "params": params,
+                "init_kwargs": init_kwargs,
+                "policy_kwargs": policy_kwargs,
+            }
+        else:
+            if self._update_policy is None:
+                raise RuntimeError(
+                    "update_method must be provided for the first update call"
+                )
+            _refuse_training_keys(kwargs)
+            policy_kwargs = kwargs
+        policy_kwargs["verbosity"] = verbosity
+        self._update_policy.update(self, arrays, **policy_kwargs)
 
     # ----------------- inference -----------------
     def _require_inference(self, what: str) -> None:
@@ -285,6 +362,18 @@ class VBN:
             at += b
         return np.concatenate(rows, axis=0), spans
 
+    def sample(self, query, n_samples: int = 200, **kwargs):
+        """Draws [B, n_samples, D] of the query's target from the sampling
+        method (a dict of every node's for ``sample_joint``-style
+        methods), detached, on the VBN's device."""
+        if self._sampling is None:
+            raise RuntimeError("Call set_sampling_method(...) before sample().")
+        q = self._normalize_query(query)
+        samples = self._sampling.sample(self, q, n_samples=n_samples, **kwargs)
+        if isinstance(samples, dict):
+            return {k: v.detach() for k, v in samples.items()}
+        return samples.detach()
+
     def _posterior_stats(
         self, pdf: torch.Tensor, samples: torch.Tensor, *, eps: float = 1e-12
     ) -> Dict[str, torch.Tensor]:
@@ -358,6 +447,8 @@ class VBN:
         configs = {
             "learning": self._learning_config,
             "inference": self._inference_config,
+            "sampling": self._sampling_config,
+            "update": self._update_config,
         }
         if include_configs:
             for label, cfg in configs.items():
@@ -401,7 +492,12 @@ class VBN:
         if extra is not None:
             structure["extra"] = extra
         if include_configs:
-            structure["config"] = {**configs, "sampling": None, "update": None}
+            structure["config"] = configs
+            if self._update_policy is not None:
+                state_meta, state_arrays = self._update_policy.get_state()
+                structure["update_state"] = state_meta
+                for pkey, arr in state_arrays.items():
+                    arrays[f"__update__\x1f{pkey}"] = np.asarray(arr)
         buf = io.BytesIO()
         np.savez(
             buf,
@@ -431,12 +527,13 @@ class VBN:
         The DAG is rebuilt in the saved topological order with each node's
         parents in their saved order, each CPD from
         its ``cpd_key``, ``init_kwargs`` and ``extra_state``, and its params
-        as tensors on ``device``. Learning/inference configs are restored
-        where this port has the method; others are skipped with a warning.
-        The port has no sampling methods, update policies or amortized
-        networks yet: a checkpoint that names a sampling or update method,
-        or holds ``__update__`` / ``__amortized__`` arrays, loads without
-        them and warns.
+        as tensors on ``device``. The learning, inference and sampling
+        methods and the update policy are restored with their configs,
+        and the policy's state (``update_state`` and the ``__update__``
+        arrays: the replay buffer). A method this port lacks is skipped
+        with a warning, and so are the amortized network's
+        ``__amortized__`` arrays and ``amortized_spec``, which the port
+        does not restore yet.
         """
         checkpoint_path = (
             os.path.join(path, "checkpoint.npz") if os.path.isdir(path) else path
@@ -462,6 +559,7 @@ class VBN:
         for slot, registry in (
             ("learning", LEARNING_REGISTRY),
             ("inference", INFERENCE_REGISTRY),
+            ("sampling", SAMPLING_REGISTRY),
         ):
             cfg = config.get(slot) or {}
             name = cfg.get("name")
@@ -479,22 +577,30 @@ class VBN:
                     name, nodes_cpds=cfg.get("nodes_cpds"),
                     **(cfg.get("params") or {}),
                 )
-            else:
+            elif slot == "inference":
                 vbn.set_inference_method(name, **(cfg.get("params") or {}))
-        for slot in ("sampling", "update"):
-            name = (config.get(slot) or {}).get("name")
-            if name:
-                warnings.warn(
-                    f"checkpoint {slot} method {name!r} is not in this port "
-                    "yet; left unset",
-                    stacklevel=2,
+            else:
+                vbn.set_sampling_method(name, **(cfg.get("params") or {}))
+        update_cfg = config.get("update") or {}
+        if update_cfg.get("name"):
+            update_cls = UPDATE_REGISTRY.get(update_cfg["name"])
+            if update_cls is None:
+                raise ValueError(
+                    f"Unknown update method {update_cfg['name']!r} in "
+                    "checkpoint"
                 )
+            vbn._update_policy = update_cls(
+                **(update_cfg.get("init_kwargs") or {}))
+            vbn._update_config = update_cfg
 
         node_arrays: Dict[str, Dict[str, np.ndarray]] = {}
+        update_arrays: Dict[str, np.ndarray] = {}
         dropped: Dict[str, int] = {}
         for full_key, arr in arrays.items():
             owner, pkey = full_key.split("\x1f", 1)
-            if owner.startswith("__"):
+            if owner == "__update__":
+                update_arrays[pkey] = arr
+            elif owner.startswith("__"):
                 dropped[owner] = dropped.get(owner, 0) + 1
             else:
                 node_arrays.setdefault(owner, {})[pkey] = arr
@@ -502,6 +608,12 @@ class VBN:
             warnings.warn(
                 f"checkpoint holds {count} {owner} array(s) that this port "
                 "does not restore yet; dropped",
+                stacklevel=2,
+            )
+        if structure.get("amortized_spec") is not None:
+            warnings.warn(
+                "checkpoint amortized_spec is not restored by this port yet; "
+                "dropped",
                 stacklevel=2,
             )
         for node, info in structure.get("nodes", {}).items():
@@ -520,6 +632,9 @@ class VBN:
             vbn.params[node] = params_from_numpy(
                 node_arrays.get(node, {}), vbn.device
             )
+        update_state = structure.get("update_state")
+        if vbn._update_policy is not None and update_state is not None:
+            vbn._update_policy.set_state(update_state, update_arrays)
         return vbn
 
 
