@@ -195,8 +195,37 @@ are torch ops, the KDE paths run the KDE kernels):
     on the CPU (closed forms within 1e-5, counts exactly, neural on full
     batches within 1e-5 of scale; KDE as a uniform subset of the pool).
 
-Prints a JSON line of kernel results (all twelve kernels), the card's name
-and power limit, and last ``{"ok": true, "device": {...}}``. Any failure
+Then the grouped neural fit, LBP, Rao-Blackwellized marginalization and
+the amortizer (torch ops; LBP and RBM over KDE run the KDE kernels):
+
+24. (g1) the star z -> y0..y3 of ``tests/test_fit_grouping.py`` on 4096
+    rows, ``gaussian_nn`` at its default widths and fit budget, with
+    ``VBN_FIT_GROUP=always`` against ``never`` (fit s, ms and device
+    launches a loop step; the grouped params within rtol 2e-3 / atol 2e-4
+    of the sequential ones); (g2) phase 21's (b) gauss8 ``gaussian_nn``
+    fit grouped and sequential (the groups formed, fit s, the 96-query LW
+    dynamic KL of each); (l1) LBP on the flagship's diagnosis query (B=8,
+    S=2^20; ``sync_fix_study.py``), (mean, std) within 0.05 std of the
+    closed form, the smoothing steps and the fallback logged; (l2) LBP
+    over the KDE flagship at W2's query, within 0.05 std of its float64
+    reference, launching ``vbn_kde_pick`` and ``vbn_kde_cond``; (r1) RBM on
+    the flagship's x2 | x0, x1 (B=8, 512 grid points, 2^18 particles;
+    ``tpu_study.py``), the grid's mean and std within 1e-4 std of the
+    closed form; (r2) RBM over the KDE flagship at W1's query (S=2^20),
+    which falls back to LW as the JAX package does (``vbn_kde_root``,
+    ``vbn_kde_pick``), within 0.05 std of W1's reference; (r3) RBM on asia
+    (``presets.py`` ``vbn_ct_rao``, B=1024), and its pmf at 2^18 particles
+    within 5e-3 of ``categorical_exact``; (a1) the amortizer of
+    ``tests/test_amortized.py`` (fit s and steps, serving q/s at B=1024,
+    the JAX test's limits, its categorical pmf within 0.1, heads on the
+    card within 1e-5 of scale of the CPU's); each served path with the
+    counters reset just before and read just after, queries/s and a
+    profiled batch.
+
+Prints a JSON line of kernel results (all twelve kernels; rows 9, 10 and
+12 with their launches in (l2) and (r2) as ``launches_l2`` and
+``launches_r2``), the card's name and power limit, and last
+``{"ok": true, "device": {...}}``. Any failure
 exits nonzero. The script imports nothing of JAX or of the JAX package.
 
 ``python3 chip_smoke.py --parent DIR`` also times, before those last lines,
@@ -3750,6 +3779,424 @@ def serve_updates(vbn_cls, defaults):
     log("update_done", seconds=time.perf_counter() - t0)
 
 
+# ---------------------------------------------------------------------------
+# The grouped neural fit, LBP, Rao-Blackwellized marginalization and the
+# amortizer (torch ops; the KDE paths run the KDE kernels)
+# ---------------------------------------------------------------------------
+
+N_STAR = 4  # y0..y3 of tests/test_fit_grouping.py
+S_LBP = 1 << 20  # sync_fix_study.py:32
+RBM_LG = {"n_samples": 512, "n_particles": 1 << 18}  # tpu_study.py:128-133
+RBM_ASIA = {"n_samples": 1024, "n_particles": 1024}  # presets.py:66-71
+RBM_ASIA_HOLD = 1 << 18  # particles of the pmf held against the exact one
+# tests/test_amortized.py:24-50 (examples/07_amortized_inference.py)
+AM_FIT = {"epochs": 60, "batch_size": 512, "hidden_dims": [64, 64]}
+AM_CAT_FIT = {"epochs": 80, "batch_size": 512, "hidden_dims": [64]}
+B_AM, S_AM = 1024, 512
+
+
+def fit_grouped(vbn, data, grouping):
+    """Fit under VBN_FIT_GROUP=``grouping``; returns (seconds, the group
+    sizes that ``fit_many`` trained)."""
+    import os
+
+    import torch
+    from vectorizedbayesiannetwork_torch.models.gaussian_nn import GaussianNNCPD
+
+    sizes = []
+    orig = GaussianNNCPD.fit_many
+
+    def recording(self, params_list, *a, **k):
+        sizes.append(len(params_list))
+        return orig(self, params_list, *a, **k)
+
+    os.environ["VBN_FIT_GROUP"] = grouping
+    GaussianNNCPD.fit_many = recording
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        vbn.fit(data)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, sizes
+    finally:
+        GaussianNNCPD.fit_many = orig
+        os.environ.pop("VBN_FIT_GROUP", None)
+
+
+def star_fit(vbn_cls, defaults, data, grouping, epochs=None):
+    """(g1) the star z -> y0..y3, z linear-Gaussian, each y gaussian_nn at
+    ``defaults.cpd("gaussian_nn")``'s own widths and fit budget (or
+    ``epochs``)."""
+    conf = defaults.cpd("gaussian_nn")
+    if epochs is not None:
+        conf["fit"]["epochs"] = epochs
+    vbn = vbn_cls([("z", f"y{i}") for i in range(N_STAR)], seed=0)
+    vbn.set_learning_method("node_wise", nodes_cpds={
+        "z": defaults.cpd("linear_gaussian"),
+        **{f"y{i}": dict(conf) for i in range(N_STAR)}})
+    secs, sizes = fit_grouped(vbn, data, grouping)
+    return vbn, secs, sizes
+
+
+def slice13_g1(vbn_cls, defaults):
+    """(g1) grouped against sequential on the star, 4096 rows."""
+    from vectorizedbayesiannetwork_torch.models._train import batch_schedule
+    from vectorizedbayesiannetwork_torch.models._optim import tree_leaves
+
+    t0 = time.perf_counter()
+    g = np.random.default_rng(0)
+    z = g.normal(size=4096)
+    data = {"z": z, **{f"y{i}": (0.3 + 0.2 * i) * z + 0.1 * g.normal(size=4096)
+                       for i in range(N_STAR)}}
+    fit = defaults.cpd("gaussian_nn")["fit"]
+    _, n_batches, _ = batch_schedule(4096, fit["batch_size"])
+    loop_steps = fit["epochs"] * n_batches  # a node's, and the group's
+    out = {}
+    for grouping in ("never", "always", "never", "always"):
+        vbn, secs, sizes = star_fit(vbn_cls, defaults, data, grouping)
+        loops = 1 if sizes else N_STAR
+        rec = out.setdefault(grouping, {"fit_s": [], "vbn": vbn})
+        rec["fit_s"].append(secs)
+        rec.update(groups=sizes, loops=loops, loop_steps=loop_steps * loops)
+    for grouping, rec in out.items():
+        # a profiled fit of 3 epochs less one of 1, over the steps between
+        ev = [device_events_per_call(lambda: star_fit(
+            vbn_cls, defaults, data, grouping, epochs=e)) for e in (1, 3)]
+        rec["launches_per_step"] = (ev[1] - ev[0]) / (
+            2 * n_batches * rec["loops"])
+    worst = 0.0
+    for i in range(N_STAR):
+        pg = tree_leaves(out["always"]["vbn"].params[f"y{i}"])
+        ps = tree_leaves(out["never"]["vbn"].params[f"y{i}"])
+        for a, b in zip(pg, ps):
+            excess = (a - b).abs() - (2e-4 + 2e-3 * b.abs())
+            worst = max(worst, float(excess.max()))
+    for grouping, rec in out.items():
+        best = min(rec["fit_s"])
+        log("fit_group", workload="g1 star z -> y0..y3", rows=4096,
+            grouping=grouping, groups=rec["groups"], fit_s=best,
+            fit_s_runs=rec["fit_s"], loop_steps=rec["loop_steps"],
+            ms_per_step=1e3 * best / rec["loop_steps"],
+            launches_per_step=rec["launches_per_step"],
+            epochs=fit["epochs"], batch_size=fit["batch_size"])
+    log("fit_group_check", workload="g1", rtol=2e-3, atol=2e-4,
+        worst_excess=worst, seconds=time.perf_counter() - t0)
+    if worst > 0.0 or out["always"]["groups"] != [N_STAR]:
+        raise AssertionError(f"(g1) grouped fit off the sequential one: "
+                             f"excess {worst}, groups {out['always']['groups']}")
+
+
+def slice13_g2(vbn_cls, defaults):
+    """(g2) phase 21's (b): gauss8 with gaussian_nn at DYN_FIT, grouped
+    and sequential, each served the 96 queries by LW dynamic_masks at
+    S=2^16."""
+    import torch
+    from benchmarking.gaussian_bn import (
+        generate_gaussian_inference_queries,
+        random_gaussian,
+    )
+
+    t0 = time.perf_counter()
+    gbn = random_gaussian(8, seed=0)
+    data = gbn.sample(4096, seed=1)
+    queries = generate_gaussian_inference_queries(gbn, n_queries=N_DYN, seed=2)
+    qd = [{"target": q.target,
+           "evidence": {k: np.array([[float(v)]], np.float32)
+                        for k, v in q.evidence.items()}} for q in queries]
+    conf = {**defaults.cpd("gaussian_nn"), "fit": dict(DYN_FIT)}
+    kl = {}
+    for grouping in ("always", "never"):
+        vbn = vbn_cls({n: gbn.parents[n] for n in gbn.nodes}, seed=0)
+        vbn.set_learning_method("node_wise",
+                                nodes_cpds={n: dict(conf) for n in gbn.nodes})
+        secs, sizes = fit_grouped(vbn, data, grouping)
+        vbn.set_inference_method("likelihood_weighting", n_samples=S_NN_DYN,
+                                 dynamic_masks=True)
+        mom, spans = vbn.infer_posterior_moments(qd, pad_bucket=N_DYN)
+        torch.cuda.synchronize()
+        if mom.shape != (N_DYN, 2) or not np.isfinite(mom).all():
+            raise AssertionError(f"(g2) {grouping} moments rows bad")
+        kl[grouping] = gauss_kl(gbn, queries, mom, spans)
+        log("fit_group", workload="g2 gauss8 gaussian_nn", rows=4096,
+            grouping=grouping, groups=sizes, nodes=len(gbn.nodes), fit_s=secs,
+            **{f"lw_dyn_{k}": v for k, v in kl[grouping].items()})
+    log("fit_group_kl", workload="g2", queries=N_DYN, S=S_NN_DYN,
+        grouped_kl_mean=kl["always"]["kl_mean"],
+        sequential_kl_mean=kl["never"]["kl_mean"],
+        grouped_kl_median=kl["always"]["kl_median"],
+        sequential_kl_median=kl["never"]["kl_median"],
+        seconds=time.perf_counter() - t0)
+
+
+def kde_launches(tag, got):
+    """KDE launches of an IS or LW sweep over the KDE flagship at W2's
+    query, each sweep two picks and one conditional density: any other
+    kernel, or another ratio, fails."""
+    other = {k: v for k, v in got.items()
+             if v and k not in ("kde_pick", "kde_cond")}
+    sweeps = got.get("kde_cond", 0)
+    if other or sweeps < 1 or got.get("kde_pick", 0) != 2 * sweeps:
+        raise AssertionError(f"{tag}: launches {got}")
+    return got
+
+
+def slice13_lbp(lg_vbn, kde_flag, ref_w2):
+    """(l1) LBP on the LG flagship's diagnosis query; (l2) over the KDE
+    flagship at W2's query. Returns (l2)'s launches."""
+    import torch
+
+    t0 = time.perf_counter()
+    q = flagship_diag_query()
+    lg_vbn.set_inference_method("lbp", n_samples=S_LBP)
+    reset_launches()
+    w, samples = lg_vbn.infer_posterior(q)
+    torch.cuda.synchronize()
+    launches = read_launches({})
+    lbp = lg_vbn._inference
+    acc = diag_accuracy(lg_vbn, q, w, samples)
+    qps, windows, serve = method_qps(lg_vbn, q, B_RIS)
+    log("lbp_main_path", workload="l1 LG flagship x0 | x2", B=B_RIS, S=S_LBP,
+        launches=launches, smoothing_steps=lbp._last_iters,
+        fallback=lbp._last_fallback, queries_per_s=qps, window_qps=windows,
+        limit=0.05, seconds=time.perf_counter() - t0, **acc)
+    log("serve_profile", workload="l1 LBP LG flagship",
+        **profile_batch(serve, (), top=4))
+    if acc["dmean_over_std"] > 0.05 or acc["dstd_over_std"] > 0.05:
+        raise AssertionError(f"(l1) LBP off the closed form: {acc}")
+
+    t0 = time.perf_counter()
+    _, w2, _ = kde_flagship_queries()
+    kde_flag.set_inference_method("lbp", n_samples=S_KDE)
+    reset_launches()
+    w, samples = kde_flag.infer_posterior(w2)
+    torch.cuda.synchronize()
+    from vectorizedbayesiannetwork_torch.ops import sweep
+
+    launches = kde_launches("(l2)", dict(sweep.LAUNCHES))
+    lbp = kde_flag._inference
+    st = kde_flag._posterior_stats(w, samples)
+    served = torch.stack([st["mean"][:, 0], st["std"][:, 0]], 1)
+    acc = kde_accuracy(served.double().cpu().numpy(), ref_w2)
+    qps, windows, serve = method_qps(kde_flag, w2, B_KDE)
+    log("lbp_main_path", workload="l2 KDE flagship x0 | x2 (W2)", B=B_KDE,
+        S=S_KDE, launches=launches, smoothing_steps=lbp._last_iters,
+        fallback=lbp._last_fallback, queries_per_s=qps, window_qps=windows,
+        limit=0.05, seconds=time.perf_counter() - t0, **acc)
+    log("serve_profile", workload="l2 LBP KDE flagship", **profile_batch(
+        serve, ("kde_pick_", "kde_direct_kernel"), top=4))
+    if acc["dmean_over_std"] > 0.05 or acc["dstd_over_std"] > 0.05:
+        raise AssertionError(f"(l2) LBP off the KDE reference: {acc}")
+    return launches
+
+
+def slice13_rbm(bn, asia_vbn, lg_vbn, kde_flag):
+    """(r1) RBM on the LG flagship's q_pred, (r2) over the KDE flagship
+    (its LW fallback), (r3) on asia. Returns (r2)'s launches."""
+    import torch
+
+    t0 = time.perf_counter()
+    q = flagship_query(B_RIS)
+    lg_vbn.set_inference_method("rao_blackwellized_marginalization", **RBM_LG)
+    reset_launches()
+    pdf, grid = lg_vbn.infer_posterior(q)
+    torch.cuda.synchronize()
+    launches = read_launches({})
+    rbm = lg_vbn._inference
+    # every parent observed: one mixture component, whose (mean, std) the
+    # grid mean +- stddevs * std carries
+    g = grid[..., 0].double().cpu().numpy()
+    mean, std = (g[:, 0] + g[:, -1]) / 2, (g[:, -1] - g[:, 0]) / (2 * rbm.stddevs)
+    fit = fitted_gaussian_bn(lg_vbn)
+    cf = np.array([fit.conditional("x2", {"x0": float(a), "x1": float(b)})
+                   for a, b in zip(q["evidence"]["x0"][:, 0],
+                                   q["evidence"]["x1"][:, 0])])
+    acc = {"dmean_over_std": float(np.max(np.abs(mean - cf[:, 0]) / cf[:, 1])),
+           "dstd_over_std": float(np.max(np.abs(std - cf[:, 1]) / cf[:, 1]))}
+    qps, windows, serve = method_qps(lg_vbn, q, B_RIS)
+    log("rbm_main_path", workload="r1 LG flagship x2 | x0, x1", B=B_RIS,
+        **RBM_LG, launches=launches, fallback=rbm._last_fallback,
+        queries_per_s=qps, window_qps=windows, limit=1e-4,
+        finite=bool(torch.isfinite(pdf).all()),
+        seconds=time.perf_counter() - t0, **acc)
+    log("serve_profile", workload="r1 RBM LG flagship",
+        **profile_batch(serve, (), top=4))
+    if rbm._last_fallback or max(acc.values()) > 1e-4:
+        raise AssertionError(f"(r1) RBM off the closed form: {acc}")
+
+    t0 = time.perf_counter()
+    w1, _, _ = kde_flagship_queries()
+    kde_flag.set_inference_method("rao_blackwellized_marginalization",
+                                  n_samples=S_KDE, n_particles=S_KDE)
+    reset_launches()
+    w, samples = kde_flag.infer_posterior(w1)
+    torch.cuda.synchronize()
+    r2 = read_launches({"kde_root": 1, "kde_pick": 2})
+    rbm = kde_flag._inference
+    st = kde_flag._posterior_stats(w, samples)
+    served = torch.stack([st["mean"][:, 0], st["std"][:, 0]], 1)
+    ref = kde_reference(kde_flag, "w1",
+                        w1["evidence"]["x0"][:, 0].astype(np.float64))
+    acc = kde_accuracy(served.double().cpu().numpy(), ref)
+    qps, windows, _ = method_qps(kde_flag, w1, B_KDE)
+    log("rbm_main_path", workload="r2 KDE flagship x2 | x0 (W1)", B=B_KDE,
+        S=S_KDE, launches=r2, fallback=rbm._last_fallback,
+        reason=rbm._last_reason, queries_per_s=qps, window_qps=windows,
+        limit=0.05, seconds=time.perf_counter() - t0, **acc)
+    if not rbm._last_fallback or rbm._last_reason != (
+            "unsupported target CPD for RB marginalization"):
+        raise AssertionError(f"(r2) no LW fallback: {rbm._last_reason}")
+    if acc["dmean_over_std"] > 0.05 or acc["dstd_over_std"] > 0.05:
+        raise AssertionError(f"(r2) RBM's fallback off the reference: {acc}")
+
+    t0 = time.perf_counter()
+    qa = asia_query(B_MAIN)
+    asia_vbn.set_inference_method("rao_blackwellized_marginalization",
+                                  **RBM_ASIA)
+    reset_launches()
+    pmf, _ = asia_vbn.infer_posterior(qa)
+    torch.cuda.synchronize()
+    launches = read_launches({})
+    qps, windows, serve = method_qps(asia_vbn, qa, B_MAIN)
+    log("serve_profile", workload="r3 RBM asia",
+        **profile_batch(serve, (), top=4))
+    q8 = asia_query(8)
+    asia_vbn.set_inference_method("categorical_exact")
+    want, _ = asia_vbn.infer_posterior(q8)
+    asia_vbn.set_inference_method("rao_blackwellized_marginalization",
+                                  n_samples=64, n_particles=RBM_ASIA_HOLD)
+    got, _ = asia_vbn.infer_posterior(q8)
+    err = float((got - want).abs().max())
+    err_1024 = float((pmf[:8] - want).abs().max())
+    log("rbm_main_path", workload="r3 asia P(dysp | smoke, asia)", B=B_MAIN,
+        **RBM_ASIA, launches=launches, queries_per_s=qps, window_qps=windows,
+        max_abs_err_vs_exact=err, held_particles=RBM_ASIA_HOLD, limit=5e-3,
+        max_abs_err_1024_particles=err_1024,
+        seconds=time.perf_counter() - t0)
+    if asia_vbn._inference._last_fallback or not err <= 5e-3:
+        raise AssertionError(f"(r3) RBM pmf off categorical_exact: {err}")
+    return r2
+
+
+def amortized_lg(vbn_cls, defaults):
+    g = np.random.default_rng(0)
+    n = 6000
+    x0, x1 = g.normal(size=n), g.normal(size=n)
+    data = {"x0": x0, "x1": x1, "x2": 0.5 * x0 - 0.2 * x1 + 0.1 * g.normal(size=n)}
+    vbn = vbn_cls([("x0", "x2"), ("x1", "x2")], seed=0)
+    vbn.set_learning_method("amortized", nodes_cpds={
+        k: defaults.cpd("linear_gaussian") for k in data}, **AM_FIT)
+    return vbn, data
+
+
+def served_mean(vbn, q):
+    pdf, samples = vbn.infer_posterior(q)
+    if vbn._inference._last_fallback:
+        raise AssertionError(f"(a1) fell back: {vbn._inference._last_reason}")
+    return vbn._posterior_stats(pdf, samples)["mean"][:, 0].cpu().numpy()
+
+
+def slice13_a1(vbn_cls, defaults):
+    """(a1) the amortizer of tests/test_amortized.py on the card."""
+    import torch
+    from vectorizedbayesiannetwork_torch.learning.amortized import (
+        amortized_forward,
+    )
+    from vectorizedbayesiannetwork_torch.models._optim import tree_map
+    from vectorizedbayesiannetwork_torch.models._train import batch_schedule
+
+    t_phase = time.perf_counter()
+    vbn, data = amortized_lg(vbn_cls, defaults)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    vbn.fit(data)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    learner = vbn._learning
+    spec, net = vbn.amortized["spec"], vbn.amortized["net"]
+    m = 6000 * learner.n_mask_samples + 1024 * (learner.n_do_sets
+                                                + learner.n_obs_sets)
+    _, n_batches, _ = batch_schedule(m, AM_FIT["batch_size"])
+    steps = AM_FIT["epochs"] * n_batches
+    vbn.set_inference_method("amortized", n_samples=S_AM)
+    checks = {
+        "forward": (served_mean(vbn, {"target": "x2", "evidence": {
+            "x0": [[1.0]], "x1": [[0.0]]}})[0], 0.5, 0.08),
+        "inverse": (served_mean(vbn, {"target": "x0", "evidence": {
+            "x2": [[0.3]]}})[0], 0.5, 0.12),
+        "do": (served_mean(vbn, {"target": "x2", "do": {"x0": [[1.0]]}})[0],
+               0.5, 0.1),
+    }
+    q = {"target": "x2", "evidence": {
+        "x0": np.linspace(-1, 1, B_AM).reshape(B_AM, 1).astype(np.float32),
+        "x1": np.linspace(1, -1, B_AM).reshape(B_AM, 1).astype(np.float32)}}
+    reset_launches()
+    served_mean(vbn, q)
+    torch.cuda.synchronize()
+    launches = read_launches({})
+    qps, windows, serve = method_qps(vbn, q, B_AM)
+    log("serve_profile", workload="a1 amortized LG flagship",
+        **profile_batch(serve, (), top=4))
+
+    g = np.random.default_rng(5)
+    rows = torch.as_tensor(g.normal(size=(1 << 16, spec.total_dim)),
+                           dtype=torch.float32, device=vbn.device)
+    mask = (torch.rand((1 << 16, spec.n_nodes), device=vbn.device)
+            < 0.5).float()
+    do = mask * (torch.rand_like(mask) < 0.3).float()
+    heads = amortized_forward(spec, net, rows, mask, do)
+    cpu_heads = amortized_forward(spec, tree_map(lambda t: t.cpu(), net),
+                                  rows.cpu(), mask.cpu(), do.cpu())
+    heads_err = float((heads.cpu() - cpu_heads).abs().max()
+                      / cpu_heads.abs().max())
+
+    cat = vbn_cls([("a", "b")], seed=0)
+    gc = np.random.default_rng(0)
+    a = gc.integers(0, 3, 4000)
+    b = (a + (gc.random(4000) < 0.2)) % 3
+    cat.set_learning_method("amortized", nodes_cpds={
+        k: dict(defaults.cpd("categorical_table"), n_classes=3) for k in "ab"},
+        **AM_CAT_FIT)
+    cat.fit({"a": a.astype(float), "b": b.astype(float)})
+    cat.set_inference_method("amortized")
+    probs, _ = cat.infer_posterior({"target": "b", "evidence": {"a": [[1.0]]}})
+    probs = probs[0].cpu().numpy()
+    log("amortized_main_path", workload="a1 amortized LG flagship",
+        rows=6000, fit_s=secs, optimizer_steps=steps,
+        fit_ms_per_step=1e3 * secs / steps, B=B_AM, n_samples=S_AM,
+        launches=launches, queries_per_s=qps, window_qps=windows,
+        **{f"{k}_mean": float(v[0]) for k, v in checks.items()},
+        **{f"{k}_limit": v[2] for k, v in checks.items()},
+        heads_card_vs_cpu_over_scale=heads_err, heads_limit=1e-5,
+        categorical_pmf=probs.tolist(), categorical_limit=0.1,
+        seconds=time.perf_counter() - t_phase)
+    bad = {k: v for k, v in checks.items() if not abs(v[0] - v[1]) < v[2]}
+    if bad or not heads_err <= 1e-5:
+        raise AssertionError(f"(a1) off: {bad}, heads {heads_err}")
+    if not (abs(probs[1] - 0.8) < 0.1 and abs(probs[2] - 0.2) < 0.1
+            and abs(probs.sum() - 1.0) < 1e-4):
+        raise AssertionError(f"(a1) categorical pmf off: {probs}")
+
+
+def serve_slice13(vbn_cls, defaults, bn, asia_vbn, lg_vbn):
+    """Phases g1, g2, l1, l2, r1, r2, r3 and a1; returns the KDE kernels'
+    launches of (l2) and (r2)."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    slice13_g1(vbn_cls, defaults)
+    slice13_g2(vbn_cls, defaults)
+    kde_flag = fit_kde(vbn_cls, defaults, [("x0", "x2"), ("x1", "x2")],
+                       flagship_data())
+    v = kde_flagship_queries()[1]["evidence"]["x2"][:, 0].astype(np.float64)
+    out = {"l2": slice13_lbp(lg_vbn, kde_flag,
+                             kde_reference(kde_flag, "w2", v))}
+    out["r2"] = slice13_rbm(bn, asia_vbn, lg_vbn, kde_flag)
+    slice13_a1(vbn_cls, defaults)
+    log("slice13_done", seconds=time.perf_counter() - t0, launches=out)
+    return out
+
+
 def load_parent(root):
     """The port package of another checkout at ``root`` (for example the
     parent commit's, unpacked with ``git archive``), imported under the name
@@ -4011,6 +4458,7 @@ def main(argv) -> int:
     neural, sm = serve_neural(VBN, defaults, bn, asia_vbn)
     sampling = serve_sampling(VBN, defaults, sm)
     serve_updates(VBN, defaults)
+    slice13 = serve_slice13(VBN, defaults, bn, asia_vbn, lg_vbn)
     for row in kernels:
         key = {"vbn_cumsum": "cumsum", "vbn_srg": "srg"}.get(row["name"])
         if key:
@@ -4019,6 +4467,8 @@ def main(argv) -> int:
                "vbn_kde_pick": "kde_pick"}.get(row["name"])
         if key:
             row["launches_sampling_main_path"] = sampling.get(key, 0)
+            for phase, got in slice13.items():
+                row[f"launches_{phase}"] = got.get(key, 0)
     if args.parent:
         compare_builds(args.parent)
 

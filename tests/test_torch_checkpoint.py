@@ -6,6 +6,8 @@ the topological order, the inference plan and packed query rows, and the
 fitted parameters.
 """
 
+import json
+
 import networkx as nx
 import numpy as np
 import pytest
@@ -26,6 +28,7 @@ from vectorizedbayesiannetwork_torch.core.plan import get_plan as t_get_plan
 from vectorizedbayesiannetwork_torch.core.plan import (
     pack_fixed_values as t_pack,
 )
+from vectorizedbayesiannetwork_torch.vbn import _flatten_params
 from vectorizedbayesiannetwork_tpu import VBN as JVBN
 from vectorizedbayesiannetwork_tpu import defaults as jdefaults
 from vectorizedbayesiannetwork_tpu.core.base import Query as JQuery
@@ -34,6 +37,7 @@ from vectorizedbayesiannetwork_tpu.core.plan import get_plan as j_get_plan
 from vectorizedbayesiannetwork_tpu.core.plan import (
     pack_fixed_values as j_pack,
 )
+from vectorizedbayesiannetwork_tpu.vbn import _flatten_pytree
 
 
 def asia_setup():
@@ -301,10 +305,11 @@ def test_defaults_equal_jax_yaml(kind, name):
 def test_load_warns_on_what_the_port_does_not_restore(tmp_path):
     """A JAX checkpoint that names a sampling method and an update policy,
     and holds the replay buffer's ``__update__`` arrays, loads in the port
-    with no warning: the port restores them. A checkpoint of an amortized
-    fit still warns for its ``__amortized__`` arrays and its
-    ``amortized_spec``, which the port does not restore yet. Parameters
-    load all the same."""
+    with no warning: the port restores them. So does a checkpoint of an
+    amortized fit: its ``amortized_spec`` and ``__amortized__`` arrays come
+    back as the port's amortized net. What the port does not know still
+    warns and is dropped: a method name no registry holds, and arrays of an
+    unknown ``__owner__``. Parameters load all the same."""
     import warnings
 
     fg, farrays = flagship_setup()
@@ -340,13 +345,31 @@ def test_load_warns_on_what_the_port_does_not_restore(tmp_path):
     )
     ja.fit(flagship_setup(n=512)[1])
     ja.save(str(tmp_path / "amortized.npz"))
-    with pytest.warns(UserWarning) as caught:
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
         ta = TVBN.load(str(tmp_path / "amortized.npz"), device="cpu")
+    assert ta.amortized["spec"].to_dict() == ja.amortized["spec"].to_dict()
+    want = _flatten_pytree(ja.amortized["net"])
+    got = _flatten_params(ta.amortized["net"])
+    assert sorted(got) == sorted(want)
+    for key, arr in want.items():
+        np.testing.assert_array_equal(got[key], np.asarray(arr))
+
+    with np.load(str(tmp_path / "amortized.npz")) as data:
+        arrays = {k: data[k] for k in data.files}
+    structure = json.loads(bytes(arrays["__structure__"]).decode("utf-8"))
+    structure["config"]["sampling"] = {"name": "no_such_sampler",
+                                       "params": {}}
+    arrays["__structure__"] = np.frombuffer(
+        json.dumps(structure).encode("utf-8"), dtype=np.uint8)
+    arrays["__unknown__\x1fa"] = np.zeros(3, np.float32)
+    np.savez(str(tmp_path / "odd.npz"), **arrays)
+    with pytest.warns(UserWarning) as caught:
+        TVBN.load(str(tmp_path / "odd.npz"), device="cpu")
     msgs = [str(w.message) for w in caught]
-    assert any("__amortized__ array" in m for m in msgs), msgs
-    assert any("amortized_spec" in m for m in msgs), msgs
-    assert not any("__update__" in m or "sampling" in m or "update method" in m
-                   for m in msgs), msgs
+    assert any("sampling method 'no_such_sampler'" in m for m in msgs), msgs
+    assert any("__unknown__ array" in m for m in msgs), msgs
+    assert not any("amortized" in m or "__update__" in m for m in msgs), msgs
     for node in farrays:
         for key, arr in ja.params[node].items():
             np.testing.assert_array_equal(

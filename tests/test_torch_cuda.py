@@ -1252,3 +1252,132 @@ def test_mcmc_over_kde_goes_through_the_kernels(kde_vbn, name):
     assert tuple(s.shape) == (B, 64, 1) and torch.isfinite(s).all()
     means = s[..., 0].mean(dim=1).cpu().numpy()
     assert means[-1] > means[0]
+
+
+# ---------------------------------------------------------------------------
+# The grouped neural fit, LBP, RBM and the amortizer on the card (torch ops;
+# no hand kernel of their own)
+# ---------------------------------------------------------------------------
+
+
+def _star(card, cpd_name, grouping, monkeypatch):
+    """z -> y0..y3 (tests/test_fit_grouping.py), each y ``cpd_name``."""
+    monkeypatch.setenv("VBN_FIT_GROUP", grouping)
+    g = np.random.default_rng(0)
+    z = g.normal(size=600)
+    data = {"z": z, **{f"y{i}": (0.3 + 0.2 * i) * z + 0.1 * g.normal(size=600)
+                       for i in range(4)}}
+    cfg = dict(defaults.cpd(cpd_name), hidden_dims=[16])
+    cfg["fit"] = {**cfg["fit"], "epochs": 4, "batch_size": 128,
+                  "max_grad_norm": 0.5}
+    vbn = VBN([("z", f"y{i}") for i in range(4)], seed=0, device=card)
+    vbn.set_learning_method("node_wise", nodes_cpds={
+        "z": defaults.cpd("linear_gaussian"),
+        **{f"y{i}": cfg for i in range(4)}})
+    vbn.fit(data)
+    return vbn
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cpd_name", ["gaussian_nn", "mdn"])
+def test_grouped_fit_on_the_card_matches_sequential(card, cpd_name,
+                                                    monkeypatch):
+    """The bmm group against the per-node loop on the card, clipped: every
+    leaf within rtol 2e-3 / atol 2e-4 (the JAX grouping test's limits)."""
+    from vectorizedbayesiannetwork_torch.models._optim import tree_leaves
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    grouped = _star(card, cpd_name, "always", monkeypatch)
+    seq = _star(card, cpd_name, "never", monkeypatch)
+    for i in range(4):
+        for a, b in zip(tree_leaves(grouped.params[f"y{i}"]),
+                        tree_leaves(seq.params[f"y{i}"])):
+            np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(),
+                                       rtol=2e-3, atol=2e-4)
+
+
+@pytest.mark.cuda
+def test_amortized_heads_on_the_card_match_the_cpu(card):
+    """An amortizer fitted on the card, its net moved to the CPU: the heads
+    of 4096 masked rows within 1e-5 of their scale; serving launches no
+    kernel."""
+    from vectorizedbayesiannetwork_torch.learning.amortized import (
+        amortized_forward,
+    )
+    from vectorizedbayesiannetwork_torch.models._optim import tree_map
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    data = _nn_rows("gaussian_nn")
+    vbn = VBN([("x0", "x2"), ("x1", "x2")], seed=0, device=card)
+    vbn.set_learning_method("amortized", nodes_cpds={
+        k: defaults.cpd("linear_gaussian") for k in data},
+        epochs=3, batch_size=512, hidden_dims=[32, 32], n_do_sets=2)
+    vbn.fit(data)
+    spec, net = vbn.amortized["spec"], vbn.amortized["net"]
+    g = torch.Generator(device=card).manual_seed(0)
+    rows = torch.randn((4096, spec.total_dim), generator=g, device=card)
+    mask = (torch.rand((4096, spec.n_nodes), generator=g, device=card)
+            < 0.5).float()
+    heads = amortized_forward(spec, net, rows, mask, mask * 0)
+    cpu = amortized_forward(spec, tree_map(lambda t: t.cpu(), net),
+                            rows.cpu(), mask.cpu(), mask.cpu() * 0)
+    scale = float(cpu.abs().max())
+    assert float((heads.cpu() - cpu).abs().max()) <= 1e-5 * scale
+    vbn.set_inference_method("amortized", n_samples=256)
+    before = dict(sweep.LAUNCHES)
+    pdf, s = vbn.infer_posterior({"target": "x0", "evidence": {"x2": [[0.3]]}})
+    assert dict(sweep.LAUNCHES) == before
+    assert not vbn._inference._last_fallback
+    assert torch.isfinite(pdf).all() and tuple(s.shape) == (1, 256, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["lbp", "rbm_lg", "rbm_asia"])
+def test_lbp_and_rbm_on_the_card_match_the_cpu(asia_vbn, lg_vbn, case,
+                                               tmp_path):
+    """The same call on the card and on the CPU (the model moved by a
+    checkpoint): LBP's posterior means within 5 standard errors of each
+    other (S = 2^16); RBM with every parent observed within 1e-5 (no draw
+    reaches it); RBM on asia's pmf within 0.02 (2^14 particles)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if case == "rbm_asia":
+        vbn = asia_vbn
+        vbn.set_inference_method("rao_blackwellized_marginalization",
+                                 n_samples=64, n_particles=1 << 14)
+        q = {"target": "dysp", "evidence": {
+            "smoke": (np.arange(B) % 2).reshape(B, 1).astype(np.float32),
+            "asia": (np.arange(B) // 2).reshape(B, 1).astype(np.float32)}}
+    elif case == "rbm_lg":
+        vbn = lg_vbn
+        vbn.set_inference_method("rao_blackwellized_marginalization",
+                                 n_samples=64, n_particles=1024)
+        x = np.linspace(-1, 1, B).reshape(B, 1).astype(np.float32)
+        q = {"target": "x2", "evidence": {"x0": x, "x1": x[::-1].copy()}}
+    else:
+        vbn = lg_vbn
+        vbn.set_inference_method("lbp", n_samples=1 << 16)
+        q = {"target": "x0", "evidence": {
+            "x2": np.linspace(-1, 1, B).reshape(B, 1).astype(np.float32)}}
+    vbn.save(str(tmp_path / "m.npz"))
+    cpu = VBN.load(str(tmp_path / "m.npz"), device="cpu")
+    before = dict(sweep.LAUNCHES)
+    got = vbn.infer_posterior(q)
+    assert dict(sweep.LAUNCHES) == before  # torch-op sweeps
+    want = cpu.infer_posterior(q)
+    assert not vbn._inference._last_fallback
+    if case == "rbm_asia":
+        np.testing.assert_allclose(got[0].cpu().numpy(), want[0].numpy(),
+                                   atol=0.02)
+    elif case == "rbm_lg":
+        for a, b in zip(got, want):
+            np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=1e-5,
+                                       atol=1e-5 * float(b.abs().max()))
+    else:
+        st_g = vbn._posterior_stats(*got)
+        st_c = cpu._posterior_stats(*want)
+        se = (st_c["std"] / torch.sqrt(st_c["ess"][:, None])).numpy()
+        diff = np.abs(st_g["mean"].cpu().numpy() - st_c["mean"].numpy())
+        assert np.all(diff < 5 * np.sqrt(2) * se)
+    vbn.set_inference_method(
+        "likelihood_weighting" if case == "rbm_asia"
+        else "monte_carlo_marginalization", n_samples=S)

@@ -14,8 +14,11 @@ draws on the CUDA KDE kernels (``ops/kde_kernel.py``, ``ops/kde_fused.py``,
 ``csrc/kde.cu``); the exact engines ``categorical_exact`` (enumeration,
 junction tree) and ``gaussian_exact`` (closed-form linear-Gaussian
 conditioning), and per-node CPD handles (``VBN.cpd``), in plain torch on
-the device; sampling (ancestral, Gibbs, HMC, NUTS, ``VBN.sample``) and
-the online update policies (``VBN.update``). It runs on a CUDA device
+the device; sampling (ancestral, Gibbs, HMC, NUTS, ``VBN.sample``),
+the online update policies (``VBN.update``), the grouped fit of
+same-signature neural nodes (``VBN_FIT_GROUP=always``), and the
+``lbp``, ``rao_blackwellized_marginalization`` and ``amortized``
+methods (with the ``amortized`` learner). It runs on a CUDA device
 unless the caller passes
 ``device="cpu"``. Importing the package populates the registries; it never
 imports JAX or the JAX package.
@@ -43,7 +46,7 @@ from . import inference  # noqa: F401
 from . import sampling  # noqa: F401
 from . import update  # noqa: F401
 
-from .vbn import VBN, __version__, params_from_numpy
+from .vbn import VBN, __version__, params_from_numpy, params_from_tree
 
 __all__ = [
     "VBN",
@@ -52,6 +55,7 @@ __all__ = [
     "StaticDAG",
     "defaults",
     "params_from_numpy",
+    "params_from_tree",
     "CPD_REGISTRY",
     "LEARNING_REGISTRY",
     "INFERENCE_REGISTRY",

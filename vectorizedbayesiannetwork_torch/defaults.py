@@ -105,7 +105,16 @@ _CATALOG: Dict[str, Dict[str, Dict]] = {
                        "weight_decay": 0.0},
         },
     },
-    "learning": {"node_wise": {"default_cpd": "gaussian_nn"}},
+    "learning": {
+        "node_wise": {"default_cpd": "gaussian_nn"},
+        "amortized": {
+            "default_cpd": "gaussian_nn", "hidden_dims": [128, 128],
+            "activation": "relu", "epochs": 150, "batch_size": 512,
+            "lr": 1e-3, "weight_decay": 0.0, "n_mask_samples": 4,
+            "min_scale": 1e-3, "interventional": True, "n_do_sets": 12,
+            "n_obs_sets": 4,
+        },
+    },
     "inference": {
         "likelihood_weighting": {
             "n_samples": 1024, "eps": 1e-12, "normalize": True,
@@ -121,6 +130,15 @@ _CATALOG: Dict[str, Dict[str, Dict]] = {
             "fallback": "likelihood_weighting",
         },
         "categorical_exact": {"fallback": "likelihood_weighting"},
+        "lbp": {
+            "n_samples": 1024, "n_iters": 10, "damping": 0.5,
+            "fallback": "importance_sampling",
+        },
+        "rao_blackwellized_marginalization": {
+            "n_samples": 256, "n_particles": 256, "stddevs": 4.0,
+            "min_scale": 1e-6, "fallback": "likelihood_weighting",
+        },
+        "amortized": {"n_samples": 1024, "fallback": "likelihood_weighting"},
     },
     "sampling": {
         "ancestral": {"n_samples": 512},
@@ -172,7 +190,8 @@ class Defaults:
     @staticmethod
     def learning(ref) -> Dict:
         params = _lookup("learning", ref)
-        _forbid_training_keys(params, "node_wise learning defaults")
+        if ref == "node_wise":  # the amortized learner trains its own net
+            _forbid_training_keys(params, "node_wise learning defaults")
         return {"name": ref, **params}
 
     @staticmethod

@@ -34,11 +34,15 @@ def sweep_trace(
     n_samples: int,
     *,
     weighted: bool = False,
+    skip: frozenset = frozenset(),
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Ancestral sweep -> (packed [B, S, total_dim], log_weights [B, S]).
 
     ``log_weights`` accumulates evidence log-likelihoods when ``weighted``
     (likelihood weighting); do-interventions clamp without weight.
+    ``skip`` nodes stay zero and draw nothing from the generator
+    (Rao-Blackwellization skips the target and its descendants, which are
+    never parents of a swept node).
     """
     b, s = fixed.shape[0], n_samples
     m = b * s
@@ -47,6 +51,9 @@ def sweep_trace(
     for idx in range(plan.n_nodes):
         d = plan.node_dims[idx]
         off = plan.node_offsets[idx]
+        if idx in skip:
+            vals[idx] = fixed.new_zeros((b, s, d))
+            continue
         pflat = _parents_flat(plan, vals, idx, m)
         if plan.is_fixed(idx):
             vals[idx] = fixed[:, None, off : off + d].expand(b, s, d)
@@ -61,6 +68,18 @@ def sweep_trace(
     return torch.cat(vals, dim=-1), log_w
 
 
+def target_parents_flat(
+    plan: InferencePlan, packed: torch.Tensor, idx: int
+) -> Optional[torch.Tensor]:
+    """Node ``idx``'s parents [B*S, Din] from the packed sweep, or None."""
+    pidx = plan.parent_idx[idx]
+    if not pidx:
+        return None
+    b, s, _ = packed.shape
+    return torch.cat([node_values(plan, packed, p) for p in pidx],
+                     dim=-1).reshape(b * s, -1)
+
+
 def node_values(plan: InferencePlan, packed: torch.Tensor, idx: int):
     off = plan.node_offsets[idx]
     return packed[..., off : off + plan.node_dims[idx]]
@@ -73,11 +92,5 @@ def target_log_prob(
     t = plan.target_idx
     b, s, _ = packed.shape
     x = node_values(plan, packed, t).reshape(b * s, plan.node_dims[t])
-    pidx = plan.parent_idx[t]
-    pflat = (
-        torch.cat([node_values(plan, packed, p) for p in pidx], dim=-1)
-        .reshape(b * s, -1)
-        if pidx
-        else None
-    )
+    pflat = target_parents_flat(plan, packed, t)
     return cpds[t]._log_prob_flat(params_tuple[t], x, pflat).reshape(b, s)

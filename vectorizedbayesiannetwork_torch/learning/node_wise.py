@@ -9,13 +9,18 @@ of the node's own, folded from the VBN seed and ``1000 + node_idx`` as the
 JAX package folds its fit keys (the neural CPDs draw their initial
 weights and minibatch orders from it, the KDE CPD its subsample). A node
 left out of ``nodes_cpds`` gets ``default_cpd``, ``gaussian_nn`` unless
-the learner is told otherwise. The JAX package's opt-in grouped fit of
-same-signature neural nodes (``VBN_FIT_GROUP``, ``fit_many``) is not
-ported (ROADMAP).
+the learner is told otherwise.
+
+``VBN_FIT_GROUP=always`` (the JAX package's switch, off by default there
+and here) fits same-signature neural nodes together: nodes whose CPD class,
+static fields, dims and fit keys all match go to the class's ``fit_many``
+(a group of one stays sequential). Each node keeps its own generator, so a
+grouped fit equals the sequential one up to float rounding.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Dict, Optional
 
 import numpy as np
@@ -27,6 +32,10 @@ from ..core.utils import concat_parents, resolve_verbosity
 from ..defaults import TRAINING_KEYS
 
 _RESERVED = {"cpd", "fit", "update"}
+
+
+def _use_fit_grouping() -> bool:
+    return os.environ.get("VBN_FIT_GROUP", "never").lower() == "always"
 
 
 def validate_node_conf(node: str, conf: Dict) -> None:
@@ -90,6 +99,7 @@ class NodeWiseLearner:
             validate_node_conf(node, nodes_cpds[node])
 
         root = Draw(vbn.seed, vbn.device)
+        entries = []
         for node_idx, node in enumerate(topo):
             conf = nodes_cpds[node]
             parent_arr = concat_parents(data, vbn.dag.parents(node))
@@ -98,6 +108,37 @@ class NodeWiseLearner:
             cpd = build_cpd(node, conf, input_dim, x.shape[-1], vbn.seed)
             fit_kwargs = coerce_numbers(dict(conf.get("fit") or {}), FIT_SCHEMA)
             gen = fold(root, 1000 + node_idx).generator
+            entries.append((node, conf, cpd, gen, parent_arr, x, fit_kwargs))
+
+        grouped = set()
+        if _use_fit_grouping():
+            groups: Dict[tuple, list] = {}
+            for e in entries:
+                cpd = e[2]
+                if hasattr(cpd, "fit_many"):
+                    sig = (type(cpd), cpd._static_fields(), cpd.input_dim,
+                           cpd.output_dim,
+                           tuple(sorted((k, repr(v)) for k, v in e[6].items())))
+                    groups.setdefault(sig, []).append(e)
+            for g in groups.values():
+                if len(g) < 2:
+                    continue
+                fitted = g[0][2].fit_many(
+                    [e[2].init(vbn.device, gen=e[3]) for e in g],
+                    [e[4] for e in g], [e[5] for e in g], device=vbn.device,
+                    gens=[e[3] for e in g], **g[0][6])
+                if fitted is None:
+                    continue
+                for e, params in zip(g, fitted):
+                    vbn.nodes[e[0]], vbn.params[e[0]] = e[2], params
+                    grouped.add(e[0])
+                if verbosity >= 2:
+                    print(f"[node_wise] fitted {len(g)} {g[0][1]['cpd']} "
+                          "nodes in one grouped loop")
+
+        for node, conf, cpd, gen, parent_arr, x, fit_kwargs in entries:
+            if node in grouped:
+                continue
             params = cpd.init(vbn.device, gen=gen)
             vbn.params[node] = cpd.fit(
                 params, parent_arr, x, device=vbn.device, gen=gen,

@@ -88,16 +88,29 @@ def adam_update_(
     lr: float,
     weight_decay: float = 0.0,
     max_grad_norm: Optional[float] = None,
+    stacked: bool = False,
 ) -> None:
     """One Adam update in place on the leaf lists; ``step`` counts this
-    update (the first is 1). ``g`` is read, not written."""
+    update (the first is 1). ``g`` is read, not written.
+
+    ``stacked=True``: every leaf carries a leading node axis G (the grouped
+    fit), and the gradient is clipped by each node's own global norm over
+    its slice, as the JAX package's vmapped ``adam_step`` clips it."""
     if weight_decay:
         g = torch._foreach_add(g, p, alpha=weight_decay)
     if max_grad_norm is not None and max_grad_norm > 0:
-        gnorm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(g)))
+        if stacked:
+            sq = [t.reshape(t.shape[0], -1).square().sum(dim=1) for t in g]
+            gnorm = torch.sqrt(torch.stack(sq).sum(dim=0))  # [G]
+        else:
+            gnorm = torch.linalg.vector_norm(
+                torch.stack(torch._foreach_norm(g)))
         clip = torch.clamp(max_grad_norm / torch.clamp(gnorm, min=1e-12),
                            max=1.0)
-        g = torch._foreach_mul(g, clip)
+        if stacked:
+            g = [t * clip.view(-1, *([1] * (t.dim() - 1))) for t in g]
+        else:
+            g = torch._foreach_mul(g, clip)
     torch._foreach_mul_(m, _B1)
     torch._foreach_add_(m, g, alpha=1.0 - _B1)
     torch._foreach_mul_(v, _B2)

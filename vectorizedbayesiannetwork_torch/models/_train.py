@@ -13,18 +13,35 @@ The permutation is ``torch.randperm`` on the caller's generator: the same
 distribution as ``jax.random.permutation``, not the same order.
 
 The trained params come back detached (no autograd graph reaches serving,
-as the JAX package's ``_detach``). The JAX package's grouped fit
-(``fit_minibatch_nll_many``, off by default there) is not ported.
+as the JAX package's ``_detach``).
+
+``fit_minibatch_nll_many`` is the JAX package's grouped fit: G nodes of
+one signature trained together on params stacked on a leading node axis,
+one eager loop for the group. The per-node NLL is ``torch.func.vmap``-ed
+over the stack, as the JAX package vmaps its scan, which turns each MLP
+layer's ``addmm`` into one ``bmm`` over the group; the Adam update runs
+``_foreach`` ops on the stacked leaves, with the gradient clipped by each
+node's own norm. Node g draws each epoch's permutation from its own
+generator, in the order its sequential fit draws it, so the two fits see
+the same rows and differ only by float rounding. Training products are
+float32 whatever a CPD's ``compute_dtype`` (the NLLs pass no dtype, as in
+the JAX package), so the group needs no bf16 product.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from ._optim import adam_init, adam_update_, tree_leaves, tree_unflatten
+from ._optim import (
+    adam_init,
+    adam_update_,
+    tree_leaves,
+    tree_map,
+    tree_unflatten,
+)
 
 
 def as_rows(a, dim: int, device) -> torch.Tensor:
@@ -106,3 +123,67 @@ def fit_minibatch_nll(
         "step": opt["step"].detach() + float(step - step0),
     }
     return out, state
+
+
+def fit_minibatch_nll_many(
+    nll_fn: Callable,
+    nets,
+    gens: Sequence[torch.Generator],
+    parents: torch.Tensor,
+    x: torch.Tensor,
+    *,
+    epochs: int,
+    batch_size: int,
+    lr: float,
+    weight_decay: float = 0.0,
+    max_grad_norm: Optional[float] = None,
+) -> Tuple[Dict, Dict]:
+    """Train G same-signature nets at once; returns (nets, opts) stacked on
+    axis 0 (``opts["step"]`` is [G]).
+
+    ``nets`` is one tree whose leaves are stacked [G, ...]; ``gens`` the G
+    nodes' generators; ``parents`` [G, n, Din] and ``x`` [G, n, Dx]. The
+    optimizer state starts fresh (the grouped fit is an initial fit)."""
+    g_count, n, dev = int(x.shape[0]), int(x.shape[1]), x.device
+    p = [t.detach().clone().requires_grad_(True) for t in tree_leaves(nets)]
+    m = [torch.zeros_like(t) for t in p]
+    v = [torch.zeros_like(t) for t in p]
+    bs, n_batches, n_pad = batch_schedule(n, batch_size)
+    epochs = max(1, int(epochs))
+    nll_many = torch.func.vmap(nll_fn)
+    rows = torch.arange(g_count, device=dev)[:, None]
+    step = 0
+    for _ in range(epochs):
+        perm = torch.stack([epoch_indices(gen, n, n_pad, dev) for gen in gens])
+        for b in range(n_batches):
+            idx = perm[:, b * bs : (b + 1) * bs]  # [G, bs]
+            loss = nll_many(tree_unflatten(nets, p), parents[rows, idx],
+                            x[rows, idx]).sum()
+            grads = torch.autograd.grad(loss, p, allow_unused=True)
+            grads = [torch.zeros_like(t) if g is None else g
+                     for t, g in zip(p, grads)]
+            step += 1
+            adam_update_(p, grads, m, v, step, lr, weight_decay,
+                         max_grad_norm, stacked=True)
+    out = tree_unflatten(nets, [t.detach() for t in p])
+    state = {
+        "m": tree_unflatten(nets, m),
+        "v": tree_unflatten(nets, v),
+        "step": torch.full((g_count,), float(step), dtype=torch.float32,
+                           device=dev),
+    }
+    return out, state
+
+
+def stack_trees(trees: List):
+    """G trees of one layout -> one tree of [G, ...] leaves."""
+    return tree_unflatten(trees[0], [
+        torch.stack(ls) for ls in zip(*[tree_leaves(t, trees[0])
+                                        for t in trees])])
+
+
+def unstack_fit(nets, opts, i: int) -> Tuple[Dict, Dict]:
+    """Node i's (net, opt) of a grouped fit's stacked outputs."""
+    pick = lambda tree: tree_map(lambda t: t[i], tree)  # noqa: E731
+    return pick(nets), {"m": pick(opts["m"]), "v": pick(opts["v"]),
+                        "step": opts["step"][i]}

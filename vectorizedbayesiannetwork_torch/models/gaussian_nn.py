@@ -13,8 +13,9 @@ outputs; training stays float32, as in the JAX package.
 ``update`` continues Adam from the stored ``opt`` state for ``n_steps``
 epochs on the new rows, with the standardization refreshed from them and
 the optional ``ema_alpha`` shadow, as the JAX package's ``_train`` does;
-``update_program`` is the same function. Not ported: the grouped
-``fit_many`` (off by default in the JAX package).
+``update_program`` is the same function. ``fit_many`` is the grouped
+initial fit of same-signature nodes (``_train.fit_minibatch_nll_many``),
+each node standardized by its own rows.
 """
 
 from __future__ import annotations
@@ -27,7 +28,13 @@ from ..core.base import BaseCPD, Params
 from ..core.registry import register_cpd
 from ..ops.gauss import diag_gaussian_log_prob, safe_softplus, standardize_stats
 from ._mlp import check_activation, mlp_apply, mlp_init, resolve_compute_dtype
-from ._train import as_rows, fit_minibatch_nll
+from ._train import (
+    as_rows,
+    fit_minibatch_nll,
+    fit_minibatch_nll_many,
+    stack_trees,
+    unstack_fit,
+)
 
 
 @register_cpd("gaussian_nn")
@@ -134,6 +141,36 @@ class GaussianNNCPD(BaseCPD):
                            steps=epochs, batch_size=batch_size, lr=lr,
                            weight_decay=weight_decay,
                            max_grad_norm=max_grad_norm)
+
+    def fit_many(self, params_list, parents_list, x_list, *, device, gens,
+                 epochs: int = 1, lr: float = 1e-3, batch_size: int = 128,
+                 weight_decay: float = 0.0, max_grad_norm=None, **_kwargs):
+        """The initial fit of G same-signature nodes as one grouped loop; a
+        list of params in input order, or None when a node already has an
+        optimizer state (an update, which stays sequential)."""
+        if any(p.get("opt") is not None for p in params_list):
+            return None
+        xs, pns, stats_list = [], [], []
+        for parents, x in zip(parents_list, x_list):
+            x = as_rows(x, self.output_dim, device)
+            p = (None if parents is None or self.input_dim == 0
+                 else as_rows(parents, self.input_dim, device))
+            stats = self._standardization(p, x)
+            stats_list.append(stats)
+            xs.append((x - stats["mean_y"]) / stats["std_y"])
+            pns.append(x.new_zeros((x.shape[0], 0)) if p is None
+                       else (p - stats["mean_x"]) / stats["std_x"])
+        nets, opts = fit_minibatch_nll_many(
+            self._nll, stack_trees([p["net"] for p in params_list]), gens,
+            torch.stack(pns), torch.stack(xs), epochs=epochs,
+            batch_size=batch_size, lr=lr, weight_decay=weight_decay,
+            max_grad_norm=max_grad_norm,
+        )
+        out = []
+        for i, stats in enumerate(stats_list):
+            net, opt = unstack_fit(nets, opts, i)
+            out.append({"net": net, "stats": stats, "opt": opt})
+        return out
 
     def update(self, params, parents, x, *, device, gen=None, lr=1e-3,
                n_steps: int = 1, batch_size: int = 128,

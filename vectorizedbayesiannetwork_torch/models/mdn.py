@@ -11,8 +11,8 @@ Gaussian within it.
 
 ``update`` continues Adam from the stored ``opt`` state for ``n_steps``
 epochs with the optional ``ema_alpha`` shadow; ``update_program`` is the
-same function. Not ported: the grouped ``fit_many`` (off by default in
-the JAX package).
+same function. ``fit_many`` is the grouped initial fit of same-signature
+nodes (``_train.fit_minibatch_nll_many``).
 """
 
 from __future__ import annotations
@@ -25,7 +25,13 @@ from ..core.base import BaseCPD, Params
 from ..core.registry import register_cpd
 from ..ops.gauss import LOG_2PI, safe_softplus
 from ._mlp import check_activation, mlp_apply, mlp_init, resolve_compute_dtype
-from ._train import as_rows, fit_minibatch_nll
+from ._train import (
+    as_rows,
+    fit_minibatch_nll,
+    fit_minibatch_nll_many,
+    stack_trees,
+    unstack_fit,
+)
 
 
 def floored_log_weights(logits: torch.Tensor) -> torch.Tensor:
@@ -144,6 +150,31 @@ class MDNCPD(BaseCPD):
                            steps=epochs, batch_size=batch_size, lr=lr,
                            weight_decay=weight_decay,
                            max_grad_norm=max_grad_norm)
+
+    def fit_many(self, params_list, parents_list, x_list, *, device, gens,
+                 epochs: int = 1, lr: float = 1e-3, batch_size: int = 128,
+                 weight_decay: float = 0.0, max_grad_norm=None, **_kwargs):
+        """The initial fit of G same-signature nodes as one grouped loop
+        (see ``gaussian_nn.fit_many``); None when a node has an optimizer
+        state."""
+        if any(p.get("opt") is not None for p in params_list):
+            return None
+        xs = [as_rows(x, self.output_dim, device) for x in x_list]
+        pns = [x.new_zeros((x.shape[0], 0))
+               if p is None or self.input_dim == 0
+               else as_rows(p, self.input_dim, device)
+               for p, x in zip(parents_list, xs)]
+        nets, opts = fit_minibatch_nll_many(
+            self._nll, stack_trees([p["net"] for p in params_list]), gens,
+            torch.stack(pns), torch.stack(xs), epochs=epochs,
+            batch_size=batch_size, lr=lr, weight_decay=weight_decay,
+            max_grad_norm=max_grad_norm,
+        )
+        out = []
+        for i in range(len(params_list)):
+            net, opt = unstack_fit(nets, opts, i)
+            out.append({"net": net, "opt": opt})
+        return out
 
     def update(self, params, parents, x, *, device, gen=None, lr=1e-3,
                n_steps: int = 1, batch_size: int = 128,

@@ -8,8 +8,9 @@ sequential), the fused ``infer_posterior_pmf`` / ``_moments`` with
 their stream fallback, ``_posterior_stats``, the per-node CPD handles
 (``cpd`` / ``get_cpd`` / ``get_cpds``), and ``save`` / ``load`` in the
 JAX package's checkpoint format (an ``.npz`` of flattened params with a
-``__structure__`` JSON entry), so a model fitted by either package serves
-in the other. Model state is a dict of params per node on one device;
+``__structure__`` JSON entry; the amortized net of an ``amortized`` fit as
+``amortized_spec`` and ``__amortized__`` arrays), so a model fitted by
+either package serves in the other. Model state is a dict of params per node on one device;
 ``device=None`` means the CUDA card, and the CPU is used only when asked
 for (``device="cpu"``). Queries are served under ``torch.no_grad()``, and a
 fit stores its params detached, so no autograd graph reaches serving;
@@ -118,6 +119,8 @@ class VBN:
         self._sampling_config: Optional[Dict[str, Any]] = None
         self._update_config: Optional[Dict[str, Any]] = None
         self._last_summary_path: Optional[str] = None
+        # {"net", "spec"} of the amortized posterior net ('amortized' fit)
+        self.amortized: Optional[Dict[str, Any]] = None
 
     # ----------------- internal plumbing -----------------
     def next_key(self) -> Draw:
@@ -489,6 +492,10 @@ class VBN:
             "rng_counter": self._keys.state(),
         }
         structure = {"dag": dag_info, "nodes": nodes_meta, "meta": meta}
+        if self.amortized is not None:
+            structure["amortized_spec"] = self.amortized["spec"].to_dict()
+            for pkey, arr in _flatten_params(self.amortized["net"]).items():
+                arrays[f"__amortized__\x1f{pkey}"] = arr
         if extra is not None:
             structure["extra"] = extra
         if include_configs:
@@ -530,10 +537,10 @@ class VBN:
         as tensors on ``device``. The learning, inference and sampling
         methods and the update policy are restored with their configs,
         and the policy's state (``update_state`` and the ``__update__``
-        arrays: the replay buffer). A method this port lacks is skipped
-        with a warning, and so are the amortized network's
-        ``__amortized__`` arrays and ``amortized_spec``, which the port
-        does not restore yet.
+        arrays: the replay buffer), and the amortized net
+        (``amortized_spec`` and the ``__amortized__`` arrays). A method
+        this port lacks is skipped with a warning, and so are arrays of an
+        owner it does not know.
         """
         checkpoint_path = (
             os.path.join(path, "checkpoint.npz") if os.path.isdir(path) else path
@@ -595,11 +602,14 @@ class VBN:
 
         node_arrays: Dict[str, Dict[str, np.ndarray]] = {}
         update_arrays: Dict[str, np.ndarray] = {}
+        amortized_arrays: Dict[str, np.ndarray] = {}
         dropped: Dict[str, int] = {}
         for full_key, arr in arrays.items():
             owner, pkey = full_key.split("\x1f", 1)
             if owner == "__update__":
                 update_arrays[pkey] = arr
+            elif owner == "__amortized__":
+                amortized_arrays[pkey] = arr
             elif owner.startswith("__"):
                 dropped[owner] = dropped.get(owner, 0) + 1
             else:
@@ -610,12 +620,14 @@ class VBN:
                 "does not restore yet; dropped",
                 stacklevel=2,
             )
-        if structure.get("amortized_spec") is not None:
-            warnings.warn(
-                "checkpoint amortized_spec is not restored by this port yet; "
-                "dropped",
-                stacklevel=2,
-            )
+        amortized_spec = structure.get("amortized_spec")
+        if amortized_spec is not None and amortized_arrays:
+            from .learning.amortized import AmortizedSpec
+
+            vbn.amortized = {
+                "spec": AmortizedSpec.from_dict(amortized_spec),
+                "net": params_from_numpy(amortized_arrays, vbn.device),
+            }
         for node, info in structure.get("nodes", {}).items():
             cpd_key = info.get("cpd_key")
             if cpd_key not in CPD_REGISTRY:
@@ -671,7 +683,7 @@ def params_from_numpy(flat: Dict[str, np.ndarray], device) -> Dict[str, Any]:
         node = root
         for p in parts[:-1]:
             node = node.setdefault(p, {})
-        node[parts[-1]] = torch.as_tensor(np.asarray(arr), device=device)
+        node[parts[-1]] = arr
 
     def listify(node):
         if not isinstance(node, dict):
@@ -681,4 +693,18 @@ def params_from_numpy(flat: Dict[str, np.ndarray], device) -> Dict[str, Any]:
             return [node[f"#{i}"] for i in range(len(node))]
         return node
 
-    return listify(root)
+    return params_from_tree(listify(root), device)
+
+
+def params_from_tree(tree, device):
+    """A nested dict / list of arrays -> the same tree of tensors on
+    ``device``: a JAX params pytree (a node's params, a grouped fit's nets
+    stacked on their leading axis, an amortized net's ``mlp``, ``mean``,
+    ``std`` and ``support``) as the port's."""
+    if isinstance(tree, dict):
+        return {k: params_from_tree(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [params_from_tree(v, device) for v in tree]
+    if tree is None:
+        return None
+    return torch.as_tensor(np.array(tree), device=device)
