@@ -222,9 +222,42 @@ the amortizer (torch ops; LBP and RBM over KDE run the KDE kernels):
     counters reset just before and read just after, queries/s and a
     profiled batch.
 
+Then devices, the relative query and the stacked-table sweeps (torch ops
+around the sweep kernels; the stacked forms run no hand kernel):
+
+25. (t1) asia fitted on the CPU, moved by ``to_device("cuda")`` and served
+    by LW pmf at B=1024, S=2^20 (one ``vbn_cat_sweep``), within 5e-3 of
+    the exact posterior of the fitted CPTs; saved, reloaded by
+    ``VBN.load(path, map_location="cuda")`` and served at the same key
+    counter: the same rows bit for bit; (t4) ``utils.profiling.timed_call``
+    and a ``StageTimer`` around one more batch, the kernels' build
+    directory (``core/cache.py``), and no matplotlib imported; (t2)
+    ``infer_relative`` on the flagship by MCM (x2 | x0, x1 against the
+    no-evidence reference, B=1024, S=2^20): one ``infer_posterior_many``
+    call, statically one ``vbn_lg_sweep`` launch (the reference's; the
+    query, every parent observed, is MCM's direct CPD evaluation) and with
+    ``dynamic_masks`` one fused ``vbn_lg_scan`` for both,
+    ``delta_mean`` within 5 standard errors of the closed form of the
+    fitted params, queries/s; (t3) ``random_bn_treewidth(2048)`` (LW pmf,
+    ``link_queries``' 96) and ``random_gaussian(2048)`` (LW moments, 96
+    queries), S=2^14, ``dynamic_masks=True``, which the scan kernels
+    refuse (``n_nodes 2048 > 1500``), each under
+    ``VBN_DISCRETE_SCAN=auto`` (the stacked-table form) and ``never``
+    (the per-node loop; one batch of it on the categorical plan, whose
+    per-node draws take ``torch.cumsum`` over 4-class rows): the route
+    taken, queries/s, peak memory, and a profiled batch (device kernels a
+    batch, busy ms, the longest ops, idle share); the categorical rows'
+    median KL to variable elimination <= 2e-3; the
+    Gaussian rows' median |Δmean| and |Δstd| within 0.05 std of
+    ``gaussian_exact`` on the fitted params, and every row within 5
+    standard errors of its LW estimate (at S=2^14 a row's ESS falls to a
+    few hundred, one standard error several hundredths of the std).
+
 Prints a JSON line of kernel results (all twelve kernels; rows 9, 10 and
 12 with their launches in (l2) and (r2) as ``launches_l2`` and
-``launches_r2``), the card's name and power limit, and last
+``launches_r2``, rows 1 and 2 with theirs in (t1) and (t2) as
+``launches_t1`` and ``launches_t2``), the card's name and power limit,
+and last
 ``{"ok": true, "device": {...}}``. Any failure
 exits nonzero. The script imports nothing of JAX or of the JAX package.
 
@@ -280,12 +313,13 @@ def log(tag: str, **kv) -> None:
     print(json.dumps({"phase": tag, **kv}), flush=True)
 
 
-def fit_discrete(vbn_cls, defaults, bn, seed=0):
+def fit_discrete(vbn_cls, defaults, bn, seed=0, device=None):
     """The port's fit of a discrete network on 4096 rows of its data."""
     from benchmarking.data_gen import generate_dataset
 
     data = generate_dataset(bn, 4096, seed=seed)
-    vbn = vbn_cls({n: bn.parents[n] for n in bn.nodes}, seed=seed)
+    vbn = vbn_cls({n: bn.parents[n] for n in bn.nodes}, seed=seed,
+                  device=device)
     conf = {}
     for node in bn.nodes:
         c = dict(defaults.cpd("categorical_table"), n_classes=bn.card(node))
@@ -545,9 +579,23 @@ def fitted_discrete_bn(bn, vbn, floor=0.0):
     return fit
 
 
-def serve_main_path(bn, asia_vbn, lg_vbn):
+def asia_pmf_error(bn, vbn, qa, pmf):
+    """Max abs error of asia's pmf rows against the exact posterior of the
+    fitted CPTs (the 4 evidence patterns of ``asia_query``)."""
     from benchmarking.exact import exact_posterior
 
+    pmf = pmf / pmf.sum(axis=1, keepdims=True)
+    fit = fitted_discrete_bn(bn, vbn)
+    ev = qa["evidence"]
+    err = 0.0
+    for r in range(4):
+        exact = exact_posterior(fit, "dysp", {
+            "smoke": int(ev["smoke"][r, 0]), "asia": int(ev["asia"][r, 0])})
+        err = max(err, float(np.abs(pmf[r::4] - exact[None]).max()))
+    return err
+
+
+def serve_main_path(bn, asia_vbn, lg_vbn):
     from vectorizedbayesiannetwork_torch.ops import sweep
 
     for k in sweep.LAUNCHES:
@@ -567,15 +615,7 @@ def serve_main_path(bn, asia_vbn, lg_vbn):
 
     if pmf.shape != (B_MAIN, 2) or not np.isfinite(pmf).all():
         raise AssertionError(f"asia pmf rows bad: {pmf.shape}")
-    pmf = pmf / pmf.sum(axis=1, keepdims=True)
-    fit_bn = fitted_discrete_bn(bn, asia_vbn)
-    ev = qa["evidence"]
-    err_asia = 0.0
-    for r in range(4):  # the 4 evidence patterns repeat down the batch
-        exact = exact_posterior(fit_bn, "dysp", {
-            "smoke": int(ev["smoke"][r, 0]), "asia": int(ev["asia"][r, 0])})
-        rows = pmf[r::4]
-        err_asia = max(err_asia, float(np.abs(rows - exact[None]).max()))
+    err_asia = asia_pmf_error(bn, asia_vbn, qa, pmf)
     p = lg_vbn.params["x2"]
     w = p["weight"][:, 0].double().cpu().numpy()
     sigma = float(np.sqrt(max(float(p["var"][0]), lg_vbn.nodes["x2"].min_scale ** 2)))
@@ -4197,6 +4237,302 @@ def serve_slice13(vbn_cls, defaults, bn, asia_vbn, lg_vbn):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 25: devices, the relative query, the stacked-table sweeps, utilities
+# ---------------------------------------------------------------------------
+
+N_STACKED = 2048  # nodes of the (t3) plans: past the scan kernels' 1500
+S_STACKED = 1 << 14
+
+
+def slice14_t1(vbn_cls, defaults, bn):
+    """(t1) asia fitted on the CPU, moved to the card by ``to_device`` and
+    served; saved, reloaded by ``load(map_location="cuda")`` and served at
+    the same key counter; (t4) ``timed_call`` and a ``StageTimer`` around
+    one more batch, and the kernels' build directory. Returns the
+    launches of the moved model's batch."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from vectorizedbayesiannetwork_torch.core import cache
+    from vectorizedbayesiannetwork_torch.ops import _build
+    from vectorizedbayesiannetwork_torch.utils.profiling import (
+        StageTimer,
+        timed_call,
+    )
+
+    vbn = fit_discrete(vbn_cls, defaults, bn, device="cpu")
+    t0 = time.perf_counter()
+    vbn.to_device("cuda")
+    torch.cuda.synchronize()
+    move_s = time.perf_counter() - t0
+    if any(t.device.type != vbn.device.type
+           for p in vbn.params.values() for t in p.values()):
+        raise AssertionError("to_device left a param behind")
+    vbn.set_inference_method("likelihood_weighting", n_samples=S_MAIN)
+    qa = asia_query(B_MAIN)
+    counter = vbn._keys.state()
+    reset_launches()
+    pmf, _ = vbn.infer_posterior_pmf([qa], n_classes=2)
+    launches = read_launches({"categorical": 1})
+    err = asia_pmf_error(bn, vbn, qa, pmf)
+    tmp = tempfile.mkdtemp(dir=_build.BUILD_DIR.parent)
+    try:
+        vbn.save(tmp)
+        loaded = vbn_cls.load(tmp, map_location="cuda")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    loaded._keys.set_state(counter)
+    reset_launches()
+    pmf2, _ = loaded.infer_posterior_pmf([qa], n_classes=2)
+    launches_loaded = read_launches({"categorical": 1})
+    same = bool(np.array_equal(pmf, pmf2))
+    log("devices_main_path", launches=launches,
+        launches_loaded=launches_loaded, to_device_s=move_s,
+        asia_pmf_max_abs_err=err, loaded_rows_identical=same,
+        path=loaded._last_summary_path)
+    if err > 5e-3:
+        raise AssertionError(f"moved asia pmf off the exact posterior: {err}")
+    if not same:
+        raise AssertionError("the reloaded model served other rows")
+
+    timer = StageTimer()
+    with timer.stage("t1_batch"):
+        out, ms = timed_call(loaded.infer_posterior_pmf, [qa], n_classes=2)
+    log("utilities", timed_call_ms=ms, stage_timer=timer.summary(),
+        kernel_build_dir=str(cache.kernel_build_dir()),
+        compilation_cache=cache.enable_compilation_cache(),
+        matplotlib_imported="matplotlib" in sys.modules)
+    if "matplotlib" in sys.modules:
+        raise AssertionError("the served path imported matplotlib")
+    if not np.isfinite(out[0]).all():
+        raise AssertionError("timed batch rows not finite")
+    return launches
+
+
+def slice14_t2(lg_vbn):
+    """(t2) ``infer_relative`` on the flagship by MCM: x2 | x0, x1 (B=1024)
+    against the no-evidence reference, one ``infer_posterior_many`` call
+    (static: the reference's ``vbn_lg_sweep``, the query's every parent
+    observed takes MCM's direct CPD evaluation; with ``dynamic_masks`` one
+    fused ``vbn_lg_scan`` dispatch for both); ``delta_mean``
+    within 5 standard errors of the closed form of the fitted params.
+    Returns the static call's launches."""
+    import torch
+
+    p = {n: lg_vbn.params[n] for n in ("x0", "x1", "x2")}
+    w = p["x2"]["weight"][:, 0].double().cpu().numpy()
+    mu = np.array([float(p["x0"]["bias"][0]), float(p["x1"]["bias"][0])])
+    ql = flagship_query(B_MAIN)
+    x = np.concatenate([ql["evidence"]["x0"], ql["evidence"]["x1"]], axis=1)
+    delta_cf = (x - mu[None]) @ w  # (w.x + b) - (w.mu + b)
+    out = {}
+    for dynamic, expect in ((False, {"lg": 1}), (True, {"lg_scan": 1})):
+        lg_vbn.set_inference_method("monte_carlo_marginalization",
+                                    n_samples=S_MAIN, dynamic_masks=dynamic)
+        reset_launches()
+        rel = lg_vbn.infer_relative(ql)
+        launches = read_launches(expect)
+        qs, rs = rel["query_stats"], rel["reference_stats"]
+        se = torch.sqrt(qs["std"] ** 2 / qs["effective_sample_size"][:, None]
+                        + rs["std"] ** 2
+                        / rs["effective_sample_size"][:, None])
+        se = se[:, 0].double().cpu().numpy()
+        dm = rel["delta_mean"][:, 0].double().cpu().numpy()
+        z = np.abs(dm - delta_cf) / se
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            r = lg_vbn.infer_relative(ql)
+            r["delta_mean"].cpu()
+            times.append(time.perf_counter() - t0)
+        tag = "dynamic" if dynamic else "static"
+        out[tag] = launches
+        log("relative_main_path", route=tag, launches=launches,
+            delta_mean_max_z=float(z.max()),
+            delta_mean_max_abs_err=float(np.abs(dm - delta_cf).max()),
+            se_median=float(np.median(se)),
+            reference_ess=float(rs["effective_sample_size"][0]),
+            queries_per_s=B_MAIN / min(times),
+            window_qps=[B_MAIN / t for t in times])
+        if not np.isfinite(dm).all() or z.max() > 5.0:
+            raise AssertionError(f"{tag} delta_mean off the closed form: "
+                                 f"max z {z.max()}")
+    lg_vbn.set_inference_method("monte_carlo_marginalization",
+                                n_samples=S_MAIN)
+    return out["static"]
+
+
+def stacked_route(tag, vbn, serve, mode, timed):
+    """One (t3) workload under ``VBN_DISCRETE_SCAN=mode``: the route the
+    torch-op sweep took (``_sweep.ROUTES``), no hand kernel, queries/s
+    (the first batch and ``timed`` more, best of them), peak memory, and
+    a profiled batch: device kernels a batch, device busy ms, the longest
+    ops, and the idle share against the best unprofiled batch (the
+    profiler's cost per event inflates its own wall time at tens of
+    thousands of small ops). The per-node loop's batch is profiled over
+    its first 8 queries (its ops do not depend on the rows; a profiled
+    96-query batch of it outlasted the run). ``serve(n)`` serves the
+    first n queries. Returns
+    the rows, spans and per-row ESS of the last 96-query batch."""
+    import os
+
+    import torch
+
+    from vectorizedbayesiannetwork_torch.inference import _sweep
+
+    os.environ["VBN_DISCRETE_SCAN"] = mode
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        _sweep.ROUTES.clear()
+        times = []
+        for _ in range(1 + timed):
+            t0 = time.perf_counter()
+            rows, spans = serve(N_DYN)
+            times.append(time.perf_counter() - t0)
+        routes = dict(_sweep.ROUTES)
+        ess = vbn._inference._last_ess.double().cpu().numpy()
+        read_launches({})
+        mem = torch.cuda.max_memory_allocated()
+        prof_n = 8 if mode == "never" else N_DYN
+        prof = profile_batch(lambda: serve(prof_n), kernels=(), top=4)
+    finally:
+        os.environ.pop("VBN_DISCRETE_SCAN", None)
+    busy = prof.get("device_busy_ms")
+    log("stacked_route", workload=tag, mode=mode, routes=routes,
+        path=vbn._last_summary_path, queries_per_s=N_DYN / min(times),
+        window_qps=[N_DYN / t for t in times],
+        max_memory_allocated_bytes=mem, profile_queries=prof_n, profile=prof,
+        idle_share=None if busy is None or prof_n != N_DYN
+        else 1.0 - busy / (1e3 * min(times)))
+    want = "per_node" if mode == "never" else {
+        "categorical": "discrete", "gaussian": "gaussian"}[tag]
+    if routes != {want: 1 + timed}:
+        raise AssertionError(f"{tag} {mode}: routes {routes} != {want}")
+    return rows, spans, ess
+
+
+def slice14_t3(vbn_cls, defaults):
+    """(t3) the stacked-table sweeps past the scan kernels' 1500 nodes:
+    ``random_bn_treewidth(2048)`` (LW pmf) and ``random_gaussian(2048)``
+    (LW moments), 96 queries each, S=2^14, ``dynamic_masks=True``, under
+    ``VBN_DISCRETE_SCAN=auto`` (the stacked form) and ``never`` (the
+    per-node loop)."""
+    from benchmarking.exact import exact_posterior, min_fill_order
+    from benchmarking.gaussian_bn import random_gaussian
+    from benchmarking.networks import random_bn_treewidth
+
+    from vectorizedbayesiannetwork_torch.core.base import Query
+    from vectorizedbayesiannetwork_torch.core.plan import get_plan
+    from vectorizedbayesiannetwork_torch.ops import sweep_scan
+
+    t0 = time.perf_counter()
+    bn = random_bn_treewidth(N_STACKED, seed=0)
+    cat = fit_discrete(vbn_cls, defaults, bn)
+    cat.set_inference_method("likelihood_weighting", n_samples=S_STACKED,
+                             dynamic_masks=True)
+    gbn = random_gaussian(N_STACKED, seed=0)
+    gauss = fit_gaussian(vbn_cls, defaults, gbn)
+    gauss.set_inference_method("likelihood_weighting", n_samples=S_STACKED,
+                               dynamic_masks=True)
+    link_qs, gauss_qs = link_queries(bn), gauss_queries(gbn)
+    reasons = {}
+    for tag, vbn, reason in (("categorical", cat, sweep_scan.scan_sweep_reason),
+                             ("gaussian", gauss, sweep_scan.lg_scan_reason)):
+        plan = get_plan(vbn, Query(target=vbn.dag.topological_order()[0],
+                                   evidence={}, do={}))
+        reasons[tag] = reason(plan, tuple(vbn.cpd_spec(n)
+                                          for n in plan.topo_order), S_STACKED)
+    log("stacked_fit", seconds=time.perf_counter() - t0, nodes=N_STACKED,
+        kernel_gate=reasons)
+    for tag, why in reasons.items():
+        if why != f"n_nodes {N_STACKED} > {sweep_scan._MAX_NODES}":
+            raise AssertionError(f"{tag} scan gate: {why!r}")
+
+    lq = [as_query(t, ev) for t, ev in link_qs]
+    t0 = time.perf_counter()
+    fit = fitted_discrete_bn(bn, cat, floor=1e-12)
+    order = min_fill_order(fit)
+    gts = [np.asarray(exact_posterior(fit, t, ev, elim_order=order))
+           for t, ev in link_qs]
+    exact_s = time.perf_counter() - t0
+    kls = {}
+    for mode, timed in (("auto", 2), ("never", 0)):
+        pmf, spans, _ess = stacked_route("categorical", cat, lambda n: (
+            cat.infer_posterior_pmf(lq[:n], n_classes=4, pad_bucket=n)),
+            mode, timed)
+        if pmf.shape != (N_DYN, 4) or not np.isfinite(pmf).all():
+            raise AssertionError(f"2048-node pmf rows bad: {pmf.shape}")
+        kl = []
+        for (lo, _hi, _t), gt in zip(spans, gts):
+            r = pmf[lo][: len(gt)].astype(np.float64)
+            r = r / max(r.sum(), 1e-30)
+            kl.append(float(np.sum(gt * np.log(np.maximum(gt, 1e-12)
+                                               / np.maximum(r, 1e-12)))))
+        kls[mode] = {"kl_median": float(np.median(kl)),
+                     "kl_max": float(max(kl))}
+    log("stacked_accuracy", workload="categorical", queries=len(gts),
+        exact_s=exact_s, stacked=kls["auto"], per_node=kls["never"])
+    for mode, k in kls.items():
+        if k["kl_median"] > 2e-3:
+            raise AssertionError(f"2048-node {mode} median KL {k}")
+
+    gq = [as_query(t, ev) for t, ev in gauss_qs]
+    moms, ess = {}, {}
+    for mode in ("auto", "never"):
+        moms[mode], _spans, ess[mode] = stacked_route(
+            "gaussian", gauss, lambda n: (
+                gauss.infer_posterior_moments(gq[:n], pad_bucket=n)), mode, 2)
+    gauss.set_inference_method("gaussian_exact")
+    exact = np.concatenate([
+        gauss.infer_posterior_moments(gq[i:i + 16])[0]
+        for i in range(0, N_DYN, 16)])
+    acc = {mode: gauss_stacked_accuracy(moms[mode], exact, ess[mode])
+           for mode in moms}
+    log("stacked_accuracy", workload="gaussian", queries=N_DYN,
+        stacked=acc["auto"], per_node=acc["never"])
+    for mode, a in acc.items():
+        if (not np.isfinite(moms[mode]).all()
+                or max(a["median_dmean_over_std"],
+                       a["median_dstd_over_std"]) > 0.05
+                or max(a["max_z_mean"], a["max_z_std"]) > 5.0):
+            raise AssertionError(f"2048-node LG {mode} off gaussian_exact: {a}")
+
+
+def gauss_stacked_accuracy(mom, exact, ess):
+    """(t3)'s Gaussian rows against ``gaussian_exact``: |Δmean| and |Δstd|
+    over the exact std, their medians (limit 0.05) and worst rows
+    (reported), and each row's error in standard errors of its own LW
+    estimate, std / sqrt(ESS) for the mean and std / sqrt(2 ESS) for the
+    std (limit 5). At S=2^14 a row's ESS falls to a few hundred, where one
+    standard error is several hundredths of the std."""
+    sd = exact[:, 1]
+    dm = np.abs(mom[:, 0] - exact[:, 0]) / sd
+    ds = np.abs(mom[:, 1] - sd) / sd
+    ess = np.maximum(ess, 1.0)
+    return {"median_dmean_over_std": float(np.median(dm)),
+            "median_dstd_over_std": float(np.median(ds)),
+            "max_dmean_over_std": float(dm.max()),
+            "max_dstd_over_std": float(ds.max()),
+            "max_z_mean": float((dm * np.sqrt(ess)).max()),
+            "max_z_std": float((ds * np.sqrt(2.0 * ess)).max()),
+            "min_ess": float(ess.min())}
+
+
+def serve_slice14(vbn_cls, defaults, bn, lg_vbn):
+    """Phase 25: (t1) with (t4), (t2), (t3); returns the sweep kernels'
+    launches of (t1) and (t2)."""
+    t0 = time.perf_counter()
+    out = {"t1": slice14_t1(vbn_cls, defaults, bn),
+           "t2": slice14_t2(lg_vbn)}
+    slice14_t3(vbn_cls, defaults)
+    log("slice14_done", seconds=time.perf_counter() - t0, launches=out)
+    return out
+
+
 def load_parent(root):
     """The port package of another checkout at ``root`` (for example the
     parent commit's, unpacked with ``git archive``), imported under the name
@@ -4459,6 +4795,12 @@ def main(argv) -> int:
     sampling = serve_sampling(VBN, defaults, sm)
     serve_updates(VBN, defaults)
     slice13 = serve_slice13(VBN, defaults, bn, asia_vbn, lg_vbn)
+    from vectorizedbayesiannetwork_torch.inference import _sweep
+
+    # the torch-op sweeps of phases 1-24 by route: a stacked form here
+    # would be a phase that the 64-node routing moved
+    log("sweep_routes_phases_1_24", routes=dict(_sweep.ROUTES))
+    slice14 = serve_slice14(VBN, defaults, bn, lg_vbn)
     for row in kernels:
         key = {"vbn_cumsum": "cumsum", "vbn_srg": "srg"}.get(row["name"])
         if key:
@@ -4468,6 +4810,11 @@ def main(argv) -> int:
         if key:
             row["launches_sampling_main_path"] = sampling.get(key, 0)
             for phase, got in slice13.items():
+                row[f"launches_{phase}"] = got.get(key, 0)
+        key = {"vbn_cat_sweep": "categorical", "vbn_lg_sweep": "lg"}.get(
+            row["name"])
+        if key:
+            for phase, got in slice14.items():
                 row[f"launches_{phase}"] = got.get(key, 0)
     if args.parent:
         compare_builds(args.parent)

@@ -1381,3 +1381,117 @@ def test_lbp_and_rbm_on_the_card_match_the_cpu(asia_vbn, lg_vbn, case,
     vbn.set_inference_method(
         "likelihood_weighting" if case == "rbm_asia"
         else "monte_carlo_marginalization", n_samples=S)
+
+
+def _asia_conf():
+    bn = asia()
+    conf = {}
+    for node in bn.nodes:
+        c = dict(defaults.cpd("categorical_table"), n_classes=bn.card(node))
+        if bn.parents[node]:
+            c["parent_n_classes"] = [bn.card(p) for p in bn.parents[node]]
+        conf[node] = c
+    return bn, conf
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("how", ["to_device", "load_map_location"])
+def test_moved_model_serves_the_card_fitted_rows(asia_vbn, how, tmp_path):
+    """asia fitted on the CPU, then moved to the card by ``to_device`` or
+    by ``load(map_location="cuda")``: at the same key counter it serves the
+    card-fitted model's pmf rows bit for bit, through the sweep kernel
+    (integer counts: both fits are the same tables)."""
+    bn, conf = _asia_conf()
+    cpu = VBN({n: bn.parents[n] for n in bn.nodes}, seed=0, device="cpu")
+    cpu.set_learning_method("node_wise", nodes_cpds=conf)
+    cpu.fit(generate_dataset(bn, 4096, seed=0))
+    if how == "to_device":
+        moved = cpu
+        moved.to_device("cuda")
+    else:
+        cpu.save(str(tmp_path / "asia.npz"))
+        moved = VBN.load(str(tmp_path / "asia.npz"), map_location="cuda")
+    assert all(t.is_cuda for p in moved.params.values() for t in p.values())
+    moved.set_inference_method("likelihood_weighting", n_samples=S)
+    q = {"target": "dysp", "evidence": {
+        "smoke": (np.arange(B) % 2).reshape(B, 1).astype(np.float32)}}
+    counter = asia_vbn._keys.state()
+    moved._keys.set_state(counter)
+    before = sweep.LAUNCHES["categorical"]
+    got, _ = moved.infer_posterior_pmf([q], n_classes=2)
+    asia_vbn._keys.set_state(counter)
+    want, _ = asia_vbn.infer_posterior_pmf([q], n_classes=2)
+    assert sweep.LAUNCHES["categorical"] == before + 2
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["gumbel", "class_loop", "gaussian"])
+def test_stacked_forms_on_the_card_match_the_cpu(card, form, monkeypatch):
+    """The stacked-table sweeps of a 70-node network on the card and on
+    the CPU, fed the same external noise with per-row masks: categorical
+    states equal, log-weights within 1e-5; Gaussian states and weights
+    within 1e-5 + 1e-6 of their magnitude."""
+    from benchmarking.gaussian_bn import random_gaussian
+    from benchmarking.networks import random_bn_treewidth
+    from vectorizedbayesiannetwork_torch.inference import _discrete_sweep
+    from vectorizedbayesiannetwork_torch.inference import _gaussian_sweep
+
+    monkeypatch.setenv("VBN_SCAN_CLASS_LOOP",
+                       "always" if form == "class_loop" else "never")
+    rng = np.random.default_rng(0)
+    if form == "gaussian":
+        gbn = random_gaussian(70, seed=0)
+        vbn = VBN({n: gbn.parents[n] for n in gbn.nodes}, seed=0, device="cpu")
+        vbn.set_learning_method("node_wise", nodes_cpds={
+            n: defaults.cpd("linear_gaussian") for n in gbn.nodes})
+        vbn.fit(gbn.sample(4096, seed=0))
+        trace = _gaussian_sweep.gaussian_sweep_trace
+    else:
+        bn = random_bn_treewidth(70, seed=0)
+        vbn = VBN({n: bn.parents[n] for n in bn.nodes}, seed=0, device="cpu")
+        conf = {}
+        for node in bn.nodes:
+            c = dict(defaults.cpd("categorical_table"), n_classes=bn.card(node))
+            if bn.parents[node]:
+                c["parent_n_classes"] = [bn.card(p) for p in bn.parents[node]]
+            conf[node] = c
+        vbn.set_learning_method("node_wise", nodes_cpds=conf)
+        vbn.fit(generate_dataset(bn, 4096, seed=0))
+        trace = _discrete_sweep.discrete_sweep_trace
+    plan, cpds, params = _plan(vbn, target=vbn.dag.topological_order()[0],
+                               evidence={}, do={})
+    n, b, s = plan.n_nodes, B, 256
+    ev = np.zeros((b, n), np.float32)
+    do = np.zeros((b, n), np.float32)
+    tgt = np.zeros((b, n), np.float32)
+    for r in range(b):
+        t, e1, e2, d = rng.choice(n, 4, replace=False)
+        ev[r, [e1, e2]], do[r, d], tgt[r, t] = 1.0, 1.0, 1.0
+    if form == "gaussian":
+        fixed = rng.normal(size=(b, n)).astype(np.float32)
+        noise = rng.normal(size=(b, s, n)).astype(np.float32)
+    else:
+        fixed = np.zeros((b, n), np.float32)
+        cmax = _discrete_sweep._static_tables(plan, cpds)["cmax"]
+        u = rng.random(size=(n, b, s) if form == "class_loop"
+                       else (n, b, s, cmax)).astype(np.float32)
+        noise = (u if form == "class_loop"
+                 else -np.log(-np.log(np.maximum(u, 1e-30))))
+    inputs = [torch.from_numpy(a) for a in (fixed, ev, np.maximum(ev, do),
+                                            tgt, noise)]
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        f, e, fx, tg, nz = (t.to(dev) for t in inputs)
+        p = tuple({k: v.to(dev) for k, v in pp.items()} for pp in params)
+        outs[dev] = [o.cpu() for o in trace(
+            plan, cpds, p, None, f, s, weighted=True, ev_mask_arr=e,
+            fx_mask_arr=fx, tgt_mask_arr=tg, noise=nz)]
+    got, want = outs["cuda"], outs["cpu"]
+    if form == "gaussian":
+        for a, w in zip(got, want):
+            torch.testing.assert_close(a, w, atol=1e-5, rtol=1e-6)
+    else:
+        assert torch.equal(got[0], want[0])
+        for a, w in zip(got[1:], want[1:]):
+            torch.testing.assert_close(a, w, atol=1e-5, rtol=1e-6)

@@ -18,14 +18,21 @@ the device; sampling (ancestral, Gibbs, HMC, NUTS, ``VBN.sample``),
 the online update policies (``VBN.update``), the grouped fit of
 same-signature neural nodes (``VBN_FIT_GROUP=always``), and the
 ``lbp``, ``rao_blackwellized_marginalization`` and ``amortized``
-methods (with the ``amortized`` learner). It runs on a CUDA device
-unless the caller passes
-``device="cpu"``. Importing the package populates the registries; it never
-imports JAX or the JAX package.
+methods (with the ``amortized`` learner); the stacked-table sweeps of
+networks of 64 nodes or more that no kernel takes
+(``inference/_discrete_sweep.py``, ``_gaussian_sweep.py``,
+``VBN_DISCRETE_SCAN``), ``VBN.infer_relative``, ``VBN.to_device``,
+``VBN.load(map_location=)``, the config catalog ``VBN.config``
+(``ConfigItem``), the kernels' build cache (``core/cache.py``,
+``VBN_COMPILATION_CACHE``), ``utils`` and ``display``. It runs on a CUDA
+device unless the caller passes ``device="cpu"``. Importing the package
+populates the registries; it never imports JAX or the JAX package, and
+nothing imports matplotlib until a figure is drawn.
 """
 
-from .core.base import BaseCPD, Query
-from .core.dag import StaticDAG
+from .core.base import BaseCPD, CPDOutput, Query
+from .core.dag import DynamicDAG, StaticDAG, TemporalDAG
+from .core.handle import CPDHandle
 from .core.registry import (
     CPD_REGISTRY,
     INFERENCE_REGISTRY,
@@ -46,21 +53,38 @@ from . import inference  # noqa: F401
 from . import sampling  # noqa: F401
 from . import update  # noqa: F401
 
-from .vbn import VBN, __version__, params_from_numpy, params_from_tree
+from .vbn import (
+    VBN,
+    ConfigItem,
+    ConfigNamespace,
+    __version__,
+    params_from_numpy,
+    params_from_tree,
+)
 
 __all__ = [
     "VBN",
     "Query",
     "BaseCPD",
+    "CPDOutput",
+    "CPDHandle",
     "StaticDAG",
+    "TemporalDAG",
+    "DynamicDAG",
+    "ConfigItem",
+    "ConfigNamespace",
     "defaults",
     "params_from_numpy",
     "params_from_tree",
     "CPD_REGISTRY",
     "LEARNING_REGISTRY",
     "INFERENCE_REGISTRY",
+    "SAMPLING_REGISTRY",
+    "UPDATE_REGISTRY",
     "register_cpd",
     "register_learning",
     "register_inference",
+    "register_sampling",
+    "register_update",
     "__version__",
 ]

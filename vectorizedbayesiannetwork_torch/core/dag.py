@@ -138,3 +138,17 @@ class StaticDAG:
 
     def __len__(self) -> int:
         return len(self._topo)
+
+
+class TemporalDAG:
+    """Placeholder for temporal DAG support, as in the JAX package."""
+
+    def __init__(self, *args, **kwargs):
+        raise NotImplementedError("TemporalDAG is not implemented yet")
+
+
+class DynamicDAG:
+    """Placeholder for dynamic DAG support, as in the JAX package."""
+
+    def __init__(self, *args, **kwargs):
+        raise NotImplementedError("DynamicDAG is not implemented yet")

@@ -69,10 +69,22 @@ class KeyStream:
         self.device = device
         self._counter = 0
 
+    @property
+    def root(self) -> Draw:
+        """The seed's root draw: ``fold(root, n)`` is the stream's n-th."""
+        return Draw(self.seed & _MASK64, self.device)
+
     def next(self) -> Draw:
         s = mix64(self.seed, self._counter)
         self._counter += 1
         return Draw(s, self.device)
+
+    def next_spec(self):
+        """``(root, counter)`` with ``fold(root, counter)`` the draw that
+        ``next()`` would give, advancing the stream as ``next()`` does."""
+        counter = self._counter
+        self._counter += 1
+        return self.root, counter
 
     def state(self) -> int:
         return self._counter

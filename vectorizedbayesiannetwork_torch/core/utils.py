@@ -40,6 +40,44 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+def as_array(value, dtype=torch.float32, device=None) -> torch.Tensor:
+    """Python, numpy or tensor input as a tensor of ``dtype`` (on
+    ``device``, or where a tensor already is; the CPU for other input)."""
+    if isinstance(value, torch.Tensor):
+        return value.to(dtype=dtype, device=device or value.device)
+    return torch.as_tensor(np.asarray(value), dtype=dtype, device=device)
+
+
+def ensure_2d(x, dtype=torch.float32, device=None) -> torch.Tensor:
+    """Coerce to a [B, D] tensor: scalars -> [1, 1], 1-D -> [B, 1]."""
+    arr = as_array(x, dtype, device)
+    if arr.ndim == 0:
+        return arr.reshape(1, 1)
+    if arr.ndim == 1:
+        return arr.reshape(-1, 1)
+    if arr.ndim == 2:
+        return arr
+    raise ValueError(f"Expected scalar/1D/2D value, got shape {tuple(arr.shape)}")
+
+
+def broadcast_samples(x: torch.Tensor, n_samples: int) -> torch.Tensor:
+    """[B, D] -> [B, S, D] by broadcast along a new sample axis."""
+    if x.ndim != 2:
+        raise ValueError(
+            f"broadcast_samples expects [B,D], got {tuple(x.shape)}")
+    return x[:, None, :].expand(x.shape[0], n_samples, x.shape[1])
+
+
+def flatten_samples(x: torch.Tensor):
+    """[B, S, D] -> ([B*S, D], B, S)."""
+    b, s, d = x.shape
+    return x.reshape(b * s, d), b, s
+
+
+def unflatten_samples(x: torch.Tensor, b: int, s: int) -> torch.Tensor:
+    return x.reshape(b, s, x.shape[-1])
+
+
 def ensure_2d_np(x, dtype=np.float32) -> np.ndarray:
     """Coerce to a numpy [B, D] array: scalars -> [1,1], 1-D -> [B,1]."""
     if isinstance(x, torch.Tensor):

@@ -9,9 +9,11 @@ skeletons. It serves the plans the scan kernels' gates refuse (mixed CPD
 families, more than 1500 nodes). Draws come from the call's
 ``torch.Generator``, node by node in topological order, whatever the masks.
 
-The JAX package takes its ``lax.scan`` forms (``_discrete_sweep.py``,
-``_gaussian_sweep.py``) from 64 nodes up; those are not ported yet
-(ROADMAP), and this per-node loop serves such plans meanwhile.
+As in the JAX package, a plan of 64 nodes or more that is all categorical
+or all linear-Gaussian takes the stacked-table form
+(``_sweep.stacked_form``: ``_discrete_sweep.py``, ``_gaussian_sweep.py``)
+with the masks as per-row inputs; every other plan takes the per-node
+loop below.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 
 from ..core.plan import InferencePlan
-from ._sweep import _parents_flat
+from ._sweep import ROUTES, _parents_flat, stacked_form
 
 
 def dynamic_sweep_trace(
@@ -39,6 +41,13 @@ def dynamic_sweep_trace(
     """Returns ``(packed [B, S, total_dim], log_weights [B, S])``, and with
     ``tgt_mask`` a third output: each row's target log-density at its final
     value, [B, S] (what Monte-Carlo marginalization exponentiates)."""
+    route, form = stacked_form(plan, cpds)
+    ROUTES[route] += 1
+    if form is not None:
+        return form(plan, cpds, params_tuple, gen, fixed, n_samples,
+                    weighted=True, ev_mask_arr=ev_mask,
+                    fx_mask_arr=torch.maximum(ev_mask, do_mask),
+                    tgt_mask_arr=tgt_mask)
     b, s = fixed.shape[0], n_samples
     m = b * s
     vals: List[Optional[torch.Tensor]] = [None] * plan.n_nodes

@@ -7,15 +7,53 @@ likelihood weighting the evidence log-likelihood (``_log_prob_flat``)
 added to the particle weights. It serves what the fused kernels' gates
 refuse, and Monte-Carlo marginalization's direct path. Draws come from the
 call's ``torch.Generator``, node by node in topological order.
+
+As in the JAX package, a plan of 64 nodes or more that is all
+categorical (declared supports) or all linear-Gaussian takes the
+stacked-table form instead (``_discrete_sweep.py``, ``_gaussian_sweep.py``:
+one loop step a node on stacked tables, a few [B, S] ops each);
+``VBN_DISCRETE_SCAN=always|never`` overrides the node count. The hand
+kernels keep their precedence: the methods call these sweeps only for
+plans the kernels' gates refuse. ``ROUTES`` counts the route each sweep
+took.
 """
 
 from __future__ import annotations
 
+import os
+from collections import Counter
 from typing import List, Optional, Sequence, Tuple
 
 import torch
 
 from ..core.plan import InferencePlan
+from ._discrete_sweep import discrete_sweep_supported, discrete_sweep_trace
+from ._gaussian_sweep import gaussian_sweep_supported, gaussian_sweep_trace
+
+_SCAN_THRESHOLD = 64  # nodes, the JAX package's threshold
+ROUTES: Counter = Counter()  # "discrete" / "gaussian" / "per_node" sweeps
+
+
+def _use_discrete_scan(n_nodes: int) -> bool:
+    mode = os.environ.get("VBN_DISCRETE_SCAN", "auto").lower()
+    if mode == "always":
+        return True
+    if mode == "never":
+        return False
+    return n_nodes >= _SCAN_THRESHOLD
+
+
+def stacked_form(plan: InferencePlan, cpds: Sequence):
+    """``(route, sweep)``: ``("discrete", discrete_sweep_trace)``, else
+    ``("gaussian", gaussian_sweep_trace)``, when ``_use_discrete_scan``
+    admits the node count and the plan's CPDs fit the form, else
+    ``("per_node", None)``."""
+    if _use_discrete_scan(plan.n_nodes):
+        if discrete_sweep_supported(plan, cpds):
+            return "discrete", discrete_sweep_trace
+        if gaussian_sweep_supported(plan, cpds):
+            return "gaussian", gaussian_sweep_trace
+    return "per_node", None
 
 
 def _parents_flat(plan, vals, idx, m) -> Optional[torch.Tensor]:
@@ -42,8 +80,14 @@ def sweep_trace(
     (likelihood weighting); do-interventions clamp without weight.
     ``skip`` nodes stay zero and draw nothing from the generator
     (Rao-Blackwellization skips the target and its descendants, which are
-    never parents of a swept node).
+    never parents of a swept node). Without ``skip``, a plan that
+    ``stacked_form`` admits takes the stacked-table sweep.
     """
+    route, form = ("per_node", None) if skip else stacked_form(plan, cpds)
+    ROUTES[route] += 1
+    if form is not None:
+        return form(plan, cpds, params_tuple, gen, fixed, n_samples,
+                    weighted=weighted)
     b, s = fixed.shape[0], n_samples
     m = b * s
     vals: List[Optional[torch.Tensor]] = [None] * plan.n_nodes

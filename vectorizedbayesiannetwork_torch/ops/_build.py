@@ -1,10 +1,11 @@
 """Build the port's CUDA sources with nvcc and load them with ctypes.
 
 Each ``csrc/<name>.cu`` has a plain C interface (no PyTorch headers), so it
-compiles in seconds. It is built at first use into ``build/kernels/`` at
-the root of the checkout, under a name keyed by a hash of the source, the
-shared ``csrc/*.cuh`` headers and the flags, so a changed source builds
-anew and an unchanged one is reused.
+compiles in seconds. It is built at first use into the directory that
+``core/cache.py`` resolves (``build/kernels/`` at the root of the checkout
+unless ``VBN_COMPILATION_CACHE`` says otherwise), under a name keyed by a
+hash of the source, the shared ``csrc/*.cuh`` headers and the flags, so a
+changed source builds anew and an unchanged one is reused.
 ``build_all`` starts one nvcc per source, all at once. Nothing here runs
 at import time: the CPU tests import this module on machines without nvcc.
 """
@@ -21,8 +22,10 @@ import time
 from pathlib import Path
 from typing import Dict, List
 
+from ..core.cache import DEFAULT_DIR as BUILD_DIR  # the default location
+from ..core.cache import kernel_build_dir
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = ("sweep", "sweep_scan", "resample", "kde")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -52,7 +55,7 @@ def library_path(name: str) -> Path:
     digest = hashlib.sha256(
         text + " ".join(NVCC_FLAGS).encode()
     ).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    return kernel_build_dir() / f"lib{name}-{digest}.so"
 
 
 def _start(name: str):
@@ -60,7 +63,7 @@ def _start(name: str):
     out = library_path(name)
     if out.exists():
         return None
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     log = open(out.with_suffix(".log"), "w")
     cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]

@@ -21,10 +21,12 @@ log-density in the latent values) and returns detached draws, and
 
 from __future__ import annotations
 
+import copy
 import io
 import json
 import os
 import warnings
+from dataclasses import dataclass
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
@@ -56,32 +58,86 @@ _UPDATE_TRAINING_KEYS = {"lr", "n_steps", "batch_size", "weight_decay"}
 _UPDATE_POLICY_INIT_KEYS = {"max_size", "replay_ratio"}
 
 
+@dataclass(frozen=True)
+class ConfigItem:
+    """One packaged default config, browsable as ``vbn.config.cpds.mdn``.
+
+    Accepted wherever a method or CPD config is: the setters and
+    ``nodes_cpds`` read ``.name`` and ``.params``; ``to_dict()`` renders
+    the flat dict form the learning config stores.
+    """
+
+    name: str
+    params: Dict
+    kind: Optional[str] = None
+
+    def to_dict(self) -> Dict[str, Any]:
+        if self.kind == "cpd":
+            head = {"cpd": self.name}
+        elif self.kind in ("learning", "inference", "sampling", "update"):
+            head = {"name": self.name}
+        else:
+            head = {}
+        return {**head, **copy.deepcopy(self.params)}
+
+    as_dict = to_dict
+
+
+class ConfigNamespace(dict):
+    """Attribute-addressable view over a level of the config catalog."""
+
+    __getattr__ = dict.__getitem__
+
+
+def _load_configs() -> ConfigNamespace:
+    """The packaged defaults as a tree of ``ConfigItem``s, one per entry
+    of ``defaults``' catalog (the JAX package reads one YAML file each)."""
+    from .defaults import _CATALOG
+
+    tree = ConfigNamespace()
+    for category, level in _CATALOG.items():
+        kind = "cpd" if category == "cpds" else category
+        tree[category] = ConfigNamespace({
+            stem: ConfigItem(name=stem, params=copy.deepcopy(params),
+                             kind=kind)
+            for stem, params in sorted(level.items())
+        })
+    return tree
+
+
 def _serialize_nodes_cpds(nodes_cpds: Optional[Dict]) -> Dict[str, Dict]:
     out: Dict[str, Dict] = {}
     for node, conf in (nodes_cpds or {}).items():
-        if isinstance(conf, dict):
+        if isinstance(conf, ConfigItem):
+            out[node] = conf.to_dict()
+        elif isinstance(conf, dict):
             out[node] = to_plain_dict(conf)
         elif isinstance(conf, str):
             from .defaults import defaults as _defaults
 
             out[node] = _defaults.cpd(conf)
         else:
-            raise TypeError(f"nodes_cpds[{node!r}] must be dict/str")
+            raise TypeError(
+                f"nodes_cpds[{node!r}] must be dict/ConfigItem/str")
     return out
 
 
 def _resolve_method_arg(method, registry: Dict[str, type], label: str):
-    """Resolve a str/dict method argument to (name, base_params)."""
+    """Resolve a str/dict/ConfigItem method argument to (name,
+    base_params)."""
     if isinstance(method, dict):
         conf = to_plain_dict(method)
         name = conf.get("name") or conf.get("method")
         if not isinstance(name, str):
             raise TypeError(f"{label} dict must include a string 'name' field")
         params = {k: v for k, v in conf.items() if k not in {"name", "method"}}
+    elif isinstance(method, ConfigItem):
+        name, params = method.name, copy.deepcopy(dict(method.params))
     elif isinstance(method, str):
         name, params = method, {}
     else:
-        raise TypeError(f"{label} must be a string, dict, or callable")
+        raise TypeError(
+            f"{label} must be a string, dict, ConfigItem, or callable")
     key = name.lower().strip()
     if key not in registry:
         raise ValueError(
@@ -121,10 +177,21 @@ class VBN:
         self._last_summary_path: Optional[str] = None
         # {"net", "spec"} of the amortized posterior net ('amortized' fit)
         self.amortized: Optional[Dict[str, Any]] = None
+        self.config = _load_configs()
 
     # ----------------- internal plumbing -----------------
+    @property
+    def root_key(self) -> Draw:
+        """The seed's root draw (the JAX package's root PRNG key)."""
+        return self._keys.root
+
     def next_key(self) -> Draw:
         return self._keys.next()
+
+    def next_key_spec(self):
+        """``(root, counter)``: ``fold(root, counter)`` is the draw that
+        ``next_key()`` would give; the stream advances as it does."""
+        return self._keys.next_spec()
 
     def cpd_spec(self, node: str):
         if node not in self.nodes:
@@ -400,6 +467,65 @@ class VBN:
         ess = 1.0 / torch.clamp((w**2).sum(dim=1), min=eps)
         return {"mean": mean, "std": std, "ess": ess}
 
+    @staticmethod
+    def _broadcast_batch(a: torch.Tensor, b: torch.Tensor):
+        if a.shape[0] == b.shape[0]:
+            return a, b
+        if a.shape[0] == 1:
+            return a.expand((b.shape[0],) + tuple(a.shape[1:])), b
+        if b.shape[0] == 1:
+            return a, b.expand((a.shape[0],) + tuple(b.shape[1:]))
+        raise ValueError(
+            "Query and reference batch sizes must match, unless one is 1."
+        )
+
+    @torch.no_grad()
+    def infer_relative(
+        self, query, reference_query=None, *, eps: float = 1e-12, **kwargs
+    ) -> Dict[str, Any]:
+        """The query's posterior against a reference query's on the same
+        target (by default the target with no evidence): each side's mean,
+        std and effective sample size, and the deltas. Both run as one
+        ``infer_posterior_many`` call (one sweep in ``dynamic_masks``
+        mode)."""
+        q = self._normalize_query(query)
+        if reference_query is None:
+            reference_query = Query(target=q.target, evidence={}, do={})
+        rq = self._normalize_query(reference_query)
+        if rq.target != q.target:
+            raise ValueError(
+                "query and reference_query must have the same target node."
+            )
+        (query_pdf, query_samples), (ref_pdf, ref_samples) = (
+            self.infer_posterior_many([q, rq], **kwargs)
+        )
+        qs = self._posterior_stats(query_pdf, query_samples, eps=eps)
+        rs = self._posterior_stats(ref_pdf, ref_samples, eps=eps)
+        q_mean, r_mean = self._broadcast_batch(qs["mean"], rs["mean"])
+        q_std, r_std = self._broadcast_batch(qs["std"], rs["std"])
+        q_ess, r_ess = self._broadcast_batch(qs["ess"], rs["ess"])
+        delta_mean = q_mean - r_mean
+        delta_std = q_std - r_std
+        return {
+            "target": q.target,
+            "query_stats": {
+                "mean": q_mean,
+                "std": q_std,
+                "effective_sample_size": q_ess,
+            },
+            "reference_stats": {
+                "mean": r_mean,
+                "std": r_std,
+                "effective_sample_size": r_ess,
+            },
+            "delta_mean": delta_mean,
+            "delta_std": delta_std,
+            "relative_mean_change": delta_mean / torch.clamp(
+                r_mean.abs(), min=eps),
+            "relative_std_change": delta_std / torch.clamp(
+                r_std.abs(), min=eps),
+        }
+
     def _normalize_query(self, query) -> Query:
         if isinstance(query, Query):
             target, evidence_src, do_src = (
@@ -427,6 +553,24 @@ class VBN:
             )
         infer_batch_size(evidence, do)
         return Query(target=target, evidence=evidence, do=do)
+
+    # ----------------- device management -----------------
+    def to_device(self, device) -> None:
+        """Move the model to ``device``: the params, the amortized net, the
+        random stream (its counter kept), and every tensor the CPDs, the
+        methods and the update policy keep; compiled-function caches,
+        which may hold tensors of the old device, are emptied."""
+        dev = resolve_device(device)
+        self.params = params_to(self.params, dev)
+        if self.amortized is not None:
+            self.amortized["net"] = params_to(self.amortized["net"], dev)
+        self.device = dev
+        self._keys.device = dev
+        self._plan_cache.clear()
+        seen: set = set()
+        for obj in (*self.nodes.values(), self._learning, self._inference,
+                    self._sampling, self._update_policy):
+            _move_state(obj, dev, seen)
 
     # ----------------- CPD access -----------------
     def cpd(self, node: str) -> CPDHandle:
@@ -528,8 +672,12 @@ class VBN:
                 json.dump(summary, f, indent=2)
 
     @classmethod
-    def load(cls, path: str, *, device=None) -> "VBN":
+    def load(cls, path: str, *, device=None, map_location=None) -> "VBN":
         """Read a checkpoint written by either package's ``save``.
+
+        ``map_location`` (the JAX package's keyword) names the device as
+        ``device`` does; giving both raises unless they agree, and with
+        neither the model lands on the card.
 
         The DAG is rebuilt in the saved topological order with each node's
         parents in their saved order, each CPD from
@@ -542,6 +690,7 @@ class VBN:
         this port lacks is skipped with a warning, and so are arrays of an
         owner it does not know.
         """
+        device = _load_device(device, map_location)
         checkpoint_path = (
             os.path.join(path, "checkpoint.npz") if os.path.isdir(path) else path
         )
@@ -648,6 +797,52 @@ class VBN:
         if vbn._update_policy is not None and update_state is not None:
             vbn._update_policy.set_state(update_state, update_arrays)
         return vbn
+
+
+def _load_device(device, map_location):
+    """``load``'s device from its two keywords: either, both only when
+    they name one device, or None (the card)."""
+    if map_location is None:
+        return device
+    if not isinstance(map_location, (str, torch.device)):
+        raise TypeError("map_location must be a device or a device string")
+    if device is not None:
+        a, b = torch.device(device), torch.device(map_location)
+        if a.type != b.type or (a.index is not None and b.index is not None
+                                and a.index != b.index):
+            raise ValueError(
+                f"load(device={device!r}, map_location={map_location!r}) "
+                "name different devices"
+            )
+    return map_location
+
+
+def params_to(tree, device):
+    """A nested dict / list / tuple with tensor leaves, each tensor moved
+    to ``device``; other leaves stay as they are."""
+    if isinstance(tree, torch.Tensor):
+        return tree.to(device)
+    if isinstance(tree, dict):
+        return {k: params_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list) or type(tree) is tuple:
+        return type(tree)(params_to(v, device) for v in tree)
+    return tree
+
+
+def _move_state(obj, device, seen: set) -> None:
+    """Move the tensors an object of this package keeps to ``device``,
+    through its nested objects of this package (a method's fallback), and
+    empty its ``*_cache`` dicts (built functions may close over tensors)."""
+    if obj is None or id(obj) in seen or not hasattr(obj, "__dict__"):
+        return
+    seen.add(id(obj))
+    for key, value in list(vars(obj).items()):
+        if key.endswith("_cache") and isinstance(value, dict):
+            value.clear()
+        elif isinstance(value, (torch.Tensor, dict, list, tuple)):
+            setattr(obj, key, params_to(value, device))
+        elif type(value).__module__.startswith(__package__ + "."):
+            _move_state(value, device, seen)
 
 
 def _resolve_checkpoint_paths(path: str):
