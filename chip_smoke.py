@@ -253,10 +253,38 @@ around the sweep kernels; the stacked forms run no hand kernel):
     standard errors of its LW estimate (at S=2^14 a row's ESS falls to a
     few hundred, one standard error several hundredths of the std).
 
+Then the ('data', 'particle') mesh over ``torch.distributed``:
+
+26. (m1) ``initialize_distributed()`` and ``make_mesh()`` in this process
+    (a one-rank NCCL group), ``set_mesh`` on the phase-2 models, and phase
+    4's two cells through the public entry points (one ``vbn_cat_sweep``
+    and one ``vbn_lg_sweep``, read around each call), held to phase 4's
+    limits; queries/s by phase 5's windows, unmeshed and meshed in turns;
+    ``set_mesh(None)`` then serves phase 4's rows again bit for bit at
+    their key counters. (m2) two spawned ranks on the one card over gloo,
+    meshes (1, 2) and (2, 1): each rank loads the models of phases 2 and
+    7 saved by ``VBN.save`` with ``map_location="cuda"`` and the kernels
+    this process built, and serves asia LW pmf and flagship MCM moments
+    (B=1024, S=2^20), the link-scale LW pmf and gauss107 LW moments (96
+    queries, ``dynamic_masks=True``, S=2^20), RIS systematic and
+    multinomial on the diagnosis query (B=8, S=2^20, ESS threshold 0.99;
+    one ``vbn_cumsum`` (two) and a ``vbn_spg`` a ring step) and the fit
+    steps on 2^20 rows, each call's launches read on each rank; the rows
+    are held to phases 4 and 7's limits, RIS to 0.05 std of the closed
+    form, the ridge fit within 1e-4 and the Adam step within 1e-5 of
+    scale of m1's one-rank steps, and the two ranks' results equal. On
+    (1, 2) every kernel path is also fed external uniforms (B=8,
+    S=2^16): the ranks' blocks concatenated and fed to one unmeshed launch
+    give equal streams and combined reductions within 2e-4 (pmf) and 2e-3
+    (moments). Per-rank and total queries/s are two ranks sharing one
+    card, no scaling figure.
+
 Prints a JSON line of kernel results (all twelve kernels; rows 9, 10 and
 12 with their launches in (l2) and (r2) as ``launches_l2`` and
 ``launches_r2``, rows 1 and 2 with theirs in (t1) and (t2) as
-``launches_t1`` and ``launches_t2``), the card's name and power limit,
+``launches_t1`` and ``launches_t2``, rows 1-5 and 8 with theirs in (m1)
+and (m2), summed over ranks and meshes, as ``launches_m1`` and
+``launches_m2``), the card's name and power limit,
 and last
 ``{"ok": true, "device": {...}}``. Any failure
 exits nonzero. The script imports nothing of JAX or of the JAX package.
@@ -596,25 +624,38 @@ def asia_pmf_error(bn, vbn, qa, pmf):
 
 
 def serve_main_path(bn, asia_vbn, lg_vbn):
-    from vectorizedbayesiannetwork_torch.ops import sweep
-
-    for k in sweep.LAUNCHES:
-        sweep.LAUNCHES[k] = 0
+    """Phase 4. Returns the launches and, for phase 26, each workload's key
+    counter and rows: (launches, {"asia": (counter, pmf), "flagship":
+    (counter, moments)})."""
+    reset_launches()
     qa = asia_query(B_MAIN)
+    asia_at = asia_vbn._keys.state()
     pmf, spans = asia_vbn.infer_posterior_pmf([qa], n_classes=2)
     path_asia = asia_vbn._last_summary_path
     ql = flagship_query(B_MAIN)
+    lg_at = lg_vbn._keys.state()
     mom, _ = lg_vbn.infer_posterior_moments([ql])
     path_lg = lg_vbn._last_summary_path
+    from vectorizedbayesiannetwork_torch.ops import sweep
+
     launches = dict(sweep.LAUNCHES)
     log("main_path", launches=launches, path_asia=path_asia, path_lg=path_lg)
     if launches["categorical"] < 1 or launches["lg"] < 1:
         raise AssertionError(f"main path skipped a kernel: {launches}")
     if path_asia != "fused" or path_lg != "fused":
         raise AssertionError(f"summary paths {path_asia}, {path_lg} != fused")
+    main_path_accuracy("main_path_accuracy", bn, asia_vbn, lg_vbn, pmf, mom)
+    return launches, {"asia": (asia_at, pmf), "flagship": (lg_at, mom)}
 
+
+def main_path_accuracy(tag, bn, asia_vbn, lg_vbn, pmf, mom):
+    """Holds asia's pmf rows (``asia_query(B_MAIN)``) to the exact posterior
+    of the fitted CPTs (5e-3) and the flagship's moments
+    (``flagship_query(B_MAIN)``) to their closed form (1e-3); logs and
+    returns the errors."""
+    qa, ql = asia_query(B_MAIN), flagship_query(B_MAIN)
     if pmf.shape != (B_MAIN, 2) or not np.isfinite(pmf).all():
-        raise AssertionError(f"asia pmf rows bad: {pmf.shape}")
+        raise AssertionError(f"{tag}: asia pmf rows bad: {pmf.shape}")
     err_asia = asia_pmf_error(bn, asia_vbn, qa, pmf)
     p = lg_vbn.params["x2"]
     w = p["weight"][:, 0].double().cpu().numpy()
@@ -622,16 +663,18 @@ def serve_main_path(bn, asia_vbn, lg_vbn):
     mean_cf = ql["evidence"]["x0"][:, 0] * w[0] + ql["evidence"]["x1"][:, 0] * w[1] \
         + float(p["bias"][0])
     if mom.shape != (B_MAIN, 2) or not np.isfinite(mom).all():
-        raise AssertionError(f"flagship moments rows bad: {mom.shape}")
-    err_mean = float(np.abs(mom[:, 0] - mean_cf).max())
-    err_std = float(np.abs(mom[:, 1] - sigma / np.sqrt(2.0)).max())
-    log("main_path_accuracy", asia_pmf_max_abs_err=err_asia,
-        flagship_mean_max_abs_err=err_mean, flagship_std_max_abs_err=err_std)
+        raise AssertionError(f"{tag}: flagship moments rows bad: {mom.shape}")
+    errs = {"asia_pmf_max_abs_err": err_asia,
+            "flagship_mean_max_abs_err": float(np.abs(mom[:, 0] - mean_cf).max()),
+            "flagship_std_max_abs_err": float(
+                np.abs(mom[:, 1] - sigma / np.sqrt(2.0)).max())}
+    log(tag, **errs)
     if err_asia > 5e-3:
-        raise AssertionError(f"asia pmf off the exact posterior by {err_asia}")
-    if err_mean > 1e-3 or err_std > 1e-3:
-        raise AssertionError(f"flagship moments off closed form: {err_mean}, {err_std}")
-    return launches
+        raise AssertionError(f"{tag}: asia pmf off the exact posterior by {err_asia}")
+    if errs["flagship_mean_max_abs_err"] > 1e-3 or \
+            errs["flagship_std_max_abs_err"] > 1e-3:
+        raise AssertionError(f"{tag}: flagship moments off closed form: {errs}")
+    return errs
 
 
 def cuda_ms(fn, reps):
@@ -922,25 +965,34 @@ def fitted_gaussian_bn(vbn):
     return fit
 
 
-def link_accuracy(bn, vbn, queries, pmf, spans):
+def link_exact(bn, vbn, queries):
+    """The exact posterior of each query on the fitted CPTs with every
+    entry floored at 1e-12 (see ``link_accuracy``)."""
+    from benchmarking.exact import exact_posterior, min_fill_order
+
+    fit = fitted_discrete_bn(bn, vbn, floor=1e-12)
+    order = min_fill_order(fit)
+    return [np.asarray(exact_posterior(fit, t, ev, elim_order=order))
+            for t, ev in queries]
+
+
+def link_accuracy(bn, vbn, queries, pmf, spans, gts=None):
     """KL(exact || served) and max abs error of each served pmf row, the
     exact posterior taken on the fitted CPTs with every entry floored at
     1e-12, the samplers' own clamp (log max(p, 1e-12)): a class the 4096
     rows never show has probability 0 under the fitted CPTs (``prior:
     global``), and evidence on it would leave the exact posterior
     undefined. ``zero_evidence`` counts the queries with an evidence value
-    that some row of its fitted CPT gives probability 0."""
-    from benchmarking.exact import exact_posterior, min_fill_order
-
+    that some row of its fitted CPT gives probability 0. ``gts``:
+    ``link_exact``'s rows, when already taken."""
     raw = fitted_discrete_bn(bn, vbn)
     zero = sum(
         any(float(raw.cpts[n][..., v].min()) == 0.0 for n, v in ev.items())
         for _t, ev in queries)
-    fit = fitted_discrete_bn(bn, vbn, floor=1e-12)
-    order = min_fill_order(fit)
+    if gts is None:
+        gts = link_exact(bn, vbn, queries)
     kls, errs = [], []
-    for (lo, _hi, _t), (t, ev) in zip(spans, queries):
-        gt = np.asarray(exact_posterior(fit, t, ev, elim_order=order))
+    for (lo, _hi, _t), gt in zip(spans, gts):
         r = pmf[lo][: len(gt)].astype(np.float64)
         r = r / max(r.sum(), 1e-30)
         kls.append(float(np.sum(gt * np.log(np.maximum(gt, 1e-12)
@@ -1432,7 +1484,8 @@ def dynamic_qps(serve, b=N_DYN):
 
 def serve_large_networks(vbn_cls, defaults, asia_vbn):
     """Phases 6-9 (the mask-dynamic slice); returns the scan kernels'
-    rows of the kernel line."""
+    rows of the kernel line, and the (network, model, queries) of the
+    link-scale and gauss107 cells."""
     from benchmarking.gaussian_bn import random_gaussian
     from benchmarking.networks import random_bn, random_bn_treewidth
 
@@ -1481,7 +1534,7 @@ def serve_large_networks(vbn_cls, defaults, asia_vbn):
         lambda: link_vbn.infer_posterior_pmf(lq, n_classes=4, pad_bucket=N_DYN)))
     log("serve_profile", workload="gauss107", **profile_batch(
         lambda: gauss_vbn.infer_posterior_moments(gq, pad_bucket=N_DYN)))
-    return kernels, (link_bn, link_vbn, link_qs)
+    return kernels, (link_bn, link_vbn, link_qs), (gbn, gauss_vbn, gauss_qs)
 
 
 # ---------------------------------------------------------------------------
@@ -4533,6 +4586,445 @@ def serve_slice14(vbn_cls, defaults, bn, lg_vbn):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 26: the ('data', 'particle') mesh over torch.distributed
+# ---------------------------------------------------------------------------
+
+M2_MESHES = ((1, 2), (2, 1))  # (n_data, n_particle) of the two ranks
+M2_TIMEOUT_S = 600  # the ranks' deadline; a hang fails the phase
+M2_WINDOWS = 3  # q/s windows a rank times, best of
+FIT_ROWS = 1 << 20  # rows of the data-parallel fit steps
+
+
+def fit_rows(seed=0):
+    """(parents [n, 2], x [n, 1]) float32, n = FIT_ROWS: x = 0.5 p0 -
+    0.2 p1 + 0.05 noise (``tests/test_sharding.py``'s fit data)."""
+    n = FIT_ROWS
+    g = np.random.default_rng(seed)
+    parents = g.normal(size=(n, 2)).astype(np.float32)
+    x = (parents @ np.array([[0.5], [-0.2]], np.float32)
+         + 0.05 * g.normal(size=(n, 1)).astype(np.float32))
+    return parents, x
+
+
+def fit_steps(mesh, net0):
+    """(ridge fit, the net after one ``gaussian_nn`` Adam step from
+    ``net0``), each on this rank's rows of ``fit_rows()``."""
+    from vectorizedbayesiannetwork_torch import CPD_REGISTRY
+    from vectorizedbayesiannetwork_torch.parallel.train import (
+        gaussian_nn_dp_step,
+        linear_gaussian_fit_step,
+        shard_rows,
+    )
+
+    p, x = shard_rows(mesh, *fit_rows())
+    fit = linear_gaussian_fit_step(mesh, p, x)
+    cpd = CPD_REGISTRY["gaussian_nn"](2, 1, seed=0, hidden_dims=[8])
+    net1, _opt = gaussian_nn_dp_step(mesh, cpd, net0, None, p, x)
+    return fit, net1
+
+
+def mesh_m1(bn, asia_vbn, lg_vbn, phase4):
+    """(m1) phase 4's main path under a one-rank NCCL mesh in this process:
+    ``initialize_distributed()``, ``make_mesh()``, ``set_mesh`` on the
+    phase-2 models, the asia LW pmf and flagship MCM moments at B=1024,
+    S=2^20 through the public entry points (launches read around each
+    call), held to phase 4's limits; q/s by phase 5's windows, unmeshed
+    and meshed in turns; then
+    ``set_mesh(None)`` serves phase 4's rows again, bit for bit, at their
+    key counters. Returns (the mesh, the launches)."""
+    import torch.distributed as dist
+
+    from vectorizedbayesiannetwork_torch.parallel import (
+        initialize_distributed,
+        make_mesh,
+        mesh_signature,
+    )
+
+    initialize_distributed()
+    mesh = make_mesh(device_type=asia_vbn.device.type)
+    qa, ql = asia_query(B_MAIN), flagship_query(B_MAIN)
+    asia_vbn.set_inference_method("likelihood_weighting", n_samples=S_MAIN)
+    lg_vbn.set_inference_method("monte_carlo_marginalization", n_samples=S_MAIN)
+    for v in (asia_vbn, lg_vbn):
+        v.set_mesh(mesh)
+    reset_launches()
+    pmf, _ = asia_vbn.infer_posterior_pmf([qa], n_classes=2)
+    launches = read_launches({"categorical": 1})
+    reset_launches()
+    mom, _ = lg_vbn.infer_posterior_moments([ql])
+    launches["lg"] = read_launches({"lg": 1})["lg"]
+    paths = (asia_vbn._last_summary_path, lg_vbn._last_summary_path)
+    if paths != ("fused", "fused"):
+        raise AssertionError(f"m1 summary paths {paths} != fused")
+    main_path_accuracy("mesh_m1_accuracy", bn, asia_vbn, lg_vbn, pmf, mom)
+    qps = {}  # unmeshed, meshed, meshed, unmeshed: what the mesh costs
+    for m in (None, mesh, mesh, None):
+        for v in (asia_vbn, lg_vbn):
+            v.set_mesh(m)
+        for tag, call in (
+                ("asia_lw_pmf", lambda: asia_vbn.infer_posterior_pmf(
+                    [qa] * REPS, n_classes=2)),
+                ("flagship_mcm_moments", lambda: lg_vbn.infer_posterior_moments(
+                    [ql] * REPS))):
+            best, _w = end_to_end_qps(call, B_MAIN)
+            qps.setdefault(tag, {}).setdefault(
+                "meshed" if m is not None else "unmeshed", []).append(best)
+    for v in (asia_vbn, lg_vbn):
+        v.set_mesh(None)
+    again = {}
+    for tag, v, call in (
+            ("asia", asia_vbn,
+             lambda: asia_vbn.infer_posterior_pmf([qa], n_classes=2)[0]),
+            ("flagship", lg_vbn,
+             lambda: lg_vbn.infer_posterior_moments([ql])[0])):
+        counter, rows = phase4[tag]
+        v._keys.set_state(counter)
+        again[tag] = bool(np.array_equal(call(), rows))
+    log("mesh_m1", backend=dist.get_backend(), mesh=mesh_signature(mesh),
+        launches=launches, paths=paths, qps_in_turns=qps,
+        unmeshed_rows_again=again)
+    if not all(again.values()):
+        raise AssertionError(f"set_mesh(None) served other rows: {again}")
+    return mesh, launches
+
+
+def m2_fed_uniforms(mesh, models, link_qs, gauss_qs):
+    """On a (1, n) mesh, each kernel path fed external uniforms: each
+    rank's meshed call gets its own block of [B_CHECK, N or 2N, S_CHECK /
+    n]; rank 0 also launches the kernel once unmeshed on the blocks
+    concatenated along the particles. The streams must be equal and the
+    combined reductions within ``check_outputs``' rtol (pmf 2e-4, moments
+    2e-3) of that launch's, the shifts equal. Returns rank 0's errors."""
+    import torch
+    import torch.distributed as dist
+
+    from vectorizedbayesiannetwork_torch.core.plan import (
+        get_plan,
+        pack_fixed_values,
+    )
+    from vectorizedbayesiannetwork_torch.ops.sweep import make_fused_sweep_fn
+    from vectorizedbayesiannetwork_torch.ops.sweep_scan import make_scan_sweep_fn
+    from vectorizedbayesiannetwork_torch.parallel.mesh import (
+        mesh_coords,
+        mesh_shape,
+    )
+
+    npart, pi = mesh_shape(mesh)[1], mesh_coords(mesh)[1]
+    dev = models["asia"].device
+    cases = []
+    for name, vbn, query, lg, wants in (
+            ("vbn_cat_sweep", models["asia"], asia_query(B_CHECK), False,
+             [("logw", "lpt"), ("pmf_logw",)]),
+            ("vbn_lg_sweep", models["flagship"], flagship_query(B_CHECK), True,
+             [("logw", "lpt"), ("mom_lpt",)])):
+        q = vbn._normalize_query(query)
+        plan = get_plan(vbn, q)
+        cpds = tuple(vbn.cpd_spec(n) for n in plan.topo_order)
+        params = tuple(vbn.params[n] for n in plan.topo_order)
+        fixed = torch.as_tensor(pack_fixed_values(q, plan, B_CHECK,
+                                                  clamp_obs=not lg),
+                                device=vbn.device)
+        for want in wants:
+            meshed = make_fused_sweep_fn(plan, cpds, S_CHECK, want, mesh=mesh)
+            whole = make_fused_sweep_fn(plan, cpds, S_CHECK, want)
+            cases.append((name, want, plan.n_nodes * (1 + lg), lg,
+                          lambda u, raw=meshed, p=params, f=fixed: raw(p, 0, f, u_ext=u),
+                          lambda u, raw=whole, p=params, f=fixed: raw(p, 0, f, u_ext=u)))
+    for name, vbn, queries, lg, wants in (
+            ("vbn_cat_scan", models["link"], link_qs[:B_CHECK], False,
+             [("logw", "tgt"), ("pmf_logw",)]),
+            ("vbn_lg_scan", models["gauss"], gauss_qs[:B_CHECK], True,
+             [("logw", "tgt"), ("mom_logw",)])):
+        plan, cpds, params, *rows = scan_inputs(
+            vbn, [as_query(t, ev) for t, ev in queries])
+        for want in wants:
+            meshed = make_scan_sweep_fn(plan, cpds, S_CHECK, want, mesh=mesh)
+            whole = make_scan_sweep_fn(plan, cpds, S_CHECK, want)
+            cases.append((name, want, plan.n_nodes * (1 + lg), lg,
+                          lambda u, raw=meshed, p=params, r=rows: raw(p, 0, *r, u_ext=u),
+                          lambda u, raw=whole, p=params, r=rows: raw(p, 0, *r, u_ext=u)))
+    errs = {}
+    for i, (name, want, n_rows, lg, meshed, whole) in enumerate(cases):
+        blocks = []
+        for p in range(npart):
+            g = torch.Generator(device=dev).manual_seed(1000 * i + p)
+            blocks.append(torch.rand((B_CHECK, n_rows, S_CHECK // npart),
+                                     generator=g, device=dev)
+                          .clamp_(1e-6, 1.0 - 1e-6))
+        got = meshed(blocks[pi])
+        if dist.get_rank() == 0:
+            ref = whole(torch.cat(blocks, dim=2))
+            errs[f"{name}:{','.join(want)}"] = check_outputs(
+                f"m2 fed {name} {want}", got, ref, want, tgt_atol=0, lp_atol=0)
+    return errs
+
+
+def m2_serve(mesh, models, link_qs, gauss_qs, net0):
+    """One mesh's workloads on this rank: the main path, the link-scale and
+    gauss107 dynamic cells, RIS systematic and multinomial on the flagship
+    diagnosis query (ESS threshold 0.99), the fit steps and the q/s
+    windows. Returns (report, arrays)."""
+    import torch.distributed as dist
+
+    from vectorizedbayesiannetwork_torch.parallel.mesh import mesh_shape
+
+    nd, npart = mesh_shape(mesh)
+    asia, lg, link, gauss = (models[k] for k in ("asia", "flagship", "link",
+                                                   "gauss"))
+    asia.set_inference_method("likelihood_weighting", n_samples=S_MAIN)
+    lg.set_inference_method("monte_carlo_marginalization", n_samples=S_MAIN)
+    for v in (link, gauss):
+        v.set_inference_method("likelihood_weighting", n_samples=S_MAIN,
+                               dynamic_masks=True)
+    for v in models.values():
+        v.set_mesh(mesh)
+    rep, arr = {"launches": {}}, {}
+
+    def served(tag, expect, call):
+        reset_launches()
+        out = call()
+        rep["launches"][tag] = {k: v for k, v in read_launches(expect).items()
+                                if v}
+        return out
+
+    qa, ql = asia_query(B_MAIN), flagship_query(B_MAIN)
+    arr["asia_pmf"] = served("asia", {"categorical": 1}, lambda: asia.infer_posterior_pmf(
+        [qa], n_classes=2)[0])
+    arr["flagship_mom"] = served("flagship", {"lg": 1}, lambda: lg.infer_posterior_moments(
+        [ql])[0])
+    arr["link_pmf"], rep["link_spans"] = served(
+        "link", {"categorical_scan": 1}, lambda: link.infer_posterior_pmf(
+            [as_query(t, ev) for t, ev in link_qs], n_classes=4,
+            pad_bucket=N_DYN))
+    arr["gauss_mom"], rep["gauss_spans"] = served(
+        "gauss", {"lg_scan": 1}, lambda: gauss.infer_posterior_moments(
+            [as_query(t, ev) for t, ev in gauss_qs], pad_bucket=N_DYN))
+    q = flagship_diag_query()
+    for method, cumsums in (("systematic", 1), ("multinomial", 2)):
+        lg.set_inference_method("resampled_importance_sampling",
+                                n_samples=S_RIS, ess_threshold=0.99,
+                                resample_method=method)
+        # one resampling event (x2): the cumsums, and a vbn_spg a ring step
+        w, samples = served(f"ris_{method}", {"cumsum": cumsums, "spg": npart},
+                            lambda: lg.infer_posterior(q))
+        rep[f"ris_{method}"] = dict(
+            diag_accuracy(lg, q, w, samples),
+            resampled=lg._inference._last_resampled,
+            ess=lg._inference._last_ess.tolist())
+    lg.set_inference_method("monte_carlo_marginalization", n_samples=S_MAIN)
+    fit, net1 = fit_steps(mesh, net0)
+    from vectorizedbayesiannetwork_torch.vbn import _flatten_params
+
+    arr.update({f"fit_{k}": v for k, v in fit.items()})
+    arr.update({f"net1/{k}": v for k, v in _flatten_params(net1).items()})
+    qps = {}
+    for tag, call in (
+            ("asia_lw_pmf", lambda: asia.infer_posterior_pmf([qa] * REPS,
+                                                            n_classes=2)),
+            ("flagship_mcm_moments", lambda: lg.infer_posterior_moments(
+                [ql] * REPS))):
+        call()
+        best = 0.0
+        for _ in range(M2_WINDOWS):
+            dist.barrier()
+            t0 = time.perf_counter()
+            call()  # fetches the rows: synchronous
+            best = max(best, B_MAIN * REPS / (time.perf_counter() - t0))
+        qps[tag] = best
+    rep["rank_qps"] = qps
+    if nd == 1 and npart > 1:
+        rep["fed_uniforms_max_abs_err"] = m2_fed_uniforms(mesh, models,
+                                                          link_qs, gauss_qs)
+    for v in models.values():
+        v.set_mesh(None)
+    return rep, arr
+
+
+def m2_rank(rank, world, tmp):
+    """One rank of (m2): joins a gloo group with the other rank on the one
+    card, loads the saved models with ``map_location="cuda"`` and the
+    kernels the parent built, serves every mesh of M2_MESHES, and writes
+    ``m2_<rank>.json`` / ``.npz`` into ``tmp``."""
+    from pathlib import Path
+
+    import torch
+    import torch.distributed as dist
+
+    from vectorizedbayesiannetwork_torch import VBN
+    from vectorizedbayesiannetwork_torch.ops import _build
+    from vectorizedbayesiannetwork_torch.parallel import (
+        initialize_distributed,
+        make_mesh,
+        mesh_signature,
+    )
+    from vectorizedbayesiannetwork_torch.vbn import params_from_numpy
+
+    tmp = Path(tmp)
+    meta = json.loads((tmp / "queries.json").read_text())
+    dev = torch.device(meta["device"])
+    if dev.type == "cuda":
+        missing = [n for n in _build.SOURCES
+                   if not _build.library_path(n).exists()]
+        if missing:
+            raise RuntimeError(f"rank {rank}: kernels not built by the parent: "
+                               f"{missing}")
+        torch.cuda.set_device(0)
+    initialize_distributed(init_method=f"file://{tmp}/group", world_size=world,
+                           rank=rank, backend="gloo", timeout_s=300)
+    try:
+        models = {tag: VBN.load(str(tmp / tag), map_location=dev)
+                  for tag in ("asia", "flagship", "link", "gauss")}
+        with np.load(tmp / "net0.npz") as f:
+            net0 = params_from_numpy({k: f[k] for k in f.files}, dev)
+        report, arrays = {}, {}
+        for nd, npart in M2_MESHES:
+            t0 = time.perf_counter()
+            mesh = make_mesh(nd, npart, device_type=dev.type)
+            rep, arr = m2_serve(mesh, models, meta["link"], meta["gauss"],
+                                net0)
+            tag = f"{nd}x{npart}"
+            report[tag] = dict(rep, mesh=mesh_signature(mesh),
+                               seconds=time.perf_counter() - t0)
+            arrays.update({f"{tag}:{k}": v.detach().cpu().numpy()
+                           if isinstance(v, torch.Tensor) else np.asarray(v)
+                           for k, v in arr.items()})
+        (tmp / f"m2_{rank}.json").write_text(json.dumps(report))
+        np.savez(tmp / f"m2_{rank}.npz", **arrays)
+    finally:
+        dist.destroy_process_group()
+
+
+def run_ranks(fn, world, tmp, timeout_s):
+    """``fn(rank, world, tmp)`` in ``world`` spawned processes; raises on a
+    rank's error or exit, and at the deadline (killing every rank)."""
+    import torch.multiprocessing as mp
+
+    ctx = mp.start_processes(fn, args=(world, str(tmp)), nprocs=world,
+                             join=False, start_method="spawn")
+    deadline = time.monotonic() + timeout_s
+    try:
+        while not ctx.join(timeout=max(1.0, deadline - time.monotonic())):
+            if time.monotonic() >= deadline:
+                raise AssertionError(f"mesh ranks still running after {timeout_s} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+                p.join(30)
+
+
+def mesh_m2(bn, asia_vbn, lg_vbn, link, gauss, mesh1):
+    """(m2) two ranks on the one card over gloo, the meshes of M2_MESHES.
+    The models of phases 2 and 7 go to the ranks by ``VBN.save``; the
+    ranks' rows are held here to phase 4's and phase 7's limits, their fit
+    steps to the one-rank steps on m1's mesh (ridge fit 1e-4, the Adam step
+    1e-5 of the params' scale). Returns the launches summed over ranks and
+    meshes."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    import torch
+
+    from vectorizedbayesiannetwork_torch import CPD_REGISTRY
+    from vectorizedbayesiannetwork_torch.ops import _build
+    from vectorizedbayesiannetwork_torch.vbn import _flatten_params
+
+    link_bn, link_vbn, link_qs = link
+    _gbn, gauss_vbn, gauss_qs = gauss
+    t0 = time.perf_counter()
+    dev = asia_vbn.device
+    net0 = CPD_REGISTRY["gaussian_nn"](2, 1, seed=0, hidden_dims=[8]).init(
+        dev, gen=torch.Generator(device=dev).manual_seed(0))["net"]
+    ref_fit, ref_net = fit_steps(mesh1, net0)
+    ref_net = _flatten_params(ref_net)
+    tmp = Path(tempfile.mkdtemp(dir=_build.BUILD_DIR.parent))
+    try:
+        for tag, v in (("asia", asia_vbn), ("flagship", lg_vbn),
+                       ("link", link_vbn), ("gauss", gauss_vbn)):
+            v.save(str(tmp / tag))
+        np.savez(tmp / "net0.npz", **_flatten_params(net0))
+        (tmp / "queries.json").write_text(json.dumps(
+            {"link": link_qs, "gauss": gauss_qs, "device": str(dev)}))
+        run_ranks(m2_rank, 2, tmp, M2_TIMEOUT_S)
+        reports = [json.loads((tmp / f"m2_{r}.json").read_text())
+                   for r in range(2)]
+        arrays = []
+        for r in range(2):
+            with np.load(tmp / f"m2_{r}.npz") as f:
+                arrays.append({k: f[k] for k in f.files})
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for k, v in arrays[0].items():
+        if not np.array_equal(arrays[1][k], v):
+            raise AssertionError(f"m2: the two ranks returned other {k}")
+    gts = link_exact(link_bn, link_vbn, link_qs)
+    total = {}
+    for nd, npart in M2_MESHES:
+        tag = f"{nd}x{npart}"
+        a = {k.split(":", 1)[1]: v for k, v in arrays[0].items()
+             if k.startswith(tag + ":")}
+        acc = main_path_accuracy(f"mesh_m2_{tag}_accuracy", bn, asia_vbn,
+                                 lg_vbn, a["asia_pmf"], a["flagship_mom"])
+        lacc = link_accuracy(link_bn, link_vbn, link_qs, a["link_pmf"],
+                             reports[0][tag]["link_spans"], gts=gts)
+        gacc = gauss_accuracy(gauss_vbn, gauss_qs, a["gauss_mom"],
+                              reports[0][tag]["gauss_spans"])
+        fit_err = max(float(np.abs(a[f"fit_{k}"] - ref_fit[k].cpu().numpy()).max())
+                      for k in ("weight", "bias", "var"))
+        scale = max(1.0, max(float(np.abs(v).max()) for v in ref_net.values()))
+        nn_err = max(float(np.abs(a[f"net1/{k}"] - v).max()) / scale
+                     for k, v in ref_net.items())
+        ris = {m: reports[0][tag][f"ris_{m}"]
+               for m in ("systematic", "multinomial")}
+        rank_qps = [rep[tag]["rank_qps"] for rep in reports]
+        log("mesh_m2", mesh=tag, ranks_share_one_card=True, backend="gloo",
+            launches_per_rank=[rep[tag]["launches"] for rep in reports],
+            link=lacc, lg=gacc, ris=ris, fit_max_abs_err=fit_err,
+            nn_step_max_err_of_scale=nn_err,
+            fed_uniforms_max_abs_err=reports[0][tag].get(
+                "fed_uniforms_max_abs_err"),
+            rank_qps_two_ranks_one_card=rank_qps,
+            total_qps_two_ranks_one_card={
+                k: min(q[k] for q in rank_qps) for k in rank_qps[0]},
+            rank_seconds=[rep[tag]["seconds"] for rep in reports], **acc)
+        if lacc["kl_median"] > 2e-3:
+            raise AssertionError(f"m2 {tag}: link median KL {lacc['kl_median']}")
+        if gacc["dmean_over_std"] > 0.05 or gacc["dstd_over_std"] > 0.05:
+            raise AssertionError(f"m2 {tag}: gauss107 moments off: {gacc}")
+        for m, r in ris.items():
+            if not r["resampled"] or r["dmean_over_std"] > 0.05 or \
+                    r["dstd_over_std"] > 0.05:
+                raise AssertionError(f"m2 {tag}: RIS {m} off the closed form: {r}")
+        if fit_err > 1e-4 or nn_err > 1e-5:
+            raise AssertionError(f"m2 {tag}: fit steps off the one-rank "
+                                 f"steps: {fit_err}, {nn_err}")
+        if npart > 1 and nd == 1 and not reports[0][tag].get(
+                "fed_uniforms_max_abs_err"):
+            raise AssertionError(f"m2 {tag}: the fed-uniform check did not run")
+        for rep in reports:
+            for got in rep[tag]["launches"].values():
+                for k, v in got.items():
+                    total[k] = total.get(k, 0) + v
+    log("mesh_m2_done", seconds=time.perf_counter() - t0, launches=total)
+    return total
+
+
+def serve_mesh(bn, asia_vbn, lg_vbn, phase4, link, gauss):
+    """Phase 26: (m1), then (m2); returns each one's launches."""
+    import torch.distributed as dist
+
+    t0 = time.perf_counter()
+    mesh1, m1 = mesh_m1(bn, asia_vbn, lg_vbn, phase4)
+    try:
+        m2 = mesh_m2(bn, asia_vbn, lg_vbn, link, gauss, mesh1)
+    finally:
+        dist.destroy_process_group()
+    log("mesh_done", seconds=time.perf_counter() - t0)
+    return {"m1": m1, "m2": m2}
+
+
 def load_parent(root):
     """The port package of another checkout at ``root`` (for example the
     parent commit's, unpacked with ``git archive``), imported under the name
@@ -4764,7 +5256,7 @@ def main(argv) -> int:
     check_lg_sweep_matches_scan(lg_vbn)
 
     torch.cuda.reset_peak_memory_stats()
-    launches = serve_main_path(bn, asia_vbn, lg_vbn)
+    launches, phase4 = serve_main_path(bn, asia_vbn, lg_vbn)
     log("main_path_memory",
         max_memory_allocated_bytes=torch.cuda.max_memory_allocated())
 
@@ -4786,7 +5278,7 @@ def main(argv) -> int:
         log("serve_breakdown", workload=tag, batch_ms=batch_ms,
             kernel_ms=row["ms"], kernel_share=row["ms"] / batch_ms)
 
-    scan_rows, link = serve_large_networks(VBN, defaults, asia_vbn)
+    scan_rows, link, gauss = serve_large_networks(VBN, defaults, asia_vbn)
     kernels += scan_rows
     kernels += serve_resampling(bn, asia_vbn, lg_vbn, link)
     kernels += serve_kde(VBN, defaults)
@@ -4801,6 +5293,7 @@ def main(argv) -> int:
     # would be a phase that the 64-node routing moved
     log("sweep_routes_phases_1_24", routes=dict(_sweep.ROUTES))
     slice14 = serve_slice14(VBN, defaults, bn, lg_vbn)
+    mesh = serve_mesh(bn, asia_vbn, lg_vbn, phase4, link, gauss)
     for row in kernels:
         key = {"vbn_cumsum": "cumsum", "vbn_srg": "srg"}.get(row["name"])
         if key:
@@ -4815,6 +5308,12 @@ def main(argv) -> int:
             row["name"])
         if key:
             for phase, got in slice14.items():
+                row[f"launches_{phase}"] = got.get(key, 0)
+        key = {"vbn_cat_sweep": "categorical", "vbn_lg_sweep": "lg",
+               "vbn_cat_scan": "categorical_scan", "vbn_lg_scan": "lg_scan",
+               "vbn_cumsum": "cumsum", "vbn_spg": "spg"}.get(row["name"])
+        if key:
+            for phase, got in mesh.items():
                 row[f"launches_{phase}"] = got.get(key, 0)
     if args.parent:
         compare_builds(args.parent)

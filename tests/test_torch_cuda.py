@@ -1495,3 +1495,103 @@ def test_stacked_forms_on_the_card_match_the_cpu(card, form, monkeypatch):
         assert torch.equal(got[0], want[0])
         for a, w in zip(got[1:], want[1:]):
             torch.testing.assert_close(a, w, atol=1e-5, rtol=1e-6)
+
+
+@pytest.fixture(scope="module")
+def nccl_mesh(card):
+    """A one-rank NCCL group and its (1, 1) mesh in this process."""
+    import torch.distributed as dist
+
+    from vectorizedbayesiannetwork_torch.parallel import (
+        initialize_distributed,
+        make_mesh,
+    )
+
+    initialize_distributed()
+    assert dist.get_backend() == "nccl"
+    yield make_mesh()
+    dist.destroy_process_group()
+
+
+def _mesh_raws(vbn, want, mesh, scan):
+    """(meshed raw, unmeshed raw, their arguments, uniform rows a particle)
+    of the flagship's / asia's sweep kernel or scan kernel."""
+    from vectorizedbayesiannetwork_torch.core.plan import pack_fixed_values
+    from vectorizedbayesiannetwork_torch.ops.sweep_scan import (
+        make_scan_sweep_fn,
+    )
+
+    lg = "x2" in vbn.nodes
+    query = (Query("x2", {"x0": np.linspace(-1, 1, B).reshape(B, 1)
+                          .astype(np.float32)}, {}) if lg else
+             Query("dysp", {"smoke": (np.arange(B) % 2).reshape(B, 1)
+                            .astype(np.float32)}, {}))
+    if scan:
+        plan, cpds, params = _canonical(vbn)
+        fixed = torch.as_tensor(pack_fixed_values(query, plan, B), device="cuda")
+        ev = torch.zeros((B, plan.n_nodes), device="cuda")
+        ev[:, plan.topo_order.index(next(iter(query.evidence)))] = 1.0
+        tgt = torch.full((B,), plan.topo_order.index(query.target),
+                         dtype=torch.int32, device="cuda")
+        args = (fixed, ev, torch.zeros_like(ev), tgt)
+        make = make_scan_sweep_fn
+    else:
+        plan, cpds, params = _plan(vbn, target=query.target,
+                                   evidence=query.evidence, do={})
+        args = (torch.as_tensor(pack_fixed_values(query, plan, B),
+                                device="cuda"),)
+        make = sweep.make_fused_sweep_fn
+    return (make(plan, cpds, S, want, mesh=mesh), make(plan, cpds, S, want),
+            (params, 3) + args, plan.n_nodes * (2 if lg else 1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scan", [False, True], ids=["sweep", "scan"])
+@pytest.mark.parametrize("model,want", [("asia", w) for w in CAT_WANTS]
+                         + [("lg", w) for w in LG_WANTS],
+                         ids=lambda v: v if isinstance(v, str) else "-".join(v))
+def test_one_rank_mesh_equals_unmeshed_kernel(asia_vbn, lg_vbn, nccl_mesh,
+                                              model, want, scan):
+    """Under a one-rank NCCL mesh each kernel path launches its kernel once
+    and, on the same external uniforms, gives the unmeshed launch's outputs
+    bit for bit (one shard: the combine scales by exp(0) and sums one
+    rank)."""
+    vbn = asia_vbn if model == "asia" else lg_vbn
+    meshed, whole, args, rows = _mesh_raws(vbn, want, nccl_mesh, scan)
+    u = torch.rand((B, rows, S), device="cuda").clamp_(1e-6, 1 - 1e-6)
+    key = {("asia", False): "categorical", ("lg", False): "lg",
+           ("asia", True): "categorical_scan", ("lg", True): "lg_scan"}[
+        (model, scan)]
+    before = sweep.LAUNCHES[key]
+    got = meshed(*args, u_ext=u)
+    assert sweep.LAUNCHES[key] == before + 1
+    ref = whole(*args, u_ext=u)
+    for a, b in zip(got[:3], ref[:3]):
+        assert (a is None) == (b is None)
+        if a is not None:
+            assert torch.equal(a, b)
+    assert (got[3] is None) == (ref[3] is None)
+    if got[3] is not None:
+        assert torch.equal(got[3][0], ref[3][0])
+        assert torch.equal(got[3][1], ref[3][1])
+
+
+@pytest.mark.cuda
+def test_one_rank_mesh_serves_through_the_kernels(asia_vbn, lg_vbn, nccl_mesh):
+    """``set_mesh`` on the card: the public entry points launch one kernel a
+    batch and serve finite rows on the fused path."""
+    q = {"target": "dysp", "evidence": {"smoke": np.ones((B, 1), np.float32)}}
+    ev = {"x0": np.zeros((B, 1), np.float32), "x1": np.ones((B, 1), np.float32)}
+    try:
+        for v in (asia_vbn, lg_vbn):
+            v.set_mesh(nccl_mesh)
+        before = dict(sweep.LAUNCHES)
+        pmf, _ = asia_vbn.infer_posterior_pmf([q], n_classes=2)
+        mom, _ = lg_vbn.infer_posterior_moments([{"target": "x2", "evidence": ev}])
+    finally:
+        for v in (asia_vbn, lg_vbn):
+            v.set_mesh(None)
+    assert asia_vbn._last_summary_path == lg_vbn._last_summary_path == "fused"
+    assert np.isfinite(pmf).all() and np.isfinite(mom).all()
+    assert sweep.LAUNCHES["categorical"] == before["categorical"] + 1
+    assert sweep.LAUNCHES["lg"] == before["lg"] + 1

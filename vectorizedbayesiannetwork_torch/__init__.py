@@ -24,7 +24,9 @@ networks of 64 nodes or more that no kernel takes
 ``VBN_DISCRETE_SCAN``), ``VBN.infer_relative``, ``VBN.to_device``,
 ``VBN.load(map_location=)``, the config catalog ``VBN.config``
 (``ConfigItem``), the kernels' build cache (``core/cache.py``,
-``VBN_COMPILATION_CACHE``), ``utils`` and ``display``. It runs on a CUDA
+``VBN_COMPILATION_CACHE``), ``utils`` and ``display``; and the
+('data', 'particle') mesh over ``torch.distributed`` (``parallel``,
+``VBN.set_mesh``, ``ops/resample_distributed.py``). It runs on a CUDA
 device unless the caller passes ``device="cpu"``. Importing the package
 populates the registries; it never imports JAX or the JAX package, and
 nothing imports matplotlib until a figure is drawn.

@@ -18,6 +18,7 @@ import torch
 from ..core.base import Query
 from ..core.plan import InferencePlan, get_plan
 from ..core.utils import infer_batch_size
+from ..parallel.mesh import mesh_signature
 
 
 @dataclass
@@ -38,10 +39,12 @@ class Method:
     def _built(self, vbn, plan: InferencePlan, tag: Tuple,
                build: Callable[[], Callable]) -> Callable:
         """``build()``'s function, made once per (plan, CPD signatures,
-        tag)."""
+        mesh, tag): a function built before ``set_mesh`` is not reused
+        after it."""
         cache: Dict[Tuple, Callable] = self.__dict__.setdefault("_fn_cache", {})
         key = (plan, tuple(vbn.cpd_spec(n).static_signature()
-                           for n in plan.topo_order)) + tuple(tag)
+                           for n in plan.topo_order),
+               mesh_signature(vbn._mesh)) + tuple(tag)
         if key not in cache:
             cache[key] = build()
         return cache[key]

@@ -74,9 +74,10 @@ def pack_dynamic_inputs(
 class DynamicMaskMethod(Method):
     """Base for methods with a mask-dynamic variant.
 
-    Subclasses implement ``_dynamic_fn(plan, cpds, s, opts)`` returning
-    ``fn(params_tuple, draw, inputs) -> (pdf [B, S], samples [B, S, maxd],
-    *aux)`` and may override ``_dynamic_opts`` (options read from the
+    Subclasses implement ``_dynamic_fn(plan, cpds, s, opts, mesh)``
+    returning ``fn(params_tuple, draw, inputs) -> (pdf [B, S], samples
+    [B, S, maxd], *aux)`` (``mesh``: the VBN's, for a kernel that runs
+    sharded) and may override ``_dynamic_opts`` (options read from the
     call's kwargs), ``_dyn_red_raw`` (an in-kernel posterior reduction)
     and ``_note_dynamic_aux`` (host bookkeeping of the aux outputs).
     """
@@ -109,7 +110,7 @@ class DynamicMaskMethod(Method):
         for q in queries:
             plan, b = self._plan_and_batch(vbn, q)
             raw = LikelihoodWeighting._fused_raw_fn(
-                plan, self._cpds(vbn, plan), s, want
+                plan, self._cpds(vbn, plan), s, want, mesh=vbn._mesh
             )
             if raw is None:
                 return None
@@ -138,10 +139,10 @@ class DynamicMaskMethod(Method):
     def _dynamic_opts(self, kwargs) -> Tuple:
         return ()
 
-    def _dynamic_fn(self, plan, cpds, s: int, opts: Tuple):
+    def _dynamic_fn(self, plan, cpds, s: int, opts: Tuple, mesh=None):
         raise NotImplementedError
 
-    def _dyn_red_raw(self, plan, cpds, s: int, opts, kind: str):
+    def _dyn_red_raw(self, plan, cpds, s: int, opts, kind: str, mesh=None):
         """Mask-dynamic raw whose OUTPUT is the in-kernel posterior
         reduction, or None when the method cannot express its weighting
         as one kernel reduction. When available, ``infer_posterior_pmf`` /
@@ -149,12 +150,13 @@ class DynamicMaskMethod(Method):
         return None
 
     @staticmethod
-    def _fused_dyn_raw(plan, cpds, s: int, want):
+    def _fused_dyn_raw(plan, cpds, s: int, want, mesh=None):
         """The scan kernel's raw for this plan (one launch serves every
-        evidence pattern), or None when its gates refuse the plan."""
+        evidence pattern), sharded over ``mesh`` when one is given, or None
+        when its gates refuse the plan."""
         from ..ops.sweep_scan import make_scan_sweep_fn
 
-        return make_scan_sweep_fn(plan, cpds, s, want=want)
+        return make_scan_sweep_fn(plan, cpds, s, want=want, mesh=mesh)
 
     def _note_dynamic_aux(self, aux: List, sl: slice) -> None:
         pass
@@ -183,7 +185,7 @@ class DynamicMaskMethod(Method):
             return pdf[:b], samples[:b, :, :t_dim]
 
         return Program(
-            plan, self._dynamic_fn(plan, cpds, s, opts),
+            plan, self._dynamic_fn(plan, cpds, s, opts, vbn._mesh),
             self._params_tuple(vbn, plan), inputs, post,
         )
 
@@ -200,7 +202,9 @@ class DynamicMaskMethod(Method):
             vbn, queries, pad_bucket
         )
         pdf, samples, *aux = self._run_dynamic(
-            vbn, plan, self._dynamic_fn(plan, cpds, s, self._dynamic_opts(kwargs)),
+            vbn, plan,
+            self._dynamic_fn(plan, cpds, s, self._dynamic_opts(kwargs),
+                             vbn._mesh),
             inputs,
         )
         self._note_dynamic_aux(aux, slice(0, b_tot))
@@ -224,7 +228,7 @@ class DynamicMaskMethod(Method):
         plan, cpds, inputs, spans, b_tot = self._dynamic_inputs(
             vbn, queries, pad_bucket
         )
-        red_raw = self._dyn_red_raw(plan, cpds, s, opts, kind)
+        red_raw = self._dyn_red_raw(plan, cpds, s, opts, kind, vbn._mesh)
         if red_raw is not None and red_raw.fits(inputs[0].shape[0]):
 
             def fn(params_tuple, draw, tensors):
@@ -240,7 +244,7 @@ class DynamicMaskMethod(Method):
                 return pmf / np.maximum(pmf.sum(axis=1, keepdims=True), 1e-30), spans
             return _moments_rows(sums), spans
 
-        inner = self._dynamic_fn(plan, cpds, s, opts)
+        inner = self._dynamic_fn(plan, cpds, s, opts, vbn._mesh)
         pdf, samples, *aux = self._run_dynamic(vbn, plan, inner, inputs)
         self._note_dynamic_aux(aux, slice(0, b_tot))
         w = torch.clamp(

@@ -61,7 +61,9 @@ class ImportanceSampling(DynamicMaskMethod):
             return False
         return bool(self._fallback_dev)
 
-    def _dynamic_fn(self, plan, cpds, s, opts):
+    def _dynamic_fn(self, plan, cpds, s, opts, mesh=None):
+        # IS runs whole on every rank under a mesh (``mesh`` unused; its
+        # sharded form is ROADMAP queue 1 item 15)
         threshold = max(1.0, self.ess_threshold * float(s))
         # column -> node: the fallback's per-row evidence-column mask
         node_of_col = np.zeros((plan.total_dim,), np.int64)

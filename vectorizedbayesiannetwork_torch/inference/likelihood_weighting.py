@@ -19,6 +19,7 @@ from ..core.plan import pack_fixed_values
 from ..core.registry import register_inference
 from ..ops.sweep import make_fused_sweep_fn
 from ..ops.sweep_scan import make_scan_sweep_fn, scan_sweep_reason
+from ..parallel.mesh import mesh_shape
 from ._base import Program
 from ._dynamic_base import DynamicMaskMethod
 from ._dynamic_sweep import dynamic_sweep_trace, dynamic_target_values
@@ -55,15 +56,15 @@ class LikelihoodWeighting(DynamicMaskMethod):
         return weights, ess
 
     @staticmethod
-    def _fused_raw_fn(plan, cpds, s, want=("logw",)):
+    def _fused_raw_fn(plan, cpds, s, want=("logw",), mesh=None):
         """``raw(params_tuple, seed, fixed) -> (logw, tgt, lpt, red)`` for a
         static plan: the unrolled kernel within its node budget, beyond it
         the scan kernel with the plan's masks tiled as runtime rows; None
-        when neither applies."""
-        raw = make_fused_sweep_fn(plan, cpds, s, want=want)
+        when neither applies. With ``mesh`` the kernel runs sharded."""
+        raw = make_fused_sweep_fn(plan, cpds, s, want=want, mesh=mesh)
         if raw is not None:
             return raw
-        scan_raw = make_scan_sweep_fn(plan, cpds, s, want=want)
+        scan_raw = make_scan_sweep_fn(plan, cpds, s, want=want, mesh=mesh)
         if scan_raw is None:
             return None
         ev = torch.tensor(plan.evidence_mask, dtype=torch.float32)
@@ -83,22 +84,25 @@ class LikelihoodWeighting(DynamicMaskMethod):
     def _dynamic_opts(self, kwargs):
         return (bool(kwargs.get("normalize", self.normalize)),)
 
-    def _dyn_red_raw(self, plan, cpds, s, opts, kind):
+    def _dyn_red_raw(self, plan, cpds, s, opts, kind, mesh=None):
         """LW's weights are a function of the evidence log-weights alone,
         so the scan kernel's ``pmf_logw`` / ``mom_logw`` reductions serve
         the pmf and moments rows directly (the normalized histogram of
         exp(logw - max) is the softmax-weighted one; the moments' shift
-        cancels). pmf needs the categorical kernel."""
-        if kind == "pmf" and scan_sweep_reason(plan, cpds, s) is not None:
+        cancels). pmf needs the categorical kernel at a shard's particle
+        count."""
+        npart = mesh_shape(mesh)[1]
+        if kind == "pmf" and \
+                scan_sweep_reason(plan, cpds, s // npart) is not None:
             return None
-        return self._fused_dyn_raw(plan, cpds, s, (f"{kind}_logw",))
+        return self._fused_dyn_raw(plan, cpds, s, (f"{kind}_logw",), mesh)
 
-    def _dynamic_fn(self, plan, cpds, s, opts):
+    def _dynamic_fn(self, plan, cpds, s, opts, mesh=None):
         """The mask-dynamic program body (single and row-fused paths): the
         scan kernel where its gates admit the plan, else the torch-op
         dynamic sweep."""
         (normalize,) = opts
-        raw = self._fused_dyn_raw(plan, cpds, s, ("logw", "tgt"))
+        raw = self._fused_dyn_raw(plan, cpds, s, ("logw", "tgt"), mesh)
 
         def fn(params_tuple, draw, tensors):
             fixed_vals, evm, dom, ti = tensors
@@ -131,7 +135,7 @@ class LikelihoodWeighting(DynamicMaskMethod):
         fixed = pack_fixed_values(query, plan, b, clamp_obs=True)
         cpds = self._cpds(vbn, plan)
         t = plan.target_idx
-        raw = self._fused_raw_fn(plan, cpds, s, want=("logw",))
+        raw = self._fused_raw_fn(plan, cpds, s, want=("logw",), mesh=vbn._mesh)
         if raw is not None:
             def fn(params_tuple, draw, fixed_vals):
                 log_w, tgt, _lpt, _red = raw(params_tuple, draw.seed, fixed_vals)

@@ -37,8 +37,8 @@ class MonteCarloMarginalization(DynamicMaskMethod):
         super().__init__(dynamic_masks)
         self.n_samples = int(n_samples)
 
-    def _dynamic_fn(self, plan, cpds, s, opts):
-        raw = self._fused_dyn_raw(plan, cpds, s, ("lpt", "tgt"))
+    def _dynamic_fn(self, plan, cpds, s, opts, mesh=None):
+        raw = self._fused_dyn_raw(plan, cpds, s, ("lpt", "tgt"), mesh)
 
         def fn(params_tuple, draw, tensors):
             fixed_vals, evm, dom, ti = tensors
@@ -123,7 +123,8 @@ class MonteCarloMarginalization(DynamicMaskMethod):
 
             return Program(plan, fn_direct, params, fixed, post)
 
-        raw = LikelihoodWeighting._fused_raw_fn(plan, cpds, s, want=("lpt",))
+        raw = LikelihoodWeighting._fused_raw_fn(plan, cpds, s, want=("lpt",),
+                                                mesh=vbn._mesh)
         if raw is not None:
             def fn(params_tuple, draw, fixed_vals):
                 _logw, tgt, lpt, _red = raw(params_tuple, draw.seed, fixed_vals)

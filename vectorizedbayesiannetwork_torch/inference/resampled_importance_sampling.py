@@ -17,8 +17,13 @@ two cumsums and ``vbn_spg``) where
 each resampling event draws from its own sub-stream,
 ``fold(draw, 10_000 + node)``.
 
-Not ported: the mesh branch (``distributed_resample_gather`` over a
-sharded particle axis) waits for ROADMAP queue 1 item 14.
+Under a mesh (``VBN.set_mesh``), when B splits over 'data' and S over
+'particle', each rank runs the loop on its block of rows and particles:
+its node draws come from ``fold(draw, di * n_particle + pi)``, the weights'
+softmax and ESS take the particle group's max and sums, and each
+resampling event is ``ops/resample_distributed.py``'s ring over the live
+columns (one ``vbn_cumsum`` and one ``vbn_spg`` a ring step on the card;
+multinomial one more cumsum). Every rank returns the whole result.
 """
 
 from __future__ import annotations
@@ -26,11 +31,16 @@ from __future__ import annotations
 from typing import List, Optional
 
 import torch
+import torch.distributed as dist
 
 from ..core.base import Query
 from ..core.plan import InferencePlan, pack_fixed_values
 from ..core.registry import register_inference
 from ..core.rng import fold
+from ..ops.resample_distributed import (
+    distributed_resample_gather,
+    distributed_resample_supported,
+)
 from ..ops.resample import (
     gather_particles,
     multinomial_resample_indices,
@@ -41,8 +51,35 @@ from ..ops.resample_merge import (
     srg_supported,
     systematic_resample_gather,
 )
+from ..parallel.mesh import (
+    DATA_AXIS,
+    PARTICLE_AXIS,
+    all_reduce,
+    block,
+    gather_blocks,
+    mesh_coords,
+    mesh_shape,
+)
 from ._base import Method, Program
 from ._sweep import _parents_flat
+
+
+def _softmax(log_w: torch.Tensor, mesh) -> torch.Tensor:
+    """Row softmax over all S particles, the particle axis sharded over
+    ``mesh`` when one is given."""
+    if mesh is None:
+        return torch.softmax(log_w, dim=1)
+    m = all_reduce(log_w.max(dim=1).values, mesh, PARTICLE_AXIS,
+                   dist.ReduceOp.MAX)
+    e = torch.exp(log_w - m[:, None])
+    return e / all_reduce(e.sum(dim=1), mesh, PARTICLE_AXIS)[:, None]
+
+
+def _ess(weights: torch.Tensor, mesh) -> torch.Tensor:
+    sq = torch.sum(weights * weights, dim=1)
+    if mesh is not None:
+        sq = all_reduce(sq, mesh, PARTICLE_AXIS)
+    return 1.0 / sq
 
 
 def live_after(plan: InferencePlan, idx: int) -> List[int]:
@@ -115,21 +152,33 @@ class ResampledImportanceSampling(Method):
             else float(ess_threshold)
         )
 
-        def resample_rows(weights, cat, need, gen):
-            """Resample ``cat`` [B, S, D] by ``weights`` on the rows where
-            ``need``; the other rows keep their particles."""
+        def resampled(weights, cat, sub, shard):
+            """``cat`` [B, S, D] resampled by ``weights``: over the particle
+            shards under a mesh, else the merge kernel where it takes the
+            shape, else the index form."""
+            if shard is not None:
+                return distributed_resample_gather(sub, weights, cat, shard,
+                                                   method=method)
+            gen = sub.generator
             if srg_supported(s, cat.shape[-1]):
-                res = fused(weights, cat, generator=gen)
-            else:
-                res = gather_particles(cat, indices(weights, generator=gen))
-            return torch.where(need[:, None, None], res, cat)
+                return fused(weights, cat, generator=gen)
+            return gather_particles(cat, indices(weights, generator=gen))
+
+        mesh = vbn._mesh
 
         def fn(params_tuple, draw, fixed_vals):
-            bb = fixed_vals.shape[0]
-            m = bb * s
+            # this rank's rows and particles under the mesh, else all
+            shard = mesh if distributed_resample_supported(
+                mesh, fixed_vals.shape[0], s) else None
+            (nd, npart), (di, pi) = mesh_shape(shard), mesh_coords(shard)
+            fixed_vals = block(fixed_vals, nd, di)
+            gen = draw.generator if shard is None else \
+                fold(draw, di * npart + pi).generator
+            bb, s_l = fixed_vals.shape[0], s // npart
+            m = bb * s_l
             dev = fixed_vals.device
             vals: List[Optional[torch.Tensor]] = [None] * plan.n_nodes
-            log_w = torch.zeros((bb, s), dtype=torch.float32, device=dev)
+            log_w = torch.zeros((bb, s_l), dtype=torch.float32, device=dev)
             any_resampled = torch.zeros((), dtype=torch.bool, device=dev)
             last_ess = torch.full((bb,), float(s), device=dev)
             for idx in range(plan.n_nodes):
@@ -137,30 +186,29 @@ class ResampledImportanceSampling(Method):
                 off = plan.node_offsets[idx]
                 pflat = _parents_flat(plan, vals, idx, m)
                 if not plan.is_fixed(idx):
-                    v = cpds[idx]._sample_flat(
-                        params_tuple[idx], draw.generator, pflat, m
-                    )
-                    vals[idx] = v.reshape(bb, s, d)
+                    v = cpds[idx]._sample_flat(params_tuple[idx], gen, pflat, m)
+                    vals[idx] = v.reshape(bb, s_l, d)
                     continue
-                vals[idx] = fixed_vals[:, None, off : off + d].expand(bb, s, d)
+                vals[idx] = fixed_vals[:, None, off : off + d].expand(bb, s_l, d)
                 if not plan.evidence_mask[idx]:
                     continue
                 lp = cpds[idx]._log_prob_flat(
                     params_tuple[idx], vals[idx].reshape(m, d), pflat
                 )
-                log_w = log_w + lp.reshape(bb, s)
+                log_w = log_w + lp.reshape(bb, s_l)
                 if not resample:
                     continue
-                weights = torch.softmax(log_w, dim=1)
-                last_ess = 1.0 / torch.sum(weights * weights, dim=1)
+                weights = _softmax(log_w, shard)
+                last_ess = _ess(weights, shard)
                 need = last_ess < threshold  # [B]
                 live = live_after(plan, idx)
                 if live:
-                    # one gather over the concatenated live columns
+                    # one gather over the concatenated live columns; the
+                    # rows that do not need it keep their particles
                     cat = torch.cat([vals[j] for j in live], dim=-1)
-                    cat = resample_rows(
-                        weights, cat, need, fold(draw, 10_000 + idx).generator
-                    )
+                    res = resampled(weights, cat, fold(draw, 10_000 + idx),
+                                    shard)
+                    cat = torch.where(need[:, None, None], res, cat)
                     o = 0
                     for j in live:
                         dj = plan.node_dims[j]
@@ -168,8 +216,14 @@ class ResampledImportanceSampling(Method):
                         o += dj
                 log_w = torch.where(need[:, None], 0.0, log_w)
                 any_resampled = any_resampled | need.any()
-            weights = torch.softmax(log_w, dim=1)
-            return weights, vals[t], last_ess, any_resampled
+            weights = _softmax(log_w, shard)
+            if shard is None:
+                return weights, vals[t], last_ess, any_resampled
+            any_resampled = all_reduce(any_resampled.to(torch.int32), shard,
+                                       DATA_AXIS, dist.ReduceOp.MAX) > 0
+            return (gather_blocks(weights, shard),
+                    gather_blocks(vals[t], shard),
+                    gather_blocks(last_ess, shard, dims=(0,)), any_resampled)
 
         def post(outs):
             weights, samples, ess, resampled = outs

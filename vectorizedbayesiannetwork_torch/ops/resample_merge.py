@@ -65,10 +65,10 @@ kernels. Randomness (``u0`` [B, 1] or the Exp(1) draws
 Not ported: the ``VBN_SRG_PREBUILD``/``VBN_SRG_TPI``/``VBN_SRG_ABLATE`` and
 ``VBN_RESAMPLE_PALLAS`` probes and switches, ``_tiles_per_instance`` and
 ``_srg_ablate`` (TPU schedule experiments and cost ablations; here the
-grid is sized from the card), the in-register layout builders
+grid is sized from the card), and the in-register layout helpers
 (``_hier_header``, ``_hier_vrows``, ``_build_block``) that the transposed
-layout needed, and the mesh resampler (``ops/resample_distributed.py``,
-ROADMAP queue 1 item 14).
+layout needed. The mesh resampler is ``ops/resample_distributed.py``; its
+ring picks each visiting window through ``sorted_gather``.
 """
 
 from __future__ import annotations

@@ -34,6 +34,11 @@ histogram (K = the target's classes) or the moments (sum w, sum w x,
 sum w x^2; K = 3) of ``w = exp(src - m)``, where ``m`` is the row's max of
 ``src`` (logw or lpt). The JAX kernels pad ``sums`` to 128 lanes; the port
 returns the K lanes that carry data.
+
+Under a ('data', 'particle') mesh (``make_fused_sweep_fn(mesh=)``) each
+rank launches the kernel on its block of rows and particles and the
+reductions combine over 'particle' (``_shard_sweep``, which serves the scan
+kernels of ``ops/sweep_scan.py`` too).
 """
 
 from __future__ import annotations
@@ -646,30 +651,97 @@ def lg_sweep_fused(
 
 
 # ---------------------------------------------------------------------------
+# Sharding over the ('data', 'particle') mesh
+# ---------------------------------------------------------------------------
+
+
+def _combine_particle_shards(sums, m, mesh):
+    """(sums, m) of every particle shard -> the rows' combined pair: the
+    shifted sums are linear in exp(-m), so scaling each shard's by
+    exp(m - max m) and summing is exact. A shard whose m is -inf (no
+    weight) adds zero, so a row with no weight on any shard sums to zeros
+    (no exp(-inf - -inf))."""
+    import torch.distributed as dist
+
+    from ..parallel.mesh import PARTICLE_AXIS, all_reduce
+
+    mg = all_reduce(m, mesh, PARTICLE_AXIS, dist.ReduceOp.MAX)
+    scale = torch.where(torch.isneginf(m), 0.0, torch.exp(m - mg))
+    return all_reduce(sums * scale[:, None], mesh, PARTICLE_AXIS), mg
+
+
+def _shard_sweep(mesh, n_samples, call, seed, rows, u_ext=None):
+    """``call(seed, *rows, u_ext, s)`` over the mesh, as the JAX package's
+    ``_shard_sweep`` (``sweep_pallas.py:720``) and the scan forms'
+    ``_shard_scan_sweep`` / ``_shard_lg_scan`` run it under ``shard_map``.
+
+    Each rank runs its block of the query rows (over 'data') at
+    ``s_loc = n_samples / n_particle`` particles with the seed folded by its
+    shard index ``di * n_particle + pi`` (``core.rng.fold``); ``u_ext`` is
+    then the rank's own uniform block (``[B_l, N or 2N, s_loc]``). The
+    reductions combine over 'particle'; every output is gathered, so each
+    rank returns the global ``[B, S]`` streams and ``[B, K]`` rows.
+
+    A batch the shard gates refuse (B % n_data, n_samples % n_particle, or
+    s_loc off the kernels' 1024 grid: the plan's gates passed at
+    ``n_samples``, and of their conditions only that one depends on S) is
+    served whole on every rank, exactly as with no mesh; ``u_ext`` is then
+    the global block."""
+    from ..parallel.mesh import block, gather_blocks, mesh_coords, mesh_shape
+    from ..core.rng import mix64
+
+    nd, npart = mesh_shape(mesh)
+    b = rows[0].shape[0]
+    if mesh is None or b % nd or n_samples % npart or \
+            (n_samples // npart) % 1024:
+        return call(seed, *rows, u_ext, n_samples)
+    di, pi = mesh_coords(mesh)
+    local = tuple(block(r, nd, di).contiguous() for r in rows)
+    logw, tgt, lpt, red = call(mix64(seed, di * npart + pi), *local, u_ext,
+                               n_samples // npart)
+    streams = [None if t is None else gather_blocks(t, mesh)
+               for t in (logw, tgt, lpt)]
+    if red is not None:
+        sums, m = _combine_particle_shards(*red, mesh)
+        red = (gather_blocks(sums, mesh, dims=(0,)),
+               gather_blocks(m, mesh, dims=(0,)))
+    return (*streams, red)
+
+
+# ---------------------------------------------------------------------------
 # Program-level builder shared by the LW / MCM static paths
 # ---------------------------------------------------------------------------
 
 
-def make_fused_sweep_fn(plan, cpds, n_samples: int, want=("logw", "lpt")):
-    """Return ``raw(params_tuple, seed, fixed) -> (logw, tgt, lpt, red)``
-    using the family-matched fused kernel, or None when unsupported.
-    ``fixed`` is the packed [B, total_dim] float32 evidence/do tensor
-    (total_dim == n_nodes under both gates). ``want`` drops unneeded
-    outputs; "pmf_*"/"mom_*" reduce the posterior in the kernel."""
+def make_fused_sweep_fn(plan, cpds, n_samples: int, want=("logw", "lpt"),
+                        mesh=None):
+    """Return ``raw(params_tuple, seed, fixed, u_ext=None) -> (logw, tgt,
+    lpt, red)`` using the family-matched fused kernel, or None when
+    unsupported. ``fixed`` is the packed [B, total_dim] float32 evidence/do
+    tensor (total_dim == n_nodes under both gates). ``want`` drops unneeded
+    outputs; "pmf_*"/"mom_*" reduce the posterior in the kernel.
+
+    With ``mesh`` the kernel runs sharded (``_shard_sweep``): rows over
+    'data', particles over 'particle'. The JAX function's ``batch=`` gate is
+    taken per call, from the rows the raw is given."""
     if categorical_sweep_reason(plan, cpds, n_samples) is None:
         plan_struct, total_rows, cmax = plan_tuple_for(plan, cpds)
         hi = [float(c.resolved_classes - 1) for c in cpds]
 
-        def raw_cat(params_tuple, seed, fixed_vals):
+        def raw_cat(params_tuple, seed, fixed_vals, u_ext=None):
             top = torch.tensor(hi, device=fixed_vals.device)
             fixed_i = torch.clamp(
                 torch.round(torch.nan_to_num(fixed_vals)), min=0.0
             )
             fixed_i = torch.minimum(fixed_i, top).to(torch.int32)
             counts = _stacked_counts(cpds, params_tuple, total_rows, cmax)
-            return categorical_sweep_fused(
-                seed, fixed_i, counts, plan_struct, n_samples, want=want
-            )
+
+            def call(sd, fx, u, s):
+                return categorical_sweep_fused(sd, fx, counts, plan_struct, s,
+                                               u_ext=u, want=want)
+
+            return _shard_sweep(mesh, n_samples, call, seed,
+                                (fixed_i,), u_ext)
 
         return raw_cat
 
@@ -681,12 +753,15 @@ def make_fused_sweep_fn(plan, cpds, n_samples: int, want=("logw", "lpt")):
         plan_struct, dmax = lg_plan_tuple_for(plan, cpds)
         min_scales = tuple(float(c.min_scale) for c in cpds)
 
-        def raw_lg(params_tuple, seed, fixed_vals):
+        def raw_lg(params_tuple, seed, fixed_vals, u_ext=None):
             ptab = lg_param_table(cpds, params_tuple, dmax, min_scales)
-            return lg_sweep_fused(
-                seed, fixed_vals.float().contiguous(), ptab, plan_struct,
-                dmax, n_samples, want=want,
-            )
+
+            def call(sd, fx, u, s):
+                return lg_sweep_fused(sd, fx, ptab, plan_struct, dmax, s,
+                                      u_ext=u, want=want)
+
+            return _shard_sweep(mesh, n_samples, call, seed,
+                                (fixed_vals.float().contiguous(),), u_ext)
 
         return raw_lg
     return None

@@ -28,14 +28,19 @@ static plan draws the same classes on both kernels; the LG scan one call
 per two nodes, counter (particle, row, node >> 1, 3), words 2 (node & 1)
 and 2 (node & 1) + 1 its Box-Muller pair.
 
+Under a ('data', 'particle') mesh (``make_scan_sweep_fn(mesh=)``) both
+kernels run sharded through ``ops/sweep.py::_shard_sweep``, the one
+function that stands for the JAX ``_shard_scan_sweep`` and
+``_shard_lg_scan`` (``sweep_scan_pallas.py:749, 1218``): query rows over
+'data', particles over 'particle', reductions combined over 'particle'.
+
 Not ported, by design:
 
-- ``_shard_scan_sweep`` / ``_shard_lg_scan``: mesh work, ROADMAP queue 1
-  item 14;
 - ``_run_chunked`` / ``_chunk_cap``: they split batches whose ``[N*B]``
   query prefetch would overflow the TPU's 1 MB of SMEM. A CUDA block reads
-  its own row from global memory, so on one card ``fits`` is always true
-  and no batch is split;
+  its own row from global memory, so ``fits`` is always true and no batch
+  is split (under a mesh too: a batch the shard gates refuse is served
+  whole on every rank);
 - ``_pick_tm`` and the ``VBN_SCAN_GATHER`` / ``VBN_SCAN_BRANCHLESS`` /
   ``VBN_SCAN_TM_CAP`` flags: TPU schedule probes. The behaviour held
   against is the default row walk.
@@ -69,6 +74,7 @@ from .sweep import (
     _ppt,
     _ptr,
     _reduce_plain,
+    _shard_sweep,
 )
 
 _MAX_C = 128  # classes per node (the pmf histogram's width in the JAX kernel)
@@ -846,27 +852,34 @@ def lg_rows(fixed_vals, ev_mask, do_mask):
     return fixed, flags
 
 
-def make_scan_sweep_fn(plan, cpds, n_samples: int, want=("logw",)):
+def make_scan_sweep_fn(plan, cpds, n_samples: int, want=("logw",),
+                       mesh=None):
     """Return ``raw(params_tuple, seed, fixed [B, N] f32, ev [B, N],
-    do [B, N], tgt [B]) -> (logw, tgt, lpt, red)`` on the family-matched
-    scan kernel, or None when neither gate admits the plan. ``raw.fits(b)``
-    is always true on one card (see the module note)."""
+    do [B, N], tgt [B], u_ext=None) -> (logw, tgt, lpt, red)`` on the
+    family-matched scan kernel, or None when neither gate admits the plan.
+    ``raw.fits(b)`` is always true (see the module note). With ``mesh`` the
+    kernel runs sharded (``ops/sweep.py::_shard_sweep``)."""
     if scan_sweep_reason(plan, cpds, n_samples) is not None:
-        return _make_lg_scan_fn(plan, cpds, n_samples, want)
+        return _make_lg_scan_fn(plan, cpds, n_samples, want, mesh)
     struct = scan_struct_for(plan, cpds)
 
-    def raw(params_tuple, seed, fixed_vals, ev_mask, do_mask, tgt_idx):
-        return categorical_sweep_scan(
-            seed, pack_rows(fixed_vals, ev_mask, do_mask, struct[2]),
-            tgt_idx.to(torch.int32).contiguous(),
-            _flat_counts(cpds, params_tuple), struct, n_samples, want=want,
-        )
+    def raw(params_tuple, seed, fixed_vals, ev_mask, do_mask, tgt_idx,
+            u_ext=None):
+        counts = _flat_counts(cpds, params_tuple)
+
+        def call(sd, packed, tgt, u, s):
+            return categorical_sweep_scan(sd, packed, tgt, counts, struct, s,
+                                          u_ext=u, want=want)
+
+        rows = (pack_rows(fixed_vals, ev_mask, do_mask, struct[2]),
+                tgt_idx.to(torch.int32).contiguous())
+        return _shard_sweep(mesh, n_samples, call, seed, rows, u_ext)
 
     raw.fits = _always_fits
     return raw
 
 
-def _make_lg_scan_fn(plan, cpds, n_samples, want):
+def _make_lg_scan_fn(plan, cpds, n_samples, want, mesh):
     if lg_scan_reason(plan, cpds, n_samples) is not None:
         return None
     if any(w.startswith("pmf_") for w in want):
@@ -875,13 +888,17 @@ def _make_lg_scan_fn(plan, cpds, n_samples, want):
         return None
     struct = lg_scan_struct_for(plan, cpds)
 
-    def raw(params_tuple, seed, fixed_vals, ev_mask, do_mask, tgt_idx):
-        fixed, flags = lg_rows(fixed_vals, ev_mask, do_mask)
-        return lg_sweep_scan(
-            seed, fixed, flags, tgt_idx.to(torch.int32).contiguous(),
-            lg_ptab_flat(cpds, params_tuple, struct[2]), struct, n_samples,
-            want=want,
-        )
+    def raw(params_tuple, seed, fixed_vals, ev_mask, do_mask, tgt_idx,
+            u_ext=None):
+        ptab = lg_ptab_flat(cpds, params_tuple, struct[2])
+
+        def call(sd, fixed, flags, tgt, u, s):
+            return lg_sweep_scan(sd, fixed, flags, tgt, ptab, struct, s,
+                                 u_ext=u, want=want)
+
+        rows = (*lg_rows(fixed_vals, ev_mask, do_mask),
+                tgt_idx.to(torch.int32).contiguous())
+        return _shard_sweep(mesh, n_samples, call, seed, rows, u_ext)
 
     raw.fits = _always_fits
     return raw

@@ -175,6 +175,7 @@ class VBN:
         self._sampling_config: Optional[Dict[str, Any]] = None
         self._update_config: Optional[Dict[str, Any]] = None
         self._last_summary_path: Optional[str] = None
+        self._mesh = None  # a ('data', 'particle') DeviceMesh (set_mesh)
         # {"net", "spec"} of the amortized posterior net ('amortized' fit)
         self.amortized: Optional[Dict[str, Any]] = None
         self.config = _load_configs()
@@ -555,6 +556,18 @@ class VBN:
         return Query(target=target, evidence=evidence, do=do)
 
     # ----------------- device management -----------------
+    def set_mesh(self, mesh) -> None:
+        """Attach a ('data', 'particle') mesh (``parallel.make_mesh``); None
+        returns to one device. Every rank of the mesh builds the same model
+        and makes the same calls (its random stream then advances in step
+        with the others'). The sweep kernels of LW and MCM run sharded,
+        rows over 'data' and particles over 'particle', and RIS resamples
+        over the particle shards (``ops/resample_distributed.py``); every
+        rank gets the whole result. Every other path runs whole on each
+        rank and gives the unmeshed answer (their sharded forms: ROADMAP
+        queue 1 item 15). The mesh is not saved."""
+        self._mesh = mesh
+
     def to_device(self, device) -> None:
         """Move the model to ``device``: the params, the amortized net, the
         random stream (its counter kept), and every tensor the CPDs, the
