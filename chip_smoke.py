@@ -277,9 +277,30 @@ Then the ('data', 'particle') mesh over ``torch.distributed``:
     S=2^16): the ranks' blocks concatenated and fed to one unmeshed launch
     give equal streams and combined reductions within 2e-4 (pmf) and 2e-3
     (moments). Per-rank and total queries/s are two ranks sharing one
-    card, no scaling figure.
+    card, no scaling figure. (m3) t3's stacked categorical form (the
+    2048-node plan, its first 8 queries, S=2^14, LW dynamic pmf) sharded
+    over 'particle' (``ops/sweep.py::shard_trace``): on the one-rank NCCL
+    mesh in this process, and on (1, 2) in each of m2's two ranks; meshed
+    and unmeshed in turns, the rows and streams bit for bit, a rank's peak
+    memory (under the unmeshed one's on (1, 2)) and queries/s of each;
+    its launches (``vbn_uniforms``) are the kernel line's ``launches`` of
+    row 13.
 
-Prints a JSON line of kernel results (all twelve kernels; rows 9, 10 and
+Then the row stream of the torch-op sweeps (before phase 26):
+
+27. ``vbn_uniforms`` against its plain version (int64 torch ops on the
+    card) at W1's [8, 2^20] and t3's [96, 2^14] rows: uniforms bit for
+    bit (one and four values a particle, a block off the origin), normals
+    within 2e-6 of |z| + 1; its ms beside the plain version's and
+    ``torch.rand``'s of the same numel. Then row-0 batch invariance on the
+    card at key counter 500, a batch of two against a batch of one, for W1
+    (KDE LW), (b) gauss8 ``gaussian_nn`` LW dynamic, t3's stacked form (8
+    queries), IS and RIS systematic on the diagnosis query: weights within
+    1e-6, samples bit for bit. Every torch-op phase above reads
+    ``vbn_uniforms`` among its launches (at least one).
+
+Prints a JSON line of kernel results (the twelve kernels and
+``vbn_uniforms``; rows 9, 10 and
 12 with their launches in (l2) and (r2) as ``launches_l2`` and
 ``launches_r2``, rows 1 and 2 with theirs in (t1) and (t2) as
 ``launches_t1`` and ``launches_t2``, rows 1-5 and 8 with theirs in (m1)
@@ -296,8 +317,8 @@ archive`` into a directory ``.gitignore`` lists) beside this one's, in
 turns in one process (``compare_builds``): ``vbn_srg`` (D=1 and 3) and
 ``vbn_spg`` at B=8, S=2^20 (device ms, the builds equal bit for bit; where
 the other build still launches ``vbn_cum_index`` before its merge, the two
-kernels' device ms summed, and each alone), and flagship RIS systematic and
-multinomial queries/s.
+kernels' device ms summed, and each alone), and the queries/s of flagship
+RIS systematic and multinomial, W1's KDE LW and flagship IS.
 """
 
 from __future__ import annotations
@@ -870,14 +891,22 @@ def reset_launches():
         sweep.LAUNCHES[k] = 0
 
 
+SOME = "some"  # read_launches: the kernel launched at least once
+
+
 def read_launches(expect):
     """The counters since the last reset; fails unless exactly the kernels
-    in ``expect`` ran, as many times as it says."""
+    in ``expect`` ran, as many times as it says (``SOME``: at least once;
+    the torch-op sweeps launch ``vbn_uniforms`` once a drawn node, a
+    count their routes decide)."""
     from vectorizedbayesiannetwork_torch.ops import sweep
 
     got = dict(sweep.LAUNCHES)
     want = {k: expect.get(k, 0) for k in got}
-    if got != want:
+    some = [k for k, v in want.items() if v == SOME]
+    if any(got[k] < 1 for k in some) or \
+            {k: v for k, v in got.items() if k not in some} != \
+            {k: v for k, v in want.items() if k not in some}:
         raise AssertionError(f"launches {got} != {want}")
     return got
 
@@ -1714,7 +1743,7 @@ def serve_ris(lg_vbn):
         torch.cuda.synchronize()
         merge = "srg" if method == "systematic" else "spg"
         launches = read_launches({"cumsum": 1 if merge == "srg" else 2,
-                                  merge: 1})
+                                  merge: 1, "uniforms": SOME})
         mem = torch.cuda.max_memory_allocated()
         resampled = lg_vbn._inference._last_resampled
         acc = diag_accuracy(lg_vbn, q, w, samples)
@@ -1743,7 +1772,7 @@ def serve_ris_asia(bn, asia_vbn):
                                   n_samples=S_RIS, ess_threshold=0.99)
     reset_launches()
     w, samples = asia_vbn.infer_posterior(q)
-    launches = read_launches({"cumsum": 2, "srg": 2})
+    launches = read_launches({"cumsum": 2, "srg": 2, "uniforms": SOME})
     fit = fitted_discrete_bn(bn, asia_vbn)
     err = 0.0
     x = samples[:, :, 0].long()
@@ -2381,11 +2410,12 @@ def serve_kde_main_path(vbn, total):
     v = w1["evidence"]["x0"][:, 0].astype(np.float64)
     cases = (
         ("W1 kde_flagship_lw", "likelihood_weighting", w1,
-         {"kde_root": 1, "kde_pick": 2}, ("w1", v)),
+         {"kde_root": 1, "kde_pick": 2, "uniforms": SOME}, ("w1", v)),
         ("W2 kde_flagship_diag", "likelihood_weighting", w2,
-         {"kde_pick": 2, "kde_cond": 1}, ("w2", v)),
+         {"kde_pick": 2, "kde_cond": 1, "uniforms": SOME}, ("w2", v)),
         ("MCM x2 | x0, x1", "monte_carlo_marginalization", mcm,
-         {"kde_pick": 1, "kde_cond": 1}, ("mcm", list(zip(v, v[::-1])))),
+         {"kde_pick": 1, "kde_cond": 1, "uniforms": SOME},
+         ("mcm", list(zip(v, v[::-1])))),
     )
     for tag, method, q, expect, (kind, ref_rows) in cases:
         vbn.set_inference_method(method, n_samples=S_KDE)
@@ -2452,7 +2482,7 @@ def serve_kde_dynamic(gbn, vbn, queries, qd, total):
 
     roots = sum(1 for n in gbn.nodes if not gbn.parents[n])
     expect = {"kde_pick": len(gbn.nodes), "kde_root": roots,
-              "kde_cond": len(gbn.nodes) - roots}
+              "kde_cond": len(gbn.nodes) - roots, "uniforms": SOME}
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     mom, spans = vbn.infer_posterior_moments(qd, pad_bucket=N_KDE_DYN)
@@ -2496,7 +2526,8 @@ def serve_kde_wide(vbn, total):
     try:
         reset_launches()
         rows, _ = vbn.infer_posterior_moments([q])
-        launches = read_launches({"kde_pick": 2, "kde_cond_wide": 1})
+        launches = read_launches({"kde_pick": 2, "kde_cond_wide": 1,
+                                  "uniforms": SOME})
     finally:
         kde_kernel.kde_cond_wide = launch
     x, p, data_x, data_p, lm, ys, ps = rec["args"]
@@ -2725,6 +2756,7 @@ def serve_kde(vbn_cls, defaults):
                     for k, c in flag.nodes.items()})
 
     launches = {}
+    KEPT["kde_flag"] = flag
     serve_kde_main_path(flag, launches)
     serve_kde_dynamic(gbn, gauss, queries, qd, launches)
     wide_args, wide_err = serve_kde_wide(wide, launches)
@@ -3126,10 +3158,10 @@ def neural_flagship(vbn_cls, defaults, fits):
     total = {}
     rows = {}
     for method, s, kw, expect in (
-            ("importance_sampling", S_NN_IS, {}, {}),
+            ("importance_sampling", S_NN_IS, {}, {"uniforms": SOME}),
             ("resampled_importance_sampling", S_NN_RIS,
              {"ess_threshold": 0.5, "resample_method": "systematic"},
-             {"cumsum": 1, "srg": 1})):
+             {"cumsum": 1, "srg": 1, "uniforms": SOME})):
         vbn.set_inference_method(method, n_samples=s, **kw)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -3203,7 +3235,7 @@ def neural_gauss8(vbn_cls, defaults, fits):
         torch.cuda.reset_peak_memory_stats()
         reset_launches()
         mom, spans = serve()
-        launches = read_launches({})
+        launches = read_launches({"uniforms": SOME})
         mem = torch.cuda.max_memory_allocated()
         if mom.shape != (N_DYN, 2) or not np.isfinite(mom).all():
             raise AssertionError(f"(b) {fam} moments rows bad")
@@ -3219,6 +3251,7 @@ def neural_gauss8(vbn_cls, defaults, fits):
             **profile_batch(serve, (), top=6))
         if fam != "gaussian_nn":
             continue
+        KEPT["b_gaussian_nn"] = (vbn, qd)
         launches_per_step(f"b gaussian_nn {child}", vbn.nodes[child],
                           np.stack([data[p] for p in gbn.parents[child]], 1),
                           data[child], DYN_FIT)
@@ -3261,7 +3294,7 @@ def pmf_against_exact(tag, vbn, q, k):
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     pmf, _ = serve()
-    launches = read_launches({})
+    launches = read_launches({"uniforms": SOME})
     mem = torch.cuda.max_memory_allocated()
     path = vbn._last_summary_path
     qps, windows = dynamic_qps(serve, B_NN)
@@ -3457,7 +3490,7 @@ def sampling_s1(sm):
     sm.sample(q, n_samples=1 << 10)
     reset_launches()
     draws, secs, mem = timed(lambda: sm.sample(q, n_samples=S1_DRAWS))
-    launches = read_launches({})
+    launches = read_launches({"uniforms": SOME})
     sm.set_inference_method("categorical_exact")
     ex, _ = sm.infer_posterior_pmf([q], n_classes=8)
     probs = ex[0].astype(np.float64) / ex[0].sum()
@@ -3482,7 +3515,8 @@ def sampling_s2(flag, ref_w2, total):
     flag.set_sampling_method("gibbs")
     flag.sample(w2, **dict(S2, n_samples=64, burn_in=2))
     steps = S2["burn_in"] + -(-S2["n_samples"] // S2["n_chains"])
-    expect = {"kde_pick": 2 + 2 * steps, "kde_cond": 2 * steps}
+    expect = {"kde_pick": 2 + 2 * steps, "kde_cond": 2 * steps,
+              "uniforms": SOME}
     reset_launches()
     draws, secs, mem = timed(lambda: flag.sample(w2, **S2))
     launches = read_launches(expect)
@@ -3524,7 +3558,7 @@ def sampling_s3(vbn_cls, defaults):
             vbn.sample(q, n_samples=8, burn_in=2)
             reset_launches()
             draws, secs, mem = timed(run)
-        launches = read_launches({})
+        launches = read_launches({"uniforms": SOME})
         if vbn._sampling._last_hoisted != (route == "hoisted"):
             raise AssertionError(f"(s3) took the wrong noise route: {route}")
         d = draws[..., 0].cpu().numpy().astype(np.float64)
@@ -3562,7 +3596,7 @@ def sampling_s4(vbn_cls, defaults, flag, ref_w2, total):
         lg.sample(q, **dict(kw, n_samples=16, burn_in=2))
         reset_launches()
         draws, secs, mem = timed(lambda: lg.sample(q, **kw))
-        launches = read_launches({})
+        launches = read_launches({"uniforms": SOME})
         transitions = kw["burn_in"] + -(-kw["n_samples"] // kw["n_chains"])
         leapfrogs = lg._sampling._leapfrogs
         d = draws[..., 0].cpu().numpy().astype(np.float64)
@@ -3594,7 +3628,7 @@ def sampling_s4(vbn_cls, defaults, flag, ref_w2, total):
         # conditional; the init sweep picks x0 and x1
         evals = transitions + flag._sampling._leapfrogs
         launches = read_launches({"kde_pick": 2, "kde_root": 2 * evals,
-                                  "kde_cond": evals})
+                                  "kde_cond": evals, "uniforms": SOME})
         add_launches(total, launches)
         d = draws[..., 0].cpu().numpy().astype(np.float64)
         acc = hold_moments(f"(s4) {name} over KDE", d, ref_w2,
@@ -4026,9 +4060,10 @@ def kde_launches(tag, got):
     query, each sweep two picks and one conditional density: any other
     kernel, or another ratio, fails."""
     other = {k: v for k, v in got.items()
-             if v and k not in ("kde_pick", "kde_cond")}
+             if v and k not in ("kde_pick", "kde_cond", "uniforms")}
     sweeps = got.get("kde_cond", 0)
-    if other or sweeps < 1 or got.get("kde_pick", 0) != 2 * sweeps:
+    if other or sweeps < 1 or got.get("kde_pick", 0) != 2 * sweeps \
+            or got.get("uniforms", 0) < 1:
         raise AssertionError(f"{tag}: launches {got}")
     return got
 
@@ -4044,7 +4079,7 @@ def slice13_lbp(lg_vbn, kde_flag, ref_w2):
     reset_launches()
     w, samples = lg_vbn.infer_posterior(q)
     torch.cuda.synchronize()
-    launches = read_launches({})
+    launches = read_launches({"uniforms": SOME})
     lbp = lg_vbn._inference
     acc = diag_accuracy(lg_vbn, q, w, samples)
     qps, windows, serve = method_qps(lg_vbn, q, B_RIS)
@@ -4093,7 +4128,7 @@ def slice13_rbm(bn, asia_vbn, lg_vbn, kde_flag):
     reset_launches()
     pdf, grid = lg_vbn.infer_posterior(q)
     torch.cuda.synchronize()
-    launches = read_launches({})
+    launches = read_launches({})  # every parent observed: nothing drawn
     rbm = lg_vbn._inference
     # every parent observed: one mixture component, whose (mean, std) the
     # grid mean +- stddevs * std carries
@@ -4123,7 +4158,8 @@ def slice13_rbm(bn, asia_vbn, lg_vbn, kde_flag):
     reset_launches()
     w, samples = kde_flag.infer_posterior(w1)
     torch.cuda.synchronize()
-    r2 = read_launches({"kde_root": 1, "kde_pick": 2})
+    r2 = read_launches({"kde_root": 1, "kde_pick": 2,
+                         "uniforms": SOME})
     rbm = kde_flag._inference
     st = kde_flag._posterior_stats(w, samples)
     served = torch.stack([st["mean"][:, 0], st["std"][:, 0]], 1)
@@ -4148,7 +4184,7 @@ def slice13_rbm(bn, asia_vbn, lg_vbn, kde_flag):
     reset_launches()
     pmf, _ = asia_vbn.infer_posterior(qa)
     torch.cuda.synchronize()
-    launches = read_launches({})
+    launches = read_launches({"uniforms": SOME})
     qps, windows, serve = method_qps(asia_vbn, qa, B_MAIN)
     log("serve_profile", workload="r3 RBM asia",
         **profile_batch(serve, (), top=4))
@@ -4225,7 +4261,7 @@ def slice13_a1(vbn_cls, defaults):
     reset_launches()
     served_mean(vbn, q)
     torch.cuda.synchronize()
-    launches = read_launches({})
+    launches = read_launches({"uniforms": SOME})
     qps, windows, serve = method_qps(vbn, q, B_AM)
     log("serve_profile", workload="a1 amortized LG flagship",
         **profile_batch(serve, (), top=4))
@@ -4296,6 +4332,7 @@ def serve_slice13(vbn_cls, defaults, bn, asia_vbn, lg_vbn):
 
 N_STACKED = 2048  # nodes of the (t3) plans: past the scan kernels' 1500
 S_STACKED = 1 << 14
+KEPT = {}  # models phase 27 serves again, kept by the phases that fit them
 
 
 def slice14_t1(vbn_cls, defaults, bn):
@@ -4382,7 +4419,10 @@ def slice14_t2(lg_vbn):
     x = np.concatenate([ql["evidence"]["x0"], ql["evidence"]["x1"]], axis=1)
     delta_cf = (x - mu[None]) @ w  # (w.x + b) - (w.mu + b)
     out = {}
-    for dynamic, expect in ((False, {"lg": 1}), (True, {"lg_scan": 1})):
+    # static: the query's MCM draws its target directly (one vbn_uniforms
+    # launch), the reference's sweep is the kernel's
+    for dynamic, expect in ((False, {"lg": 1, "uniforms": 1}),
+                            (True, {"lg_scan": 1})):
         lg_vbn.set_inference_method("monte_carlo_marginalization",
                                     n_samples=S_MAIN, dynamic_masks=dynamic)
         reset_launches()
@@ -4448,7 +4488,7 @@ def stacked_route(tag, vbn, serve, mode, timed):
             times.append(time.perf_counter() - t0)
         routes = dict(_sweep.ROUTES)
         ess = vbn._inference._last_ess.double().cpu().numpy()
-        read_launches({})
+        read_launches({"uniforms": SOME})
         mem = torch.cuda.max_memory_allocated()
         prof_n = 8 if mode == "never" else N_DYN
         prof = profile_batch(lambda: serve(prof_n), kernels=(), top=4)
@@ -4506,6 +4546,7 @@ def slice14_t3(vbn_cls, defaults):
             raise AssertionError(f"{tag} scan gate: {why!r}")
 
     lq = [as_query(t, ev) for t, ev in link_qs]
+    KEPT["t3_cat"] = (cat, lq, link_qs)
     t0 = time.perf_counter()
     fit = fitted_discrete_bn(bn, cat, floor=1e-12)
     order = min_fill_order(fit)
@@ -4584,6 +4625,224 @@ def serve_slice14(vbn_cls, defaults, bn, lg_vbn):
     slice14_t3(vbn_cls, defaults)
     log("slice14_done", seconds=time.perf_counter() - t0, launches=out)
     return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 27: the row stream (vbn_uniforms) and row-0 batch invariance; its
+# mesh part (m3) runs inside phase 26
+# ---------------------------------------------------------------------------
+
+B_M3 = 8  # (m3) and the invariance case: t3's queries cut to 8 rows
+STREAM_SEED = 0x5EED5EED12345678
+
+
+def uniforms_cost(m, k):
+    """(operations, bytes) of ``vbn_uniforms`` writing [m, k] uniforms: per
+    particle ceil(k / 4) Philox-4x32-10 calls (100 operations a call: 10
+    rounds of 2 mul.lo, 2 mul.hi, 4 xor, 2 key adds; each particle has its
+    own counter, so its first word costs a whole call), per value the
+    uniform (3) and the clamp (1); bytes: the output written once."""
+    return m * (100 * -(-k // 4) + 4 * k), 4 * m * k
+
+
+def check_uniforms(dev):
+    """``vbn_uniforms`` against its plain version (``core/rng.py``, int64
+    torch ops on the card) at W1's [8, 2^20] and t3's [96, 2^14] rows:
+    uniforms bit for bit (k = 1 and 4, a block off the origin), normals
+    within 2e-6 of |z| + 1; ms of the kernel, the plain version and
+    ``torch.rand`` of the same numel (CUDA events). Returns the kernel
+    line's row (``launches`` filled by phase 26's (m3))."""
+    import torch
+
+    from vectorizedbayesiannetwork_torch.core.rng import stream_values as plain
+    from vectorizedbayesiannetwork_torch.ops import rng
+
+    t0 = time.perf_counter()
+    err, shapes = 0.0, {}
+    for tag, (b, s) in (("w1", (B_KDE, S_KDE)), ("t3", (N_DYN, S_STACKED))):
+        for k, at, r0, p0 in ((1, 0, 0, 0), (4, 2, 3, 1 << 12)):
+            got = rng.stream_values(STREAM_SEED, b, s, 5, k, at=at, row0=r0,
+                                    particle0=p0, device=dev)
+            want = plain(STREAM_SEED, b, s, 5, k, at=at, row0=r0,
+                         particle0=p0, device=dev)
+            if not torch.equal(got, want):
+                raise AssertionError(f"vbn_uniforms {tag} k={k}: "
+                                     f"{int((got != want).sum())} values differ")
+            del got, want
+        z = rng.stream_values(STREAM_SEED, b, s, 6, 1, normal=True, device=dev)
+        zp = plain(STREAM_SEED, b, s, 6, 1, normal=True, device=dev)
+        e = float(((z - zp).abs() / (zp.abs() + 1.0)).max())
+        err = max(err, float((z - zp).abs().max()))
+        del z, zp
+        if e > 2e-6:
+            raise AssertionError(f"vbn_uniforms normals {tag}: {e} > 2e-6")
+        m = b * s
+        shapes[tag] = {
+            "rows": [b, s],
+            "ms": cuda_ms(lambda: rng.stream_values(STREAM_SEED, b, s, 5, 1,
+                                                    device=dev), 5),
+            "normal_ms": cuda_ms(lambda: rng.stream_values(
+                STREAM_SEED, b, s, 5, 1, normal=True, device=dev), 5),
+            "plain_ms": cuda_ms(lambda: plain(STREAM_SEED, b, s, 5, 1,
+                                              device=dev), 1),
+            "torch_rand_ms": cuda_ms(lambda: torch.rand((m, 1), device=dev), 5),
+            "bound_ms": bound(uniforms_cost(m, 1))[0],
+        }
+    log("uniforms_kernel_check", normals_max_abs_err=err, shapes=shapes,
+        seconds=time.perf_counter() - t0)
+    w1 = shapes["w1"]
+    row = kernel_row(
+        "vbn_uniforms", "none: the JAX package draws in XLA "
+        "(vectorizedbayesiannetwork_tpu/inference/_sweep.py:188)", 0, err,
+        w1["ms"], w1["plain_ms"], uniforms_cost(B_KDE * S_KDE, 1),
+        source="vectorizedbayesiannetwork_torch/csrc/rng.cu")
+    row.update(torch_rand_ms=w1["torch_rand_ms"], normal_ms=w1["normal_ms"],
+               t3_shape=shapes["t3"])
+    return row
+
+
+def row0_case(tag, vbn, serve):
+    """Row 0 of a batch of two against a batch of one at key counter 500:
+    ``serve(b)`` -> (weights [b, ...], samples [b, ...]). Weights within
+    1e-6, samples bit for bit."""
+    import torch
+
+    outs = []
+    for b in (2, 1):
+        vbn._keys.set_state(500)
+        w, s = serve(b)
+        outs.append((torch.as_tensor(w).float().cpu(),
+                     torch.as_tensor(s).float().cpu()))
+    (wb, sb), (ws, ss) = outs
+    dw = float((wb[0] - ws[0]).abs().max())
+    ds = int((sb[0] != ss[0]).sum())
+    apart = not torch.equal(sb[0], sb[1])
+    log("row0_invariance", workload=tag, weights_max_abs_diff=dw,
+        samples_differing=ds, rows_draw_apart=apart)
+    if dw > 1e-6 or ds or not apart:
+        raise AssertionError(f"{tag}: row 0 of B=2 != B=1 (weights {dw}, "
+                             f"{ds} samples, rows apart {apart})")
+    return {"weights_max_abs_diff": dw, "samples_differing": ds}
+
+
+def many_rows(outs):
+    """``infer_posterior_many``'s per-query (weights, samples) as one batch
+    of rows (every target one-dimensional)."""
+    import torch
+
+    return (torch.cat([torch.as_tensor(w) for w, _ in outs]),
+            torch.cat([torch.as_tensor(s) for _, s in outs]))
+
+
+def row0_invariance(lg_vbn):
+    """Row-0 batch invariance on the card for W1 (KDE LW), (b) gaussian_nn
+    LW dynamic, t3's stacked categorical form (8 queries of the 2048-node
+    plan), IS and RIS on the diagnosis query. Returns each case's diffs."""
+    import os
+
+    t0 = time.perf_counter()
+    out = {}
+    flag = KEPT["kde_flag"]
+    w1, _w2, _ = kde_flagship_queries()
+    flag.set_inference_method("likelihood_weighting", n_samples=S_KDE)
+
+    def rows_of(q, b):
+        return {**q, "evidence": {k: v[:b] for k, v in q["evidence"].items()}}
+
+    out["W1"] = row0_case("W1 kde_flagship_lw", flag,
+                          lambda b: flag.infer_posterior(rows_of(w1, b)))
+    nn, qd = KEPT["b_gaussian_nn"]
+    nn.set_inference_method("likelihood_weighting", n_samples=S_NN_DYN,
+                            dynamic_masks=True)
+    out["b"] = row0_case("(b) gauss8 gaussian_nn LW dynamic", nn,
+                         lambda b: many_rows(nn.infer_posterior_many(qd[:b])))
+    cat, lq, _ = KEPT["t3_cat"]
+    cat.set_inference_method("likelihood_weighting", n_samples=S_STACKED,
+                             dynamic_masks=True)
+    os.environ["VBN_DISCRETE_SCAN"] = "always"
+    try:
+        out["t3"] = row0_case("t3 stacked categorical (8 queries)", cat,
+                              lambda b: many_rows(
+                                  cat.infer_posterior_many(lq[:b])))
+    finally:
+        os.environ.pop("VBN_DISCRETE_SCAN", None)
+    q = flagship_diag_query()
+    for tag, method, kw in (
+            ("IS", "importance_sampling", {}),
+            ("RIS", "resampled_importance_sampling",
+             {"ess_threshold": 0.99, "resample_method": "systematic"})):
+        lg_vbn.set_inference_method(method, n_samples=S_RIS, **kw)
+        out[tag] = row0_case(f"{tag} flagship diagnosis", lg_vbn,
+                             lambda b: lg_vbn.infer_posterior(rows_of(q, b)))
+    lg_vbn.set_inference_method("monte_carlo_marginalization", n_samples=S_MAIN)
+    log("row0_invariance_done", seconds=time.perf_counter() - t0)
+    return out
+
+
+def m3_serve(mesh, cat, lq):
+    """(m3) t3's stacked categorical form (the 2048-node plan, its first
+    B_M3 queries, S=2^14, LW dynamic pmf) on this rank under ``mesh`` and
+    unmeshed, in turns (unmeshed, meshed, meshed, unmeshed): the rows and
+    streams bit for bit, peak memory of each, queries/s of each batch, and
+    the launches of the first meshed batch. Returns the report."""
+    import os
+
+    import torch
+
+    from vectorizedbayesiannetwork_torch.ops import sweep
+
+    qs = lq[:B_M3]
+    cat.set_inference_method("likelihood_weighting", n_samples=S_STACKED,
+                             dynamic_masks=True)
+    os.environ["VBN_DISCRETE_SCAN"] = "always"
+    rep = {"qps": {"unmeshed": [], "meshed": []},
+           "max_memory_allocated_bytes": {}}
+    try:
+        rows, streams = {}, {}
+        for i, m in enumerate((None, mesh, mesh, None)):
+            tag = "meshed" if m is not None else "unmeshed"
+            cat.set_mesh(m)
+            cat._keys.set_state(900)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches()
+            sweep.TRACES.update(sharded=0, whole=0)
+            t0 = time.perf_counter()
+            pmf, _ = cat.infer_posterior_pmf(qs, n_classes=4, pad_bucket=B_M3)
+            rep["qps"][tag].append(B_M3 / (time.perf_counter() - t0))
+            rep["max_memory_allocated_bytes"].setdefault(tag, []).append(
+                torch.cuda.max_memory_allocated())
+            if i == 1:
+                rep["launches"] = read_launches({"uniforms": SOME})
+                rep["traces"] = dict(sweep.TRACES)
+            rows.setdefault(tag, pmf)
+            if i < 2:
+                cat._keys.set_state(901)
+                w, s = cat.infer_posterior_many(qs)[0]
+                streams[tag] = (w.cpu().numpy(), s.cpu().numpy())
+        rep["rows_equal"] = bool(np.array_equal(rows["meshed"],
+                                                rows["unmeshed"]))
+        rep["streams_equal"] = all(
+            np.array_equal(a, b) for a, b in zip(streams["meshed"],
+                                                 streams["unmeshed"]))
+    finally:
+        os.environ.pop("VBN_DISCRETE_SCAN", None)
+        cat.set_mesh(None)
+    return rep
+
+
+def check_m3(tag, rep, n_particle):
+    """(m3)'s limits: rows and streams equal, the sweep sharded over a
+    mesh of more than one rank, and a rank's peak memory under the
+    unmeshed one's."""
+    log("mesh_m3", mesh=tag, **rep)
+    if not (rep["rows_equal"] and rep["streams_equal"]):
+        raise AssertionError(f"m3 {tag}: meshed != unmeshed")
+    if n_particle > 1 and rep["traces"]["sharded"] < 1:
+        raise AssertionError(f"m3 {tag}: the sweep did not run sharded")
+    mem = rep["max_memory_allocated_bytes"]
+    if n_particle > 1 and max(mem["meshed"]) >= min(mem["unmeshed"]):
+        raise AssertionError(f"m3 {tag}: meshed peak memory {mem}")
 
 
 # ---------------------------------------------------------------------------
@@ -4806,7 +5065,8 @@ def m2_serve(mesh, models, link_qs, gauss_qs, net0):
                                 n_samples=S_RIS, ess_threshold=0.99,
                                 resample_method=method)
         # one resampling event (x2): the cumsums, and a vbn_spg a ring step
-        w, samples = served(f"ris_{method}", {"cumsum": cumsums, "spg": npart},
+        w, samples = served(f"ris_{method}", {"cumsum": cumsums, "spg": npart,
+                                              "uniforms": SOME},
                             lambda: lg.infer_posterior(q))
         rep[f"ris_{method}"] = dict(
             diag_accuracy(lg, q, w, samples),
@@ -4889,6 +5149,11 @@ def m2_rank(rank, world, tmp):
             arrays.update({f"{tag}:{k}": v.detach().cpu().numpy()
                            if isinstance(v, torch.Tensor) else np.asarray(v)
                            for k, v in arr.items()})
+        # (m3) t3's stacked form sharded over 'particle' on (1, 2)
+        cat = VBN.load(str(tmp / "t3"), map_location=dev)
+        m3 = m3_serve(make_mesh(1, 2, device_type=dev.type), cat,
+                      [as_query(t, ev) for t, ev in meta["t3"]])
+        report["m3"] = m3
         (tmp / f"m2_{rank}.json").write_text(json.dumps(report))
         np.savez(tmp / f"m2_{rank}.npz", **arrays)
     finally:
@@ -4941,12 +5206,14 @@ def mesh_m2(bn, asia_vbn, lg_vbn, link, gauss, mesh1):
     ref_net = _flatten_params(ref_net)
     tmp = Path(tempfile.mkdtemp(dir=_build.BUILD_DIR.parent))
     try:
+        cat, _lq, t3_qs = KEPT["t3_cat"]
         for tag, v in (("asia", asia_vbn), ("flagship", lg_vbn),
-                       ("link", link_vbn), ("gauss", gauss_vbn)):
+                       ("link", link_vbn), ("gauss", gauss_vbn), ("t3", cat)):
             v.save(str(tmp / tag))
         np.savez(tmp / "net0.npz", **_flatten_params(net0))
         (tmp / "queries.json").write_text(json.dumps(
-            {"link": link_qs, "gauss": gauss_qs, "device": str(dev)}))
+            {"link": link_qs, "gauss": gauss_qs, "device": str(dev),
+             "t3": t3_qs[:B_M3]}))
         run_ranks(m2_rank, 2, tmp, M2_TIMEOUT_S)
         reports = [json.loads((tmp / f"m2_{r}.json").read_text())
                    for r in range(2)]
@@ -5007,6 +5274,10 @@ def mesh_m2(bn, asia_vbn, lg_vbn, link, gauss, mesh1):
             for got in rep[tag]["launches"].values():
                 for k, v in got.items():
                     total[k] = total.get(k, 0) + v
+    for r, rep in enumerate(reports):
+        check_m3(f"1x2 gloo rank {r}", rep["m3"], 2)
+        for k, v in rep["m3"]["launches"].items():
+            total[k] = total.get(k, 0) + v
     log("mesh_m2_done", seconds=time.perf_counter() - t0, launches=total)
     return total
 
@@ -5018,11 +5289,14 @@ def serve_mesh(bn, asia_vbn, lg_vbn, phase4, link, gauss):
     t0 = time.perf_counter()
     mesh1, m1 = mesh_m1(bn, asia_vbn, lg_vbn, phase4)
     try:
+        cat, lq, _ = KEPT["t3_cat"]
+        m3 = m3_serve(mesh1, cat, lq)
+        check_m3("1x1 nccl", m3, 1)
         m2 = mesh_m2(bn, asia_vbn, lg_vbn, link, gauss, mesh1)
     finally:
         dist.destroy_process_group()
     log("mesh_done", seconds=time.perf_counter() - t0)
-    return {"m1": m1, "m2": m2}
+    return {"m1": m1, "m3": m3["launches"], "m2": m2}
 
 
 def load_parent(root):
@@ -5052,9 +5326,12 @@ def compare_builds(root):
     at RIS's B = 8, S = 2^20 on quantized weights, each build's output held
     bit for bit against the other's, and the pointer routine's, device ms
     (``device_ms``; a build that still launches ``vbn_cum_index`` before
-    its merge is timed over both launches, each kernel's share logged); then
-    flagship RIS systematic and multinomial queries/s served by each
-    package end to end (moments held within 0.05 sd of the other build's)."""
+    its merge is timed over both launches, each kernel's share logged).
+    First, queries/s served by each package end to end (moments held
+    within 0.05 sd of the other build's): flagship RIS systematic and
+    multinomial, and two torch-op sweeps whose draws another build may take
+    elsewhere (W1's KDE LW and flagship IS). Run alone after a build:
+    ``python3 -c "import chip_smoke as c; c.compare_builds('DIR')"``."""
     import inspect
 
     import torch
@@ -5072,6 +5349,47 @@ def compare_builds(root):
         got = [other(), this(), this(), other()]
         log("compare_builds", metric=metric, parent=[got[0], got[3]],
             this=[got[1], got[2]])
+
+    # end to end: flagship RIS, systematic and multinomial, on each package
+    qr = flagship_diag_query()
+    serve, rows = {}, {}
+    for tag, mod in (("parent", par), ("this", None)):
+        vbn_cls = mod.VBN if mod else VBN
+        dfl = mod.defaults if mod else defaults
+        rows[tag], serve[tag] = {}, {}
+        for method in ("systematic", "multinomial"):
+            ris = fit_flagship(vbn_cls, dfl)
+            ris.set_inference_method("resampled_importance_sampling",
+                                     n_samples=S_RIS, resample_method=method)
+            w, smp = ris.infer_posterior(qr)
+            stats = ris._posterior_stats(w, smp.float())
+            rows[tag][f"flagship_ris_{method}"] = np.stack(
+                [stats[k].cpu().numpy()[:, 0] for k in ("mean", "std")], 1)
+            serve[tag][f"flagship_ris_{method}"] = (
+                lambda ris=ris: method_qps(ris, qr, B_RIS)[0])
+        w1 = kde_flagship_queries()[0]
+        kde = fit_kde(vbn_cls, dfl, [("x0", "x2"), ("x1", "x2")],
+                      flagship_data())
+        kde.set_inference_method("likelihood_weighting", n_samples=S_KDE)
+        rows[tag]["w1_kde_flagship_lw"] = kde.infer_posterior_moments([w1])[0]
+        serve[tag]["w1_kde_flagship_lw"] = lambda kde=kde, w1=w1: dynamic_qps(
+            lambda: kde.infer_posterior_moments([w1]), B_KDE)[0]
+        is_ = fit_flagship(vbn_cls, dfl)
+        is_.set_inference_method("importance_sampling", n_samples=S_RIS)
+        w, smp = is_.infer_posterior(qr)
+        stats = is_._posterior_stats(w, smp.float())
+        rows[tag]["flagship_is"] = np.stack([stats[k].cpu().numpy()[:, 0]
+                                             for k in ("mean", "std")], 1)
+        serve[tag]["flagship_is"] = lambda is_=is_: method_qps(is_, qr,
+                                                               B_RIS)[0]
+    for name in rows["this"]:
+        a, b = rows["parent"][name], rows["this"][name]
+        gap = float(np.abs(a - b).max() / np.abs(b[:, 1]).min())
+        log("compare_builds", workload=name, moments_gap_over_std=gap)
+        if gap > 0.05:
+            raise AssertionError(f"{name}: builds' moments differ by {gap} sd")
+    for metric in serve["this"]:
+        turns(f"{metric}_qps", serve["parent"][metric], serve["this"][metric])
 
     # the merge kernel at RIS's shape: systematic (D = 1, 3) and sorted
     dev = torch.device("cuda")
@@ -5114,33 +5432,6 @@ def compare_builds(root):
               lambda: device_ms(lambda: call(rm), RIS_REPS, ("merge_kernel",)))
         log("compare_builds", metric=f"{name}_parent_device_ms_by_kernel",
             parent_last_turn=split)
-
-    # end to end: flagship RIS, systematic and multinomial, on each package
-    qr = flagship_diag_query()
-    serve, rows = {}, {}
-    for tag, mod in (("parent", par), ("this", None)):
-        vbn_cls = mod.VBN if mod else VBN
-        dfl = mod.defaults if mod else defaults
-        rows[tag], serve[tag] = {}, {}
-        for method in ("systematic", "multinomial"):
-            ris = fit_flagship(vbn_cls, dfl)
-            ris.set_inference_method("resampled_importance_sampling",
-                                     n_samples=S_RIS, resample_method=method)
-            w, smp = ris.infer_posterior(qr)
-            stats = ris._posterior_stats(w, smp.float())
-            rows[tag][method] = np.stack([stats[k].cpu().numpy()[:, 0]
-                                          for k in ("mean", "std")], 1)
-            serve[tag][f"flagship_ris_{method}"] = (
-                lambda ris=ris: method_qps(ris, qr, B_RIS)[0])
-    for name in rows["this"]:
-        a, b = rows["parent"][name], rows["this"][name]
-        gap = float(np.abs(a - b).max() / np.abs(b[:, 1]).min())
-        log("compare_builds", workload=f"flagship_ris_{name}",
-            moments_gap_over_std=gap)
-        if gap > 0.05:
-            raise AssertionError(f"{name}: builds' moments differ by {gap} sd")
-    for metric in serve["this"]:
-        turns(f"{metric}_qps", serve["parent"][metric], serve["this"][metric])
 
 
 def kernel_name(mangled):
@@ -5293,19 +5584,26 @@ def main(argv) -> int:
     # would be a phase that the 64-node routing moved
     log("sweep_routes_phases_1_24", routes=dict(_sweep.ROUTES))
     slice14 = serve_slice14(VBN, defaults, bn, lg_vbn)
+    uniforms = check_uniforms(torch.device("cuda"))
+    row0_invariance(lg_vbn)
     mesh = serve_mesh(bn, asia_vbn, lg_vbn, phase4, link, gauss)
+    # (m3) is this slice's main path: t3's stacked form on the one-rank mesh
+    uniforms["launches"] = mesh["m3"]["uniforms"]
+    uniforms["launches_m2"] = mesh["m2"].get("uniforms", 0)
+    kernels.append(uniforms)
     for row in kernels:
         key = {"vbn_cumsum": "cumsum", "vbn_srg": "srg"}.get(row["name"])
         if key:
             row["launches_neural_main_path"] = neural.get(key, 0)
         key = {"vbn_kde_root": "kde_root", "vbn_kde_cond": "kde_cond",
-               "vbn_kde_pick": "kde_pick"}.get(row["name"])
+               "vbn_kde_pick": "kde_pick",
+               "vbn_uniforms": "uniforms"}.get(row["name"])
         if key:
             row["launches_sampling_main_path"] = sampling.get(key, 0)
             for phase, got in slice13.items():
                 row[f"launches_{phase}"] = got.get(key, 0)
-        key = {"vbn_cat_sweep": "categorical", "vbn_lg_sweep": "lg"}.get(
-            row["name"])
+        key = {"vbn_cat_sweep": "categorical", "vbn_lg_sweep": "lg",
+               "vbn_uniforms": "uniforms"}.get(row["name"])
         if key:
             for phase, got in slice14.items():
                 row[f"launches_{phase}"] = got.get(key, 0)

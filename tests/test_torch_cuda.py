@@ -738,7 +738,9 @@ def test_merge_wrappers_refuse_what_the_kernels_do_not_take(card):
 def test_ris_resampling_events_launch_the_kernels(lg_vbn, method):
     """Flagship diagnosis (x0 | x2): one resampling event per call, each
     one cumsum (two for multinomial) and one merge launch; no index launch:
-    the merge derives its tile pointers."""
+    the merge derives its tile pointers. The loop's two latent nodes and
+    the event's uniforms (systematic ``u0``, multinomial's Exp(1) draws)
+    draw a ``vbn_uniforms`` launch each."""
     q = {"target": "x0", "evidence": {
         "x2": np.linspace(-1, 1, B).reshape(B, 1).astype(np.float32)}}
     lg_vbn.set_inference_method("resampled_importance_sampling", n_samples=S,
@@ -749,7 +751,8 @@ def test_ris_resampling_events_launch_the_kernels(lg_vbn, method):
     assert lg_vbn._inference._last_resampled
     merge = "srg" if method == "systematic" else "spg"
     got = {k: after[k] - before[k] for k in after if after[k] != before[k]}
-    assert got == {"cumsum": 1 if merge == "srg" else 2, merge: 1}
+    assert got == {"cumsum": 1 if merge == "srg" else 2, merge: 1,
+                   "uniforms": 3}
     mean = lg_vbn._posterior_stats(w, s)["mean"][:, 0].cpu().numpy()
     assert np.all(np.diff(mean) > 0)  # x0 | x2 rises with x2
     lg_vbn.set_inference_method("monte_carlo_marginalization", n_samples=S)
@@ -1016,7 +1019,8 @@ def kde_vbn(card):
 def test_kde_serving_goes_through_the_kernels(kde_vbn, dynamic):
     """LW x2 | x0 on the card: the root's log-density and both picks
     (static), or every node's pick and log-density (dynamic), in the
-    kernels; the served moments finite."""
+    kernels, each drawn node's noise a ``vbn_uniforms`` launch; the served
+    moments finite."""
     assert float(kde_vbn.params["x2"]["valid"].sum()) == 2048
     kde_vbn.set_inference_method("likelihood_weighting", n_samples=S,
                                  dynamic_masks=dynamic)
@@ -1026,8 +1030,8 @@ def test_kde_serving_goes_through_the_kernels(kde_vbn, dynamic):
     mom, _ = kde_vbn.infer_posterior_moments([q])
     after = dict(sweep.LAUNCHES)
     got = {k: after[k] - before[k] for k in after if after[k] != before[k]}
-    want = ({"kde_root": 2, "kde_cond": 1, "kde_pick": 3} if dynamic
-            else {"kde_root": 1, "kde_pick": 2})
+    want = ({"kde_root": 2, "kde_cond": 1, "kde_pick": 3, "uniforms": 3}
+            if dynamic else {"kde_root": 1, "kde_pick": 2, "uniforms": 2})
     assert got == want
     assert kde_vbn._last_summary_path == ("fused" if dynamic else "stream")
     assert mom.shape == (B, 2) and np.isfinite(mom).all()
@@ -1157,7 +1161,10 @@ def test_bf16_product_takes_bf16_inputs_and_gives_float32(card):
 @pytest.mark.cuda
 def test_ris_over_neural_cpds_launches_the_resampling_kernels(card):
     """RIS on a gaussian_nn + mdn flagship resamples through vbn_cumsum
-    and vbn_srg; IS and LW over it launch no hand kernel."""
+    and vbn_srg; IS and LW over it launch no hand kernel but the row
+    stream's: one ``vbn_uniforms`` a latent node (x0, x1) a sweep (IS:
+    two sweeps when it falls back), and in RIS one more for the resampling
+    event's ``u0``."""
     data = _nn_rows("gaussian_nn")
     vbn = VBN({"x0": [], "x1": [], "x2": ["x0", "x1"]}, seed=0, device=card)
     conf = {k: dict(defaults.cpd("gaussian_nn"), fit=NN_FIT) for k in data}
@@ -1168,15 +1175,17 @@ def test_ris_over_neural_cpds_launches_the_resampling_kernels(card):
         "x2": np.linspace(-1, 1, B).reshape(B, 1).astype(np.float32)}}
     for method, kw, launched in (
             ("resampled_importance_sampling", {"ess_threshold": 0.5},
-             {"cumsum": 1, "srg": 1}),
-            ("importance_sampling", {}, {}),
-            ("likelihood_weighting", {}, {})):
+             {"cumsum": 1, "srg": 1, "uniforms": 3}),
+            ("importance_sampling", {}, None),
+            ("likelihood_weighting", {}, {"uniforms": 2})):
         vbn.set_inference_method(method, n_samples=1 << 16, **kw)
         before = dict(sweep.LAUNCHES)
         w, samples = vbn.infer_posterior(q)
         torch.cuda.synchronize()
         diff = {k: v - before[k] for k, v in sweep.LAUNCHES.items()
                 if v != before[k]}
+        if launched is None:  # IS: the LW rerun sweeps again
+            launched = {"uniforms": 4 if vbn._inference._last_fallback else 2}
         assert diff == launched, method
         assert torch.isfinite(samples).all() and not w.requires_grad
 
@@ -1242,13 +1251,14 @@ def test_mcmc_over_kde_goes_through_the_kernels(kde_vbn, name):
             if v != before[k]}
     steps = 5 + 4  # burn-in + draws a chain
     if name == "gibbs":
-        # the init sweep picks 2 nodes; each step 2 latent nodes x (1 pick,
-        # 1 child's conditional)
-        assert diff == {"kde_pick": 2 + 2 * steps, "kde_cond": 2 * steps}
+        # the init sweep picks 2 nodes (their noise: a vbn_uniforms launch
+        # each); each step 2 latent nodes x (1 pick, 1 child's conditional)
+        assert diff == {"kde_pick": 2 + 2 * steps, "kde_cond": 2 * steps,
+                        "uniforms": 2}
     else:
         evals = 1 + 4  # a transition's gradient evaluations
         assert diff == {"kde_pick": 2, "kde_root": 2 * evals * steps,
-                        "kde_cond": evals * steps}
+                        "kde_cond": evals * steps, "uniforms": 2}
     assert tuple(s.shape) == (B, 64, 1) and torch.isfinite(s).all()
     means = s[..., 0].mean(dim=1).cpu().numpy()
     assert means[-1] > means[0]
@@ -1299,8 +1309,8 @@ def test_grouped_fit_on_the_card_matches_sequential(card, cpd_name,
 @pytest.mark.cuda
 def test_amortized_heads_on_the_card_match_the_cpu(card):
     """An amortizer fitted on the card, its net moved to the CPU: the heads
-    of 4096 masked rows within 1e-5 of their scale; serving launches no
-    kernel."""
+    of 4096 masked rows within 1e-5 of their scale; serving launches one
+    kernel, the target's noise (``vbn_uniforms``)."""
     from vectorizedbayesiannetwork_torch.learning.amortized import (
         amortized_forward,
     )
@@ -1326,7 +1336,9 @@ def test_amortized_heads_on_the_card_match_the_cpu(card):
     vbn.set_inference_method("amortized", n_samples=256)
     before = dict(sweep.LAUNCHES)
     pdf, s = vbn.infer_posterior({"target": "x0", "evidence": {"x2": [[0.3]]}})
-    assert dict(sweep.LAUNCHES) == before
+    diff = {k: v - before[k] for k, v in sweep.LAUNCHES.items()
+            if v != before[k]}
+    assert diff == {"uniforms": 1}
     assert not vbn._inference._last_fallback
     assert torch.isfinite(pdf).all() and tuple(s.shape) == (1, 256, 1)
 
@@ -1338,7 +1350,9 @@ def test_lbp_and_rbm_on_the_card_match_the_cpu(asia_vbn, lg_vbn, case,
     """The same call on the card and on the CPU (the model moved by a
     checkpoint): LBP's posterior means within 5 standard errors of each
     other (S = 2^16); RBM with every parent observed within 1e-5 (no draw
-    reaches it); RBM on asia's pmf within 0.02 (2^14 particles)."""
+    reaches it); RBM on asia's pmf within 0.02 (2^14 particles). The
+    torch-op sweeps launch no kernel but the row stream's (one
+    ``vbn_uniforms`` a drawn node)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     if case == "rbm_asia":
         vbn = asia_vbn
@@ -1362,7 +1376,12 @@ def test_lbp_and_rbm_on_the_card_match_the_cpu(asia_vbn, lg_vbn, case,
     cpu = VBN.load(str(tmp_path / "m.npz"), device="cpu")
     before = dict(sweep.LAUNCHES)
     got = vbn.infer_posterior(q)
-    assert dict(sweep.LAUNCHES) == before  # torch-op sweeps
+    diff = {k: v - before[k] for k, v in sweep.LAUNCHES.items()
+            if v != before[k]}
+    if case == "rbm_lg":  # every parent observed: RBM draws nothing
+        assert diff == {}
+    else:
+        assert set(diff) == {"uniforms"}
     want = cpu.infer_posterior(q)
     assert not vbn._inference._last_fallback
     if case == "rbm_asia":
@@ -1595,3 +1614,82 @@ def test_one_rank_mesh_serves_through_the_kernels(asia_vbn, lg_vbn, nccl_mesh):
     assert np.isfinite(pmf).all() and np.isfinite(mom).all()
     assert sweep.LAUNCHES["categorical"] == before["categorical"] + 1
     assert sweep.LAUNCHES["lg"] == before["lg"] + 1
+
+
+# ---------------------------------------------------------------------------
+# The row stream: vbn_uniforms against its plain version
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,at", [(1, 0), (4, 0), (3, 2), (5, 7), (130, 1)])
+def test_uniforms_kernel_equals_its_plain_version(card, k, at):
+    """``vbn_uniforms`` against ``core/rng.py::stream_values`` run in torch
+    ops on the card: uniforms bit for bit, on a block off the origin."""
+    from vectorizedbayesiannetwork_torch.core.rng import stream_values as plain
+    from vectorizedbayesiannetwork_torch.ops import rng
+
+    seed, b, s = 0x0123456789ABCDEF, 3, 5000
+    before = sweep.LAUNCHES["uniforms"]
+    got = rng.stream_values(seed, b, s, 17, k, at=at, row0=5, particle0=1000,
+                            device=card)
+    assert sweep.LAUNCHES["uniforms"] == before + 1
+    want = plain(seed, b, s, 17, k, at=at, row0=5, particle0=1000, device=card)
+    assert torch.equal(got, want)
+    assert bool(((got > 0) & (got < 1)).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,at", [(1, 0), (2, 4), (3, 2)])
+def test_normals_kernel_within_rounding_of_its_plain_version(card, k, at):
+    """Box-Muller normals: the kernel's logf, sqrtf and cosf against
+    torch's within 2e-6 of |z| + 1."""
+    from vectorizedbayesiannetwork_torch.core.rng import stream_values as plain
+    from vectorizedbayesiannetwork_torch.ops import rng
+
+    seed, b, s = 77, 4, 1 << 16
+    got = rng.stream_values(seed, b, s, 3, k, at=at, normal=True, device=card)
+    want = plain(seed, b, s, 3, k, at=at, normal=True, device=card)
+    err = ((got - want).abs() / (want.abs() + 1.0)).max().item()
+    assert err <= 2e-6, err
+    assert abs(got.mean().item()) < 5 / np.sqrt(got.numel())
+
+
+@pytest.mark.cuda
+def test_uniforms_blocks_join_into_the_whole_on_the_card(card):
+    from vectorizedbayesiannetwork_torch.ops import rng
+
+    whole = rng.stream_values(9, 4, 4096, 2, 2, device=card).reshape(4, 4096, 2)
+    for r0 in (0, 2):
+        for p0 in (0, 2048):
+            part = rng.stream_values(9, 2, 2048, 2, 2, row0=r0, particle0=p0,
+                                     device=card).reshape(2, 2048, 2)
+            assert torch.equal(part, whole[r0:r0 + 2, p0:p0 + 2048])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dp", [0, 2])
+def test_kde_pick_row_map_reads_the_global_rows(card, dp):
+    """A block of rows and particles picked with its ``RowMap`` draws the
+    whole batch's uniforms: the kernel's picks equal the plain version's
+    on those rows (here the plain version's own pick rule on the same
+    uniforms), and a whole-batch launch's rows of the block."""
+    data_x, data_p, lm = _kde_support(300, 1, max(dp, 1), 280)
+    b, s, s_loc, r0, p0 = 4, 4096, 1024, 2, 2048
+    g = torch.Generator(device="cuda").manual_seed(4)
+    parents_all = (torch.randn((b, s, dp), generator=g, device="cuda")
+                   if dp else None)
+    key = torch.tensor([3, 9], dtype=torch.int64, device="cuda")
+    whole = kf.kde_pick(key, None if not dp else
+                        parents_all.reshape(b * s, dp).contiguous(),
+                        data_p, data_x, lm, 0.4, b * s).reshape(b, s, -1)
+    par = (None if not dp else
+           parents_all[r0:r0 + 2, p0:p0 + s_loc].reshape(-1, dp).contiguous())
+    rows = kf.RowMap.of(r0, p0, s_loc, s)
+    got = kf.kde_pick(key, par, data_p, data_x, lm, 0.4, 2 * s_loc, rows=rows)
+    want = kf.kde_pick_plain(key, par, data_p, data_x, lm, 0.4, 2 * s_loc,
+                             rows=rows)
+    assert torch.equal(got.reshape(2, s_loc, -1),
+                       whole[r0:r0 + 2, p0:p0 + s_loc])
+    same = float((got == want).all(dim=1).double().mean())
+    assert same >= 0.999, same

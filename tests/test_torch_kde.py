@@ -738,16 +738,17 @@ def test_inverse_cdf_pick_edges():
 
 
 def test_chunked_pick_past_32_parent_features_takes_the_nearest_parent():
-    """``kde_sample_indices``, the pick of a node with Dp > 32, over more
-    than one row tile: at a tiny parent bandwidth the nearest support
-    point's parents win."""
+    """``kde_sample_indices``, the pick of a node with Dp > 32 (an inverse
+    CDF on one uniform a row), over more than one row tile: at a tiny
+    parent bandwidth the nearest support point's parents win."""
     g = np.random.default_rng(13)
     n, m, dp = 64, 4096 + 123, 36
     data_p = _normal(g, n, dp)
     rows = g.integers(0, n, m)
     parents = data_p[rows] + 0.01 * _normal(g, m, dp)
-    idx = tkk.kde_sample_indices(torch.Generator().manual_seed(0), _t(parents),
-                                 _t(data_p), torch.zeros(n), 1e-3, m)
+    u = torch.rand((m,), generator=torch.Generator().manual_seed(0))
+    idx = tkk.kde_sample_indices(u, _t(parents), _t(data_p), torch.zeros(n),
+                                 1e-3, m)
     assert idx.shape == (m,)
     np.testing.assert_array_equal(idx.numpy(), rows)
 

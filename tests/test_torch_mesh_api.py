@@ -4,9 +4,13 @@ Mirrors ``tests/test_sharding.py`` and the mesh cases of
 ``tests/test_sweep_pallas.py``: the sharded paths (LW and MCM on the sweep
 kernels, static and ``dynamic_masks``; RIS over the distributed resampler)
 hold the JAX tests' limits against exact posteriors, and the paths that
-run whole on every rank (IS, the samplers, ``update``) give the unmeshed
-answer at the same key counter. Every rank must return the same result.
-The ranks are ``tests/torch_mesh_ranks.py``'s ``api`` job on a (2, 2)
+run whole on every rank (the samplers' chains, ``update``) and the
+torch-op sweeps sharded over the mesh (IS, the stacked forms, KDE and
+neural LW, LBP, RBM, the samplers' ancestral starts) give the unmeshed
+answer at the same key counter, bit for bit; the torch-op paths are also
+held against the JAX package's 2x2 mesh within Monte-Carlo error. Every
+rank must return the same result. The ranks are
+``tests/torch_mesh_ranks.py``'s ``api`` and ``trace`` jobs on a (2, 2)
 mesh.
 """
 
@@ -15,14 +19,30 @@ import types
 import numpy as np
 import pytest
 
-from torch_mesh_ranks import WORLD, load, spawn_ranks
+from torch_mesh_ranks import (
+    TRACE_CASES,
+    TRACE_S,
+    WORLD,
+    load,
+    spawn_ranks,
+)
 
 
 @pytest.fixture(scope="module")
-def ranks(tmp_path_factory):
+def run_dir(tmp_path_factory):
     d = tmp_path_factory.mktemp("mesh_api")
-    spawn_ranks(d, ["api"])
-    return [load(d, "api", r) for r in range(WORLD)]
+    spawn_ranks(d, ["api", "trace"])
+    return d
+
+
+@pytest.fixture(scope="module")
+def ranks(run_dir):
+    return [load(run_dir, "api", r) for r in range(WORLD)]
+
+
+@pytest.fixture(scope="module")
+def traces(run_dir):
+    return [load(run_dir, "trace", r) for r in range(WORLD)]
 
 
 def test_every_rank_returns_the_whole_result(ranks):
@@ -199,3 +219,74 @@ def test_measure_queries_per_s():
     vbn.set_inference_method("likelihood_weighting", n_samples=1024)
     q = {"target": "x0", "evidence": {"x2": np.zeros((4, 1), np.float32)}}
     assert measure_queries_per_s(vbn, q, n_samples=1024, reps=2) > 0
+
+
+@pytest.mark.parametrize("case", [c[0] for c in TRACE_CASES])
+def test_torch_op_paths_shard_and_equal_unmeshed(traces, case):
+    """Each torch-op path ran sharded (a rank swept [N, B/2, S/2]) and every
+    rank returns the unmeshed weights and samples bit for bit."""
+    for got in traces:
+        assert got[f"{case}_sharded"][0] >= 1
+        for x in ("w", "s"):
+            np.testing.assert_array_equal(got[f"{case}_mesh_{x}"],
+                                          got[f"{case}_whole_{x}"])
+            np.testing.assert_array_equal(got[f"{case}_mesh_{x}"],
+                                          traces[0][f"{case}_mesh_{x}"])
+
+
+def _weighted_moments(w, x):
+    """Per row (mean, sd, ESS) of x [B, S] under weights w [B, S]."""
+    w = np.asarray(w, np.float64)
+    x = np.asarray(x, np.float64)
+    wn = w / w.sum(axis=1, keepdims=True)
+    mean = (wn * x).sum(axis=1)
+    sd = np.sqrt((wn * (x - mean[:, None]) ** 2).sum(axis=1))
+    return mean, sd, 1.0 / (wn ** 2).sum(axis=1)
+
+
+@pytest.fixture(scope="module")
+def jax_traces(run_dir, traces):
+    """The JAX package's answers on its 2x2 mesh, from the models the ranks
+    fitted and saved, at 16x the ranks' particles."""
+    import os
+
+    import jax
+
+    from vectorizedbayesiannetwork_tpu import VBN as JVBN
+    from vectorizedbayesiannetwork_tpu.parallel.mesh import make_mesh
+
+    mesh = make_mesh(n_data=2, devices=jax.devices()[:WORLD])
+    out = {}
+    for case, tag, method, kw, query, scan in TRACE_CASES:
+        jv = JVBN.load(str(run_dir / f"trace_{tag}.npz"))
+        jv.set_mesh(mesh)
+        kw = dict({"n_samples": 16 * TRACE_S}, **kw)
+        if "n_particles" in kw:
+            kw["n_particles"] *= 16
+        jv.set_inference_method(method, **kw)
+        prev = os.environ.get("VBN_DISCRETE_SCAN")
+        os.environ["VBN_DISCRETE_SCAN"] = scan or "never"
+        try:
+            w, s = jv.infer_posterior(query)
+        finally:
+            if prev is None:
+                os.environ.pop("VBN_DISCRETE_SCAN")
+            else:
+                os.environ["VBN_DISCRETE_SCAN"] = prev
+        out[case] = (np.asarray(w), np.asarray(s)[..., 0])
+    return out
+
+
+@pytest.mark.parametrize("case", [c[0] for c in TRACE_CASES])
+def test_torch_op_paths_match_jax_mesh_within_mc_error(traces, jax_traces,
+                                                       case):
+    """The port's meshed posterior mean a row within 5 standard errors
+    (both sides' sd / sqrt(ESS)) of the JAX package's on its 2x2 mesh."""
+    got = traces[0]
+    m_t, sd_t, ess_t = _weighted_moments(got[f"{case}_mesh_w"],
+                                         got[f"{case}_mesh_s"][..., 0])
+    m_j, sd_j, ess_j = _weighted_moments(*jax_traces[case])
+    if case == "rbm":  # a grid: its error is the particles'
+        ess_t, ess_j = np.full(4, 256.0), np.full(4, 16 * 256.0)
+    se = np.sqrt(sd_t ** 2 / ess_t + sd_j ** 2 / ess_j)
+    assert (np.abs(m_t - m_j) <= 5 * se + 1e-6).all(), (m_t, m_j, se)

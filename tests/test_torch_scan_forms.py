@@ -33,6 +33,7 @@ from vectorizedbayesiannetwork_torch import VBN as TVBN
 from vectorizedbayesiannetwork_torch import defaults as tdefaults
 from vectorizedbayesiannetwork_torch.core.base import Query as TQuery
 from vectorizedbayesiannetwork_torch.core.plan import get_plan as t_get_plan
+from vectorizedbayesiannetwork_torch.core.rng import Draw
 from vectorizedbayesiannetwork_torch.inference import _discrete_sweep as tds
 from vectorizedbayesiannetwork_torch.inference import _dynamic_sweep as tdyn
 from vectorizedbayesiannetwork_torch.inference import _gaussian_sweep as tgs
@@ -474,7 +475,7 @@ def test_dynamic_sweep_takes_the_stacked_form(tw63_64, monkeypatch):
     """``dynamic_sweep_trace`` (the amortizer's and the dynamic methods'
     torch-op sweep) on a 64-node plan under auto: the stacked form's
     states and weights, draw for draw, equal the forced route's on the
-    same generator seed."""
+    same key's row stream."""
     tv = tw63_64[64]
     plan = t_get_plan(tv, TQuery(target=tv.dag.topological_order()[0],
                                  evidence={}, do={}))
@@ -489,9 +490,9 @@ def test_dynamic_sweep_takes_the_stacked_form(tw63_64, monkeypatch):
     outs = {}
     for mode in ("auto", "always"):
         monkeypatch.setenv("VBN_DISCRETE_SCAN", mode)
-        gen = torch.Generator().manual_seed(3)
+        draw = Draw(3, torch.device("cpu"))
         tsw.ROUTES.clear()
-        outs[mode] = tdyn.dynamic_sweep_trace(plan, cpds, params, gen, fixed,
+        outs[mode] = tdyn.dynamic_sweep_trace(plan, cpds, params, draw, fixed,
                                               ev, do, 32)
         assert dict(tsw.ROUTES) == {"discrete": 1}
     for a, b in zip(outs["auto"], outs["always"]):

@@ -360,5 +360,90 @@ def _api_job(out_dir, mesh):
     return out
 
 
+def trace_models(device="cpu"):
+    """The models of the ``trace`` job, fitted by the port: asia's tables,
+    and the chain with linear-Gaussian, ``gaussian_nn`` and KDE CPDs."""
+    from benchmarking.networks import asia
+    from chip_smoke import fit_discrete, flagship_data
+    from vectorizedbayesiannetwork_torch import VBN, defaults
+
+    chain = [("x0", "x2"), ("x1", "x2")]
+    data = {k: v.astype(np.float32).reshape(-1, 1)
+            for k, v in flagship_data(400, 0).items()}
+    confs = {
+        "lg": defaults.cpd("linear_gaussian"),
+        "nn": dict(defaults.cpd("gaussian_nn"), hidden_dims=[8],
+                   fit={"epochs": 2, "batch_size": 128, "lr": 1e-2}),
+        "kde": dict(defaults.cpd("kde"), max_points=64),
+    }
+    models = {"asia": fit_discrete(VBN, defaults, asia(), device=device)}
+    for tag, conf in confs.items():
+        v = VBN(chain, seed=0, device=device)
+        v.set_learning_method("node_wise", nodes_cpds={k: conf for k in data})
+        v.fit(data)
+        models[tag] = v
+    return models
+
+
+# (case, model, method, settings, query, stacked form or None): the
+# torch-op paths the ``trace`` job serves meshed and unmeshed
+TRACE_X2 = {"target": "x0", "evidence": {"x2": [[0.3], [0.1], [-0.2], [0.5]]}}
+TRACE_X0 = {"target": "x2", "evidence": {"x0": [[0.3], [0.1], [-0.2], [0.5]]}}
+TRACE_ASIA = {"target": "dysp", "evidence": {
+    "smoke": [[1.0], [0.0], [1.0], [0.0]], "asia": [[0.0], [0.0], [1.0], [1.0]]}}
+TRACE_CASES = [
+    ("stacked_cat", "asia", "likelihood_weighting", {}, TRACE_ASIA, "always"),
+    ("stacked_cat_dyn", "asia", "likelihood_weighting",
+     {"dynamic_masks": True}, TRACE_ASIA, "always"),
+    ("stacked_lg", "lg", "likelihood_weighting", {}, TRACE_X2, "always"),
+    ("is", "lg", "importance_sampling", {}, TRACE_X2, None),
+    ("is_dyn", "lg", "importance_sampling", {"dynamic_masks": True},
+     TRACE_X2, None),
+    ("kde_lw", "kde", "likelihood_weighting", {}, TRACE_X2, None),
+    ("nn_lw", "nn", "likelihood_weighting", {}, TRACE_X2, None),
+    ("lbp", "lg", "lbp", {}, TRACE_X2, None),
+    ("rbm", "lg", "rao_blackwellized_marginalization",
+     {"n_samples": 64, "n_particles": 256}, TRACE_X0, None),
+]
+TRACE_S = 256
+
+
+def _trace_job(out_dir, mesh):
+    """Each torch-op path of ``TRACE_CASES`` unmeshed and under ``mesh``
+    from one key counter: (weights, target values) of both."""
+    import os
+
+    from vectorizedbayesiannetwork_torch.inference import _sweep
+    from vectorizedbayesiannetwork_torch.ops import sweep
+
+    models = trace_models()
+    out = {}
+    for case, tag, method, kw, query, scan in TRACE_CASES:
+        vbn = models[tag]
+        vbn.set_inference_method(method, **dict({"n_samples": TRACE_S}, **kw))
+        prev = os.environ.get("VBN_DISCRETE_SCAN")
+        os.environ["VBN_DISCRETE_SCAN"] = scan or "never"
+        try:
+            _sweep.ROUTES.clear()
+            sweep.TRACES.update(sharded=0, whole=0)
+            whole, meshed = _both(vbn, mesh, lambda: vbn.infer_posterior(query))
+            out[f"{case}_routes"] = np.asarray(sorted(_sweep.ROUTES))
+            out[f"{case}_sharded"] = np.asarray(
+                [sweep.TRACES["sharded"], sweep.TRACES["whole"]])
+        finally:
+            if prev is None:
+                os.environ.pop("VBN_DISCRETE_SCAN")
+            else:
+                os.environ["VBN_DISCRETE_SCAN"] = prev
+        for name, (w, s) in (("whole", whole), ("mesh", meshed)):
+            out[f"{case}_{name}_w"], out[f"{case}_{name}_s"] = w, s
+    import torch.distributed as dist
+
+    if dist.get_rank() == 0:  # for the JAX package's side
+        for tag in ("asia", "lg", "nn", "kde"):
+            models[tag].save(str(out_dir / f"trace_{tag}.npz"))
+    return out
+
+
 JOBS = {"sweep": _sweep_job, "resample": _resample_job, "fit": _fit_job,
-        "api": _api_job}
+        "api": _api_job, "trace": _trace_job}

@@ -3,11 +3,18 @@
 Counterpart of ``vectorizedbayesiannetwork_tpu/core/base.py``. A CPD is a
 static, host-side spec object; its tensor state is a plain dict of tensors
 (``params``) that lives on one device. Compute methods are functions of
-``(params, generator, inputs)`` with an explicit ``torch.Generator``.
+``(params, source, inputs)`` with an explicit source of randomness.
 
 Flat primitives that the inference sweep calls on ``[B*S, ...]`` tensors:
-  - ``_sample_flat(params, gen, parents2d|None, m) -> [m, Dout]``
+  - ``_sample_flat(params, src, parents2d|None, m) -> [m, Dout]``
   - ``_log_prob_flat(params, x2d, parents2d|None) -> [m]``
+
+``src`` is either a ``torch.Generator`` (fits, handles, the MCMC chains'
+steps) or a ``core.rng.NodeStream``, the node's slice of a sweep's row
+stream: then the draw of row b, particle p takes the stream's slots at
+counter (p, b, node), so it does not depend on the batch. A CPD draws
+through ``core.rng.uniforms`` / ``normals``, which take either; a second
+draw of one node starts at ``core.rng.next_slot`` of the first's slots.
 
 and the public ``[B, S, D]`` API over them (``sample``, ``log_prob``,
 ``forward``) that ``core/handle.py`` calls.
@@ -124,7 +131,7 @@ class BaseCPD(ABC):
     def _sample_flat(
         self,
         params: Params,
-        gen: torch.Generator,
+        gen,  # torch.Generator or core.rng.NodeStream
         parents: Optional[torch.Tensor],
         m: int,
     ) -> torch.Tensor:

@@ -6,12 +6,20 @@ Each draw carries a ``torch.Generator`` for plain tensor ops and a 64-bit
 seed for the sweep kernels, which generate their own uniforms with
 Philox-4x32-10 (``philox_uniforms`` is the same generator in int64 torch
 ops, so a plain version can reproduce a kernel's draws bit for bit).
+
+The torch-op sweeps draw from a ``RowStream``: Philox-4x32-10 keyed by the
+call's seed with counter (particle, row, node, 4 | (j << 3)), so every
+draw is a function of (key, global particle, global row, node) alone. A
+row's draws then do not depend on its batch, and a rank of a mesh that
+sweeps particles ``[p0, p0 + s)`` of rows ``[r0, r0 + b)`` draws exactly
+the unmeshed ones. On the card the values come from the ``vbn_uniforms``
+kernel (``ops/rng.py``); ``stream_values`` is its plain version.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 
@@ -164,3 +172,155 @@ def philox_uniforms(
                for w in range(words)]
     u = torch.stack([uniform_from_bits(w) for w in out[:words]], dim=2)
     return u.reshape(b, n_nodes * words, s)
+
+
+STREAM_TAG = 4  # the row stream's tag: tags 0-3 are the kernels' streams
+U_MAX = 1.0 - 2.0**-24  # the largest float32 below 1
+
+
+def box_muller(u1: torch.Tensor, u2: torch.Tensor) -> torch.Tensor:
+    """Standard normals from uniform pairs in (0, 1]: ``-r cos(2 pi (u2 -
+    1/2))`` with ``r = sqrt(-2 log u1)``, the LG walk's formula
+    (``csrc/lg_walk.cuh``; ``u2 - 1/2`` is exact, so the cosine's argument
+    lies in [-pi, pi])."""
+    two_pi = torch.tensor(6.283185307179586, dtype=torch.float32,
+                          device=u1.device)
+    r = torch.sqrt(-2.0 * torch.log(u1))
+    return -(r * torch.cos(two_pi * (u2 - 0.5)))
+
+
+def stream_words(seed: int, b: int, s: int, node: int, at: int, words: int,
+                 device, row0: int = 0, particle0: int = 0) -> torch.Tensor:
+    """Slots ``at .. at + words - 1`` of the row stream as int64 [B, S,
+    words] holding 32-bit words: slot ``4 j + w`` is word ``w`` of the call
+    with counter (particle0 + p, row0 + r, node, 4 | (j << 3))."""
+    i64 = dict(dtype=torch.int64, device=device)
+    c0 = torch.arange(particle0, particle0 + s, **i64).view(1, s)
+    c1 = torch.arange(row0, row0 + b, **i64).view(b, 1)
+    c0, c1 = torch.broadcast_tensors(c0, c1)
+    c2 = torch.full_like(c0, int(node))
+    out = []
+    for j in range(at >> 2, ((at + words - 1) >> 2) + 1):
+        ws = philox4x32_10(c0, c1, c2, torch.full_like(c0, STREAM_TAG | (j << 3)),
+                           int(seed))
+        out.extend(ws)
+    first = at - ((at >> 2) << 2)
+    return torch.stack(out[first : first + words], dim=-1)
+
+
+def stream_values(seed: int, b: int, s: int, node: int, k: int, *,
+                  at: int = 0, normal: bool = False, row0: int = 0,
+                  particle0: int = 0, device="cpu") -> torch.Tensor:
+    """The row stream's [B*S, k] float32 values of one node (the plain
+    version of ``vbn_uniforms``). Uniforms: slot ``at + c`` by
+    ``uniform_from_bits`` clamped to ``U_MAX``, so in (0, 1). Normals
+    (``at`` even): column c by ``box_muller`` from slots ``at + 2c`` and
+    ``at + 2c + 1``, unclamped."""
+    if normal and at % 2:
+        raise ValueError(f"normal draws start at an even slot, not {at}")
+    words = 2 * k if normal else k
+    bits = stream_words(seed, b, s, node, at, words, device, row0, particle0)
+    u = uniform_from_bits(bits)
+    if normal:
+        v = box_muller(u[..., 0::2], u[..., 1::2])
+    else:
+        v = torch.clamp(u, max=U_MAX)
+    return v.reshape(b * s, k)
+
+
+class RowStream:
+    """The draws of one sweep over rows ``row0 .. row0 + b - 1`` and
+    particles ``particle0 .. particle0 + s - 1`` of a batch of ``n_rows``
+    rows of ``n_particles`` particles (``b`` and ``s`` unless this is one
+    rank's block of a mesh), keyed by ``draw``'s seed. ``uniform(node, k)``
+    and ``normal(node, k)`` give [b*s, k] rows in row-major (row, particle)
+    order; ``node(i)`` binds a node for a CPD's ``_sample_flat``."""
+
+    def __init__(self, draw: Draw, b: int, s: int, row0: int = 0,
+                 particle0: int = 0, n_particles: Optional[int] = None,
+                 n_rows: Optional[int] = None):
+        self.seed = int(draw.seed)
+        self.device = torch.device(draw.device)
+        self.b, self.s = int(b), int(s)
+        self.row0, self.particle0 = int(row0), int(particle0)
+        self.n_particles = self.s if n_particles is None else int(n_particles)
+        self.n_rows = self.b if n_rows is None else int(n_rows)
+
+    @property
+    def m(self) -> int:
+        return self.b * self.s
+
+    def values(self, node: int, k: int, at: int = 0,
+               normal: bool = False) -> torch.Tensor:
+        from ..ops.rng import stream_values as launch
+
+        return launch(self.seed, self.b, self.s, int(node), int(k), at=at,
+                      normal=normal, row0=self.row0,
+                      particle0=self.particle0, device=self.device)
+
+    def uniform(self, node: int, k: int = 1, at: int = 0) -> torch.Tensor:
+        return self.values(node, k, at)
+
+    def normal(self, node: int, k: int = 1, at: int = 0) -> torch.Tensor:
+        return self.values(node, k, at, normal=True)
+
+    def node(self, idx: int) -> "NodeStream":
+        return NodeStream(self, int(idx))
+
+
+class NodeStream:
+    """A ``RowStream`` with its node bound: what a CPD's ``_sample_flat``
+    draws from in place of a ``torch.Generator``."""
+
+    def __init__(self, stream: RowStream, idx: int):
+        self.stream, self.idx = stream, idx
+
+    @property
+    def m(self) -> int:
+        return self.stream.m
+
+    def uniform(self, k: int = 1, at: int = 0) -> torch.Tensor:
+        return self.stream.uniform(self.idx, k, at)
+
+    def normal(self, k: int = 1, at: int = 0) -> torch.Tensor:
+        return self.stream.normal(self.idx, k, at)
+
+    @property
+    def seed(self) -> int:
+        """The node's own 64-bit key, ``mix64(seed, node)`` (the KDE
+        pick's in-kernel stream)."""
+        return mix64(self.stream.seed, self.idx)
+
+
+Source = Union[torch.Generator, NodeStream]
+
+
+def _check_rows(src: NodeStream, m: int) -> None:
+    if src.m != m:
+        raise ValueError(f"the row stream has {src.m} rows; the draw wants {m}")
+
+
+def uniforms(src: Source, m: int, k: int, device, at: int = 0,
+             dtype=torch.float32) -> torch.Tensor:
+    """[m, k] uniforms: slots ``at ..`` of a node's row stream (in (0, 1)),
+    or ``torch.rand`` on a generator (in [0, 1))."""
+    if isinstance(src, NodeStream):
+        _check_rows(src, m)
+        return src.uniform(k, at).to(dtype)
+    return torch.rand((m, k), generator=src, device=device, dtype=dtype)
+
+
+def normals(src: Source, m: int, k: int, device, at: int = 0,
+            dtype=torch.float32) -> torch.Tensor:
+    """[m, k] standard normals: slots ``at ..`` of a node's row stream
+    (Box-Muller pairs), or ``torch.randn`` on a generator."""
+    if isinstance(src, NodeStream):
+        _check_rows(src, m)
+        return src.normal(k, at).to(dtype)
+    return torch.randn((m, k), generator=src, device=device, dtype=dtype)
+
+
+def next_slot(k: int) -> int:
+    """The first slot of a second draw after ``k`` slots: ``k`` rounded up
+    to a whole call (4 words)."""
+    return 4 * ((k + 3) // 4)

@@ -138,9 +138,12 @@
 // If rounding keeps every running sum at or below t, it takes the last
 // point that moved the sum (never a point of negligible weight). The
 // uniform: Philox-4x32-10 with key = the two 32-bit words of the device
-// tensor `key` (no host sync per node), counter (row, 0, 0, 2), word 0,
-// u = min(((bits >> 8) + 0.5) 2^-24, 1 - 2^-24); ops/kde_fused.py's
-// pick_uniforms rebuilds it in torch.
+// tensor `key` (no host sync per node), counter (g, g >> 32, 0, 2), word
+// 0, u = min(((bits >> 8) + 0.5) 2^-24, 1 - 2^-24), where g is the row's
+// global flat row (RowMap: base + (row / s_loc) * stride + row % s_loc; a
+// mesh rank's block of rows and particles draws the unmeshed uniforms, and
+// an unmeshed call passes base 0, s_loc = stride, so g = row);
+// ops/kde_fused.py's pick_uniforms rebuilds it in torch.
 // - Root (Dp = 0): the weights do not depend on the row, so each block
 //   builds the CDF of the N masked weights once (expf, in double: a
 //   sequential sum per thread's chunk, a block scan of the chunk sums) in
@@ -832,9 +835,19 @@ kde_wide_kernel(const float* __restrict__ x, const float* __restrict__ p,
   }
 }
 
+// A launch's rows in the global flat order of the batch (see the note at
+// the top): row -> base + (row / s_loc) * stride + row % s_loc.
+struct RowMap {
+  long long base, stride;
+  int s_loc;
+};
+
 // The pick's uniform of query row `row` (see the note at the top).
-__device__ __forceinline__ float pick_uniform(long long row, uint64_t seed) {
-  uint32_t c[4] = {(uint32_t)row, 0u, 0u, 2u};
+__device__ __forceinline__ float pick_uniform(long long row, uint64_t seed,
+                                              const RowMap& rm) {
+  const unsigned long long g =
+      (unsigned long long)(rm.base + (row / rm.s_loc) * rm.stride + row % rm.s_loc);
+  uint32_t c[4] = {(uint32_t)g, (uint32_t)(g >> 32), 0u, 2u};
   vbn::philox4x32_10(c, seed);
   return fminf(vbn::uniform_from_bits(c[0]), U_MAX);
 }
@@ -855,8 +868,8 @@ __device__ __forceinline__ void copy_row(const float* __restrict__ data_x,
 __global__ void __launch_bounds__(THREADS)
 kde_pick_root_kernel(const float* __restrict__ data_x,
                      const float* __restrict__ log_mask,
-                     const int64_t* __restrict__ key, long long m, int n,
-                     int dx, float* __restrict__ out) {
+                     const int64_t* __restrict__ key, RowMap rm,
+                     long long m, int n, int dx, float* __restrict__ out) {
   extern __shared__ double s_cdf[];  // [n]
   __shared__ double s_part[THREADS];
   const int tid = threadIdx.x;
@@ -900,7 +913,7 @@ kde_pick_root_kernel(const float* __restrict__ data_x,
   const uint64_t seed = key_seed(key);
   for (long long row = (long long)blockIdx.x * THREADS + tid; row < m;
        row += (long long)gridDim.x * THREADS) {
-    const double t = (double)pick_uniform(row, seed) * total;
+    const double t = (double)pick_uniform(row, seed, rm) * total;
     int lo = 0, hi = n;  // the first n with cdf[n] > t
     while (lo < hi) {
       const int mid = (lo + hi) >> 1;
@@ -958,8 +971,9 @@ kde_pick_cond_kernel(const float* __restrict__ p,
                      const float* __restrict__ data_p,
                      const float* __restrict__ data_x,
                      const float* __restrict__ log_mask,
-                     const int64_t* __restrict__ key, int m, int n, int dp,
-                     int dx, float inv2p, int ch, float* __restrict__ out) {
+                     const int64_t* __restrict__ key, RowMap rm, int m,
+                     int n, int dp, int dx, float inv2p, int ch,
+                     float* __restrict__ out) {
   extern __shared__ float smem[];
   float* s_p = smem;                 // [dp][TILE]
   float* s_lm = s_p + dp * TILE;     // [TILE]
@@ -1002,7 +1016,7 @@ kde_pick_cond_kernel(const float* __restrict__ p,
   if (!live) return;  // no barrier follows
   float shi = 0.f, slo = 0.f;
   for (int k = 0; k < c; ++k) ff_add(shi, slo, s_chunk[k * THREADS + tid]);
-  const float u = pick_uniform(row, key_seed(key));
+  const float u = pick_uniform(row, key_seed(key), rm);
   const float thi = __fmul_rn(u, shi);
   const float tlo = fmaf(u, slo, fmaf(u, shi, -thi));
   // the first chunk whose running sum passes t; where rounding keeps every
@@ -1239,7 +1253,7 @@ __global__ void kde_mma_probe_kernel(const float* __restrict__ a,
 
 template <int MD>
 cudaError_t go_pick(const float* p, const float* data_p, const float* data_x,
-                    const float* log_mask, const int64_t* key,
+                    const float* log_mask, const int64_t* key, RowMap rm,
                     const float* gumbel, int m, int n, int dp, int dx,
                     float inv2p, float* out, cudaStream_t st) {
   const size_t smem = (size_t)(dp + 1) * TILE * sizeof(float);
@@ -1261,16 +1275,16 @@ cudaError_t go_pick(const float* p, const float* data_p, const float* data_x,
     auto kernel = kde_pick_cond_kernel<MD>;
     cudaError_t e = vbn::allow_smem(kernel, smem_c);
     if (e != cudaSuccess) return e;
-    kernel<<<grid, THREADS, smem_c, st>>>(p, data_p, data_x, log_mask, key, m,
-                                          n, dp, dx, inv2p, ch, out);
+    kernel<<<grid, THREADS, smem_c, st>>>(p, data_p, data_x, log_mask, key,
+                                          rm, m, n, dp, dx, inv2p, ch, out);
   }
   return cudaGetLastError();
 }
 
 cudaError_t launch_pick(const float* p, const float* data_p,
                         const float* data_x, const float* log_mask,
-                        const int64_t* key, const float* gumbel, int m, int n,
-                        int dp, int dx, float inv2p, float* out,
+                        const int64_t* key, RowMap rm, const float* gumbel,
+                        int m, int n, int dp, int dx, float inv2p, float* out,
                         cudaStream_t st) {
   if (gumbel == nullptr && dp == 0 && n <= ROOT_CDF_MAX) {
     int dev = 0, sms = 0;
@@ -1286,14 +1300,14 @@ cudaError_t launch_pick(const float* p, const float* data_p,
                                ? blocks
                                : (long long)sms * ROOT_BLOCKS_PER_SM);
     kde_pick_root_kernel<<<grid, THREADS, smem, st>>>(data_x, log_mask, key,
-                                                      m, n, dx, out);
+                                                      rm, m, n, dx, out);
     return cudaGetLastError();
   }
   switch (pow2_at_least(dp > 0 ? dp : 1)) {
 #define VBN_KDE_CASE(V)                                                      \
   case V:                                                                    \
-    return go_pick<V>(p, data_p, data_x, log_mask, key, gumbel, m, n, dp,  \
-                      dx, inv2p, out, st);
+    return go_pick<V>(p, data_p, data_x, log_mask, key, rm, gumbel, m, n,  \
+                      dp, dx, inv2p, out, st);
     VBN_KDE_CASE(1)
     VBN_KDE_CASE(2)
     VBN_KDE_CASE(4)
@@ -1348,9 +1362,12 @@ int vbn_kde_cond_wide(const float* x, const float* p, const float* data_x,
 int vbn_kde_pick(const float* p, const float* data_p, const float* data_x,
                  const float* log_mask, const int64_t* key,
                  const float* gumbel, int m, int n, int dp, int dx,
-                 float inv2p, float* out, void* stream) {
-  return (int)launch_pick(p, data_p, data_x, log_mask, key, gumbel, m, n, dp,
-                          dx, inv2p, out, (cudaStream_t)stream);
+                 float inv2p, long long row_base, int s_loc,
+                 long long row_stride, float* out, void* stream) {
+  if (s_loc < 1) return (int)cudaErrorInvalidValue;
+  const RowMap rm{row_base, row_stride, s_loc};
+  return (int)launch_pick(p, data_p, data_x, log_mask, key, rm, gumbel, m, n,
+                          dp, dx, inv2p, out, (cudaStream_t)stream);
 }
 
 int vbn_kde_mma_probe(const float* a, const float* b, const float* c,

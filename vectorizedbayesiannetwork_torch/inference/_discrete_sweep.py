@@ -25,10 +25,12 @@ and is returned as its ``[B, S, N]`` view.
 Two draw forms, as in the JAX package: the Gumbel-argmax over the row's
 ``[B, S, Cmax]`` log-probs, or, past an 8 GiB ``[B, S, 128]`` projection
 (``VBN_SCAN_CLASS_LOOP=always|never`` overrides), the class loop's inverse
-CDF on one uniform a particle, with ``[B, S]`` operands only. Draws come
-from the call's generator one step at a time; ``noise`` takes the JAX
-package's own draws instead (Gumbel ``[N, B, S, Cmax]``, uniforms
-``[N, B, S]``).
+CDF on one uniform a particle, with ``[B, S]`` operands only; the form
+is chosen on the batch's whole size, so a mesh rank's block draws as the
+whole batch does. Draws come from the call's row stream one step at a
+time (node i: the class loop's uniform in slot 0, the Gumbel's in slots
+0 .. Cmax - 1); ``noise`` takes the JAX package's own draws instead
+(Gumbel ``[N, B, S, Cmax]``, uniforms ``[N, B, S]``).
 """
 
 from __future__ import annotations
@@ -122,7 +124,7 @@ def discrete_sweep_trace(
     plan: InferencePlan,
     cpds: Sequence,
     params_tuple: Tuple,
-    gen: Optional[torch.Generator],
+    stream,  # core.rng.RowStream, or None with ``noise``
     fixed: torch.Tensor,  # [B, total_dim] float class values
     n_samples: int,
     *,
@@ -142,7 +144,8 @@ def discrete_sweep_trace(
     cmax = tables["cmax"]
     log_cpt = _stacked_log_cpt(cpds, params_tuple, cmax)
     b, s, n = fixed.shape[0], n_samples, plan.n_nodes
-    class_loop = class_loop_form(b, s, cmax)
+    class_loop = (class_loop_form(b, s, cmax) if stream is None else
+                  class_loop_form(stream.n_rows, stream.n_particles, cmax))
     if noise is not None:
         want = (n, b, s) if class_loop else (n, b, s, cmax)
         if tuple(noise.shape) != want:
@@ -171,7 +174,6 @@ def discrete_sweep_trace(
     states = torch.empty((n, b, s), dtype=torch.float32, device=dev)
     logw = torch.zeros((b, s), dtype=torch.float32, device=dev)
     lpt = torch.zeros((b, s), dtype=torch.float32, device=dev)
-    tiny = torch.finfo(torch.float32).tiny
     for i in range(n):
         rows = row_offset[i].expand(b, s)
         if n_par[i]:
@@ -185,7 +187,7 @@ def discrete_sweep_trace(
             for j in range(1, cmax):
                 total = total + probs[j]
             u = (noise[i] if noise is not None else
-                 torch.rand((b, s), generator=gen, device=dev))
+                 stream.uniform(i).reshape(b, s))
             thresh = u * total
             cum = probs[0]
             sampled = torch.zeros((b, s), dtype=torch.int64, device=dev)
@@ -197,8 +199,8 @@ def discrete_sweep_trace(
             if noise is not None:
                 g = noise[i]
             else:
-                u = torch.rand((b, s, cmax), generator=gen, device=dev)
-                g = -torch.log(-torch.log(torch.clamp(u, min=tiny)))
+                u = stream.uniform(i, cmax).reshape(b, s, cmax)  # in (0, 1)
+                g = -torch.log(-torch.log(u))
             sampled = torch.argmax(logits + g, dim=-1)
         fx_i = fx_mask[i][:, None]  # [B, 1] or [1, 1]
         value = torch.where(fx_i, fixed_idx[:, i][:, None], sampled)

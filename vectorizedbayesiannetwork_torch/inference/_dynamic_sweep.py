@@ -6,8 +6,10 @@ the query's structure is data per row. ``ev_mask``/``do_mask`` are
 log-density at the final (drawn-or-clamped) value, then selects by mask, so
 one function serves every evidence pattern and a batch may mix query
 skeletons. It serves the plans the scan kernels' gates refuse (mixed CPD
-families, more than 1500 nodes). Draws come from the call's
-``torch.Generator``, node by node in topological order, whatever the masks.
+families, more than 1500 nodes). Draws come from the call's row stream
+(``core/rng.py::RowStream``, counter (particle, row, node)), whatever the
+masks; under a mesh (``mesh=``) each rank sweeps its block and the blocks
+are gathered (``ops/sweep.py::shard_trace``).
 
 As in the JAX package, a plan of 64 nodes or more that is all categorical
 or all linear-Gaussian takes the stacked-table form
@@ -23,6 +25,8 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 
 from ..core.plan import InferencePlan
+from ..core.rng import Draw, RowStream
+from ..ops.sweep import shard_trace
 from ._sweep import ROUTES, _parents_flat, stacked_form
 
 
@@ -30,25 +34,48 @@ def dynamic_sweep_trace(
     plan: InferencePlan,
     cpds: Sequence,
     params_tuple: Tuple,
-    gen: torch.Generator,
+    draw: Draw,
     fixed: torch.Tensor,  # [B, total_dim] packed evidence/do values
     ev_mask: torch.Tensor,  # [B, n_nodes] (1 = evidence: clamp + weight)
     do_mask: torch.Tensor,  # [B, n_nodes] (1 = do: clamp, no weight)
     n_samples: int,
     *,
     tgt_mask: Optional[torch.Tensor] = None,  # [B, n_nodes] one-hot target
+    mesh=None,
+    targets: Optional[torch.Tensor] = None,  # [B] each row's target node
 ):
     """Returns ``(packed [B, S, total_dim], log_weights [B, S])``, and with
     ``tgt_mask`` a third output: each row's target log-density at its final
-    value, [B, S] (what Monte-Carlo marginalization exponentiates)."""
+    value, [B, S] (what Monte-Carlo marginalization exponentiates). With
+    ``targets`` the first output is each row's target block [B, S, max_dim]
+    (``dynamic_target_values``; under a mesh each rank then gathers only
+    those). The draws are ``draw``'s row stream, sharded over ``mesh`` when
+    given."""
     route, form = stacked_form(plan, cpds)
     ROUTES[route] += 1
-    if form is not None:
-        return form(plan, cpds, params_tuple, gen, fixed, n_samples,
-                    weighted=True, ev_mask_arr=ev_mask,
-                    fx_mask_arr=torch.maximum(ev_mask, do_mask),
-                    tgt_mask_arr=tgt_mask)
-    b, s = fixed.shape[0], n_samples
+
+    def local(stream: RowStream, fixed_l, ev_l, do_l, ti_l=None, tgt_l=None):
+        if form is not None:
+            out = form(plan, cpds, params_tuple, stream, fixed_l, stream.s,
+                       weighted=True, ev_mask_arr=ev_l,
+                       fx_mask_arr=torch.maximum(ev_l, do_l),
+                       tgt_mask_arr=tgt_l)
+        else:
+            out = _per_node_trace(plan, cpds, params_tuple, stream, fixed_l,
+                                  ev_l, do_l, tgt_l)
+        if ti_l is None:
+            return out
+        return (dynamic_target_values(plan, out[0], ti_l),) + tuple(out[1:])
+
+    return shard_trace(mesh, local, draw, n_samples,
+                       (fixed, ev_mask, do_mask, targets, tgt_mask))
+
+
+def _per_node_trace(plan, cpds, params_tuple, stream: RowStream, fixed,
+                    ev_mask, do_mask, tgt_mask):
+    """``dynamic_sweep_trace``'s per-node loop over one block of rows and
+    particles."""
+    b, s = fixed.shape[0], stream.s
     m = b * s
     vals: List[Optional[torch.Tensor]] = [None] * plan.n_nodes
     log_w = torch.zeros((b, s), dtype=torch.float32, device=fixed.device)
@@ -57,7 +84,8 @@ def dynamic_sweep_trace(
         d = plan.node_dims[idx]
         off = plan.node_offsets[idx]
         pflat = _parents_flat(plan, vals, idx, m)
-        sampled = cpds[idx]._sample_flat(params_tuple[idx], gen, pflat, m)
+        sampled = cpds[idx]._sample_flat(params_tuple[idx], stream.node(idx),
+                                         pflat, m)
         fixed_b = fixed[:, None, off : off + d].expand(b, s, d)
         m_fix = torch.maximum(ev_mask[:, idx], do_mask[:, idx])  # [B]
         v = torch.where(m_fix[:, None, None] > 0, fixed_b,

@@ -12,10 +12,11 @@ over topological order on stacked padded parameters:
     log-weights.
 
 The JAX form draws its whole ``eps [B, S, N]`` at once; here a step draws
-its ``[B, S]`` from the call's generator (at 96 rows, 2^14 particles and
-2048 nodes the whole field alone would be 12.9 GB). ``noise`` takes the
-JAX package's ``[B, S, N]`` draws instead. The state is node-major
-``[N, B, S]`` and is returned as its ``[B, S, N]`` view.
+its ``[B, S]`` from the call's row stream (node i, slots 0 and 1: at 96
+rows, 2^14 particles and 2048 nodes the whole field alone would be 12.9
+GB). ``noise`` takes the JAX package's ``[B, S, N]`` draws instead. The
+state is node-major ``[N, B, S]`` and is returned as its ``[B, S, N]``
+view.
 """
 
 from __future__ import annotations
@@ -55,7 +56,7 @@ def gaussian_sweep_trace(
     plan: InferencePlan,
     cpds: Sequence,
     params_tuple: Tuple,
-    gen: Optional[torch.Generator],
+    stream,  # core.rng.RowStream, or None with ``noise``
     fixed: torch.Tensor,  # [B, total_dim]
     n_samples: int,
     *,
@@ -105,7 +106,7 @@ def gaussian_sweep_trace(
         else:
             loc = bias[i].expand(b, s)
         eps = (noise[..., i] if noise is not None else
-               torch.randn((b, s), generator=gen, device=dev))
+               stream.normal(i).reshape(b, s))
         sampled = loc + scale[i] * eps
         value = torch.where(fx_mask[i][:, None], fixed[:, i][:, None], sampled)
         states[i] = value

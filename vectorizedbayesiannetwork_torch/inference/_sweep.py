@@ -6,7 +6,12 @@ the CPD (``_sample_flat``) or the clamped evidence/do value, and for
 likelihood weighting the evidence log-likelihood (``_log_prob_flat``)
 added to the particle weights. It serves what the fused kernels' gates
 refuse, and Monte-Carlo marginalization's direct path. Draws come from the
-call's ``torch.Generator``, node by node in topological order.
+call's row stream (``core/rng.py::RowStream``): node i of particle p of
+row r draws from counter (p, r, i), so a row's draws do not depend on its
+batch. Under a mesh (``mesh=``) each rank sweeps its block of rows and
+particles on the same counters and the blocks are gathered
+(``ops/sweep.py::shard_trace``): every rank returns the unmeshed stream
+bit for bit.
 
 As in the JAX package, a plan of 64 nodes or more that is all
 categorical (declared supports) or all linear-Gaussian takes the
@@ -27,6 +32,8 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 
 from ..core.plan import InferencePlan
+from ..core.rng import Draw, RowStream
+from ..ops.sweep import shard_trace
 from ._discrete_sweep import discrete_sweep_supported, discrete_sweep_trace
 from ._gaussian_sweep import gaussian_sweep_supported, gaussian_sweep_trace
 
@@ -67,28 +74,49 @@ def sweep_trace(
     plan: InferencePlan,
     cpds: Sequence,
     params_tuple: Tuple,
-    gen: torch.Generator,
+    draw: Draw,
     fixed: torch.Tensor,  # [B, total_dim] packed evidence/do values
     n_samples: int,
     *,
     weighted: bool = False,
     skip: frozenset = frozenset(),
+    mesh=None,
+    target: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Ancestral sweep -> (packed [B, S, total_dim], log_weights [B, S]).
+    """Ancestral sweep -> (packed [B, S, total_dim], log_weights [B, S]);
+    with ``target`` the first output is that node's values [B, S, d] alone
+    (under a mesh each rank then gathers only those).
 
     ``log_weights`` accumulates evidence log-likelihoods when ``weighted``
     (likelihood weighting); do-interventions clamp without weight.
-    ``skip`` nodes stay zero and draw nothing from the generator
-    (Rao-Blackwellization skips the target and its descendants, which are
-    never parents of a swept node). Without ``skip``, a plan that
-    ``stacked_form`` admits takes the stacked-table sweep.
+    ``skip`` nodes stay zero and draw nothing (Rao-Blackwellization skips
+    the target and its descendants, which are never parents of a swept
+    node). Without ``skip``, a plan that ``stacked_form`` admits takes the
+    stacked-table sweep. The draws are ``draw``'s row stream; with
+    ``mesh`` the sweep runs sharded over it (``shard_trace``).
     """
     route, form = ("per_node", None) if skip else stacked_form(plan, cpds)
     ROUTES[route] += 1
-    if form is not None:
-        return form(plan, cpds, params_tuple, gen, fixed, n_samples,
-                    weighted=weighted)
-    b, s = fixed.shape[0], n_samples
+
+    def local(stream: RowStream, fixed_l: torch.Tensor):
+        if form is not None:
+            packed, log_w = form(plan, cpds, params_tuple, stream, fixed_l,
+                                 stream.s, weighted=weighted)
+        else:
+            packed, log_w = _per_node_trace(plan, cpds, params_tuple, stream,
+                                            fixed_l, weighted, skip)
+        if target is not None:
+            packed = node_values(plan, packed, target)
+        return packed, log_w
+
+    return shard_trace(mesh, local, draw, n_samples, (fixed,))
+
+
+def _per_node_trace(plan, cpds, params_tuple, stream: RowStream,
+                    fixed: torch.Tensor, weighted: bool, skip: frozenset):
+    """``sweep_trace``'s per-node loop over one block of rows and
+    particles."""
+    b, s = fixed.shape[0], stream.s
     m = b * s
     vals: List[Optional[torch.Tensor]] = [None] * plan.n_nodes
     log_w = torch.zeros((b, s), dtype=torch.float32, device=fixed.device)
@@ -107,7 +135,8 @@ def sweep_trace(
                 )
                 log_w = log_w + lp.reshape(b, s)
         else:
-            v = cpds[idx]._sample_flat(params_tuple[idx], gen, pflat, m)
+            v = cpds[idx]._sample_flat(params_tuple[idx], stream.node(idx),
+                                       pflat, m)
             vals[idx] = v.reshape(b, s, d)
     return torch.cat(vals, dim=-1), log_w
 

@@ -21,10 +21,20 @@ import torch
 from ..core.base import Query
 from ..core.plan import pack_fixed_values
 from ..core.registry import register_inference
+from ..core.rng import RowStream
 from ..learning.amortized import amortized_forward, node_distribution
 from ..ops.gauss import LOG_2PI
 from ._base import Method, Program
 from .gaussian_exact import make_fallback
+
+
+def _float64(tree):
+    """A params tree with every tensor in float64."""
+    if isinstance(tree, dict):
+        return {k: _float64(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_float64(v) for v in tree)
+    return tree.double() if isinstance(tree, torch.Tensor) else tree
 
 
 @register_inference("amortized")
@@ -86,14 +96,18 @@ class AmortizedInference(Method):
             bb, dev = fixed_vals.shape[0], fixed_vals.device
             mask = torch.tensor(mask_row, device=dev).expand(bb, -1)
             do_mask = torch.tensor(do_row, device=dev).expand(bb, -1)
-            heads = amortized_forward(spec, net, fixed_vals, mask, do_mask)
+            # the trunk in float64, rounded once: a float32 GEMM of one
+            # row rounds apart from one of several, and a row's answer
+            # must not depend on its batch
+            heads = amortized_forward(
+                spec, _float64(net), fixed_vals.double(), mask.double(),
+                do_mask.double()).float()
             if categorical:
                 probs, values = node_distribution(spec, net, heads, t)
                 k = spec.n_classes[t]
                 return probs, values[None, :, None].expand(bb, k, 1)
             loc, scale = node_distribution(spec, net, heads, t)
-            eps = torch.randn((bb, s, d), generator=draw.generator,
-                              device=dev)
+            eps = RowStream(draw, bb, s).normal(t, d).reshape(bb, s, d)
             x = loc[:, None, :] + eps * scale[:, None, :]
             z = (x - loc[:, None, :]) / scale[:, None, :]
             lp = -0.5 * torch.sum(

@@ -32,8 +32,8 @@ from ..core.registry import register_inference
 from ..core.rng import fold
 from ._base import Program
 from ._dynamic_base import DynamicMaskMethod
-from ._dynamic_sweep import dynamic_sweep_trace, dynamic_target_values
-from ._sweep import node_values, sweep_trace
+from ._dynamic_sweep import dynamic_sweep_trace
+from ._sweep import sweep_trace
 
 
 def _weights_and_ess(log_w):
@@ -62,8 +62,9 @@ class ImportanceSampling(DynamicMaskMethod):
         return bool(self._fallback_dev)
 
     def _dynamic_fn(self, plan, cpds, s, opts, mesh=None):
-        # IS runs whole on every rank under a mesh (``mesh`` unused; its
-        # sharded form is ROADMAP queue 1 item 15)
+        # Under a mesh the torch-op sweeps run sharded over it (each rank
+        # its block of rows and particles on the unmeshed counters, then
+        # gathered); the scan kernels' route runs whole on every rank.
         threshold = max(1.0, self.ess_threshold * float(s))
         # column -> node: the fallback's per-row evidence-column mask
         node_of_col = np.zeros((plan.total_dim,), np.int64)
@@ -84,9 +85,9 @@ class ImportanceSampling(DynamicMaskMethod):
                     params_tuple, d_is.seed, fixed_vals, evm, dom, ti
                 )
             else:
-                packed, log_w = dynamic_sweep_trace(
-                    plan, cpds, params_tuple, d_is.generator, fixed_vals, evm,
-                    dom, s,
+                tv1, log_w = dynamic_sweep_trace(
+                    plan, cpds, params_tuple, d_is, fixed_vals, evm, dom, s,
+                    mesh=mesh, targets=ti,
                 )
             weights, ess = _weights_and_ess(log_w)
             # padded rows carry no evidence: uniform weights, ESS == S
@@ -98,11 +99,10 @@ class ImportanceSampling(DynamicMaskMethod):
                 lw2, tv2, _, _ = raw(params_tuple, d_lw.seed, f_lw, evm, dom, ti)
                 tv1, tv2 = tv1[:, :, None], tv2[:, :, None]
             else:
-                p2, lw2 = dynamic_sweep_trace(
-                    plan, cpds, params_tuple, d_lw.generator, f_lw, evm, dom, s
+                tv2, lw2 = dynamic_sweep_trace(
+                    plan, cpds, params_tuple, d_lw, f_lw, evm, dom, s,
+                    mesh=mesh, targets=ti,
                 )
-                tv1 = dynamic_target_values(plan, packed, ti)
-                tv2 = dynamic_target_values(plan, p2, ti)
             w_out = torch.where(collapse[:, None], torch.softmax(lw2, dim=1),
                                 weights)
             s_out = torch.where(collapse[:, None, None], tv2, tv1)
@@ -123,6 +123,7 @@ class ImportanceSampling(DynamicMaskMethod):
         cpds = self._cpds(vbn, plan)
         t = plan.target_idx
         threshold = max(1.0, self.ess_threshold * float(s))
+        mesh = vbn._mesh
         ev_cols = np.zeros((plan.total_dim,), dtype=bool)
         for idx in range(plan.n_nodes):
             if plan.evidence_mask[idx]:
@@ -130,9 +131,9 @@ class ImportanceSampling(DynamicMaskMethod):
                 ev_cols[off : off + plan.node_dims[idx]] = True
 
         def fn(params_tuple, draw, f_is):
-            packed, log_w = sweep_trace(
-                plan, cpds, params_tuple, fold(draw, 0).generator, f_is, s,
-                weighted=True,
+            tv, log_w = sweep_trace(
+                plan, cpds, params_tuple, fold(draw, 0), f_is, s,
+                weighted=True, mesh=mesh, target=t,
             )
             weights, ess = _weights_and_ess(log_w)
             collapse = bool((ess < threshold).any())  # one sync per call
@@ -140,12 +141,12 @@ class ImportanceSampling(DynamicMaskMethod):
                 # the LW rerun on sanitized evidence, fresh sub-stream
                 cols = torch.as_tensor(ev_cols, device=f_is.device)
                 f_lw = torch.where(cols, clamp_evidence(f_is), f_is)
-                packed, lw2 = sweep_trace(
-                    plan, cpds, params_tuple, fold(draw, 1).generator, f_lw,
-                    s, weighted=True,
+                tv, lw2 = sweep_trace(
+                    plan, cpds, params_tuple, fold(draw, 1), f_lw,
+                    s, weighted=True, mesh=mesh, target=t,
                 )
                 weights = torch.softmax(lw2, dim=1)
-            return weights, node_values(plan, packed, t), ess, collapse
+            return weights, tv, ess, collapse
 
         def post(outs):
             weights, samples, ess, collapse = outs

@@ -7,7 +7,8 @@ returns max-shifted unnormalized weights. All-categorical and
 all-linear-Gaussian static plans take the unrolled sweep kernel
 (``ops/sweep.py``) up to 80 nodes and the scan kernel
 (``ops/sweep_scan.py``) beyond; ``dynamic_masks=True`` serves every query
-shape through the scan kernel. Other plans take the torch-op sweeps.
+shape through the scan kernel. Other plans take the torch-op sweeps,
+sharded over the VBN's mesh like the kernels.
 """
 
 from __future__ import annotations
@@ -22,8 +23,8 @@ from ..ops.sweep_scan import make_scan_sweep_fn, scan_sweep_reason
 from ..parallel.mesh import mesh_shape
 from ._base import Program
 from ._dynamic_base import DynamicMaskMethod
-from ._dynamic_sweep import dynamic_sweep_trace, dynamic_target_values
-from ._sweep import node_values, sweep_trace
+from ._dynamic_sweep import dynamic_sweep_trace
+from ._sweep import sweep_trace
 
 
 @register_inference("likelihood_weighting")
@@ -112,12 +113,12 @@ class LikelihoodWeighting(DynamicMaskMethod):
                 )
                 weights, ess = self._weights_from_logw(log_w, normalize)
                 return weights, tgt[:, :, None], ess
-            packed, log_w = dynamic_sweep_trace(
-                plan, cpds, params_tuple, draw.generator, fixed_vals, evm,
-                dom, s,
+            tv, log_w = dynamic_sweep_trace(
+                plan, cpds, params_tuple, draw, fixed_vals, evm, dom, s,
+                mesh=mesh, targets=ti,
             )
             weights, ess = self._weights_from_logw(log_w, normalize)
-            return weights, dynamic_target_values(plan, packed, ti), ess
+            return weights, tv, ess
 
         return fn
 
@@ -143,12 +144,12 @@ class LikelihoodWeighting(DynamicMaskMethod):
                 return weights, tgt[:, :, None], ess
         else:
             def fn(params_tuple, draw, fixed_vals):
-                packed, log_w = sweep_trace(
-                    plan, cpds, params_tuple, draw.generator, fixed_vals, s,
-                    weighted=True,
+                tv, log_w = sweep_trace(
+                    plan, cpds, params_tuple, draw, fixed_vals, s,
+                    weighted=True, mesh=vbn._mesh, target=t,
                 )
                 weights, ess = self._weights_from_logw(log_w, normalize)
-                return weights, node_values(plan, packed, t), ess
+                return weights, tv, ess
 
         def post(outs):
             weights, samples, ess = outs

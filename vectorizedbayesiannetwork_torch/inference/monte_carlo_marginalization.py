@@ -19,9 +19,10 @@ import torch
 from ..core.base import Query
 from ..core.plan import pack_fixed_values
 from ..core.registry import register_inference
+from ..core.rng import RowStream
 from ._base import Program
 from ._dynamic_base import DynamicMaskMethod
-from ._dynamic_sweep import dynamic_sweep_trace, dynamic_target_values
+from ._dynamic_sweep import dynamic_sweep_trace
 from ._sweep import node_values, sweep_trace, target_log_prob
 from .likelihood_weighting import LikelihoodWeighting
 
@@ -55,11 +56,10 @@ class MonteCarloMarginalization(DynamicMaskMethod):
                 tgt = torch.nn.functional.one_hot(
                     ti.long(), plan.n_nodes
                 ).to(torch.float32)
-                packed, _, lp_t = dynamic_sweep_trace(
-                    plan, cpds, params_tuple, draw.generator, fixed_vals,
-                    no_weight, fx, s, tgt_mask=tgt,
+                samples, _, lp_t = dynamic_sweep_trace(
+                    plan, cpds, params_tuple, draw, fixed_vals,
+                    no_weight, fx, s, tgt_mask=tgt, mesh=mesh, targets=ti,
                 )
-                samples = dynamic_target_values(plan, packed, ti)
             # do(target) rows: a delta at the intervened value (the sweep
             # already clamped the samples; pdf := 1)
             pdf = torch.where(do_t[:, None] > 0, 1.0, torch.exp(lp_t))
@@ -113,8 +113,11 @@ class MonteCarloMarginalization(DynamicMaskMethod):
                         bb, s, t_dim
                     )
                 else:
+                    # the target's own node word past the sweep's, so the
+                    # draw never repeats a sweep's draw of t
+                    src = RowStream(draw, bb, s).node(plan.n_nodes + t)
                     x = cpds[t]._sample_flat(
-                        params_tuple[t], draw.generator, pflat, bb * s
+                        params_tuple[t], src, pflat, bb * s
                     ).reshape(bb, s, t_dim)
                 lp = cpds[t]._log_prob_flat(
                     params_tuple[t], x.reshape(bb * s, t_dim), pflat
@@ -132,7 +135,8 @@ class MonteCarloMarginalization(DynamicMaskMethod):
         else:
             def fn(params_tuple, draw, fixed_vals):
                 packed, _ = sweep_trace(
-                    plan, cpds, params_tuple, draw.generator, fixed_vals, s
+                    plan, cpds, params_tuple, draw, fixed_vals, s,
+                    mesh=vbn._mesh,
                 )
                 lp = target_log_prob(plan, cpds, params_tuple, packed)
                 return torch.exp(lp), node_values(plan, packed, t)

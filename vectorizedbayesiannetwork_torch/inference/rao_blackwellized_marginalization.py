@@ -127,8 +127,8 @@ class RaoBlackwellizedMarginalization(Method):
             )
         params_tuple = self._params_tuple(vbn, plan)
         packed, log_w = sweep_trace(
-            plan, cpds, params_tuple, vbn.next_key().generator, fixed, s_part,
-            weighted=True, skip=frozenset(descendants | {t}),
+            plan, cpds, params_tuple, vbn.next_key(), fixed, s_part,
+            weighted=True, skip=frozenset(descendants | {t}), mesh=vbn._mesh,
         )
         weights = _normalized_weights(log_w)  # [B, S_part]
         pflat = target_parents_flat(plan, packed, t)

@@ -13,14 +13,17 @@ Each resampling event runs the merge path of ``ops/resample_merge.py``
 (one ``vbn_cumsum`` and one ``vbn_srg`` launch on the card; multinomial:
 two cumsums and ``vbn_spg``) where
 ``srg_supported`` admits the shape, else the index form of
-``ops/resample.py``. Node draws come from the call's ``torch.Generator``;
-each resampling event draws from its own sub-stream,
-``fold(draw, 10_000 + node)``.
+``ops/resample.py``. Node draws come from the call's row stream
+(``core/rng.py::RowStream``: counter (particle, row, node)); each
+resampling event keys its draws by its own sub-stream ``fold(draw,
+10_000 + node)``: systematic's ``u0`` by row, multinomial's uniforms (the
+merge's Exp(1) draws are their ``-log``) by (particle, row). So a row's
+answer does not depend on its batch.
 
 Under a mesh (``VBN.set_mesh``), when B splits over 'data' and S over
 'particle', each rank runs the loop on its block of rows and particles:
-its node draws come from ``fold(draw, di * n_particle + pi)``, the weights'
-softmax and ESS take the particle group's max and sums, and each
+its node draws are its block of the unmeshed row stream (``row0``,
+``particle0``), the weights' softmax and ESS take the particle group's max and sums, and each
 resampling event is ``ops/resample_distributed.py``'s ring over the live
 columns (one ``vbn_cumsum`` and one ``vbn_spg`` a ring step on the card;
 multinomial one more cumsum). Every rank returns the whole result.
@@ -36,7 +39,7 @@ import torch.distributed as dist
 from ..core.base import Query
 from ..core.plan import InferencePlan, pack_fixed_values
 from ..core.registry import register_inference
-from ..core.rng import fold
+from ..core.rng import RowStream, fold
 from ..ops.resample_distributed import (
     distributed_resample_gather,
     distributed_resample_supported,
@@ -159,10 +162,17 @@ class ResampledImportanceSampling(Method):
             if shard is not None:
                 return distributed_resample_gather(sub, weights, cat, shard,
                                                    method=method)
-            gen = sub.generator
-            if srg_supported(s, cat.shape[-1]):
-                return fused(weights, cat, generator=gen)
-            return gather_particles(cat, indices(weights, generator=gen))
+            bb = weights.shape[0]
+            merge = srg_supported(s, cat.shape[-1])
+            if method == "systematic":
+                u0 = RowStream(sub, bb, 1).uniform(0)  # [B, 1], by row
+                if merge:
+                    return fused(weights, cat, u0=u0)
+                return gather_particles(cat, indices(weights, u0=u0))
+            u = RowStream(sub, bb, s + 1).uniform(0).reshape(bb, s + 1)
+            if merge:
+                return fused(weights, cat, e=-torch.log(u))
+            return gather_particles(cat, indices(weights, u=u[:, :s]))
 
         mesh = vbn._mesh
 
@@ -172,9 +182,9 @@ class ResampledImportanceSampling(Method):
                 mesh, fixed_vals.shape[0], s) else None
             (nd, npart), (di, pi) = mesh_shape(shard), mesh_coords(shard)
             fixed_vals = block(fixed_vals, nd, di)
-            gen = draw.generator if shard is None else \
-                fold(draw, di * npart + pi).generator
             bb, s_l = fixed_vals.shape[0], s // npart
+            stream = RowStream(draw, bb, s_l, row0=di * bb,
+                               particle0=pi * s_l, n_particles=s)
             m = bb * s_l
             dev = fixed_vals.device
             vals: List[Optional[torch.Tensor]] = [None] * plan.n_nodes
@@ -186,7 +196,8 @@ class ResampledImportanceSampling(Method):
                 off = plan.node_offsets[idx]
                 pflat = _parents_flat(plan, vals, idx, m)
                 if not plan.is_fixed(idx):
-                    v = cpds[idx]._sample_flat(params_tuple[idx], gen, pflat, m)
+                    v = cpds[idx]._sample_flat(params_tuple[idx],
+                                               stream.node(idx), pflat, m)
                     vals[idx] = v.reshape(bb, s_l, d)
                     continue
                 vals[idx] = fixed_vals[:, None, off : off + d].expand(bb, s_l, d)

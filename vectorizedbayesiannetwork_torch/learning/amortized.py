@@ -174,7 +174,8 @@ def amortized_forward(spec: AmortizedSpec, net: Dict, rows: torch.Tensor,
     visible value is a do-intervention) -> head activations
     [M, head_total]."""
     xn = (rows - net["mean"]) / net["std"]
-    expand = torch.as_tensor(_mask_expand_matrix(spec), device=rows.device)
+    expand = torch.as_tensor(_mask_expand_matrix(spec), device=rows.device,
+                             dtype=rows.dtype)
     parts = [xn * (mask @ expand), mask]
     if spec.interventional:
         parts.append(torch.zeros_like(mask) if do_mask is None else do_mask)
@@ -290,10 +291,9 @@ class AmortizedLearner:
             fixed[:, off : off + d] = rows[picks, off : off + d]
         dom = torch.as_tensor(do_mask, device=vbn.device)
         packed, _ = dynamic_sweep_trace(
-            plan, cpds, params_tuple,
-            fold(Draw(vbn.seed, vbn.device), 999).generator,
+            plan, cpds, params_tuple, fold(Draw(vbn.seed, vbn.device), 999),
             torch.as_tensor(fixed, device=vbn.device), torch.zeros_like(dom),
-            dom, 1,
+            dom, 1, mesh=vbn._mesh,
         )
         vals = packed[:, 0, :].cpu().numpy().astype(np.float32)
         p_obs = rng.uniform(0.1, 0.9, size=(m, 1)).astype(np.float32)

@@ -26,6 +26,7 @@ import torch
 
 from ..core.base import BaseCPD, Params
 from ..core.registry import register_cpd
+from ..core.rng import uniforms
 
 
 def _index_of(values: torch.Tensor, mask: torch.Tensor, x: torch.Tensor):
@@ -310,12 +311,11 @@ class CategoricalTableCPD(BaseCPD):
         return params["class_values"][d][idx]
 
     def _sample_flat(self, params, gen, parents, m):
-        """Inverse-CDF draw, one uniform a row and output dim."""
+        """Inverse-CDF draw, one uniform a row and output dim (slot d)."""
         pidx = self._parents_to_index(params, parents, m)
-        dev = params["class_values"].device
+        u = uniforms(gen, m, self.output_dim, params["class_values"].device)
         return torch.stack([
-            self._inverse_cdf(params, pidx, d,
-                              torch.rand((m,), generator=gen, device=dev), m)
+            self._inverse_cdf(params, pidx, d, u[:, d], m)
             for d in range(self.output_dim)], dim=-1)
 
     def _noise_spec(self, params, m):

@@ -26,6 +26,7 @@ import torch
 
 from ..core.base import BaseCPD, Params
 from ..core.registry import register_cpd
+from ..core.rng import normals
 from ..ops.gauss import diag_gaussian_log_prob, safe_softplus, standardize_stats
 from ._mlp import check_activation, mlp_apply, mlp_init, resolve_compute_dtype
 from ._train import (
@@ -203,8 +204,7 @@ class GaussianNNCPD(BaseCPD):
 
     def _sample_flat(self, params, gen, parents, m):
         loc, scale = self._denorm_params(params, parents, m)
-        eps = torch.randn((m, self.output_dim), generator=gen,
-                          device=loc.device, dtype=loc.dtype)
+        eps = normals(gen, m, self.output_dim, loc.device, dtype=loc.dtype)
         return loc + eps * scale
 
     def _log_prob_flat(self, params, x, parents):

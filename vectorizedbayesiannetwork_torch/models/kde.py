@@ -13,10 +13,11 @@ the same bandwidths from the same data.
 
 The log-density goes through ``ops/kde_kernel.py``'s dispatch to the
 wrappers of ``ops/kde_fused.py``: their CUDA kernels on the card, their
-plain versions on the CPU. On the card the pick runs in ``vbn_kde_pick``;
-a node with more than 32 parent features, and every node on the CPU,
-picks through the chunked torch form (``kde_sample_indices``), as the JAX
-package sends such picks to XLA.
+plain versions on the CPU. A pick of up to 32 parent features runs
+``kde_pick`` (``vbn_kde_pick`` on the card, its plain version on the CPU,
+on the same Philox uniforms); a node with more than 32 parent features
+picks through the chunked torch form (``kde_sample_indices``) on a
+uniform of the row stream, as the JAX package sends such picks to XLA.
 
 A fit with more than ``max_points`` rows keeps a uniform subset drawn with
 ``torch.randperm`` from the fit's generator: the same distribution as the
@@ -39,7 +40,8 @@ import torch
 
 from ..core.base import BaseCPD, Params
 from ..core.registry import register_cpd
-from ..ops.kde_fused import _DIRECT_D, kde_pick, pick_key
+from ..core.rng import NodeStream, normals, uniforms
+from ..ops.kde_fused import _DIRECT_D, RowMap, kde_pick, pick_key, seed_key
 from ..ops.kde_kernel import kde_log_prob, kde_sample_indices
 
 
@@ -225,20 +227,32 @@ class KDECPD(BaseCPD):
         )
 
     def _sample_flat(self, params, gen, parents, m):
+        """The pick, then Gaussian noise at the bandwidth. Up to 32 parent
+        features the pick is ``kde_pick``'s inverse CDF on its own Philox
+        stream, keyed by the node's seed at the rows' global flat rows on a
+        row stream (a ``pick_key`` from a generator); past 32 the chunked
+        pick on slot 0. The noise takes the slots from 4 on."""
         log_mask = self._log_mask(params)
         data_x = params["data_x"]
-        if data_x.is_cuda and self.input_dim <= _DIRECT_D:
+        dev = data_x.device
+        if self.input_dim <= _DIRECT_D:
+            if isinstance(gen, NodeStream):
+                st = gen.stream
+                key = seed_key(gen.seed, dev)
+                rows = RowMap.of(st.row0, st.particle0, st.s, st.n_particles)
+            else:
+                key, rows = pick_key(gen, dev), RowMap()
             selected = kde_pick(
-                pick_key(gen, data_x.device),
-                parents.contiguous() if self.input_dim else None,
+                key, parents.contiguous() if self.input_dim else None,
                 params["data_p"], data_x, log_mask, self._p_scale(), m,
+                rows=rows,
             )
         else:
             idx = kde_sample_indices(
-                gen, parents if self.input_dim else None, params["data_p"],
+                uniforms(gen, m, 1, dev)[:, 0], parents, params["data_p"],
                 log_mask, self._p_scale(), m,
             )
             selected = data_x[idx]
-        noise = torch.randn(selected.shape, generator=gen,
-                            device=selected.device, dtype=selected.dtype)
+        noise = normals(gen, m, selected.shape[1], dev, at=4,
+                        dtype=selected.dtype)
         return selected + noise * (max(self.bandwidth, 1e-3) + self.min_scale)

@@ -22,6 +22,7 @@ import torch
 
 from ..core.base import BaseCPD, Params
 from ..core.registry import register_cpd
+from ..core.rng import normals
 from ..ops.gauss import diag_gaussian_log_prob
 
 
@@ -111,10 +112,7 @@ class LinearGaussianCPD(BaseCPD):
 
     def _sample_flat(self, params, gen, parents, m):
         loc = self._loc(params, parents, m)
-        eps = torch.randn(
-            (m, self.output_dim), generator=gen, device=loc.device,
-            dtype=loc.dtype,
-        )
+        eps = normals(gen, m, self.output_dim, loc.device, dtype=loc.dtype)
         return loc + eps * self._scale(params)
 
     def _noise_spec(self, params, m):

@@ -23,6 +23,7 @@ import torch
 
 from ..core.base import BaseCPD, Params
 from ..core.registry import register_cpd
+from ..core.rng import next_slot, normals, uniforms
 from ..ops.gauss import LOG_2PI, safe_softplus
 from ._mlp import check_activation, mlp_apply, mlp_init, resolve_compute_dtype
 from ._train import (
@@ -41,13 +42,16 @@ def floored_log_weights(logits: torch.Tensor) -> torch.Tensor:
     return torch.log(pi)
 
 
-def gumbel_pick(log_probs: torch.Tensor, gen: torch.Generator) -> torch.Tensor:
-    """One class a row of log_probs [..., K] (normalized or not), drawn as
-    argmax(log_probs + Gumbel noise), as the JAX package draws it; [...]
-    int64. (``torch.cumsum`` over a short last axis, an inverse-CDF draw,
-    runs ~40 ms on [8M, 2] on the card.)"""
-    u = torch.rand(log_probs.shape, generator=gen, device=log_probs.device,
-                   dtype=log_probs.dtype)
+def gumbel_pick(log_probs: torch.Tensor, gen) -> torch.Tensor:
+    """One class a row of log_probs [m, ..., K] (normalized or not), drawn
+    as argmax(log_probs + Gumbel noise), as the JAX package draws it;
+    [m, ...] int64. The noise takes slots 0 .. numel / m - 1 of a node's
+    row stream, or ``torch.rand`` on a generator. (``torch.cumsum`` over a
+    short last axis, an inverse-CDF draw, runs ~40 ms on [8M, 2] on the
+    card.)"""
+    m = log_probs.shape[0]
+    u = uniforms(gen, m, log_probs[0].numel(), log_probs.device,
+                 dtype=log_probs.dtype).reshape(log_probs.shape)
     return torch.argmax(log_probs - torch.log(-torch.log(u)), dim=-1)
 
 
@@ -209,8 +213,8 @@ class MDNCPD(BaseCPD):
         sel = comp[:, None, None].expand(m, 1, self.output_dim)
         loc_c = loc.gather(1, sel)[:, 0]
         scale_c = scale.gather(1, sel)[:, 0]
-        eps = torch.randn((m, self.output_dim), generator=gen,
-                          device=loc.device, dtype=loc.dtype)
+        eps = normals(gen, m, self.output_dim, loc.device,
+                      at=next_slot(self.n_components), dtype=loc.dtype)
         return loc_c + eps * scale_c
 
     def _log_prob_flat(self, params, x, parents):

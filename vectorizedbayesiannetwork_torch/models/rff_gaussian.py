@@ -29,6 +29,7 @@ import torch
 
 from ..core.base import BaseCPD, Params
 from ..core.registry import register_cpd
+from ..core.rng import normals
 from ..ops.gauss import diag_gaussian_log_prob, standardize_stats
 from ._train import as_rows
 
@@ -187,8 +188,7 @@ class RFFGaussianCPD(BaseCPD):
     def _sample_flat(self, params, gen, parents, m):
         loc, scale = self.conditional_params(params, parents)
         loc = loc.expand(m, self.output_dim)
-        eps = torch.randn((m, self.output_dim), generator=gen,
-                          device=loc.device, dtype=loc.dtype)
+        eps = normals(gen, m, self.output_dim, loc.device, dtype=loc.dtype)
         return loc + eps * scale.expand(m, self.output_dim)
 
     def _log_prob_flat(self, params, x, parents):

@@ -38,6 +38,7 @@ import torch
 
 from ..core.base import BaseCPD, Params
 from ..core.registry import register_cpd
+from ..core.rng import next_slot, normals, uniforms
 from ..ops.gauss import LOG_2PI
 from ._mlp import check_activation, mlp_apply, mlp_init, resolve_compute_dtype
 from ._train import as_rows, fit_minibatch_nll
@@ -398,13 +399,15 @@ class SoftmaxNNCPD(BaseCPD):
         disc_values = bins["sample_values"][None].expand(m, -1, -1).gather(
             2, idx[..., None])[..., 0]
         left, right, width, center = self._gather_edges(bins, idx)
+        # the within-bin draw takes the slots after the Gumbel noise's
+        at = next_slot(idx[0].numel() * self.n_classes)
         if self.within_bin == "gaussian":
             sigma = torch.clamp(self.within_bin_scale * width,
                                 min=self.min_bin_width)
-            cont_values = center + torch.randn(
-                center.shape, generator=gen, device=center.device) * sigma
+            cont_values = center + normals(
+                gen, m, center.shape[1], center.device, at=at) * sigma
         else:
-            u = torch.rand(center.shape, generator=gen, device=center.device)
+            u = uniforms(gen, m, center.shape[1], center.device, at=at)
             if self.within_bin == "uniform":
                 cont_values = left + u * width
             else:  # triangular

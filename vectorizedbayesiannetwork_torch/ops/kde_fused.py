@@ -37,8 +37,13 @@ uniform a row: with ``s_n = -|p - dp_n|^2 inv2p + log_mask_n`` and
 ``w_n = exp(s_n - max s)``, the first n whose running sum of w exceeds
 ``t = u * sum w``. The uniform comes from a 64-bit Philox key held in a
 device tensor (``key``, int64 [2]: its low and high 32-bit words), so
-drawing it costs no host sync: counter (row, 0, 0, 2), word 0, clamped
-below 1 (``pick_uniforms`` rebuilds it in torch ops). The sums are taken
+drawing it costs no host sync: counter (g, g >> 32, 0, 2), word 0,
+clamped below 1, where g is the row's global flat row in its batch
+(``RowMap``: a mesh rank's block of rows and particles draws the unmeshed
+uniforms; an unmeshed call's g is the row) (``pick_uniforms`` rebuilds it
+in torch ops). A sweep's key is its node's own seed on the row stream
+(``core/rng.py::NodeStream.seed``); a caller with a ``torch.Generator``
+draws one (``pick_key``). The sums are taken
 to better than float32 on both sides (float64 here, float-float or
 float64 in the kernel), so the order of the additions does not decide a
 pick; the kernel's terms (``__expf`` against a lazily moved reference)
@@ -68,12 +73,12 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
-from ..core.rng import philox4x32_10, uniform_from_bits
+from ..core.rng import U_MAX, philox4x32_10, uniform_from_bits
 from .sweep import LAUNCHES
 
 _DIRECT_D = 32  # feature-count cutoff of the direct kernels (kde_pallas.py:103)
@@ -82,6 +87,7 @@ _CHUNK = 4096  # query rows per tile of a plain version or chunked form
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 
 
 def kernel_consts(d: int, scale: float):
@@ -163,7 +169,31 @@ def pick_key(gen: torch.Generator, device) -> torch.Tensor:
                          device=device)
 
 
-U_MAX = 1.0 - 2.0**-24  # the largest float32 below 1
+def seed_key(seed: int, device) -> torch.Tensor:
+    """The int64 [2] key tensor of a 64-bit seed, written by two fills (no
+    host-to-device copy, so no host sync)."""
+    key = torch.empty((2,), dtype=torch.int64, device=device)
+    key[0] = int(seed) & 0xFFFFFFFF
+    key[1] = (int(seed) >> 32) & 0xFFFFFFFF
+    return key
+
+
+class RowMap(NamedTuple):
+    """A launch's rows in the global flat order of their batch: row r is
+    ``base + (r // s_loc) * stride + r % s_loc``. One rank of a mesh
+    holding particles ``[p0, p0 + s_loc)`` of rows ``[r0, ...)`` of a batch
+    of S particles a row has base ``r0 * S + p0`` and stride S."""
+
+    base: int = 0
+    s_loc: int = 1
+    stride: int = 1
+
+    @staticmethod
+    def of(row0: int, particle0: int, s_loc: int, n_particles: int):
+        return RowMap(row0 * n_particles + particle0, s_loc, n_particles)
+
+
+_IDENTITY = RowMap()
 
 
 def clamped_uniform(bits: torch.Tensor) -> torch.Tensor:
@@ -177,14 +207,19 @@ def _key_seed(key: torch.Tensor) -> int:
     return (int(k[0]) & 0xFFFFFFFF) | ((int(k[1]) & 0xFFFFFFFF) << 32)
 
 
-def pick_uniforms(key: torch.Tensor, m: int, row0: int = 0) -> torch.Tensor:
+def pick_uniforms(key: torch.Tensor, m: int, row0: int = 0,
+                  rows: RowMap = _IDENTITY) -> torch.Tensor:
     """The pick kernel's per-row uniforms [m] for query rows ``row0 ..
-    row0 + m - 1``: Philox-4x32-10 with the key's two words, counter (row,
-    0, 0, 2), word 0, clamped to ``U_MAX``."""
+    row0 + m - 1`` of a launch whose rows ``rows`` maps to their global
+    flat rows g: Philox-4x32-10 with the key's two words, counter (g,
+    g >> 32, 0, 2), word 0, clamped to ``U_MAX``."""
     i64 = dict(dtype=torch.int64, device=key.device)
-    c0 = torch.arange(row0, row0 + m, **i64)
-    zero = torch.zeros_like(c0)
-    word = philox4x32_10(c0, zero, zero, zero + 2, _key_seed(key))[0]
+    r = torch.arange(row0, row0 + m, **i64)
+    g = rows.base + torch.div(r, rows.s_loc, rounding_mode="floor") \
+        * rows.stride + r % rows.s_loc
+    zero = torch.zeros_like(g)
+    word = philox4x32_10(g & 0xFFFFFFFF, g >> 32, zero, zero + 2,
+                         _key_seed(key))[0]
     return clamped_uniform(word)
 
 
@@ -206,13 +241,14 @@ def inverse_cdf_pick(scores: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
 
 
 def kde_pick_plain(key, parents, data_p, data_x, log_mask, p_scale: float,
-                   m: int, gumbel: Optional[torch.Tensor] = None):
+                   m: int, gumbel: Optional[torch.Tensor] = None,
+                   rows: RowMap = _IDENTITY):
     """Parent-weighted support pick -> picked ``data_x`` rows [m, Dx]: by
-    inverse CDF on ``pick_uniforms(key, ...)``, or the Gumbel-argmax over
-    ``gumbel`` [m, N] when given."""
+    inverse CDF on ``pick_uniforms(key, m, rows=rows)``, or the
+    Gumbel-argmax over ``gumbel`` [m, N] when given."""
     root = parents is None or parents.shape[1] == 0
     inv2p, _ = kernel_consts(0 if root else parents.shape[1], p_scale)
-    u = pick_uniforms(key, m) if gumbel is None else None
+    u = pick_uniforms(key, m, rows=rows) if gumbel is None else None
 
     def tile(r0):
         r1 = min(r0 + _CHUNK, m)
@@ -239,7 +275,8 @@ def _lib() -> ctypes.CDLL:
     lib.vbn_kde_cond_wide.argtypes = cond[:-2] + [_P, _P, _P]
     lib.vbn_kde_cond_wide_scratch.argtypes = [_I, _I, _I]
     lib.vbn_kde_cond_wide_scratch.restype = ctypes.c_longlong
-    lib.vbn_kde_pick.argtypes = [_P] * 6 + [_I] * 4 + [_F, _P, _P]
+    lib.vbn_kde_pick.argtypes = [_P] * 6 + [_I] * 4 + [_F, _L, _I, _L, _P,
+                                                       _P]
     lib.vbn_kde_mma_probe.argtypes = [_P] * 4 + [_I, _P]  # a test hook
     for fn in (lib.vbn_kde_root, lib.vbn_kde_cond, lib.vbn_kde_cond_wide,
                lib.vbn_kde_pick, lib.vbn_kde_mma_probe):
@@ -349,14 +386,15 @@ def kde_cond_wide(x, p, data_x, data_p, log_mask, y_scale: float,
 
 
 def kde_pick(key, parents, data_p, data_x, log_mask, p_scale: float, m: int,
-             gumbel: Optional[torch.Tensor] = None) -> torch.Tensor:
+             gumbel: Optional[torch.Tensor] = None,
+             rows: RowMap = _IDENTITY) -> torch.Tensor:
     """Picked ``data_x`` rows [m, Dx] (``parents`` None for a root). CUDA
-    tensors launch ``vbn_kde_pick`` (inverse CDF on uniforms from ``key``,
-    or the Gumbel-argmax over ``gumbel`` when given); CPU tensors run
-    ``kde_pick_plain``."""
+    tensors launch ``vbn_kde_pick`` (inverse CDF on uniforms from ``key``
+    at the rows' global flat rows ``rows``, or the Gumbel-argmax over
+    ``gumbel`` when given); CPU tensors run ``kde_pick_plain``."""
     if not data_x.is_cuda:
         return kde_pick_plain(key, parents, data_p, data_x, log_mask, p_scale,
-                              m, gumbel)
+                              m, gumbel, rows)
     dev = data_x.device
     if data_x.dim() != 2 or data_x.shape[0] < 1 or data_x.shape[1] < 1:
         raise ValueError(f"kde_pick: bad support {tuple(data_x.shape)}")
@@ -384,6 +422,7 @@ def kde_pick(key, parents, data_p, data_x, log_mask, p_scale: float, m: int,
     out = torch.empty((m, dx), dtype=torch.float32, device=dev)
     _run(_lib().vbn_kde_pick, "vbn_kde_pick", dev, p_ptr, dp_ptr,
          data_x.data_ptr(), log_mask.data_ptr(), key_ptr, g_ptr, m, n, dp, dx,
-         float(inv2p), out.data_ptr())
+         float(inv2p), int(rows.base), int(rows.s_loc), int(rows.stride),
+         out.data_ptr())
     LAUNCHES["kde_pick"] += 1
     return out

@@ -14,10 +14,11 @@ more than 32 parent features (``models/kde.py``). The squared distance is
 expanded to ``|x|^2 - 2 x.t + |t|^2`` so the cross term is one matrix
 product (float32 on the card: PyTorch's default leaves TF32 off for matrix
 products), and the query rows are streamed in ``_CHUNK``-row tiles, so no
-[M, N] tensor is ever whole. ``kde_sample_indices`` also serves every pick
-on the CPU, as a Gumbel-argmax whose noise comes from ``torch.rand``: the
-plain pick rebuilds the kernel's Philox uniforms in int64 torch ops and
-is held against the kernel on the card.
+[M, N] tensor is ever whole. ``kde_sample_indices`` is that wide pick:
+the pick kernel's inverse CDF on one given uniform a row
+(``kde_fused.inverse_cdf_pick``), never a [rows, N] Gumbel field. Picks of
+up to 32 parent features run ``kde_fused.kde_pick``, whose plain version
+serves the CPU on the kernel's own Philox uniforms.
 
 ``kde_log_prob`` is differentiable in the queries and the parents (HMC
 and NUTS take the gradient of the joint log-density): when autograd wants
@@ -44,6 +45,7 @@ from .kde_fused import (
     _chunked,
     kde_cond,
     kde_cond_wide,
+    inverse_cdf_pick,
     kde_root,
     kernel_consts,
     sq_dist,
@@ -166,31 +168,21 @@ def kde_log_prob(
 
 
 def kde_sample_indices(
-    gen: torch.Generator,
+    u: torch.Tensor,  # [M] uniforms in (0, 1)
     parents: Optional[torch.Tensor],  # [M, Dp] or None
     data_p: torch.Tensor,  # [N, Dp]
     log_mask: torch.Tensor,  # [N]
     p_scale: float,
     m: int,
 ) -> torch.Tensor:
-    """Parent-softmax-weighted support pick by Gumbel-argmax -> [M] int64.
-
-    The Gumbel noise is drawn per tile from ``gen``, never as a whole
-    [M, N] field.
-    """
-    n = data_p.shape[0]
-
-    def gumbel(rows):
-        u = torch.rand((rows, n), generator=gen, device=log_mask.device)
-        return -torch.log(-torch.log(u))
-
+    """Parent-softmax-weighted support pick by inverse CDF on one uniform a
+    row (the pick kernel's draw) -> [M] int64, the scores a ``_CHUNK``-row
+    tile at a time."""
     if parents is None or data_p.shape[-1] == 0:
-        return torch.cat([
-            torch.argmax(log_mask[None, :] + gumbel(min(_CHUNK, m - i)), dim=1)
-            for i in range(0, m, _CHUNK)])
+        return inverse_cdf_pick(log_mask[None, :], u)
 
-    def tile(pt):
+    def tile(pt, ut):
         scores = _pairwise_kernel_logits(pt, data_p, p_scale) + log_mask[None, :]
-        return torch.argmax(scores + gumbel(pt.shape[0]), dim=1)
+        return inverse_cdf_pick(scores, ut)
 
-    return _chunked(tile, m, parents)
+    return _chunked(tile, m, parents, u)

@@ -1,0 +1,71 @@
+"""The row stream's values on a hand-written CUDA kernel.
+
+``vbn_uniforms`` (``csrc/rng.cu``) writes one node's [B*S, k] float32
+uniforms or normals of the row stream (``core/rng.py::RowStream``) in one
+launch: Philox-4x32-10 keyed by the call's seed, counter (particle0 + p,
+row0 + r, node, 4 | (j << 3)), the same Philox as every in-kernel stream
+(``csrc/vbn_common.cuh``). No TPU kernel stands behind it (the JAX package
+draws in XLA by threefry); it replaces the torch-op draws of the port's
+sweeps, so a row's draws do not depend on its batch or its mesh block.
+
+``stream_values`` launches the kernel when asked for a CUDA device and
+raises when the launch fails (a card never falls back to ``torch.rand`` or
+to the int64 torch-op Philox); for the CPU it runs the plain version,
+``core/rng.py::stream_values``. Uniforms agree with the plain version bit
+for bit; normals within an ulp or two of the logarithm and cosine.
+``LAUNCHES["uniforms"]`` (``ops/sweep.py``) counts the launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from ..core.rng import stream_values as stream_values_plain
+from .sweep import LAUNCHES
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_longlong
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    """``csrc/rng.cu`` with the argument types of its entry point."""
+    from ._build import load
+
+    lib = load("rng")
+    lib.vbn_uniforms.argtypes = [ctypes.c_ulonglong, _L, _I, _I, _I, _I, _I,
+                                 _I, _I, _P, _P]
+    lib.vbn_uniforms.restype = _I
+    return lib
+
+
+def stream_values(seed: int, b: int, s: int, node: int, k: int, *,
+                  at: int = 0, normal: bool = False, row0: int = 0,
+                  particle0: int = 0, device="cpu") -> torch.Tensor:
+    """One node's row-stream values [B*S, k] float32 (see
+    ``core/rng.py::stream_values``): ``vbn_uniforms`` on a CUDA device,
+    the plain version on the CPU."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return stream_values_plain(seed, b, s, node, k, at=at, normal=normal,
+                                   row0=row0, particle0=particle0,
+                                   device=device)
+    if normal and at % 2:
+        raise ValueError(f"normal draws start at an even slot, not {at}")
+    for name, v in (("node", node), ("row0", row0), ("particle0", particle0)):
+        if not 0 <= int(v) < 1 << 31:
+            raise ValueError(f"vbn_uniforms: {name}={v} out of range")
+    out = torch.empty((b * s, k), dtype=torch.float32, device=device)
+    with torch.cuda.device(device):
+        rc = _lib().vbn_uniforms(
+            int(seed) & ((1 << 64) - 1), int(b), int(s), int(node), int(k),
+            int(at), int(bool(normal)), int(row0), int(particle0),
+            out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"vbn_uniforms launch failed: CUDA error {rc}")
+    LAUNCHES["uniforms"] += 1
+    return out

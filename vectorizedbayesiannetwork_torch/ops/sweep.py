@@ -61,11 +61,12 @@ _THREADS = 128  # threads per block (VBN_THREADS in csrc/sweep.cu)
 
 # Kernel launches by wrapper; the scan kernels (ops/sweep_scan.py), the
 # resampling kernels (ops/scan.py, ops/resample_merge.py) and the KDE kernels
-# (ops/kde_fused.py) count here too, so one reset covers every kernel of a
-# served batch.
+# (ops/kde_fused.py) and the row stream's (ops/rng.py) count here too, so
+# one reset covers every kernel of a served batch.
 LAUNCHES = {"categorical": 0, "lg": 0, "categorical_scan": 0, "lg_scan": 0,
             "cumsum": 0, "cum_index": 0, "srg": 0, "spg": 0,
-            "kde_root": 0, "kde_cond": 0, "kde_cond_wide": 0, "kde_pick": 0}
+            "kde_root": 0, "kde_cond": 0, "kde_cond_wide": 0, "kde_pick": 0,
+            "uniforms": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -706,6 +707,43 @@ def _shard_sweep(mesh, n_samples, call, seed, rows, u_ext=None):
         red = (gather_blocks(sums, mesh, dims=(0,)),
                gather_blocks(m, mesh, dims=(0,)))
     return (*streams, red)
+
+
+TRACES = {"sharded": 0, "whole": 0}
+
+
+def shard_trace(mesh, trace, draw, n_samples, rows):
+    """``trace(stream, *rows)`` of a torch-op sweep (``inference/_sweep.py``,
+    ``_dynamic_sweep.py``, either form) over the mesh, its outputs [B, S,
+    ...] tensors gathered so every rank returns the global ones (``rows``:
+    [B, ...] inputs, or None).
+
+    Each rank sweeps its block of the query rows ``rows`` (over 'data') at
+    ``s_loc = n_samples / n_particle`` particles on the row stream of
+    ``draw`` with ``row0 = di * B_l`` and ``particle0 = pi * s_loc``: the
+    counters of the unmeshed particles, so the gathered stream is the
+    unmeshed stream bit for bit and every reduction after it runs
+    unchanged. A rank holds [N, B_l, s_loc] state. With no mesh, or a batch
+    the gates refuse (B % n_data, n_samples % n_particle), the sweep runs
+    whole on every rank, as ``_shard_sweep`` serves it. ``TRACES`` counts
+    the meshed calls by how they ran ("sharded" / "whole")."""
+    from ..core.rng import RowStream
+    from ..parallel.mesh import block, gather_blocks, mesh_coords, mesh_shape
+
+    nd, npart = mesh_shape(mesh)
+    b = rows[0].shape[0]
+    if mesh is None or b % nd or n_samples % npart:
+        if mesh is not None:
+            TRACES["whole"] += 1
+        return trace(RowStream(draw, b, n_samples), *rows)
+    TRACES["sharded"] += 1
+    di, pi = mesh_coords(mesh)
+    b_l, s_l = b // nd, n_samples // npart
+    stream = RowStream(draw, b_l, s_l, row0=di * b_l, particle0=pi * s_l,
+                       n_particles=n_samples, n_rows=b)
+    local = tuple(None if r is None else block(r, nd, di).contiguous()
+                  for r in rows)
+    return tuple(gather_blocks(t, mesh) for t in trace(stream, *local))
 
 
 # ---------------------------------------------------------------------------

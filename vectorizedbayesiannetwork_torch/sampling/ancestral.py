@@ -3,9 +3,9 @@
 Port of ``vectorizedbayesiannetwork_tpu/sampling/ancestral.py``: one
 topological sweep (``inference/_sweep.py::sweep_trace``) with evidence and
 do values clamped, returning the target's draws ``[B, S, D]`` or, from
-``sample_joint``, every node's. The sweep draws from the call's generator
-(``vbn.next_key()``); a KDE node's draw launches ``vbn_kde_pick`` on the
-card.
+``sample_joint``, every node's. The sweep draws from the row stream of
+the call's key (``vbn.next_key()``), sharded over the VBN's mesh; a KDE
+node's draw launches ``vbn_kde_pick`` on the card.
 """
 
 from __future__ import annotations
@@ -34,7 +34,8 @@ class AncestralSampler(Method):
         plan, b = self._plan_and_batch(vbn, query)
         packed, _ = sweep_trace(
             plan, self._cpds(vbn, plan), self._params_tuple(vbn, plan),
-            vbn.next_key().generator, fixed_rows(vbn, query, plan, b), s)
+            vbn.next_key(), fixed_rows(vbn, query, plan, b), s,
+            mesh=vbn._mesh)
         return plan, packed
 
     def sample(self, vbn, query: Query, n_samples: int = None, **kwargs):

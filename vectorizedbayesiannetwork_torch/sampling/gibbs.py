@@ -91,8 +91,9 @@ class GibbsSampler(Method):
         dev = vbn.device
         draw = vbn.next_key()
 
-        packed, _ = sweep_trace(plan, cpds, params, fold(draw, 0).generator,
-                                fixed_rows(vbn, query, plan, bb), c)
+        packed, _ = sweep_trace(plan, cpds, params, fold(draw, 0),
+                                fixed_rows(vbn, query, plan, bb), c,
+                                mesh=vbn._mesh)
         vals: List[torch.Tensor] = [node_values(plan, packed, i)
                                     for i in range(plan.n_nodes)]  # [B, C, D]
         m = bb * c * k

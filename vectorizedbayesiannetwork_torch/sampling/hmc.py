@@ -134,8 +134,8 @@ class HMCSampler(Method):
         fixed = fixed_rows(vbn, query, plan, bb)
         fixed_rep = fixed.repeat_interleave(c, dim=0)  # [M, total_dim]
         with torch.no_grad():
-            packed, _ = sweep_trace(plan, cpds, params,
-                                    fold(draw, 0).generator, fixed, c)
+            packed, _ = sweep_trace(plan, cpds, params, fold(draw, 0),
+                                    fixed, c, mesh=vbn._mesh)
         z = torch.cat([node_values(plan, packed, i) for i in latent],
                       dim=-1).reshape(m, -1)
         value_and_grad, offs = self._joint(plan, cpds, params, fixed_rep,

@@ -560,12 +560,18 @@ class VBN:
         """Attach a ('data', 'particle') mesh (``parallel.make_mesh``); None
         returns to one device. Every rank of the mesh builds the same model
         and makes the same calls (its random stream then advances in step
-        with the others'). The sweep kernels of LW and MCM run sharded,
-        rows over 'data' and particles over 'particle', and RIS resamples
-        over the particle shards (``ops/resample_distributed.py``); every
-        rank gets the whole result. Every other path runs whole on each
-        rank and gives the unmeshed answer (their sharded forms: ROADMAP
-        queue 1 item 15). The mesh is not saved."""
+        with the others'). Sharded, rows over 'data' and particles over
+        'particle', every rank getting the whole result: the sweep kernels
+        of LW and MCM; the torch-op sweeps (``ops/sweep.py::shard_trace``:
+        the stacked-table forms, IS, KDE and neural plans, LBP, RBM, the
+        samplers' ancestral starts, the amortizer's model rows), which
+        return the unmeshed answer bit for bit, since each rank draws its
+        block's own counters of the row stream; and RIS, whose node draws
+        are its block's counters and which resamples over the particle
+        shards (``ops/resample_distributed.py``). The MCMC chains' steps,
+        the exact engines, the update policies and the amortizer's fit
+        run whole on each rank and give the unmeshed answer; so does a
+        batch the shard gates refuse. The mesh is not saved."""
         self._mesh = mesh
 
     def to_device(self, device) -> None:
