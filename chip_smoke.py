@@ -251,7 +251,10 @@ around the sweep kernels; the stacked forms run no hand kernel):
     Gaussian rows' median |Δmean| and |Δstd| within 0.05 std of
     ``gaussian_exact`` on the fitted params, and every row within 5
     standard errors of its LW estimate (at S=2^14 a row's ESS falls to a
-    few hundred, one standard error several hundredths of the std).
+    few hundred, one standard error several hundredths of the std). Each
+    stacked form draws a chunk of nodes a ``vbn_uniforms`` launch: against
+    one node a launch (the parent commit's draws) at one key counter, its
+    rows bit for bit, launches a batch, and queries/s in turns.
 
 Then the ('data', 'particle') mesh over ``torch.distributed``:
 
@@ -282,25 +285,42 @@ Then the ('data', 'particle') mesh over ``torch.distributed``:
     over 'particle' (``ops/sweep.py::shard_trace``): on the one-rank NCCL
     mesh in this process, and on (1, 2) in each of m2's two ranks; meshed
     and unmeshed in turns, the rows and streams bit for bit, a rank's peak
-    memory (under the unmeshed one's on (1, 2)) and queries/s of each;
-    its launches (``vbn_uniforms``) are the kernel line's ``launches`` of
-    row 13.
+    memory (under the unmeshed one's on (1, 2)) and queries/s of each,
+    and the unmeshed rows again from one node a ``vbn_uniforms`` launch,
+    bit for bit; its launches (``vbn_uniforms``) are the kernel line's
+    ``launches`` of row 13.
 
 Then the row stream of the torch-op sweeps (before phase 26):
 
 27. ``vbn_uniforms`` against its plain version (int64 torch ops on the
-    card) at W1's [8, 2^20] and t3's [96, 2^14] rows: uniforms bit for
-    bit (one and four values a particle, a block off the origin), normals
-    within 2e-6 of |z| + 1; its ms beside the plain version's and
-    ``torch.rand``'s of the same numel. Then row-0 batch invariance on the
+    card) at W1's [8, 2^20] and t3's [96, 2^14] rows, one node a launch
+    and (t3) 64: uniforms bit for bit (one and four values a particle, a
+    block off the origin), normals within 2e-6 of |z| + 1; the wrapper's
+    ms and the kernel's device ms (a CUDA graph of launches between
+    events) beside the plain version's and ``torch.rand``'s of the same
+    numel; the bound priced by instruction
+    class at Hopper's issue rates, and the kernel's SASS mix
+    (``cuobjdump``) that it prices. Then row-0 batch invariance on the
     card at key counter 500, a batch of two against a batch of one, for W1
     (KDE LW), (b) gauss8 ``gaussian_nn`` LW dynamic, t3's stacked form (8
     queries), IS and RIS systematic on the diagnosis query: weights within
     1e-6, samples bit for bit. Every torch-op phase above reads
     ``vbn_uniforms`` among its launches (at least one).
+28. level_group (run right after the neural phase, whose models it
+    serves, while the profiler still records device events): three static
+    plans served under ``VBN_LEVEL_GROUP``
+    never and auto in turns (never, auto, auto, never): the star of the
+    JAX grouping test with ``gaussian_nn`` siblings at full width (LW t |
+    z, B=8, S=2^18), (a)'s neural flagship by IS (the roots one group) and
+    (c)'s asia ``categorical_embedded_softmax`` LW (tub, lung, bronc one
+    group): queries/s, ``vbn_uniforms`` launches a batch (one a group
+    grouped, one a node ungrouped), the groups, a profiled batch of each
+    mode; grouped against ungrouped at one key counter at the JAX grouping
+    test's tolerances, and (a), (c) against their phase limits.
 
 Prints a JSON line of kernel results (the twelve kernels and
-``vbn_uniforms``; rows 9, 10 and
+``vbn_uniforms``, its launches in (t3) and phase 28 as ``launches_t3``
+and ``launches_level_group_<plan>``; rows 9, 10 and
 12 with their launches in (l2) and (r2) as ``launches_l2`` and
 ``launches_r2``, rows 1 and 2 with theirs in (t1) and (t2) as
 ``launches_t1`` and ``launches_t2``, rows 1-5 and 8 with theirs in (m1)
@@ -311,14 +331,14 @@ and last
 exits nonzero. The script imports nothing of JAX or of the JAX package.
 
 ``python3 chip_smoke.py --parent DIR`` also times, before those last lines,
-the kernels of another checkout's port package at DIR (for example the
+the kernel of another checkout's port package at DIR (for example the
 parent commit's ``vectorizedbayesiannetwork_torch/``, unpacked with ``git
 archive`` into a directory ``.gitignore`` lists) beside this one's, in
-turns in one process (``compare_builds``): ``vbn_srg`` (D=1 and 3) and
-``vbn_spg`` at B=8, S=2^20 (device ms, the builds equal bit for bit; where
-the other build still launches ``vbn_cum_index`` before its merge, the two
-kernels' device ms summed, and each alone), and the queries/s of flagship
-RIS systematic and multinomial, W1's KDE LW and flagship IS.
+turns in one process (``compare_builds``): ``vbn_uniforms`` at W1's [8,
+2^20] and for 64 nodes at t3's [96, 2^14] (device and wrapper ms, the
+builds equal bit for bit; a build that draws one node a launch timed over
+its 64 launches), and the queries/s of flagship RIS systematic and
+multinomial, W1's KDE LW and flagship IS.
 """
 
 from __future__ import annotations
@@ -696,6 +716,36 @@ def main_path_accuracy(tag, bn, asia_vbn, lg_vbn, pmf, mom):
             errs["flagship_std_max_abs_err"] > 1e-3:
         raise AssertionError(f"{tag}: flagship moments off closed form: {errs}")
     return errs
+
+
+def graph_ms(fn, reps):
+    """Device ms a call of ``fn``: ``reps`` calls captured in one CUDA graph
+    (kernels launched on the current stream are captured, host work is
+    not), the graph replayed three times between CUDA events. For kernels
+    shorter than their wrapper's host path, where events around the calls
+    time the host, and where the profiler records no device events."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(3):
+        graph.replay()
+    t1.record()
+    torch.cuda.synchronize()
+    del graph
+    return t0.elapsed_time(t1) / (3 * reps)
 
 
 def cuda_ms(fn, reps):
@@ -3191,6 +3241,7 @@ def neural_flagship(vbn_cls, defaults, fits):
             total[k] = total.get(k, 0) + v
         rows[method] = got.tolist()
     log("neural_flagship_reference", grid_moments=ref.tolist(), served=rows)
+    KEPT["a_flagship"] = (vbn, q, ref)
     card_vs_cpu("a mdn x2", vbn.nodes["x2"], vbn.params["x2"],
                 *nn_rows(data, ["x0", "x1"], "x2", noise=0.1))
     launches_per_step("a mdn x2", vbn.nodes["x2"],
@@ -3340,6 +3391,7 @@ def neural_discrete(vbn_cls, defaults, bn, asia_vbn, fits):
         raise AssertionError(f"(c) embedded KL {kl_emb} vs table {kl_tab}")
     pmf_against_exact("c asia categorical_embedded_softmax", emb,
                       asia_query(B_NN), 2)
+    KEPT["c_emb"] = emb
     node = "dysp"
     card_vs_cpu(f"c {node}", emb.nodes[node], emb.params[node],
                 *nn_rows(data, bn.parents[node], node))
@@ -4508,6 +4560,41 @@ def stacked_route(tag, vbn, serve, mode, timed):
     return rows, spans, ess
 
 
+def draws_by_chunk(tag, vbn, serve):
+    """(t3) the stacked form's draws a chunk of nodes a ``vbn_uniforms``
+    launch (``core/rng.py::ChunkedDraws``) against one node a launch (the
+    chunk cut to one node: the parent commit's draws), at one key counter:
+    the rows bit for bit, ``vbn_uniforms`` launches a batch, and queries/s
+    in turns (one node, chunked, chunked, one node) of N_DYN queries."""
+    from vectorizedbayesiannetwork_torch.core import rng
+
+    rep = {"qps": {"one_node_a_launch": [], "chunked": []},
+           "uniforms_launches": {}}
+    rows = {}
+    full = rng.CHUNK_BYTES
+    try:
+        for i, mode in enumerate(("one_node_a_launch", "chunked", "chunked",
+                                  "one_node_a_launch")):
+            rng.CHUNK_BYTES = 1 if mode == "one_node_a_launch" else full
+            vbn._keys.set_state(800)
+            reset_launches()
+            t0 = time.perf_counter()
+            got = serve(N_DYN)[0]
+            rep["qps"][mode].append(N_DYN / (time.perf_counter() - t0))
+            if i < 2:
+                rep["uniforms_launches"][mode] = read_launches(
+                    {"uniforms": SOME})["uniforms"]
+                rows[mode] = np.asarray(got)
+    finally:
+        rng.CHUNK_BYTES = full
+    rep["rows_equal"] = bool(np.array_equal(rows["chunked"],
+                                            rows["one_node_a_launch"]))
+    log("stacked_draws", workload=tag, nodes=N_STACKED, **rep)
+    if not rep["rows_equal"]:
+        raise AssertionError(f"{tag}: chunked draws change the rows")
+    return rep["uniforms_launches"]["chunked"]
+
+
 def slice14_t3(vbn_cls, defaults):
     """(t3) the stacked-table sweeps past the scan kernels' 1500 nodes:
     ``random_bn_treewidth(2048)`` (LW pmf) and ``random_gaussian(2048)``
@@ -4570,6 +4657,8 @@ def slice14_t3(vbn_cls, defaults):
                      "kl_max": float(max(kl))}
     log("stacked_accuracy", workload="categorical", queries=len(gts),
         exact_s=exact_s, stacked=kls["auto"], per_node=kls["never"])
+    launches = {"categorical": draws_by_chunk("categorical", cat, lambda n: (
+        cat.infer_posterior_pmf(lq[:n], n_classes=4, pad_bucket=n)))}
     for mode, k in kls.items():
         if k["kl_median"] > 2e-3:
             raise AssertionError(f"2048-node {mode} median KL {k}")
@@ -4580,6 +4669,8 @@ def slice14_t3(vbn_cls, defaults):
         moms[mode], _spans, ess[mode] = stacked_route(
             "gaussian", gauss, lambda n: (
                 gauss.infer_posterior_moments(gq[:n], pad_bucket=n)), mode, 2)
+    launches["gaussian"] = draws_by_chunk("gaussian", gauss, lambda n: (
+        gauss.infer_posterior_moments(gq[:n], pad_bucket=n)))
     gauss.set_inference_method("gaussian_exact")
     exact = np.concatenate([
         gauss.infer_posterior_moments(gq[i:i + 16])[0]
@@ -4594,6 +4685,7 @@ def slice14_t3(vbn_cls, defaults):
                        a["median_dstd_over_std"]) > 0.05
                 or max(a["max_z_mean"], a["max_z_std"]) > 5.0):
             raise AssertionError(f"2048-node LG {mode} off gaussian_exact: {a}")
+    return launches
 
 
 def gauss_stacked_accuracy(mom, exact, ess):
@@ -4618,11 +4710,13 @@ def gauss_stacked_accuracy(mom, exact, ess):
 
 def serve_slice14(vbn_cls, defaults, bn, lg_vbn):
     """Phase 25: (t1) with (t4), (t2), (t3); returns the sweep kernels'
-    launches of (t1) and (t2)."""
+    launches of (t1) and (t2), and ``vbn_uniforms``'s of a (t3) batch."""
     t0 = time.perf_counter()
     out = {"t1": slice14_t1(vbn_cls, defaults, bn),
            "t2": slice14_t2(lg_vbn)}
-    slice14_t3(vbn_cls, defaults)
+    t3 = slice14_t3(vbn_cls, defaults)
+    out["t3"] = {"uniforms": t3["categorical"]}
+    out["t3_gaussian"] = {"uniforms": t3["gaussian"]}
     log("slice14_done", seconds=time.perf_counter() - t0, launches=out)
     return out
 
@@ -4636,68 +4730,148 @@ B_M3 = 8  # (m3) and the invariance case: t3's queries cut to 8 rows
 STREAM_SEED = 0x5EED5EED12345678
 
 
-def uniforms_cost(m, k):
-    """(operations, bytes) of ``vbn_uniforms`` writing [m, k] uniforms: per
-    particle ceil(k / 4) Philox-4x32-10 calls (100 operations a call: 10
-    rounds of 2 mul.lo, 2 mul.hi, 4 xor, 2 key adds; each particle has its
-    own counter, so its first word costs a whole call), per value the
-    uniform (3) and the clamp (1); bytes: the output written once."""
-    return m * (100 * -(-k // 4) + 4 * k), 4 * m * k
+# Hopper's issue rates, results an SM a clock (CUDA C++ Programming Guide,
+# arithmetic instruction throughput, compute capability 9.0): 32-bit
+# integer multiply and multiply-add (IMAD, IMAD.HI), and the ALU's bitwise
+# ops (LOP3), half the float32 rate; conversions (I2F) a quarter of that;
+# one warp instruction a scheduler a clock (4 x 32 thread instructions)
+RATE_IMUL, RATE_ALU, RATE_CVT, RATE_FP32, RATE_ISSUE = 64, 64, 16, 128, 128
+SM_CLOCKS = 132 * 1.98e9  # SMs x boost clock (the basis of PEAK_OPS)
+PHILOX_CALL = {"imul": 40, "alu": 20}  # a round: 2 IMAD.HI.U32 + 2 IMAD, 2 LOP3
+UNIFORM_VALUE = {"alu": 1, "cvt": 1, "fp32": 3}  # SHF, I2F; FADD, FMUL, FMNMX
+UNIFORMS_PER = 4  # csrc/rng.cu's PER: chains a thread, so Philox calls in the code
+
+
+def uniforms_bound(m, k, g=1):
+    """(bound ms, what bounds it, detail) of ``vbn_uniforms`` writing g
+    nodes' [m, k] uniforms: per particle and node ceil(k / 4) Philox calls
+    (each particle has its own counter, so its first word costs a whole
+    call), per value its conversion, each instruction class at its issue
+    rate (the pipes run side by side, all bounded by the issue rate), and
+    the output's bytes written once."""
+    calls, vals = g * m * -(-k // 4), g * m * k
+    work = {c: calls * PHILOX_CALL.get(c, 0) + vals * UNIFORM_VALUE.get(c, 0)
+            for c in ("imul", "alu", "cvt", "fp32")}
+    cycles = {"imul": work["imul"] / RATE_IMUL, "alu": work["alu"] / RATE_ALU,
+              "cvt": work["cvt"] / RATE_CVT, "fp32": work["fp32"] / RATE_FP32,
+              "issue": sum(work.values()) / RATE_ISSUE}
+    pipe = max(cycles, key=cycles.get)
+    t_ops = 1e3 * cycles[pipe] / SM_CLOCKS
+    t_bytes = 1e3 * 4 * vals / PEAK_BYTES
+    return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes",
+            {"ops_ms": t_ops, "bytes_ms": t_bytes, "limiting_pipe": pipe,
+             "instructions": work})
+
+
+def uniforms_sass():
+    """The SASS of ``csrc/rng.cu``'s uniform k-any instances (``cuobjdump
+    -sass``): per instance the counts of the integer multiply, bitwise,
+    conversion and store opcodes, and per Philox call (the code holds
+    UNIFORMS_PER interleaved calls) its multiplies and LOP3s: the
+    instruction mix the bound prices."""
+    from pathlib import Path
+
+    from vectorizedbayesiannetwork_torch.ops import _build
+
+    tool = Path(_build.nvcc()).parent / "cuobjdump"
+    text = subprocess.run([str(tool), "-sass", str(_build.library_path("rng"))],
+                          check=True, capture_output=True, text=True,
+                          timeout=120).stdout
+    out = []
+    for body in text.split("Function : ")[1:]:
+        name = body.split("\n", 1)[0].strip()
+        m = re.search(r"uniforms_kernelI([jm])Lb([01])E", name)
+        if not m:
+            continue
+        ops = Counter()
+        for line in body.splitlines():
+            op = re.match(r"\s+/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]\s+)?"
+                          r"([A-Z][A-Z0-9_.]*)", line)
+            if op and op.group(1) != "NOP":
+                ops[op.group(1)] += 1
+        imul = (ops["IMAD"] + ops["IMAD.HI.U32"]  # 32-bit results
+                + 2 * ops["IMAD.WIDE.U32"])
+        out.append({
+            "index": "uint32" if m.group(1) == "j" else "uint64",
+            "normal": m.group(2) == "1", "instructions": sum(ops.values()),
+            "counts": {o: n for o, n in sorted(ops.items()) if o.split(".")[0]
+                       in ("IMAD", "LOP3", "I2FP", "I2F", "STG", "SHF")},
+            "per_philox_call": {"imul": imul / UNIFORMS_PER,
+                                "lop3": ops["LOP3.LUT"] / UNIFORMS_PER}})
+    return out
 
 
 def check_uniforms(dev):
     """``vbn_uniforms`` against its plain version (``core/rng.py``, int64
-    torch ops on the card) at W1's [8, 2^20] and t3's [96, 2^14] rows:
-    uniforms bit for bit (k = 1 and 4, a block off the origin), normals
-    within 2e-6 of |z| + 1; ms of the kernel, the plain version and
-    ``torch.rand`` of the same numel (CUDA events). Returns the kernel
-    line's row (``launches`` filled by phase 26's (m3))."""
+    torch ops on the card) at W1's [8, 2^20] and t3's [96, 2^14] rows, one
+    node a launch and (t3) 64: uniforms bit for bit (k = 1 and 4, a block
+    off the origin), normals within 2e-6 of |z| + 1; the wrapper's ms
+    (CUDA events around the call) beside the kernel's device ms
+    (``graph_ms``), the plain version's and ``torch.rand``'s of the
+    same numel; the bound priced from the kernel's SASS mix. Returns the
+    kernel line's row (``launches`` filled by phase 26's (m3))."""
     import torch
 
-    from vectorizedbayesiannetwork_torch.core.rng import stream_values as plain
+    from vectorizedbayesiannetwork_torch.core.rng import (
+        stream_values_many as plain,
+    )
     from vectorizedbayesiannetwork_torch.ops import rng
 
     t0 = time.perf_counter()
     err, shapes = 0.0, {}
-    for tag, (b, s) in (("w1", (B_KDE, S_KDE)), ("t3", (N_DYN, S_STACKED))):
+    cases = (("w1", B_KDE, S_KDE, [5]), ("t3", N_DYN, S_STACKED, [5]),
+             ("t3_g64", N_DYN, S_STACKED, list(range(5, 69))))
+    for tag, b, s, nodes in cases:
         for k, at, r0, p0 in ((1, 0, 0, 0), (4, 2, 3, 1 << 12)):
-            got = rng.stream_values(STREAM_SEED, b, s, 5, k, at=at, row0=r0,
-                                    particle0=p0, device=dev)
-            want = plain(STREAM_SEED, b, s, 5, k, at=at, row0=r0,
+            if len(nodes) > 1 and k > 1:
+                continue
+            got = rng.stream_values_many(STREAM_SEED, b, s, nodes, k, at=at,
+                                         row0=r0, particle0=p0, device=dev)
+            want = plain(STREAM_SEED, b, s, nodes, k, at=at, row0=r0,
                          particle0=p0, device=dev)
             if not torch.equal(got, want):
                 raise AssertionError(f"vbn_uniforms {tag} k={k}: "
                                      f"{int((got != want).sum())} values differ")
             del got, want
-        z = rng.stream_values(STREAM_SEED, b, s, 6, 1, normal=True, device=dev)
-        zp = plain(STREAM_SEED, b, s, 6, 1, normal=True, device=dev)
+        z = rng.stream_values_many(STREAM_SEED, b, s, nodes, 1, normal=True,
+                                   device=dev)
+        zp = plain(STREAM_SEED, b, s, nodes, 1, normal=True, device=dev)
         e = float(((z - zp).abs() / (zp.abs() + 1.0)).max())
         err = max(err, float((z - zp).abs().max()))
         del z, zp
         if e > 2e-6:
             raise AssertionError(f"vbn_uniforms normals {tag}: {e} > 2e-6")
-        m = b * s
+        m, g = b * s, len(nodes)
+        call = lambda: rng.stream_values_many(  # noqa: E731
+            STREAM_SEED, b, s, nodes, 1, device=dev)
+        bound_ms, by, detail = uniforms_bound(m, 1, g)
         shapes[tag] = {
-            "rows": [b, s],
-            "ms": cuda_ms(lambda: rng.stream_values(STREAM_SEED, b, s, 5, 1,
-                                                    device=dev), 5),
-            "normal_ms": cuda_ms(lambda: rng.stream_values(
-                STREAM_SEED, b, s, 5, 1, normal=True, device=dev), 5),
-            "plain_ms": cuda_ms(lambda: plain(STREAM_SEED, b, s, 5, 1,
+            "rows": [b, s], "nodes": g,
+            "ms": cuda_ms(call, 5),
+            "device_ms": graph_ms(call, 5),
+            "normal_ms": cuda_ms(lambda: rng.stream_values_many(
+                STREAM_SEED, b, s, nodes, 1, normal=True, device=dev), 5),
+            "plain_ms": cuda_ms(lambda: plain(STREAM_SEED, b, s, nodes, 1,
                                               device=dev), 1),
-            "torch_rand_ms": cuda_ms(lambda: torch.rand((m, 1), device=dev), 5),
-            "bound_ms": bound(uniforms_cost(m, 1))[0],
+            "torch_rand_ms": cuda_ms(lambda: torch.rand((g * m, 1), device=dev),
+                                     5),
+            "bound_ms": bound_ms, "bound_by": by, "bound": detail,
         }
+        shapes[tag]["share"] = bound_ms / shapes[tag]["device_ms"]
+        shapes[tag]["device_ms_per_node"] = shapes[tag]["device_ms"] / g
+    sass = uniforms_sass()
     log("uniforms_kernel_check", normals_max_abs_err=err, shapes=shapes,
-        seconds=time.perf_counter() - t0)
+        sass=sass, seconds=time.perf_counter() - t0)
     w1 = shapes["w1"]
     row = kernel_row(
         "vbn_uniforms", "none: the JAX package draws in XLA "
         "(vectorizedbayesiannetwork_tpu/inference/_sweep.py:188)", 0, err,
-        w1["ms"], w1["plain_ms"], uniforms_cost(B_KDE * S_KDE, 1),
+        w1["ms"], w1["plain_ms"], (0, 4 * B_KDE * S_KDE),
         source="vectorizedbayesiannetwork_torch/csrc/rng.cu")
-    row.update(torch_rand_ms=w1["torch_rand_ms"], normal_ms=w1["normal_ms"],
-               t3_shape=shapes["t3"])
+    row.update(bound_ms=w1["bound_ms"], bound_by=w1["bound_by"],
+               ops=w1["bound"]["instructions"], device_ms=w1["device_ms"],
+               torch_rand_ms=w1["torch_rand_ms"], normal_ms=w1["normal_ms"],
+               t3_shape=shapes["t3"], t3_g64=shapes["t3_g64"])
     return row
 
 
@@ -4779,6 +4953,189 @@ def row0_invariance(lg_vbn):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 28: the level-grouped per-node sweep (VBN_LEVEL_GROUP)
+# ---------------------------------------------------------------------------
+
+S_LG_STAR = 1 << 18  # the star's depth
+LG_TURNS = ("never", "auto", "auto", "never")
+
+
+def level_group_star(vbn_cls, defaults):
+    """The star of the JAX grouping test (``tests/test_level_grouping.py:
+    23-54``: z -> y0..y3 -> t on 800 rows) with ``gaussian_nn`` siblings
+    at ``defaults.cpd("gaussian_nn")``'s widths and DYN_FIT."""
+    g = np.random.default_rng(0)
+    n = 800
+    z = g.normal(size=n)
+    data = {"z": z}
+    for i in range(N_STAR):
+        data[f"y{i}"] = (0.4 + 0.2 * i) * z + 0.1 * g.normal(size=n)
+    data["t"] = sum(data[f"y{i}"] for i in range(N_STAR)) + 0.1 * g.normal(
+        size=n)
+    vbn = vbn_cls([("z", f"y{i}") for i in range(N_STAR)]
+                  + [(f"y{i}", "t") for i in range(N_STAR)], seed=0)
+    sib = {**defaults.cpd("gaussian_nn"), "fit": dict(DYN_FIT)}
+    vbn.set_learning_method("node_wise", nodes_cpds={
+        "z": defaults.cpd("linear_gaussian"),
+        "t": defaults.cpd("linear_gaussian"),
+        **{f"y{i}": dict(sib) for i in range(N_STAR)}})
+    t0 = time.perf_counter()
+    vbn.fit({k: v.astype(np.float32).reshape(-1, 1) for k, v in data.items()})
+    return vbn, time.perf_counter() - t0
+
+
+def level_group_case(tag, vbn, serve, b, check):
+    """One static plan under ``VBN_LEVEL_GROUP`` never and auto in turns
+    (never, auto, auto, never): each turn's queries/s (best of two
+    batches), ``vbn_uniforms`` launches a batch and the level groups
+    (``_sweep.GROUPS``); a profiled batch of each mode (device kernels a
+    batch, idle share); the two modes' answers at one key counter, grouped
+    against ungrouped at the JAX grouping test's tolerances (samples rtol
+    1e-4, atol 1e-4; weights rtol 1e-4, atol 1e-5); and ``check(w, s)``,
+    the cell's own limit, on the grouped answer. A grouped batch launches
+    one ``vbn_uniforms`` a group where ungrouped launches one a node."""
+    import os
+
+    import torch
+
+    from vectorizedbayesiannetwork_torch.inference import _sweep
+
+    rep = {"workload": tag, "B": b, "qps": {"never": [], "auto": []},
+           "uniforms_launches": {}, "groups": {}, "profile": {}}
+    answers = {}
+    try:
+        for i, mode in enumerate(LG_TURNS):
+            os.environ["VBN_LEVEL_GROUP"] = mode
+            best = 0.0
+            for _ in range(2):
+                torch.cuda.synchronize()
+                reset_launches()
+                _sweep.GROUPS.clear()
+                t0 = time.perf_counter()
+                serve()
+                torch.cuda.synchronize()
+                best = max(best, b / (time.perf_counter() - t0))
+            rep["qps"][mode].append(best)
+            if i < 2:
+                rep["uniforms_launches"][mode] = read_launches(
+                    {"uniforms": SOME})["uniforms"]
+                rep["groups"][mode] = dict(_sweep.GROUPS)
+                rep["profile"][mode] = profile_batch(serve, (), top=4)
+                vbn._keys.set_state(700)
+                w, s = vbn.infer_posterior(serve.query)
+                answers[mode] = (w.float(), s.float())
+    finally:
+        os.environ.pop("VBN_LEVEL_GROUP", None)
+    (wg, sg), (wn, sn) = answers["auto"], answers["never"]
+    rep["samples_max_abs_diff"] = float((sg - sn).abs().max())
+    rep["weights_max_abs_diff"] = float((wg - wn).abs().max())
+    close = (bool(((sg - sn).abs() <= 1e-4 + 1e-4 * sn.abs()).all())
+             and bool(((wg - wn).abs() <= 1e-5 + 1e-4 * wn.abs()).all()))
+    grouped = rep["groups"]["auto"]
+    saved = grouped.get("sample_nodes", 0) - grouped.get("sample_calls", 0)
+    launches = rep["uniforms_launches"]
+    rep["limit"] = check(wg, sg)
+    log("level_group", **rep, grouped_equals_ungrouped=close)
+    if not close:
+        raise AssertionError(f"{tag}: grouped != ungrouped")
+    if rep["groups"]["never"] or not grouped.get("sample_calls"):
+        raise AssertionError(f"{tag}: groups {rep['groups']}")
+    if launches["auto"] != launches["never"] - saved:
+        raise AssertionError(f"{tag}: uniforms launches {launches}, "
+                             f"{saved} nodes grouped away")
+    return launches["auto"]
+
+
+class ServedQuery:
+    """A serve() callable that also names its query (level_group_case
+    re-serves it at a key counter to compare the modes)."""
+
+    def __init__(self, vbn, query, fetch):
+        self.vbn, self.query, self.fetch = vbn, query, fetch
+
+    def __call__(self):
+        return self.fetch(self.vbn.infer_posterior(self.query))
+
+
+def serve_level_group(vbn_cls, defaults):
+    """Phase 28: three static plans, never and auto in turns
+    (``level_group_case``): the star (LW t | z, B=8, S=2^18; the four
+    siblings one group), (a) the neural flagship by IS (B=8, S=2^18; the
+    roots x0, x1 one group; (mean, std) within 0.05 std of the grid
+    reference) and (c) asia ``categorical_embedded_softmax`` LW (B=8,
+    S=2^20; tub, lung, bronc one group; pmf within 5e-3 of
+    ``categorical_exact``). Returns the ``vbn_uniforms`` launches of a
+    grouped batch of each."""
+    import torch
+
+    t0 = time.perf_counter()
+    star, fit_s = level_group_star(vbn_cls, defaults)
+    log("level_group_fit", workload="star gaussian_nn", fit_s=fit_s)
+    star.set_inference_method("likelihood_weighting", n_samples=S_LG_STAR)
+    zq = {"target": "t", "evidence": {"z": np.linspace(-1, 1, B_NN).reshape(
+        B_NN, 1).astype(np.float32)}}
+
+    def moments(out):
+        w, s = out
+        st = star._posterior_stats(w, s.float())
+        return st["mean"].cpu()
+
+    def star_check(w, s):
+        st = star._posterior_stats(w, s)
+        mean = st["mean"][:, 0].cpu().numpy()
+        if not (np.isfinite(mean).all() and np.all(np.diff(mean) > 0)):
+            raise AssertionError(f"star: t | z means {mean}")
+        return {"t_mean_rises_with_z": True}
+
+    out = {"star": level_group_case("star gaussian_nn LW", star,
+                                    ServedQuery(star, zq, moments), B_NN,
+                                    star_check)}
+
+    a, qa, ref = KEPT["a_flagship"]
+    a.set_inference_method("importance_sampling", n_samples=S_NN_IS)
+
+    def a_check(w, s):
+        st = a._posterior_stats(w, s)
+        got = np.stack([st["mean"][:, 0].double().cpu().numpy(),
+                        st["std"][:, 0].double().cpu().numpy()], 1)
+        dm = float(np.max(np.abs(got[:, 0] - ref[:, 0]) / ref[:, 1]))
+        ds = float(np.max(np.abs(got[:, 1] - ref[:, 1]) / ref[:, 1]))
+        if not (dm <= 0.05 and ds <= 0.05):
+            raise AssertionError(f"(a) grouped IS off the grid: {dm}, {ds}")
+        return {"dmean_over_std": dm, "dstd_over_std": ds, "limit": 0.05}
+
+    def a_means(out):
+        return a._posterior_stats(out[0], out[1].float())["mean"].cpu()
+
+    out["a"] = level_group_case("a flagship gaussian_nn+mdn IS", a,
+                                ServedQuery(a, qa, a_means), B_NN, a_check)
+
+    c = KEPT["c_emb"]
+    qc = asia_query(B_NN)
+    c.set_inference_method("categorical_exact")
+    exact_pmf, _ = c.infer_posterior_pmf([qc], n_classes=2)
+    exact_pmf = exact_pmf.astype(np.float64)
+    exact_pmf /= exact_pmf.sum(axis=1, keepdims=True)  # rows come unnormalized
+    c.set_inference_method("likelihood_weighting", n_samples=S_MAIN)
+
+    def c_pmf(out):  # dysp is binary: P(1) is the weighted mean
+        p1 = c._posterior_stats(out[0].double(), out[1].double())["mean"]
+        return torch.cat([1 - p1, p1], 1).cpu().numpy()
+
+    def c_check(w, s):
+        pmf = c_pmf((w, s))
+        err = float(np.abs(pmf - exact_pmf).max())
+        if not err <= 5e-3:
+            raise AssertionError(f"(c) grouped LW pmf off exact by {err}")
+        return {"max_abs_err_vs_categorical_exact": err, "limit": 5e-3}
+
+    out["c"] = level_group_case("c asia categorical_embedded_softmax LW", c,
+                                ServedQuery(c, qc, c_pmf), B_NN, c_check)
+    log("level_group_done", seconds=time.perf_counter() - t0, launches=out)
+    return out
+
+
 def m3_serve(mesh, cat, lq):
     """(m3) t3's stacked categorical form (the 2048-node plan, its first
     B_M3 queries, S=2^14, LW dynamic pmf) on this rank under ``mesh`` and
@@ -4820,6 +5177,21 @@ def m3_serve(mesh, cat, lq):
                 cat._keys.set_state(901)
                 w, s = cat.infer_posterior_many(qs)[0]
                 streams[tag] = (w.cpu().numpy(), s.cpu().numpy())
+        from vectorizedbayesiannetwork_torch.core import rng
+
+        full = rng.CHUNK_BYTES
+        rng.CHUNK_BYTES = 1  # one node a launch: the parent commit's draws
+        try:
+            cat.set_mesh(None)
+            cat._keys.set_state(900)
+            reset_launches()
+            pmf, _ = cat.infer_posterior_pmf(qs, n_classes=4, pad_bucket=B_M3)
+            rep["launches_one_node_a_launch"] = read_launches(
+                {"uniforms": SOME})
+        finally:
+            rng.CHUNK_BYTES = full
+        rep["rows_equal_one_node_a_launch"] = bool(np.array_equal(
+            pmf, rows["unmeshed"]))
         rep["rows_equal"] = bool(np.array_equal(rows["meshed"],
                                                 rows["unmeshed"]))
         rep["streams_equal"] = all(
@@ -4836,7 +5208,8 @@ def check_m3(tag, rep, n_particle):
     mesh of more than one rank, and a rank's peak memory under the
     unmeshed one's."""
     log("mesh_m3", mesh=tag, **rep)
-    if not (rep["rows_equal"] and rep["streams_equal"]):
+    if not (rep["rows_equal"] and rep["streams_equal"]
+            and rep["rows_equal_one_node_a_launch"]):
         raise AssertionError(f"m3 {tag}: meshed != unmeshed")
     if n_particle > 1 and rep["traces"]["sharded"] < 1:
         raise AssertionError(f"m3 {tag}: the sweep did not run sharded")
@@ -5313,37 +5686,31 @@ def load_parent(root):
     mod = importlib.util.module_from_spec(spec)
     sys.modules["vbn_parent"] = mod
     spec.loader.exec_module(mod)
-    for sub in ("defaults", "ops.sweep", "ops.scan", "ops.resample_merge",
-                "ops._build"):
+    for sub in ("defaults", "ops.sweep", "ops.rng", "ops._build"):
         importlib.import_module(f"vbn_parent.{sub}")
     return mod
 
 
 def compare_builds(root):
-    """The kernels this checkout redesigned beside another checkout's build
-    of them (``--parent root``), in one process on one card, in turns
-    (other, this, this, other): ``vbn_srg`` (D = 1 and 3) and ``vbn_spg``
-    at RIS's B = 8, S = 2^20 on quantized weights, each build's output held
-    bit for bit against the other's, and the pointer routine's, device ms
-    (``device_ms``; a build that still launches ``vbn_cum_index`` before
-    its merge is timed over both launches, each kernel's share logged).
-    First, queries/s served by each package end to end (moments held
-    within 0.05 sd of the other build's): flagship RIS systematic and
-    multinomial, and two torch-op sweeps whose draws another build may take
-    elsewhere (W1's KDE LW and flagship IS). Run alone after a build:
-    ``python3 -c "import chip_smoke as c; c.compare_builds('DIR')"``."""
-    import inspect
-
+    """The kernel this checkout redesigned beside another checkout's build
+    of it (``--parent root``), in one process on one card, in turns
+    (other, this, this, other): ``vbn_uniforms`` at W1's [8, 2^20] (one
+    node) and for 64 nodes at t3's [96, 2^14] (a build that draws one node
+    a launch is timed over its 64 launches), each build's values held bit
+    for bit against the other's, device ms (``graph_ms``) and the
+    wrapper's ms (CUDA events). First, queries/s served by each package end
+    to end (moments held within 0.05 sd of the other build's): flagship
+    RIS systematic and multinomial, W1's KDE LW and flagship IS (a level
+    group of the two roots here). Run alone after a build: ``python3 -c
+    "import chip_smoke as c; c.compare_builds('DIR')"``."""
     import torch
 
     from vectorizedbayesiannetwork_torch import VBN, defaults
-    from vectorizedbayesiannetwork_torch.ops import resample_merge as rm
-    from vectorizedbayesiannetwork_torch.ops import scan
 
     par = load_parent(root)
-    prm = par.ops.resample_merge
+    prng = par.ops.rng
     log("compare_builds", parent=str(root),
-        build_seconds=par.ops._build.build_all(["resample"]))
+        build_seconds=par.ops._build.build_all(["rng", "kde"]))
 
     def turns(metric, other, this):
         got = [other(), this(), this(), other()]
@@ -5391,47 +5758,31 @@ def compare_builds(root):
     for metric in serve["this"]:
         turns(f"{metric}_qps", serve["parent"][metric], serve["this"][metric])
 
-    # the merge kernel at RIS's shape: systematic (D = 1, 3) and sorted
+    # vbn_uniforms: one node at W1's shape; 64 nodes at t3's, which the
+    # other build may draw one launch a node
     dev = torch.device("cuda")
-    g = torch.Generator(device=dev).manual_seed(9)
-    b, s = B_RIS, S_RIS
-    cum = rm.norm_cum(torch.as_tensor(quantized_profile("dirichlet", b, s),
-                                      device=dev))
-    u0 = torch.rand((b, 1), generator=g, device=dev)
-    e = torch.empty((b, s + 1), device=dev).exponential_(generator=g)
-    c = scan.cumsum_rows(e, monotone=True)
-    pos = (c[:, :s] / c[:, -1:]).contiguous()
-    # a build whose merge takes an index (lasts, pointers) launches
-    # vbn_cum_index before it on the served path: its time is both kernels'
-    indexed = "index" in inspect.signature(prm.srg).parameters
-    cases = []
-    for d in (1, 3):
-        vals = torch.randn((b, s, d), generator=g, device=dev)
-        cases.append((f"vbn_srg_D{d}", rm.systematic_positions(u0, s, rm.T),
-                      lambda m, *i, v=vals: m.srg(u0, cum, v, *i)))
-    vals = torch.randn((b, s, 1), generator=g, device=dev)
-    cases.append(("vbn_spg_D1", pos[:, :: rm.T],
-                  lambda m, *i: m.spg(cum, pos, vals, *i)))
-    kernels = ("merge_kernel", "cum_index_kernel") if indexed else (
-        "merge_kernel",)
-    for name, q, call in cases:
-        exact(f"{name} index between builds", prm.cum_index(cum, q),
-              rm.cum_index(cum, q))
+    from vectorizedbayesiannetwork_torch.ops import rng
 
-        def other():
-            return call(prm, prm.cum_index(cum, q)) if indexed else call(prm)
+    many = hasattr(prng, "stream_values_many")  # else one node a launch
+    for name, b, s, nodes in (("w1", B_KDE, S_KDE, [5]),
+                              ("t3_64_nodes", N_DYN, S_STACKED,
+                               list(range(5, 69)))):
+        def other(b=b, s=s, nodes=nodes):
+            if many:
+                return prng.stream_values_many(STREAM_SEED, b, s, nodes, 1,
+                                               device=dev)
+            return torch.stack([prng.stream_values(STREAM_SEED, b, s, n, 1,
+                                                   device=dev) for n in nodes])
 
-        exact(f"{name} between builds", other(), call(rm))
-        split = {}
+        def this(b=b, s=s, nodes=nodes):
+            return rng.stream_values_many(STREAM_SEED, b, s, nodes, 1,
+                                          device=dev)
 
-        def timed_other():
-            split.update(device_ms(other, RIS_REPS, kernels, split=True))
-            return sum(split.values())
-
-        turns(f"{name}_device_ms", timed_other,
-              lambda: device_ms(lambda: call(rm), RIS_REPS, ("merge_kernel",)))
-        log("compare_builds", metric=f"{name}_parent_device_ms_by_kernel",
-            parent_last_turn=split)
+        exact(f"vbn_uniforms {name} between builds", other(), this())
+        turns(f"vbn_uniforms_{name}_device_ms",
+              lambda f=other: graph_ms(f, 5), lambda f=this: graph_ms(f, 5))
+        turns(f"vbn_uniforms_{name}_wrapper_ms",
+              lambda f=other: cuda_ms(f, 5), lambda f=this: cuda_ms(f, 5))
 
 
 def kernel_name(mangled):
@@ -5575,6 +5926,7 @@ def main(argv) -> int:
     kernels += serve_kde(VBN, defaults)
     serve_exact(VBN, defaults, bn, asia_vbn, lg_vbn)
     neural, sm = serve_neural(VBN, defaults, bn, asia_vbn)
+    level = serve_level_group(VBN, defaults)
     sampling = serve_sampling(VBN, defaults, sm)
     serve_updates(VBN, defaults)
     slice13 = serve_slice13(VBN, defaults, bn, asia_vbn, lg_vbn)
@@ -5586,6 +5938,8 @@ def main(argv) -> int:
     slice14 = serve_slice14(VBN, defaults, bn, lg_vbn)
     uniforms = check_uniforms(torch.device("cuda"))
     row0_invariance(lg_vbn)
+    for case, got in level.items():
+        uniforms[f"launches_level_group_{case}"] = got
     mesh = serve_mesh(bn, asia_vbn, lg_vbn, phase4, link, gauss)
     # (m3) is this slice's main path: t3's stacked form on the one-rank mesh
     uniforms["launches"] = mesh["m3"]["uniforms"]

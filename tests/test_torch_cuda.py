@@ -1162,8 +1162,9 @@ def test_bf16_product_takes_bf16_inputs_and_gives_float32(card):
 def test_ris_over_neural_cpds_launches_the_resampling_kernels(card):
     """RIS on a gaussian_nn + mdn flagship resamples through vbn_cumsum
     and vbn_srg; IS and LW over it launch no hand kernel but the row
-    stream's: one ``vbn_uniforms`` a latent node (x0, x1) a sweep (IS:
-    two sweeps when it falls back), and in RIS one more for the resampling
+    stream's: in LW and IS one ``vbn_uniforms`` for the latent roots x0,
+    x1 (one level group) a sweep (IS: two sweeps when it falls back); RIS
+    walks node by node, one a latent node and one more for the resampling
     event's ``u0``."""
     data = _nn_rows("gaussian_nn")
     vbn = VBN({"x0": [], "x1": [], "x2": ["x0", "x1"]}, seed=0, device=card)
@@ -1177,7 +1178,7 @@ def test_ris_over_neural_cpds_launches_the_resampling_kernels(card):
             ("resampled_importance_sampling", {"ess_threshold": 0.5},
              {"cumsum": 1, "srg": 1, "uniforms": 3}),
             ("importance_sampling", {}, None),
-            ("likelihood_weighting", {}, {"uniforms": 2})):
+            ("likelihood_weighting", {}, {"uniforms": 1})):
         vbn.set_inference_method(method, n_samples=1 << 16, **kw)
         before = dict(sweep.LAUNCHES)
         w, samples = vbn.infer_posterior(q)
@@ -1185,7 +1186,7 @@ def test_ris_over_neural_cpds_launches_the_resampling_kernels(card):
         diff = {k: v - before[k] for k, v in sweep.LAUNCHES.items()
                 if v != before[k]}
         if launched is None:  # IS: the LW rerun sweeps again
-            launched = {"uniforms": 4 if vbn._inference._last_fallback else 2}
+            launched = {"uniforms": 2 if vbn._inference._last_fallback else 1}
         assert diff == launched, method
         assert torch.isfinite(samples).all() and not w.requires_grad
 
@@ -1653,6 +1654,177 @@ def test_normals_kernel_within_rounding_of_its_plain_version(card, k, at):
     err = ((got - want).abs() / (want.abs() + 1.0)).max().item()
     assert err <= 2e-6, err
     assert abs(got.mean().item()) < 5 / np.sqrt(got.numel())
+
+
+NODE_LISTS = {1: [17], 64: [(7 * i + 5) % 211 for i in range(64)]}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g", [1, 64])
+@pytest.mark.parametrize("k,at,normal", [(1, 0, False), (4, 0, False),
+                                         (1, 3, False), (4, 5, False),
+                                         (1, 0, True), (4, 2, True)])
+@pytest.mark.parametrize("row0,particle0", [(0, 0), (3, 1 << 12)])
+def test_uniforms_kernel_draws_a_list_of_nodes(card, g, k, at, normal, row0,
+                                               particle0):
+    """One launch for G nodes against the plain ``stream_values_many`` on
+    the card: uniforms bit for bit, normals within 2e-6 of |z| + 1; at
+    G = 1 and 64, k = 1 and 4, odd ``at``, and a block off the origin
+    (S = 1500: a partial last block of particles)."""
+    from vectorizedbayesiannetwork_torch.core.rng import (
+        stream_values_many as plain,
+    )
+    from vectorizedbayesiannetwork_torch.ops import rng
+
+    seed, b, s = 0x0123456789ABCDEF, 3, 1500
+    nodes = NODE_LISTS[g]
+    before = sweep.LAUNCHES["uniforms"]
+    got = rng.stream_values_many(seed, b, s, nodes, k, at=at, normal=normal,
+                                 row0=row0, particle0=particle0, device=card)
+    assert sweep.LAUNCHES["uniforms"] == before + 1
+    want = plain(seed, b, s, nodes, k, at=at, normal=normal, row0=row0,
+                 particle0=particle0, device=card)
+    assert got.shape == (g, b * s, k)
+    if normal:
+        err = ((got - want).abs() / (want.abs() + 1.0)).max().item()
+        assert err <= 2e-6, err
+    else:
+        assert torch.equal(got, want)
+        assert bool(((got > 0) & (got < 1)).all())
+
+
+@pytest.mark.cuda
+def test_uniforms_launches_once_a_64_nodes(card):
+    """64 nodes are one launch, 65 two; the 65th node's values are its own
+    single-node launch's."""
+    from vectorizedbayesiannetwork_torch.ops import rng
+
+    nodes = list(range(100, 165))
+    before = sweep.LAUNCHES["uniforms"]
+    a = rng.stream_values_many(5, 2, 4096, nodes[:64], 1, device=card)
+    assert sweep.LAUNCHES["uniforms"] == before + 1
+    b = rng.stream_values_many(5, 2, 4096, nodes, 1, device=card)
+    assert sweep.LAUNCHES["uniforms"] == before + 3
+    assert torch.equal(b[:64], a)
+    assert torch.equal(b[64], rng.stream_values(5, 2, 4096, 164, 1,
+                                                device=card))
+
+
+def _star_vbn(card, family):
+    g = np.random.default_rng(0)
+    n = 2048
+    z = g.normal(size=n)
+    data = {"z": z}
+    for i in range(4):
+        data[f"y{i}"] = (0.4 + 0.2 * i) * z + 0.1 * g.normal(size=n)
+    data["t"] = sum(data[f"y{i}"] for i in range(4)) + 0.1 * g.normal(size=n)
+    vbn = VBN([("z", f"y{i}") for i in range(4)]
+              + [(f"y{i}", "t") for i in range(4)], seed=0, device=card)
+    sib = (dict(defaults.cpd("gaussian_nn"), hidden_dims=[16], fit=NN_FIT)
+           if family == "gaussian_nn" else defaults.cpd("linear_gaussian"))
+    vbn.set_learning_method("node_wise", nodes_cpds={
+        "z": defaults.cpd("linear_gaussian"), "t": defaults.cpd(
+            "linear_gaussian"), **{f"y{i}": sib for i in range(4)}})
+    vbn.fit({k: v.astype(np.float32) for k, v in data.items()})
+    return vbn
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["gaussian_nn", "linear_gaussian"])
+@pytest.mark.parametrize("method,evidence", [
+    ("monte_carlo_marginalization", "z"),
+    ("likelihood_weighting", "z"), ("likelihood_weighting", "siblings")])
+def test_grouped_sweep_on_the_card_equals_ungrouped(card, family, method,
+                                                    evidence, monkeypatch):
+    """The star's siblings y0..y3 as one level group on the card against
+    ``VBN_LEVEL_GROUP=never`` at the JAX grouping test's tolerances
+    (samples rtol 1e-4, atol 1e-4; pdf rtol 1e-4, atol 1e-5); grouped, the
+    siblings' draws are one ``vbn_uniforms`` launch, ungrouped one a node.
+    S = 4000, off the fused LG kernels' 1024 grid."""
+    from vectorizedbayesiannetwork_torch.inference import _sweep
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    vbn = _star_vbn(card, family)
+    b = 3
+    q = ({"target": "t", "evidence": {"z": [[0.3]] * b}} if evidence == "z"
+         else {"target": "t", "evidence": {f"y{i}": [[0.2 * i]] * b
+                                           for i in range(4)}})
+    out = {}
+    for mode in ("auto", "never"):
+        monkeypatch.setenv("VBN_LEVEL_GROUP", mode)
+        vbn.set_inference_method(method, n_samples=4000)
+        vbn._keys.set_state(9)
+        _sweep.GROUPS.clear()
+        before = sweep.LAUNCHES["uniforms"]
+        w, s = vbn.infer_posterior(q)
+        torch.cuda.synchronize()
+        out[mode] = (w.cpu().numpy(), s.cpu().numpy(),
+                     sweep.LAUNCHES["uniforms"] - before, dict(_sweep.GROUPS))
+    (wg, sg, lg_, gg), (wn, sn, ln, gn) = out["auto"], out["never"]
+    kind = "sample" if evidence == "z" else "log_prob"
+    assert gg == {f"{kind}_calls": 1, f"{kind}_nodes": 4} and gn == {}
+    # latent siblings: one launch for the four; observed: they draw nothing
+    assert ln - lg_ == (3 if evidence == "z" else 0) and lg_ >= 1
+    np.testing.assert_allclose(sg, sn, rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(wg, wn, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["gumbel", "class_loop", "gaussian"])
+def test_stacked_forms_chunked_draws_equal_per_node_draws(card, asia_vbn,
+                                                          lg_vbn, form,
+                                                          monkeypatch):
+    """The stacked forms draw a chunk of nodes a ``vbn_uniforms`` launch:
+    on the card the form equals the form fed each node's own single-node
+    draws as ``noise``, bit for bit, and draws in one launch (asia's 8
+    and the flagship's 3 nodes: one chunk)."""
+    from vectorizedbayesiannetwork_torch.core.plan import pack_fixed_values
+    from vectorizedbayesiannetwork_torch.core.rng import Draw, RowStream
+    from vectorizedbayesiannetwork_torch.inference._discrete_sweep import (
+        discrete_sweep_trace,
+    )
+    from vectorizedbayesiannetwork_torch.inference._gaussian_sweep import (
+        gaussian_sweep_trace,
+    )
+
+    vbn = lg_vbn if form == "gaussian" else asia_vbn
+    b = 2
+    if form == "gaussian":
+        q = Query(target="x0", evidence={"x2": np.array([[0.3], [-0.2]],
+                                                        np.float32)})
+    else:
+        q = Query(target="dysp", evidence={
+            "smoke": np.array([[1.0], [0.0]], np.float32)})
+    plan = get_plan(vbn, q)
+    cpds = [vbn.cpd_spec(n) for n in plan.topo_order]
+    params = tuple(vbn.params[n] for n in plan.topo_order)
+    fixed = torch.as_tensor(pack_fixed_values(q, plan, b), device=card)
+    st = RowStream(Draw(21, card), b, S)
+    n = plan.n_nodes
+    before = sweep.LAUNCHES["uniforms"]
+    if form == "gaussian":
+        got = gaussian_sweep_trace(plan, cpds, params, st, fixed, S,
+                                   weighted=True)
+        launched = sweep.LAUNCHES["uniforms"] - before
+        noise = torch.stack([st.normal(i).reshape(b, S) for i in range(n)], -1)
+        want = gaussian_sweep_trace(plan, cpds, params, None, fixed, S,
+                                    weighted=True, noise=noise)
+    else:
+        loop = form == "class_loop"
+        monkeypatch.setenv("VBN_SCAN_CLASS_LOOP", "always" if loop else "never")
+        cmax = max(c.resolved_classes for c in cpds)
+        got = discrete_sweep_trace(plan, cpds, params, st, fixed, S,
+                                   weighted=True)
+        launched = sweep.LAUNCHES["uniforms"] - before
+        noise = torch.stack([
+            st.uniform(i).reshape(b, S) if loop else
+            -torch.log(-torch.log(st.uniform(i, cmax).reshape(b, S, cmax)))
+            for i in range(n)])
+        want = discrete_sweep_trace(plan, cpds, params, st, fixed, S,
+                                    weighted=True, noise=noise)
+    assert launched == 1
+    for a, c in zip(got, want):
+        assert torch.equal(a, c)
 
 
 @pytest.mark.cuda

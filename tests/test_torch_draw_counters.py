@@ -21,10 +21,13 @@ from torch_mesh_ranks import TRACE_CASES, WORLD, load, spawn_ranks, trace_models
 from vectorizedbayesiannetwork_torch import VBN, defaults
 from vectorizedbayesiannetwork_torch.core.rng import (
     STREAM_TAG,
+    ChunkedDraws,
     Draw,
     RowStream,
+    draw_key,
     philox_uniforms,
     stream_values,
+    stream_values_many,
     stream_words,
 )
 from vectorizedbayesiannetwork_torch.inference import _sweep
@@ -224,6 +227,105 @@ def test_stream_draws_are_uniform_and_normal():
     assert torch.equal(z[:, 0].float(), want.reshape(-1))
 
 
+# ---------------------------------------------------------------------------
+# A list of nodes a launch (stream_values_many) and the chunks drawn ahead
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("normal,k,at", [(False, 1, 0), (False, 1, 3),
+                                         (False, 4, 0), (False, 5, 6),
+                                         (True, 1, 0), (True, 4, 2)])
+@pytest.mark.parametrize("row0,particle0", [(0, 0), (3, 1 << 12)])
+def test_stream_values_many_is_the_stacked_per_node_stream(normal, k, at,
+                                                           row0, particle0):
+    """``stream_values_many`` over a list of nodes (out of order, one
+    repeated) equals each node's ``stream_values`` bit for bit, and a
+    ``RowStream`` block's ``values_many`` its ``values``."""
+    seed, b, s = 0xFEEDFACE12345, 3, 50
+    nodes = [9, 2, 40, 2, 0]
+    many = stream_values_many(seed, b, s, nodes, k, at=at, normal=normal,
+                              row0=row0, particle0=particle0)
+    assert many.shape == (len(nodes), b * s, k)
+    for g, node in enumerate(nodes):
+        assert torch.equal(many[g], stream_values(
+            seed, b, s, node, k, at=at, normal=normal, row0=row0,
+            particle0=particle0))
+    st = RowStream(Draw(seed, CPU), b, s, row0=row0, particle0=particle0)
+    assert torch.equal(st.values_many(nodes, k, at, normal), many)
+    pre = st.predraw(nodes, [(k, at, normal)])
+    assert list(pre) == [draw_key(k, at, normal)]
+    assert torch.equal(pre[draw_key(k, at, normal)], many)
+
+
+@pytest.mark.parametrize("k,normal", [(1, False), (4, False), (1, True)])
+def test_chunked_draws_are_each_nodes_own(monkeypatch, k, normal):
+    """``ChunkedDraws`` hands node i its own values, chunk after chunk (a
+    chunk cut to 3 nodes here), each chunk one ``values_many`` call."""
+    from vectorizedbayesiannetwork_torch.core import rng
+
+    st = RowStream(Draw(3, CPU), 2, 40)
+    monkeypatch.setattr(rng, "CHUNK_BYTES", 3 * 4 * st.m * k)
+    calls = []
+    real = RowStream.values_many
+    monkeypatch.setattr(RowStream, "values_many", lambda self, *a, **kw: (
+        calls.append(list(a[0])), real(self, *a, **kw))[1])
+    ahead = ChunkedDraws(st, 8, k, normal)
+    assert ahead.chunk == 3
+    for i in range(8):
+        assert torch.equal(ahead(i), real(st, [i], k, 0, normal)[0])
+    assert calls[:3] == [[0, 1, 2], [3, 4, 5], [6, 7]]
+
+
+@pytest.mark.parametrize("form", ["gumbel", "class_loop", "gaussian"])
+def test_stacked_forms_draw_each_nodes_own_values(models, monkeypatch, form):
+    """The stacked forms' chunked draws are the per-node draws: the form on
+    the row stream equals the form fed each node's own ``stream_values``
+    as ``noise``, bit for bit."""
+    from vectorizedbayesiannetwork_torch.inference._discrete_sweep import (
+        discrete_sweep_trace,
+    )
+    from vectorizedbayesiannetwork_torch.inference._gaussian_sweep import (
+        gaussian_sweep_trace,
+    )
+
+    vbn = models["lg" if form == "gaussian" else "asia"]
+    query = _x2_query(2) if form == "gaussian" else _asia_query(2)
+    from vectorizedbayesiannetwork_torch.core.base import Query
+    from vectorizedbayesiannetwork_torch.core.plan import (
+        get_plan,
+        pack_fixed_values,
+    )
+
+    q = Query(target=query["target"], evidence={
+        k: np.asarray(v, np.float32) for k, v in query["evidence"].items()})
+    plan = get_plan(vbn, q)
+    cpds = [vbn.cpd_spec(n) for n in plan.topo_order]
+    params = tuple(vbn.params[n] for n in plan.topo_order)
+    fixed = torch.as_tensor(pack_fixed_values(q, plan, 2))
+    st = RowStream(Draw(21, CPU), 2, S)
+    n = plan.n_nodes
+    if form == "gaussian":
+        noise = torch.stack([st.normal(i).reshape(2, S) for i in range(n)], -1)
+        got = gaussian_sweep_trace(plan, cpds, params, st, fixed, S,
+                                   weighted=True)
+        want = gaussian_sweep_trace(plan, cpds, params, None, fixed, S,
+                                    weighted=True, noise=noise)
+    else:
+        loop = form == "class_loop"
+        monkeypatch.setenv("VBN_SCAN_CLASS_LOOP", "always" if loop else "never")
+        cmax = max(c.resolved_classes for c in cpds)
+        noise = torch.stack([
+            st.uniform(i).reshape(2, S) if loop else
+            -torch.log(-torch.log(st.uniform(i, cmax).reshape(2, S, cmax)))
+            for i in range(n)])
+        got = discrete_sweep_trace(plan, cpds, params, st, fixed, S,
+                                   weighted=True)
+        want = discrete_sweep_trace(plan, cpds, params, st, fixed, S,
+                                    weighted=True, noise=noise)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
 M = 1 << 15
 
 
@@ -292,3 +394,15 @@ def test_meshed_equals_unmeshed_on_1x4(ranks_1x4, case):
                                           got[f"{case}_whole_{x}"])
             np.testing.assert_array_equal(got[f"{case}_mesh_{x}"],
                                           ranks_1x4[0][f"{case}_mesh_{x}"])
+
+
+@pytest.mark.parametrize("case", ["is", "nn_lw", "lbp"])
+def test_grouped_sweep_meshed_equals_unmeshed_on_1x4(ranks_1x4, case):
+    """The chain's roots x0, x1 sample as one level group, unmeshed and on
+    each rank's block of the (1, 4) mesh; the blocks join into the
+    unmeshed stream bit for bit."""
+    for got in ranks_1x4:
+        assert (got[f"{case}_groups"] >= 1).all()
+        for x in ("w", "s"):
+            np.testing.assert_array_equal(got[f"{case}_mesh_{x}"],
+                                          got[f"{case}_whole_{x}"])

@@ -410,7 +410,8 @@ TRACE_S = 256
 
 def _trace_job(out_dir, mesh):
     """Each torch-op path of ``TRACE_CASES`` unmeshed and under ``mesh``
-    from one key counter: (weights, target values) of both."""
+    from one key counter: (weights, target values) of both, and the
+    level-grouped calls of each (the chain's roots x0, x1 form a group)."""
     import os
 
     from vectorizedbayesiannetwork_torch.inference import _sweep
@@ -423,11 +424,20 @@ def _trace_job(out_dir, mesh):
         vbn.set_inference_method(method, **dict({"n_samples": TRACE_S}, **kw))
         prev = os.environ.get("VBN_DISCRETE_SCAN")
         os.environ["VBN_DISCRETE_SCAN"] = scan or "never"
+        groups = []  # the level-grouped calls of each run
+
+        def call():
+            _sweep.GROUPS.clear()
+            got = vbn.infer_posterior(query)
+            groups.append(_sweep.GROUPS["sample_calls"])
+            return got
+
         try:
             _sweep.ROUTES.clear()
             sweep.TRACES.update(sharded=0, whole=0)
-            whole, meshed = _both(vbn, mesh, lambda: vbn.infer_posterior(query))
+            whole, meshed = _both(vbn, mesh, call)
             out[f"{case}_routes"] = np.asarray(sorted(_sweep.ROUTES))
+            out[f"{case}_groups"] = np.asarray(groups)
             out[f"{case}_sharded"] = np.asarray(
                 [sweep.TRACES["sharded"], sweep.TRACES["whole"]])
         finally:

@@ -24,7 +24,7 @@ from __future__ import annotations
 
 from abc import ABC, abstractmethod
 from dataclasses import dataclass, field
-from typing import Any, Callable, Dict, NamedTuple, Optional
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -75,6 +75,35 @@ class BaseCPD(ABC):
             self.output_dim,
             self._static_fields(),
         )
+
+    # -- level grouping (inference/_sweep.py) -------------------------------
+    # Same-signature nodes of a topological level sample as one
+    # ``torch.func.vmap``-ed ``_sample_flat`` over their stacked params; a
+    # family whose sample cannot run so opts out and samples node by node.
+    sample_groupable = True
+
+    def _eval_params(self, params: Params) -> Params:
+        """The part of ``params`` that ``_sample_flat`` / ``_log_prob_flat``
+        read: the optimizer state (``"opt"``, which the neural families keep
+        beside their weights) dropped, so the group's trees stack."""
+        if isinstance(params, dict) and "opt" in params:
+            return {k: v for k, v in params.items() if k != "opt"}
+        return params
+
+    def _draws(self) -> Optional[Tuple[Tuple[int, int, bool], ...]]:
+        """The ``(k, at, normal)`` draws ``_sample_flat`` makes from a row
+        stream, in order (``core.rng.uniforms`` / ``normals`` with ``k``
+        values from slot ``at``). A level group makes them ahead, one
+        ``vbn_uniforms`` launch each for the whole group, since no kernel
+        launches under ``vmap``. None: not declared, and the group samples
+        node by node."""
+        return None
+
+    def _vmappable(self) -> bool:
+        """Whether ``_sample_flat`` and ``_log_prob_flat`` run under
+        ``torch.func.vmap`` at this node's settings (a bf16 network's
+        product is an autograd Function with no vmap rule)."""
+        return True
 
     @abstractmethod
     def init(self, device: torch.device,

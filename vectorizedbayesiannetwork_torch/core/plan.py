@@ -2,8 +2,9 @@
 
 Counterpart of ``vectorizedbayesiannetwork_tpu/core/plan.py``: topo order,
 packed-tensor slices, parent and children indices (Gibbs scores a node's
-Markov blanket through the children) and evidence/do masks, built once per
-(DAG, CPD specs, target, evidence keys, do keys) and cached on the VBN.
+Markov blanket through the children), topological levels and evidence/do
+masks, built once per (DAG, CPD specs, target, evidence keys, do keys) and
+cached on the VBN.
 All fields are hashable Python ints/tuples; packed query rows are numpy.
 """
 
@@ -30,6 +31,9 @@ class InferencePlan:
     do_mask: Tuple[bool, ...]
     target_idx: int
     children_idx: Tuple[Tuple[int, ...], ...]
+    # topological levels as node indices: a level's nodes depend only on
+    # earlier levels (the level-grouped sweep's unit)
+    levels: Tuple[Tuple[int, ...], ...]
 
     @property
     def n_nodes(self) -> int:
@@ -76,6 +80,9 @@ def build_plan(vbn, query: Query) -> InferencePlan:
         target_idx=node_to_idx[query.target],
         children_idx=tuple(
             tuple(node_to_idx[c] for c in dag.children(n)) for n in topo
+        ),
+        levels=tuple(
+            tuple(node_to_idx[n] for n in lv) for lv in dag.topological_levels()
         ),
     )
 

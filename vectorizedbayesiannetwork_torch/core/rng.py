@@ -13,13 +13,17 @@ draw is a function of (key, global particle, global row, node) alone. A
 row's draws then do not depend on its batch, and a rank of a mesh that
 sweeps particles ``[p0, p0 + s)`` of rows ``[r0, r0 + b)`` draws exactly
 the unmeshed ones. On the card the values come from the ``vbn_uniforms``
-kernel (``ops/rng.py``); ``stream_values`` is its plain version.
+kernel (``ops/rng.py``), a list of nodes a launch; ``stream_values_many``
+is its plain version. A level group of the per-node sweep makes its
+nodes' draws ahead in one launch each (``RowStream.predraw``) and hands
+them to the vmapped ``_sample_flat`` as a dict (``Drawn``); the stacked
+forms draw a chunk of nodes ahead (``ChunkedDraws``).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional, Union
+from typing import Dict, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -189,43 +193,61 @@ def box_muller(u1: torch.Tensor, u2: torch.Tensor) -> torch.Tensor:
     return -(r * torch.cos(two_pi * (u2 - 0.5)))
 
 
-def stream_words(seed: int, b: int, s: int, node: int, at: int, words: int,
+def stream_words(seed: int, b: int, s: int, node, at: int, words: int,
                  device, row0: int = 0, particle0: int = 0) -> torch.Tensor:
     """Slots ``at .. at + words - 1`` of the row stream as int64 [B, S,
     words] holding 32-bit words: slot ``4 j + w`` is word ``w`` of the call
-    with counter (particle0 + p, row0 + r, node, 4 | (j << 3))."""
+    with counter (particle0 + p, row0 + r, node, 4 | (j << 3)). With a
+    list of nodes, [G, B, S, words]: the node counter broadcast over the
+    list."""
     i64 = dict(dtype=torch.int64, device=device)
-    c0 = torch.arange(particle0, particle0 + s, **i64).view(1, s)
-    c1 = torch.arange(row0, row0 + b, **i64).view(b, 1)
-    c0, c1 = torch.broadcast_tensors(c0, c1)
-    c2 = torch.full_like(c0, int(node))
+    many = isinstance(node, (list, tuple, range))
+    nodes = torch.as_tensor(list(node) if many else [node], **i64)
+    c0 = torch.arange(particle0, particle0 + s, **i64).view(1, 1, s)
+    c1 = torch.arange(row0, row0 + b, **i64).view(1, b, 1)
+    c0, c1, c2 = torch.broadcast_tensors(c0, c1, nodes.view(-1, 1, 1))
     out = []
     for j in range(at >> 2, ((at + words - 1) >> 2) + 1):
         ws = philox4x32_10(c0, c1, c2, torch.full_like(c0, STREAM_TAG | (j << 3)),
                            int(seed))
         out.extend(ws)
     first = at - ((at >> 2) << 2)
-    return torch.stack(out[first : first + words], dim=-1)
+    bits = torch.stack(out[first : first + words], dim=-1)
+    return bits if many else bits[0]
 
 
-def stream_values(seed: int, b: int, s: int, node: int, k: int, *,
-                  at: int = 0, normal: bool = False, row0: int = 0,
-                  particle0: int = 0, device="cpu") -> torch.Tensor:
-    """The row stream's [B*S, k] float32 values of one node (the plain
-    version of ``vbn_uniforms``). Uniforms: slot ``at + c`` by
+def stream_values_many(seed: int, b: int, s: int, nodes: Sequence[int],
+                       k: int, *, at: int = 0, normal: bool = False,
+                       row0: int = 0, particle0: int = 0,
+                       device="cpu") -> torch.Tensor:
+    """The row stream's [G, B*S, k] float32 values of the G ``nodes`` (the
+    plain version of ``vbn_uniforms``). Uniforms: slot ``at + c`` by
     ``uniform_from_bits`` clamped to ``U_MAX``, so in (0, 1). Normals
     (``at`` even): column c by ``box_muller`` from slots ``at + 2c`` and
-    ``at + 2c + 1``, unclamped."""
+    ``at + 2c + 1``, unclamped. The node counter is broadcast over the
+    list, so node g's block is its ``stream_values`` bit for bit."""
     if normal and at % 2:
         raise ValueError(f"normal draws start at an even slot, not {at}")
     words = 2 * k if normal else k
-    bits = stream_words(seed, b, s, node, at, words, device, row0, particle0)
+    nodes = [int(n) for n in nodes]
+    bits = stream_words(seed, b, s, nodes, at, words, device, row0,
+                        particle0)
     u = uniform_from_bits(bits)
     if normal:
         v = box_muller(u[..., 0::2], u[..., 1::2])
     else:
         v = torch.clamp(u, max=U_MAX)
-    return v.reshape(b * s, k)
+    return v.reshape(len(nodes), b * s, k)
+
+
+def stream_values(seed: int, b: int, s: int, node: int, k: int, *,
+                  at: int = 0, normal: bool = False, row0: int = 0,
+                  particle0: int = 0, device="cpu") -> torch.Tensor:
+    """One node's [B*S, k] values: the one-node case of
+    ``stream_values_many``."""
+    return stream_values_many(seed, b, s, [node], k, at=at, normal=normal,
+                              row0=row0, particle0=particle0,
+                              device=device)[0]
 
 
 class RowStream:
@@ -252,11 +274,26 @@ class RowStream:
 
     def values(self, node: int, k: int, at: int = 0,
                normal: bool = False) -> torch.Tensor:
-        from ..ops.rng import stream_values as launch
+        return self.values_many([node], k, at, normal)[0]
 
-        return launch(self.seed, self.b, self.s, int(node), int(k), at=at,
-                      normal=normal, row0=self.row0,
+    def values_many(self, nodes: Sequence[int], k: int, at: int = 0,
+                    normal: bool = False) -> torch.Tensor:
+        """[G, b*s, k]: the G nodes' values, one ``vbn_uniforms`` launch for
+        each 64 nodes on the card, each node on its own counters."""
+        from ..ops.rng import stream_values_many as launch
+
+        return launch(self.seed, self.b, self.s, [int(n) for n in nodes],
+                      int(k), at=at, normal=normal, row0=self.row0,
                       particle0=self.particle0, device=self.device)
+
+    def predraw(self, nodes: Sequence[int],
+                draws: Sequence[Tuple[int, int, bool]]) -> "Drawn":
+        """The draws ``(k, at, normal)`` of every node of ``nodes``, each one
+        ``values_many`` launch: ``{draw_key(k, at, normal): [G, b*s, k]}``.
+        Sliced at node g (or vmapped over dim 0) it is a ``Drawn`` source
+        that gives node g the values ``node(nodes[g])`` would draw."""
+        return {draw_key(k, at, normal): self.values_many(nodes, k, at, normal)
+                for k, at, normal in draws}
 
     def uniform(self, node: int, k: int = 1, at: int = 0) -> torch.Tensor:
         return self.values(node, k, at)
@@ -292,7 +329,46 @@ class NodeStream:
         return mix64(self.stream.seed, self.idx)
 
 
-Source = Union[torch.Generator, NodeStream]
+NODES_PER_LAUNCH = 64  # nodes of one vbn_uniforms launch (csrc/rng.cu)
+CHUNK_BYTES = 1 << 28  # the most a chunk of nodes drawn ahead holds
+
+
+class ChunkedDraws:
+    """Node i's [b*s, k] values for a loop over nodes 0 .. n - 1 in order,
+    drawn ahead a chunk of C nodes at a time (one ``values_many`` call: one
+    ``vbn_uniforms`` launch on the card), C at most 64 and the chunk at
+    most ``CHUNK_BYTES``. The values are node i's own, bit for bit."""
+
+    def __init__(self, stream: RowStream, n: int, k: int = 1,
+                 normal: bool = False):
+        self.stream, self.n, self.k = stream, int(n), int(k)
+        self.normal = normal
+        per_node = 4 * stream.m * self.k
+        self.chunk = max(1, min(NODES_PER_LAUNCH, CHUNK_BYTES // per_node,
+                                self.n))
+        self.lo, self.buf = 0, None
+
+    def __call__(self, i: int) -> torch.Tensor:
+        if self.buf is None or not self.lo <= i < self.lo + self.buf.shape[0]:
+            self.lo = i
+            self.buf = self.stream.values_many(
+                range(i, min(i + self.chunk, self.n)), self.k,
+                normal=self.normal)
+        return self.buf[i - self.lo]
+
+
+def draw_key(k: int, at: int, normal: bool) -> str:
+    """The key of a draw of ``k`` values from slot ``at`` in a ``Drawn``
+    source: ``"u1@0"``, ``"n2@4"``."""
+    return f"{'n' if normal else 'u'}{int(k)}@{int(at)}"
+
+
+# A node's draws made ahead of its ``_sample_flat``: {draw_key: [m, k]}
+# (``RowStream.predraw`` sliced at the node; a level group's sample runs
+# under ``torch.func.vmap``, where no kernel can launch, so its draws are
+# made before it and enter as this dict, batched over the group).
+Drawn = Dict[str, torch.Tensor]
+Source = Union[torch.Generator, NodeStream, Drawn]
 
 
 def _check_rows(src: NodeStream, m: int) -> None:
@@ -300,10 +376,23 @@ def _check_rows(src: NodeStream, m: int) -> None:
         raise ValueError(f"the row stream has {src.m} rows; the draw wants {m}")
 
 
+def _drawn(src: Drawn, m: int, k: int, at: int, normal: bool):
+    key = draw_key(k, at, normal)
+    if key not in src:
+        raise KeyError(f"draw {key} was not made ahead (made: {sorted(src)})")
+    v = src[key]
+    if tuple(v.shape) != (m, k):
+        raise ValueError(f"draw {key} holds {tuple(v.shape)}, not {(m, k)}")
+    return v
+
+
 def uniforms(src: Source, m: int, k: int, device, at: int = 0,
              dtype=torch.float32) -> torch.Tensor:
     """[m, k] uniforms: slots ``at ..`` of a node's row stream (in (0, 1)),
-    or ``torch.rand`` on a generator (in [0, 1))."""
+    made ahead (``Drawn``) or now, or ``torch.rand`` on a generator (in
+    [0, 1))."""
+    if isinstance(src, dict):
+        return _drawn(src, m, k, at, False).to(dtype)
     if isinstance(src, NodeStream):
         _check_rows(src, m)
         return src.uniform(k, at).to(dtype)
@@ -313,7 +402,10 @@ def uniforms(src: Source, m: int, k: int, device, at: int = 0,
 def normals(src: Source, m: int, k: int, device, at: int = 0,
             dtype=torch.float32) -> torch.Tensor:
     """[m, k] standard normals: slots ``at ..`` of a node's row stream
-    (Box-Muller pairs), or ``torch.randn`` on a generator."""
+    (Box-Muller pairs), made ahead (``Drawn``) or now, or ``torch.randn``
+    on a generator."""
+    if isinstance(src, dict):
+        return _drawn(src, m, k, at, True).to(dtype)
     if isinstance(src, NodeStream):
         _check_rows(src, m)
         return src.normal(k, at).to(dtype)

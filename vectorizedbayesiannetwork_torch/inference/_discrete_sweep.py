@@ -27,10 +27,11 @@ Two draw forms, as in the JAX package: the Gumbel-argmax over the row's
 (``VBN_SCAN_CLASS_LOOP=always|never`` overrides), the class loop's inverse
 CDF on one uniform a particle, with ``[B, S]`` operands only; the form
 is chosen on the batch's whole size, so a mesh rank's block draws as the
-whole batch does. Draws come from the call's row stream one step at a
-time (node i: the class loop's uniform in slot 0, the Gumbel's in slots
-0 .. Cmax - 1); ``noise`` takes the JAX package's own draws instead
-(Gumbel ``[N, B, S, Cmax]``, uniforms ``[N, B, S]``).
+whole batch does. Draws come from the call's row stream (node i: the
+class loop's uniform in slot 0, the Gumbel's in slots 0 .. Cmax - 1),
+drawn ahead a chunk of nodes a ``vbn_uniforms`` launch
+(``core/rng.py::ChunkedDraws``); ``noise`` takes the JAX package's own
+draws instead (Gumbel ``[N, B, S, Cmax]``, uniforms ``[N, B, S]``).
 """
 
 from __future__ import annotations
@@ -42,6 +43,7 @@ import numpy as np
 import torch
 
 from ..core.plan import InferencePlan
+from ..core.rng import ChunkedDraws
 
 _NEG = -1e30  # log-prob of a masked or padded class
 
@@ -171,6 +173,8 @@ def discrete_sweep_trace(
     cpt_cols = log_cpt.T.contiguous() if class_loop else None  # [Cmax, R]
     n_par = [len(p) for p in plan.parent_idx]
 
+    ahead = (None if noise is not None else
+             ChunkedDraws(stream, n, 1 if class_loop else cmax))
     states = torch.empty((n, b, s), dtype=torch.float32, device=dev)
     logw = torch.zeros((b, s), dtype=torch.float32, device=dev)
     lpt = torch.zeros((b, s), dtype=torch.float32, device=dev)
@@ -186,8 +190,7 @@ def discrete_sweep_trace(
             total = probs[0]
             for j in range(1, cmax):
                 total = total + probs[j]
-            u = (noise[i] if noise is not None else
-                 stream.uniform(i).reshape(b, s))
+            u = noise[i] if noise is not None else ahead(i).reshape(b, s)
             thresh = u * total
             cum = probs[0]
             sampled = torch.zeros((b, s), dtype=torch.int64, device=dev)
@@ -199,7 +202,7 @@ def discrete_sweep_trace(
             if noise is not None:
                 g = noise[i]
             else:
-                u = stream.uniform(i, cmax).reshape(b, s, cmax)  # in (0, 1)
+                u = ahead(i).reshape(b, s, cmax)  # in (0, 1)
                 g = -torch.log(-torch.log(u))
             sampled = torch.argmax(logits + g, dim=-1)
         fx_i = fx_mask[i][:, None]  # [B, 1] or [1, 1]

@@ -11,12 +11,13 @@ over topological order on stacked padded parameters:
     draws the Gaussian, clamps evidence and do values, and adds the
     log-weights.
 
-The JAX form draws its whole ``eps [B, S, N]`` at once; here a step draws
+The JAX form draws its whole ``eps [B, S, N]`` at once; here a step takes
 its ``[B, S]`` from the call's row stream (node i, slots 0 and 1: at 96
 rows, 2^14 particles and 2048 nodes the whole field alone would be 12.9
-GB). ``noise`` takes the JAX package's ``[B, S, N]`` draws instead. The
-state is node-major ``[N, B, S]`` and is returned as its ``[B, S, N]``
-view.
+GB), drawn ahead a chunk of nodes a ``vbn_uniforms`` launch
+(``core/rng.py::ChunkedDraws``, at most 256 MB). ``noise`` takes the JAX
+package's ``[B, S, N]`` draws instead. The state is node-major ``[N, B,
+S]`` and is returned as its ``[B, S, N]`` view.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ import numpy as np
 import torch
 
 from ..core.plan import InferencePlan
+from ..core.rng import ChunkedDraws
 from ..ops.gauss import LOG_2PI
 
 
@@ -95,6 +97,7 @@ def gaussian_sweep_trace(
     tg_mask = None if tgt_mask_arr is None else (tgt_mask_arr > 0).T
     fixed = fixed.float()
 
+    ahead = None if noise is not None else ChunkedDraws(stream, n, normal=True)
     states = torch.empty((n, b, s), dtype=torch.float32, device=dev)
     logw = torch.zeros((b, s), dtype=torch.float32, device=dev)
     lpt = torch.zeros((b, s), dtype=torch.float32, device=dev)
@@ -105,8 +108,7 @@ def gaussian_sweep_trace(
             loc = (pvals * weights[i, :k, None, None]).sum(0) + bias[i]
         else:
             loc = bias[i].expand(b, s)
-        eps = (noise[..., i] if noise is not None else
-               stream.normal(i).reshape(b, s))
+        eps = noise[..., i] if noise is not None else ahead(i).reshape(b, s)
         sampled = loc + scale[i] * eps
         value = torch.where(fx_mask[i][:, None], fixed[:, i][:, None], sampled)
         states[i] = value

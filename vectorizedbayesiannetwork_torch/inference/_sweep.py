@@ -13,6 +13,13 @@ particles on the same counters and the blocks are gathered
 (``ops/sweep.py::shard_trace``): every rank returns the unmeshed stream
 bit for bit.
 
+As in the JAX package, the loop walks the plan's topological levels and
+evaluates the same-signature nodes of a level as one ``torch.func.vmap``-ed
+call over their stacked params (``VBN_LEVEL_GROUP=never`` turns it off;
+``GROUPS`` counts the grouped calls). A group's draws are made ahead, one
+``vbn_uniforms`` launch a draw for all its nodes, so a node draws the same
+values grouped or not.
+
 As in the JAX package, a plan of 64 nodes or more that is all
 categorical (declared supports) or all linear-Gaussian takes the
 stacked-table form instead (``_discrete_sweep.py``, ``_gaussian_sweep.py``:
@@ -30,6 +37,7 @@ from collections import Counter
 from typing import List, Optional, Sequence, Tuple
 
 import torch
+from torch.utils._pytree import tree_flatten, tree_unflatten
 
 from ..core.plan import InferencePlan
 from ..core.rng import Draw, RowStream
@@ -39,6 +47,11 @@ from ._gaussian_sweep import gaussian_sweep_supported, gaussian_sweep_trace
 
 _SCAN_THRESHOLD = 64  # nodes, the JAX package's threshold
 ROUTES: Counter = Counter()  # "discrete" / "gaussian" / "per_node" sweeps
+# the level-grouped per-node sweep: "sample_calls" / "log_prob_calls"
+# vmapped group calls and "sample_nodes" / "log_prob_nodes" the nodes in
+# them; "per_node" nodes of a same-signature group that ran one by one
+# while grouping was on (an opt-out or a failed stack)
+GROUPS: Counter = Counter()
 
 
 def _use_discrete_scan(n_nodes: int) -> bool:
@@ -112,32 +125,150 @@ def sweep_trace(
     return shard_trace(mesh, local, draw, n_samples, (fixed,))
 
 
+def _use_level_grouping() -> bool:
+    """``VBN_LEVEL_GROUP``: ``never`` walks node by node, anything else
+    (``auto`` when unset) groups, as in the JAX package."""
+    return os.environ.get("VBN_LEVEL_GROUP", "auto").lower() != "never"
+
+
+def _group_sig(cpd) -> tuple:
+    """Nodes stack when class, dims and static config all match."""
+    return (type(cpd), cpd.input_dim, cpd.output_dim, cpd._static_fields())
+
+
+def _stack_eval_params(cpds, params_tuple, idxs):
+    """The eval params of ``idxs`` stacked leaf by leaf on a new axis 0, or
+    None when the tree structures, the leaves' shapes, dtypes or devices
+    differ (KDE nodes holding different numbers of support points), or a
+    leaf is not a tensor: the caller then runs the nodes one by one."""
+    flat = [tree_flatten(cpds[i]._eval_params(params_tuple[i])) for i in idxs]
+    spec0 = flat[0][1]
+    if any(spec != spec0 for _, spec in flat[1:]):
+        return None
+    columns = list(zip(*[leaves for leaves, _ in flat]))
+    for col in columns:
+        if not all(isinstance(a, torch.Tensor) for a in col) or any(
+                a.shape != col[0].shape or a.dtype != col[0].dtype
+                or a.device != col[0].device for a in col[1:]):
+            return None
+    return tree_unflatten([torch.stack(col) for col in columns], spec0)
+
+
+def _stacked_group(cpds, params_tuple, g, grouping, *, sample):
+    """The stacked params of group ``g``, or None: it then runs node by
+    node (grouping off, one node, a family that opts out, a stack that
+    fails; ``GROUPS["per_node"]`` counts the nodes of groups that fell
+    back while grouping was on)."""
+    if not grouping or len(g) < 2:
+        return None
+    cpd0 = cpds[g[0]]
+    stacked = None
+    if cpd0._vmappable() and (not sample or (
+            cpd0.sample_groupable and cpd0._draws() is not None)):
+        stacked = _stack_eval_params(cpds, params_tuple, g)
+    if stacked is None:
+        GROUPS["per_node"] += len(g)
+    return stacked
+
+
+def level_groups(plan: InferencePlan, cpds: Sequence, weighted: bool,
+                 skip: frozenset = frozenset()):
+    """Per topological level ``(level, latent, evidence)``: the level's
+    drawn nodes and (when ``weighted``) its evidence nodes, each split into
+    groups of one ``_group_sig`` in order of first appearance, as the JAX
+    package's sweep groups them. ``skip`` and do nodes join no group."""
+    for level in plan.levels:
+        latent: dict = {}
+        evidence: dict = {}
+        for idx in level:
+            if idx in skip:
+                continue
+            if not plan.is_fixed(idx):
+                latent.setdefault(_group_sig(cpds[idx]), []).append(idx)
+            elif weighted and plan.evidence_mask[idx]:
+                evidence.setdefault(_group_sig(cpds[idx]), []).append(idx)
+        yield level, list(latent.values()), list(evidence.values())
+
+
 def _per_node_trace(plan, cpds, params_tuple, stream: RowStream,
                     fixed: torch.Tensor, weighted: bool, skip: frozenset):
-    """``sweep_trace``'s per-node loop over one block of rows and
-    particles."""
+    """``sweep_trace``'s loop over one block of rows and particles, level
+    by level (``plan.levels``). Within a level, the latent nodes of one
+    signature (``_group_sig``) draw as one ``torch.func.vmap``-ed
+    ``_sample_flat`` over their stacked params and ``[G, m, Din]``
+    parents, their draws made ahead (``RowStream.predraw``: one
+    ``vbn_uniforms`` launch a draw for the whole group, each node on its
+    own counters, so a grouped node draws its ungrouped values bit for
+    bit); when weighted, the evidence nodes of one signature score as one
+    vmapped ``_log_prob_flat``. ``VBN_LEVEL_GROUP=never`` walks node by
+    node."""
     b, s = fixed.shape[0], stream.s
     m = b * s
     vals: List[Optional[torch.Tensor]] = [None] * plan.n_nodes
     log_w = torch.zeros((b, s), dtype=torch.float32, device=fixed.device)
-    for idx in range(plan.n_nodes):
-        d = plan.node_dims[idx]
-        off = plan.node_offsets[idx]
-        if idx in skip:
-            vals[idx] = fixed.new_zeros((b, s, d))
-            continue
-        pflat = _parents_flat(plan, vals, idx, m)
-        if plan.is_fixed(idx):
-            vals[idx] = fixed[:, None, off : off + d].expand(b, s, d)
-            if weighted and plan.evidence_mask[idx]:
-                lp = cpds[idx]._log_prob_flat(
-                    params_tuple[idx], vals[idx].reshape(m, d), pflat
-                )
-                log_w = log_w + lp.reshape(b, s)
-        else:
-            v = cpds[idx]._sample_flat(params_tuple[idx], stream.node(idx),
-                                       pflat, m)
-            vals[idx] = v.reshape(b, s, d)
+    grouping = _use_level_grouping()
+    for level, latent, evidence in level_groups(plan, cpds, weighted, skip):
+        for idx in level:
+            d = plan.node_dims[idx]
+            off = plan.node_offsets[idx]
+            if idx in skip:
+                vals[idx] = fixed.new_zeros((b, s, d))
+            elif plan.is_fixed(idx):
+                vals[idx] = fixed[:, None, off : off + d].expand(b, s, d)
+
+        for g in latent:
+            stacked = _stacked_group(cpds, params_tuple, g, grouping,
+                                     sample=True)
+            if stacked is None:
+                for idx in g:
+                    v = cpds[idx]._sample_flat(
+                        params_tuple[idx], stream.node(idx),
+                        _parents_flat(plan, vals, idx, m), m)
+                    vals[idx] = v.reshape(b, s, plan.node_dims[idx])
+                continue
+            cpd0 = cpds[g[0]]
+            drawn = stream.predraw(g, cpd0._draws())
+            if cpd0.input_dim > 0:
+                pstack = torch.stack([_parents_flat(plan, vals, i, m)
+                                      for i in g])
+                vstack = torch.func.vmap(
+                    lambda p, src, pf: cpd0._sample_flat(p, src, pf, m))(
+                        stacked, drawn, pstack)
+            else:
+                vstack = torch.func.vmap(
+                    lambda p, src: cpd0._sample_flat(p, src, None, m))(
+                        stacked, drawn)
+            GROUPS["sample_calls"] += 1
+            GROUPS["sample_nodes"] += len(g)
+            for j, idx in enumerate(g):
+                vals[idx] = vstack[j].reshape(b, s, plan.node_dims[idx])
+
+        for g in evidence:
+            stacked = _stacked_group(cpds, params_tuple, g, grouping,
+                                     sample=False)
+            if stacked is None:
+                for idx in g:
+                    lp = cpds[idx]._log_prob_flat(
+                        params_tuple[idx],
+                        vals[idx].reshape(m, plan.node_dims[idx]),
+                        _parents_flat(plan, vals, idx, m))
+                    log_w = log_w + lp.reshape(b, s)
+                continue
+            cpd0 = cpds[g[0]]
+            xstack = torch.stack([vals[i].reshape(m, plan.node_dims[i])
+                                  for i in g])
+            if cpd0.input_dim > 0:
+                pstack = torch.stack([_parents_flat(plan, vals, i, m)
+                                      for i in g])
+                lp = torch.func.vmap(cpd0._log_prob_flat)(stacked, xstack,
+                                                          pstack)
+            else:
+                lp = torch.func.vmap(
+                    lambda p, x: cpd0._log_prob_flat(p, x, None))(stacked,
+                                                                  xstack)
+            GROUPS["log_prob_calls"] += 1
+            GROUPS["log_prob_nodes"] += len(g)
+            log_w = log_w + lp.sum(dim=0).reshape(b, s)
     return torch.cat(vals, dim=-1), log_w
 
 

@@ -424,6 +424,12 @@ class CategoricalEmbeddedSoftmaxCPD(BaseCPD):
         return params["class_values"][None].expand(m, -1, -1).gather(
             2, idx[..., None])[..., 0]
 
+    def _draws(self):
+        return ((self.output_dim * max(self.resolved_classes, 1), 0, False),)
+
+    def _vmappable(self) -> bool:
+        return resolve_compute_dtype(self.compute_dtype) is None
+
     def _log_prob_flat(self, params, x, parents):
         log_probs = torch.log_softmax(
             self._logits_flat(params, parents, x.shape[0]), dim=-1)

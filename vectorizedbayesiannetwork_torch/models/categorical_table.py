@@ -318,6 +318,9 @@ class CategoricalTableCPD(BaseCPD):
             self._inverse_cdf(params, pidx, d, u[:, d], m)
             for d in range(self.output_dim)], dim=-1)
 
+    def _draws(self):
+        return ((self.output_dim, 0, False),)
+
     def _noise_spec(self, params, m):
         return ((m, self.output_dim), "uniform")
 

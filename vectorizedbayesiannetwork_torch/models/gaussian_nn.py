@@ -207,6 +207,12 @@ class GaussianNNCPD(BaseCPD):
         eps = normals(gen, m, self.output_dim, loc.device, dtype=loc.dtype)
         return loc + eps * scale
 
+    def _draws(self):
+        return ((self.output_dim, 0, True),)
+
+    def _vmappable(self) -> bool:
+        return resolve_compute_dtype(self.compute_dtype) is None
+
     def _log_prob_flat(self, params, x, parents):
         loc, scale = self._denorm_params(params, parents, x.shape[0])
         return diag_gaussian_log_prob(x, loc, scale)

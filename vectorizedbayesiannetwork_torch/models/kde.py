@@ -47,6 +47,18 @@ from ..ops.kde_kernel import kde_log_prob, kde_sample_indices
 
 @register_cpd("kde")
 class KDECPD(BaseCPD):
+    # the pick's in-kernel stream is keyed by the node (NodeStream.seed):
+    # the level-grouped sweep samples KDE nodes one by one, as the JAX
+    # package's does
+    sample_groupable = False
+
+    def _vmappable(self) -> bool:
+        """No: the pick and the log-density are hand-kernel launches on the
+        card, and no kernel launches under ``torch.func.vmap`` (the JAX
+        package vmaps its KDE evidence nodes; here they score one by
+        one)."""
+        return False
+
     def __init__(
         self,
         input_dim: int,

@@ -115,6 +115,9 @@ class LinearGaussianCPD(BaseCPD):
         eps = normals(gen, m, self.output_dim, loc.device, dtype=loc.dtype)
         return loc + eps * self._scale(params)
 
+    def _draws(self):
+        return ((self.output_dim, 0, True),)
+
     def _noise_spec(self, params, m):
         return ((m, self.output_dim), "normal")
 

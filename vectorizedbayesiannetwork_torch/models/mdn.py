@@ -217,6 +217,13 @@ class MDNCPD(BaseCPD):
                       at=next_slot(self.n_components), dtype=loc.dtype)
         return loc_c + eps * scale_c
 
+    def _draws(self):
+        return ((self.n_components, 0, False),
+                (self.output_dim, next_slot(self.n_components), True))
+
+    def _vmappable(self) -> bool:
+        return resolve_compute_dtype(self.compute_dtype) is None
+
     def _log_prob_flat(self, params, x, parents):
         logits, loc, scale = self._mixtures(params, parents, x.shape[0])
         return self._mixture_log_prob(logits, loc, scale, x)

@@ -191,6 +191,9 @@ class RFFGaussianCPD(BaseCPD):
         eps = normals(gen, m, self.output_dim, loc.device, dtype=loc.dtype)
         return loc + eps * scale.expand(m, self.output_dim)
 
+    def _draws(self):
+        return ((self.output_dim, 0, True),)
+
     def _log_prob_flat(self, params, x, parents):
         loc, scale = self.conditional_params(params, parents)
         return diag_gaussian_log_prob(x, loc.expand_as(x), scale.expand_as(x))

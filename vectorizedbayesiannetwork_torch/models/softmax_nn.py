@@ -422,6 +422,14 @@ class SoftmaxNNCPD(BaseCPD):
         return torch.where(bins["is_discrete"][None, :] > 0.5, disc_values,
                            cont_values)
 
+    def _draws(self):
+        k = self.output_dim * self.n_classes  # the Gumbel noise's slots
+        return ((k, 0, False),
+                (self.output_dim, next_slot(k), self.within_bin == "gaussian"))
+
+    def _vmappable(self) -> bool:
+        return resolve_compute_dtype(self.compute_dtype) is None
+
     def _log_prob_flat(self, params, x, parents):
         self._require_bins()
         bins = params["bins"]

@@ -1,29 +1,33 @@
 """The row stream's values on a hand-written CUDA kernel.
 
-``vbn_uniforms`` (``csrc/rng.cu``) writes one node's [B*S, k] float32
-uniforms or normals of the row stream (``core/rng.py::RowStream``) in one
-launch: Philox-4x32-10 keyed by the call's seed, counter (particle0 + p,
-row0 + r, node, 4 | (j << 3)), the same Philox as every in-kernel stream
-(``csrc/vbn_common.cuh``). No TPU kernel stands behind it (the JAX package
-draws in XLA by threefry); it replaces the torch-op draws of the port's
-sweeps, so a row's draws do not depend on its batch or its mesh block.
+``vbn_uniforms`` (``csrc/rng.cu``) writes the [G, B*S, k] float32 uniforms
+or normals of the row stream (``core/rng.py::RowStream``) for a list of
+G <= 64 nodes in one launch: Philox-4x32-10 keyed by the call's seed,
+counter (particle0 + p, row0 + r, node, 4 | (j << 3)), the same Philox as
+every in-kernel stream (``csrc/vbn_common.cuh``). No TPU kernel stands
+behind it (the JAX package draws in XLA by threefry); it replaces the
+torch-op draws of the port's sweeps, so a row's draws do not depend on its
+batch or its mesh block.
 
-``stream_values`` launches the kernel when asked for a CUDA device and
-raises when the launch fails (a card never falls back to ``torch.rand`` or
-to the int64 torch-op Philox); for the CPU it runs the plain version,
-``core/rng.py::stream_values``. Uniforms agree with the plain version bit
-for bit; normals within an ulp or two of the logarithm and cosine.
-``LAUNCHES["uniforms"]`` (``ops/sweep.py``) counts the launches.
+``stream_values_many`` launches the kernel when asked for a CUDA device,
+once for each 64 nodes of the list, and raises when a launch fails (a card
+never falls back to ``torch.rand`` or to the int64 torch-op Philox); for
+the CPU it runs the plain version, ``core/rng.py::stream_values_many``.
+Uniforms agree with the plain version bit for bit; normals within an ulp
+or two of the logarithm and cosine. ``stream_values`` is the one-node
+case. ``LAUNCHES["uniforms"]`` (``ops/sweep.py``) counts the launches.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Sequence
 
 import torch
 
-from ..core.rng import stream_values as stream_values_plain
+from ..core.rng import NODES_PER_LAUNCH as MAX_NODES
+from ..core.rng import stream_values_many as stream_values_many_plain
 from .sweep import LAUNCHES
 
 _P = ctypes.c_void_p
@@ -37,35 +41,56 @@ def _lib() -> ctypes.CDLL:
     from ._build import load
 
     lib = load("rng")
-    lib.vbn_uniforms.argtypes = [ctypes.c_ulonglong, _L, _I, _I, _I, _I, _I,
-                                 _I, _I, _P, _P]
+    lib.vbn_uniforms.argtypes = [ctypes.c_ulonglong, _L, _I, _P, _I, _I, _I,
+                                 _I, _I, _I, _P, _P]
     lib.vbn_uniforms.restype = _I
     return lib
+
+
+def stream_values_many(seed: int, b: int, s: int, nodes: Sequence[int],
+                       k: int, *, at: int = 0, normal: bool = False,
+                       row0: int = 0, particle0: int = 0,
+                       device="cpu") -> torch.Tensor:
+    """The row-stream values [G, B*S, k] float32 of the G ``nodes``, node
+    after node (see ``core/rng.py::stream_values_many``):
+    ``vbn_uniforms`` on a CUDA device, the plain version on the CPU."""
+    device = torch.device(device)
+    nodes = [int(n) for n in nodes]
+    if device.type != "cuda":
+        return stream_values_many_plain(seed, b, s, nodes, k, at=at,
+                                        normal=normal, row0=row0,
+                                        particle0=particle0, device=device)
+    if normal and at % 2:
+        raise ValueError(f"normal draws start at an even slot, not {at}")
+    if not nodes:
+        raise ValueError("vbn_uniforms: no nodes")
+    for name, v in (("row0", row0), ("particle0", particle0),
+                    *(("node", n) for n in nodes)):
+        if not 0 <= int(v) < 1 << 31:
+            raise ValueError(f"vbn_uniforms: {name}={v} out of range")
+    out = torch.empty((len(nodes), b * s, k), dtype=torch.float32,
+                      device=device)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        for i in range(0, len(nodes), MAX_NODES):
+            part = nodes[i : i + MAX_NODES]
+            ids = (ctypes.c_int * len(part))(*part)
+            rc = _lib().vbn_uniforms(
+                int(seed) & ((1 << 64) - 1), int(b), int(s), ids, len(part),
+                int(k), int(at), int(bool(normal)), int(row0),
+                int(particle0), out[i].data_ptr(), stream)
+            if rc != 0:
+                raise RuntimeError(
+                    f"vbn_uniforms launch failed: CUDA error {rc}")
+            LAUNCHES["uniforms"] += 1
+    return out
 
 
 def stream_values(seed: int, b: int, s: int, node: int, k: int, *,
                   at: int = 0, normal: bool = False, row0: int = 0,
                   particle0: int = 0, device="cpu") -> torch.Tensor:
-    """One node's row-stream values [B*S, k] float32 (see
-    ``core/rng.py::stream_values``): ``vbn_uniforms`` on a CUDA device,
-    the plain version on the CPU."""
-    device = torch.device(device)
-    if device.type != "cuda":
-        return stream_values_plain(seed, b, s, node, k, at=at, normal=normal,
-                                   row0=row0, particle0=particle0,
-                                   device=device)
-    if normal and at % 2:
-        raise ValueError(f"normal draws start at an even slot, not {at}")
-    for name, v in (("node", node), ("row0", row0), ("particle0", particle0)):
-        if not 0 <= int(v) < 1 << 31:
-            raise ValueError(f"vbn_uniforms: {name}={v} out of range")
-    out = torch.empty((b * s, k), dtype=torch.float32, device=device)
-    with torch.cuda.device(device):
-        rc = _lib().vbn_uniforms(
-            int(seed) & ((1 << 64) - 1), int(b), int(s), int(node), int(k),
-            int(at), int(bool(normal)), int(row0), int(particle0),
-            out.data_ptr(), torch.cuda.current_stream().cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"vbn_uniforms launch failed: CUDA error {rc}")
-    LAUNCHES["uniforms"] += 1
-    return out
+    """One node's row-stream values [B*S, k] float32: the one-node case of
+    ``stream_values_many``."""
+    return stream_values_many(seed, b, s, [node], k, at=at, normal=normal,
+                              row0=row0, particle0=particle0,
+                              device=device)[0]
