@@ -287,8 +287,13 @@ Then the ('data', 'particle') mesh over ``torch.distributed``:
     and unmeshed in turns, the rows and streams bit for bit, a rank's peak
     memory (under the unmeshed one's on (1, 2)) and queries/s of each,
     and the unmeshed rows again from one node a ``vbn_uniforms`` launch,
-    bit for bit; its launches (``vbn_uniforms``) are the kernel line's
-    ``launches`` of row 13.
+    bit for bit; its launches (``vbn_uniforms``), with the chain samplers'
+    of s2 and s4, are the kernel line's ``launches`` of row 13. (m2)'s
+    ranks also run the chain samplers on each mesh (``m2_chains``): Gibbs
+    over asia's tables and the LG flagship, HMC and NUTS on the flagship
+    at a fixed and an adapted step (8 rows of 8 chains, rows over 'data',
+    chains over 'particle'), meshed against unmeshed bit for bit on each
+    rank and equal across ranks; 3 chains do not split and run whole.
 
 Then the row stream of the torch-op sweeps (before phase 26):
 
@@ -304,8 +309,10 @@ Then the row stream of the torch-op sweeps (before phase 26):
     card at key counter 500, a batch of two against a batch of one, for W1
     (KDE LW), (b) gauss8 ``gaussian_nn`` LW dynamic, t3's stacked form (8
     queries), IS and RIS systematic on the diagnosis query: weights within
-    1e-6, samples bit for bit. Every torch-op phase above reads
-    ``vbn_uniforms`` among its launches (at least one).
+    1e-6, samples bit for bit; and the chain samplers (``row0_samplers``):
+    Gibbs, HMC and NUTS on the LG flagship at a fixed step and HMC over the
+    KDE flagship at W2's query, samples bit for bit. Every torch-op phase
+    above reads ``vbn_uniforms`` among its launches (at least one).
 28. level_group (run right after the neural phase, whose models it
     serves, while the profiler still records device events): three static
     plans served under ``VBN_LEVEL_GROUP``
@@ -317,6 +324,18 @@ Then the row stream of the torch-op sweeps (before phase 26):
     grouped, one a node ungrouped), the groups, a profiled batch of each
     mode; grouped against ungrouped at one key counter at the JAX grouping
     test's tolerances, and (a), (c) against their phase limits.
+29. torch routes (after phase 27, before phase 26): each kernel against
+    the torch route it stands in for, the torch route called directly
+    (``serve_torch_routes``; the port has no route switch): asia LW and
+    flagship MCM of x2 | x0 (B=8, S=2^20), the served call against the torch-op
+    sweep on the same plan and key stream; flagship RIS's resampling event
+    ([8, 2^20] x 3), ``vbn_cumsum`` + ``vbn_srg`` against the index form
+    of ``ops/resample.py``; W1's x2 pick, ``vbn_kde_pick`` against the
+    chunked inverse-CDF form on the kernel's uniforms. Each: the launches
+    of a call of each route (the torch route's kernels 0), the answers
+    held (class frequencies 5e-3, moments 0.05 std, row means of the
+    picks 0.01), calls/s in turns (kernel, torch, torch, kernel) and a
+    profiled call of each.
 
 Prints a JSON line of kernel results (the twelve kernels and
 ``vbn_uniforms``, its launches in (t3) and phase 28 as ``launches_t3``
@@ -325,7 +344,9 @@ and ``launches_level_group_<plan>``; rows 9, 10 and
 ``launches_r2``, rows 1 and 2 with theirs in (t1) and (t2) as
 ``launches_t1`` and ``launches_t2``, rows 1-5 and 8 with theirs in (m1)
 and (m2), summed over ranks and meshes, as ``launches_m1`` and
-``launches_m2``), the card's name and power limit,
+``launches_m2``; row 13's ``launches`` is (m3)'s one-rank batch, its
+chain draws under ``launches_sampling_main_path`` and
+``launches_row0_chains``), the card's name and power limit,
 and last
 ``{"ok": true, "device": {...}}``. Any failure
 exits nonzero. The script imports nothing of JAX or of the JAX package.
@@ -337,8 +358,12 @@ archive`` into a directory ``.gitignore`` lists) beside this one's, in
 turns in one process (``compare_builds``): ``vbn_uniforms`` at W1's [8,
 2^20] and for 64 nodes at t3's [96, 2^14] (device and wrapper ms, the
 builds equal bit for bit; a build that draws one node a launch timed over
-its 64 launches), and the queries/s of flagship RIS systematic and
-multinomial, W1's KDE LW and flagship IS.
+its 64 launches), the queries/s of flagship RIS systematic and
+multinomial, W1's KDE LW and flagship IS; then (``compare_samplers``) the
+chain samplers at s2-s4's sizes, ten rounds of each build (s2 Gibbs over
+KDE, ms a draw; s3 hoisted Gibbs, ms a step; s4 HMC and NUTS on the LG
+flagship and HMC over KDE, ms a transition) and five of (t3)'s LG
+per-node loop (ms a 96-query batch), medians, minima and maxima.
 """
 
 from __future__ import annotations
@@ -2445,8 +2470,8 @@ def kde_flagship_queries():
             {"target": "x2", "evidence": {"x0": v, "x1": v[::-1].copy()}})
 
 
-def add_launches(total, got):
-    for k in KDE_NAMES:
+def add_launches(total, got, names=KDE_NAMES):
+    for k in names:
         total[k] = total.get(k, 0) + got.get(k, 0)
 
 
@@ -3572,7 +3597,7 @@ def sampling_s2(flag, ref_w2, total):
     reset_launches()
     draws, secs, mem = timed(lambda: flag.sample(w2, **S2))
     launches = read_launches(expect)
-    add_launches(total, launches)
+    add_launches(total, launches, KDE_NAMES + ("uniforms",))
     d = draws[..., 0].cpu().numpy().astype(np.float64)
     se = batch_means_se(d, S2["n_chains"], draw_major=True)
     acc = hold_moments("(s2) Gibbs over KDE", d, ref_w2, se)
@@ -3586,7 +3611,7 @@ def sampling_s2(flag, ref_w2, total):
     log("serve_profile", workload="s2 KDE Gibbs", **prof)
 
 
-def sampling_s3(vbn_cls, defaults):
+def sampling_s3(vbn_cls, defaults, total):
     """(s3) Gibbs on the 3-node LG, x2 | x0 = 0.5, one chain: hoisted noise,
     then the keyed route; each mean against gaussian_exact within 5
     standard errors (32 batch means)."""
@@ -3611,6 +3636,7 @@ def sampling_s3(vbn_cls, defaults):
             reset_launches()
             draws, secs, mem = timed(run)
         launches = read_launches({"uniforms": SOME})
+        add_launches(total, launches, ("uniforms",))
         if vbn._sampling._last_hoisted != (route == "hoisted"):
             raise AssertionError(f"(s3) took the wrong noise route: {route}")
         d = draws[..., 0].cpu().numpy().astype(np.float64)
@@ -3649,6 +3675,7 @@ def sampling_s4(vbn_cls, defaults, flag, ref_w2, total):
         reset_launches()
         draws, secs, mem = timed(lambda: lg.sample(q, **kw))
         launches = read_launches({"uniforms": SOME})
+        add_launches(total, launches, ("uniforms",))
         transitions = kw["burn_in"] + -(-kw["n_samples"] // kw["n_chains"])
         leapfrogs = lg._sampling._leapfrogs
         d = draws[..., 0].cpu().numpy().astype(np.float64)
@@ -3681,7 +3708,7 @@ def sampling_s4(vbn_cls, defaults, flag, ref_w2, total):
         evals = transitions + flag._sampling._leapfrogs
         launches = read_launches({"kde_pick": 2, "kde_root": 2 * evals,
                                   "kde_cond": evals, "uniforms": SOME})
-        add_launches(total, launches)
+        add_launches(total, launches, KDE_NAMES + ("uniforms",))
         d = draws[..., 0].cpu().numpy().astype(np.float64)
         acc = hold_moments(f"(s4) {name} over KDE", d, ref_w2,
                            batch_means_se(d, kw["n_chains"], draw_major=False),
@@ -3764,7 +3791,8 @@ def check_kde_gradient(flag):
 
 
 def serve_sampling(vbn_cls, defaults, sm):
-    """Phases s1-s4; returns the KDE kernels' launches of s2 and s4."""
+    """Phases s1-s4; returns the KDE kernels' launches of s2 and s4 and the
+    ``vbn_uniforms`` launches of s2-s4 (the chains' draws)."""
     import torch
 
     t0 = time.perf_counter()
@@ -3775,7 +3803,7 @@ def serve_sampling(vbn_cls, defaults, sm):
     ref_w2 = kde_reference(flag, "w2", v)
     total = {}
     sampling_s2(flag, ref_w2, total)
-    sampling_s3(vbn_cls, defaults)
+    sampling_s3(vbn_cls, defaults, total)
     sampling_s4(vbn_cls, defaults, flag, ref_w2, total)
     torch.cuda.synchronize()
     log("sampling_done", seconds=time.perf_counter() - t0, launches=total)
@@ -4949,7 +4977,48 @@ def row0_invariance(lg_vbn):
         out[tag] = row0_case(f"{tag} flagship diagnosis", lg_vbn,
                              lambda b: lg_vbn.infer_posterior(rows_of(q, b)))
     lg_vbn.set_inference_method("monte_carlo_marginalization", n_samples=S_MAIN)
+    out.update(row0_samplers(lg_vbn, flag))
     log("row0_invariance_done", seconds=time.perf_counter() - t0)
+    return out
+
+
+ROW0_CHAINS = {  # (s3)'s network: short runs of each chain sampler
+    "gibbs": {"n_samples": 64, "burn_in": 10, "n_steps": 2, "n_chains": 4},
+    "hmc": dict(S4, n_samples=64, burn_in=10),
+    "nuts": dict(S4, n_samples=64, burn_in=10, max_tree_depth=4),
+}
+
+
+def row0_samplers(lg_vbn, flag):
+    """Row 0 of B=2 against B=1 at key counter 500, samples bit for bit,
+    for Gibbs, HMC and NUTS on the LG flagship (x0 | x2, at a fixed step)
+    and HMC over the KDE flagship at W2's query; with the ``vbn_uniforms``
+    launches of each B=2 call (its chains' draws)."""
+    import torch
+
+    def rows_of(q, b):
+        return {**q, "evidence": {k: v[:b] for k, v in q["evidence"].items()}}
+
+    def case(tag, vbn, q, kw):
+        reset_launches()
+        vbn._keys.set_state(500)
+        vbn.sample(rows_of(q, 2), **kw)
+        launches = read_launches({"uniforms": SOME, "kde_pick": SOME,
+                                  "kde_root": SOME, "kde_cond": SOME}
+                                 if vbn is flag else {"uniforms": SOME})
+        rec = row0_case(tag, vbn, lambda b: (
+            torch.zeros(b), vbn.sample(rows_of(q, b), **kw)))
+        return dict(rec, uniforms=launches["uniforms"])
+
+    out = {}
+    q = flagship_diag_query()
+    for name, kw in ROW0_CHAINS.items():
+        lg_vbn.set_sampling_method(name)
+        out[f"{name}_lg"] = case(f"{name} LG flagship x0 | x2", lg_vbn, q, kw)
+    _, w2, _ = kde_flagship_queries()
+    flag.set_sampling_method("hmc")
+    out["hmc_kde"] = case("hmc KDE flagship, W2's query", flag, w2,
+                          dict(S4_KDE, n_samples=64, burn_in=5))
     return out
 
 
@@ -5133,6 +5202,200 @@ def serve_level_group(vbn_cls, defaults):
     out["c"] = level_group_case("c asia categorical_embedded_softmax LW", c,
                                 ServedQuery(c, qc, c_pmf), B_NN, c_check)
     log("level_group_done", seconds=time.perf_counter() - t0, launches=out)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 29: each kernel route against the torch route it stands in for,
+# the torch route called directly (the port has no route switch)
+# ---------------------------------------------------------------------------
+
+B_TR = 8  # rows of a torch-route workload: W1's, RIS's
+TR_TURNS = ("kernel", "torch", "torch", "kernel")
+
+
+def route_turns(tag, routes, expect, b, close, profile=True):
+    """``routes["kernel"]()`` against ``routes["torch"]()`` on the same
+    inputs, in turns (kernel, torch, torch, kernel; one call a turn, after
+    a warm call of each): a route's first turn gives its launches
+    (``read_launches(expect[route])``: the torch route's kernels 0) and its
+    answer (``close(kernel, torch)`` holds the two within the limit), and
+    with ``profile`` one profiled call of each follows (wall / device busy
+    ms, idle share). Returns the report: calls/s of each turn."""
+    import torch
+
+    rep = {"workload": tag, "B": b, "launches": {},
+           "per_s": {"kernel": [], "torch": []}, "profile": {}}
+    answers = {}
+    for route in ("kernel", "torch"):
+        routes[route]()
+    for route in TR_TURNS:
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        got = routes[route]()
+        torch.cuda.synchronize()
+        rep["per_s"][route].append(1.0 / (time.perf_counter() - t0))
+        if route not in answers:
+            answers[route] = got
+            rep["launches"][route] = {
+                k: v for k, v in read_launches(expect[route]).items() if v}
+    if profile:
+        for route in ("kernel", "torch"):
+            rep["profile"][route] = profile_batch(routes[route], (), top=3)
+    rep["accuracy"] = close(answers["kernel"], answers["torch"])
+    p = rep["per_s"]
+    rep["torch_over_kernel"] = sum(p["torch"]) / sum(p["kernel"])
+    log("torch_routes", **rep)
+    return rep
+
+
+def sweep_torch_route(vbn, q, s):
+    """The torch-op sweep (``inference/_sweep.py::sweep_trace``) that a
+    static LW or MCM plan's sweep kernel stands in for, called directly on
+    the served call's plan, rows and key stream: (pdf [B, S], target
+    samples [B, S, 1]), as ``vbn.infer_posterior(q)`` returns them."""
+    import torch
+
+    from vectorizedbayesiannetwork_torch.core.plan import pack_fixed_values
+    from vectorizedbayesiannetwork_torch.inference import _sweep
+
+    m = vbn._inference
+    query = vbn._normalize_query(q)
+    plan, b = m._plan_and_batch(vbn, query)
+    lw = hasattr(m, "_weights_from_logw")
+    fixed = torch.as_tensor(pack_fixed_values(query, plan, b, clamp_obs=lw),
+                            device=vbn.device)
+    cpds, params = m._cpds(vbn, plan), m._params_tuple(vbn, plan)
+    t = plan.target_idx
+    if lw:
+        tv, log_w = _sweep.sweep_trace(plan, cpds, params, vbn.next_key(),
+                                       fixed, s, weighted=True, target=t)
+        return m._weights_from_logw(log_w, m.normalize)[0], tv
+    packed, _ = _sweep.sweep_trace(plan, cpds, params, vbn.next_key(), fixed, s)
+    lp = _sweep.target_log_prob(plan, cpds, params, packed)
+    return torch.exp(lp), _sweep.node_values(plan, packed, t)
+
+
+def weighted_moments(out):
+    """[B, 2] (mean, std) of the target under (pdf, samples), float64."""
+    import torch
+
+    w, x = (t.double() for t in out)
+    w = w / w.sum(dim=1, keepdim=True)
+    mean = (w * x[..., 0]).sum(dim=1)
+    var = (w * (x[..., 0] - mean[:, None]) ** 2).sum(dim=1)
+    return torch.stack([mean, var.clamp(min=0).sqrt()], 1).cpu().numpy()
+
+
+def serve_torch_routes(asia_vbn, lg_vbn):
+    """Phase 29: each kernel against the torch route it stands in for, the
+    torch route called directly (``route_turns``): asia LW (B=8, S=2^20)
+    and flagship MCM of x2 | x0 (B=8, S=2^20), the served call against
+    ``sweep_torch_route``, class frequencies within 5e-3, moments within
+    0.05 std; flagship RIS's resampling event at its shape ([8, 2^20]
+    particles of the 3 nodes), ``systematic_resample_gather`` (one
+    ``vbn_cumsum`` and one ``vbn_srg``) against the index form of
+    ``ops/resample.py`` on the same u0, the particles picked equal but for
+    0.1 % of positions (CDF entries rounded apart); W1's Dp=2 pick
+    ([8 x 2^20] rows over x2's 2,048 points), ``kde_pick`` against the
+    chunked inverse-CDF form ``kde_sample_indices`` on the kernel's own
+    uniforms, equal but for 1 % of rows. Returns each case's report."""
+    import torch
+
+    from vectorizedbayesiannetwork_torch.ops import kde_fused as kf
+    from vectorizedbayesiannetwork_torch.ops import resample as rs
+    from vectorizedbayesiannetwork_torch.ops import resample_merge as rm
+    from vectorizedbayesiannetwork_torch.ops.kde_kernel import (
+        kde_sample_indices,
+    )
+
+    t0 = time.perf_counter()
+    out = {}
+
+    def freq_close(a, b):
+        fa = [((a[0] * (a[1][..., 0] == c)).sum(1) / a[0].sum(1))
+              for c in (0, 1)]
+        fb = [((b[0] * (b[1][..., 0] == c)).sum(1) / b[0].sum(1))
+              for c in (0, 1)]
+        err = float(max((x - y).abs().max() for x, y in zip(fa, fb)))
+        if not err <= 5e-3:
+            raise AssertionError(f"torch route: class frequencies apart by "
+                                 f"{err}")
+        return {"freq_max_abs_diff": err, "limit": 5e-3}
+
+    def mom_close(a, b):
+        a, b = weighted_moments(a), weighted_moments(b)
+        dm = float(np.max(np.abs(a[:, 0] - b[:, 0]) / a[:, 1]))
+        ds = float(np.max(np.abs(a[:, 1] - b[:, 1]) / a[:, 1]))
+        if not (dm <= 0.05 and ds <= 0.05):
+            raise AssertionError(f"torch route: moments apart by {dm}, {ds} "
+                                 f"std")
+        return {"dmean_over_std": dm, "dstd_over_std": ds, "limit": 0.05}
+
+    qa = asia_query(B_TR)
+    asia_vbn.set_inference_method("likelihood_weighting", n_samples=S_MAIN)
+    out["asia_lw"] = route_turns(
+        "asia LW (B=8, S=2^20)",
+        {"kernel": lambda: asia_vbn.infer_posterior(qa),
+         "torch": lambda: sweep_torch_route(asia_vbn, qa, S_MAIN)},
+        {"kernel": {"categorical": 1}, "torch": {"uniforms": SOME}}, B_TR,
+        freq_close)
+    # x2 | x0: x1 is drawn, so the static program sweeps (x2 | x0, x1
+    # evaluates x2's CPD directly, with no sweep in either route)
+    ql = {"target": "x2",
+          "evidence": {"x0": flagship_query(B_TR)["evidence"]["x0"]}}
+    lg_vbn.set_inference_method("monte_carlo_marginalization", n_samples=S_MAIN)
+    out["flagship_mcm"] = route_turns(
+        "flagship MCM x2 | x0 (B=8, S=2^20)",
+        {"kernel": lambda: lg_vbn.infer_posterior(ql),
+         "torch": lambda: sweep_torch_route(lg_vbn, ql, S_MAIN)},
+        {"kernel": {"lg": 1}, "torch": {"uniforms": SOME}}, B_TR, mom_close)
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(29)
+    w = torch.rand((B_RIS, S_RIS), generator=g, device=dev) ** 4
+    vals = torch.randn((B_RIS, S_RIS, 3), generator=g, device=dev)
+    u0 = torch.rand((B_RIS, 1), generator=g, device=dev)
+
+    def mean_close(a, b):
+        """The two routes' picks as [B, 2^20, D]: the share of equal picks
+        (logged) and each row's mean over its picks, held within 0.01 (ten
+        standard errors of a mean of 2^20 unit draws)."""
+        a, b = (t.reshape(-1, S_RIS, t.shape[-1]) for t in (a, b))
+        share = float((a == b).all(dim=-1).double().mean())
+        err = float((a.double().mean(1) - b.double().mean(1)).abs().max())
+        if not err <= 0.01:
+            raise AssertionError(f"torch route: row means apart by {err}")
+        return {"same_share": share, "row_mean_max_abs_diff": err,
+                "limit": 0.01}
+
+    out["ris_resample"] = route_turns(
+        "flagship RIS resampling event ([8, 2^20] x 3)",
+        {"kernel": lambda: rm.systematic_resample_gather(w, vals, u0=u0),
+         "torch": lambda: rs.gather_particles(
+             vals, rs.systematic_resample_indices(w, u0=u0))},
+        {"kernel": {"cumsum": 1, "srg": 1}, "torch": {}}, B_RIS, mean_close)
+
+    flag = KEPT["kde_flag"]
+    p2 = flag.params["x2"]
+    dx2, dp2 = p2["data_x"], p2["data_p"]
+    lm2 = flag.nodes["x2"]._log_mask(p2)
+    hp2 = flag.nodes["x2"]._p_scale()
+    m = B_KDE * S_KDE
+    ev = torch.linspace(-1, 1, B_KDE, device=dev).repeat_interleave(S_KDE)
+    par = torch.stack([ev, torch.randn(m, generator=g, device=dev)], 1)
+    key = kf.pick_key(g, dev)
+    out["w1_pick"] = route_turns(
+        "W1 x2 pick (Dp=2, [8 x 2^20] rows)",
+        {"kernel": lambda: kf.kde_pick(key, par, dp2, dx2, lm2, hp2, m),
+         "torch": lambda: dx2[kde_sample_indices(
+             kf.pick_uniforms(key, m), par, dp2, lm2, hp2, m)]},
+        {"kernel": {"kde_pick": 1}, "torch": {}}, B_KDE, mean_close)
+    lg_vbn.set_inference_method("monte_carlo_marginalization", n_samples=S_MAIN)
+    asia_vbn.set_inference_method("likelihood_weighting", n_samples=S_MAIN)
+    torch.cuda.synchronize()
+    log("torch_routes_done", seconds=time.perf_counter() - t0)
     return out
 
 
@@ -5469,8 +5732,72 @@ def m2_serve(mesh, models, link_qs, gauss_qs, net0):
     if nd == 1 and npart > 1:
         rep["fed_uniforms_max_abs_err"] = m2_fed_uniforms(mesh, models,
                                                           link_qs, gauss_qs)
+    rep["chains"], chain_arr = m2_chains(mesh, models)
+    arr.update(chain_arr)
     for v in models.values():
         v.set_mesh(None)
+    return rep, arr
+
+
+M2_CHAINS = (  # (case, model, sampler, settings): 8 rows of 8 chains
+    ("gibbs_tables", "asia", "gibbs", {"burn_in": 10, "n_steps": 2}),
+    ("gibbs_lg", "flagship", "gibbs", {"burn_in": 10, "n_steps": 2}),
+    ("hmc_fixed", "flagship", "hmc", {"burn_in": 10, "step_size": 0.2}),
+    ("hmc_adapted", "flagship", "hmc", {"burn_in": 10, "step_size": 0.2,
+                                        "adapt_step_size": True}),
+    ("nuts_fixed", "flagship", "nuts", {"burn_in": 3, "step_size": 0.2,
+                                        "max_tree_depth": 4}),
+    ("nuts_adapted", "flagship", "nuts", {
+        "burn_in": 3, "step_size": 5.0, "max_tree_depth": 4,
+        "adapt_step_size": True}),
+    ("hmc_refused", "flagship", "hmc", {"burn_in": 5, "n_chains": 3}),
+)
+M2_REFUSED_ROWS = 3  # the refused case's rows: 3 rows of 3 chains split
+# over neither axis of a two-rank mesh
+
+
+def m2_chains(mesh, models):
+    """The chain samplers under ``mesh`` against unmeshed, each from key
+    counter 900 (`M2_CHAINS`; 8 rows of 8 chains split over either mesh;
+    3 rows of 3 chains split over neither and run whole): meshed
+    equals unmeshed bit for bit on this rank, and the samplers' ``CHAINS``
+    counts say sharded (whole for the refused case). Returns (report,
+    arrays: the meshed draws, which the parent holds equal across
+    ranks)."""
+    import torch
+
+    from vectorizedbayesiannetwork_torch.sampling import chains
+
+    qs = {"flagship": flagship_diag_query(),
+          "asia": {"target": "lung", "evidence": {
+              "xray": np.tile([[1.0], [0.0]], (4, 1)).astype(np.float32),
+              "dysp": np.repeat([[1.0], [0.0]], 4, 0).astype(np.float32)}}}
+    rep, arr = {}, {}
+    for case, tag, name, kw in M2_CHAINS:
+        vbn = models[tag]
+        kw = dict({"n_samples": 64, "n_chains": 8}, **kw)
+        refused = case.endswith("_refused")
+        q = flagship_diag_query(M2_REFUSED_ROWS) if refused else qs[tag]
+        vbn.set_sampling_method(name)
+        outs = []
+        for m in (None, mesh):
+            vbn.set_mesh(m)
+            chains.CHAINS.update(sharded=0, whole=0)
+            vbn._keys.set_state(900)
+            t0 = time.perf_counter()
+            outs.append(vbn.sample(q, **kw))
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+        vbn.set_mesh(mesh)
+        counts = dict(chains.CHAINS)
+        equal = bool(torch.equal(outs[0], outs[1]))
+        rep[case] = {"meshed_equals_unmeshed": equal, "counts": counts,
+                     "meshed_seconds": secs}
+        if not equal or counts != ({"sharded": 0, "whole": 1} if refused
+                                   else {"sharded": 1, "whole": 0}):
+            raise AssertionError(f"m2 chains {case}: meshed != unmeshed "
+                                 f"({equal}) or routed {counts}")
+        arr[f"chains_{case}"] = outs[1]
     return rep, arr
 
 
@@ -5619,6 +5946,8 @@ def mesh_m2(bn, asia_vbn, lg_vbn, link, gauss, mesh1):
         ris = {m: reports[0][tag][f"ris_{m}"]
                for m in ("systematic", "multinomial")}
         rank_qps = [rep[tag]["rank_qps"] for rep in reports]
+        log("mesh_m2_chains", mesh=tag, ranks=[rep[tag]["chains"]
+                                              for rep in reports])
         log("mesh_m2", mesh=tag, ranks_share_one_card=True, backend="gloo",
             launches_per_rank=[rep[tag]["launches"] for rep in reports],
             link=lacc, lg=gacc, ris=ris, fit_max_abs_err=fit_err,
@@ -5672,23 +6001,155 @@ def serve_mesh(bn, asia_vbn, lg_vbn, phase4, link, gauss):
     return {"m1": m1, "m3": m3["launches"], "m2": m2}
 
 
-def load_parent(root):
+def load_parent(root, name="vbn_parent"):
     """The port package of another checkout at ``root`` (for example the
-    parent commit's, unpacked with ``git archive``), imported under the name
-    ``vbn_parent``; it builds its own kernels into ``root/build/kernels``."""
+    parent commit's, unpacked with ``git archive``), imported under
+    ``name``; it builds its own kernels into ``root/build/kernels``."""
     import importlib
     import importlib.util
     from pathlib import Path
 
     init = Path(root).resolve() / "vectorizedbayesiannetwork_torch" / "__init__.py"
     spec = importlib.util.spec_from_file_location(
-        "vbn_parent", init, submodule_search_locations=[str(init.parent)])
+        name, init, submodule_search_locations=[str(init.parent)])
     mod = importlib.util.module_from_spec(spec)
-    sys.modules["vbn_parent"] = mod
+    sys.modules[name] = mod
     spec.loader.exec_module(mod)
     for sub in ("defaults", "ops.sweep", "ops.rng", "ops._build"):
-        importlib.import_module(f"vbn_parent.{sub}")
+        if (init.parent / (sub.replace(".", "/") + ".py")).exists():
+            importlib.import_module(f"{name}.{sub}")
     return mod
+
+
+SAMPLER_ROUNDS = 10  # compare_samplers: rounds of every build a metric
+T3_ROUNDS = 5  # and of (t3)'s LG per-node loop
+
+
+def sampler_runs():
+    """(metric, model, sampler, query, settings, units a call, unit) of the
+    chain samplers at phases s2-s4's sizes."""
+    _, w2, _ = kde_flagship_queries()
+    q3 = {"target": "x2", "evidence": {"x0": [[0.5]]}}
+    q4 = {"target": "x0", "evidence": {"x2": [[0.5]]}}
+    nuts = dict(S4, max_tree_depth=S4_NUTS_DEPTH)
+    lg_tr = S4["burn_in"] + -(-S4["n_samples"] // S4["n_chains"])
+    return (
+        ("s2_gibbs_kde", "kde", "gibbs", w2, S2, B_KDE * S2["n_samples"],
+         "draw"),
+        ("s3_gibbs_lg_hoisted", "lg", "gibbs", q3, S3,
+         S3["burn_in"] + S3["n_samples"] * S3["n_steps"], "step"),
+        ("s4_hmc_lg", "lg", "hmc", q4, S4, lg_tr, "transition"),
+        ("s4_nuts_lg", "lg", "nuts", q4, nuts, lg_tr, "transition"),
+        ("s4_hmc_kde", "kde", "hmc", w2, S4_KDE,
+         S4_KDE["burn_in"] + -(-S4_KDE["n_samples"] // S4_KDE["n_chains"]),
+         "transition"),
+    )
+
+
+def rounds_report(ms, units, order):
+    """Each build's ms of a call over the rounds: the list, and the median,
+    min and max a unit; each other build's median over this one's."""
+    rep = {}
+    for tag in order:
+        got = np.asarray(ms[tag], np.float64) / units
+        rep[tag] = {"ms_a_call": ms[tag], "median_ms": float(np.median(got)),
+                    "min_ms": float(got.min()), "max_ms": float(got.max())}
+    for tag in order:
+        if tag != "this":
+            rep[f"this_over_{tag}"] = (rep["this"]["median_ms"]
+                                       / rep[tag]["median_ms"])
+    return rep
+
+
+def compare_samplers(roots, rounds=SAMPLER_ROUNDS, t3_rounds=T3_ROUNDS,
+                     t3=("parent",)):
+    """The chain samplers at phases s2-s4's sizes (``sampler_runs``) on
+    this checkout's package and on other checkouts' (``roots``: tag ->
+    directory, each imported by ``load_parent`` as ``vbn_<tag>``), in one
+    process on one card: ``rounds`` rounds, each running every build once a
+    metric, this build first on even rounds and last on odd ones (a round
+    pair is this, others, others, this). Then (t3)'s LG per-node loop (the
+    2048-node LG network, 96 queries, S=2^14, ``VBN_DISCRETE_SCAN=never``)
+    for the builds in ``t3`` and this one, ``t3_rounds`` rounds. Logs
+    ``compare_samplers`` lines: each build's ms of a call, its median, min
+    and max ms a unit (draw, step, transition, batch) and this build's
+    median over each other's. Run alone after a build: ``python3 -c
+    "import chip_smoke as c; c.compare_samplers({'parent': 'DIR'})"``."""
+    import os
+
+    import torch
+
+    from benchmarking.gaussian_bn import random_gaussian
+    from vectorizedbayesiannetwork_torch import VBN, defaults
+
+    builds = {"this": (VBN, defaults)}
+    for tag, root in roots.items():
+        mod = load_parent(root, name=f"vbn_{tag}")
+        builds[tag] = (mod.VBN, mod.defaults)
+    order = list(builds)
+    runs = sampler_runs()
+    calls = {}
+    t0 = time.perf_counter()
+    for tag, (vbn_cls, dfl) in builds.items():
+        models = {"kde": fit_kde(vbn_cls, dfl, [("x0", "x2"), ("x1", "x2")],
+                                 flagship_data()),
+                  "lg": fit_flagship(vbn_cls, dfl)}
+        for metric, model, name, q, kw, _units, _unit in runs:
+            def call(v=models[model], name=name, q=q, kw=kw):
+                v.set_sampling_method(name)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                v.sample(q, **kw)
+                torch.cuda.synchronize()
+                return 1e3 * (time.perf_counter() - t1)
+
+            models[model].set_sampling_method(name)
+            models[model].sample(q, **dict(kw, burn_in=2,
+                                           n_samples=kw.get("n_chains", 8)))
+            calls[tag, metric] = call
+    log("compare_samplers", builds={t: str(roots.get(t, ".")) for t in order},
+        setup_seconds=time.perf_counter() - t0)
+    ms = {k: [] for k in calls}
+    for i in range(rounds):
+        for metric, *_ in runs:
+            for tag in (order if i % 2 == 0 else order[::-1]):
+                ms[tag, metric].append(calls[tag, metric]())
+    for metric, _m, _n, _q, kw, units, unit in runs:
+        log("compare_samplers", metric=metric, unit=unit, units=units,
+            rounds=rounds, **rounds_report(
+                {t: ms[t, metric] for t in order}, units, order))
+
+    t3_order = ["this"] + [t for t in order if t in t3]
+    gbn = random_gaussian(N_STACKED, seed=0)
+    gq = [as_query(t, ev) for t, ev in gauss_queries(gbn)]
+    serve = {}
+    for tag in t3_order:
+        vbn_cls, dfl = builds[tag]
+        gauss = fit_gaussian(vbn_cls, dfl, gbn)
+        gauss.set_inference_method("likelihood_weighting",
+                                   n_samples=S_STACKED, dynamic_masks=True)
+
+        def batch(v=gauss):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            v.infer_posterior_moments(gq, pad_bucket=N_DYN)
+            torch.cuda.synchronize()
+            return 1e3 * (time.perf_counter() - t1)
+
+        serve[tag] = batch
+    os.environ["VBN_DISCRETE_SCAN"] = "never"
+    try:
+        for tag in t3_order:
+            serve[tag]()
+        t3_ms = {t: [] for t in t3_order}
+        for i in range(t3_rounds):
+            for tag in (t3_order if i % 2 == 0 else t3_order[::-1]):
+                t3_ms[tag].append(serve[tag]())
+    finally:
+        os.environ.pop("VBN_DISCRETE_SCAN", None)
+    log("compare_samplers", metric="t3_lg_per_node_loop", unit="batch",
+        units=1, queries=N_DYN, rounds=t3_rounds,
+        **rounds_report(t3_ms, 1, t3_order))
 
 
 def compare_builds(root):
@@ -5872,6 +6333,7 @@ def main(argv) -> int:
     from vectorizedbayesiannetwork_torch import VBN, defaults
     from vectorizedbayesiannetwork_torch.ops import _build
 
+    t_start = time.perf_counter()
     secs = _build.build_all()
     log("build", seconds=secs)
     regs = [r for name in _build.SOURCES
@@ -5937,12 +6399,16 @@ def main(argv) -> int:
     log("sweep_routes_phases_1_24", routes=dict(_sweep.ROUTES))
     slice14 = serve_slice14(VBN, defaults, bn, lg_vbn)
     uniforms = check_uniforms(torch.device("cuda"))
-    row0_invariance(lg_vbn)
+    row0 = row0_invariance(lg_vbn)
     for case, got in level.items():
         uniforms[f"launches_level_group_{case}"] = got
+    serve_torch_routes(asia_vbn, lg_vbn)
     mesh = serve_mesh(bn, asia_vbn, lg_vbn, phase4, link, gauss)
-    # (m3) is this slice's main path: t3's stacked form on the one-rank mesh
+    # (m3), t3's stacked form on the one-rank mesh, is this row's main
+    # path; the chain samplers' draws (s2-s4, phase 27) have their own keys
     uniforms["launches"] = mesh["m3"]["uniforms"]
+    uniforms["launches_row0_chains"] = {
+        k: v["uniforms"] for k, v in row0.items() if "uniforms" in v}
     uniforms["launches_m2"] = mesh["m2"].get("uniforms", 0)
     kernels.append(uniforms)
     for row in kernels:
@@ -5969,6 +6435,8 @@ def main(argv) -> int:
                 row[f"launches_{phase}"] = got.get(key, 0)
     if args.parent:
         compare_builds(args.parent)
+        compare_samplers({"parent": args.parent})
+    log("chip_smoke_done", seconds=time.perf_counter() - t_start)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

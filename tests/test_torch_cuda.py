@@ -1253,13 +1253,16 @@ def test_mcmc_over_kde_goes_through_the_kernels(kde_vbn, name):
     steps = 5 + 4  # burn-in + draws a chain
     if name == "gibbs":
         # the init sweep picks 2 nodes (their noise: a vbn_uniforms launch
-        # each); each step 2 latent nodes x (1 pick, 1 child's conditional)
+        # each); each step 2 latent nodes x (1 pick and its noise, 1 child's
+        # conditional), and one vbn_uniforms launch for the step's Gumbels
         assert diff == {"kde_pick": 2 + 2 * steps, "kde_cond": 2 * steps,
-                        "uniforms": 2}
+                        "uniforms": 2 + 3 * steps}
     else:
         evals = 1 + 4  # a transition's gradient evaluations
+        # a transition draws its momentum and its accept uniforms: one
+        # vbn_uniforms launch each
         assert diff == {"kde_pick": 2, "kde_root": 2 * evals * steps,
-                        "kde_cond": evals * steps, "uniforms": 2}
+                        "kde_cond": evals * steps, "uniforms": 2 + 2 * steps}
     assert tuple(s.shape) == (B, 64, 1) and torch.isfinite(s).all()
     means = s[..., 0].mean(dim=1).cpu().numpy()
     assert means[-1] > means[0]
@@ -1708,6 +1711,44 @@ def test_uniforms_launches_once_a_64_nodes(card):
     assert torch.equal(b[:64], a)
     assert torch.equal(b[64], rng.stream_values(5, 2, 4096, 164, 1,
                                                 device=card))
+
+
+@pytest.mark.cuda
+def test_uniforms_take_32_bit_node_words(card):
+    """The chain samplers' counter words reach 2^32 - 1: the kernel takes
+    them as unsigned words (bit for bit against the plain version), and a
+    word of 2^32 raises."""
+    from vectorizedbayesiannetwork_torch.core.rng import stream_values_many
+    from vectorizedbayesiannetwork_torch.ops import rng
+
+    nodes = [(1 << 31) - 1, 1 << 31, (1 << 32) - 1, 3]
+    got = rng.stream_values_many(17, 2, 300, nodes, 3, device=card).cpu()
+    assert torch.equal(got, stream_values_many(17, 2, 300, nodes, 3))
+    with pytest.raises(ValueError, match="out of range"):
+        rng.stream_values_many(17, 2, 300, [1 << 32], 1, device=card)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["gibbs", "hmc", "nuts"])
+def test_chain_samplers_row0_on_the_card(card, name):
+    """Row 0 of B=2 equals B=1 bit for bit on the card (the LG flagship,
+    x0 | x2, at a fixed step), and each call launches ``vbn_uniforms``."""
+    from chip_smoke import fit_flagship
+
+    vbn = fit_flagship(VBN, defaults)
+    vbn.set_sampling_method(name)
+    ev = np.array([[0.5], [-1.0]], np.float32)
+    kw = dict(n_samples=32, burn_in=5, n_chains=4, step_size=0.2,
+              max_tree_depth=4)
+    outs = []
+    for b in (2, 1):
+        vbn._keys.set_state(500)
+        before = sweep.LAUNCHES["uniforms"]
+        outs.append(vbn.sample({"target": "x0", "evidence": {"x2": ev[:b]}},
+                               **kw).cpu())
+        assert sweep.LAUNCHES["uniforms"] > before
+    assert torch.equal(outs[0][0], outs[1][0])
+    assert not torch.equal(outs[0][0], outs[0][1])
 
 
 def _star_vbn(card, family):

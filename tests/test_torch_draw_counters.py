@@ -17,7 +17,15 @@ import numpy as np
 import pytest
 import torch
 
-from torch_mesh_ranks import TRACE_CASES, WORLD, load, spawn_ranks, trace_models
+from torch_mesh_ranks import (
+    CHAIN_CASES,
+    TRACE_CASES,
+    WORLD,
+    check_chains,
+    load,
+    spawn_ranks,
+    trace_models,
+)
 from vectorizedbayesiannetwork_torch import VBN, defaults
 from vectorizedbayesiannetwork_torch.core.rng import (
     STREAM_TAG,
@@ -169,6 +177,116 @@ def test_batched_vs_single_consistency_amortized(amortizer):
     assert not vbn._inference._last_fallback
     np.testing.assert_allclose(wb[0], ws[0], atol=1e-6)
     np.testing.assert_array_equal(sb[0], ss[0])
+
+
+# ---------------------------------------------------------------------------
+# The chain samplers: draws keyed by (key, chain, row, step)
+# ---------------------------------------------------------------------------
+
+EV_3 = np.array([[0.3], [0.9], [-0.5]], np.float32)
+CHAIN_SAMPLES = 32
+
+
+@pytest.fixture(scope="module")
+def chain_pair(tmp_path_factory):
+    """The chain of ``tests/conftest.py`` with ``linear_gaussian`` CPDs,
+    seed 0, fitted by the JAX package and loaded by the port."""
+    from conftest import make_chain_df, make_chain_graph
+    from vectorizedbayesiannetwork_tpu import VBN as JVBN
+    from vectorizedbayesiannetwork_tpu import defaults as jdefaults
+
+    jv = JVBN(make_chain_graph(), seed=0)
+    jv.set_learning_method("node_wise", nodes_cpds={
+        k: jdefaults.cpd("linear_gaussian") for k in ("x0", "x1", "x2")})
+    jv.fit(make_chain_df())
+    path = tmp_path_factory.mktemp("chain") / "chain.npz"
+    jv.save(str(path))
+    return jv, VBN.load(str(path), device="cpu")
+
+
+def _row0_gap(vbn, name):
+    """max |row 0 of B=3 - B=1| of ``name`` at its defaults, both from key
+    counter 500 (x0 | x2)."""
+    vbn.set_sampling_method(name)
+    big = _at_500(vbn, lambda: vbn.sample(
+        {"target": "x0", "evidence": {"x2": EV_3}}, n_samples=CHAIN_SAMPLES))
+    one = _at_500(vbn, lambda: vbn.sample(
+        {"target": "x0", "evidence": {"x2": EV_3[:1]}},
+        n_samples=CHAIN_SAMPLES))
+    assert big.shape == (3, CHAIN_SAMPLES, 1) and np.isfinite(big).all()
+    assert not np.array_equal(big[0], big[1])  # the rows draw apart
+    return big, one
+
+
+@pytest.mark.parametrize("name", ["gibbs", "hmc", "nuts"])
+def test_batched_vs_single_consistency_chains(chain_pair, name):
+    """Row 0 of B=3 equals B=1 bit for bit on the samples, for the port's
+    chain samplers at a fixed step size; the JAX package's HMC and NUTS
+    hold it too (its Gibbs draws its hoisted noise flat over B * C * K,
+    so a row's noise there moves with B)."""
+    jv, tv = chain_pair
+    big, one = _row0_gap(tv, name)
+    np.testing.assert_array_equal(big[0], one[0])
+    if name != "gibbs":
+        jbig, jone = _row0_gap(jv, name)
+        np.testing.assert_allclose(jbig[0], jone[0], atol=1e-6)
+
+
+@pytest.mark.parametrize("hoisted", [True, False])
+def test_gibbs_routes_draw_the_same_counters(chain_pair, monkeypatch,
+                                             hoisted):
+    """Gibbs's hoisted noise is what its in-loop route draws, word for
+    word: both routes give the same samples bit for bit (and row 0 holds
+    on each)."""
+    from vectorizedbayesiannetwork_torch.models.linear_gaussian import (
+        LinearGaussianCPD,
+    )
+
+    _, tv = chain_pair
+    tv.set_sampling_method("gibbs")
+    q = {"target": "x0", "evidence": {"x2": EV_3}}
+    kw = dict(n_samples=48, burn_in=3, n_steps=2, n_chains=4)
+    want = _at_500(tv, lambda: tv.sample(q, **kw))
+    assert tv._sampling._last_hoisted
+    if not hoisted:
+        monkeypatch.delattr(LinearGaussianCPD, "_noise_spec")
+    got = _at_500(tv, lambda: tv.sample(q, **kw))
+    assert tv._sampling._last_hoisted is hoisted
+    np.testing.assert_array_equal(got, want)
+
+
+def test_chain_words_stay_under_2_32_or_raise():
+    """Every counter word a chain sampler draws is ``step * width + i``
+    below 2^32: the largest fits, one more raises, and so does an index
+    outside its step."""
+    from vectorizedbayesiannetwork_torch.core.rng import WORD_LIMIT, chain_word
+
+    assert WORD_LIMIT == 1 << 32
+    assert chain_word(0, 3, 2) == 2 and chain_word(5, 3, 1) == 16
+    top = (1 << 32) // 9 - 1
+    assert chain_word(top, 9, 8) == top * 9 + 8 < 1 << 32
+    with pytest.raises(ValueError, match="2\\^32"):
+        chain_word(top + 1, 9, 8)
+    with pytest.raises(ValueError, match="outside a step"):
+        chain_word(0, 3, 3)
+    # a stream word at the top still draws (the plain version's Philox
+    # takes any 32-bit word)
+    v = stream_values(7, 1, 4, (1 << 32) - 1, 2)
+    assert v.shape == (4, 2) and bool(((v > 0) & (v < 1)).all())
+
+
+@pytest.mark.parametrize("name,kw", [
+    ("gibbs", {"n_samples": 2, "burn_in": (1 << 31)}),
+    ("hmc", {"n_samples": 2, "burn_in": (1 << 31)}),
+    ("nuts", {"n_samples": 2, "burn_in": (1 << 29), "max_tree_depth": 8}),
+])
+def test_chain_samplers_raise_before_a_word_passes_2_32(chain_pair, name, kw):
+    """A call whose last step's word would pass 2^32 raises before it
+    draws anything."""
+    _, tv = chain_pair
+    tv.set_sampling_method(name)
+    with pytest.raises(ValueError, match="2\\^32"):
+        tv.sample({"target": "x0", "evidence": {"x2": EV_3[:1]}}, **kw)
 
 
 # ---------------------------------------------------------------------------
@@ -381,28 +499,42 @@ def test_table_draws_hold_the_cpt(models, node):
 @pytest.fixture(scope="module")
 def ranks_1x4(tmp_path_factory):
     d = tmp_path_factory.mktemp("trace_1x4")
-    spawn_ranks(d, ["trace"], n_data=1)
-    return [load(d, "trace", r) for r in range(WORLD)]
+    spawn_ranks(d, ["trace", "chains"], n_data=1)
+    return d
+
+
+@pytest.fixture(scope="module")
+def traces_1x4(ranks_1x4):
+    return [load(ranks_1x4, "trace", r) for r in range(WORLD)]
 
 
 @pytest.mark.parametrize("case", [c[0] for c in TRACE_CASES])
-def test_meshed_equals_unmeshed_on_1x4(ranks_1x4, case):
-    for got in ranks_1x4:
+def test_meshed_equals_unmeshed_on_1x4(traces_1x4, case):
+    for got in traces_1x4:
         assert got[f"{case}_sharded"][0] >= 1  # the sweep ran sharded
         for x in ("w", "s"):
             np.testing.assert_array_equal(got[f"{case}_mesh_{x}"],
                                           got[f"{case}_whole_{x}"])
             np.testing.assert_array_equal(got[f"{case}_mesh_{x}"],
-                                          ranks_1x4[0][f"{case}_mesh_{x}"])
+                                          traces_1x4[0][f"{case}_mesh_{x}"])
 
 
 @pytest.mark.parametrize("case", ["is", "nn_lw", "lbp"])
-def test_grouped_sweep_meshed_equals_unmeshed_on_1x4(ranks_1x4, case):
+def test_grouped_sweep_meshed_equals_unmeshed_on_1x4(traces_1x4, case):
     """The chain's roots x0, x1 sample as one level group, unmeshed and on
     each rank's block of the (1, 4) mesh; the blocks join into the
     unmeshed stream bit for bit."""
-    for got in ranks_1x4:
+    for got in traces_1x4:
         assert (got[f"{case}_groups"] >= 1).all()
         for x in ("w", "s"):
             np.testing.assert_array_equal(got[f"{case}_mesh_{x}"],
                                           got[f"{case}_whole_{x}"])
+
+
+@pytest.mark.parametrize("case", [c[0] for c in CHAIN_CASES])
+def test_chains_meshed_equal_unmeshed_on_1x4(ranks_1x4, case):
+    """Gibbs over tables and LG (both noise routes), HMC and NUTS on the
+    LG chain at a fixed and an adapted step: 4 rows of 8 chains, two a
+    rank of the (1, 4) mesh, return the unmeshed samples bit for bit on
+    every rank; 3 chains do not split and run whole."""
+    check_chains([load(ranks_1x4, "chains", r) for r in range(WORLD)], case)

@@ -3,15 +3,15 @@
 Mirrors ``tests/test_sharding.py`` and the mesh cases of
 ``tests/test_sweep_pallas.py``: the sharded paths (LW and MCM on the sweep
 kernels, static and ``dynamic_masks``; RIS over the distributed resampler)
-hold the JAX tests' limits against exact posteriors, and the paths that
-run whole on every rank (the samplers' chains, ``update``) and the
-torch-op sweeps sharded over the mesh (IS, the stacked forms, KDE and
+hold the JAX tests' limits against exact posteriors, and the path that
+runs whole on every rank (``update``), the samplers' chains sharded over
+the mesh and the torch-op sweeps sharded over it (IS, the stacked forms, KDE and
 neural LW, LBP, RBM, the samplers' ancestral starts) give the unmeshed
 answer at the same key counter, bit for bit; the torch-op paths are also
 held against the JAX package's 2x2 mesh within Monte-Carlo error. Every
 rank must return the same result. The ranks are
-``tests/torch_mesh_ranks.py``'s ``api`` and ``trace`` jobs on a (2, 2)
-mesh.
+``tests/torch_mesh_ranks.py``'s ``api``, ``trace`` and ``chains`` jobs on
+a (2, 2) mesh.
 """
 
 import types
@@ -20,9 +20,11 @@ import numpy as np
 import pytest
 
 from torch_mesh_ranks import (
+    CHAIN_CASES,
     TRACE_CASES,
     TRACE_S,
     WORLD,
+    check_chains,
     load,
     spawn_ranks,
 )
@@ -31,7 +33,7 @@ from torch_mesh_ranks import (
 @pytest.fixture(scope="module")
 def run_dir(tmp_path_factory):
     d = tmp_path_factory.mktemp("mesh_api")
-    spawn_ranks(d, ["api", "trace"])
+    spawn_ranks(d, ["api", "trace", "chains"])
     return d
 
 
@@ -128,6 +130,15 @@ def test_whole_paths_equal_unmeshed(ranks, what):
     a, b = got[f"{what}_whole"], got[f"{what}_mesh"]
     assert np.isfinite(a).all()
     np.testing.assert_array_equal(b, a)
+
+
+@pytest.mark.parametrize("case", [c[0] for c in CHAIN_CASES])
+def test_chains_meshed_equal_unmeshed_on_2x2(run_dir, case):
+    """The chain samplers sharded over the (2, 2) mesh (rows over 'data',
+    chains over 'particle') return the unmeshed samples bit for bit on
+    every rank, at a fixed and an adapted step; a batch whose chains do
+    not split runs whole."""
+    check_chains([load(run_dir, "chains", r) for r in range(WORLD)], case)
 
 
 def test_update_under_mesh_equals_unmeshed(ranks):

@@ -455,5 +455,78 @@ def _trace_job(out_dir, mesh):
     return out
 
 
+# (case, model, sampler, settings): the chains the ``chains`` job runs
+# meshed and unmeshed; 4 rows of 8 chains split over either mesh, and
+# "*_refused" takes 3 chains, which split over no particle axis of 2 or 4,
+# so it runs whole on every rank
+CHAIN_CASES = [
+    ("gibbs_tables", "asia", "gibbs", {"burn_in": 3, "n_steps": 2}),
+    ("gibbs_lg", "lg", "gibbs", {"burn_in": 3, "n_steps": 2}),
+    ("gibbs_lg_keyed", "lg", "gibbs", {"burn_in": 3, "hoist": False}),
+    ("hmc_fixed", "lg", "hmc", {"burn_in": 4, "step_size": 0.2,
+                                "n_leapfrog": 4}),
+    ("hmc_adapted", "lg", "hmc", {"burn_in": 4, "step_size": 0.2,
+                                  "n_leapfrog": 4, "adapt_step_size": True}),
+    ("nuts_fixed", "lg", "nuts", {"burn_in": 3, "step_size": 0.2,
+                                  "max_tree_depth": 4}),
+    ("nuts_adapted", "lg", "nuts", {"burn_in": 3, "step_size": 0.2,
+                                    "max_tree_depth": 4,
+                                    "adapt_step_size": True}),
+    ("hmc_refused", "lg", "hmc", {"burn_in": 2, "n_leapfrog": 2,
+                                  "adapt_step_size": True, "n_chains": 3}),
+    ("gibbs_refused", "lg", "gibbs", {"burn_in": 2, "n_chains": 3}),
+]
+CHAIN_QUERY = {"lg": TRACE_X2, "asia": {"target": "lung", "evidence": {
+    "xray": [[1.0], [0.0], [1.0], [0.0]], "dysp": [[1.0], [1.0], [0.0], [0.0]]}}}
+
+
+def check_chains(ranks, case):
+    """The ``chains`` job's case on every rank: meshed equals unmeshed and
+    rank 0 bit for bit, sharded unless the case is one the gates refuse
+    (then whole)."""
+    refused = case.endswith("_refused")
+    for got in ranks:
+        whole, meshed = got[f"{case}_whole"], got[f"{case}_mesh"]
+        assert whole.shape == (4, 16, 1) and np.isfinite(whole).all()
+        np.testing.assert_array_equal(meshed, whole)
+        np.testing.assert_array_equal(meshed, ranks[0][f"{case}_mesh"])
+        assert list(got[f"{case}_counts"]) == ([0, 1] if refused else [1, 0])
+        if f"{case}_hoisted" in got:
+            assert bool(got[f"{case}_hoisted"]) is (case != "gibbs_lg_keyed")
+
+
+def _chains_job(out_dir, mesh):
+    """Each chain case of ``CHAIN_CASES`` unmeshed and under ``mesh`` from
+    one key counter, with the samplers' ``CHAINS`` counts of the meshed
+    call (sharded, whole)."""
+    from vectorizedbayesiannetwork_torch.models.linear_gaussian import (
+        LinearGaussianCPD,
+    )
+    from vectorizedbayesiannetwork_torch.sampling import chains
+
+    models = trace_models()
+    out = {}
+    for case, tag, sampler, kw in CHAIN_CASES:
+        vbn = models[tag]
+        kw = dict({"n_chains": 8}, **kw)
+        hoist = kw.pop("hoist", True)
+        vbn.set_sampling_method(sampler)
+        spec = LinearGaussianCPD.__dict__["_noise_spec"]
+        if not hoist:  # Gibbs's in-loop route: no noise split
+            del LinearGaussianCPD._noise_spec
+        chains.CHAINS.update(sharded=0, whole=0)
+        try:
+            whole, meshed = _both(vbn, mesh, lambda: vbn.sample(
+                CHAIN_QUERY[tag], n_samples=16, **kw))
+        finally:
+            LinearGaussianCPD._noise_spec = spec
+        out[f"{case}_whole"], out[f"{case}_mesh"] = whole, meshed
+        out[f"{case}_counts"] = np.asarray(
+            [chains.CHAINS["sharded"], chains.CHAINS["whole"]])
+        if sampler == "gibbs":
+            out[f"{case}_hoisted"] = np.asarray(vbn._sampling._last_hoisted)
+    return out
+
+
 JOBS = {"sweep": _sweep_job, "resample": _resample_job, "fit": _fit_job,
-        "api": _api_job, "trace": _trace_job}
+        "api": _api_job, "trace": _trace_job, "chains": _chains_job}

@@ -412,6 +412,24 @@ def normals(src: Source, m: int, k: int, device, at: int = 0,
     return torch.randn((m, k), generator=src, device=device, dtype=dtype)
 
 
+WORD_LIMIT = 1 << 32  # a Philox counter word holds 32 bits
+
+
+def chain_word(step: int, width: int, i: int) -> int:
+    """The node word ``step * width + i`` of a chain sampler's draw: step
+    ``step`` of a sampler that draws ``width`` words a step (Gibbs: one a
+    node; HMC and NUTS: one a purpose). Raises where the word would pass
+    2^32 (a wrapped word would repeat an earlier step's draws)."""
+    if not 0 <= i < width:
+        raise ValueError(f"chain word: index {i} outside a step of {width}")
+    word = int(step) * int(width) + int(i)
+    if not 0 <= word < WORD_LIMIT:
+        raise ValueError(
+            f"chain word {word} (step {step} x {width} + {i}) passes 2^32: "
+            "fewer steps or nodes a call")
+    return word
+
+
 def next_slot(k: int) -> int:
     """The first slot of a second draw after ``k`` slots: ``k`` rounded up
     to a whole call (4 words)."""

@@ -155,15 +155,17 @@ cudaError_t launch(const vbn::PhiloxKey& key, const NodeList& nodes, int g,
 
 extern "C" {
 
-// out: [g, b * s, k] float32; nodes: g host ints, 1 <= g <= 64.
-int vbn_uniforms(unsigned long long seed, long long b, int s, const int* nodes,
+// out: [g, b * s, k] float32; nodes: g host 32-bit counter words,
+// 1 <= g <= 64.
+int vbn_uniforms(unsigned long long seed, long long b, int s,
+                 const unsigned int* nodes,
                  int g, int k, int at, int normal, int row0, int particle0,
                  float* out, void* stream) {
   if (b < 1 || b >= (1LL << 31) || s < 1 || k < 1 || at < 0 ||
       (normal && (at & 1)) || g < 1 || g > MAX_NODES)
     return (int)cudaErrorInvalidValue;
   NodeList list;
-  for (int i = 0; i < g; ++i) list.id[i] = (uint32_t)nodes[i];
+  for (int i = 0; i < g; ++i) list.id[i] = nodes[i];
   const vbn::PhiloxKey key = vbn::philox_key(seed);
   const cudaStream_t st = (cudaStream_t)stream;
   return (int)(normal ? launch<true>(key, list, g, b, s, k, at, (uint32_t)row0,

@@ -95,6 +95,7 @@ def sweep_trace(
     skip: frozenset = frozenset(),
     mesh=None,
     target: Optional[int] = None,
+    gather: bool = True,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Ancestral sweep -> (packed [B, S, total_dim], log_weights [B, S]);
     with ``target`` the first output is that node's values [B, S, d] alone
@@ -106,7 +107,8 @@ def sweep_trace(
     the target and its descendants, which are never parents of a swept
     node). Without ``skip``, a plan that ``stacked_form`` admits takes the
     stacked-table sweep. The draws are ``draw``'s row stream; with
-    ``mesh`` the sweep runs sharded over it (``shard_trace``).
+    ``mesh`` the sweep runs sharded over it (``shard_trace``; with
+    ``gather=False`` a sharded sweep returns this rank's blocks).
     """
     route, form = ("per_node", None) if skip else stacked_form(plan, cpds)
     ROUTES[route] += 1
@@ -122,7 +124,7 @@ def sweep_trace(
             packed = node_values(plan, packed, target)
         return packed, log_w
 
-    return shard_trace(mesh, local, draw, n_samples, (fixed,))
+    return shard_trace(mesh, local, draw, n_samples, (fixed,), gather)
 
 
 def _use_level_grouping() -> bool:

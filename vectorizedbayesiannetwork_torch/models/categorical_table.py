@@ -8,10 +8,10 @@ scatter-add with ``alpha_mode`` in {per_class, total_mass} and ``prior`` in
 sampling over the count rows. ``categorical_probs`` and ``support_values``
 are the protocol the exact engines and ``core/handle.py`` read.
 
-``_noise_spec`` / ``_sample_flat_noise`` take the inverse CDF's uniforms
-from outside, so Gibbs draws all its steps' noise in one call (the JAX
-package takes a Gumbel field there for C = 1 or C >= 128; the port draws
-every C by inverse CDF, as its ``_sample_flat`` does: the same
+``_noise_spec`` says the inverse CDF's uniforms (its declared ``_draws``)
+do not depend on the parents, so Gibbs draws all its steps' uniforms
+ahead of its loop (the JAX package takes a Gumbel field there for C = 1
+or C >= 128; the port draws every C by inverse CDF: the same
 distribution). ``update`` refits (the base class's default); with declared
 supports ``update_program`` recounts against the stored support tables,
 after ``update_host_precheck`` checks the rows lie in them.
@@ -323,12 +323,6 @@ class CategoricalTableCPD(BaseCPD):
 
     def _noise_spec(self, params, m):
         return ((m, self.output_dim), "uniform")
-
-    def _sample_flat_noise(self, params, noise, parents, m):
-        pidx = self._parents_to_index(params, parents, m)
-        return torch.stack([
-            self._inverse_cdf(params, pidx, d, noise[:, d].float(), m)
-            for d in range(self.output_dim)], dim=-1)
 
     # -- online update -------------------------------------------------------
     def update_program(self, conf):

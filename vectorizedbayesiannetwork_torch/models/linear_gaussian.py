@@ -6,10 +6,11 @@ evaluation time, reparameterized sampling and the diagonal Gaussian
 log-density. The solve runs in float64 on the params' device and the
 params are stored in float32, as the JAX package keeps them.
 ``conditional_params`` is the protocol ``gaussian_exact`` and
-``core/handle.py`` read. ``_noise_spec`` / ``_sample_flat_noise`` split a
-draw into parent-independent noise and its transform, so Gibbs draws all
-its steps' noise in one call (``sampling/gibbs.py``). ``update`` refits
-(the base class's default), and so does ``update_program``.
+``core/handle.py`` read. ``_noise_spec`` says a draw splits into
+parent-independent noise (its declared ``_draws``) and a transform, so
+Gibbs draws all its steps' noise ahead of its loop (``sampling/gibbs.py``).
+``update`` refits (the base class's default), and so does
+``update_program``.
 """
 
 from __future__ import annotations
@@ -106,9 +107,14 @@ class LinearGaussianCPD(BaseCPD):
         return torch.sqrt(torch.clamp(params["var"], min=self.min_scale**2))
 
     def _loc(self, params: Params, parents, m: int) -> torch.Tensor:
+        """``bias + sum_j parents_j weight_j`` [m, Dout] as a product and a
+        sum over the parent axis (three ops whatever the parent count): a
+        row's value (and its gradient) is then the same in a batch of any
+        size, where a matrix product may take another summation path for
+        one row than for three."""
         if self.input_dim == 0:
             return params["bias"].expand(m, self.output_dim)
-        return parents @ params["weight"] + params["bias"]
+        return params["bias"] + (parents.unsqueeze(-1) * params["weight"]).sum(1)
 
     def _sample_flat(self, params, gen, parents, m):
         loc = self._loc(params, parents, m)
@@ -120,10 +126,6 @@ class LinearGaussianCPD(BaseCPD):
 
     def _noise_spec(self, params, m):
         return ((m, self.output_dim), "normal")
-
-    def _sample_flat_noise(self, params, noise, parents, m):
-        loc = self._loc(params, parents, m)
-        return loc + noise.to(loc.dtype) * self._scale(params)
 
     def update_program(self, conf):
         """The refit is a function of fixed-shape inputs."""

@@ -27,6 +27,7 @@ from typing import Sequence
 import torch
 
 from ..core.rng import NODES_PER_LAUNCH as MAX_NODES
+from ..core.rng import WORD_LIMIT
 from ..core.rng import stream_values_many as stream_values_many_plain
 from .sweep import LAUNCHES
 
@@ -64,9 +65,10 @@ def stream_values_many(seed: int, b: int, s: int, nodes: Sequence[int],
         raise ValueError(f"normal draws start at an even slot, not {at}")
     if not nodes:
         raise ValueError("vbn_uniforms: no nodes")
-    for name, v in (("row0", row0), ("particle0", particle0),
-                    *(("node", n) for n in nodes)):
-        if not 0 <= int(v) < 1 << 31:
+    for name, v, top in (("row0", row0, 1 << 31),
+                         ("particle0", particle0, 1 << 31),
+                         *(("node", n, WORD_LIMIT) for n in nodes)):
+        if not 0 <= int(v) < top:
             raise ValueError(f"vbn_uniforms: {name}={v} out of range")
     out = torch.empty((len(nodes), b * s, k), dtype=torch.float32,
                       device=device)
@@ -74,7 +76,7 @@ def stream_values_many(seed: int, b: int, s: int, nodes: Sequence[int],
         stream = torch.cuda.current_stream().cuda_stream
         for i in range(0, len(nodes), MAX_NODES):
             part = nodes[i : i + MAX_NODES]
-            ids = (ctypes.c_int * len(part))(*part)
+            ids = (ctypes.c_uint * len(part))(*part)  # the kernel's uint32 words
             rc = _lib().vbn_uniforms(
                 int(seed) & ((1 << 64) - 1), int(b), int(s), ids, len(part),
                 int(k), int(at), int(bool(normal)), int(row0),

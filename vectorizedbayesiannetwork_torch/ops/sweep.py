@@ -39,12 +39,33 @@ Under a ('data', 'particle') mesh (``make_fused_sweep_fn(mesh=)``) each
 rank launches the kernel on its block of rows and particles and the
 reductions combine over 'particle' (``_shard_sweep``, which serves the scan
 kernels of ``ops/sweep_scan.py`` too).
+
+The gate verdict: each build of a raw function (``make_fused_sweep_fn``
+here, ``make_scan_sweep_fn`` in ``ops/sweep_scan.py``; the port builds one
+a call, having no program cache) prints one line under
+``VBN_SWEEP_LOG`` or ``VBN_VERBOSITY>=1`` (``gate_log``, the JAX
+``_gate_log`` of ``sweep_pallas.py:702``, its fields in its order:
+target, n_nodes, n_samples, mesh, path, reason). The port names its own
+routes in ``path``; a JAX path maps so (``JAX_PATHS``):
+
+- ``pallas-categorical`` -> ``cuda-categorical``;
+- ``pallas-linear-gaussian`` -> ``cuda-linear-gaussian``;
+- ``xla`` -> ``torch`` (the torch-op sweeps of ``inference/_sweep.py``);
+- ``pallas-scan-categorical`` -> ``cuda-scan-categorical``;
+- ``pallas-scan-linear-gaussian`` -> ``cuda-scan-linear-gaussian``;
+- ``xla-scan`` -> ``torch-scan`` (``inference/_dynamic_sweep.py``).
+
+A ``cuda-*`` path runs the kernel on the card and its plain version on
+the CPU. Where the JAX builder refuses a meshed batch that does not split
+(path ``xla``), the port serves it whole on every rank on the kernel and
+prints the kernel's path with the reason and ``served whole``.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import os
 from typing import Optional
 
 import numpy as np
@@ -67,6 +88,55 @@ LAUNCHES = {"categorical": 0, "lg": 0, "categorical_scan": 0, "lg_scan": 0,
             "cumsum": 0, "cum_index": 0, "srg": 0, "spg": 0,
             "kde_root": 0, "kde_cond": 0, "kde_cond_wide": 0, "kde_pick": 0,
             "uniforms": 0}
+
+
+# the JAX builders' gate-log paths -> the port's
+JAX_PATHS = {
+    "pallas-categorical": "cuda-categorical",
+    "pallas-linear-gaussian": "cuda-linear-gaussian",
+    "xla": "torch",
+    "pallas-scan-categorical": "cuda-scan-categorical",
+    "pallas-scan-linear-gaussian": "cuda-scan-linear-gaussian",
+    "xla-scan": "torch-scan",
+}
+
+
+def gate_log(plan, n_samples, mesh, path, reason=None):
+    """One-line gate verdict of a build, behind ``VBN_VERBOSITY>=1`` or
+    ``VBN_SWEEP_LOG`` (any value), as the JAX ``_gate_log`` prints it."""
+    from ..core.utils import resolve_verbosity
+    from ..parallel.mesh import DATA_AXIS, PARTICLE_AXIS, mesh_shape
+
+    if not (resolve_verbosity() >= 1 or os.environ.get("VBN_SWEEP_LOG")):
+        return
+    tgt = plan.topo_order[plan.target_idx]
+    shape = (dict(zip((DATA_AXIS, PARTICLE_AXIS), mesh_shape(mesh)))
+             if mesh is not None else None)
+    msg = (
+        f"[fused-sweep] target={tgt!r} n_nodes={plan.n_nodes} "
+        f"n_samples={n_samples} mesh={shape} path={path}"
+    )
+    if reason:
+        msg += f" reason={reason}"
+    print(msg, flush=True)
+
+
+def shard_refusal(mesh, b: int, n_samples: int, grid: int = 1):
+    """Why a meshed batch of ``b`` rows of ``n_samples`` particles does not
+    split over ``mesh`` (the first failing condition), or None: rows over
+    'data', particles over 'particle', and the shard's particles on the
+    kernels' ``grid``."""
+    from ..parallel.mesh import mesh_shape
+
+    nd, npart = mesh_shape(mesh)
+    if b % nd:
+        return f"batch {b} not divisible by data axis {nd}"
+    if n_samples % npart:
+        return f"n_samples {n_samples} not divisible by particle axis {npart}"
+    if (n_samples // npart) % grid:
+        return (f"n_samples {n_samples} over particle axis {npart} is not a "
+                f"multiple of {grid}")
+    return None
 
 
 # ---------------------------------------------------------------------------
@@ -671,7 +741,7 @@ def _combine_particle_shards(sums, m, mesh):
     return all_reduce(sums * scale[:, None], mesh, PARTICLE_AXIS), mg
 
 
-def _shard_sweep(mesh, n_samples, call, seed, rows, u_ext=None):
+def _shard_sweep(mesh, n_samples, call, seed, rows, u_ext=None, log=None):
     """``call(seed, *rows, u_ext, s)`` over the mesh, as the JAX package's
     ``_shard_sweep`` (``sweep_pallas.py:720``) and the scan forms'
     ``_shard_scan_sweep`` / ``_shard_lg_scan`` run it under ``shard_map``.
@@ -687,14 +757,17 @@ def _shard_sweep(mesh, n_samples, call, seed, rows, u_ext=None):
     s_loc off the kernels' 1024 grid: the plan's gates passed at
     ``n_samples``, and of their conditions only that one depends on S) is
     served whole on every rank, exactly as with no mesh; ``u_ext`` is then
-    the global block."""
+    the global block, and ``log(reason)`` prints the gate line."""
     from ..parallel.mesh import block, gather_blocks, mesh_coords, mesh_shape
     from ..core.rng import mix64
 
     nd, npart = mesh_shape(mesh)
     b = rows[0].shape[0]
-    if mesh is None or b % nd or n_samples % npart or \
-            (n_samples // npart) % 1024:
+    refused = None if mesh is None else shard_refusal(mesh, b, n_samples,
+                                                      1024)
+    if mesh is None or refused:
+        if refused and log is not None:
+            log(f"{refused}: served whole")
         return call(seed, *rows, u_ext, n_samples)
     di, pi = mesh_coords(mesh)
     local = tuple(block(r, nd, di).contiguous() for r in rows)
@@ -712,7 +785,7 @@ def _shard_sweep(mesh, n_samples, call, seed, rows, u_ext=None):
 TRACES = {"sharded": 0, "whole": 0}
 
 
-def shard_trace(mesh, trace, draw, n_samples, rows):
+def shard_trace(mesh, trace, draw, n_samples, rows, gather=True):
     """``trace(stream, *rows)`` of a torch-op sweep (``inference/_sweep.py``,
     ``_dynamic_sweep.py``, either form) over the mesh, its outputs [B, S,
     ...] tensors gathered so every rank returns the global ones (``rows``:
@@ -726,13 +799,15 @@ def shard_trace(mesh, trace, draw, n_samples, rows):
     unchanged. A rank holds [N, B_l, s_loc] state. With no mesh, or a batch
     the gates refuse (B % n_data, n_samples % n_particle), the sweep runs
     whole on every rank, as ``_shard_sweep`` serves it. ``TRACES`` counts
-    the meshed calls by how they ran ("sharded" / "whole")."""
+    the meshed calls by how they ran ("sharded" / "whole"). With
+    ``gather=False`` a sharded call returns this rank's blocks (the chain
+    samplers run their chains on them)."""
     from ..core.rng import RowStream
     from ..parallel.mesh import block, gather_blocks, mesh_coords, mesh_shape
 
     nd, npart = mesh_shape(mesh)
     b = rows[0].shape[0]
-    if mesh is None or b % nd or n_samples % npart:
+    if mesh is None or shard_refusal(mesh, b, n_samples):
         if mesh is not None:
             TRACES["whole"] += 1
         return trace(RowStream(draw, b, n_samples), *rows)
@@ -743,7 +818,8 @@ def shard_trace(mesh, trace, draw, n_samples, rows):
                        n_particles=n_samples, n_rows=b)
     local = tuple(None if r is None else block(r, nd, di).contiguous()
                   for r in rows)
-    return tuple(gather_blocks(t, mesh) for t in trace(stream, *local))
+    out = trace(stream, *local)
+    return tuple(gather_blocks(t, mesh) for t in out) if gather else out
 
 
 # ---------------------------------------------------------------------------
@@ -762,7 +838,8 @@ def make_fused_sweep_fn(plan, cpds, n_samples: int, want=("logw", "lpt"),
     With ``mesh`` the kernel runs sharded (``_shard_sweep``): rows over
     'data', particles over 'particle'. The JAX function's ``batch=`` gate is
     taken per call, from the rows the raw is given."""
-    if categorical_sweep_reason(plan, cpds, n_samples) is None:
+    reason = categorical_sweep_reason(plan, cpds, n_samples)
+    if reason is None:
         plan_struct, total_rows, cmax = plan_tuple_for(plan, cpds)
         hi = [float(c.resolved_classes - 1) for c in cpds]
 
@@ -779,15 +856,20 @@ def make_fused_sweep_fn(plan, cpds, n_samples: int, want=("logw", "lpt"),
                                                u_ext=u, want=want)
 
             return _shard_sweep(mesh, n_samples, call, seed,
-                                (fixed_i,), u_ext)
+                                (fixed_i,), u_ext, log=functools.partial(
+                                    gate_log, plan, n_samples, mesh,
+                                    "cuda-categorical"))
 
+        gate_log(plan, n_samples, mesh, "cuda-categorical")
         return raw_cat
 
-    lg_ok = lg_sweep_reason(plan, cpds, n_samples) is None
-    if lg_ok and not any(w.startswith("pmf_") for w in want):
+    lg_reason = lg_sweep_reason(plan, cpds, n_samples)
+    if lg_reason is None and any(w.startswith("pmf_") for w in want):
         # A class histogram over a continuous LG target is a binning
         # question, not a kernel reduction: refused, so the caller's
         # stream path serves it.
+        lg_reason = "pmf reduction undefined for continuous LG targets"
+    if lg_reason is None:
         plan_struct, dmax = lg_plan_tuple_for(plan, cpds)
         min_scales = tuple(float(c.min_scale) for c in cpds)
 
@@ -799,7 +881,13 @@ def make_fused_sweep_fn(plan, cpds, n_samples: int, want=("logw", "lpt"),
                                       u_ext=u, want=want)
 
             return _shard_sweep(mesh, n_samples, call, seed,
-                                (fixed_vals.float().contiguous(),), u_ext)
+                                (fixed_vals.float().contiguous(),), u_ext,
+                                log=functools.partial(
+                                    gate_log, plan, n_samples, mesh,
+                                    "cuda-linear-gaussian"))
 
+        gate_log(plan, n_samples, mesh, "cuda-linear-gaussian")
         return raw_lg
+    gate_log(plan, n_samples, mesh, "torch",
+             f"categorical: {reason}; linear_gaussian: {lg_reason}")
     return None

@@ -75,6 +75,7 @@ from .sweep import (
     _ptr,
     _reduce_plain,
     _shard_sweep,
+    gate_log,
 )
 
 _MAX_C = 128  # classes per node (the pmf histogram's width in the JAX kernel)
@@ -858,9 +859,14 @@ def make_scan_sweep_fn(plan, cpds, n_samples: int, want=("logw",),
     do [B, N], tgt [B], u_ext=None) -> (logw, tgt, lpt, red)`` on the
     family-matched scan kernel, or None when neither gate admits the plan.
     ``raw.fits(b)`` is always true (see the module note). With ``mesh`` the
-    kernel runs sharded (``ops/sweep.py::_shard_sweep``)."""
-    if scan_sweep_reason(plan, cpds, n_samples) is not None:
-        return _make_lg_scan_fn(plan, cpds, n_samples, want, mesh)
+    kernel runs sharded (``ops/sweep.py::_shard_sweep``). Each build prints
+    its gate line (``ops/sweep.py::gate_log``)."""
+    reason = scan_sweep_reason(plan, cpds, n_samples)
+    if reason is not None:
+        lg = _make_lg_scan_fn(plan, cpds, n_samples, want, mesh)
+        if lg is None:
+            gate_log(plan, n_samples, mesh, "torch-scan", reason)
+        return lg
     struct = scan_struct_for(plan, cpds)
 
     def raw(params_tuple, seed, fixed_vals, ev_mask, do_mask, tgt_idx,
@@ -873,9 +879,13 @@ def make_scan_sweep_fn(plan, cpds, n_samples: int, want=("logw",),
 
         rows = (pack_rows(fixed_vals, ev_mask, do_mask, struct[2]),
                 tgt_idx.to(torch.int32).contiguous())
-        return _shard_sweep(mesh, n_samples, call, seed, rows, u_ext)
+        return _shard_sweep(mesh, n_samples, call, seed, rows, u_ext,
+                            log=functools.partial(
+                                gate_log, plan, n_samples, mesh,
+                                "cuda-scan-categorical"))
 
     raw.fits = _always_fits
+    gate_log(plan, n_samples, mesh, "cuda-scan-categorical")
     return raw
 
 
@@ -898,7 +908,11 @@ def _make_lg_scan_fn(plan, cpds, n_samples, want, mesh):
 
         rows = (*lg_rows(fixed_vals, ev_mask, do_mask),
                 tgt_idx.to(torch.int32).contiguous())
-        return _shard_sweep(mesh, n_samples, call, seed, rows, u_ext)
+        return _shard_sweep(mesh, n_samples, call, seed, rows, u_ext,
+                            log=functools.partial(
+                                gate_log, plan, n_samples, mesh,
+                                "cuda-scan-linear-gaussian"))
 
     raw.fits = _always_fits
+    gate_log(plan, n_samples, mesh, "cuda-scan-linear-gaussian")
     return raw

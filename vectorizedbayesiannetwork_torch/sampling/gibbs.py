@@ -21,14 +21,25 @@ JAX sampler's posterior is pulled toward the prior: on the flagship,
 x0 | x2 = 0.5 gives a mean of 0.70 against the exact 0.83, and x2 = -1
 -1.23 against -1.65; the port's is exact within Monte-Carlo error.
 
+Every draw of a step is keyed by (key, chain, row, step, node)
+(``sampling/chains.py``): a node's K candidates from counter (chain * K +
+j, row, ``step * N + node``) of one stream, its selection Gumbels from
+counter (chain, row, ``step * N + node``) of another. So row 0 of a batch
+draws what a batch of one draws, and under a mesh (rows over 'data',
+chains over 'particle') each rank runs its block of chains on their
+unmeshed draws and the kept draws are gathered: a meshed call returns the
+unmeshed samples bit for bit.
+
 Two noise routes, as in the JAX package. When every latent CPD splits its
-draw into parent-independent noise and a transform (``_noise_spec``,
-``_sample_flat_noise``: linear-Gaussian and categorical tables) and all
-steps' noise fits in 2^24 floats, it is drawn before the loop in one call
-a node, and the selection Gumbels in one more: a step then launches no
-random-number kernel. Otherwise (KDE, the neural families) each step draws
-its candidates from the CPD's ``_sample_flat`` and its Gumbels in the
-loop, from one generator of the call. On KDE nodes a step launches
+draw into parent-independent noise and a transform (``_noise_spec``:
+linear-Gaussian and categorical tables) and all steps' noise fits in
+2^24 floats, it is drawn before the loop: each node's declared draws
+(``_draws``) over its step words by ``RowStream.predraw`` (a
+``vbn_uniforms`` launch for each 64 steps on the card), and the
+selection Gumbels of every (step, node) likewise. A step then launches
+no random-number kernel. Otherwise (KDE, the neural families) each step
+draws its candidates on the node's stream and its Gumbels in one launch.
+Both routes draw the same counters, so they give the same samples. On KDE nodes a step launches
 ``vbn_kde_pick`` for the candidates and ``vbn_kde_root`` /
 ``vbn_kde_cond`` for the scores on the card.
 """
@@ -42,28 +53,19 @@ import torch
 
 from ..core.base import Query
 from ..core.registry import register_sampling
-from ..core.rng import fold
+from ..core.rng import chain_word, fold
 from ..inference._base import Method
 from ..inference._sweep import node_values, sweep_trace
 from .ancestral import fixed_rows
+from .chains import ChainBlock
 
 HOIST_LIMIT = 1 << 24  # floats of noise drawn ahead of the loop, at most
 
 
-def gumbel(shape, gen: torch.Generator, device) -> torch.Tensor:
-    """Standard Gumbel noise ``-log(-log u)``, u in (0, 1)."""
-    u = torch.rand(shape, generator=gen, device=device)
-    u = torch.clamp(u, min=float(np.finfo(np.float32).tiny))
+def gumbel(u: torch.Tensor) -> torch.Tensor:
+    """Standard Gumbel noise ``-log(-log u)`` of row-stream uniforms, which
+    lie in (0, 1)."""
     return -torch.log(-torch.log(u))
-
-
-_NOISE = {
-    "normal": lambda shape, gen, dev: torch.randn(shape, generator=gen,
-                                                  device=dev),
-    "uniform": lambda shape, gen, dev: torch.rand(shape, generator=gen,
-                                                  device=dev),
-    "gumbel": gumbel,
-}
 
 
 @register_sampling("gibbs")
@@ -88,46 +90,50 @@ class GibbsSampler(Method):
         draws = -(-s // c)  # per chain
         total_steps = burn_in + draws * thin
         latent = [i for i in range(plan.n_nodes) if not plan.is_fixed(i)]
+        n = plan.n_nodes
+        chain_word(total_steps - 1, n, n - 1)  # the last word: raise now
         dev = vbn.device
         draw = vbn.next_key()
 
+        chains = ChainBlock(vbn._mesh, bb, c)
         packed, _ = sweep_trace(plan, cpds, params, fold(draw, 0),
                                 fixed_rows(vbn, query, plan, bb), c,
-                                mesh=vbn._mesh)
+                                mesh=vbn._mesh, gather=False)
         vals: List[torch.Tensor] = [node_values(plan, packed, i)
-                                    for i in range(plan.n_nodes)]  # [B, C, D]
-        m = bb * c * k
+                                    for i in range(plan.n_nodes)]  # [b, c, D]
+        b_l, c_l = chains.b, chains.c
+        mc = b_l * c_l
+        m = mc * k
+        cand_stream = chains.stream(fold(draw, 2), per_chain=k)
+        sel_stream = chains.stream(fold(draw, 3))
         self._last_hoisted = hoist = self._hoistable(cpds, params, latent, m,
-                                                     total_steps, bb * c * k)
-        if hoist:
-            cand_noise = {}
-            for idx in latent:
-                shape, kind = cpds[idx]._noise_spec(params[idx], m)
-                cand_noise[idx] = _NOISE[kind](
-                    (total_steps,) + tuple(shape), fold(draw, 2, idx).generator,
-                    dev)
-            sel_g = gumbel((total_steps, len(latent), bb * c, k),
-                           fold(draw, 3).generator, dev)
-        else:
-            step_gen = fold(draw, 1).generator
+                                                     total_steps, mc * k)
+        if hoist:  # each node's draws of every step: {draw_key: [steps, m, k]}
+            ahead = {idx: cand_stream.predraw(
+                [chain_word(t, n, idx) for t in range(total_steps)],
+                cpds[idx]._draws()) for idx in latent}
+            sel_g = gumbel(sel_stream.values_many(
+                [chain_word(t, n, i) for t in range(total_steps)
+                 for i in latent], k)).reshape(total_steps, len(latent), mc, k)
 
-        def rep(v):  # each chain's row K times: [B, C, D] -> [B*C*K, D]
-            return v.reshape(bb * c, -1).repeat_interleave(k, dim=0)
+        def rep(v):  # each chain's row K times: [b, c, D] -> [b*c*K, D]
+            return v.reshape(mc, -1).repeat_interleave(k, dim=0)
 
         kept = []
         for step in range(total_steps):
+            if not hoist:
+                sel = gumbel(sel_stream.values_many(
+                    [chain_word(step, n, i) for i in latent], k))
             for j, idx in enumerate(latent):
                 d = plan.node_dims[idx]
                 pidx = plan.parent_idx[idx]
                 pk = (rep(torch.cat([vals[p] for p in pidx], dim=-1))
                       if pidx else None)
-                if hoist:
-                    cand = cpds[idx]._sample_flat_noise(
-                        params[idx], cand_noise[idx][step], pk, m)
-                else:
-                    cand = cpds[idx]._sample_flat(params[idx], step_gen, pk, m)
-                cand = cand.reshape(bb * c, k, d)
-                cand[:, 0] = vals[idx].reshape(bb * c, d)  # the current value
+                src = ({key: v[step] for key, v in ahead[idx].items()}
+                       if hoist else cand_stream.node(chain_word(step, n, idx)))
+                cand = cpds[idx]._sample_flat(params[idx], src, pk, m)
+                cand = cand.reshape(mc, k, d)
+                cand[:, 0] = vals[idx].reshape(mc, d)  # the current value
                 cand = cand.reshape(m, d)
                 score = torch.zeros((m,), dtype=torch.float32, device=dev)
                 for ch in plan.children_idx[idx]:
@@ -135,16 +141,15 @@ class GibbsSampler(Method):
                              for p in plan.parent_idx[ch]]
                     score = score + cpds[ch]._log_prob_flat(
                         params[ch], rep(vals[ch]), torch.cat(parts, dim=-1))
-                score_k = score.reshape(bb * c, k)
-                g = (sel_g[step, j] if hoist
-                     else gumbel(score_k.shape, step_gen, dev))
-                choice = torch.argmax(score_k + g, dim=-1)  # [B*C]
-                chosen = cand.reshape(bb * c, k, d)[
-                    torch.arange(bb * c, device=dev), choice]
-                vals[idx] = chosen.reshape(bb, c, d)
+                score_k = score.reshape(mc, k)
+                g = sel_g[step, j] if hoist else sel[j]
+                choice = torch.argmax(score_k + g, dim=-1)  # [b*c]
+                chosen = cand.reshape(mc, k, d)[
+                    torch.arange(mc, device=dev), choice]
+                vals[idx] = chosen.reshape(b_l, c_l, d)
             if step >= burn_in and (step - burn_in) % thin == 0:
                 kept.append(vals[plan.target_idx])
-        out = torch.stack(kept).movedim(0, 1)  # [B, draws, C, Dt]
+        out = chains.gather(torch.stack(kept, dim=1), dims=(0, 2))
         return out.reshape(bb, draws * c, plan.node_dims[plan.target_idx])[:, :s]
 
     @staticmethod
@@ -153,7 +158,8 @@ class GibbsSampler(Method):
         selection Gumbels fit in ``HOIST_LIMIT`` floats."""
         elems = total_steps * len(latent) * gumbels
         for idx in latent:
-            if not hasattr(cpds[idx], "_noise_spec"):
+            if not hasattr(cpds[idx], "_noise_spec") or \
+                    cpds[idx]._draws() is None:
                 return False
             shape, _ = cpds[idx]._noise_spec(params[idx], m)
             elems += total_steps * int(np.prod(shape))
