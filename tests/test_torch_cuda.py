@@ -176,6 +176,36 @@ def test_served_rows_go_through_the_kernels(asia_vbn, lg_vbn):
     assert sweep.LAUNCHES["lg"] == before["lg"] + 1
 
 
+@pytest.mark.cuda
+def test_served_calls_show_their_kernels_and_tables_as_spans(asia_vbn, lg_vbn):
+    """Under the profiler each hand kernel's launch is one
+    ``vbn.kernel.<name>`` span and each table build one ``vbn.tables``
+    span, as ``LAUNCHES`` and ``BUILDS`` count them: the categorical sweep
+    builds its counts and running-sum tables, the LG sweep its parameter
+    rows, records and densities."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from vectorizedbayesiannetwork_torch.utils import profiling
+
+    q = {"target": "dysp", "evidence": {"smoke": np.ones((B, 1), np.float32)}}
+    ev = {"x0": np.zeros((B, 1), np.float32), "x1": np.ones((B, 1), np.float32)}
+    profiling.reset_spans()
+    before, built = dict(sweep.LAUNCHES), dict(profiling.BUILDS)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        asia_vbn.infer_posterior_pmf([q], n_classes=2)
+        lg_vbn.infer_posterior_moments([{"target": "x2", "evidence": ev}])
+        torch.cuda.synchronize()
+    names = [r["name"] for r in profiling.spans()]
+    profiling.reset_spans()
+    assert names.count("vbn.call") == 2
+    for name in ("categorical", "lg"):
+        assert names.count(f"vbn.kernel.{name}") == 1
+        assert sweep.LAUNCHES[name] == before[name] + 1
+    assert names.count("vbn.tables") == 5
+    assert profiling.BUILDS["tables"] == built["tables"] + 5
+    assert profiling.BUILDS["fn"] == built["fn"] + 2
+
+
 def _fit_discrete(bn, card, seed=0, rows=4096):
     vbn = VBN({n: bn.parents[n] for n in bn.nodes}, seed=seed, device=card)
     conf = {}
@@ -1036,6 +1066,74 @@ def test_kde_serving_goes_through_the_kernels(kde_vbn, dynamic):
     assert kde_vbn._last_summary_path == ("fused" if dynamic else "stream")
     assert mom.shape == (B, 2) and np.isfinite(mom).all()
     assert np.all(np.diff(mom[:, 0]) > 0)  # x2 | x0 rises with x0
+
+
+_LAUNCH = {"cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+           "cuLaunchKernelEx"}
+_SYNC = {"cudaStreamSynchronize", "cudaDeviceSynchronize"}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["static_pmf", "dynamic_pmf",
+                                   "kde_dynamic_moments"])
+def test_the_host_waits_for_the_card_only_in_wait_spans(asia_vbn, kde_vbn,
+                                                        route):
+    """Under the profiler a served call waits for queued device work only
+    inside ``vbn.sync`` (``profiling.wait``) or ``vbn.fetch``: every
+    other host sync inside its ``vbn.call`` comes with no kernel launched
+    since the last sync, so the spans the host-time readers take hold the
+    host's work, not the card's."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from vectorizedbayesiannetwork_torch.utils import profiling
+
+    vbn = kde_vbn if route == "kde_dynamic_moments" else asia_vbn
+    vbn.set_inference_method("likelihood_weighting", n_samples=S,
+                             dynamic_masks=route != "static_pmf")
+    if vbn is kde_vbn:
+        x0 = np.linspace(-1, 1, B).reshape(B, 1).astype(np.float32)
+        qs = [{"target": "x2", "evidence": {"x0": x0}},
+              {"target": "x0", "evidence": {"x2": x0}}]
+
+        def serve():
+            return vbn.infer_posterior_moments(qs)
+    else:
+        qs = [{"target": "dysp", "evidence": {"smoke": np.ones((B, 1), np.float32)}},
+              {"target": "lung", "evidence": {"xray": np.zeros((B, 1), np.float32)}}]
+
+        def serve():
+            return vbn.infer_posterior_pmf(qs, n_classes=2)
+
+    serve()
+    profiling.reset_spans()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        serve()
+        torch.cuda.synchronize()
+    names = [r["name"] for r in profiling.spans()]
+    profiling.reset_spans()
+    vbn.set_inference_method("likelihood_weighting", n_samples=S)
+    assert "vbn.sync" in names and "vbn.fetch" in names
+    host = sorted((e for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CPU),
+                  key=lambda e: e.time_range.start)
+
+    def ranges(name):
+        return [(e.time_range.start, e.time_range.end) for e in host
+                if e.name == name]
+
+    (c0, c1), = ranges("vbn.call")
+    waits = ranges("vbn.sync") + ranges("vbn.fetch")
+    launches = [e.time_range.start for e in host if e.name in _LAUNCH]
+    syncs = [e for e in host if e.name in _SYNC and c0 <= e.time_range.start <= c1]
+    assert launches and syncs
+    last = c0
+    for e in syncs:
+        t = e.time_range.start
+        if not any(a <= t <= b for a, b in waits):
+            behind = [x for x in launches if last < x < t]
+            up = e.cpu_parent.name if e.cpu_parent is not None else None
+            assert not behind, (route, up, len(behind))
+        last = max(last, e.time_range.end)
 
 
 # ---------------------------------------------------------------------------

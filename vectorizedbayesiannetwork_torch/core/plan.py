@@ -16,6 +16,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..utils.profiling import BUILDS, annotate, spanned
 from .base import Query
 from .utils import ensure_2d_np
 
@@ -87,11 +88,14 @@ def build_plan(vbn, query: Query) -> InferencePlan:
     )
 
 
+@spanned("vbn.plan")
 def get_plan(vbn, query: Query) -> InferencePlan:
-    """Build-or-fetch the plan from the vbn-level cache."""
+    """Build-or-fetch the plan from the vbn-level cache (a miss counts in
+    ``BUILDS["plans"]``)."""
     sig = plan_signature(vbn, query)
     cache = vbn._plan_cache
     if sig not in cache:
+        BUILDS["plans"] += 1
         cache[sig] = build_plan(vbn, query)
     return cache[sig]
 
@@ -117,8 +121,16 @@ def pack_fixed_values(
     """Pack evidence/do values into one [B, total_dim] array (zeros elsewhere).
 
     ``clamp_obs`` sanitizes evidence (NaN -> 0, +-inf -> +-1e6, clip to
-    +-1e6); do values pass through as given.
+    +-1e6); do values pass through as given. A ``vbn.pack`` span; a loop
+    over queries packs with ``pack_values`` inside one span of its own.
     """
+    with annotate("vbn.pack"):
+        return pack_values(query, plan, batch_size, clamp_obs, out)
+
+
+def pack_values(query: Query, plan: InferencePlan, batch_size: int,
+                clamp_obs: bool, out: Optional[np.ndarray]) -> np.ndarray:
+    """``pack_fixed_values`` with no span."""
     node_to_idx = plan.node_to_idx()
     if out is None:
         out = np.zeros((batch_size, plan.total_dim), dtype=np.float32)

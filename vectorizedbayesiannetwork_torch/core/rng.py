@@ -27,6 +27,8 @@ from typing import Dict, Optional, Sequence, Tuple, Union
 
 import torch
 
+from ..utils.profiling import annotate
+
 _MASK64 = (1 << 64) - 1
 _MASK32 = 0xFFFFFFFF
 _PHILOX_M0 = 0xD2511F53
@@ -279,12 +281,14 @@ class RowStream:
     def values_many(self, nodes: Sequence[int], k: int, at: int = 0,
                     normal: bool = False) -> torch.Tensor:
         """[G, b*s, k]: the G nodes' values, one ``vbn_uniforms`` launch for
-        each 64 nodes on the card, each node on its own counters."""
+        each 64 nodes on the card, each node on its own counters (a
+        ``vbn.draw`` span)."""
         from ..ops.rng import stream_values_many as launch
 
-        return launch(self.seed, self.b, self.s, [int(n) for n in nodes],
-                      int(k), at=at, normal=normal, row0=self.row0,
-                      particle0=self.particle0, device=self.device)
+        with annotate("vbn.draw"):
+            return launch(self.seed, self.b, self.s, [int(n) for n in nodes],
+                          int(k), at=at, normal=normal, row0=self.row0,
+                          particle0=self.particle0, device=self.device)
 
     def predraw(self, nodes: Sequence[int],
                 draws: Sequence[Tuple[int, int, bool]]) -> "Drawn":

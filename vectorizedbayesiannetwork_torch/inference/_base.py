@@ -19,6 +19,7 @@ from ..core.base import Query
 from ..core.plan import InferencePlan, get_plan
 from ..core.utils import infer_batch_size
 from ..parallel.mesh import mesh_signature
+from ..utils.profiling import annotate, wait
 
 
 @dataclass
@@ -63,11 +64,13 @@ class Method:
         return [self._run_program(vbn, p) for p in progs]
 
     def _run_program(self, vbn, prog: Program):
-        if isinstance(prog.fixed, tuple):
-            fixed = tuple(torch.as_tensor(a, device=vbn.device)
-                          for a in prog.fixed)
-        else:
-            fixed = torch.as_tensor(prog.fixed, device=vbn.device)
+        with annotate("vbn.upload"):
+            wait(vbn.device)
+            if isinstance(prog.fixed, tuple):
+                fixed = tuple(torch.as_tensor(a, device=vbn.device)
+                              for a in prog.fixed)
+            else:
+                fixed = torch.as_tensor(prog.fixed, device=vbn.device)
         return prog.post(prog.fn(prog.params, vbn.next_key(), fixed))
 
     def _plan_and_batch(self, vbn, query: Query):

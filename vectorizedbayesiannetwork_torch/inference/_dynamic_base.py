@@ -19,17 +19,20 @@ Port of ``vectorizedbayesiannetwork_tpu/inference/_dynamic_base.py``.
 
 from __future__ import annotations
 
+import contextlib
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..core.base import Query
-from ..core.plan import get_plan, pack_fixed_values
+from ..core.plan import get_plan, pack_fixed_values, pack_values
 from ..core.utils import infer_batch_size
+from ..utils.profiling import annotate, spanned, wait
 from ._base import Method, Program
 
 
+@spanned("vbn.pack")
 def pack_dynamic_inputs(
     plan, queries: Sequence[Query], *, clamp_obs: bool, pad_to: int = 1
 ):
@@ -57,9 +60,7 @@ def pack_dynamic_inputs(
     spans = []
     at = 0
     for q, b in zip(queries, bs):
-        pack_fixed_values(
-            q, plan, b, clamp_obs=clamp_obs, out=rows[at : at + b]
-        )
+        pack_values(q, plan, b, clamp_obs, rows[at : at + b])
         for n in q.evidence:
             evs[at : at + b, node_to_idx[n]] = 1.0
         for n in q.do:
@@ -97,7 +98,8 @@ class DynamicMaskMethod(Method):
         Returns ``(rows, spans)`` or None when no kernel applies to some
         query (the caller then takes the stream path). All queries are
         launched before the first fetch. pmf rows come back unnormalized,
-        scaled by ``exp(-m)``; moments rows are (mean, std).
+        scaled by ``exp(-m)``; moments rows are (mean, std). The
+        ``vbn.reduce.fused`` span opens at the first query's launch.
         """
         from .likelihood_weighting import LikelihoodWeighting
 
@@ -107,23 +109,30 @@ class DynamicMaskMethod(Method):
         s = int(kwargs.get("n_samples", self.n_samples))
         want = (f"{kind}_{src}",)
         pending = []
-        for q in queries:
-            plan, b = self._plan_and_batch(vbn, q)
-            raw = LikelihoodWeighting._fused_raw_fn(
-                plan, self._cpds(vbn, plan), s, want, mesh=vbn._mesh
-            )
-            if raw is None:
-                return None
-            fixed = pack_fixed_values(q, plan, b, clamp_obs=self.pack_clamp_obs)
-            _lw, _tg, _lp, red = raw(
-                self._params_tuple(vbn, plan),
-                vbn.next_key().seed,
-                torch.as_tensor(fixed, device=vbn.device),
-            )
-            pending.append((red[0], plan, b))
+        with contextlib.ExitStack() as span:
+            for q in queries:
+                plan, b = self._plan_and_batch(vbn, q)
+                raw = LikelihoodWeighting._fused_raw_fn(
+                    plan, self._cpds(vbn, plan), s, want, mesh=vbn._mesh
+                )
+                if raw is None:
+                    return None
+                if not pending:
+                    span.enter_context(annotate("vbn.reduce.fused"))
+                fixed = pack_fixed_values(q, plan, b,
+                                          clamp_obs=self.pack_clamp_obs)
+                with annotate("vbn.upload"):
+                    wait(vbn.device)
+                    fixed = torch.as_tensor(fixed, device=vbn.device)
+                _lw, _tg, _lp, red = raw(
+                    self._params_tuple(vbn, plan), vbn.next_key().seed, fixed
+                )
+                pending.append((red[0], plan, b))
+            with annotate("vbn.fetch"):
+                fetched = [sums.cpu().numpy() for sums, _plan, _b in pending]
         rows, spans, at = [], [], 0
-        for sums, plan, b in pending:
-            sums = sums.cpu().numpy().astype(np.float64)
+        for sums, (_, plan, b) in zip(fetched, pending):
+            sums = sums.astype(np.float64)
             if kind == "pmf":
                 rows.append(_pmf_columns(sums, int(n_classes)))
             else:
@@ -214,9 +223,13 @@ class DynamicMaskMethod(Method):
         ]
 
     def _run_dynamic(self, vbn, plan, fn, inputs):
-        tensors = tuple(torch.as_tensor(a, device=vbn.device) for a in inputs)
+        with annotate("vbn.upload"):
+            wait(vbn.device)
+            tensors = tuple(torch.as_tensor(a, device=vbn.device)
+                            for a in inputs)
         return fn(self._params_tuple(vbn, plan), vbn.next_key(), tensors)
 
+    @spanned("vbn.reduce.dynamic")
     def _dynamic_reduce(self, vbn, queries, kind, n_classes, pad_bucket, kwargs):
         """``(rows [b_tot, k or 2], spans)`` of one dynamic dispatch: the
         in-kernel reduction where the method has one (pmf rows normalized,
@@ -236,7 +249,8 @@ class DynamicMaskMethod(Method):
                 return red_raw(params_tuple, draw.seed, fixed_vals, evm, dom, ti)
 
             _lw, _tg, _lp, (sums, _m) = self._run_dynamic(vbn, plan, fn, inputs)
-            sums = sums.double().cpu().numpy()[:b_tot]
+            with annotate("vbn.fetch"):
+                sums = sums.double().cpu().numpy()[:b_tot]
             if hasattr(self, "_last_ess"):
                 self._last_ess = None  # not computed on the reduced path
             if kind == "pmf":
@@ -264,7 +278,9 @@ class DynamicMaskMethod(Method):
             mean = (wn * x).sum(dim=1)
             var = (wn * (x - mean[:, None]) ** 2).sum(dim=1)
             rows = torch.stack([mean, torch.sqrt(torch.clamp(var, min=0.0))], 1)
-        return rows.cpu().numpy()[:b_tot], spans
+        with annotate("vbn.fetch"):
+            rows = rows.cpu().numpy()[:b_tot]
+        return rows, spans
 
     # ----------------- serving entry points -----------------
     def infer_posterior_pmf(

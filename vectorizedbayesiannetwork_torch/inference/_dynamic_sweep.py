@@ -27,6 +27,7 @@ import torch
 from ..core.plan import InferencePlan
 from ..core.rng import Draw, RowStream
 from ..ops.sweep import shard_trace
+from ..utils.profiling import annotate, wait
 from ._sweep import ROUTES, _parents_flat, stacked_form
 
 
@@ -67,8 +68,9 @@ def dynamic_sweep_trace(
             return out
         return (dynamic_target_values(plan, out[0], ti_l),) + tuple(out[1:])
 
-    return shard_trace(mesh, local, draw, n_samples,
-                       (fixed, ev_mask, do_mask, targets, tgt_mask))
+    with annotate(f"vbn.sweep.{route}"):
+        return shard_trace(mesh, local, draw, n_samples,
+                           (fixed, ev_mask, do_mask, targets, tgt_mask))
 
 
 def _per_node_trace(plan, cpds, params_tuple, stream: RowStream, fixed,
@@ -111,6 +113,7 @@ def dynamic_target_values(
     ``target_idx`` is per row [B]. Columns past a row's target dim are 0
     (the caller slices them off), as the JAX one-hot contraction gives."""
     dev = packed.device
+    wait(dev)
     offs = torch.tensor(plan.node_offsets, dtype=torch.int64, device=dev)
     dims = torch.tensor(plan.node_dims, dtype=torch.int64, device=dev)
     ti = target_idx.long()

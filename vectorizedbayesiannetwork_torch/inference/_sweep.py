@@ -42,6 +42,7 @@ from torch.utils._pytree import tree_flatten, tree_unflatten
 from ..core.plan import InferencePlan
 from ..core.rng import Draw, RowStream
 from ..ops.sweep import shard_trace
+from ..utils.profiling import annotate
 from ._discrete_sweep import discrete_sweep_supported, discrete_sweep_trace
 from ._gaussian_sweep import gaussian_sweep_supported, gaussian_sweep_trace
 
@@ -124,7 +125,8 @@ def sweep_trace(
             packed = node_values(plan, packed, target)
         return packed, log_w
 
-    return shard_trace(mesh, local, draw, n_samples, (fixed,), gather)
+    with annotate(f"vbn.sweep.{route}"):
+        return shard_trace(mesh, local, draw, n_samples, (fixed,), gather)
 
 
 def _use_level_grouping() -> bool:

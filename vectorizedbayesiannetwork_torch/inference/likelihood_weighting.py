@@ -21,6 +21,7 @@ from ..core.registry import register_inference
 from ..ops.sweep import make_fused_sweep_fn
 from ..ops.sweep_scan import make_scan_sweep_fn, scan_sweep_reason
 from ..parallel.mesh import mesh_shape
+from ..utils.profiling import wait
 from ._base import Program
 from ._dynamic_base import DynamicMaskMethod
 from ._dynamic_sweep import dynamic_sweep_trace
@@ -73,6 +74,7 @@ class LikelihoodWeighting(DynamicMaskMethod):
 
         def raw_static(params_tuple, seed, fixed_vals):
             b, dev = fixed_vals.shape[0], fixed_vals.device
+            wait(dev)
             tib = torch.full((b,), plan.target_idx, dtype=torch.int32,
                              device=dev)
             return scan_raw(

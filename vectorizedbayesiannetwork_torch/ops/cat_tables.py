@@ -16,6 +16,8 @@ import functools
 import numpy as np
 import torch
 
+from ..utils.profiling import BUILDS, spanned
+
 
 @functools.lru_cache(maxsize=64)
 def padded_layout(rows, cards, starts, row_strides):
@@ -62,6 +64,7 @@ def _layout_on(layout, device: torch.device):
             dev(last))
 
 
+@spanned("vbn.tables")
 def cum_tables(flat_counts: torch.Tensor, layout):
     """The kernels' tables from the flat counts: (running sums,
     log-probabilities), both [L] float32 in ``padded_layout(*layout)``. The
@@ -70,6 +73,7 @@ def cum_tables(flat_counts: torch.Tensor, layout):
     log-probability is the plain versions' expression on the same floats,
     log(max(count / max(total, 1e-12), 1e-12)), so a kernel that reads it
     gives their weights bit for bit on the same device."""
+    BUILDS["tables"] += 1
     src, live, cols, last = _layout_on(layout, flat_counts.device)
     cnt = torch.where(live, flat_counts[src], 0.0)
     cum = cnt.clone()

@@ -79,6 +79,7 @@ import numpy as np
 import torch
 
 from ..core.rng import U_MAX, philox4x32_10, uniform_from_bits
+from ..utils.profiling import annotate, wait
 from .sweep import LAUNCHES
 
 _DIRECT_D = 32  # feature-count cutoff of the direct kernels (kde_pallas.py:103)
@@ -170,8 +171,10 @@ def pick_key(gen: torch.Generator, device) -> torch.Tensor:
 
 
 def seed_key(seed: int, device) -> torch.Tensor:
-    """The int64 [2] key tensor of a 64-bit seed, written by two fills (no
-    host-to-device copy, so no host sync)."""
+    """The int64 [2] key tensor of a 64-bit seed, written element by
+    element; on a CUDA device each write copies a host scalar and waits
+    for the stream."""
+    wait(device)
     key = torch.empty((2,), dtype=torch.int64, device=device)
     key[0] = int(seed) & 0xFFFFFFFF
     key[1] = (int(seed) >> 32) & 0xFFFFFFFF
@@ -322,16 +325,17 @@ def kde_root(x, data_x, log_mask, y_scale: float) -> torch.Tensor:
     ``vbn_kde_root``; CPU tensors run ``kde_root_plain``."""
     if not x.is_cuda:
         return kde_root_plain(x, data_x, log_mask, y_scale)
-    m, n, dx = _support(x, data_x, log_mask, "kde_root")
-    if dx > _DIRECT_D:
-        raise ValueError(f"kde_root: Dx={dx} > {_DIRECT_D}")
-    sy, cy = direct_consts(dx, y_scale)
-    out = torch.empty((m,), dtype=torch.float32, device=x.device)
-    _run(_lib().vbn_kde_root, "vbn_kde_root", x.device, x.data_ptr(),
-         data_x.data_ptr(), log_mask.data_ptr(), m, n, dx, float(sy),
-         float(cy), out.data_ptr())
-    LAUNCHES["kde_root"] += 1
-    return out
+    with annotate("vbn.kernel.kde_root"):
+        m, n, dx = _support(x, data_x, log_mask, "kde_root")
+        if dx > _DIRECT_D:
+            raise ValueError(f"kde_root: Dx={dx} > {_DIRECT_D}")
+        sy, cy = direct_consts(dx, y_scale)
+        out = torch.empty((m,), dtype=torch.float32, device=x.device)
+        _run(_lib().vbn_kde_root, "vbn_kde_root", x.device, x.data_ptr(),
+             data_x.data_ptr(), log_mask.data_ptr(), m, n, dx, float(sy),
+             float(cy), out.data_ptr())
+        LAUNCHES["kde_root"] += 1
+        return out
 
 
 def _launch_cond(entry: str, x, p, data_x, data_p, log_mask, y_scale,
@@ -366,9 +370,10 @@ def kde_cond(x, p, data_x, data_p, log_mask, y_scale: float,
     launch ``vbn_kde_cond``; CPU tensors run ``kde_cond_plain``."""
     if not x.is_cuda:
         return kde_cond_plain(x, p, data_x, data_p, log_mask, y_scale, p_scale)
-    out = _launch_cond("vbn_kde_cond", x, p, data_x, data_p, log_mask,
-                       y_scale, p_scale, wide=False)
-    LAUNCHES["kde_cond"] += 1
+    with annotate("vbn.kernel.kde_cond"):
+        out = _launch_cond("vbn_kde_cond", x, p, data_x, data_p, log_mask,
+                           y_scale, p_scale, wide=False)
+        LAUNCHES["kde_cond"] += 1
     return out
 
 
@@ -379,9 +384,10 @@ def kde_cond_wide(x, p, data_x, data_p, log_mask, y_scale: float,
     ``vbn_kde_cond_wide``; CPU tensors run ``kde_cond_plain``."""
     if not x.is_cuda:
         return kde_cond_plain(x, p, data_x, data_p, log_mask, y_scale, p_scale)
-    out = _launch_cond("vbn_kde_cond_wide", x, p, data_x, data_p, log_mask,
-                       y_scale, p_scale, wide=True)
-    LAUNCHES["kde_cond_wide"] += 1
+    with annotate("vbn.kernel.kde_cond_wide"):
+        out = _launch_cond("vbn_kde_cond_wide", x, p, data_x, data_p, log_mask,
+                           y_scale, p_scale, wide=True)
+        LAUNCHES["kde_cond_wide"] += 1
     return out
 
 
@@ -395,34 +401,35 @@ def kde_pick(key, parents, data_p, data_x, log_mask, p_scale: float, m: int,
     if not data_x.is_cuda:
         return kde_pick_plain(key, parents, data_p, data_x, log_mask, p_scale,
                               m, gumbel, rows)
-    dev = data_x.device
-    if data_x.dim() != 2 or data_x.shape[0] < 1 or data_x.shape[1] < 1:
-        raise ValueError(f"kde_pick: bad support {tuple(data_x.shape)}")
-    n, dx = data_x.shape
-    if m < 1 or m >= 1 << 31:
-        raise ValueError(f"kde_pick: M={m} out of range")
-    _need("kde_pick data_x", data_x, (n, dx), dev)
-    _need("kde_pick log_mask", log_mask, (n,), dev)
-    dp = 0 if parents is None else parents.shape[1]
-    if dp > _DIRECT_D:
-        raise ValueError(f"kde_pick: Dp={dp} > {_DIRECT_D}")
-    p_ptr = dp_ptr = None
-    if dp:
-        _need("kde_pick parents", parents, (m, dp), dev)
-        _need("kde_pick data_p", data_p, (n, dp), dev)
-        p_ptr, dp_ptr = parents.data_ptr(), data_p.data_ptr()
-    key_ptr = g_ptr = None
-    if gumbel is not None:
-        _need("kde_pick gumbel", gumbel, (m, n), dev)
-        g_ptr = gumbel.data_ptr()
-    else:
-        _need("kde_pick key", key, (2,), dev, torch.int64)
-        key_ptr = key.data_ptr()
-    inv2p, _ = kernel_consts(dp, p_scale)
-    out = torch.empty((m, dx), dtype=torch.float32, device=dev)
-    _run(_lib().vbn_kde_pick, "vbn_kde_pick", dev, p_ptr, dp_ptr,
-         data_x.data_ptr(), log_mask.data_ptr(), key_ptr, g_ptr, m, n, dp, dx,
-         float(inv2p), int(rows.base), int(rows.s_loc), int(rows.stride),
-         out.data_ptr())
-    LAUNCHES["kde_pick"] += 1
-    return out
+    with annotate("vbn.kernel.kde_pick"):
+        dev = data_x.device
+        if data_x.dim() != 2 or data_x.shape[0] < 1 or data_x.shape[1] < 1:
+            raise ValueError(f"kde_pick: bad support {tuple(data_x.shape)}")
+        n, dx = data_x.shape
+        if m < 1 or m >= 1 << 31:
+            raise ValueError(f"kde_pick: M={m} out of range")
+        _need("kde_pick data_x", data_x, (n, dx), dev)
+        _need("kde_pick log_mask", log_mask, (n,), dev)
+        dp = 0 if parents is None else parents.shape[1]
+        if dp > _DIRECT_D:
+            raise ValueError(f"kde_pick: Dp={dp} > {_DIRECT_D}")
+        p_ptr = dp_ptr = None
+        if dp:
+            _need("kde_pick parents", parents, (m, dp), dev)
+            _need("kde_pick data_p", data_p, (n, dp), dev)
+            p_ptr, dp_ptr = parents.data_ptr(), data_p.data_ptr()
+        key_ptr = g_ptr = None
+        if gumbel is not None:
+            _need("kde_pick gumbel", gumbel, (m, n), dev)
+            g_ptr = gumbel.data_ptr()
+        else:
+            _need("kde_pick key", key, (2,), dev, torch.int64)
+            key_ptr = key.data_ptr()
+        inv2p, _ = kernel_consts(dp, p_scale)
+        out = torch.empty((m, dx), dtype=torch.float32, device=dev)
+        _run(_lib().vbn_kde_pick, "vbn_kde_pick", dev, p_ptr, dp_ptr,
+             data_x.data_ptr(), log_mask.data_ptr(), key_ptr, g_ptr, m, n,
+             dp, dx, float(inv2p), int(rows.base), int(rows.s_loc),
+             int(rows.stride), out.data_ptr())
+        LAUNCHES["kde_pick"] += 1
+        return out

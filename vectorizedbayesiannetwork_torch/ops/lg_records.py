@@ -17,6 +17,8 @@ import functools
 import numpy as np
 import torch
 
+from ..utils.profiling import BUILDS, spanned
+
 _HALF_LOG_2PI = 0.9189385332046727  # log(2 pi) / 2
 
 
@@ -62,6 +64,7 @@ def _lg_slots(pids, device: torch.device):
             torch.as_tensor(pid_slots.reshape(-1), device=device))
 
 
+@spanned("vbn.tables")
 def lg_records(ptab_flat: torch.Tensor, struct):
     """The LG kernel's records, built on the parameter rows' device without
     a host sync: (rec [N + 1, 4] int32 {out slot, parent start, bias,
@@ -70,6 +73,7 @@ def lg_records(ptab_flat: torch.Tensor, struct):
     node's parents whose weight is not 0, in node order and row order; a
     padded slot has weight 0 and, with a parent of fitted weight exactly 0,
     is left out, as the plain version skips both products."""
+    BUILDS["tables"] += 1
     pids, pmax, dmax = struct
     n = len(pids)
     smap, slots = _lg_slots(pids, ptab_flat.device)
@@ -87,11 +91,13 @@ def lg_records(ptab_flat: torch.Tensor, struct):
     return rec, par.contiguous()
 
 
+@spanned("vbn.tables")
 def lg_densities(ptab_flat: torch.Tensor, struct) -> torch.Tensor:
     """[N, 2] float32 {1 / sigma, log(sigma) + log(2 pi) / 2} of each
     node, in torch ops on the parameter rows' device: the LG kernels' log
     density of a weighted node is -zz^2 / 2 - the second with
     zz = (v - loc) * the first."""
+    BUILDS["tables"] += 1
     _pids, _pmax, dmax = struct
     sigma = ptab_flat.view(-1, dmax + 2)[:, dmax + 1]
     return torch.stack([1.0 / sigma, torch.log(sigma) + _HALF_LOG_2PI],

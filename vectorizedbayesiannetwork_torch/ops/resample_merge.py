@@ -78,6 +78,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..utils.profiling import spanned
 from .scan import _lib, cumsum_rows
 from .sweep import LAUNCHES, _check
 
@@ -168,6 +169,7 @@ def _need_gate(s: int, d: int) -> None:
         )
 
 
+@spanned("vbn.kernel.cum_index")
 def _launch_cum_index(cum, queries):
     b, s = cum.shape
     _need_gate(s, 1)
@@ -212,6 +214,7 @@ def merge_grid(b: int, s_out: int, d: int, systematic: bool = True):
     return tuple(grid)
 
 
+@spanned("vbn.kernel.srg")
 def _launch_srg(u0, cum, values):
     b, s = cum.shape
     d = values.shape[-1]
@@ -233,6 +236,7 @@ def _launch_srg(u0, cum, values):
     return out
 
 
+@spanned("vbn.kernel.spg")
 def _launch_spg(cum, pos, values):
     b, s_in = cum.shape
     s_out, d = pos.shape[1], values.shape[-1]

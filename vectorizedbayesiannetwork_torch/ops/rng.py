@@ -29,6 +29,7 @@ import torch
 from ..core.rng import NODES_PER_LAUNCH as MAX_NODES
 from ..core.rng import WORD_LIMIT
 from ..core.rng import stream_values_many as stream_values_many_plain
+from ..utils.profiling import annotate
 from .sweep import LAUNCHES
 
 _P = ctypes.c_void_p
@@ -72,7 +73,7 @@ def stream_values_many(seed: int, b: int, s: int, nodes: Sequence[int],
             raise ValueError(f"vbn_uniforms: {name}={v} out of range")
     out = torch.empty((len(nodes), b * s, k), dtype=torch.float32,
                       device=device)
-    with torch.cuda.device(device):
+    with torch.cuda.device(device), annotate("vbn.kernel.uniforms"):
         stream = torch.cuda.current_stream().cuda_stream
         for i in range(0, len(nodes), MAX_NODES):
             part = nodes[i : i + MAX_NODES]

@@ -32,6 +32,7 @@ import functools
 
 import torch
 
+from ..utils.profiling import spanned
 from .sweep import LAUNCHES
 
 _P = ctypes.c_void_p
@@ -66,6 +67,7 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+@spanned("vbn.kernel.cumsum")
 def _launch_cumsum(x: torch.Tensor, monotone: bool) -> torch.Tensor:
     if x.dim() != 2 or x.dtype != torch.float32 or not x.is_contiguous():
         raise ValueError(

@@ -72,6 +72,7 @@ import numpy as np
 import torch
 
 from ..core.rng import philox_uniforms
+from ..utils.profiling import BUILDS, spanned, wait
 from .cat_tables import cum_tables, padded_layout
 from .lg_records import _HALF_LOG_2PI, lg_densities, lg_records, lg_slot_map
 
@@ -215,8 +216,10 @@ def plan_tuple_for(plan, cpds):
     )
 
 
+@spanned("vbn.tables")
 def _stacked_counts(cpds, params_tuple, total_rows: int, cmax: int):
     """[total_rows, cmax] float32: every node's count rows, zero-padded."""
+    BUILDS["tables"] += 1
     blocks = []
     for params in params_tuple:
         cnt = params["counts"][0]  # [P, C]
@@ -258,8 +261,10 @@ def lg_plan_tuple_for(plan, cpds):
     )
 
 
+@spanned("vbn.tables")
 def lg_param_table(cpds, params_tuple, dmax: int, min_scales):
     """[N, dmax + 2] rows: [w_0..w_{din-1}, 0pad, bias, sigma]."""
+    BUILDS["tables"] += 1
     rows = []
     for params, ms in zip(params_tuple, min_scales):
         w = params["weight"][:, 0]
@@ -586,6 +591,7 @@ def _outputs(b, s, nblk, k, want, device):
     )
 
 
+@spanned("vbn.kernel.categorical")
 def _launch_categorical(seed, fixed_idx, counts, plan_struct, s, u_ext, want):
     n = plan_struct[0]
     b = fixed_idx.shape[0]
@@ -628,6 +634,7 @@ def _launch_categorical(seed, fixed_idx, counts, plan_struct, s, u_ext, want):
     return logw, tgt, lpt, red
 
 
+@spanned("vbn.kernel.lg")
 def _launch_lg(seed, fixed_vals, ptab, plan_tuple, dmax, s, u_ext, want):
     n = plan_tuple[0]
     b = fixed_vals.shape[0]
@@ -827,6 +834,7 @@ def shard_trace(mesh, trace, draw, n_samples, rows, gather=True):
 # ---------------------------------------------------------------------------
 
 
+@spanned("vbn.build")
 def make_fused_sweep_fn(plan, cpds, n_samples: int, want=("logw", "lpt"),
                         mesh=None):
     """Return ``raw(params_tuple, seed, fixed, u_ext=None) -> (logw, tgt,
@@ -837,13 +845,15 @@ def make_fused_sweep_fn(plan, cpds, n_samples: int, want=("logw", "lpt"),
 
     With ``mesh`` the kernel runs sharded (``_shard_sweep``): rows over
     'data', particles over 'particle'. The JAX function's ``batch=`` gate is
-    taken per call, from the rows the raw is given."""
+    taken per call, from the rows the raw is given. A raw built counts in
+    ``BUILDS["fn"]``."""
     reason = categorical_sweep_reason(plan, cpds, n_samples)
     if reason is None:
         plan_struct, total_rows, cmax = plan_tuple_for(plan, cpds)
         hi = [float(c.resolved_classes - 1) for c in cpds]
 
         def raw_cat(params_tuple, seed, fixed_vals, u_ext=None):
+            wait(fixed_vals.device)
             top = torch.tensor(hi, device=fixed_vals.device)
             fixed_i = torch.clamp(
                 torch.round(torch.nan_to_num(fixed_vals)), min=0.0
@@ -861,6 +871,7 @@ def make_fused_sweep_fn(plan, cpds, n_samples: int, want=("logw", "lpt"),
                                     "cuda-categorical"))
 
         gate_log(plan, n_samples, mesh, "cuda-categorical")
+        BUILDS["fn"] += 1
         return raw_cat
 
     lg_reason = lg_sweep_reason(plan, cpds, n_samples)
@@ -887,6 +898,7 @@ def make_fused_sweep_fn(plan, cpds, n_samples: int, want=("logw", "lpt"),
                                     "cuda-linear-gaussian"))
 
         gate_log(plan, n_samples, mesh, "cuda-linear-gaussian")
+        BUILDS["fn"] += 1
         return raw_lg
     gate_log(plan, n_samples, mesh, "torch",
              f"categorical: {reason}; linear_gaussian: {lg_reason}")

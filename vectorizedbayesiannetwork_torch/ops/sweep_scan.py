@@ -56,6 +56,7 @@ import numpy as np
 import torch
 
 from ..core.rng import philox_uniforms
+from ..utils.profiling import BUILDS, spanned, wait
 from .cat_tables import cum_tables, padded_layout
 from .lg_records import (
     _HALF_LOG_2PI,
@@ -304,9 +305,11 @@ def _compaction(pids):
     return smap, pid_slots, len(referenced) + 1
 
 
+@spanned("vbn.tables")
 def _flat_counts(cpds, params_tuple):
     """All nodes' count tables, row-major, concatenated flat [E + 8] (the
     JAX layout, whose trailing zero pad the CUDA kernel does not read)."""
+    BUILDS["tables"] += 1
     blocks = [p["counts"][0].reshape(-1) for p in params_tuple]
     blocks.append(torch.zeros((8,), dtype=torch.float32,
                               device=blocks[0].device))
@@ -323,9 +326,11 @@ def lg_scan_struct_for(plan, cpds):
     return (tuple(map(tuple, pids.tolist())), pmax, pmax)
 
 
+@spanned("vbn.tables")
 def lg_ptab_flat(cpds, params_tuple, dmax: int):
     """[N * (dmax + 2)] flat rows: w_0..w_{dmax-1}, bias, sigma, with
     sigma = sqrt(max(var, min_scale^2))."""
+    BUILDS["tables"] += 1
     rows = []
     for cpd, params in zip(cpds, params_tuple):
         w = params["weight"][:, 0]
@@ -667,6 +672,7 @@ def lg_scan_layout(n, n_slots, red_kind, resident, device_index):
                           limit=_smem_limit(device_index), occupancy=occupancy)
 
 
+@spanned("vbn.kernel.categorical_scan")
 def _launch_cat_scan(seed, packed, tgt_idx, flat_counts, struct, s, u_ext,
                      want):
     n, b = len(struct[0]), packed.shape[0]
@@ -719,6 +725,7 @@ def _launch_cat_scan(seed, packed, tgt_idx, flat_counts, struct, s, u_ext,
     return logw, tgt, lpt, red
 
 
+@spanned("vbn.kernel.lg_scan")
 def _launch_lg_scan(seed, fixed_vals, flags, tgt_idx, ptab_flat, struct, s,
                     u_ext, want):
     pids, pmax, dmax = struct
@@ -833,6 +840,7 @@ def pack_rows(fixed_vals, ev_mask, do_mask, cards) -> torch.Tensor:
     """[B, N] int32 packed words for ``categorical_sweep_scan``: each
     clamped value rounded and clipped to its node's classes, then
     | ev << 16 | do << 17."""
+    wait(fixed_vals.device)
     top = torch.tensor([float(c) - 1.0 for c in cards], device=fixed_vals.device)
     fixed_i = torch.clamp(torch.round(torch.nan_to_num(fixed_vals)), min=0.0)
     fixed_i = torch.minimum(fixed_i, top).to(torch.int32)
@@ -853,6 +861,7 @@ def lg_rows(fixed_vals, ev_mask, do_mask):
     return fixed, flags
 
 
+@spanned("vbn.build")
 def make_scan_sweep_fn(plan, cpds, n_samples: int, want=("logw",),
                        mesh=None):
     """Return ``raw(params_tuple, seed, fixed [B, N] f32, ev [B, N],
@@ -860,7 +869,8 @@ def make_scan_sweep_fn(plan, cpds, n_samples: int, want=("logw",),
     family-matched scan kernel, or None when neither gate admits the plan.
     ``raw.fits(b)`` is always true (see the module note). With ``mesh`` the
     kernel runs sharded (``ops/sweep.py::_shard_sweep``). Each build prints
-    its gate line (``ops/sweep.py::gate_log``)."""
+    its gate line (``ops/sweep.py::gate_log``); a raw built counts in
+    ``BUILDS["fn"]``."""
     reason = scan_sweep_reason(plan, cpds, n_samples)
     if reason is not None:
         lg = _make_lg_scan_fn(plan, cpds, n_samples, want, mesh)
@@ -886,6 +896,7 @@ def make_scan_sweep_fn(plan, cpds, n_samples: int, want=("logw",),
 
     raw.fits = _always_fits
     gate_log(plan, n_samples, mesh, "cuda-scan-categorical")
+    BUILDS["fn"] += 1
     return raw
 
 
@@ -915,4 +926,5 @@ def _make_lg_scan_fn(plan, cpds, n_samples, want, mesh):
 
     raw.fits = _always_fits
     gate_log(plan, n_samples, mesh, "cuda-scan-linear-gaussian")
+    BUILDS["fn"] += 1
     return raw

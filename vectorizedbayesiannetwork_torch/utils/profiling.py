@@ -1,20 +1,59 @@
-"""Tracing and timing utilities.
+"""Tracing and timing utilities: the port's spans, counters and timers.
 
 Counterpart of ``vectorizedbayesiannetwork_tpu/utils/profiling.py``:
 ``trace`` captures a ``torch.profiler`` trace (CPU and CUDA activity)
-around a block and writes it as a Chrome trace, ``annotate`` opens a named
-span that shows in such traces, and ``timed_call`` times a call up to the
-end of the device work its result needs (it synchronizes the result's
-device before it reads the clock). ``StageTimer`` sums wall-clock ms per
-stage.
+around a block and writes it as a Chrome trace, ``timed_call`` times a call
+up to the end of the device work its result needs (it synchronizes the
+result's device before it reads the clock), and ``StageTimer`` sums
+wall-clock ms per stage.
+
+Spans. ``annotate(name, **attrs)`` is the port's span; ``spanned(name)``
+puts a function's every call in one. A span records only while a
+``torch.profiler`` session is active (``torch.autograd._profiler_enabled()``):
+with none, it costs that one check and nothing else. While one is, a span
+opens a ``record_function(name)`` range, so it lies on the profiler's own
+timeline beside the CUDA kernels and copies, and appends a record to a
+bounded in-memory buffer (``spans()``, cleared by ``reset_spans()``):
+
+    {"name", "start_ns", "end_ns" (time.perf_counter_ns), "parent" (the
+     enclosing span's index in spans(), -1 for a root), "call" (the root's
+     call id, shared by its descendants), "attrs", "index" (its own)}
+
+A span opened with no span open is a root and takes a new call id; a root
+also records in ``attrs["builds"]`` what ``BUILDS`` counted inside it. The
+served entries of ``VBN`` open one ``vbn.call`` root a call; the stages
+below it are ``vbn.normalize``, ``vbn.plan``, ``vbn.pack``,
+``vbn.upload``, ``vbn.build``, ``vbn.tables``, ``vbn.kernel.<name>``,
+``vbn.draw``, ``vbn.sweep.<route>``, ``vbn.reduce.<path>``, ``vbn.fetch``
+and ``vbn.sync``. The buffer holds spans of one thread: the served entries
+are not re-entrant across threads. Spans past ``MAX_SPANS`` are not kept
+(``spans_dropped()`` counts them), but still reach the profiler.
+
+Waiting. A host-to-device copy from pageable memory waits for the work
+queued on the stream before it returns, so its span's self time would be
+the card's. Each such blocking point of a served path calls ``wait``
+first: under a profiler the host waits there, inside a ``vbn.sync`` span
+that no reader of host time reads, and the copy after it holds its own
+cost alone. A fetch (``.cpu()``) is a ``vbn.fetch`` span, wait and copy
+both.
+
+Counters. ``counters()`` is one snapshot of every counter of the port,
+``reset_counters()`` zeroes them: ``LAUNCHES`` and ``TRACES``
+(``ops/sweep.py``), ``ROUTES`` and ``GROUPS`` (``inference/_sweep.py``),
+``CHAINS`` (``sampling/chains.py``) and ``BUILDS`` (here: raw kernel
+functions built, ``fn``; per-call table builds, ``tables``; plan-cache
+misses, ``plans``). Counters are plain integer bumps, always on.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
+import itertools
 import os
 import time
-from typing import Dict
+from collections import Counter
+from typing import Dict, List
 
 import torch
 
@@ -22,12 +61,23 @@ from ..core.cache import DEFAULT_DIR
 
 _DEFAULT_TRACE_DIR = str(DEFAULT_DIR.parent / "trace")  # build/trace
 
+MAX_SPANS = 1 << 16  # records kept; later spans still reach the profiler
+
+BUILDS = {"fn": 0, "tables": 0, "plans": 0}
+
+_recording = torch.autograd._profiler_enabled
+_SPANS: List[Dict] = []
+_OPEN: List["_Span"] = []
+_call_ids = itertools.count(1)
+_dropped = 0  # spans not kept since the last reset_spans()
+
 
 @contextlib.contextmanager
 def trace(log_dir: str = _DEFAULT_TRACE_DIR):
     """Profile a block with ``torch.profiler`` and write
     ``<log_dir>/trace.json`` (chrome://tracing, Perfetto). Yields the
-    profiler, whose ``key_averages()`` gives the per-op table."""
+    profiler, whose ``key_averages()`` gives the per-op table; the port's
+    spans record inside the block."""
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
@@ -39,9 +89,140 @@ def trace(log_dir: str = _DEFAULT_TRACE_DIR):
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
 
 
-def annotate(name: str):
-    """Named span that shows up inside profiler traces."""
-    return torch.profiler.record_function(name)
+class _Off:
+    """The span while no profiler runs: it does nothing."""
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+    def set(self, **attrs) -> None:
+        pass
+
+
+_OFF = _Off()
+
+
+class _Span:
+    __slots__ = ("rec", "_rf", "_builds")
+
+    def __init__(self, name: str, attrs: Dict) -> None:
+        self.rec = {"name": name, "start_ns": 0, "end_ns": 0, "parent": -1,
+                    "call": 0, "attrs": attrs}
+
+    def __enter__(self):
+        global _dropped
+        rec = self.rec
+        self._rf = torch.profiler.record_function(rec["name"])
+        self._rf.__enter__()
+        if _OPEN:
+            up = _OPEN[-1].rec
+            rec["parent"], rec["call"] = up.get("index", -1), up["call"]
+        else:
+            rec["call"] = next(_call_ids)
+            self._builds = dict(BUILDS)
+        if len(_SPANS) < MAX_SPANS:
+            rec["index"] = len(_SPANS)
+            _SPANS.append(rec)
+        else:
+            _dropped += 1
+        _OPEN.append(self)
+        rec["start_ns"] = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc):
+        rec = self.rec
+        rec["end_ns"] = time.perf_counter_ns()
+        _OPEN.pop()
+        if not _OPEN:
+            rec["attrs"]["builds"] = {k: v - self._builds[k]
+                                      for k, v in BUILDS.items()}
+        self._rf.__exit__(*exc)
+        return False
+
+    def set(self, **attrs) -> None:
+        """Add attributes to the span (rows known only at its end)."""
+        self.rec["attrs"].update(attrs)
+
+
+def annotate(name: str, **attrs):
+    """A span named ``name`` around a ``with`` block (see the module note);
+    ``with annotate(...) as sp: sp.set(rows=n)`` adds attributes."""
+    if not _recording():
+        return _OFF
+    return _Span(name, attrs)
+
+
+def spanned(name: str):
+    """Decorator: every call of the function runs inside ``annotate(name)``."""
+
+    def wrap(fn):
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            if not _recording():
+                return fn(*args, **kwargs)
+            with _Span(name, {}):
+                return fn(*args, **kwargs)
+
+        return call
+
+    return wrap
+
+
+def wait(device) -> None:
+    """A blocking point of a served path (see the module note): under a
+    profiler, on a CUDA device, the host waits for the stream's queued work
+    inside a ``vbn.sync`` span; otherwise nothing, after the one check."""
+    if _recording() and torch.device(device).type == "cuda":
+        with _Span("vbn.sync", {}):
+            torch.cuda.current_stream(device).synchronize()
+
+
+def spans() -> List[Dict]:
+    """The span records, in the order the spans opened (see the module
+    note); ``index`` is a record's place in this list. The list itself,
+    not a copy: read it between calls."""
+    return _SPANS
+
+
+def spans_dropped() -> int:
+    """Spans not kept because the buffer held ``MAX_SPANS``, since the last
+    ``reset_spans()``: while it is above 0, ``spans()`` lacks calls."""
+    return _dropped
+
+
+def reset_spans() -> None:
+    """Empty the buffer; between calls, while no span is open."""
+    global _dropped
+    _SPANS.clear()
+    _dropped = 0
+
+
+def _registered() -> Dict[str, Dict]:
+    from ..inference._sweep import GROUPS, ROUTES
+    from ..ops.sweep import LAUNCHES, TRACES
+    from ..sampling.chains import CHAINS
+
+    return {"LAUNCHES": LAUNCHES, "TRACES": TRACES, "ROUTES": ROUTES,
+            "GROUPS": GROUPS, "CHAINS": CHAINS, "BUILDS": BUILDS}
+
+
+def counters() -> Dict[str, Dict[str, int]]:
+    """A snapshot of every counter of the port, by its name."""
+    return {name: dict(c) for name, c in _registered().items()}
+
+
+def reset_counters() -> None:
+    """Zero every counter: a fixed-key counter keeps its keys, a
+    ``Counter`` is emptied."""
+    for c in _registered().values():
+        if isinstance(c, Counter):
+            c.clear()
+        else:
+            for k in c:
+                c[k] = 0
 
 
 def _devices(out, found):

@@ -51,6 +51,7 @@ from .core.utils import (
     resolve_verbosity,
     to_plain_dict,
 )
+from .utils.profiling import annotate, spanned
 
 __version__ = "0.1.0"
 
@@ -326,20 +327,34 @@ class VBN:
                 f"Call set_inference_method(...) before {what}()."
             )
 
+    def _normalize_queries(self, queries) -> list:
+        with annotate("vbn.normalize"):
+            return [self._normalize_query(q) for q in queries]
+
     @torch.no_grad()
     def infer_posterior(self, query, **kwargs) -> Tuple[torch.Tensor, torch.Tensor]:
         """(pdf [B, S], samples [B, S, D]) tensors on the VBN's device."""
-        self._require_inference("infer_posterior")
-        q = self._normalize_query(query)
-        return self._inference.infer_posterior(self, q, **kwargs)
+        with annotate("vbn.call", entry="infer_posterior") as sp:
+            self._require_inference("infer_posterior")
+            (q,) = self._normalize_queries([query])
+            pdf, samples = self._inference.infer_posterior(self, q, **kwargs)
+            sp.set(queries=1, rows=pdf.shape[0])
+        return pdf, samples
 
     @torch.no_grad()
     def infer_posterior_many(self, queries, **kwargs):
         """Answer several queries; a list of (pdf, samples) pairs in input
         order. A method in ``dynamic_masks`` mode runs them as one sweep;
         otherwise they run one after the other."""
-        self._require_inference("infer_posterior_many")
-        qs = [self._normalize_query(q) for q in queries]
+        with annotate("vbn.call", entry="infer_posterior_many") as sp:
+            self._require_inference("infer_posterior_many")
+            results = self._infer_many(self._normalize_queries(queries),
+                                       **kwargs)
+            sp.set(queries=len(results),
+                   rows=sum(pdf.shape[0] for pdf, _ in results))
+        return results
+
+    def _infer_many(self, qs, **kwargs):
         many = getattr(self._inference, "infer_posterior_many", None)
         results = many(self, qs, **kwargs) if many is not None else None
         if results is None:
@@ -359,27 +374,34 @@ class VBN:
         ``_last_summary_path`` records which path served ("fused" or
         "stream").
         """
-        self._require_inference("infer_posterior_pmf")
-        fused = getattr(self._inference, "infer_posterior_pmf", None)
-        qs = [self._normalize_query(q) for q in queries]
-        out = fused(self, qs, n_classes=n_classes, **kwargs) if fused else None
-        self._last_summary_path = "fused" if out is not None else "stream"
-        if out is None:
-            out = self._reduce_from_stream(qs, "pmf", int(n_classes), kwargs)
+        with annotate("vbn.call", entry="infer_posterior_pmf") as sp:
+            self._require_inference("infer_posterior_pmf")
+            fused = getattr(self._inference, "infer_posterior_pmf", None)
+            qs = self._normalize_queries(queries)
+            out = (fused(self, qs, n_classes=n_classes, **kwargs)
+                   if fused else None)
+            self._last_summary_path = "fused" if out is not None else "stream"
+            if out is None:
+                out = self._reduce_from_stream(qs, "pmf", int(n_classes),
+                                               kwargs)
+            sp.set(queries=len(qs), rows=len(out[0]))
         return out
 
     @torch.no_grad()
     def infer_posterior_moments(self, queries, **kwargs):
         """Posterior (mean, std) rows ``(rows [sum B, 2], spans)``."""
-        self._require_inference("infer_posterior_moments")
-        fused = getattr(self._inference, "infer_posterior_moments", None)
-        qs = [self._normalize_query(q) for q in queries]
-        out = fused(self, qs, **kwargs) if fused else None
-        self._last_summary_path = "fused" if out is not None else "stream"
-        if out is None:
-            out = self._reduce_from_stream(qs, "mom", None, kwargs)
+        with annotate("vbn.call", entry="infer_posterior_moments") as sp:
+            self._require_inference("infer_posterior_moments")
+            fused = getattr(self._inference, "infer_posterior_moments", None)
+            qs = self._normalize_queries(queries)
+            out = fused(self, qs, **kwargs) if fused else None
+            self._last_summary_path = "fused" if out is not None else "stream"
+            if out is None:
+                out = self._reduce_from_stream(qs, "mom", None, kwargs)
+            sp.set(queries=len(qs), rows=len(out[0]))
         return out
 
+    @spanned("vbn.reduce.stream")
     def _reduce_from_stream(self, qs, kind: str, n_classes, kwargs):
         """Host-side posterior reduction over the stream path, with the
         fused paths' semantics (pmf: raw-weight class histogram on
@@ -399,13 +421,10 @@ class VBN:
         }
         rows, spans, at = [], [], 0
         for q, (pdf, samples) in zip(qs, results):
-            w = np.maximum(
-                np.nan_to_num(
-                    pdf.double().cpu().numpy(), posinf=0.0, neginf=0.0
-                ),
-                0.0,
-            )
-            x = samples.double().cpu().numpy()[..., 0]
+            with annotate("vbn.fetch"):
+                w = pdf.double().cpu().numpy()
+                x = samples.double().cpu().numpy()[..., 0]
+            w = np.maximum(np.nan_to_num(w, posinf=0.0, neginf=0.0), 0.0)
             b = w.shape[0]
             if kind == "pmf":
                 k = int(n_classes)
@@ -489,17 +508,20 @@ class VBN:
         std and effective sample size, and the deltas. Both run as one
         ``infer_posterior_many`` call (one sweep in ``dynamic_masks``
         mode)."""
-        q = self._normalize_query(query)
-        if reference_query is None:
-            reference_query = Query(target=q.target, evidence={}, do={})
-        rq = self._normalize_query(reference_query)
-        if rq.target != q.target:
-            raise ValueError(
-                "query and reference_query must have the same target node."
+        with annotate("vbn.call", entry="infer_relative") as sp:
+            self._require_inference("infer_relative")
+            (q,) = self._normalize_queries([query])
+            if reference_query is None:
+                reference_query = Query(target=q.target, evidence={}, do={})
+            (rq,) = self._normalize_queries([reference_query])
+            if rq.target != q.target:
+                raise ValueError(
+                    "query and reference_query must have the same target node."
+                )
+            (query_pdf, query_samples), (ref_pdf, ref_samples) = (
+                self._infer_many([q, rq], **kwargs)
             )
-        (query_pdf, query_samples), (ref_pdf, ref_samples) = (
-            self.infer_posterior_many([q, rq], **kwargs)
-        )
+            sp.set(queries=2, rows=query_pdf.shape[0] + ref_pdf.shape[0])
         qs = self._posterior_stats(query_pdf, query_samples, eps=eps)
         rs = self._posterior_stats(ref_pdf, ref_samples, eps=eps)
         q_mean, r_mean = self._broadcast_batch(qs["mean"], rs["mean"])
