@@ -973,10 +973,13 @@ def read_launches(expect):
     """The counters since the last reset; fails unless exactly the kernels
     in ``expect`` ran, as many times as it says (``SOME``: at least once;
     the torch-op sweeps launch ``vbn_uniforms`` once a drawn node, a
-    count their routes decide)."""
+    count their routes decide). The ``<kernel>.flagged`` counts (KDE
+    launches with a read flag) are held only where ``expect`` names
+    them."""
     from vectorizedbayesiannetwork_torch.ops import sweep
 
-    got = dict(sweep.LAUNCHES)
+    got = {k: v for k, v in sweep.LAUNCHES.items()
+           if not k.endswith(".flagged") or k in expect}
     want = {k: expect.get(k, 0) for k in got}
     some = [k for k, v in want.items() if v == SOME]
     if any(got[k] < 1 for k in some) or \
@@ -4140,7 +4143,8 @@ def kde_launches(tag, got):
     query, each sweep two picks and one conditional density: any other
     kernel, or another ratio, fails."""
     other = {k: v for k, v in got.items()
-             if v and k not in ("kde_pick", "kde_cond", "uniforms")}
+             if v and k not in ("kde_pick", "kde_cond", "uniforms")
+             and not k.endswith(".flagged")}
     sweeps = got.get("kde_cond", 0)
     if other or sweeps < 1 or got.get("kde_pick", 0) != 2 * sweeps \
             or got.get("uniforms", 0) < 1:

@@ -1032,6 +1032,54 @@ def test_kde_wrappers_refuse_what_the_kernels_do_not_take(card):
                     torch.zeros((256, 40), device="cuda"), data_x, lm, 0.3, KM)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("flag", ["some_rows", "no_row"])
+@pytest.mark.parametrize("s_loc", [1 << 16, 200], ids=["row_a_block",
+                                                       "straddling"])
+@pytest.mark.parametrize("kind", ["root", "cond", "pick"])
+def test_kde_read_flag_retires_blocks_bit_for_bit(card, kind, s_loc, flag):
+    """``vbn_kde_root``, ``vbn_kde_cond`` and the conditional
+    ``vbn_kde_pick`` with a read flag (a strided column of a [B, 5] mask):
+    the read rows bit for bit those of the launch without a flag, every
+    other row 0, at 2^16 rows a query row (each 256-thread block inside one
+    query row) and at 200 (blocks straddle query rows); the pick on a
+    ``RowMap`` with a nonzero base. With no row read every block retires
+    and the output is all 0. ``LAUNCHES`` counts both launches, and the
+    flagged one under ``<kernel>.flagged``."""
+    b = 6
+    m = b * s_loc
+    data_x, data_p, lm = _kde_support(2000, 2, 3, 1700)
+    g = torch.Generator(device="cuda").manual_seed(3)
+    x = 1.5 * torch.randn((m, 2), generator=g, device="cuda")
+    p = 1.5 * torch.randn((m, 3), generator=g, device="cuda")
+    masks = torch.zeros((b, 5), device="cuda")
+    if flag == "some_rows":
+        masks[[1, 4, 5], 3] = 1.0
+    key = torch.tensor([0x0BADF00D, 0x5EED1234], dtype=torch.int64,
+                       device="cuda")
+    rows = kf.RowMap.of(5, 0, s_loc, s_loc)
+
+    def run(read):
+        if kind == "root":
+            return kf.kde_root(x, data_x, lm, 0.3, read=read)
+        if kind == "cond":
+            return kf.kde_cond(x, p, data_x, data_p, lm, 0.3, 0.4, read=read)
+        return kf.kde_pick(key, p, data_p, data_x, lm, 0.4, m, rows=rows,
+                           read=read)
+
+    name = f"kde_{kind}"
+    before = (sweep.LAUNCHES[name], sweep.LAUNCHES[name + ".flagged"])
+    full = run(None)
+    got = run(kf.ReadFlag(masks[:, 3], s_loc))
+    assert (sweep.LAUNCHES[name], sweep.LAUNCHES[name + ".flagged"]) == (
+        before[0] + 2, before[1] + 1)
+    keep = (masks[:, 3] != 0).repeat_interleave(s_loc)
+    assert torch.equal(got[keep], full[keep])
+    assert not bool(got[~keep].any()) and bool(full[~keep].any())
+    assert torch.equal(run(kf.ReadFlag(torch.ones(b, device="cuda"), s_loc)),
+                       full)
+
+
 @pytest.fixture(scope="module")
 def kde_vbn(card):
     rng = np.random.default_rng(0)
@@ -1060,12 +1108,65 @@ def test_kde_serving_goes_through_the_kernels(kde_vbn, dynamic):
     mom, _ = kde_vbn.infer_posterior_moments([q])
     after = dict(sweep.LAUNCHES)
     got = {k: after[k] - before[k] for k in after if after[k] != before[k]}
-    want = ({"kde_root": 2, "kde_cond": 1, "kde_pick": 3, "uniforms": 3}
+    # dynamic: the densities and x2's conditional pick carry read flags
+    want = ({"kde_root": 2, "kde_cond": 1, "kde_pick": 3, "uniforms": 3,
+             "kde_root.flagged": 2, "kde_cond.flagged": 1,
+             "kde_pick.flagged": 1}
             if dynamic else {"kde_root": 1, "kde_pick": 2, "uniforms": 2})
     assert got == want
     assert kde_vbn._last_summary_path == ("fused" if dynamic else "stream")
     assert mom.shape == (B, 2) and np.isfinite(mom).all()
     assert np.all(np.diff(mom[:, 0]) > 0)  # x2 | x0 rises with x0
+
+
+@pytest.mark.cuda
+def test_kde_dynamic_sweep_read_flags_keep_the_rows(card, kde_vbn,
+                                                   monkeypatch):
+    """The per-node dynamic sweep on the card, with evidence, do and a
+    target mask at 200 particles a row: weights, target log-densities and
+    target values bit for bit those of the same sweep with the KDE CPDs'
+    read flags off; flagged launches: each root's and the conditional's
+    density, and the conditional's pick, a sweep."""
+    from vectorizedbayesiannetwork_torch.core.rng import Draw
+    from vectorizedbayesiannetwork_torch.inference._dynamic_sweep import (
+        dynamic_sweep_trace,
+    )
+    from vectorizedbayesiannetwork_torch.models.kde import KDECPD
+
+    vbn = kde_vbn
+    plan = get_plan(vbn, Query(target="x2", evidence={}, do={}))
+    cpds = tuple(vbn.cpd_spec(n) for n in plan.topo_order)
+    params = tuple(vbn.params[n] for n in plan.topo_order)
+    idx = {n: i for i, n in enumerate(plan.topo_order)}
+    b, s = 6, 200
+    g = torch.Generator(device="cuda").manual_seed(4)
+    fixed = torch.randn((b, plan.total_dim), generator=g, device="cuda")
+    ev = torch.zeros((b, 3), device="cuda")
+    do = torch.zeros((b, 3), device="cuda")
+    for row, nodes in enumerate([("x2",), ("x0",), (), ("x0", "x2"), (),
+                                 ("x1",)]):
+        for n in nodes:
+            ev[row, idx[n]] = 1.0
+    do[1, idx["x1"]] = do[4, idx["x0"]] = 1.0
+    ti = torch.tensor([idx[n] for n in ("x0", "x2", "x2", "x1", "x2", "x0")],
+                      dtype=torch.int32, device="cuda")
+    tgt = torch.nn.functional.one_hot(ti.long(), 3).to(torch.float32)
+    outs = {}
+    for on in (True, False):
+        monkeypatch.setattr(KDECPD, "takes_read_flag", on)
+        before = dict(sweep.LAUNCHES)
+        outs[on] = [dynamic_sweep_trace(
+            plan, cpds, params, Draw(3, card), fixed, ev, do, s, tgt_mask=t,
+            targets=ti) for t in (tgt, None)]
+        flagged = {k: sweep.LAUNCHES[k] - before[k] for k in before
+                   if k.endswith(".flagged")}
+        assert flagged == ({"kde_root.flagged": 4, "kde_cond.flagged": 2,
+                            "kde_pick.flagged": 2} if on else
+                           dict.fromkeys(flagged, 0))
+    for got, want in zip(outs[True], outs[False]):
+        assert len(got) == len(want)
+        for a, w in zip(got, want):
+            assert torch.equal(a, w)
 
 
 _LAUNCH = {"cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",

@@ -9,6 +9,8 @@ and only distributions compare: posteriors are held against the exact ones
 within Monte-Carlo error at S = 2^14 (a row's sd is about 0.004).
 """
 
+import inspect
+
 import networkx as nx
 import numpy as np
 import pytest
@@ -22,8 +24,13 @@ from benchmarking.gaussian_bn import GaussianBN, random_gaussian
 from benchmarking.networks import random_bn_treewidth
 from vectorizedbayesiannetwork_torch import VBN as TVBN
 from vectorizedbayesiannetwork_torch import defaults as tdefaults
+from vectorizedbayesiannetwork_torch.core.base import Query as TQuery
+from vectorizedbayesiannetwork_torch.core.plan import get_plan as t_get_plan
+from vectorizedbayesiannetwork_torch.core.rng import Draw
 from vectorizedbayesiannetwork_torch.inference import _dynamic_base as tdyn
 from vectorizedbayesiannetwork_torch.inference import _dynamic_sweep as tdsw
+from vectorizedbayesiannetwork_torch.models.kde import KDECPD as TKDE
+from vectorizedbayesiannetwork_torch.ops import kde_fused as tkf
 from vectorizedbayesiannetwork_torch.ops import sweep as tsweep
 from vectorizedbayesiannetwork_torch.ops import sweep_scan as tscan
 from vectorizedbayesiannetwork_tpu import VBN as JVBN
@@ -347,3 +354,80 @@ def test_stream_fallback_pops_pad_bucket(cat):
     rows, spans = tv.infer_posterior_pmf(qs, n_classes=4, pad_bucket=32)
     assert tv._last_summary_path == "stream"
     assert rows.shape == (17, 4) and len(spans) == 17
+
+
+def _kde_net(families):
+    """a -> b -> c and a -> c on 1024 rows, each node of the family that
+    ``families`` names ("kde" at 128 points, or "linear_gaussian")."""
+    rng = np.random.default_rng(4)
+    a = rng.normal(size=1024)
+    b = 0.6 * a + 0.5 * rng.normal(size=1024)
+    c = b - 0.3 * a + 0.4 * rng.normal(size=1024)
+    conf = {"kde": dict(tdefaults.cpd("kde"), max_points=128),
+            "linear_gaussian": tdefaults.cpd("linear_gaussian")}
+    tv = TVBN([("a", "b"), ("a", "c"), ("b", "c")], seed=0, device="cpu")
+    tv.set_learning_method("node_wise", nodes_cpds={
+        k: conf[f] for k, f in zip("abc", families)})
+    tv.fit({"a": a.astype(np.float32), "b": b.astype(np.float32),
+            "c": c.astype(np.float32)})
+    return tv
+
+
+@pytest.mark.parametrize("families,flagged", [
+    (("kde", "kde", "kde"), {"root": 1, "cond": 2, "pick": 2}),
+    (("linear_gaussian", "kde", "linear_gaussian"),
+     {"root": 0, "cond": 1, "pick": 1}),
+], ids=["kde", "mixed"])
+def test_read_flags_leave_the_dynamic_sweep_bit_for_bit(families, flagged,
+                                                        monkeypatch):
+    """The per-node dynamic sweep passes its KDE nodes read flags (the
+    log-density's evidence or target rows, the pick's free rows): its
+    weights, target log-densities and target values equal, bit for bit,
+    the same sweep with the flags off (``takes_read_flag`` patched to
+    False), with evidence, do and a target mask, at 200 particles a row
+    (the kernels' blocks then straddle rows). Each sweep passes a flag to
+    one plain version a root density, a conditional density and a
+    conditional pick (the root pick takes none); no launch here, so the
+    ``LAUNCHES`` flagged counts stay 0."""
+    tv = _kde_net(families)
+    plan = t_get_plan(tv, TQuery(target="c", evidence={}, do={}))
+    cpds = tuple(tv.cpd_spec(n) for n in plan.topo_order)
+    params = tuple(tv.params[n] for n in plan.topo_order)
+    idx = {n: i for i, n in enumerate(plan.topo_order)}
+    b, s = 6, 200
+    fixed = torch.tensor(np.random.default_rng(5).normal(
+        size=(b, plan.total_dim)).astype(np.float32))
+    ev, do = torch.zeros((b, 3)), torch.zeros((b, 3))
+    for row, nodes in enumerate(["c", "b", "", "ac", "", "b"]):
+        for n in nodes:
+            ev[row, idx[n]] = 1.0
+    do[1, idx["a"]] = do[4, idx["b"]] = 1.0
+    ti = torch.tensor([idx[n] for n in "acbbca"], dtype=torch.int32)
+    tgt = torch.nn.functional.one_hot(ti.long(), 3).to(torch.float32)
+    calls = {"root": 0, "cond": 0, "pick": 0}
+    for kind in calls:
+        name = f"kde_{kind}_plain"
+
+        def spy(*a, _fn=getattr(tkf, name), _kind=kind, **k):
+            got = inspect.signature(_fn).bind(*a, **k).arguments.get("read")
+            calls[_kind] += got is not None
+            return _fn(*a, **k)
+
+        monkeypatch.setattr(tkf, name, spy)
+    flagged_keys = ("kde_root.flagged", "kde_cond.flagged", "kde_pick.flagged")
+    before = {k: tsweep.LAUNCHES[k] for k in flagged_keys}
+    outs = {}
+    for on in (True, False):
+        monkeypatch.setattr(TKDE, "takes_read_flag", on)
+        outs[on] = [tdsw.dynamic_sweep_trace(
+            plan, cpds, params, Draw(3, torch.device("cpu")), fixed, ev, do,
+            s, tgt_mask=t, targets=ti) for t in (tgt, None)]
+        if on:
+            assert calls == {k: 2 * v for k, v in flagged.items()}
+    assert calls == {k: 2 * v for k, v in flagged.items()}  # none flags off
+    for got, want in zip(outs[True], outs[False]):
+        assert len(got) == len(want)
+        for a, w in zip(got, want):
+            assert torch.equal(a, w)
+    assert bool(torch.isfinite(outs[True][0][1]).all())
+    assert {k: tsweep.LAUNCHES[k] for k in flagged_keys} == before

@@ -685,6 +685,44 @@ def test_plain_pick_tiles_rows_as_one_field(dp):
     assert int(idx.max()) < 80  # the soft-masked tail is never drawn here
 
 
+@pytest.mark.parametrize("s_loc", [1 << 8, 200])
+@pytest.mark.parametrize("kind", ["root", "cond", "pick", "root_pick"])
+def test_read_flag_zeroes_the_unread_rows(kind, s_loc):
+    """A read flag (``kde_fused.ReadFlag``, a strided column of a
+    [B, n_nodes] mask, as the per-node sweep passes it) on the plain
+    versions: the read rows bit for bit those of the call without a flag,
+    every other row 0; an all-ones flag is no flag. The root pick takes no
+    flag and scores every row. At 200 rows a query row a 256-thread block
+    of the kernels straddles query rows."""
+    g = np.random.default_rng(21)
+    b, n = 7, 300
+    m = b * s_loc
+    data_x, data_p = _t(_normal(g, n, 2)), _t(_normal(g, n, 3))
+    x, p = _t(1.5 * _normal(g, m, 2)), _t(1.5 * _normal(g, m, 3))
+    lm = _t(_tail_mask(n, 260, hard=False))
+    key, rows = torch.tensor([5, 6]), kf.RowMap.of(3, 0, s_loc, s_loc)
+    masks = torch.zeros((b, 4))
+    masks[[0, 3, 4], 2] = 1.0
+
+    def run(read):
+        if kind == "root":
+            return kf.kde_root(x, data_x, lm, 0.3, read=read)
+        if kind == "cond":
+            return kf.kde_cond(x, p, data_x, data_p, lm, 0.3, 0.4, read=read)
+        return kf.kde_pick(key, None if kind == "root_pick" else p, data_p,
+                           data_x, lm, 0.4, m, rows=rows, read=read)
+
+    full = run(None)
+    got = run(kf.ReadFlag(masks[:, 2], s_loc))
+    keep = (masks[:, 2] != 0).repeat_interleave(s_loc)
+    assert torch.equal(got[keep], full[keep])
+    if kind == "root_pick":
+        assert torch.equal(got, full)
+    else:
+        assert not bool(got[~keep].any()) and bool(full[~keep].any())
+    assert torch.equal(run(kf.ReadFlag(torch.ones(b), s_loc)), full)
+
+
 @pytest.mark.parametrize("root", [True, False], ids=["root", "parents"])
 def test_plain_pick_draws_the_exact_categorical(root):
     """2^16 inverse-CDF draws for one parent row against the categorical

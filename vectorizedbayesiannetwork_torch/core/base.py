@@ -82,6 +82,13 @@ class BaseCPD(ABC):
     # family whose sample cannot run so opts out and samples node by node.
     sample_groupable = True
 
+    # -- read flags (inference/_dynamic_sweep.py) ----------------------------
+    # A family whose ``_sample_flat`` and ``_log_prob_flat`` take ``read=``
+    # (an ``ops.kde_fused.ReadFlag``: the rows whose results the caller
+    # reads) and may skip the others; the mask-dynamic sweep passes one to
+    # such a family only.
+    takes_read_flag = False
+
     def _eval_params(self, params: Params) -> Params:
         """The part of ``params`` that ``_sample_flat`` / ``_log_prob_flat``
         read: the optimizer state (``"opt"``, which the neural families keep

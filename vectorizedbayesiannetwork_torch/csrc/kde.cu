@@ -173,6 +173,20 @@
 // _kde_pick_kernel_extg) keeps the Gumbel-argmax: the distance terms in the
 // plain version's float32 order with _rn intrinsics and a strict running
 // argmax in index order, so it picks the plain version's support point.
+//
+// The read flag (vbn_kde_root, vbn_kde_cond, the conditional pick): a
+// caller that reads a launch's result on some query rows only (the
+// per-node dynamic sweep keeps a node's log-density on its evidence rows
+// and its pick on its free rows) passes `read`, a float per query row of
+// any stride, and the launch's rows a query row (s): launch row r is read
+// when read[(r / s) * stride] is nonzero. A block none of whose live rows
+// is read returns before it loads a query or stages a support point (one
+// __syncthreads_or, block-uniform, so a block that straddles query rows
+// stays whole); every unread row's output is 0, and the arithmetic of a
+// read row is that of the launch without a flag. Row numbers are the
+// launch's own, so the pick's RowMap counters do not move. A null `read`
+// is the unflagged kernel. The root pick and the Gumbel pick take no
+// flag (ops/kde_fused.py drops it there), nor does vbn_kde_cond_wide.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -216,6 +230,18 @@ __host__ __device__ constexpr int kde_min_blocks(int mx, int mp) {
 // registers; without a minimum of blocks ptxas spilled 16 bytes there.
 __host__ __device__ constexpr int kde_pick_min_blocks(int md) {
   return md > 16 ? 2 : 1;
+}
+
+// The read flag of a launch (see the note at the top); p null: every row.
+struct ReadFlag {
+  const float* p;
+  long long stride;
+  int s;
+};
+
+// Whether live launch row `row` is read.
+__device__ __forceinline__ bool is_read(const ReadFlag& rd, long long row) {
+  return rd.p[(row / rd.s) * rd.stride] != 0.f;
 }
 
 // Rows [0, tn) of a row-major [., d] block at src into s[f * TILE + j].
@@ -282,13 +308,21 @@ kde_direct_kernel(const float* __restrict__ x, const float* __restrict__ p,
                   const float* __restrict__ data_p,
                   const float* __restrict__ log_mask, int m, int n, int dx,
                   int dp, float sy, float sp, float c_stage, float c_num,
-                  float* __restrict__ out) {
+                  ReadFlag rd, float* __restrict__ out) {
   extern __shared__ __align__(16) float smem[];
   float* s_x = smem;                          // [MX][TILE]
   float* s_p = s_x + MX * TILE;               // [MP][TILE] (COND)
   float* s_lm = s_p + (COND ? MP : 0) * TILE; // [TILE]
   const long long row = (long long)blockIdx.x * THREADS + threadIdx.x;
   const bool live = row < m;
+  bool want = live;
+  if (rd.p != nullptr) {
+    want = live && is_read(rd, row);
+    if (!__syncthreads_or(want)) {  // no row of the block is read
+      if (live) out[row] = 0.f;
+      return;
+    }
+  }
   float q[MX], r[MP];
 #pragma unroll
   for (int d = 0; d < MX; ++d)
@@ -365,7 +399,8 @@ kde_direct_kernel(const float* __restrict__ x, const float* __restrict__ p,
     }
   }
   if (live)
-    out[row] = COND ? num.value(c_num) - den.value(0.f) : num.value(0.f);
+    out[row] = !want ? 0.f
+                     : COND ? num.value(c_num) - den.value(0.f) : num.value(0.f);
 }
 
 // ---------------------------------------------------------------------------
@@ -863,6 +898,11 @@ __device__ __forceinline__ void copy_row(const float* __restrict__ data_x,
     out[row * dx + f] = data_x[(size_t)n_star * dx + f];
 }
 
+__device__ __forceinline__ void zero_row(long long row, int dx,
+                                         float* __restrict__ out) {
+  for (int f = 0; f < dx; ++f) out[row * dx + f] = 0.f;
+}
+
 // Root pick (Dp = 0, N <= ROOT_CDF_MAX): the CDF of the masked weights in
 // shared memory, in double, and a binary search per row.
 __global__ void __launch_bounds__(THREADS)
@@ -972,7 +1012,7 @@ kde_pick_cond_kernel(const float* __restrict__ p,
                      const float* __restrict__ data_x,
                      const float* __restrict__ log_mask,
                      const int64_t* __restrict__ key, RowMap rm, int m,
-                     int n, int dp, int dx, float inv2p, int ch,
+                     int n, int dp, int dx, float inv2p, int ch, ReadFlag rd,
                      float* __restrict__ out) {
   extern __shared__ float smem[];
   float* s_p = smem;                 // [dp][TILE]
@@ -981,6 +1021,14 @@ kde_pick_cond_kernel(const float* __restrict__ p,
   const int tid = threadIdx.x;
   const long long row = (long long)blockIdx.x * THREADS + tid;
   const bool live = row < m;
+  bool want = live;
+  if (rd.p != nullptr) {
+    want = live && is_read(rd, row);
+    if (!__syncthreads_or(want)) {  // no row of the block is read
+      if (live) zero_row(row, dx, out);
+      return;
+    }
+  }
   float r[MD];
 #pragma unroll
   for (int d = 0; d < MD; ++d) r[d] = (live && d < dp) ? p[row * dp + d] : 0.f;
@@ -1014,6 +1062,10 @@ kde_pick_cond_kernel(const float* __restrict__ p,
     }
   }
   if (!live) return;  // no barrier follows
+  if (!want) {
+    zero_row(row, dx, out);
+    return;
+  }
   float shi = 0.f, slo = 0.f;
   for (int k = 0; k < c; ++k) ff_add(shi, slo, s_chunk[k * THREADS + tid]);
   const float u = pick_uniform(row, key_seed(key), rm);
@@ -1098,14 +1150,14 @@ template <int MX, int MP, bool COND>
 cudaError_t go_direct(const float* x, const float* p, const float* data_x,
                       const float* data_p, const float* log_mask, int m, int n,
                       int dx, int dp, float sy, float sp, float c_stage,
-                      float c_num, float* out, cudaStream_t st) {
+                      float c_num, ReadFlag rd, float* out, cudaStream_t st) {
   const size_t smem = (size_t)(MX + (COND ? MP : 0) + 1) * TILE * sizeof(float);
   auto kernel = kde_direct_kernel<MX, MP, COND>;
   cudaError_t e = vbn::allow_smem(kernel, smem);
   if (e != cudaSuccess) return e;
   kernel<<<(m + THREADS - 1) / THREADS, THREADS, smem, st>>>(
       x, p, data_x, data_p, log_mask, m, n, dx, dp, sy, sp, c_stage, c_num,
-      out);
+      rd, out);
   return cudaGetLastError();
 }
 
@@ -1115,16 +1167,17 @@ cudaError_t launch_direct_mp(const float* x, const float* p,
                              const float* data_x, const float* data_p,
                              const float* log_mask, int m, int n, int dx,
                              int dp, float sy, float sp, float c_stage,
-                             float c_num, float* out, cudaStream_t st) {
+                             float c_num, ReadFlag rd, float* out,
+                             cudaStream_t st) {
   if constexpr (!COND) {
     return go_direct<MX, 1, false>(x, p, data_x, data_p, log_mask, m, n, dx,
-                                   dp, sy, sp, c_stage, c_num, out, st);
+                                   dp, sy, sp, c_stage, c_num, rd, out, st);
   } else {
     switch (pow2_at_least(dp)) {
 #define VBN_KDE_CASE(V)                                                     \
   case V:                                                                   \
     return go_direct<MX, V, COND>(x, p, data_x, data_p, log_mask, m, n, dx, \
-                                  dp, sy, sp, c_stage, c_num, out, st);
+                                  dp, sy, sp, c_stage, c_num, rd, out, st);
     VBN_KDE_CASE(1)
     VBN_KDE_CASE(2)
     VBN_KDE_CASE(4)
@@ -1142,14 +1195,14 @@ template <bool COND>
 cudaError_t launch_direct(const float* x, const float* p, const float* data_x,
                           const float* data_p, const float* log_mask, int m,
                           int n, int dx, int dp, float sy, float sp,
-                          float c_stage, float c_num, float* out,
+                          float c_stage, float c_num, ReadFlag rd, float* out,
                           cudaStream_t st) {
   switch (pow2_at_least(dx)) {
 #define VBN_KDE_CASE(V)                                                     \
   case V:                                                                   \
     return launch_direct_mp<V, COND>(x, p, data_x, data_p, log_mask, m, n,  \
-                                     dx, dp, sy, sp, c_stage, c_num, out,   \
-                                     st);
+                                     dx, dp, sy, sp, c_stage, c_num, rd,    \
+                                     out, st);
     VBN_KDE_CASE(1)
     VBN_KDE_CASE(2)
     VBN_KDE_CASE(4)
@@ -1255,7 +1308,7 @@ template <int MD>
 cudaError_t go_pick(const float* p, const float* data_p, const float* data_x,
                     const float* log_mask, const int64_t* key, RowMap rm,
                     const float* gumbel, int m, int n, int dp, int dx,
-                    float inv2p, float* out, cudaStream_t st) {
+                    float inv2p, ReadFlag rd, float* out, cudaStream_t st) {
   const size_t smem = (size_t)(dp + 1) * TILE * sizeof(float);
   const int grid = (m + THREADS - 1) / THREADS;
   if (gumbel != nullptr) {
@@ -1276,7 +1329,7 @@ cudaError_t go_pick(const float* p, const float* data_p, const float* data_x,
     cudaError_t e = vbn::allow_smem(kernel, smem_c);
     if (e != cudaSuccess) return e;
     kernel<<<grid, THREADS, smem_c, st>>>(p, data_p, data_x, log_mask, key,
-                                          rm, m, n, dp, dx, inv2p, ch, out);
+                                          rm, m, n, dp, dx, inv2p, ch, rd, out);
   }
   return cudaGetLastError();
 }
@@ -1284,8 +1337,8 @@ cudaError_t go_pick(const float* p, const float* data_p, const float* data_x,
 cudaError_t launch_pick(const float* p, const float* data_p,
                         const float* data_x, const float* log_mask,
                         const int64_t* key, RowMap rm, const float* gumbel,
-                        int m, int n, int dp, int dx, float inv2p, float* out,
-                        cudaStream_t st) {
+                        int m, int n, int dp, int dx, float inv2p,
+                        ReadFlag rd, float* out, cudaStream_t st) {
   if (gumbel == nullptr && dp == 0 && n <= ROOT_CDF_MAX) {
     int dev = 0, sms = 0;
     cudaError_t e = cudaGetDevice(&dev);
@@ -1307,7 +1360,7 @@ cudaError_t launch_pick(const float* p, const float* data_p,
 #define VBN_KDE_CASE(V)                                                      \
   case V:                                                                    \
     return go_pick<V>(p, data_p, data_x, log_mask, key, rm, gumbel, m, n,  \
-                      dp, dx, inv2p, out, st);
+                      dp, dx, inv2p, rd, out, st);
     VBN_KDE_CASE(1)
     VBN_KDE_CASE(2)
     VBN_KDE_CASE(4)
@@ -1329,20 +1382,28 @@ extern "C" {
 
 // The direct kernels take the base-2 constants (ops/kde_fused.py::
 // direct_consts): sy, sp = sqrt(log2(e) / 2h^2), cy, cp = log2(e) * const.
+// read (null: every row), read_stride, read_s: the read flag (see the note
+// at the top), as vbn_kde_pick takes it too.
 int vbn_kde_root(const float* x, const float* data_x, const float* log_mask,
-                 int m, int n, int dx, float sy, float cy, float* out,
-                 void* stream) {
+                 int m, int n, int dx, float sy, float cy, const float* read,
+                 long long read_stride, int read_s, float* out, void* stream) {
+  if (read_s < 1) return (int)cudaErrorInvalidValue;
   return (int)launch_direct<false>(x, nullptr, data_x, nullptr, log_mask, m, n,
-                                   dx, 0, sy, 0.f, cy, 0.f, out,
+                                   dx, 0, sy, 0.f, cy, 0.f,
+                                   ReadFlag{read, read_stride, read_s}, out,
                                    (cudaStream_t)stream);
 }
 
 int vbn_kde_cond(const float* x, const float* p, const float* data_x,
                  const float* data_p, const float* log_mask, int m, int n,
                  int dx, int dp, float sy, float sp, float cy, float cp,
+                 const float* read, long long read_stride, int read_s,
                  float* out, void* stream) {
+  if (read_s < 1) return (int)cudaErrorInvalidValue;
   return (int)launch_direct<true>(x, p, data_x, data_p, log_mask, m, n, dx, dp,
-                                  sy, sp, cp, cy, out, (cudaStream_t)stream);
+                                  sy, sp, cp, cy,
+                                  ReadFlag{read, read_stride, read_s}, out,
+                                  (cudaStream_t)stream);
 }
 
 // The wide conditional takes the base-2 constants too, and a scratch of
@@ -1363,11 +1424,14 @@ int vbn_kde_pick(const float* p, const float* data_p, const float* data_x,
                  const float* log_mask, const int64_t* key,
                  const float* gumbel, int m, int n, int dp, int dx,
                  float inv2p, long long row_base, int s_loc,
-                 long long row_stride, float* out, void* stream) {
-  if (s_loc < 1) return (int)cudaErrorInvalidValue;
+                 long long row_stride, const float* read,
+                 long long read_stride, int read_s, float* out,
+                 void* stream) {
+  if (s_loc < 1 || read_s < 1) return (int)cudaErrorInvalidValue;
   const RowMap rm{row_base, row_stride, s_loc};
   return (int)launch_pick(p, data_p, data_x, log_mask, key, rm, gumbel, m, n,
-                          dp, dx, inv2p, out, (cudaStream_t)stream);
+                          dp, dx, inv2p, ReadFlag{read, read_stride, read_s},
+                          out, (cudaStream_t)stream);
 }
 
 int vbn_kde_mma_probe(const float* a, const float* b, const float* c,

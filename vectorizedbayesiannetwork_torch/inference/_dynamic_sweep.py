@@ -5,7 +5,8 @@ the query's structure is data per row. ``ev_mask``/``do_mask`` are
 ``[B, n_nodes]``; every node draws its conditional sample AND evaluates its
 log-density at the final (drawn-or-clamped) value, then selects by mask, so
 one function serves every evidence pattern and a batch may mix query
-skeletons. It serves the plans the scan kernels' gates refuse (mixed CPD
+skeletons; a family that ``takes_read_flag`` (KDE) skips the rows the
+selection drops. It serves the plans the scan kernels' gates refuse (mixed CPD
 families, more than 1500 nodes). Draws come from the call's row stream
 (``core/rng.py::RowStream``, counter (particle, row, node)), whatever the
 masks; under a mesh (``mesh=``) each rank sweeps its block and the blocks
@@ -26,6 +27,7 @@ import torch
 
 from ..core.plan import InferencePlan
 from ..core.rng import Draw, RowStream
+from ..ops.kde_fused import ReadFlag
 from ..ops.sweep import shard_trace
 from ..utils.profiling import annotate, wait
 from ._sweep import ROUTES, _parents_flat, stacked_form
@@ -76,25 +78,37 @@ def dynamic_sweep_trace(
 def _per_node_trace(plan, cpds, params_tuple, stream: RowStream, fixed,
                     ev_mask, do_mask, tgt_mask):
     """``dynamic_sweep_trace``'s per-node loop over one block of rows and
-    particles."""
+    particles. A CPD that ``takes_read_flag`` is told which rows the loop
+    reads: its pick on the free rows (neither evidence nor do), its
+    log-density on the evidence rows (and the target rows with
+    ``tgt_mask``), each a column of a [B, n_nodes] mask read in place."""
     b, s = fixed.shape[0], stream.s
     m = b * s
     vals: List[Optional[torch.Tensor]] = [None] * plan.n_nodes
     log_w = torch.zeros((b, s), dtype=torch.float32, device=fixed.device)
     lp_tgt = torch.zeros((b, s), dtype=torch.float32, device=fixed.device)
+    fix = torch.maximum(ev_mask, do_mask)  # [B, n_nodes]: clamped
+    if any(c.takes_read_flag for c in cpds):
+        free = 1.0 - fix
+        scored = (ev_mask if tgt_mask is None
+                  else torch.maximum(ev_mask, tgt_mask))
     for idx in range(plan.n_nodes):
         d = plan.node_dims[idx]
         off = plan.node_offsets[idx]
         pflat = _parents_flat(plan, vals, idx, m)
+        pick_kw, lp_kw = {}, {}
+        if cpds[idx].takes_read_flag:
+            pick_kw = {"read": ReadFlag(free[:, idx], s)}
+            lp_kw = {"read": ReadFlag(scored[:, idx], s)}
         sampled = cpds[idx]._sample_flat(params_tuple[idx], stream.node(idx),
-                                         pflat, m)
+                                         pflat, m, **pick_kw)
         fixed_b = fixed[:, None, off : off + d].expand(b, s, d)
-        m_fix = torch.maximum(ev_mask[:, idx], do_mask[:, idx])  # [B]
+        m_fix = fix[:, idx]  # [B]
         v = torch.where(m_fix[:, None, None] > 0, fixed_b,
                         sampled.reshape(b, s, d))
         vals[idx] = v
         lp = cpds[idx]._log_prob_flat(
-            params_tuple[idx], v.reshape(m, d), pflat
+            params_tuple[idx], v.reshape(m, d), pflat, **lp_kw
         ).reshape(b, s)
         # where, not multiply: 0 * (-inf) would poison the weights
         log_w = log_w + torch.where(ev_mask[:, idx][:, None] > 0, lp, 0.0)

@@ -51,6 +51,9 @@ class KDECPD(BaseCPD):
     # the level-grouped sweep samples KDE nodes one by one, as the JAX
     # package's does
     sample_groupable = False
+    # the pick and the log-density retire the rows nobody reads
+    # (ops/kde_fused.py, the read flag)
+    takes_read_flag = True
 
     def _vmappable(self) -> bool:
         """No: the pick and the log-density are hand-kernel launches on the
@@ -227,7 +230,7 @@ class KDECPD(BaseCPD):
         # so both packages give the same log-densities
         return torch.log(torch.clamp(params["valid"], min=1e-20))
 
-    def _log_prob_flat(self, params, x, parents):
+    def _log_prob_flat(self, params, x, parents, read=None):
         return kde_log_prob(
             x,
             parents if self.input_dim else None,
@@ -236,14 +239,17 @@ class KDECPD(BaseCPD):
             self._log_mask(params),
             self._y_scale(),
             self._p_scale(),
+            read,
         )
 
-    def _sample_flat(self, params, gen, parents, m):
+    def _sample_flat(self, params, gen, parents, m, read=None):
         """The pick, then Gaussian noise at the bandwidth. Up to 32 parent
         features the pick is ``kde_pick``'s inverse CDF on its own Philox
         stream, keyed by the node's seed at the rows' global flat rows on a
-        row stream (a ``pick_key`` from a generator); past 32 the chunked
-        pick on slot 0. The noise takes the slots from 4 on."""
+        row stream (a ``pick_key`` from a generator), and skips the rows
+        ``read`` does not read (their draws are then noise about 0); past
+        32 the chunked pick on slot 0. The noise takes the slots from 4
+        on."""
         log_mask = self._log_mask(params)
         data_x = params["data_x"]
         dev = data_x.device
@@ -257,7 +263,7 @@ class KDECPD(BaseCPD):
             selected = kde_pick(
                 key, parents.contiguous() if self.input_dim else None,
                 params["data_p"], data_x, log_mask, self._p_scale(), m,
-                rows=rows,
+                rows=rows, read=read,
             )
         else:
             idx = kde_sample_indices(

@@ -30,7 +30,20 @@ tensors and raise on what it does not take; for CPU tensors they run the
 plain version, which is how the CPU serves every KDE log-density
 (``ops/kde_kernel.py``). ``LAUNCHES`` (``ops/sweep.py``) counts the
 launches under ``"kde_root"``, ``"kde_cond"``, ``"kde_cond_wide"`` and
-``"kde_pick"``.
+``"kde_pick"``, and those that carried a read flag (below) under
+``"kde_root.flagged"``, ``"kde_cond.flagged"`` and ``"kde_pick.flagged"``.
+
+The read flag. ``kde_root``, ``kde_cond`` and ``kde_pick`` take ``read``
+(a ``ReadFlag``): the query rows whose results the caller reads, one
+float a query row of the launch's rows (``s_loc`` launch rows a query
+row), nonzero where read. The per-node dynamic sweep passes each node's
+evidence mask column to its log-density and its free (neither evidence
+nor do) column to its pick, since it keeps nothing else of them. Every
+unread row comes back 0, and each read row is what the launch without a
+flag gives, bit for bit: the kernels retire whole blocks none of whose
+rows is read, and the plain versions zero the unread rows. The root pick
+and the Gumbel pick take no flag (the wrapper drops it on both devices,
+so they score every row), nor does ``kde_cond_wide``.
 
 The pick has two routes. The served one draws by inverse CDF on one
 uniform a row: with ``s_n = -|p - dp_n|^2 inv2p + log_mask_n`` and
@@ -83,6 +96,7 @@ from ..utils.profiling import annotate, wait
 from .sweep import LAUNCHES
 
 _DIRECT_D = 32  # feature-count cutoff of the direct kernels (kde_pallas.py:103)
+_ROOT_CDF_MAX = 16384  # the root pick's CDF in shared memory (csrc/kde.cu)
 _CHUNK = 4096  # query rows per tile of a plain version or chunked form
 
 _P = ctypes.c_void_p
@@ -138,20 +152,42 @@ def _chunked(fn, m: int, *arrays):
                       for i in range(0, m, _CHUNK)])
 
 
-def kde_root_plain(x, data_x, log_mask, y_scale: float) -> torch.Tensor:
-    """``lse_n(-|x_m - t_n|^2 / 2h^2 + const + log_mask_n)`` -> [M]."""
+class ReadFlag(NamedTuple):
+    """The query rows of a launch whose results the caller reads: launch
+    row r is read when ``flag[r // s_loc]`` is nonzero. ``flag`` is a
+    float32 [M / s_loc] vector of any stride (a column of a [B, n_nodes]
+    mask, read in place)."""
+
+    flag: torch.Tensor
+    s_loc: int
+
+
+def _zero_unread(out: torch.Tensor, read: Optional[ReadFlag]) -> torch.Tensor:
+    """``out`` [M, ...] with the rows ``read`` does not read set to 0."""
+    if read is None:
+        return out
+    keep = (read.flag != 0)[:, None].expand(-1, read.s_loc).reshape(-1)
+    return torch.where(keep.reshape((-1,) + (1,) * (out.dim() - 1)), out, 0.0)
+
+
+def kde_root_plain(x, data_x, log_mask, y_scale: float,
+                   read: Optional[ReadFlag] = None) -> torch.Tensor:
+    """``lse_n(-|x_m - t_n|^2 / 2h^2 + const + log_mask_n)`` -> [M], 0 on
+    the rows ``read`` does not read."""
     inv2y, const_y = kernel_consts(x.shape[1], y_scale)
 
     def tile(xt):
         return _lse_rows(-sq_dist(xt, data_x) * inv2y + const_y
                          + log_mask[None, :])
 
-    return _chunked(tile, x.shape[0], x)
+    return _zero_unread(_chunked(tile, x.shape[0], x), read)
 
 
 def kde_cond_plain(x, p, data_x, data_p, log_mask, y_scale: float,
-                   p_scale: float) -> torch.Tensor:
-    """``lse_n(kp + ky) - lse_n(kp)`` -> [M], any feature counts."""
+                   p_scale: float,
+                   read: Optional[ReadFlag] = None) -> torch.Tensor:
+    """``lse_n(kp + ky) - lse_n(kp)`` -> [M], any feature counts; 0 on
+    the rows ``read`` does not read."""
     inv2y, const_y = kernel_consts(x.shape[1], y_scale)
     inv2p, const_p = kernel_consts(p.shape[1], p_scale)
 
@@ -160,7 +196,7 @@ def kde_cond_plain(x, p, data_x, data_p, log_mask, y_scale: float,
         kp = -sq_dist(pt, data_p) * inv2p + const_p + log_mask[None, :]
         return _lse_rows(kp + ky) - _lse_rows(kp)
 
-    return _chunked(tile, x.shape[0], x, p)
+    return _zero_unread(_chunked(tile, x.shape[0], x, p), read)
 
 
 def pick_key(gen: torch.Generator, device) -> torch.Tensor:
@@ -245,10 +281,11 @@ def inverse_cdf_pick(scores: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
 
 def kde_pick_plain(key, parents, data_p, data_x, log_mask, p_scale: float,
                    m: int, gumbel: Optional[torch.Tensor] = None,
-                   rows: RowMap = _IDENTITY):
+                   rows: RowMap = _IDENTITY, read: Optional[ReadFlag] = None):
     """Parent-weighted support pick -> picked ``data_x`` rows [m, Dx]: by
     inverse CDF on ``pick_uniforms(key, m, rows=rows)``, or the
-    Gumbel-argmax over ``gumbel`` [m, N] when given."""
+    Gumbel-argmax over ``gumbel`` [m, N] when given; 0 on the rows
+    ``read`` does not read."""
     root = parents is None or parents.shape[1] == 0
     inv2p, _ = kernel_consts(0 if root else parents.shape[1], p_scale)
     u = pick_uniforms(key, m, rows=rows) if gumbel is None else None
@@ -263,7 +300,8 @@ def kde_pick_plain(key, parents, data_p, data_x, log_mask, p_scale: float,
             return data_x[torch.argmax(scores + gumbel[r0:r1], dim=1)]
         return data_x[inverse_cdf_pick(scores, u[r0:r1])]
 
-    return torch.cat([tile(r0) for r0 in range(0, m, _CHUNK)])
+    return _zero_unread(torch.cat([tile(r0) for r0 in range(0, m, _CHUNK)]),
+                        read)
 
 
 @functools.lru_cache(maxsize=None)
@@ -272,14 +310,15 @@ def _lib() -> ctypes.CDLL:
     from ._build import load
 
     lib = load("kde")
-    lib.vbn_kde_root.argtypes = [_P, _P, _P, _I, _I, _I, _F, _F, _P, _P]
-    cond = [_P] * 5 + [_I] * 4 + [_F] * 4 + [_P, _P]
-    lib.vbn_kde_cond.argtypes = cond
-    lib.vbn_kde_cond_wide.argtypes = cond[:-2] + [_P, _P, _P]
+    rd = [_P, _L, _I]  # the read flag: pointer, stride, launch rows a row
+    lib.vbn_kde_root.argtypes = [_P] * 3 + [_I] * 3 + [_F] * 2 + rd + [_P, _P]
+    cond = [_P] * 5 + [_I] * 4 + [_F] * 4
+    lib.vbn_kde_cond.argtypes = cond + rd + [_P, _P]
+    lib.vbn_kde_cond_wide.argtypes = cond + [_P, _P, _P]
     lib.vbn_kde_cond_wide_scratch.argtypes = [_I, _I, _I]
     lib.vbn_kde_cond_wide_scratch.restype = ctypes.c_longlong
-    lib.vbn_kde_pick.argtypes = [_P] * 6 + [_I] * 4 + [_F, _L, _I, _L, _P,
-                                                       _P]
+    lib.vbn_kde_pick.argtypes = ([_P] * 6 + [_I] * 4 + [_F, _L, _I, _L] + rd
+                                 + [_P, _P])
     lib.vbn_kde_mma_probe.argtypes = [_P] * 4 + [_I, _P]  # a test hook
     for fn in (lib.vbn_kde_root, lib.vbn_kde_cond, lib.vbn_kde_cond_wide,
                lib.vbn_kde_pick, lib.vbn_kde_mma_probe):
@@ -313,6 +352,21 @@ def _support(x, data_x, log_mask, what: str):
     return m, n, dx
 
 
+def _read_args(read: Optional[ReadFlag], m: int, device, what: str):
+    """(pointer, stride, s_loc) of a launch's read flag; (None, 0, 1)
+    without one."""
+    if read is None:
+        return None, 0, 1
+    flag, s_loc = read
+    if (flag.device != device or flag.dtype != torch.float32
+            or flag.dim() != 1 or s_loc < 1 or flag.shape[0] * s_loc != m):
+        raise ValueError(
+            f"{what} read: expected a float32 [{m} / s_loc] flag on {device} "
+            f"and s_loc >= 1, got {flag.dtype} {tuple(flag.shape)} on "
+            f"{flag.device}, s_loc={s_loc}")
+    return flag.data_ptr(), flag.stride(0), int(s_loc)
+
+
 def _run(fn, label: str, device, *args) -> None:
     with torch.cuda.device(device):
         rc = fn(*args, torch.cuda.current_stream().cuda_stream)
@@ -320,11 +374,19 @@ def _run(fn, label: str, device, *args) -> None:
         raise RuntimeError(f"{label} launch failed: CUDA error {rc}")
 
 
-def kde_root(x, data_x, log_mask, y_scale: float) -> torch.Tensor:
-    """Root KDE log-sum [M] (before ``- log n_eff``). CUDA tensors launch
-    ``vbn_kde_root``; CPU tensors run ``kde_root_plain``."""
+def _count(name: str, read: Optional[ReadFlag]) -> None:
+    LAUNCHES[name] += 1
+    if read is not None:
+        LAUNCHES[name + ".flagged"] += 1
+
+
+def kde_root(x, data_x, log_mask, y_scale: float,
+             read: Optional[ReadFlag] = None) -> torch.Tensor:
+    """Root KDE log-sum [M] (before ``- log n_eff``), 0 on the rows
+    ``read`` does not read. CUDA tensors launch ``vbn_kde_root``; CPU
+    tensors run ``kde_root_plain``."""
     if not x.is_cuda:
-        return kde_root_plain(x, data_x, log_mask, y_scale)
+        return kde_root_plain(x, data_x, log_mask, y_scale, read)
     with annotate("vbn.kernel.kde_root"):
         m, n, dx = _support(x, data_x, log_mask, "kde_root")
         if dx > _DIRECT_D:
@@ -333,13 +395,15 @@ def kde_root(x, data_x, log_mask, y_scale: float) -> torch.Tensor:
         out = torch.empty((m,), dtype=torch.float32, device=x.device)
         _run(_lib().vbn_kde_root, "vbn_kde_root", x.device, x.data_ptr(),
              data_x.data_ptr(), log_mask.data_ptr(), m, n, dx, float(sy),
-             float(cy), out.data_ptr())
-        LAUNCHES["kde_root"] += 1
+             float(cy), *_read_args(read, m, x.device, "kde_root"),
+             out.data_ptr())
+        _count("kde_root", read)
         return out
 
 
 def _launch_cond(entry: str, x, p, data_x, data_p, log_mask, y_scale,
-                 p_scale, wide: bool) -> torch.Tensor:
+                 p_scale, wide: bool,
+                 read: Optional[ReadFlag] = None) -> torch.Tensor:
     m, n, dx = _support(x, data_x, log_mask, entry)
     if p.dim() != 2 or p.shape[1] < 1:
         raise ValueError(f"{entry}: expected [M, Dp] parents, Dp >= 1")
@@ -352,11 +416,12 @@ def _launch_cond(entry: str, x, p, data_x, data_p, log_mask, y_scale,
     sy, cy = direct_consts(dx, y_scale)
     sp, cp = direct_consts(dp, p_scale)
     out = torch.empty((m,), dtype=torch.float32, device=x.device)
-    extra = []
     if wide:  # its scratch: the support's fragments, records and means
         scratch = torch.empty((_lib().vbn_kde_cond_wide_scratch(n, dx, dp),),
                               dtype=torch.float32, device=x.device)
         extra = [scratch.data_ptr()]
+    else:  # the read flag
+        extra = list(_read_args(read, m, x.device, entry))
     _run(getattr(_lib(), entry), entry, x.device, x.data_ptr(), p.data_ptr(),
          data_x.data_ptr(), data_p.data_ptr(), log_mask.data_ptr(), m, n, dx,
          dp, float(sy), float(sp), float(cy), float(cp), *extra,
@@ -365,15 +430,17 @@ def _launch_cond(entry: str, x, p, data_x, data_p, log_mask, y_scale,
 
 
 def kde_cond(x, p, data_x, data_p, log_mask, y_scale: float,
-             p_scale: float) -> torch.Tensor:
-    """Conditional KDE log-density [M] for max(Dx, Dp) <= 32. CUDA tensors
-    launch ``vbn_kde_cond``; CPU tensors run ``kde_cond_plain``."""
+             p_scale: float, read: Optional[ReadFlag] = None) -> torch.Tensor:
+    """Conditional KDE log-density [M] for max(Dx, Dp) <= 32, 0 on the
+    rows ``read`` does not read. CUDA tensors launch ``vbn_kde_cond``; CPU
+    tensors run ``kde_cond_plain``."""
     if not x.is_cuda:
-        return kde_cond_plain(x, p, data_x, data_p, log_mask, y_scale, p_scale)
+        return kde_cond_plain(x, p, data_x, data_p, log_mask, y_scale, p_scale,
+                              read)
     with annotate("vbn.kernel.kde_cond"):
         out = _launch_cond("vbn_kde_cond", x, p, data_x, data_p, log_mask,
-                           y_scale, p_scale, wide=False)
-        LAUNCHES["kde_cond"] += 1
+                           y_scale, p_scale, wide=False, read=read)
+        _count("kde_cond", read)
     return out
 
 
@@ -393,14 +460,21 @@ def kde_cond_wide(x, p, data_x, data_p, log_mask, y_scale: float,
 
 def kde_pick(key, parents, data_p, data_x, log_mask, p_scale: float, m: int,
              gumbel: Optional[torch.Tensor] = None,
-             rows: RowMap = _IDENTITY) -> torch.Tensor:
+             rows: RowMap = _IDENTITY,
+             read: Optional[ReadFlag] = None) -> torch.Tensor:
     """Picked ``data_x`` rows [m, Dx] (``parents`` None for a root). CUDA
     tensors launch ``vbn_kde_pick`` (inverse CDF on uniforms from ``key``
     at the rows' global flat rows ``rows``, or the Gumbel-argmax over
-    ``gumbel`` when given); CPU tensors run ``kde_pick_plain``."""
+    ``gumbel`` when given); CPU tensors run ``kde_pick_plain``. The
+    conditional inverse-CDF pick (parents, or a root past
+    ``_ROOT_CDF_MAX`` points) gives 0 on the rows ``read`` does not read;
+    the root's and the Gumbel pick ignore ``read``."""
+    dp = 0 if parents is None else parents.shape[1]
+    if gumbel is not None or (dp == 0 and data_x.shape[0] <= _ROOT_CDF_MAX):
+        read = None
     if not data_x.is_cuda:
         return kde_pick_plain(key, parents, data_p, data_x, log_mask, p_scale,
-                              m, gumbel, rows)
+                              m, gumbel, rows, read)
     with annotate("vbn.kernel.kde_pick"):
         dev = data_x.device
         if data_x.dim() != 2 or data_x.shape[0] < 1 or data_x.shape[1] < 1:
@@ -410,7 +484,6 @@ def kde_pick(key, parents, data_p, data_x, log_mask, p_scale: float, m: int,
             raise ValueError(f"kde_pick: M={m} out of range")
         _need("kde_pick data_x", data_x, (n, dx), dev)
         _need("kde_pick log_mask", log_mask, (n,), dev)
-        dp = 0 if parents is None else parents.shape[1]
         if dp > _DIRECT_D:
             raise ValueError(f"kde_pick: Dp={dp} > {_DIRECT_D}")
         p_ptr = dp_ptr = None
@@ -430,6 +503,7 @@ def kde_pick(key, parents, data_p, data_x, log_mask, p_scale: float, m: int,
         _run(_lib().vbn_kde_pick, "vbn_kde_pick", dev, p_ptr, dp_ptr,
              data_x.data_ptr(), log_mask.data_ptr(), key_ptr, g_ptr, m, n,
              dp, dx, float(inv2p), int(rows.base), int(rows.s_loc),
-             int(rows.stride), out.data_ptr())
-        LAUNCHES["kde_pick"] += 1
+             int(rows.stride), *_read_args(read, m, dev, "kde_pick"),
+             out.data_ptr())
+        _count("kde_pick", read)
         return out

@@ -42,6 +42,7 @@ import torch
 from .kde_fused import (
     _CHUNK,
     _DIRECT_D,
+    ReadFlag,
     _chunked,
     kde_cond,
     kde_cond_wide,
@@ -65,11 +66,13 @@ def _pairwise_kernel_logits(q: torch.Tensor, data: torch.Tensor,
     return -sq * inv2s2 + const
 
 
-def _kde_log_prob(x, parents, data_x, data_p, log_mask, y_scale, p_scale):
+def _kde_log_prob(x, parents, data_x, data_p, log_mask, y_scale, p_scale,
+                  read=None):
     if parents is None or data_p.shape[-1] == 0:
         log_n_eff = torch.log(torch.clamp(torch.exp(log_mask).sum(), min=1.0))
         if x.shape[-1] <= _DIRECT_D:
-            return kde_root(x.contiguous(), data_x, log_mask, y_scale) - log_n_eff
+            return kde_root(x.contiguous(), data_x, log_mask, y_scale,
+                            read) - log_n_eff
 
         def tile_root(xt):
             log_ky = _pairwise_kernel_logits(xt, data_x, y_scale)
@@ -77,10 +80,12 @@ def _kde_log_prob(x, parents, data_x, data_p, log_mask, y_scale, p_scale):
 
         return _chunked(tile_root, x.shape[0], x) - log_n_eff
 
-    wide = max(x.shape[-1], parents.shape[-1]) > _DIRECT_D
-    fn = kde_cond_wide if wide else kde_cond
-    return fn(x.contiguous(), parents.contiguous(), data_x, data_p, log_mask,
-              y_scale, p_scale)
+    x, parents = x.contiguous(), parents.contiguous()
+    if max(x.shape[-1], parents.shape[-1]) > _DIRECT_D:
+        return kde_cond_wide(x, parents, data_x, data_p, log_mask, y_scale,
+                             p_scale)
+    return kde_cond(x, parents, data_x, data_p, log_mask, y_scale, p_scale,
+                    read)
 
 
 def _pull(w, q, data, two_inv2):
@@ -152,9 +157,13 @@ def kde_log_prob(
     log_mask: torch.Tensor,  # [N] (0 valid, very negative invalid)
     y_scale: float,
     p_scale: float,
+    read: Optional[ReadFlag] = None,
 ) -> torch.Tensor:
     """Conditional KDE log density -> [M]; differentiable in ``x`` and
-    ``parents`` through ``KDELogProb``."""
+    ``parents`` through ``KDELogProb``. ``read`` (``kde_fused.ReadFlag``):
+    the rows the caller reads; the direct forms (``kde_root``,
+    ``kde_cond``) skip the others, whose values then mean nothing; the
+    wide and chunked forms and the differentiable path score every row."""
     if torch.is_grad_enabled():
         if any(t.requires_grad for t in (data_x, data_p, log_mask)):
             raise ValueError(
@@ -164,7 +173,7 @@ def kde_log_prob(
             return KDELogProb.apply(x, parents, data_x, data_p, log_mask,
                                     y_scale, p_scale)
     return _kde_log_prob(x, parents, data_x, data_p, log_mask, y_scale,
-                         p_scale)
+                         p_scale, read)
 
 
 def kde_sample_indices(

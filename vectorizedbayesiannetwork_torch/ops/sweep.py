@@ -88,7 +88,10 @@ _THREADS = 128  # threads per block (VBN_THREADS in csrc/sweep.cu)
 LAUNCHES = {"categorical": 0, "lg": 0, "categorical_scan": 0, "lg_scan": 0,
             "cumsum": 0, "cum_index": 0, "srg": 0, "spg": 0,
             "kde_root": 0, "kde_cond": 0, "kde_cond_wide": 0, "kde_pick": 0,
-            "uniforms": 0}
+            "uniforms": 0,
+            # launches that carried a read flag (ops/kde_fused.py)
+            "kde_root.flagged": 0, "kde_cond.flagged": 0,
+            "kde_pick.flagged": 0}
 
 
 # the JAX builders' gate-log paths -> the port's
