@@ -249,7 +249,8 @@ def test_a_span_with_no_profiler_is_one_check(monkeypatch):
     assert entered == ["vbn.x", "vbn.f"]
     outer, inner = profiling.spans()
     assert outer["attrs"] == {"a": 1, "rows": 3,
-                              "builds": {"fn": 0, "tables": 0, "plans": 0}}
+                              "builds": {"fn": 0, "tables": 0, "plans": 0},
+                              "mlp_rows": 0}
     assert inner["parent"] == outer["index"] and inner["call"] == outer["call"]
 
 

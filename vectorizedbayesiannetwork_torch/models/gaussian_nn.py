@@ -8,7 +8,10 @@ params as ``opt``, a root fast path with learnable (loc, log_scale), the
 ``compute_dtype="bfloat16"`` serves through bf16 products with float32
 outputs; training stays float32, as in the JAX package.
 ``conditional_params`` is the protocol ``gaussian_exact``'s grid path and
-``core/handle.py`` read.
+``core/handle.py`` read. A served draw or log-density of a node with
+parents runs its forward inside a ``vbn.mlp.sample`` or
+``vbn.mlp.log_prob`` span and counts it in ``utils/profiling.py``'s
+``MLP``.
 
 ``update`` continues Adam from the stored ``opt`` state for ``n_steps``
 epochs on the new rows, with the standardization refreshed from them and
@@ -28,6 +31,7 @@ from ..core.base import BaseCPD, Params
 from ..core.registry import register_cpd
 from ..core.rng import normals
 from ..ops.gauss import diag_gaussian_log_prob, safe_softplus, standardize_stats
+from ..utils.profiling import MLP, annotate
 from ._mlp import check_activation, mlp_apply, mlp_init, resolve_compute_dtype
 from ._train import (
     as_rows,
@@ -202,8 +206,19 @@ class GaussianNNCPD(BaseCPD):
         return (loc_n * stats["std_y"] + stats["mean_y"],
                 scale_n * stats["std_y"])
 
+    def _served_params(self, which: str, params, parents, m: int):
+        """``_denorm_params`` of a served draw or log-density: a node with
+        parents runs its forward in a ``vbn.mlp.<which>`` span and counts
+        it in ``MLP``; a root's (loc, log_scale) runs none."""
+        if self.input_dim == 0:
+            return self._denorm_params(params, parents, m)
+        MLP["forwards"] += 1
+        MLP["rows"] += m
+        with annotate(f"vbn.mlp.{which}"):
+            return self._denorm_params(params, parents, m)
+
     def _sample_flat(self, params, gen, parents, m):
-        loc, scale = self._denorm_params(params, parents, m)
+        loc, scale = self._served_params("sample", params, parents, m)
         eps = normals(gen, m, self.output_dim, loc.device, dtype=loc.dtype)
         return loc + eps * scale
 
@@ -214,7 +229,8 @@ class GaussianNNCPD(BaseCPD):
         return resolve_compute_dtype(self.compute_dtype) is None
 
     def _log_prob_flat(self, params, x, parents):
-        loc, scale = self._denorm_params(params, parents, x.shape[0])
+        loc, scale = self._served_params("log_prob", params, parents,
+                                         x.shape[0])
         return diag_gaussian_log_prob(x, loc, scale)
 
     def conditional_params(self, params: Params, parents):

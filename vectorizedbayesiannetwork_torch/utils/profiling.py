@@ -20,12 +20,14 @@ bounded in-memory buffer (``spans()``, cleared by ``reset_spans()``):
      call id, shared by its descendants), "attrs", "index" (its own)}
 
 A span opened with no span open is a root and takes a new call id; a root
-also records in ``attrs["builds"]`` what ``BUILDS`` counted inside it. The
+also records in ``attrs["builds"]`` what ``BUILDS`` counted inside it, and
+in ``attrs["mlp_rows"]`` the rows of ``MLP`` forwards it ran. The
 served entries of ``VBN`` open one ``vbn.call`` root a call; the stages
 below it are ``vbn.normalize``, ``vbn.plan``, ``vbn.pack``,
 ``vbn.upload``, ``vbn.build``, ``vbn.tables``, ``vbn.kernel.<name>``,
-``vbn.draw``, ``vbn.sweep.<route>``, ``vbn.reduce.<path>``, ``vbn.fetch``
-and ``vbn.sync``. The buffer holds spans of one thread: the served entries
+``vbn.draw``, ``vbn.sweep.<route>``, ``vbn.mlp.<sample|log_prob>`` (a
+neural Gaussian CPD's forward), ``vbn.reduce.<path>``, ``vbn.fetch`` and
+``vbn.sync``. The buffer holds spans of one thread: the served entries
 are not re-entrant across threads. Spans past ``MAX_SPANS`` are not kept
 (``spans_dropped()`` counts them), but still reach the profiler.
 
@@ -40,9 +42,13 @@ both.
 Counters. ``counters()`` is one snapshot of every counter of the port,
 ``reset_counters()`` zeroes them: ``LAUNCHES`` and ``TRACES``
 (``ops/sweep.py``), ``ROUTES`` and ``GROUPS`` (``inference/_sweep.py``),
-``CHAINS`` (``sampling/chains.py``) and ``BUILDS`` (here: raw kernel
+``CHAINS`` (``sampling/chains.py``), ``BUILDS`` (here: raw kernel
 functions built, ``fn``; per-call table builds, ``tables``; plan-cache
-misses, ``plans``). Counters are plain integer bumps, always on.
+misses, ``plans``) and ``MLP`` (here: the served MLP forwards of the
+neural Gaussian CPD, ``forwards``, and the rows they ran, ``rows``; a
+level group that the static sweep runs under ``torch.func.vmap`` runs the
+forward's Python once, so counts as one node's forward). Counters are
+plain integer bumps, always on.
 """
 
 from __future__ import annotations
@@ -64,6 +70,7 @@ _DEFAULT_TRACE_DIR = str(DEFAULT_DIR.parent / "trace")  # build/trace
 MAX_SPANS = 1 << 16  # records kept; later spans still reach the profiler
 
 BUILDS = {"fn": 0, "tables": 0, "plans": 0}
+MLP = {"forwards": 0, "rows": 0}
 
 _recording = torch.autograd._profiler_enabled
 _SPANS: List[Dict] = []
@@ -106,7 +113,7 @@ _OFF = _Off()
 
 
 class _Span:
-    __slots__ = ("rec", "_rf", "_builds")
+    __slots__ = ("rec", "_rf", "_builds", "_mlp_rows")
 
     def __init__(self, name: str, attrs: Dict) -> None:
         self.rec = {"name": name, "start_ns": 0, "end_ns": 0, "parent": -1,
@@ -123,6 +130,7 @@ class _Span:
         else:
             rec["call"] = next(_call_ids)
             self._builds = dict(BUILDS)
+            self._mlp_rows = MLP["rows"]
         if len(_SPANS) < MAX_SPANS:
             rec["index"] = len(_SPANS)
             _SPANS.append(rec)
@@ -139,6 +147,7 @@ class _Span:
         if not _OPEN:
             rec["attrs"]["builds"] = {k: v - self._builds[k]
                                       for k, v in BUILDS.items()}
+            rec["attrs"]["mlp_rows"] = MLP["rows"] - self._mlp_rows
         self._rf.__exit__(*exc)
         return False
 
@@ -206,7 +215,8 @@ def _registered() -> Dict[str, Dict]:
     from ..sampling.chains import CHAINS
 
     return {"LAUNCHES": LAUNCHES, "TRACES": TRACES, "ROUTES": ROUTES,
-            "GROUPS": GROUPS, "CHAINS": CHAINS, "BUILDS": BUILDS}
+            "GROUPS": GROUPS, "CHAINS": CHAINS, "BUILDS": BUILDS,
+            "MLP": MLP}
 
 
 def counters() -> Dict[str, Dict[str, int]]:
