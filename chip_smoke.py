@@ -337,8 +337,27 @@ Then the row stream of the torch-op sweeps (before phase 26):
     picks 0.01), calls/s in turns (kernel, torch, torch, kernel) and a
     profiled call of each.
 
-Prints a JSON line of kernel results (the twelve kernels and
-``vbn_uniforms``, its launches in (t3) and phase 28 as ``launches_t3``
+30. mlp_fused (right after the neural phase): ``vbn_gauss_mlp``
+    (``csrc/mlp.cu``), a ``gaussian_nn`` node's whole served forward in
+    one launch, against the plain route (``_denorm_params`` ->
+    ``mlp_apply``) on the card at 2^20 and 96 x 2^20 rows (the gnn cell's
+    call) for 1, 2 and 3 parents, seeded random weights and statistics:
+    loc within 1e-5 of ``std_y``, scale within 1e-5 relative; at 2^20
+    also with the softplus inputs past its threshold of 20, and against
+    its plain version (``gauss_mlp_plain``) at the same limits; a served
+    draw and log-density launching it twice (``LAUNCHES["gauss_mlp"]``)
+    and counted in ``MLP["fused"]`` and ``MLP["fused_rows"]``; the row's
+    launches those of (b)'s served batch (``neural_gauss8``: two a
+    ``gaussian_nn`` node with parents), and phase 28's star counts them
+    ungrouped (one a sibling) and grouped (none: the vmapped forward takes
+    the plain route); at 96 x 2^20 the kernel's ms (CUDA events, a
+    warm-up then 5 runs) beside the plain route's (``library_ms``), the
+    plain version's over the whole batch in chunks, and the bound by
+    ``vbnbench``'s count of the forward's operations at the published
+    peaks.
+
+Prints a JSON line of kernel results (the twelve kernels,
+``vbn_uniforms`` and ``vbn_gauss_mlp``, its launches in (t3) and phase 28 as ``launches_t3``
 and ``launches_level_group_<plan>``; rows 9, 10 and
 12 with their launches in (l2) and (r2) as ``launches_l2`` and
 ``launches_r2``, rows 1 and 2 with theirs in (t1) and (t2) as
@@ -3302,6 +3321,9 @@ def neural_gauss8(vbn_cls, defaults, fits):
         "rff_gaussian": {**defaults.cpd("rff_gaussian"), "n_features": 256},
     }
     child = next(n for n in gbn.nodes if gbn.parents[n])
+    # the dynamic sweep runs each node's draw and log-density forward once a
+    # call: vbn_gauss_mlp launches twice a gaussian_nn node with parents
+    mlp = 2 * sum(1 for n in gbn.nodes if gbn.parents[n])
     for fam, conf in confs.items():
         vbn = vbn_cls(parents, seed=0)
         vbn.set_learning_method("node_wise",
@@ -3314,7 +3336,8 @@ def neural_gauss8(vbn_cls, defaults, fits):
         torch.cuda.reset_peak_memory_stats()
         reset_launches()
         mom, spans = serve()
-        launches = read_launches({"uniforms": SOME})
+        launches = read_launches(
+            {"uniforms": SOME, "gauss_mlp": mlp if fam == "gaussian_nn" else 0})
         mem = torch.cuda.max_memory_allocated()
         if mom.shape != (N_DYN, 2) or not np.isfinite(mom).all():
             raise AssertionError(f"(b) {fam} moments rows bad")
@@ -3331,6 +3354,7 @@ def neural_gauss8(vbn_cls, defaults, fits):
         if fam != "gaussian_nn":
             continue
         KEPT["b_gaussian_nn"] = (vbn, qd)
+        KEPT["b_gauss_mlp_launches"] = launches["gauss_mlp"]
         launches_per_step(f"b gaussian_nn {child}", vbn.nodes[child],
                           np.stack([data[p] for p in gbn.parents[child]], 1),
                           data[child], DYN_FIT)
@@ -5058,7 +5082,7 @@ def level_group_star(vbn_cls, defaults):
     return vbn, time.perf_counter() - t0
 
 
-def level_group_case(tag, vbn, serve, b, check):
+def level_group_case(tag, vbn, serve, b, check, mlp=None):
     """One static plan under ``VBN_LEVEL_GROUP`` never and auto in turns
     (never, auto, auto, never): each turn's queries/s (best of two
     batches), ``vbn_uniforms`` launches a batch and the level groups
@@ -5067,7 +5091,10 @@ def level_group_case(tag, vbn, serve, b, check):
     against ungrouped at the JAX grouping test's tolerances (samples rtol
     1e-4, atol 1e-4; weights rtol 1e-4, atol 1e-5); and ``check(w, s)``,
     the cell's own limit, on the grouped answer. A grouped batch launches
-    one ``vbn_uniforms`` a group where ungrouped launches one a node."""
+    one ``vbn_uniforms`` a group where ungrouped launches one a node;
+    ``mlp`` gives each mode's ``vbn_gauss_mlp`` launches a batch (none
+    where it is not given: a vmapped group's forward takes the plain
+    route)."""
     import os
 
     import torch
@@ -5075,7 +5102,8 @@ def level_group_case(tag, vbn, serve, b, check):
     from vectorizedbayesiannetwork_torch.inference import _sweep
 
     rep = {"workload": tag, "B": b, "qps": {"never": [], "auto": []},
-           "uniforms_launches": {}, "groups": {}, "profile": {}}
+           "uniforms_launches": {}, "gauss_mlp_launches": {}, "groups": {},
+           "profile": {}}
     answers = {}
     try:
         for i, mode in enumerate(LG_TURNS):
@@ -5091,8 +5119,10 @@ def level_group_case(tag, vbn, serve, b, check):
                 best = max(best, b / (time.perf_counter() - t0))
             rep["qps"][mode].append(best)
             if i < 2:
-                rep["uniforms_launches"][mode] = read_launches(
-                    {"uniforms": SOME})["uniforms"]
+                got = read_launches({"uniforms": SOME,
+                                     "gauss_mlp": (mlp or {}).get(mode, 0)})
+                rep["uniforms_launches"][mode] = got["uniforms"]
+                rep["gauss_mlp_launches"][mode] = got["gauss_mlp"]
                 rep["groups"][mode] = dict(_sweep.GROUPS)
                 rep["profile"][mode] = profile_batch(serve, (), top=4)
                 vbn._keys.set_state(700)
@@ -5161,9 +5191,10 @@ def serve_level_group(vbn_cls, defaults):
             raise AssertionError(f"star: t | z means {mean}")
         return {"t_mean_rises_with_z": True}
 
+    # ungrouped, each sibling's draw is one vbn_gauss_mlp launch
     out = {"star": level_group_case("star gaussian_nn LW", star,
                                     ServedQuery(star, zq, moments), B_NN,
-                                    star_check)}
+                                    star_check, {"never": N_STAR, "auto": 0})}
 
     a, qa, ref = KEPT["a_flagship"]
     a.set_inference_method("importance_sampling", n_samples=S_NN_IS)
@@ -6285,7 +6316,8 @@ SASS_KERNELS = {"sweep": ("cat_sweep_kernel", "lg_sweep_kernel"),
                 "sweep_scan": ("cat_scan_kernel", "lg_scan_kernel"),
                 "resample": ("cumsum_tile_kernel", "cumsum_kernel",
                              "merge_kernel"),
-                "kde": ("kde_direct_kernel", "kde_wide_kernel")}
+                "kde": ("kde_direct_kernel", "kde_wide_kernel"),
+                "mlp": ("gauss_mlp_kernel",)}
 SASS_OPS = ("MUFU", "IMAD", "LOP3", "FFMA", "FMUL", "FADD", "LDS", "STS",
             "LDG", "BRA", "CALL")
 
@@ -6318,6 +6350,155 @@ def sass_report(lib_path):
             op = next((o for o in SASS_OPS if m.group(1).startswith(o)), None)
             if op:
                 cur[op] += 1
+    return out
+
+
+MLP_SIZES = (1 << 20, 96 << 20)  # rows: one query at S=2^20; the gnn cell's call
+MLP_PLAIN_ROWS = 1 << 22  # rows a call of the plain version
+MLP_MIN_SCALE = 1e-4  # the configuration's (defaults.cpd("gaussian_nn"))
+
+
+def mlp_node(dp, seed, head_shift=0.0):
+    """A ``gaussian_nn`` node of widths (32, 32) on the card, its weights
+    drawn as a fit starts (``mlp_init``) and its statistics at random;
+    ``head_shift`` moves the softplus input's bias."""
+    import torch
+
+    from vectorizedbayesiannetwork_torch.models.gaussian_nn import GaussianNNCPD
+
+    gen = torch.Generator().manual_seed(seed)
+    cpd = GaussianNNCPD(dp, 1, hidden_dims=(32, 32), min_scale=MLP_MIN_SCALE)
+    params = cpd.init("cpu", gen)
+    params["stats"] = {
+        "mean_x": torch.randn(dp, generator=gen),
+        "std_x": 0.5 + torch.rand(dp, generator=gen),
+        "mean_y": torch.randn(1, generator=gen),
+        "std_y": 0.5 + torch.rand(1, generator=gen),
+    }
+    params["net"]["layers"][-1]["b"][1] += head_shift
+    return cpd, params_to(params, lambda t: t.cuda())
+
+
+def mlp_gaps(got, want, std_y):
+    """(loc gap in units of ``std_y``, scale gap relative)."""
+    (gl, gs), (wl, ws) = got, want
+    return (float((gl - wl).abs().max()) / std_y,
+            float(((gs - ws).abs() / ws).max()))
+
+
+def mlp_cost(dp, m):
+    """(operations, bytes, SFU operations) of ``m`` rows of a forward, by
+    ``vbnbench/work/gaussian_nn.py``'s count: each parent read once, loc
+    and scale written once, the weights read once."""
+    from vbnbench.work import gaussian_nn as work
+
+    f = work.forward(dp, [32, 32])
+    nbytes = 4 * (m * (dp + 2) + work.weights(dp, [32, 32]) + 2 * dp + 2)
+    return f["ops"] * m, nbytes, f["sfu"] * m
+
+
+def check_mlp_fused(launches):
+    """Phase mlp_fused (see the module note): a kernel line's row."""
+    import torch
+
+    from vectorizedbayesiannetwork_torch.ops import mlp_fused
+    from vectorizedbayesiannetwork_torch.utils.profiling import MLP
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    limit, worst, timing = 1e-5, {}, {}
+    for dp in (1, 2, 3):
+        for m in MLP_SIZES:
+            shifts = (0.0, 30.0) if m == MLP_SIZES[0] else (0.0,)
+            for shift in shifts:
+                cpd, params = mlp_node(dp, 700 + dp, shift)
+                net, stats = params["net"], params["stats"]
+                std_y = float(stats["std_y"])
+                pa = 2.0 * torch.randn((m, dp), device="cuda", generator=gen)
+                assert mlp_fused.refusal(pa, net, stats, "relu", "float32") is None
+                got = mlp_fused.gauss_mlp(pa, net, stats, MLP_MIN_SCALE)
+                with torch.no_grad():
+                    want = cpd._denorm_params(params, pa, m)
+                torch.cuda.synchronize()
+                gaps = mlp_gaps(got, want, std_y)
+                rec = {"dp": dp, "rows": m, "head_shift": shift,
+                       "loc_gap": gaps[0], "scale_gap": gaps[1]}
+                if m == MLP_SIZES[0]:
+                    plain = mlp_fused.gauss_mlp_plain(pa, net, stats,
+                                                      MLP_MIN_SCALE)
+                    rec["plain_loc_gap"], rec["plain_scale_gap"] = mlp_gaps(
+                        got, plain, std_y)
+                    rec["plain_equal_rows"] = float(
+                        ((got[0] == plain[0]) & (got[1] == plain[1]))
+                        .float().mean())
+                log("mlp_fused_check", **rec, limit=limit)
+                held = [k for k in rec if k.endswith("_gap")]
+                if any(rec[k] > limit for k in held):
+                    raise AssertionError(f"vbn_gauss_mlp past {limit}: {rec}")
+                for k in held:
+                    worst[k] = max(worst.get(k, 0.0), rec[k])
+                del got, want
+                if m == MLP_SIZES[1] and shift == 0.0:
+                    timing[dp] = mlp_timing(cpd, params, pa)
+                del pa
+                torch.cuda.empty_cache()
+
+    # the served primitives launch the kernel, and it counts its forwards
+    cpd, params = mlp_node(3, 703)
+    m = MLP_SIZES[0]
+    pa = torch.randn((m, 3), device="cuda", generator=gen)
+    before = dict(MLP)
+    reset_launches()
+    x = cpd._sample_flat(params, gen, pa, m)
+    cpd._log_prob_flat(params, x, pa)
+    counted = {k: MLP[k] - before[k] for k in MLP}
+    counted["launches"] = read_launches({"gauss_mlp": 2})["gauss_mlp"]
+    log("mlp_fused_counters", **counted)
+    if counted != {"forwards": 2, "rows": 2 * m, "fused": 2,
+                   "fused_rows": 2 * m, "launches": 2}:
+        raise AssertionError(f"the served forward missed the kernel: {counted}")
+
+    t = timing[3]
+    return kernel_row(
+        "vbn_gauss_mlp", "none: the JAX package leaves the MLP to XLA "
+        "(models/gaussian_nn.py, models/_mlp.py)", launches,
+        max(worst.values()), t["ms"], t["plain_ms"], mlp_cost(3, MLP_SIZES[1]),
+        source="vectorizedbayesiannetwork_torch/csrc/mlp.cu",
+        library_ms=t["library_ms"]) | {
+            "by_dp": {dp: {**v, "bound_ms": bound(mlp_cost(dp, MLP_SIZES[1]))[0]}
+                      for dp, v in timing.items()},
+            "max_gaps": worst}
+
+
+def mlp_timing(cpd, params, pa):
+    """ms of the kernel and of the plain route (CUDA events, a warm-up then
+    5 runs each), and of the plain version over the whole batch,
+    MLP_PLAIN_ROWS rows a call."""
+    import torch
+
+    from vectorizedbayesiannetwork_torch.ops import mlp_fused
+
+    net, stats = params["net"], params["stats"]
+    m = pa.shape[0]
+    out = {"rows": m}
+    with torch.no_grad():
+        for key, fn in (
+                ("ms", lambda: mlp_fused.gauss_mlp(pa, net, stats,
+                                                   MLP_MIN_SCALE)),
+                ("library_ms", lambda: cpd._denorm_params(params, pa, m))):
+            out[key] = cuda_ms(fn, 5)
+            torch.cuda.empty_cache()
+
+        def plain(r0, r1):
+            mlp_fused.gauss_mlp_plain(pa[r0:r1], net, stats, MLP_MIN_SCALE)
+
+        def whole():
+            for r in range(0, m, MLP_PLAIN_ROWS):
+                plain(r, r + MLP_PLAIN_ROWS)
+
+        out["plain_ms"] = once_ms(whole, lambda: plain(0, MLP_PLAIN_ROWS))[0]
+    torch.cuda.empty_cache()
+    log("mlp_fused_timing", dp=pa.shape[1], **out)
     return out
 
 
@@ -6392,6 +6573,7 @@ def main(argv) -> int:
     kernels += serve_kde(VBN, defaults)
     serve_exact(VBN, defaults, bn, asia_vbn, lg_vbn)
     neural, sm = serve_neural(VBN, defaults, bn, asia_vbn)
+    mlp_row = check_mlp_fused(KEPT["b_gauss_mlp_launches"])
     level = serve_level_group(VBN, defaults)
     sampling = serve_sampling(VBN, defaults, sm)
     serve_updates(VBN, defaults)
@@ -6415,6 +6597,7 @@ def main(argv) -> int:
         k: v["uniforms"] for k, v in row0.items() if "uniforms" in v}
     uniforms["launches_m2"] = mesh["m2"].get("uniforms", 0)
     kernels.append(uniforms)
+    kernels.append(mlp_row)
     for row in kernels:
         key = {"vbn_cumsum": "cumsum", "vbn_srg": "srg"}.get(row["name"])
         if key:

@@ -1,7 +1,8 @@
 """The port's CUDA kernels (the unrolled sweeps of ``ops/sweep.py``, the
 scan sweeps of ``ops/sweep_scan.py``, the resampling kernels of
-``ops/scan.py`` and ``ops/resample_merge.py``, and the KDE kernels of
-``ops/kde_fused.py``) against their plain PyTorch versions.
+``ops/scan.py`` and ``ops/resample_merge.py``, the KDE kernels of
+``ops/kde_fused.py`` and ``gaussian_nn``'s forward of ``ops/mlp_fused.py``)
+against their plain PyTorch versions.
 
 These tests need a CUDA card: each one skips here without one (decided in
 a fixture, not at import). This file imports neither JAX nor pandas, so it
@@ -21,7 +22,10 @@ hold within 1e-4 (the JAX kernel tests' tolerance for the exact float32
 forms) on supports with an unaligned, masked tail; the picks are exact on
 an external Gumbel field, and on the served inverse-CDF route agree with
 the plain version on at least 99.99 % of 2^20 rows (the two sum in other
-orders), any other row a neighbour in the walk.
+orders), any other row a neighbour in the walk. The fused MLP forward
+holds the plain route (``_denorm_params``) and its own plain version within
+1e-5 (loc of ``std_y``, scale relative), the softplus inputs on both sides
+of its threshold.
 """
 
 import numpy as np
@@ -1273,7 +1277,8 @@ def test_exact_engines_on_the_card_match_the_cpu(asia_vbn, lg_vbn, method,
 
 
 # ---------------------------------------------------------------------------
-# Neural CPDs on the card (torch products, no hand kernel of their own)
+# Neural CPDs on the card (torch products; gaussian_nn's served forward on
+# ops/mlp_fused.py's kernel)
 # ---------------------------------------------------------------------------
 
 NN_FIT = {"epochs": 5, "batch_size": 256, "lr": 1e-2}
@@ -1302,8 +1307,12 @@ def test_neural_cpd_on_the_card_matches_the_cpu(card, family, tmp_path):
     """A port fit on the card, its params moved to the CPU: log-densities
     and the protocol methods within 1e-5 of their scale in float32 (no
     TF32), and bf16 products on both sides within the JAX package's bf16
-    tolerance (rtol 0.05, atol 0.15)."""
+    tolerance (rtol 0.05, atol 0.15). ``gaussian_nn``'s float32
+    log-density launches ``vbn_gauss_mlp`` once and counts it in ``MLP``;
+    no other family, and no bf16 product, launches it."""
     import copy
+
+    from vectorizedbayesiannetwork_torch.utils.profiling import MLP
 
     torch.backends.cuda.matmul.allow_tf32 = False
     data = _nn_rows(family)
@@ -1328,7 +1337,11 @@ def test_neural_cpd_on_the_card_matches_the_cpu(card, family, tmp_path):
                 out.update({f"{name}{i}": r for i, r in enumerate(res)})
         return out
 
+    before = (sweep.LAUNCHES["gauss_mlp"], MLP["fused"], MLP["fused_rows"])
     got = methods(cpd, params, par.to(card), x.to(card))
+    fused = family == "gaussian_nn"
+    assert (sweep.LAUNCHES["gauss_mlp"], MLP["fused"], MLP["fused_rows"]) == (
+        before[0] + fused, before[1] + fused, before[2] + fused * x.shape[0])
     want = methods(cpd, cpu_params, par, x)
     for k, w in want.items():
         scale = float(w.abs().max())
@@ -1336,9 +1349,53 @@ def test_neural_cpd_on_the_card_matches_the_cpu(card, family, tmp_path):
     if hasattr(cpd, "compute_dtype"):
         bf = copy.copy(cpd)
         bf.compute_dtype = "bfloat16"
+        before = sweep.LAUNCHES["gauss_mlp"]
         torch.testing.assert_close(
             bf._log_prob_flat(params, x.to(card), par.to(card)).cpu(),
             bf._log_prob_flat(cpu_params, x, par), rtol=0.05, atol=0.15)
+        assert sweep.LAUNCHES["gauss_mlp"] == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("side", ["below", "above"])
+@pytest.mark.parametrize("dp", [1, 2, 3, 4])
+def test_gauss_mlp_holds_the_plain_route(card, dp, side):
+    """``vbn_gauss_mlp`` at 1-4 parents against ``_denorm_params`` (the
+    plain route, float32 without TF32) and against ``gauss_mlp_plain``:
+    loc within 1e-5 of ``std_y``, scale within 1e-5 relative, with the
+    softplus inputs all below or all above its threshold of 20; one launch
+    a call."""
+    from vectorizedbayesiannetwork_torch.models._mlp import mlp_apply
+    from vectorizedbayesiannetwork_torch.models.gaussian_nn import GaussianNNCPD
+    from vectorizedbayesiannetwork_torch.ops import mlp_fused
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator().manual_seed(90 + dp)
+    cpd = GaussianNNCPD(dp, 1, hidden_dims=(32, 32), min_scale=1e-4)
+    params = cpd.init("cpu", gen)
+    params["stats"] = {"mean_x": torch.randn(dp, generator=gen),
+                       "std_x": 0.5 + torch.rand(dp, generator=gen),
+                       "mean_y": torch.randn(1, generator=gen),
+                       "std_y": 0.5 + torch.rand(1, generator=gen)}
+    params["net"]["layers"][-1]["b"][1] += 0.0 if side == "below" else 30.0
+    params = {"net": {"layers": [{k: v.to(card) for k, v in layer.items()}
+                                 for layer in params["net"]["layers"]]},
+              "stats": {k: v.to(card) for k, v in params["stats"].items()}}
+    net, stats = params["net"], params["stats"]
+    m = (1 << 16) + 77  # a tail tile
+    pa = 2.0 * torch.randn((m, dp), generator=gen).to(card)
+    z = mlp_apply(net, (pa - stats["mean_x"]) / stats["std_x"], "relu")[:, 1]
+    assert bool((z < 20).all() if side == "below" else (z > 20).all())
+    assert mlp_fused.refusal(pa, net, stats, "relu", "float32") is None
+    before = sweep.LAUNCHES["gauss_mlp"]
+    got = mlp_fused.gauss_mlp(pa, net, stats, 1e-4)
+    torch.cuda.synchronize()
+    assert sweep.LAUNCHES["gauss_mlp"] == before + 1
+    std_y = float(stats["std_y"])
+    for want in (cpd._denorm_params(params, pa, m),
+                 mlp_fused.gauss_mlp_plain(pa, net, stats, 1e-4)):
+        assert float((got[0] - want[0]).abs().max()) <= 1e-5 * std_y
+        assert float(((got[1] - want[1]).abs() / want[1]).max()) <= 1e-5
 
 
 @pytest.mark.cuda

@@ -409,7 +409,8 @@ def test_the_mlp_counter_zeroes_with_the_others(gnn):
     got = profiling.counters()["MLP"]
     assert got["forwards"] > 0 and got["rows"] > 0
     profiling.reset_counters()
-    assert profiling.counters()["MLP"] == {"forwards": 0, "rows": 0}
+    assert profiling.counters()["MLP"] == {"forwards": 0, "rows": 0,
+                                           "fused": 0, "fused_rows": 0}
 
 
 def test_the_mlp_spans_leave_the_rows_bit_for_bit(gnn, empty_spans):
@@ -583,3 +584,30 @@ def test_the_mlp_readers(gnn, empty_spans, monkeypatch, port):
             [{"target": "x0", "evidence": {"x2": [[0.5]]}}],
             dynamic_masks=True, pad_bucket=1)
     assert rows.read(ctx) is None and ms.read(ctx) is None
+
+
+@pytest.mark.parametrize("call", ["gnn", "kde", "older"])
+def test_the_fused_share_reader(gnn, empty_spans, call):
+    """``mlp_fused_share`` reads the roots' ``mlp_fused_rows`` over their
+    ``mlp_rows``: 0 on a CPU gnn call (the plain route serves it), None on
+    a KDE call (no MLP rows) and on a port whose roots record no
+    ``mlp_fused_rows``."""
+    share = registry.metric_reader("mlp_fused_share")
+    if call == "kde":
+        k = _kde()
+        k.set_inference_method("likelihood_weighting", n_samples=64,
+                               dynamic_masks=True)
+        profiling.reset_spans()
+        with profile(activities=[ProfilerActivity.CPU]):
+            k.infer_posterior_moments(
+                [{"target": "x0", "evidence": {"x2": [[0.5]]}}],
+                dynamic_masks=True, pad_bucket=1)
+        assert share.read({"calls": [None]}) is None
+        return
+    ctx = _traced(gnn, QUERIES[:4], 256)
+    if call == "older":
+        for r in profiling.spans():
+            r["attrs"].pop("mlp_fused_rows", None)
+        assert share.read(ctx) is None
+        return
+    assert share.read(ctx) == 0.0

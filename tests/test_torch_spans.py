@@ -250,7 +250,7 @@ def test_a_span_with_no_profiler_is_one_check(monkeypatch):
     outer, inner = profiling.spans()
     assert outer["attrs"] == {"a": 1, "rows": 3,
                               "builds": {"fn": 0, "tables": 0, "plans": 0},
-                              "mlp_rows": 0}
+                              "mlp_rows": 0, "mlp_fused_rows": 0}
     assert inner["parent"] == outer["index"] and inner["call"] == outer["call"]
 
 

@@ -11,7 +11,9 @@ outputs; training stays float32, as in the JAX package.
 ``core/handle.py`` read. A served draw or log-density of a node with
 parents runs its forward inside a ``vbn.mlp.sample`` or
 ``vbn.mlp.log_prob`` span and counts it in ``utils/profiling.py``'s
-``MLP``.
+``MLP``; on the card, where ``ops/mlp_fused.py::refusal`` lets it, the
+forward is one ``vbn_gauss_mlp`` launch (``csrc/mlp.cu``), also counted
+in ``MLP["fused"]`` and ``MLP["fused_rows"]``.
 
 ``update`` continues Adam from the stored ``opt`` state for ``n_steps``
 epochs on the new rows, with the standardization refreshed from them and
@@ -30,6 +32,7 @@ import torch
 from ..core.base import BaseCPD, Params
 from ..core.registry import register_cpd
 from ..core.rng import normals
+from ..ops import mlp_fused
 from ..ops.gauss import diag_gaussian_log_prob, safe_softplus, standardize_stats
 from ..utils.profiling import MLP, annotate
 from ._mlp import check_activation, mlp_apply, mlp_init, resolve_compute_dtype
@@ -209,12 +212,18 @@ class GaussianNNCPD(BaseCPD):
     def _served_params(self, which: str, params, parents, m: int):
         """``_denorm_params`` of a served draw or log-density: a node with
         parents runs its forward in a ``vbn.mlp.<which>`` span and counts
-        it in ``MLP``; a root's (loc, log_scale) runs none."""
+        it in ``MLP``, on ``vbn_gauss_mlp`` where ``mlp_fused.refusal``
+        finds nothing against it; a root's (loc, log_scale) runs none."""
         if self.input_dim == 0:
             return self._denorm_params(params, parents, m)
         MLP["forwards"] += 1
         MLP["rows"] += m
         with annotate(f"vbn.mlp.{which}"):
+            net, stats = params["net"], params["stats"]
+            if mlp_fused.refusal(parents, net, stats, self.activation,
+                                 self.compute_dtype) is None:
+                return mlp_fused.gauss_mlp(parents.contiguous(), net, stats,
+                                           self.min_scale)
             return self._denorm_params(params, parents, m)
 
     def _sample_flat(self, params, gen, parents, m):

@@ -26,7 +26,7 @@ from ..core.cache import DEFAULT_DIR as BUILD_DIR  # the default location
 from ..core.cache import kernel_build_dir
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("sweep", "sweep_scan", "resample", "kde", "rng")
+SOURCES = ("sweep", "sweep_scan", "resample", "kde", "rng", "mlp")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -83,12 +83,13 @@ _THREADS = 128  # threads per block (VBN_THREADS in csrc/sweep.cu)
 
 # Kernel launches by wrapper; the scan kernels (ops/sweep_scan.py), the
 # resampling kernels (ops/scan.py, ops/resample_merge.py) and the KDE kernels
-# (ops/kde_fused.py) and the row stream's (ops/rng.py) count here too, so
-# one reset covers every kernel of a served batch.
+# (ops/kde_fused.py), the row stream's (ops/rng.py) and the neural Gaussian
+# CPD's forward (ops/mlp_fused.py) count here too, so one reset covers every
+# kernel of a served batch.
 LAUNCHES = {"categorical": 0, "lg": 0, "categorical_scan": 0, "lg_scan": 0,
             "cumsum": 0, "cum_index": 0, "srg": 0, "spg": 0,
             "kde_root": 0, "kde_cond": 0, "kde_cond_wide": 0, "kde_pick": 0,
-            "uniforms": 0,
+            "uniforms": 0, "gauss_mlp": 0,
             # launches that carried a read flag (ops/kde_fused.py)
             "kde_root.flagged": 0, "kde_cond.flagged": 0,
             "kde_pick.flagged": 0}

@@ -20,8 +20,9 @@ bounded in-memory buffer (``spans()``, cleared by ``reset_spans()``):
      call id, shared by its descendants), "attrs", "index" (its own)}
 
 A span opened with no span open is a root and takes a new call id; a root
-also records in ``attrs["builds"]`` what ``BUILDS`` counted inside it, and
-in ``attrs["mlp_rows"]`` the rows of ``MLP`` forwards it ran. The
+also records in ``attrs["builds"]`` what ``BUILDS`` counted inside it, in
+``attrs["mlp_rows"]`` the rows of ``MLP`` forwards it ran, and in
+``attrs["mlp_fused_rows"]`` those of them that ``vbn_gauss_mlp`` ran. The
 served entries of ``VBN`` open one ``vbn.call`` root a call; the stages
 below it are ``vbn.normalize``, ``vbn.plan``, ``vbn.pack``,
 ``vbn.upload``, ``vbn.build``, ``vbn.tables``, ``vbn.kernel.<name>``,
@@ -45,9 +46,11 @@ Counters. ``counters()`` is one snapshot of every counter of the port,
 ``CHAINS`` (``sampling/chains.py``), ``BUILDS`` (here: raw kernel
 functions built, ``fn``; per-call table builds, ``tables``; plan-cache
 misses, ``plans``) and ``MLP`` (here: the served MLP forwards of the
-neural Gaussian CPD, ``forwards``, and the rows they ran, ``rows``; a
-level group that the static sweep runs under ``torch.func.vmap`` runs the
-forward's Python once, so counts as one node's forward). Counters are
+neural Gaussian CPD, ``forwards``, and the rows they ran, ``rows``; of
+them the forwards that the fused kernel ``vbn_gauss_mlp`` served,
+``fused``, and their rows, ``fused_rows``; a level group that the static
+sweep runs under ``torch.func.vmap`` runs the forward's Python once, so
+counts as one node's forward). Counters are
 plain integer bumps, always on.
 """
 
@@ -70,7 +73,7 @@ _DEFAULT_TRACE_DIR = str(DEFAULT_DIR.parent / "trace")  # build/trace
 MAX_SPANS = 1 << 16  # records kept; later spans still reach the profiler
 
 BUILDS = {"fn": 0, "tables": 0, "plans": 0}
-MLP = {"forwards": 0, "rows": 0}
+MLP = {"forwards": 0, "rows": 0, "fused": 0, "fused_rows": 0}
 
 _recording = torch.autograd._profiler_enabled
 _SPANS: List[Dict] = []
@@ -113,7 +116,7 @@ _OFF = _Off()
 
 
 class _Span:
-    __slots__ = ("rec", "_rf", "_builds", "_mlp_rows")
+    __slots__ = ("rec", "_rf", "_builds", "_mlp_rows", "_mlp_fused_rows")
 
     def __init__(self, name: str, attrs: Dict) -> None:
         self.rec = {"name": name, "start_ns": 0, "end_ns": 0, "parent": -1,
@@ -131,6 +134,7 @@ class _Span:
             rec["call"] = next(_call_ids)
             self._builds = dict(BUILDS)
             self._mlp_rows = MLP["rows"]
+            self._mlp_fused_rows = MLP["fused_rows"]
         if len(_SPANS) < MAX_SPANS:
             rec["index"] = len(_SPANS)
             _SPANS.append(rec)
@@ -148,6 +152,8 @@ class _Span:
             rec["attrs"]["builds"] = {k: v - self._builds[k]
                                       for k, v in BUILDS.items()}
             rec["attrs"]["mlp_rows"] = MLP["rows"] - self._mlp_rows
+            rec["attrs"]["mlp_fused_rows"] = (MLP["fused_rows"]
+                                              - self._mlp_fused_rows)
         self._rf.__exit__(*exc)
         return False
 
