@@ -721,9 +721,9 @@ def serve_main_path(bn, asia_vbn, lg_vbn):
     lg_at = lg_vbn._keys.state()
     mom, _ = lg_vbn.infer_posterior_moments([ql])
     path_lg = lg_vbn._last_summary_path
-    from vectorizedbayesiannetwork_torch.ops import sweep
+    from vectorizedbayesiannetwork_torch.ops._launch import LAUNCHES
 
-    launches = dict(sweep.LAUNCHES)
+    launches = dict(LAUNCHES)
     log("main_path", launches=launches, path_asia=path_asia, path_lg=path_lg)
     if launches["categorical"] < 1 or launches["lg"] < 1:
         raise AssertionError(f"main path skipped a kernel: {launches}")
@@ -979,10 +979,10 @@ def end_to_end_qps(serve, batch):
 
 
 def reset_launches():
-    from vectorizedbayesiannetwork_torch.ops import sweep
+    from vectorizedbayesiannetwork_torch.ops._launch import LAUNCHES
 
-    for k in sweep.LAUNCHES:
-        sweep.LAUNCHES[k] = 0
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
 
 
 SOME = "some"  # read_launches: the kernel launched at least once
@@ -995,9 +995,9 @@ def read_launches(expect):
     count their routes decide). The ``<kernel>.flagged`` counts (KDE
     launches with a read flag) are held only where ``expect`` names
     them."""
-    from vectorizedbayesiannetwork_torch.ops import sweep
+    from vectorizedbayesiannetwork_torch.ops._launch import LAUNCHES
 
-    got = {k: v for k, v in sweep.LAUNCHES.items()
+    got = {k: v for k, v in LAUNCHES.items()
            if not k.endswith(".flagged") or k in expect}
     want = {k: expect.get(k, 0) for k in got}
     some = [k for k, v in want.items() if v == SOME]
@@ -4206,9 +4206,9 @@ def slice13_lbp(lg_vbn, kde_flag, ref_w2):
     reset_launches()
     w, samples = kde_flag.infer_posterior(w2)
     torch.cuda.synchronize()
-    from vectorizedbayesiannetwork_torch.ops import sweep
+    from vectorizedbayesiannetwork_torch.ops._launch import LAUNCHES
 
-    launches = kde_launches("(l2)", dict(sweep.LAUNCHES))
+    launches = kde_launches("(l2)", dict(LAUNCHES))
     lbp = kde_flag._inference
     st = kde_flag._posterior_stats(w, samples)
     served = torch.stack([st["mean"][:, 0], st["std"][:, 0]], 1)

@@ -45,6 +45,7 @@ from chip_smoke import (
 from vectorizedbayesiannetwork_torch import VBN, defaults
 from vectorizedbayesiannetwork_torch.core.base import Query
 from vectorizedbayesiannetwork_torch.core.plan import get_plan
+from vectorizedbayesiannetwork_torch.ops import _build, _launch
 from vectorizedbayesiannetwork_torch.ops import kde_fused as kf
 from vectorizedbayesiannetwork_torch.ops import sweep
 
@@ -133,14 +134,14 @@ def test_categorical_kernel_matches_plain(asia_vbn, want):
     for i, name in enumerate(plan.topo_order):
         if name in ("smoke", "xray"):
             fixed[:, i] = 1
-    before = sweep.LAUNCHES["categorical"]
+    before = _launch.LAUNCHES["categorical"]
     for u in (None, torch.rand((B, plan.n_nodes, S), device="cuda")):
         k_out = sweep.categorical_sweep_fused(
             3, fixed, counts, struct, S, u_ext=u, want=want)
         p_out = sweep.categorical_sweep_plain(
             3, fixed, counts, struct, S, u_ext=u, want=want)
         _check(k_out, p_out, tgt_atol=0, lp_atol=1e-4)
-    assert sweep.LAUNCHES["categorical"] == before + 2
+    assert _launch.LAUNCHES["categorical"] == before + 2
 
 
 @pytest.mark.cuda
@@ -153,7 +154,7 @@ def test_lg_kernel_matches_plain(lg_vbn, want):
     ptab = sweep.lg_param_table(cpds, params, dmax,
                                 tuple(c.min_scale for c in cpds))
     fixed = torch.full((B, plan.n_nodes), 0.5, device="cuda")
-    before = sweep.LAUNCHES["lg"]
+    before = _launch.LAUNCHES["lg"]
     u_ext = torch.rand((B, 2 * plan.n_nodes, S), device="cuda")
     for u in (None, u_ext.clamp(1e-6, 1 - 1e-6)):  # log(u1) stays finite
         k_out = sweep.lg_sweep_fused(
@@ -161,13 +162,13 @@ def test_lg_kernel_matches_plain(lg_vbn, want):
         p_out = sweep.lg_sweep_plain(
             3, fixed, ptab, struct, dmax, S, u_ext=u, want=want)
         _check(k_out, p_out, tgt_atol=2e-4, lp_atol=2e-3)
-    assert sweep.LAUNCHES["lg"] == before + 2
+    assert _launch.LAUNCHES["lg"] == before + 2
 
 
 @pytest.mark.cuda
 def test_served_rows_go_through_the_kernels(asia_vbn, lg_vbn):
     """The public entry points launch one kernel per query batch."""
-    before = dict(sweep.LAUNCHES)
+    before = dict(_launch.LAUNCHES)
     q = {"target": "dysp", "evidence": {"smoke": np.ones((B, 1), np.float32)}}
     pmf, _ = asia_vbn.infer_posterior_pmf([q, q], n_classes=2)
     assert asia_vbn._last_summary_path == "fused"
@@ -176,8 +177,8 @@ def test_served_rows_go_through_the_kernels(asia_vbn, lg_vbn):
     mom, _ = lg_vbn.infer_posterior_moments([{"target": "x2", "evidence": ev}])
     assert lg_vbn._last_summary_path == "fused"
     assert mom.shape == (B, 2) and np.isfinite(mom).all()
-    assert sweep.LAUNCHES["categorical"] == before["categorical"] + 2
-    assert sweep.LAUNCHES["lg"] == before["lg"] + 1
+    assert _launch.LAUNCHES["categorical"] == before["categorical"] + 2
+    assert _launch.LAUNCHES["lg"] == before["lg"] + 1
 
 
 @pytest.mark.cuda
@@ -194,7 +195,7 @@ def test_served_calls_show_their_kernels_and_tables_as_spans(asia_vbn, lg_vbn):
     q = {"target": "dysp", "evidence": {"smoke": np.ones((B, 1), np.float32)}}
     ev = {"x0": np.zeros((B, 1), np.float32), "x1": np.ones((B, 1), np.float32)}
     profiling.reset_spans()
-    before, built = dict(sweep.LAUNCHES), dict(profiling.BUILDS)
+    before, built = dict(_launch.LAUNCHES), dict(profiling.BUILDS)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
         asia_vbn.infer_posterior_pmf([q], n_classes=2)
         lg_vbn.infer_posterior_moments([{"target": "x2", "evidence": ev}])
@@ -204,7 +205,7 @@ def test_served_calls_show_their_kernels_and_tables_as_spans(asia_vbn, lg_vbn):
     assert names.count("vbn.call") == 2
     for name in ("categorical", "lg"):
         assert names.count(f"vbn.kernel.{name}") == 1
-        assert sweep.LAUNCHES[name] == before[name] + 1
+        assert _launch.LAUNCHES[name] == before[name] + 1
     assert names.count("vbn.tables") == 5
     assert profiling.BUILDS["tables"] == built["tables"] + 5
     assert profiling.BUILDS["fn"] == built["fn"] + 2
@@ -292,7 +293,7 @@ def test_cat_scan_kernel_matches_plain(scan_nets, asia_vbn, net, want):
     from vectorizedbayesiannetwork_torch.ops import sweep_scan
 
     packed, tgt, flat, struct = _scan_case(scan_nets, asia_vbn, net)
-    before = sweep.LAUNCHES["categorical_scan"]
+    before = _launch.LAUNCHES["categorical_scan"]
     n = packed.shape[1]
     u_ext = torch.rand((B, n, S), device="cuda")
     for u in (None, u_ext.clamp(1e-6, 1 - 1e-6)):
@@ -308,7 +309,7 @@ def test_cat_scan_kernel_matches_plain(scan_nets, asia_vbn, net, want):
                                        rtol=0)
             torch.testing.assert_close(k_out[3][0], p_out[3][0], rtol=2e-3,
                                        atol=1e-6)
-    assert sweep.LAUNCHES["categorical_scan"] == before + 2
+    assert _launch.LAUNCHES["categorical_scan"] == before + 2
 
 
 @pytest.mark.cuda
@@ -363,7 +364,7 @@ def test_lg_scan_kernel_matches_plain(gauss_vbn, want):
     flags = torch.as_tensor(flags, device="cuda")
     tgt = torch.as_tensor(rng.integers(0, n, size=B).astype(np.int32),
                           device="cuda")
-    before = sweep.LAUNCHES["lg_scan"]
+    before = _launch.LAUNCHES["lg_scan"]
     u_ext = torch.rand((B, 2 * n, S), device="cuda").clamp(1e-6, 1 - 1e-6)
     for u in (None, u_ext):
         k_out = sweep_scan.lg_sweep_scan(
@@ -371,7 +372,7 @@ def test_lg_scan_kernel_matches_plain(gauss_vbn, want):
         p_out = sweep_scan.lg_sweep_scan_plain(
             5, fixed, flags, tgt, ptab, struct, S, u_ext=u, want=want)
         _check(k_out, p_out, tgt_atol=2e-4, lp_atol=2e-3)
-    assert sweep.LAUNCHES["lg_scan"] == before + 2
+    assert _launch.LAUNCHES["lg_scan"] == before + 2
 
 
 @pytest.mark.cuda
@@ -515,7 +516,7 @@ def test_scan_smem_layout_matches_the_kernels(card):
     out."""
     from vectorizedbayesiannetwork_torch.ops import sweep_scan
 
-    lib = sweep_scan._lib()
+    lib = _build.load("sweep_scan")
     for args in [(724, 309, 128, 4, 2), (724, 309, 128, 4, 8),
                  (24, 15, 64, 0, 2), (6, 7, 32, 80, 8), (1500, 1501, 32, 3, 8)]:
         assert lib.vbn_cat_scan_smem_bytes(*args) == \
@@ -526,7 +527,7 @@ def test_scan_smem_layout_matches_the_kernels(card):
             sweep_scan._lg_scan_smem(*args)
     assert sweep_scan._smem_limit(0) >= 48 * 1024
     for args in [(8, 7, 2), (8, 7, 0), (80, 81, 32), (5, 3, 3)]:
-        assert sweep._lib().vbn_cat_sweep_smem_bytes(*args) == \
+        assert _build.load("sweep").vbn_cat_sweep_smem_bytes(*args) == \
             sweep._cat_sweep_smem(*args)
 
 
@@ -539,7 +540,7 @@ def test_dynamic_serving_goes_through_the_scan_kernels(scan_nets, gauss_vbn):
           {"target": nodes[2], "evidence": {nodes[-1]: [[0.0]]}}]
     vbn.set_inference_method("likelihood_weighting", n_samples=S,
                              dynamic_masks=True)
-    before = dict(sweep.LAUNCHES)
+    before = dict(_launch.LAUNCHES)
     pmf, spans = vbn.infer_posterior_pmf(qs, n_classes=4, pad_bucket=4)
     assert vbn._last_summary_path == "fused" and pmf.shape == (2, 4)
     np.testing.assert_allclose(pmf.sum(axis=1), 1.0, atol=1e-5)
@@ -548,7 +549,7 @@ def test_dynamic_serving_goes_through_the_scan_kernels(scan_nets, gauss_vbn):
                                    dynamic_masks=True)
     mom, _ = gauss_vbn.infer_posterior_moments(gq)
     assert np.isfinite(mom).all()
-    after = dict(sweep.LAUNCHES)
+    after = dict(_launch.LAUNCHES)
     assert after["categorical_scan"] == before["categorical_scan"] + 1
     assert after["lg_scan"] == before["lg_scan"] + 1
     assert after["categorical"] == before["categorical"]
@@ -596,7 +597,7 @@ def test_cumsum_kernel_matches_plain(card, monotone):
     S = 2^22 + 7; the same launch repeated gives the same bits."""
     from vectorizedbayesiannetwork_torch.ops import scan
 
-    before = sweep.LAUNCHES["cumsum"]
+    before = _launch.LAUNCHES["cumsum"]
     w = torch.cat([_weights(p) for p in PROFILES])  # exact sums
     assert torch.equal(scan.cumsum_rows(w, monotone),
                        scan.cumsum_rows_plain(w, monotone))
@@ -612,7 +613,7 @@ def test_cumsum_kernel_matches_plain(card, monotone):
     ref = torch.cumsum(x.double(), dim=1)
     assert float(((got.double() - ref).abs() / ref[:, -1:]).max()) <= 1e-4
     assert torch.equal(scan.cumsum_rows(x, monotone), got)  # deterministic
-    assert sweep.LAUNCHES["cumsum"] == before + len(shapes) + 2
+    assert _launch.LAUNCHES["cumsum"] == before + len(shapes) + 2
 
 
 @pytest.mark.cuda
@@ -624,7 +625,7 @@ def test_cum_index_kernel_matches_plain(card, name):
     g = torch.Generator(device="cuda").manual_seed(2)
     u0 = torch.rand((RB, 1), generator=g, device="cuda")
     pos = torch.sort(torch.rand((RB, RS), generator=g, device="cuda")).values
-    before = sweep.LAUNCHES["cum_index"]
+    before = _launch.LAUNCHES["cum_index"]
     ends = torch.tensor([0.0, rm.POS_MAX], device="cuda").expand(RB, 2)
     ties = torch.cat([cum[:, rm.W - 1 :: rm.W], ends], 1)  # window lasts
     heads = rm.systematic_positions(u0, RS, rm.T)
@@ -632,7 +633,7 @@ def test_cum_index_kernel_matches_plain(card, name):
         got = rm.cum_index(cum, q)
         want = rm.cum_index_plain(cum, q)
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
-    assert sweep.LAUNCHES["cum_index"] == before + 4
+    assert _launch.LAUNCHES["cum_index"] == before + 4
 
 
 # merge_kernel's run ends: 2 and 3 tiles a row (S = 1536), and 129
@@ -649,11 +650,11 @@ def test_srg_kernel_matches_plain(card, name, s, d):
     w, vals = _weights(name, s=s), _vals(d, s=s)
     g = torch.Generator(device="cuda").manual_seed(3)
     u0 = torch.rand((RB, 1), generator=g, device="cuda")
-    before = dict(sweep.LAUNCHES)
+    before = dict(_launch.LAUNCHES)
     got = rm.systematic_resample_gather(w, vals, u0=u0)
-    assert sweep.LAUNCHES["srg"] == before["srg"] + 1
-    assert sweep.LAUNCHES["cum_index"] == before["cum_index"]  # in the merge
-    assert sweep.LAUNCHES["cumsum"] == before["cumsum"] + 1
+    assert _launch.LAUNCHES["srg"] == before["srg"] + 1
+    assert _launch.LAUNCHES["cum_index"] == before["cum_index"]  # in the merge
+    assert _launch.LAUNCHES["cumsum"] == before["cumsum"] + 1
     assert torch.equal(got, rm.srg_plain(u0, rm.norm_cum(w), vals))
 
 
@@ -694,9 +695,9 @@ def test_spg_kernel_matches_plain(card, name, s, s_out, d):
     pos = torch.sort(torch.rand((RB, s_out), generator=g, device="cuda")).values
     pos[:, 0], pos[:, -1] = 0.0, 1.0
     vals = _vals(d, s=s)
-    before = sweep.LAUNCHES["spg"]
+    before = _launch.LAUNCHES["spg"]
     got = rm.sorted_gather(cum, pos, vals)
-    assert sweep.LAUNCHES["spg"] == before + 1
+    assert _launch.LAUNCHES["spg"] == before + 1
     assert got.shape == (RB, s_out, d)
     assert torch.equal(got, rm.spg_plain(cum, pos, vals))
 
@@ -742,9 +743,9 @@ def test_multinomial_gather_goes_through_the_kernels(card):
     g = torch.Generator(device="cuda").manual_seed(5)
     e = torch.empty((RB, RS + 1), device="cuda").exponential_(generator=g)
     e = torch.round(torch.clamp(e, max=7.9) * 64.0) / 64.0
-    before = dict(sweep.LAUNCHES)
+    before = dict(_launch.LAUNCHES)
     got = rm.multinomial_resample_gather(w, vals, e=e)
-    after = dict(sweep.LAUNCHES)
+    after = dict(_launch.LAUNCHES)
     assert {k: after[k] - before[k] for k in ("cumsum", "cum_index", "spg")} \
         == {"cumsum": 2, "cum_index": 0, "spg": 1}
     c = scan.cumsum_rows_plain(e, monotone=True)
@@ -779,9 +780,9 @@ def test_ris_resampling_events_launch_the_kernels(lg_vbn, method):
         "x2": np.linspace(-1, 1, B).reshape(B, 1).astype(np.float32)}}
     lg_vbn.set_inference_method("resampled_importance_sampling", n_samples=S,
                                 ess_threshold=0.5, resample_method=method)
-    before = dict(sweep.LAUNCHES)
+    before = dict(_launch.LAUNCHES)
     w, s = lg_vbn.infer_posterior(q)
-    after = dict(sweep.LAUNCHES)
+    after = dict(_launch.LAUNCHES)
     assert lg_vbn._inference._last_resampled
     merge = "srg" if method == "systematic" else "spg"
     got = {k: after[k] - before[k] for k in after if after[k] != before[k]}
@@ -823,9 +824,9 @@ def _kde_queries(dx, dp, seed=1):
 def test_kde_root_kernel_matches_plain(card, dx, n, valid):
     data_x, _, lm = _kde_support(n, dx, 1, valid)
     x, _ = _kde_queries(dx, 1)
-    before = sweep.LAUNCHES["kde_root"]
+    before = _launch.LAUNCHES["kde_root"]
     got = kf.kde_root(x, data_x, lm, 0.3)
-    assert sweep.LAUNCHES["kde_root"] == before + 1
+    assert _launch.LAUNCHES["kde_root"] == before + 1
     torch.testing.assert_close(got, kf.kde_root_plain(x, data_x, lm, 0.3),
                                atol=1e-4, rtol=0)
 
@@ -837,9 +838,9 @@ def test_kde_root_kernel_matches_plain(card, dx, n, valid):
 def test_kde_cond_kernel_matches_plain(card, dx, dp, n, valid):
     data_x, data_p, lm = _kde_support(n, dx, dp, valid)
     x, p = _kde_queries(dx, dp)
-    before = sweep.LAUNCHES["kde_cond"]
+    before = _launch.LAUNCHES["kde_cond"]
     got = kf.kde_cond(x, p, data_x, data_p, lm, 0.3, 0.4)
-    assert sweep.LAUNCHES["kde_cond"] == before + 1
+    assert _launch.LAUNCHES["kde_cond"] == before + 1
     want = kf.kde_cond_plain(x, p, data_x, data_p, lm, 0.3, 0.4)
     torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
 
@@ -908,9 +909,9 @@ def test_kde_cond_wide_kernel_matches_plain(card, case, dx, dp):
                 (KM, dx), generator=g, device="cuda"))
             p = data_p[idx] + ps * torch.sign(torch.randn(
                 (KM, dp), generator=g, device="cuda"))
-    before = sweep.LAUNCHES["kde_cond_wide"]
+    before = _launch.LAUNCHES["kde_cond_wide"]
     got = kf.kde_cond_wide(x, p, data_x, data_p, lm, ys, ps)
-    assert sweep.LAUNCHES["kde_cond_wide"] == before + 1
+    assert _launch.LAUNCHES["kde_cond_wide"] == before + 1
     want = kf.kde_cond_plain(x, p, data_x, data_p, lm, ys, ps)
     torch.testing.assert_close(got, want, atol=1e-4, rtol=0,
                                equal_nan=case == "all_masked")
@@ -936,8 +937,8 @@ def test_tf32_mma_matches_the_tensor_core_model(card, kind):
         c = (-(a.astype(np.float64) @ b) * (1 + 1e-3)).astype(np.float32)
     t = [torch.from_numpy(v).to(card) for v in (a, b, c)]
     d = torch.empty_like(t[2])
-    kf._run(kf._lib().vbn_kde_mma_probe, "vbn_kde_mma_probe", card,
-            *(v.data_ptr() for v in t), d.data_ptr(), w)
+    _launch.launch("kde", "vbn_kde_mma_probe", *(v.data_ptr() for v in t),
+                   d.data_ptr(), w, device=card)
     want = np.stack([mma_tf32(c[i], a[i], b[i].T) for i in range(w)])
     np.testing.assert_array_equal(d.cpu().numpy().view(np.uint32),
                                   want.view(np.uint32))
@@ -963,9 +964,9 @@ def test_kde_pick_kernel_matches_plain(card, dp, gumbel, n, valid):
                        device="cuda")
     gf = (-torch.log(torch.empty((m, n), device="cuda").exponential_())
           if gumbel == "external" else None)
-    before = sweep.LAUNCHES["kde_pick"]
+    before = _launch.LAUNCHES["kde_pick"]
     got = kf.kde_pick(key, parents, data_p, data_x, lm, 0.4, m, gumbel=gf)
-    assert sweep.LAUNCHES["kde_pick"] == before + 1
+    assert _launch.LAUNCHES["kde_pick"] == before + 1
     want = kf.kde_pick_plain(key, parents, data_p, data_x, lm, 0.4, m, gumbel=gf)
     if gumbel == "external":
         assert torch.equal(got, want)
@@ -1072,10 +1073,10 @@ def test_kde_read_flag_retires_blocks_bit_for_bit(card, kind, s_loc, flag):
                            read=read)
 
     name = f"kde_{kind}"
-    before = (sweep.LAUNCHES[name], sweep.LAUNCHES[name + ".flagged"])
+    before = (_launch.LAUNCHES[name], _launch.LAUNCHES[name + ".flagged"])
     full = run(None)
     got = run(kf.ReadFlag(masks[:, 3], s_loc))
-    assert (sweep.LAUNCHES[name], sweep.LAUNCHES[name + ".flagged"]) == (
+    assert (_launch.LAUNCHES[name], _launch.LAUNCHES[name + ".flagged"]) == (
         before[0] + 2, before[1] + 1)
     keep = (masks[:, 3] != 0).repeat_interleave(s_loc)
     assert torch.equal(got[keep], full[keep])
@@ -1108,9 +1109,9 @@ def test_kde_serving_goes_through_the_kernels(kde_vbn, dynamic):
                                  dynamic_masks=dynamic)
     q = {"target": "x2", "evidence": {
         "x0": np.linspace(-1, 1, B).reshape(B, 1).astype(np.float32)}}
-    before = dict(sweep.LAUNCHES)
+    before = dict(_launch.LAUNCHES)
     mom, _ = kde_vbn.infer_posterior_moments([q])
-    after = dict(sweep.LAUNCHES)
+    after = dict(_launch.LAUNCHES)
     got = {k: after[k] - before[k] for k in after if after[k] != before[k]}
     # dynamic: the densities and x2's conditional pick carry read flags
     want = ({"kde_root": 2, "kde_cond": 1, "kde_pick": 3, "uniforms": 3,
@@ -1158,11 +1159,11 @@ def test_kde_dynamic_sweep_read_flags_keep_the_rows(card, kde_vbn,
     outs = {}
     for on in (True, False):
         monkeypatch.setattr(KDECPD, "takes_read_flag", on)
-        before = dict(sweep.LAUNCHES)
+        before = dict(_launch.LAUNCHES)
         outs[on] = [dynamic_sweep_trace(
             plan, cpds, params, Draw(3, card), fixed, ev, do, s, tgt_mask=t,
             targets=ti) for t in (tgt, None)]
-        flagged = {k: sweep.LAUNCHES[k] - before[k] for k in before
+        flagged = {k: _launch.LAUNCHES[k] - before[k] for k in before
                    if k.endswith(".flagged")}
         assert flagged == ({"kde_root.flagged": 4, "kde_cond.flagged": 2,
                             "kde_pick.flagged": 2} if on else
@@ -1266,9 +1267,9 @@ def test_exact_engines_on_the_card_match_the_cpu(asia_vbn, lg_vbn, method,
         q = {"target": "x0", "evidence": {
             "x2": np.linspace(-1, 1, B).reshape(B, 1).astype(np.float32)}}
         serve = lambda v: v.infer_posterior_moments([q])[0]
-    before = dict(sweep.LAUNCHES)
+    before = dict(_launch.LAUNCHES)
     got = serve(vbn)
-    assert dict(sweep.LAUNCHES) == before
+    assert dict(_launch.LAUNCHES) == before
     assert vbn._last_summary_path == "fused"
     np.testing.assert_allclose(got, serve(cpu), atol=1e-5)
     vbn.set_inference_method(
@@ -1337,10 +1338,10 @@ def test_neural_cpd_on_the_card_matches_the_cpu(card, family, tmp_path):
                 out.update({f"{name}{i}": r for i, r in enumerate(res)})
         return out
 
-    before = (sweep.LAUNCHES["gauss_mlp"], MLP["fused"], MLP["fused_rows"])
+    before = (_launch.LAUNCHES["gauss_mlp"], MLP["fused"], MLP["fused_rows"])
     got = methods(cpd, params, par.to(card), x.to(card))
     fused = family == "gaussian_nn"
-    assert (sweep.LAUNCHES["gauss_mlp"], MLP["fused"], MLP["fused_rows"]) == (
+    assert (_launch.LAUNCHES["gauss_mlp"], MLP["fused"], MLP["fused_rows"]) == (
         before[0] + fused, before[1] + fused, before[2] + fused * x.shape[0])
     want = methods(cpd, cpu_params, par, x)
     for k, w in want.items():
@@ -1349,11 +1350,11 @@ def test_neural_cpd_on_the_card_matches_the_cpu(card, family, tmp_path):
     if hasattr(cpd, "compute_dtype"):
         bf = copy.copy(cpd)
         bf.compute_dtype = "bfloat16"
-        before = sweep.LAUNCHES["gauss_mlp"]
+        before = _launch.LAUNCHES["gauss_mlp"]
         torch.testing.assert_close(
             bf._log_prob_flat(params, x.to(card), par.to(card)).cpu(),
             bf._log_prob_flat(cpu_params, x, par), rtol=0.05, atol=0.15)
-        assert sweep.LAUNCHES["gauss_mlp"] == before
+        assert _launch.LAUNCHES["gauss_mlp"] == before
 
 
 @pytest.mark.cuda
@@ -1387,10 +1388,10 @@ def test_gauss_mlp_holds_the_plain_route(card, dp, side):
     z = mlp_apply(net, (pa - stats["mean_x"]) / stats["std_x"], "relu")[:, 1]
     assert bool((z < 20).all() if side == "below" else (z > 20).all())
     assert mlp_fused.refusal(pa, net, stats, "relu", "float32") is None
-    before = sweep.LAUNCHES["gauss_mlp"]
+    before = _launch.LAUNCHES["gauss_mlp"]
     got = mlp_fused.gauss_mlp(pa, net, stats, 1e-4)
     torch.cuda.synchronize()
-    assert sweep.LAUNCHES["gauss_mlp"] == before + 1
+    assert _launch.LAUNCHES["gauss_mlp"] == before + 1
     std_y = float(stats["std_y"])
     for want in (cpd._denorm_params(params, pa, m),
                  mlp_fused.gauss_mlp_plain(pa, net, stats, 1e-4)):
@@ -1436,10 +1437,10 @@ def test_ris_over_neural_cpds_launches_the_resampling_kernels(card):
             ("importance_sampling", {}, None),
             ("likelihood_weighting", {}, {"uniforms": 1})):
         vbn.set_inference_method(method, n_samples=1 << 16, **kw)
-        before = dict(sweep.LAUNCHES)
+        before = dict(_launch.LAUNCHES)
         w, samples = vbn.infer_posterior(q)
         torch.cuda.synchronize()
-        diff = {k: v - before[k] for k, v in sweep.LAUNCHES.items()
+        diff = {k: v - before[k] for k, v in _launch.LAUNCHES.items()
                 if v != before[k]}
         if launched is None:  # IS: the LW rerun sweeps again
             launched = {"uniforms": 2 if vbn._inference._last_fallback else 1}
@@ -1468,11 +1469,11 @@ def test_kde_gradient_on_the_card_matches_plain_autograd(card, dx, dp, entry):
     w = torch.linspace(-1, 1, 512, device="cuda")
     tx = x.clone().requires_grad_(True)
     tp = p.clone().requires_grad_(True) if dp else None
-    before = dict(sweep.LAUNCHES)
+    before = dict(_launch.LAUNCHES)
     out = kk.kde_log_prob(tx, tp, data_x, data_p, lm, 0.35, 0.6)
     got = torch.autograd.grad((out * w).sum(), [tx] + ([tp] if dp else []))
     torch.cuda.synchronize()
-    diff = {k: v - before[k] for k, v in sweep.LAUNCHES.items()
+    diff = {k: v - before[k] for k, v in _launch.LAUNCHES.items()
             if v != before[k]}
     assert diff == {entry: 1}
     px = x.clone().requires_grad_(True)
@@ -1501,10 +1502,10 @@ def test_mcmc_over_kde_goes_through_the_kernels(kde_vbn, name):
     kde_vbn.set_sampling_method(name)
     kw = ({"burn_in": 5, "n_chains": 16} if name == "gibbs" else
           {"burn_in": 5, "n_chains": 16, "step_size": 0.1, "n_leapfrog": 4})
-    before = dict(sweep.LAUNCHES)
+    before = dict(_launch.LAUNCHES)
     s = kde_vbn.sample(q, n_samples=64, **kw)
     torch.cuda.synchronize()
-    diff = {k: v - before[k] for k, v in sweep.LAUNCHES.items()
+    diff = {k: v - before[k] for k, v in _launch.LAUNCHES.items()
             if v != before[k]}
     steps = 5 + 4  # burn-in + draws a chain
     if name == "gibbs":
@@ -1594,9 +1595,9 @@ def test_amortized_heads_on_the_card_match_the_cpu(card):
     scale = float(cpu.abs().max())
     assert float((heads.cpu() - cpu).abs().max()) <= 1e-5 * scale
     vbn.set_inference_method("amortized", n_samples=256)
-    before = dict(sweep.LAUNCHES)
+    before = dict(_launch.LAUNCHES)
     pdf, s = vbn.infer_posterior({"target": "x0", "evidence": {"x2": [[0.3]]}})
-    diff = {k: v - before[k] for k, v in sweep.LAUNCHES.items()
+    diff = {k: v - before[k] for k, v in _launch.LAUNCHES.items()
             if v != before[k]}
     assert diff == {"uniforms": 1}
     assert not vbn._inference._last_fallback
@@ -1634,9 +1635,9 @@ def test_lbp_and_rbm_on_the_card_match_the_cpu(asia_vbn, lg_vbn, case,
             "x2": np.linspace(-1, 1, B).reshape(B, 1).astype(np.float32)}}
     vbn.save(str(tmp_path / "m.npz"))
     cpu = VBN.load(str(tmp_path / "m.npz"), device="cpu")
-    before = dict(sweep.LAUNCHES)
+    before = dict(_launch.LAUNCHES)
     got = vbn.infer_posterior(q)
-    diff = {k: v - before[k] for k, v in sweep.LAUNCHES.items()
+    diff = {k: v - before[k] for k, v in _launch.LAUNCHES.items()
             if v != before[k]}
     if case == "rbm_lg":  # every parent observed: RBM draws nothing
         assert diff == {}
@@ -1696,11 +1697,11 @@ def test_moved_model_serves_the_card_fitted_rows(asia_vbn, how, tmp_path):
         "smoke": (np.arange(B) % 2).reshape(B, 1).astype(np.float32)}}
     counter = asia_vbn._keys.state()
     moved._keys.set_state(counter)
-    before = sweep.LAUNCHES["categorical"]
+    before = _launch.LAUNCHES["categorical"]
     got, _ = moved.infer_posterior_pmf([q], n_classes=2)
     asia_vbn._keys.set_state(counter)
     want, _ = asia_vbn.infer_posterior_pmf([q], n_classes=2)
-    assert sweep.LAUNCHES["categorical"] == before + 2
+    assert _launch.LAUNCHES["categorical"] == before + 2
     np.testing.assert_array_equal(got, want)
 
 
@@ -1841,9 +1842,9 @@ def test_one_rank_mesh_equals_unmeshed_kernel(asia_vbn, lg_vbn, nccl_mesh,
     key = {("asia", False): "categorical", ("lg", False): "lg",
            ("asia", True): "categorical_scan", ("lg", True): "lg_scan"}[
         (model, scan)]
-    before = sweep.LAUNCHES[key]
+    before = _launch.LAUNCHES[key]
     got = meshed(*args, u_ext=u)
-    assert sweep.LAUNCHES[key] == before + 1
+    assert _launch.LAUNCHES[key] == before + 1
     ref = whole(*args, u_ext=u)
     for a, b in zip(got[:3], ref[:3]):
         assert (a is None) == (b is None)
@@ -1864,7 +1865,7 @@ def test_one_rank_mesh_serves_through_the_kernels(asia_vbn, lg_vbn, nccl_mesh):
     try:
         for v in (asia_vbn, lg_vbn):
             v.set_mesh(nccl_mesh)
-        before = dict(sweep.LAUNCHES)
+        before = dict(_launch.LAUNCHES)
         pmf, _ = asia_vbn.infer_posterior_pmf([q], n_classes=2)
         mom, _ = lg_vbn.infer_posterior_moments([{"target": "x2", "evidence": ev}])
     finally:
@@ -1872,8 +1873,8 @@ def test_one_rank_mesh_serves_through_the_kernels(asia_vbn, lg_vbn, nccl_mesh):
             v.set_mesh(None)
     assert asia_vbn._last_summary_path == lg_vbn._last_summary_path == "fused"
     assert np.isfinite(pmf).all() and np.isfinite(mom).all()
-    assert sweep.LAUNCHES["categorical"] == before["categorical"] + 1
-    assert sweep.LAUNCHES["lg"] == before["lg"] + 1
+    assert _launch.LAUNCHES["categorical"] == before["categorical"] + 1
+    assert _launch.LAUNCHES["lg"] == before["lg"] + 1
 
 
 # ---------------------------------------------------------------------------
@@ -1890,10 +1891,10 @@ def test_uniforms_kernel_equals_its_plain_version(card, k, at):
     from vectorizedbayesiannetwork_torch.ops import rng
 
     seed, b, s = 0x0123456789ABCDEF, 3, 5000
-    before = sweep.LAUNCHES["uniforms"]
+    before = _launch.LAUNCHES["uniforms"]
     got = rng.stream_values(seed, b, s, 17, k, at=at, row0=5, particle0=1000,
                             device=card)
-    assert sweep.LAUNCHES["uniforms"] == before + 1
+    assert _launch.LAUNCHES["uniforms"] == before + 1
     want = plain(seed, b, s, 17, k, at=at, row0=5, particle0=1000, device=card)
     assert torch.equal(got, want)
     assert bool(((got > 0) & (got < 1)).all())
@@ -1937,10 +1938,10 @@ def test_uniforms_kernel_draws_a_list_of_nodes(card, g, k, at, normal, row0,
 
     seed, b, s = 0x0123456789ABCDEF, 3, 1500
     nodes = NODE_LISTS[g]
-    before = sweep.LAUNCHES["uniforms"]
+    before = _launch.LAUNCHES["uniforms"]
     got = rng.stream_values_many(seed, b, s, nodes, k, at=at, normal=normal,
                                  row0=row0, particle0=particle0, device=card)
-    assert sweep.LAUNCHES["uniforms"] == before + 1
+    assert _launch.LAUNCHES["uniforms"] == before + 1
     want = plain(seed, b, s, nodes, k, at=at, normal=normal, row0=row0,
                  particle0=particle0, device=card)
     assert got.shape == (g, b * s, k)
@@ -1959,11 +1960,11 @@ def test_uniforms_launches_once_a_64_nodes(card):
     from vectorizedbayesiannetwork_torch.ops import rng
 
     nodes = list(range(100, 165))
-    before = sweep.LAUNCHES["uniforms"]
+    before = _launch.LAUNCHES["uniforms"]
     a = rng.stream_values_many(5, 2, 4096, nodes[:64], 1, device=card)
-    assert sweep.LAUNCHES["uniforms"] == before + 1
+    assert _launch.LAUNCHES["uniforms"] == before + 1
     b = rng.stream_values_many(5, 2, 4096, nodes, 1, device=card)
-    assert sweep.LAUNCHES["uniforms"] == before + 3
+    assert _launch.LAUNCHES["uniforms"] == before + 3
     assert torch.equal(b[:64], a)
     assert torch.equal(b[64], rng.stream_values(5, 2, 4096, 164, 1,
                                                 device=card))
@@ -1999,10 +2000,10 @@ def test_chain_samplers_row0_on_the_card(card, name):
     outs = []
     for b in (2, 1):
         vbn._keys.set_state(500)
-        before = sweep.LAUNCHES["uniforms"]
+        before = _launch.LAUNCHES["uniforms"]
         outs.append(vbn.sample({"target": "x0", "evidence": {"x2": ev[:b]}},
                                **kw).cpu())
-        assert sweep.LAUNCHES["uniforms"] > before
+        assert _launch.LAUNCHES["uniforms"] > before
     assert torch.equal(outs[0][0], outs[1][0])
     assert not torch.equal(outs[0][0], outs[0][1])
 
@@ -2052,11 +2053,11 @@ def test_grouped_sweep_on_the_card_equals_ungrouped(card, family, method,
         vbn.set_inference_method(method, n_samples=4000)
         vbn._keys.set_state(9)
         _sweep.GROUPS.clear()
-        before = sweep.LAUNCHES["uniforms"]
+        before = _launch.LAUNCHES["uniforms"]
         w, s = vbn.infer_posterior(q)
         torch.cuda.synchronize()
         out[mode] = (w.cpu().numpy(), s.cpu().numpy(),
-                     sweep.LAUNCHES["uniforms"] - before, dict(_sweep.GROUPS))
+                     _launch.LAUNCHES["uniforms"] - before, dict(_sweep.GROUPS))
     (wg, sg, lg_, gg), (wn, sn, ln, gn) = out["auto"], out["never"]
     kind = "sample" if evidence == "z" else "log_prob"
     assert gg == {f"{kind}_calls": 1, f"{kind}_nodes": 4} and gn == {}
@@ -2098,11 +2099,11 @@ def test_stacked_forms_chunked_draws_equal_per_node_draws(card, asia_vbn,
     fixed = torch.as_tensor(pack_fixed_values(q, plan, b), device=card)
     st = RowStream(Draw(21, card), b, S)
     n = plan.n_nodes
-    before = sweep.LAUNCHES["uniforms"]
+    before = _launch.LAUNCHES["uniforms"]
     if form == "gaussian":
         got = gaussian_sweep_trace(plan, cpds, params, st, fixed, S,
                                    weighted=True)
-        launched = sweep.LAUNCHES["uniforms"] - before
+        launched = _launch.LAUNCHES["uniforms"] - before
         noise = torch.stack([st.normal(i).reshape(b, S) for i in range(n)], -1)
         want = gaussian_sweep_trace(plan, cpds, params, None, fixed, S,
                                     weighted=True, noise=noise)
@@ -2112,7 +2113,7 @@ def test_stacked_forms_chunked_draws_equal_per_node_draws(card, asia_vbn,
         cmax = max(c.resolved_classes for c in cpds)
         got = discrete_sweep_trace(plan, cpds, params, st, fixed, S,
                                    weighted=True)
-        launched = sweep.LAUNCHES["uniforms"] - before
+        launched = _launch.LAUNCHES["uniforms"] - before
         noise = torch.stack([
             st.uniform(i).reshape(b, S) if loop else
             -torch.log(-torch.log(st.uniform(i, cmax).reshape(b, S, cmax)))

@@ -31,6 +31,7 @@ from vectorizedbayesiannetwork_torch.inference import _dynamic_base as tdyn
 from vectorizedbayesiannetwork_torch.inference import _dynamic_sweep as tdsw
 from vectorizedbayesiannetwork_torch.models.kde import KDECPD as TKDE
 from vectorizedbayesiannetwork_torch.ops import kde_fused as tkf
+from vectorizedbayesiannetwork_torch.ops._launch import LAUNCHES
 from vectorizedbayesiannetwork_torch.ops import sweep as tsweep
 from vectorizedbayesiannetwork_torch.ops import sweep_scan as tscan
 from vectorizedbayesiannetwork_tpu import VBN as JVBN
@@ -415,7 +416,7 @@ def test_read_flags_leave_the_dynamic_sweep_bit_for_bit(families, flagged,
 
         monkeypatch.setattr(tkf, name, spy)
     flagged_keys = ("kde_root.flagged", "kde_cond.flagged", "kde_pick.flagged")
-    before = {k: tsweep.LAUNCHES[k] for k in flagged_keys}
+    before = {k: LAUNCHES[k] for k in flagged_keys}
     outs = {}
     for on in (True, False):
         monkeypatch.setattr(TKDE, "takes_read_flag", on)
@@ -430,4 +431,4 @@ def test_read_flags_leave_the_dynamic_sweep_bit_for_bit(families, flagged,
         for a, w in zip(got, want):
             assert torch.equal(a, w)
     assert bool(torch.isfinite(outs[True][0][1]).all())
-    assert {k: tsweep.LAUNCHES[k] for k in flagged_keys} == before
+    assert {k: LAUNCHES[k] for k in flagged_keys} == before

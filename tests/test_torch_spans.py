@@ -189,9 +189,9 @@ def test_counters_cover_every_counter_and_reset(nets):
     assert {"LAUNCHES", "TRACES", "ROUTES", "GROUPS", "BUILDS"} <= set(snap)
     assert snap["ROUTES"]["per_node"] >= 1 and snap["BUILDS"]["plans"] >= 0
     from vectorizedbayesiannetwork_torch.inference import _sweep
-    from vectorizedbayesiannetwork_torch.ops import sweep
+    from vectorizedbayesiannetwork_torch.ops import _launch
 
-    assert snap["LAUNCHES"] == sweep.LAUNCHES
+    assert snap["LAUNCHES"] == _launch.LAUNCHES
     assert snap["ROUTES"] == dict(_sweep.ROUTES)
     snap["BUILDS"]["fn"] += 1000  # a snapshot, not the counter
     assert profiling.counters()["BUILDS"]["fn"] != snap["BUILDS"]["fn"]

@@ -29,6 +29,7 @@ from vectorizedbayesiannetwork_torch.core.rng import (
     philox_uniforms,
 )
 from vectorizedbayesiannetwork_torch.ops import sweep as tsweep
+from vectorizedbayesiannetwork_torch.ops._launch import check
 from vectorizedbayesiannetwork_tpu import VBN as JVBN
 from vectorizedbayesiannetwork_tpu import defaults as jdefaults
 from vectorizedbayesiannetwork_tpu.core.base import Query as JQuery
@@ -408,9 +409,35 @@ def test_gates_match_jax(cat_sides, lg_sides):
     assert tsweep.make_fused_sweep_fn(tp, tc, 1000, ("mom_lpt",)) is None
 
 
-def test_kernel_launch_rejects_cpu_inputs():
+class _OnCard:
+    """A CPU tensor as the launch check sees a tensor on the card."""
+
+    is_cuda = True
+
+    def __init__(self, t, device=torch.device("cuda", 0)):
+        self._t, self.device = t, device
+        self.dtype, self.shape = t.dtype, t.shape
+
+    def is_contiguous(self):
+        return self._t.is_contiguous()
+
+
+CARD = torch.device("cuda", 0)
+
+
+@pytest.mark.parametrize("case,t,match", [
+    ("cpu", torch.zeros(2, 2), "CUDA"),
+    ("dtype", _OnCard(torch.zeros(2, 2, dtype=torch.float64)), "float64"),
+    ("shape", _OnCard(torch.zeros(2, 3)), r"shape \(2, 2\).*\(2, 3\)"),
+    ("not_contiguous", _OnCard(torch.zeros(2, 2).t()), "not contiguous"),
+    ("device", _OnCard(torch.zeros(2, 2), torch.device("cuda", 1)), "cuda:1"),
+], ids=lambda v: v if isinstance(v, str) else "")
+def test_kernel_launch_rejects_cpu_inputs(case, t, match):
     """The launch path never runs the plain version: a CPU tensor is
-    refused rather than quietly computed."""
-    with pytest.raises(ValueError, match="CUDA"):
-        tsweep._check(torch.zeros(2, 2), "x", torch.float32, (2, 2))
+    refused rather than quietly computed, and so is a tensor on the card
+    of another dtype, shape or device, or not contiguous (the one check
+    every kernel wrapper runs, ``ops/_launch.py::check``)."""
+    check(_OnCard(torch.zeros(2, 2)), "x", torch.float32, (2, 2), CARD)
+    with pytest.raises(ValueError, match=match):
+        check(t, "x", torch.float32, (2, 2), CARD)
 

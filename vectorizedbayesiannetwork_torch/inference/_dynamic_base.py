@@ -242,7 +242,7 @@ class DynamicMaskMethod(Method):
             vbn, queries, pad_bucket
         )
         red_raw = self._dyn_red_raw(plan, cpds, s, opts, kind, vbn._mesh)
-        if red_raw is not None and red_raw.fits(inputs[0].shape[0]):
+        if red_raw is not None:
 
             def fn(params_tuple, draw, tensors):
                 fixed_vals, evm, dom, ti = tensors

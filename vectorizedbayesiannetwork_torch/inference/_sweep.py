@@ -42,17 +42,17 @@ from torch.utils._pytree import tree_flatten, tree_unflatten
 from ..core.plan import InferencePlan
 from ..core.rng import Draw, RowStream
 from ..ops.sweep import shard_trace
-from ..utils.profiling import annotate
+from ..utils.profiling import annotate, counter
 from ._discrete_sweep import discrete_sweep_supported, discrete_sweep_trace
 from ._gaussian_sweep import gaussian_sweep_supported, gaussian_sweep_trace
 
 _SCAN_THRESHOLD = 64  # nodes, the JAX package's threshold
-ROUTES: Counter = Counter()  # "discrete" / "gaussian" / "per_node" sweeps
+ROUTES: Counter = counter("ROUTES")  # "discrete" / "gaussian" / "per_node" sweeps
 # the level-grouped per-node sweep: "sample_calls" / "log_prob_calls"
 # vmapped group calls and "sample_nodes" / "log_prob_nodes" the nodes in
 # them; "per_node" nodes of a same-signature group that ran one by one
 # while grouping was on (an opt-out or a failed stack)
-GROUPS: Counter = Counter()
+GROUPS: Counter = counter("GROUPS")
 
 
 def _use_discrete_scan(n_nodes: int) -> bool:

@@ -8,6 +8,12 @@ hash of the source, the shared ``csrc/*.cuh`` headers and the flags, so a
 changed source builds anew and an unchanged one is reused.
 ``build_all`` starts one nvcc per source, all at once. Nothing here runs
 at import time: the CPU tests import this module on machines without nvcc.
+
+``ENTRIES`` is the one table of every C entry point of every library, by
+source: its ``restype`` and ``argtypes``, as ``extern "C"`` declares it in
+``csrc/<name>.cu`` (``tests/test_torch_launch.py`` holds each against its
+declaration). ``load`` types them all when it first loads a library; a
+kernel launch goes through ``ops/_launch.py``.
 """
 
 from __future__ import annotations
@@ -26,7 +32,59 @@ from ..core.cache import DEFAULT_DIR as BUILD_DIR  # the default location
 from ..core.cache import kernel_build_dir
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("sweep", "sweep_scan", "resample", "kde", "rng", "mlp")
+
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+_Z, _U32, _U64 = ctypes.c_size_t, ctypes.c_uint32, ctypes.c_uint64
+_RD = [_P, _L, _I]  # a KDE read flag: pointer, stride, launch rows a row
+_COND = [_P] * 5 + [_I] * 4 + [_F] * 4  # the KDE conditionals' shared head
+
+# source -> entry point -> (restype, argtypes); a launch's last argument is
+# its stream
+ENTRIES = {
+    "sweep": {
+        "vbn_cat_sweep_smem_bytes": (_Z, [_I] * 3),
+        "vbn_cat_sweep": (_I, [_P, _P, _I, _I, _I, _P, _P, _P, _U32, _P, _P,
+                               _U64] + [_I] * 11 + [_P] * 5),
+        "vbn_lg_sweep": (_I, [_P, _P, _P, _I, _I, _I, _P, _U64, _P, _P, _U64]
+                         + [_I] * 10 + [_P] * 5),
+    },
+    "sweep_scan": {
+        "vbn_smem_optin": (_I, [_I]),
+        "vbn_cat_scan_smem_bytes": (_Z, [_I] * 5),
+        "vbn_lg_scan_smem_bytes": (_Z, [_I] * 4),
+        "vbn_cat_scan_occupancy": (_I, [_I, _I, _I, _Z, _I]),
+        "vbn_lg_scan_occupancy": (_I, [_I, _I, _Z, _I]),
+        "vbn_cat_scan": (_I, [_P, _P, _I, _I, _P, _P, _P, _P, _P, _U64]
+                         + [_I] * 14 + [_P] * 5),
+        "vbn_lg_scan": (_I, [_P, _P, _P, _I, _I, _P, _P, _P, _P, _U64]
+                        + [_I] * 12 + [_P] * 5),
+    },
+    "resample": {
+        "vbn_cumsum_scratch": (_L, [_L]),
+        "vbn_cumsum": (_I, [_P, _P, _I, _L, _I, _P, _P]),
+        "vbn_cum_index": (_I, [_P, _I, _L, _P, _L, _L, _I, _P, _P, _P]),
+        "vbn_srg": (_I, [_P, _I, _L, _P, _F, _P, _I, _P, _P]),
+        "vbn_spg": (_I, [_P, _I, _L, _P, _L, _P, _I, _P, _P]),
+        "vbn_merge_grid": (_I, [_I, _L, _I, _I, _P]),
+    },
+    "kde": {
+        "vbn_kde_root": (_I, [_P] * 3 + [_I] * 3 + [_F] * 2 + _RD + [_P, _P]),
+        "vbn_kde_cond": (_I, _COND + _RD + [_P, _P]),
+        "vbn_kde_cond_wide_scratch": (_L, [_I] * 3),
+        "vbn_kde_cond_wide": (_I, _COND + [_P] * 3),
+        "vbn_kde_pick": (_I, [_P] * 6 + [_I] * 4 + [_F, _L, _I, _L] + _RD
+                         + [_P, _P]),
+        "vbn_kde_mma_probe": (_I, [_P] * 4 + [_I, _P]),  # a test hook
+    },
+    "rng": {
+        "vbn_uniforms": (_I, [ctypes.c_ulonglong, _L, _I, _P] + [_I] * 6
+                         + [_P, _P]),
+    },
+    "mlp": {
+        "vbn_gauss_mlp": (_I, [_P, _L, _I, _I, _I, _I, _P, _F, _P, _P, _P]),
+    },
+}
+SOURCES = tuple(ENTRIES)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -101,13 +159,17 @@ def build_log(name: str) -> str:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The built library for ``csrc/<name>.cu``, building it if needed."""
-    with _LOCK:
-        lib = _LIBS.get(name)
-        if lib is not None:
-            return lib
+    """The built library for ``csrc/<name>.cu`` with its ``ENTRIES`` typed,
+    building it if needed."""
+    lib = _LIBS.get(name)
+    if lib is not None:
+        return lib
     build_all([name])
     with _LOCK:
         if name not in _LIBS:
-            _LIBS[name] = ctypes.CDLL(str(library_path(name)))
+            lib = ctypes.CDLL(str(library_path(name)))
+            for entry, (restype, argtypes) in ENTRIES[name].items():
+                fn = getattr(lib, entry)
+                fn.restype, fn.argtypes = restype, argtypes
+            _LIBS[name] = lib
         return _LIBS[name]

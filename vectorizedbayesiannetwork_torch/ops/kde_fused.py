@@ -28,7 +28,7 @@ Beside each wrapper sits a plain PyTorch version with the same signature
 [M, N] tensor is ever whole. The wrappers launch the kernel for CUDA
 tensors and raise on what it does not take; for CPU tensors they run the
 plain version, which is how the CPU serves every KDE log-density
-(``ops/kde_kernel.py``). ``LAUNCHES`` (``ops/sweep.py``) counts the
+(``ops/kde_kernel.py``). ``LAUNCHES`` (``ops/_launch.py``) counts the
 launches under ``"kde_root"``, ``"kde_cond"``, ``"kde_cond_wide"`` and
 ``"kde_pick"``, and those that carried a read flag (below) under
 ``"kde_root.flagged"``, ``"kde_cond.flagged"`` and ``"kde_pick.flagged"``.
@@ -83,8 +83,6 @@ the picked rows) and the backend switch (``pallas_available`` and its
 
 from __future__ import annotations
 
-import ctypes
-import functools
 import math
 from typing import NamedTuple, Optional
 
@@ -93,16 +91,12 @@ import torch
 
 from ..core.rng import U_MAX, philox4x32_10, uniform_from_bits
 from ..utils.profiling import annotate, wait
-from .sweep import LAUNCHES
+from ._build import load
+from ._launch import check, launch
 
 _DIRECT_D = 32  # feature-count cutoff of the direct kernels (kde_pallas.py:103)
 _ROOT_CDF_MAX = 16384  # the root pick's CDF in shared memory (csrc/kde.cu)
 _CHUNK = 4096  # query rows per tile of a plain version or chunked form
-
-_P = ctypes.c_void_p
-_I = ctypes.c_int
-_F = ctypes.c_float
-_L = ctypes.c_longlong
 
 
 def kernel_consts(d: int, scale: float):
@@ -304,38 +298,6 @@ def kde_pick_plain(key, parents, data_p, data_x, log_mask, p_scale: float,
                         read)
 
 
-@functools.lru_cache(maxsize=None)
-def _lib() -> ctypes.CDLL:
-    """``csrc/kde.cu`` with the argument types of its entry points."""
-    from ._build import load
-
-    lib = load("kde")
-    rd = [_P, _L, _I]  # the read flag: pointer, stride, launch rows a row
-    lib.vbn_kde_root.argtypes = [_P] * 3 + [_I] * 3 + [_F] * 2 + rd + [_P, _P]
-    cond = [_P] * 5 + [_I] * 4 + [_F] * 4
-    lib.vbn_kde_cond.argtypes = cond + rd + [_P, _P]
-    lib.vbn_kde_cond_wide.argtypes = cond + [_P, _P, _P]
-    lib.vbn_kde_cond_wide_scratch.argtypes = [_I, _I, _I]
-    lib.vbn_kde_cond_wide_scratch.restype = ctypes.c_longlong
-    lib.vbn_kde_pick.argtypes = ([_P] * 6 + [_I] * 4 + [_F, _L, _I, _L] + rd
-                                 + [_P, _P])
-    lib.vbn_kde_mma_probe.argtypes = [_P] * 4 + [_I, _P]  # a test hook
-    for fn in (lib.vbn_kde_root, lib.vbn_kde_cond, lib.vbn_kde_cond_wide,
-               lib.vbn_kde_pick, lib.vbn_kde_mma_probe):
-        fn.restype = _I
-    return lib
-
-
-def _need(name: str, t: torch.Tensor, shape, device, dtype=torch.float32):
-    if (t.device != device or t.dtype != dtype or not t.is_contiguous()
-            or tuple(t.shape) != tuple(shape)):
-        raise ValueError(
-            f"{name}: expected a contiguous {dtype} {tuple(shape)} tensor on "
-            f"{device}, got {t.dtype} {tuple(t.shape)} on {t.device}"
-            f"{'' if t.is_contiguous() else ' (not contiguous)'}"
-        )
-
-
 def _support(x, data_x, log_mask, what: str):
     """(m, n, dx) after the checks every KDE launch shares."""
     if x.dim() != 2 or data_x.dim() != 2:
@@ -346,9 +308,9 @@ def _support(x, data_x, log_mask, what: str):
         raise ValueError(f"{what}: empty input (M={m}, N={n}, D={dx})")
     if m >= 1 << 31 or n >= 1 << 31:
         raise ValueError(f"{what}: M={m} or N={n} passes 2^31")
-    _need(f"{what} x", x, (m, dx), x.device)
-    _need(f"{what} data_x", data_x, (n, dx), x.device)
-    _need(f"{what} log_mask", log_mask, (n,), x.device)
+    check(x, f"{what} x", torch.float32, (m, dx), x.device)
+    check(data_x, f"{what} data_x", torch.float32, (n, dx), x.device)
+    check(log_mask, f"{what} log_mask", torch.float32, (n,), x.device)
     return m, n, dx
 
 
@@ -358,26 +320,11 @@ def _read_args(read: Optional[ReadFlag], m: int, device, what: str):
     if read is None:
         return None, 0, 1
     flag, s_loc = read
-    if (flag.device != device or flag.dtype != torch.float32
-            or flag.dim() != 1 or s_loc < 1 or flag.shape[0] * s_loc != m):
-        raise ValueError(
-            f"{what} read: expected a float32 [{m} / s_loc] flag on {device} "
-            f"and s_loc >= 1, got {flag.dtype} {tuple(flag.shape)} on "
-            f"{flag.device}, s_loc={s_loc}")
+    if s_loc < 1 or m % s_loc:
+        raise ValueError(f"{what} read: s_loc={s_loc} does not divide M={m}")
+    check(flag, f"{what} read", torch.float32, (m // s_loc,), device,
+          strided=True)
     return flag.data_ptr(), flag.stride(0), int(s_loc)
-
-
-def _run(fn, label: str, device, *args) -> None:
-    with torch.cuda.device(device):
-        rc = fn(*args, torch.cuda.current_stream().cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"{label} launch failed: CUDA error {rc}")
-
-
-def _count(name: str, read: Optional[ReadFlag]) -> None:
-    LAUNCHES[name] += 1
-    if read is not None:
-        LAUNCHES[name + ".flagged"] += 1
 
 
 def kde_root(x, data_x, log_mask, y_scale: float,
@@ -393,11 +340,10 @@ def kde_root(x, data_x, log_mask, y_scale: float,
             raise ValueError(f"kde_root: Dx={dx} > {_DIRECT_D}")
         sy, cy = direct_consts(dx, y_scale)
         out = torch.empty((m,), dtype=torch.float32, device=x.device)
-        _run(_lib().vbn_kde_root, "vbn_kde_root", x.device, x.data_ptr(),
-             data_x.data_ptr(), log_mask.data_ptr(), m, n, dx, float(sy),
-             float(cy), *_read_args(read, m, x.device, "kde_root"),
-             out.data_ptr())
-        _count("kde_root", read)
+        launch("kde", "vbn_kde_root", x.data_ptr(), data_x.data_ptr(),
+               log_mask.data_ptr(), m, n, dx, float(sy), float(cy),
+               *_read_args(read, m, x.device, "kde_root"), out.data_ptr(),
+               device=x.device, key="kde_root", flagged=read is not None)
         return out
 
 
@@ -408,8 +354,8 @@ def _launch_cond(entry: str, x, p, data_x, data_p, log_mask, y_scale,
     if p.dim() != 2 or p.shape[1] < 1:
         raise ValueError(f"{entry}: expected [M, Dp] parents, Dp >= 1")
     dp = p.shape[1]
-    _need(f"{entry} parents", p, (m, dp), x.device)
-    _need(f"{entry} data_p", data_p, (n, dp), x.device)
+    check(p, f"{entry} parents", torch.float32, (m, dp), x.device)
+    check(data_p, f"{entry} data_p", torch.float32, (n, dp), x.device)
     if not wide and max(dx, dp) > _DIRECT_D:
         raise ValueError(f"{entry}: max(Dx, Dp) = {max(dx, dp)} > "
                          f"{_DIRECT_D}; use kde_cond_wide")
@@ -417,15 +363,16 @@ def _launch_cond(entry: str, x, p, data_x, data_p, log_mask, y_scale,
     sp, cp = direct_consts(dp, p_scale)
     out = torch.empty((m,), dtype=torch.float32, device=x.device)
     if wide:  # its scratch: the support's fragments, records and means
-        scratch = torch.empty((_lib().vbn_kde_cond_wide_scratch(n, dx, dp),),
-                              dtype=torch.float32, device=x.device)
+        scratch = torch.empty(
+            (load("kde").vbn_kde_cond_wide_scratch(n, dx, dp),),
+            dtype=torch.float32, device=x.device)
         extra = [scratch.data_ptr()]
     else:  # the read flag
         extra = list(_read_args(read, m, x.device, entry))
-    _run(getattr(_lib(), entry), entry, x.device, x.data_ptr(), p.data_ptr(),
-         data_x.data_ptr(), data_p.data_ptr(), log_mask.data_ptr(), m, n, dx,
-         dp, float(sy), float(sp), float(cy), float(cp), *extra,
-         out.data_ptr())
+    launch("kde", entry, x.data_ptr(), p.data_ptr(), data_x.data_ptr(),
+           data_p.data_ptr(), log_mask.data_ptr(), m, n, dx, dp, float(sy),
+           float(sp), float(cy), float(cp), *extra, out.data_ptr(),
+           device=x.device, key=entry[len("vbn_"):], flagged=read is not None)
     return out
 
 
@@ -438,10 +385,8 @@ def kde_cond(x, p, data_x, data_p, log_mask, y_scale: float,
         return kde_cond_plain(x, p, data_x, data_p, log_mask, y_scale, p_scale,
                               read)
     with annotate("vbn.kernel.kde_cond"):
-        out = _launch_cond("vbn_kde_cond", x, p, data_x, data_p, log_mask,
-                           y_scale, p_scale, wide=False, read=read)
-        _count("kde_cond", read)
-    return out
+        return _launch_cond("vbn_kde_cond", x, p, data_x, data_p, log_mask,
+                            y_scale, p_scale, wide=False, read=read)
 
 
 def kde_cond_wide(x, p, data_x, data_p, log_mask, y_scale: float,
@@ -452,10 +397,8 @@ def kde_cond_wide(x, p, data_x, data_p, log_mask, y_scale: float,
     if not x.is_cuda:
         return kde_cond_plain(x, p, data_x, data_p, log_mask, y_scale, p_scale)
     with annotate("vbn.kernel.kde_cond_wide"):
-        out = _launch_cond("vbn_kde_cond_wide", x, p, data_x, data_p, log_mask,
-                           y_scale, p_scale, wide=True)
-        LAUNCHES["kde_cond_wide"] += 1
-    return out
+        return _launch_cond("vbn_kde_cond_wide", x, p, data_x, data_p,
+                            log_mask, y_scale, p_scale, wide=True)
 
 
 def kde_pick(key, parents, data_p, data_x, log_mask, p_scale: float, m: int,
@@ -482,28 +425,27 @@ def kde_pick(key, parents, data_p, data_x, log_mask, p_scale: float, m: int,
         n, dx = data_x.shape
         if m < 1 or m >= 1 << 31:
             raise ValueError(f"kde_pick: M={m} out of range")
-        _need("kde_pick data_x", data_x, (n, dx), dev)
-        _need("kde_pick log_mask", log_mask, (n,), dev)
+        check(data_x, "kde_pick data_x", torch.float32, (n, dx), dev)
+        check(log_mask, "kde_pick log_mask", torch.float32, (n,), dev)
         if dp > _DIRECT_D:
             raise ValueError(f"kde_pick: Dp={dp} > {_DIRECT_D}")
         p_ptr = dp_ptr = None
         if dp:
-            _need("kde_pick parents", parents, (m, dp), dev)
-            _need("kde_pick data_p", data_p, (n, dp), dev)
+            check(parents, "kde_pick parents", torch.float32, (m, dp), dev)
+            check(data_p, "kde_pick data_p", torch.float32, (n, dp), dev)
             p_ptr, dp_ptr = parents.data_ptr(), data_p.data_ptr()
         key_ptr = g_ptr = None
         if gumbel is not None:
-            _need("kde_pick gumbel", gumbel, (m, n), dev)
+            check(gumbel, "kde_pick gumbel", torch.float32, (m, n), dev)
             g_ptr = gumbel.data_ptr()
         else:
-            _need("kde_pick key", key, (2,), dev, torch.int64)
+            check(key, "kde_pick key", torch.int64, (2,), dev)
             key_ptr = key.data_ptr()
         inv2p, _ = kernel_consts(dp, p_scale)
         out = torch.empty((m, dx), dtype=torch.float32, device=dev)
-        _run(_lib().vbn_kde_pick, "vbn_kde_pick", dev, p_ptr, dp_ptr,
-             data_x.data_ptr(), log_mask.data_ptr(), key_ptr, g_ptr, m, n,
-             dp, dx, float(inv2p), int(rows.base), int(rows.s_loc),
-             int(rows.stride), *_read_args(read, m, dev, "kde_pick"),
-             out.data_ptr())
-        _count("kde_pick", read)
+        launch("kde", "vbn_kde_pick", p_ptr, dp_ptr, data_x.data_ptr(),
+               log_mask.data_ptr(), key_ptr, g_ptr, m, n, dp, dx, float(inv2p),
+               int(rows.base), int(rows.s_loc), int(rows.stride),
+               *_read_args(read, m, dev, "kde_pick"), out.data_ptr(),
+               device=dev, key="kde_pick", flagged=read is not None)
         return out

@@ -19,14 +19,13 @@ widths, a forward that autograd or ``torch.func`` follows). ``gauss_mlp``
 launches the kernel for CUDA tensors and raises on what it does not take;
 for CPU tensors it runs ``gauss_mlp_plain``, the plain version of the
 kernel's arithmetic. Each launch that returns without error counts once
-in ``LAUNCHES["gauss_mlp"]`` (``ops/sweep.py``), and its forward and rows
+in ``LAUNCHES["gauss_mlp"]`` (``ops/_launch.py``), and its forward and rows
 in ``MLP["fused"]`` and ``MLP["fused_rows"]`` (``utils/profiling.py``).
 """
 
 from __future__ import annotations
 
 import ctypes
-import functools
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -34,28 +33,13 @@ import torch.nn.functional as F
 
 from ..models._mlp import resolve_compute_dtype
 from ..utils.profiling import MLP
-from ._build import load
-from .sweep import LAUNCHES
-
-_P = ctypes.c_void_p
-_I = ctypes.c_int
-_L = ctypes.c_longlong
+from ._launch import check, launch
 
 DPS = (1, 2, 3, 4)  # parents a template covers
 HIDDEN = (32, 32)  # the hidden widths instantiated
 DOUT = 1  # output columns instantiated
 
 _wrapped = torch._C._functorch.is_functorch_wrapped_tensor
-
-
-@functools.lru_cache(maxsize=None)
-def _lib() -> ctypes.CDLL:
-    """``csrc/mlp.cu`` with the argument types of its entry point."""
-    lib = load("mlp")
-    lib.vbn_gauss_mlp.argtypes = [_P, _L, _I, _I, _I, _I, _P, ctypes.c_float,
-                                  _P, _P, _P]
-    lib.vbn_gauss_mlp.restype = _I
-    return lib
 
 
 def _tensors(net: Dict, stats: Dict):
@@ -111,21 +95,16 @@ def gauss_mlp(parents: torch.Tensor, net: Dict, stats: Dict,
     why = refusal(parents, net, stats, "relu", "float32")
     if why is not None:
         raise ValueError(f"vbn_gauss_mlp does not take this forward: {why}")
-    if not parents.is_contiguous():
-        raise ValueError("vbn_gauss_mlp: parents not contiguous")
     m, dp = parents.shape
+    dev = parents.device
+    check(parents, "vbn_gauss_mlp parents", torch.float32, (m, dp), dev)
     dout = stats["mean_y"].numel()
-    loc = torch.empty((m, dout), dtype=torch.float32, device=parents.device)
+    loc = torch.empty((m, dout), dtype=torch.float32, device=dev)
     scale = torch.empty_like(loc)
     ptrs = (ctypes.c_void_p * 10)(*(t.data_ptr() for t in _tensors(net, stats)))
-    with torch.cuda.device(parents.device):
-        rc = _lib().vbn_gauss_mlp(
-            parents.data_ptr(), m, dp, HIDDEN[0], HIDDEN[1], dout, ptrs,
-            float(min_scale), loc.data_ptr(), scale.data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"vbn_gauss_mlp launch failed: CUDA error {rc}")
-    LAUNCHES["gauss_mlp"] += 1
+    launch("mlp", "vbn_gauss_mlp", parents.data_ptr(), m, dp, HIDDEN[0],
+           HIDDEN[1], dout, ptrs, float(min_scale), loc.data_ptr(),
+           scale.data_ptr(), device=dev, key="gauss_mlp")
     MLP["fused"] += 1
     MLP["fused_rows"] += m
     return loc, scale

@@ -45,7 +45,7 @@ tensors and raise on what it does not take; for CPU tensors they run the
 plain versions (``cum_index_plain``, ``srg_plain``, ``spg_plain``), which
 compute the same function in torch ops (``torch.searchsorted`` and a
 gather, the ``_xla`` references of the JAX module). ``LAUNCHES``
-(``ops/sweep.py``) counts ``"cumsum"``, ``"cum_index"``, ``"srg"`` and
+(``ops/_launch.py``) counts ``"cumsum"``, ``"cum_index"``, ``"srg"`` and
 ``"spg"``.
 
 ``norm_cum`` departs from the JAX ``_norm_cum`` in one point. For
@@ -79,8 +79,9 @@ import numpy as np
 import torch
 
 from ..utils.profiling import spanned
-from .scan import _lib, cumsum_rows
-from .sweep import LAUNCHES, _check
+from ._build import load
+from ._launch import check, launch
+from .scan import cumsum_rows
 
 T = 512  # output positions per tile
 W = 512  # CDF entries per window
@@ -156,8 +157,7 @@ def spg_plain(cum: torch.Tensor, pos: torch.Tensor, values: torch.Tensor):
 
 
 # ---------------------------------------------------------------------------
-# CUDA kernels (csrc/resample.cu, loaded by ops/scan.py), launched through
-# ctypes
+# CUDA kernels (csrc/resample.cu), launched through ops/_launch.py
 # ---------------------------------------------------------------------------
 
 
@@ -173,24 +173,15 @@ def _need_gate(s: int, d: int) -> None:
 def _launch_cum_index(cum, queries):
     b, s = cum.shape
     _need_gate(s, 1)
-    _check(cum, "cum", torch.float32, (b, s))
+    dev = cum.device
+    check(cum, "cum", torch.float32, (b, s), dev)
     k = queries.shape[1]
-    if not queries.is_cuda or queries.dtype != torch.float32 or \
-            tuple(queries.shape) != (b, k):
-        raise ValueError(f"queries: expected a CUDA float32 [{b}, K] tensor, "
-                         f"got {queries.device} {queries.dtype} "
-                         f"{tuple(queries.shape)}")
-    lasts = torch.empty((b, s // W), dtype=torch.float32, device=cum.device)
-    ptrs = torch.empty((b, k), dtype=torch.int32, device=cum.device)
-    with torch.cuda.device(cum.device):
-        rc = _lib().vbn_cum_index(
-            cum.data_ptr(), b, s, queries.data_ptr(), queries.stride(0),
-            queries.stride(1), k, lasts.data_ptr(), ptrs.data_ptr(),
-            torch.cuda.current_stream().cuda_stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"vbn_cum_index launch failed: CUDA error {rc}")
-    LAUNCHES["cum_index"] += 1
+    check(queries, "queries", torch.float32, (b, k), dev, strided=True)
+    lasts = torch.empty((b, s // W), dtype=torch.float32, device=dev)
+    ptrs = torch.empty((b, k), dtype=torch.int32, device=dev)
+    launch("resample", "vbn_cum_index", cum.data_ptr(), b, s,
+           queries.data_ptr(), queries.stride(0), queries.stride(1), k,
+           lasts.data_ptr(), ptrs.data_ptr(), device=dev, key="cum_index")
     return lasts, ptrs
 
 
@@ -208,7 +199,7 @@ def merge_grid(b: int, s_out: int, d: int, systematic: bool = True):
     import ctypes
 
     grid = (ctypes.c_int * 3)()
-    rc = _lib().vbn_merge_grid(b, s_out, d, int(systematic), grid)
+    rc = load("resample").vbn_merge_grid(b, s_out, d, int(systematic), grid)
     if rc != 0:
         raise RuntimeError(f"vbn_merge_grid failed: CUDA error {rc}")
     return tuple(grid)
@@ -219,20 +210,15 @@ def _launch_srg(u0, cum, values):
     b, s = cum.shape
     d = values.shape[-1]
     _need_gate(s, d)
-    _check(cum, "cum", torch.float32, (b, s))
-    _check(values, "values", torch.float32, (b, s, d))
-    _check(u0, "u0", torch.float32, (b, 1))
+    dev = cum.device
+    check(cum, "cum", torch.float32, (b, s), dev)
+    check(values, "values", torch.float32, (b, s, d), dev)
+    check(u0, "u0", torch.float32, (b, 1), dev)
     cum, values = _aligned(cum), _aligned(values)
     out = torch.empty_like(values)
-    with torch.cuda.device(cum.device):
-        rc = _lib().vbn_srg(
-            cum.data_ptr(), b, s, u0.data_ptr(), float(np.float32(1.0 / s)),
-            values.data_ptr(), d,
-            out.data_ptr(), torch.cuda.current_stream().cuda_stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"vbn_srg launch failed: CUDA error {rc}")
-    LAUNCHES["srg"] += 1
+    launch("resample", "vbn_srg", cum.data_ptr(), b, s, u0.data_ptr(),
+           float(np.float32(1.0 / s)), values.data_ptr(), d, out.data_ptr(),
+           device=dev, key="srg")
     return out
 
 
@@ -244,20 +230,14 @@ def _launch_spg(cum, pos, values):
     if s_out < T or s_out % T:
         raise ValueError(f"spg needs S_out % {T} == 0 and S_out >= {T}; "
                          f"got {s_out}")
-    _check(cum, "cum", torch.float32, (b, s_in))
-    _check(pos, "pos", torch.float32, (b, s_out))
-    _check(values, "values", torch.float32, (b, s_in, d))
+    dev = cum.device
+    check(cum, "cum", torch.float32, (b, s_in), dev)
+    check(pos, "pos", torch.float32, (b, s_out), dev)
+    check(values, "values", torch.float32, (b, s_in, d), dev)
     cum, values = _aligned(cum), _aligned(values)
-    out = torch.empty((b, s_out, d), dtype=torch.float32, device=cum.device)
-    with torch.cuda.device(cum.device):
-        rc = _lib().vbn_spg(
-            cum.data_ptr(), b, s_in, pos.data_ptr(), s_out, values.data_ptr(),
-            d, out.data_ptr(),
-            torch.cuda.current_stream().cuda_stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"vbn_spg launch failed: CUDA error {rc}")
-    LAUNCHES["spg"] += 1
+    out = torch.empty((b, s_out, d), dtype=torch.float32, device=dev)
+    launch("resample", "vbn_spg", cum.data_ptr(), b, s_in, pos.data_ptr(),
+           s_out, values.data_ptr(), d, out.data_ptr(), device=dev, key="spg")
     return out
 
 

@@ -15,13 +15,12 @@ never falls back to ``torch.rand`` or to the int64 torch-op Philox); for
 the CPU it runs the plain version, ``core/rng.py::stream_values_many``.
 Uniforms agree with the plain version bit for bit; normals within an ulp
 or two of the logarithm and cosine. ``stream_values`` is the one-node
-case. ``LAUNCHES["uniforms"]`` (``ops/sweep.py``) counts the launches.
+case. ``LAUNCHES["uniforms"]`` (``ops/_launch.py``) counts the launches.
 """
 
 from __future__ import annotations
 
 import ctypes
-import functools
 from typing import Sequence
 
 import torch
@@ -30,23 +29,7 @@ from ..core.rng import NODES_PER_LAUNCH as MAX_NODES
 from ..core.rng import WORD_LIMIT
 from ..core.rng import stream_values_many as stream_values_many_plain
 from ..utils.profiling import annotate
-from .sweep import LAUNCHES
-
-_P = ctypes.c_void_p
-_I = ctypes.c_int
-_L = ctypes.c_longlong
-
-
-@functools.lru_cache(maxsize=None)
-def _lib() -> ctypes.CDLL:
-    """``csrc/rng.cu`` with the argument types of its entry point."""
-    from ._build import load
-
-    lib = load("rng")
-    lib.vbn_uniforms.argtypes = [ctypes.c_ulonglong, _L, _I, _P, _I, _I, _I,
-                                 _I, _I, _I, _P, _P]
-    lib.vbn_uniforms.restype = _I
-    return lib
+from ._launch import launch
 
 
 def stream_values_many(seed: int, b: int, s: int, nodes: Sequence[int],
@@ -73,19 +56,14 @@ def stream_values_many(seed: int, b: int, s: int, nodes: Sequence[int],
             raise ValueError(f"vbn_uniforms: {name}={v} out of range")
     out = torch.empty((len(nodes), b * s, k), dtype=torch.float32,
                       device=device)
-    with torch.cuda.device(device), annotate("vbn.kernel.uniforms"):
-        stream = torch.cuda.current_stream().cuda_stream
+    with annotate("vbn.kernel.uniforms"):
         for i in range(0, len(nodes), MAX_NODES):
             part = nodes[i : i + MAX_NODES]
             ids = (ctypes.c_uint * len(part))(*part)  # the kernel's uint32 words
-            rc = _lib().vbn_uniforms(
-                int(seed) & ((1 << 64) - 1), int(b), int(s), ids, len(part),
-                int(k), int(at), int(bool(normal)), int(row0),
-                int(particle0), out[i].data_ptr(), stream)
-            if rc != 0:
-                raise RuntimeError(
-                    f"vbn_uniforms launch failed: CUDA error {rc}")
-            LAUNCHES["uniforms"] += 1
+            launch("rng", "vbn_uniforms", int(seed) & ((1 << 64) - 1), int(b),
+                   int(s), ids, len(part), int(k), int(at), int(bool(normal)),
+                   int(row0), int(particle0), out[i].data_ptr(),
+                   device=device, key="uniforms")
     return out
 
 

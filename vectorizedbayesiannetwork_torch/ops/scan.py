@@ -19,7 +19,7 @@ every grouping of the sums is exact, so there the kernel equals the plain
 version bit for bit; elsewhere they differ in the last bits of a sum. The
 kernel's grouping does not depend on timing, so a launch repeated on the
 same input gives the same bits.
-``LAUNCHES["cumsum"]`` (``ops/sweep.py``) counts the launches.
+``LAUNCHES["cumsum"]`` (``ops/_launch.py``) counts the launches.
 
 Not ported: ``cumsum_available`` and its ``VBN_CUMSUM_PALLAS`` flag, which
 chose the kernel by backend; here the tensor's device chooses.
@@ -27,17 +27,11 @@ chose the kernel by backend; here the tensor's device chooses.
 
 from __future__ import annotations
 
-import ctypes
-import functools
-
 import torch
 
 from ..utils.profiling import spanned
-from .sweep import LAUNCHES
-
-_P = ctypes.c_void_p
-_I = ctypes.c_int
-_L = ctypes.c_longlong
+from ._build import load
+from ._launch import check, launch
 
 
 def cumsum_rows_plain(x: torch.Tensor, monotone: bool = False) -> torch.Tensor:
@@ -47,47 +41,21 @@ def cumsum_rows_plain(x: torch.Tensor, monotone: bool = False) -> torch.Tensor:
     return torch.cummax(c, dim=1).values if monotone else c
 
 
-@functools.lru_cache(maxsize=None)
-def _lib() -> ctypes.CDLL:
-    """``csrc/resample.cu`` with the argument types of its entry points
-    (``ops/resample_merge.py`` calls all but ``vbn_cumsum``)."""
-    from ._build import load
-
-    lib = load("resample")
-    lib.vbn_cumsum.argtypes = [_P, _P, _I, _L, _I, _P, _P]
-    lib.vbn_cumsum_scratch.argtypes = [_L]
-    lib.vbn_cumsum_scratch.restype = _L
-    lib.vbn_cum_index.argtypes = [_P, _I, _L, _P, _L, _L, _I, _P, _P, _P]
-    lib.vbn_srg.argtypes = [_P, _I, _L, _P, ctypes.c_float, _P, _I, _P, _P]
-    lib.vbn_spg.argtypes = [_P, _I, _L, _P, _L, _P, _I, _P, _P]
-    lib.vbn_merge_grid.argtypes = [_I, _L, _I, _I, _P]
-    for fn in (lib.vbn_cumsum, lib.vbn_cum_index, lib.vbn_srg, lib.vbn_spg,
-               lib.vbn_merge_grid):
-        fn.restype = _I
-    return lib
-
-
 @spanned("vbn.kernel.cumsum")
 def _launch_cumsum(x: torch.Tensor, monotone: bool) -> torch.Tensor:
-    if x.dim() != 2 or x.dtype != torch.float32 or not x.is_contiguous():
-        raise ValueError(
-            "cumsum_rows: expected a contiguous CUDA float32 [B, S] tensor, "
-            f"got {x.dtype} {tuple(x.shape)}"
-        )
+    if x.dim() != 2:
+        raise ValueError(f"cumsum_rows: expected a [B, S] tensor, got "
+                         f"{tuple(x.shape)}")
     b, s = x.shape
+    check(x, "cumsum_rows x", torch.float32, (b, s), x.device)
     if b < 1 or s < 1:
         raise ValueError(f"cumsum_rows: empty array {tuple(x.shape)}")
     out = torch.empty_like(x)
-    part = torch.empty((b, _lib().vbn_cumsum_scratch(s)), dtype=torch.float32,
+    part = torch.empty((b, load("resample").vbn_cumsum_scratch(s)),
+                       dtype=torch.float32,
                        device=x.device)  # the tiles' totals and maxima
-    with torch.cuda.device(x.device):
-        rc = _lib().vbn_cumsum(
-            x.data_ptr(), out.data_ptr(), b, s, int(monotone), part.data_ptr(),
-            torch.cuda.current_stream().cuda_stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"vbn_cumsum launch failed: CUDA error {rc}")
-    LAUNCHES["cumsum"] += 1
+    launch("resample", "vbn_cumsum", x.data_ptr(), out.data_ptr(), b, s,
+           int(monotone), part.data_ptr(), device=x.device, key="cumsum")
     return out
 
 

@@ -16,8 +16,8 @@ Beside each kernel sits a plain PyTorch version with the same signature,
 external uniforms included (``categorical_sweep_plain``,
 ``lg_sweep_plain``). The wrappers (``categorical_sweep_fused``,
 ``lg_sweep_fused``) take the plain version only for tensors on the CPU; for
-a CUDA tensor they launch the kernel or raise. ``LAUNCHES`` counts the
-kernel launches of each wrapper.
+a CUDA tensor they launch the kernel or raise, through
+``ops/_launch.py``, which counts each launch in ``LAUNCHES``.
 
 Uniforms: ``u_ext`` is ``[B, N, S]`` (categorical) or ``[B, 2N, S]`` (LG,
 rows 2i and 2i+1 the Box-Muller pair), the JAX layout. Without it both the
@@ -63,7 +63,6 @@ prints the kernel's path with the reason and ``served whole``.
 
 from __future__ import annotations
 
-import ctypes
 import functools
 import os
 from typing import Optional
@@ -72,7 +71,8 @@ import numpy as np
 import torch
 
 from ..core.rng import philox_uniforms
-from ..utils.profiling import BUILDS, spanned, wait
+from ..utils.profiling import BUILDS, counter, spanned, wait
+from ._launch import check, launch
 from .cat_tables import cum_tables, padded_layout
 from .lg_records import _HALF_LOG_2PI, lg_densities, lg_records, lg_slot_map
 
@@ -80,20 +80,6 @@ _MAX_C = 32  # classes per node
 _MAX_ROWS_X_C = 2048  # CPT rows x classes per node
 _MAX_NODES = 80
 _THREADS = 128  # threads per block (VBN_THREADS in csrc/sweep.cu)
-
-# Kernel launches by wrapper; the scan kernels (ops/sweep_scan.py), the
-# resampling kernels (ops/scan.py, ops/resample_merge.py) and the KDE kernels
-# (ops/kde_fused.py), the row stream's (ops/rng.py) and the neural Gaussian
-# CPD's forward (ops/mlp_fused.py) count here too, so one reset covers every
-# kernel of a served batch.
-LAUNCHES = {"categorical": 0, "lg": 0, "categorical_scan": 0, "lg_scan": 0,
-            "cumsum": 0, "cum_index": 0, "srg": 0, "spg": 0,
-            "kde_root": 0, "kde_cond": 0, "kde_cond_wide": 0, "kde_pick": 0,
-            "uniforms": 0, "gauss_mlp": 0,
-            # launches that carried a read flag (ops/kde_fused.py)
-            "kde_root.flagged": 0, "kde_cond.flagged": 0,
-            "kde_pick.flagged": 0}
-
 
 # the JAX builders' gate-log paths -> the port's
 JAX_PATHS = {
@@ -446,31 +432,8 @@ def lg_sweep_plain(
 
 
 # ---------------------------------------------------------------------------
-# CUDA kernels (csrc/sweep.cu), launched through ctypes
+# CUDA kernels (csrc/sweep.cu), launched through ops/_launch.py
 # ---------------------------------------------------------------------------
-
-_P = ctypes.c_void_p
-_I = ctypes.c_int
-
-
-@functools.lru_cache(maxsize=None)
-def _lib() -> ctypes.CDLL:
-    from ._build import load
-
-    lib = load("sweep")
-    lib.vbn_cat_sweep_smem_bytes.argtypes = [_I, _I, _I]
-    lib.vbn_cat_sweep_smem_bytes.restype = ctypes.c_size_t
-    lib.vbn_cat_sweep.argtypes = (
-        [_P, _P, _I, _I, _I, _P, _P, _P, ctypes.c_uint32, _P, _P,
-         ctypes.c_uint64] + [_I] * 11 + [_P] * 5
-    )
-    lib.vbn_cat_sweep.restype = _I
-    lib.vbn_lg_sweep.argtypes = (
-        [_P, _P, _P, _I, _I, _I, _P, ctypes.c_uint64, _P, _P, ctypes.c_uint64]
-        + [_I] * 10 + [_P] * 5
-    )
-    lib.vbn_lg_sweep.restype = _I
-    return lib
 
 
 def _ppt(n_samples: int, threads: int = _THREADS) -> int:
@@ -574,16 +537,6 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
-def _check(t, name, dtype, shape):
-    if not t.is_cuda or t.dtype != dtype or tuple(t.shape) != tuple(shape):
-        raise ValueError(
-            f"{name}: expected a CUDA {dtype} tensor of shape {tuple(shape)}, "
-            f"got {t.device} {t.dtype} {tuple(t.shape)}"
-        )
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
 def _outputs(b, s, nblk, k, want, device):
     want_logw, want_tgt, want_lpt, red_kind, red_src = _parse_want(want)
     f32 = dict(dtype=torch.float32, device=device)
@@ -601,38 +554,33 @@ def _launch_categorical(seed, fixed_idx, counts, plan_struct, s, u_ext, want):
     b = fixed_idx.shape[0]
     target, pstates, cards = plan_struct[4], plan_struct[6], plan_struct[7]
     total_rows, cmax = sum(pstates), counts.shape[1]
-    _check(fixed_idx, "fixed_idx", torch.int32, (b, n))
+    dev = fixed_idx.device
+    check(fixed_idx, "fixed_idx", torch.int32, (b, n), dev)
     if cmax < max(cards):
         raise ValueError(f"stacked_counts has {cmax} < {max(cards)} columns")
-    _check(counts, "stacked_counts", torch.float32, (total_rows, cmax))
+    check(counts, "stacked_counts", torch.float32, (total_rows, cmax), dev)
     if u_ext is not None:
-        _check(u_ext, "u_ext", torch.float32, (b, n, s))
+        check(u_ext, "u_ext", torch.float32, (b, n, s), dev)
     if s % 1024 != 0:
         raise ValueError(f"n_samples {s} not a multiple of 1024")
     want_logw, want_tgt, want_lpt, red_kind, red_src = _parse_want(want)
     ppt = _ppt(s)
     nblk = s // (_THREADS * ppt)
     k = cards[target] if red_kind == "pmf" else 3
-    outs = _outputs(b, s, nblk, k, want, fixed_idx.device)
+    outs = _outputs(b, s, nblk, k, want, dev)
     n_slots, _flags, glive = _cat_meta_host(plan_struct)[2:]
-    rec, par, flags = _cat_meta(plan_struct, fixed_idx.device)
+    rec, par, flags = _cat_meta(plan_struct, dev)
     ctab, lpt = cum_tables(counts.view(-1), table_layout(plan_struct, cmax))
-    with torch.cuda.device(fixed_idx.device):
-        rc = _lib().vbn_cat_sweep(
-            rec.data_ptr(), par.data_ptr(), n, n_slots, target,
-            ctab.data_ptr(), lpt.data_ptr(), flags.data_ptr(), glive,
-            fixed_idx.data_ptr(), _ptr(u_ext), seed & ((1 << 64) - 1),
-            b, s, ppt,
-            int(want_logw or red_src == "logw"),
-            int(want_lpt or red_src == "lpt"),
-            int(want_logw), int(want_tgt), int(want_lpt),
-            {"pmf": 1, "mom": 2}.get(red_kind, 0), int(red_src == "lpt"), k,
-            *[_ptr(o) for o in outs],
-            torch.cuda.current_stream().cuda_stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"vbn_cat_sweep launch failed: CUDA error {rc}")
-    LAUNCHES["categorical"] += 1
+    launch("sweep", "vbn_cat_sweep",
+           rec.data_ptr(), par.data_ptr(), n, n_slots, target,
+           ctab.data_ptr(), lpt.data_ptr(), flags.data_ptr(), glive,
+           fixed_idx.data_ptr(), _ptr(u_ext), seed & ((1 << 64) - 1),
+           b, s, ppt,
+           int(want_logw or red_src == "logw"),
+           int(want_lpt or red_src == "lpt"),
+           int(want_logw), int(want_tgt), int(want_lpt),
+           {"pmf": 1, "mom": 2}.get(red_kind, 0), int(red_src == "lpt"), k,
+           *[_ptr(o) for o in outs], device=dev, key="categorical")
     logw, tgt, lpt, part = outs
     red = _combine_reduction(part, k) if part is not None else None
     return logw, tgt, lpt, red
@@ -642,10 +590,11 @@ def _launch_categorical(seed, fixed_idx, counts, plan_struct, s, u_ext, want):
 def _launch_lg(seed, fixed_vals, ptab, plan_tuple, dmax, s, u_ext, want):
     n = plan_tuple[0]
     b = fixed_vals.shape[0]
-    _check(fixed_vals, "fixed_vals", torch.float32, (b, n))
-    _check(ptab, "param_table", torch.float32, (n, dmax + 2))
+    dev = fixed_vals.device
+    check(fixed_vals, "fixed_vals", torch.float32, (b, n), dev)
+    check(ptab, "param_table", torch.float32, (n, dmax + 2), dev)
     if u_ext is not None:
-        _check(u_ext, "u_ext", torch.float32, (b, 2 * n, s))
+        check(u_ext, "u_ext", torch.float32, (b, 2 * n, s), dev)
     if s % 1024 != 0:
         raise ValueError(f"n_samples {s} not a multiple of 1024")
     want_logw, want_tgt, want_lpt, red_kind, red_src = _parse_want(want)
@@ -653,30 +602,23 @@ def _launch_lg(seed, fixed_vals, ptab, plan_tuple, dmax, s, u_ext, want):
         raise ValueError("pmf reduction undefined for continuous LG targets")
     ppt = _lg_ppt(s)
     nblk = s // (_THREADS * ppt)
-    dev = fixed_vals.device
     outs = _outputs(b, s, nblk, 3, want, dev)
     struct = lg_struct(plan_tuple, dmax)
     n_slots = lg_slot_map(struct[0])[2]
     _flags, plive = _lg_flags_host(plan_tuple)
     rec, par = lg_records(ptab.view(-1), struct)
     dens = lg_densities(ptab.view(-1), struct)
-    with torch.cuda.device(dev):
-        rc = _lib().vbn_lg_sweep(
-            rec.data_ptr(), par.data_ptr(), dens.data_ptr(), n, n_slots,
-            plan_tuple[4],
-            _lg_flags(plan_tuple, dev).data_ptr(), plive,
-            fixed_vals.data_ptr(), _ptr(u_ext), seed & ((1 << 64) - 1),
-            b, s, ppt,
-            int(want_logw or red_src == "logw"),
-            int(want_lpt or red_src == "lpt"),
-            int(want_logw), int(want_tgt), int(want_lpt),
-            2 if red_kind == "mom" else 0, int(red_src == "lpt"),
-            *[_ptr(o) for o in outs],
-            torch.cuda.current_stream().cuda_stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"vbn_lg_sweep launch failed: CUDA error {rc}")
-    LAUNCHES["lg"] += 1
+    launch("sweep", "vbn_lg_sweep",
+           rec.data_ptr(), par.data_ptr(), dens.data_ptr(), n, n_slots,
+           plan_tuple[4],
+           _lg_flags(plan_tuple, dev).data_ptr(), plive,
+           fixed_vals.data_ptr(), _ptr(u_ext), seed & ((1 << 64) - 1),
+           b, s, ppt,
+           int(want_logw or red_src == "logw"),
+           int(want_lpt or red_src == "lpt"),
+           int(want_logw), int(want_tgt), int(want_lpt),
+           2 if red_kind == "mom" else 0, int(red_src == "lpt"),
+           *[_ptr(o) for o in outs], device=dev, key="lg")
     logw, tgt, lpt, part = outs
     red = _combine_reduction(part, 3) if part is not None else None
     return logw, tgt, lpt, red
@@ -793,7 +735,7 @@ def _shard_sweep(mesh, n_samples, call, seed, rows, u_ext=None, log=None):
     return (*streams, red)
 
 
-TRACES = {"sharded": 0, "whole": 0}
+TRACES = counter("TRACES", ("sharded", "whole"))
 
 
 def shard_trace(mesh, trace, draw, n_samples, rows, gather=True):

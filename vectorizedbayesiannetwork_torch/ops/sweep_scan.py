@@ -15,9 +15,9 @@ Beside each kernel sits a plain PyTorch version with the same signature,
 external uniforms included (``categorical_sweep_scan_plain``,
 ``lg_sweep_scan_plain``). The wrappers (``categorical_sweep_scan``,
 ``lg_sweep_scan``) take the plain version only for tensors on the CPU; for
-a CUDA tensor they launch the kernel or raise. ``LAUNCHES`` (shared with
-``ops/sweep.py``) counts the launches under ``"categorical_scan"`` and
-``"lg_scan"``.
+a CUDA tensor they launch the kernel or raise, through
+``ops/_launch.py``; ``LAUNCHES`` counts the launches under
+``"categorical_scan"`` and ``"lg_scan"``.
 
 Uniforms: ``u_ext`` is ``[B, N, S]`` (categorical) or ``[B, 2N, S]`` (LG),
 the JAX layouts. Without it the kernels and the plain versions draw
@@ -38,9 +38,8 @@ Not ported, by design:
 
 - ``_run_chunked`` / ``_chunk_cap``: they split batches whose ``[N*B]``
   query prefetch would overflow the TPU's 1 MB of SMEM. A CUDA block reads
-  its own row from global memory, so ``fits`` is always true and no batch
-  is split (under a mesh too: a batch the shard gates refuse is served
-  whole on every rank);
+  its own row from global memory, so no batch is split (under a mesh too:
+  a batch the shard gates refuse is served whole on every rank);
 - ``_pick_tm`` and the ``VBN_SCAN_GATHER`` / ``VBN_SCAN_BRANCHLESS`` /
   ``VBN_SCAN_TM_CAP`` flags: TPU schedule probes. The behaviour held
   against is the default row walk.
@@ -48,7 +47,6 @@ Not ported, by design:
 
 from __future__ import annotations
 
-import ctypes
 import functools
 from typing import Optional
 
@@ -57,6 +55,8 @@ import torch
 
 from ..core.rng import philox_uniforms
 from ..utils.profiling import BUILDS, spanned, wait
+from ._build import load
+from ._launch import check, launch
 from .cat_tables import cum_tables, padded_layout
 from .lg_records import (
     _HALF_LOG_2PI,
@@ -66,9 +66,7 @@ from .lg_records import (
     lg_slot_map,
 )
 from .sweep import (
-    LAUNCHES,
     _a16,
-    _check,
     _combine_reduction,
     _outputs,
     _parse_want,
@@ -579,44 +577,13 @@ def lg_sweep_scan_plain(
 
 
 # ---------------------------------------------------------------------------
-# CUDA kernels (csrc/sweep_scan.cu), launched through ctypes
+# CUDA kernels (csrc/sweep_scan.cu), launched through ops/_launch.py
 # ---------------------------------------------------------------------------
-
-_P = ctypes.c_void_p
-_I = ctypes.c_int
-
-
-@functools.lru_cache(maxsize=None)
-def _lib() -> ctypes.CDLL:
-    from ._build import load
-
-    lib = load("sweep_scan")
-    lib.vbn_smem_optin.argtypes = [_I]
-    lib.vbn_smem_optin.restype = _I
-    lib.vbn_cat_scan_smem_bytes.argtypes = [_I] * 5
-    lib.vbn_cat_scan_smem_bytes.restype = ctypes.c_size_t
-    lib.vbn_lg_scan_smem_bytes.argtypes = [_I] * 4
-    lib.vbn_lg_scan_smem_bytes.restype = ctypes.c_size_t
-    lib.vbn_cat_scan_occupancy.argtypes = [_I, _I, _I, ctypes.c_size_t, _I]
-    lib.vbn_cat_scan_occupancy.restype = _I
-    lib.vbn_lg_scan_occupancy.argtypes = [_I, _I, ctypes.c_size_t, _I]
-    lib.vbn_lg_scan_occupancy.restype = _I
-    lib.vbn_cat_scan.argtypes = (
-        [_P, _P, _I, _I, _P, _P, _P, _P, _P, ctypes.c_uint64]
-        + [_I] * 14 + [_P] * 5
-    )
-    lib.vbn_cat_scan.restype = _I
-    lib.vbn_lg_scan.argtypes = (
-        [_P, _P, _P, _I, _I, _P, _P, _P, _P, ctypes.c_uint64]
-        + [_I] * 12 + [_P] * 5
-    )
-    lib.vbn_lg_scan.restype = _I
-    return lib
 
 
 @functools.lru_cache(maxsize=8)
 def _smem_limit(device_index: int) -> int:
-    v = _lib().vbn_smem_optin(device_index)
+    v = load("sweep_scan").vbn_smem_optin(device_index)
     if v <= 0:
         raise RuntimeError("cannot read the device's shared-memory limit")
     return v
@@ -635,7 +602,7 @@ def cat_scan_layout(n, n_slots, k, bits, resident, red_kind, device_index):
     """(threads, carveout KB, blocks an SM) of ``vbn_cat_scan`` on the
     device, its blocks an SM counted by the device (registers included),
     or None when the value scratch fits no block."""
-    lib = _lib()
+    lib = load("sweep_scan")
     occupancy = _occupancy_of(
         lambda t, smem, pct: lib.vbn_cat_scan_occupancy(red_kind, bits, t,
                                                         smem, pct),
@@ -663,7 +630,7 @@ def lg_scan_layout(n, n_slots, red_kind, resident, device_index):
     """(threads, carveout KB, blocks an SM) of ``vbn_lg_scan`` on the
     device (``_lg_layout`` with the device's occupancy), or None when the
     value scratch fits no block."""
-    lib = _lib()
+    lib = load("sweep_scan")
     occupancy = _occupancy_of(
         lambda t, smem, pct: lib.vbn_lg_scan_occupancy(red_kind, t, smem, pct),
         "vbn_lg_scan")
@@ -677,13 +644,15 @@ def _launch_cat_scan(seed, packed, tgt_idx, flat_counts, struct, s, u_ext,
                      want):
     n, b = len(struct[0]), packed.shape[0]
     total_e, cmax = struct[5], struct[7]
-    _check(packed, "packed", torch.int32, (b, n))
-    _check(tgt_idx, "tgt_idx", torch.int32, (b,))
+    dev = packed.device
+    check(packed, "packed", torch.int32, (b, n), dev)
+    check(tgt_idx, "tgt_idx", torch.int32, (b,), dev)
     if flat_counts.dim() != 1 or flat_counts.shape[0] < total_e:
         raise ValueError(f"flat_counts must be 1-D with >= {total_e} entries")
-    _check(flat_counts, "flat_counts", torch.float32, tuple(flat_counts.shape))
+    check(flat_counts, "flat_counts", torch.float32, tuple(flat_counts.shape),
+          dev)
     if u_ext is not None:
-        _check(u_ext, "u_ext", torch.float32, (b, n, s))
+        check(u_ext, "u_ext", torch.float32, (b, n, s), dev)
     if s % 1024 != 0:
         raise ValueError(f"n_samples {s} not a multiple of 1024")
     want_logw, want_tgt, want_lpt, red_kind, red_src = _parse_want(want)
@@ -691,7 +660,6 @@ def _launch_cat_scan(seed, packed, tgt_idx, flat_counts, struct, s, u_ext,
     kind = {"pmf": 1, "mom": 2}.get(red_kind, 0)
     rec_h, par_h, n_slots, tab_len = _cat_meta_host(struct)[:4]
     bits = _scratch_bits(cmax)
-    dev = packed.device
     layout = cat_scan_layout(n, n_slots, k, bits,
                              4 * (tab_len + rec_h.size + par_h.size), kind,
                              dev.index or 0)
@@ -703,23 +671,17 @@ def _launch_cat_scan(seed, packed, tgt_idx, flat_counts, struct, s, u_ext,
     outs = _outputs(b, s, nblk, k, want, dev)
     rec, par = _cat_meta(struct, dev)
     ctab, lpt = cum_tables(flat_counts, table_layout(struct))
-    with torch.cuda.device(dev):
-        rc = _lib().vbn_cat_scan(
-            rec.data_ptr(), par.data_ptr(), n, n_slots,
-            ctab.data_ptr(), lpt.data_ptr(),
-            packed.data_ptr(), tgt_idx.data_ptr(), _ptr(u_ext),
-            seed & ((1 << 64) - 1), b, s, threads, ppt, bits,
-            _carveout_pct(carve_kb),
-            int(want_logw or red_src == "logw"),
-            int(want_lpt or red_src == "lpt"),
-            int(want_logw), int(want_tgt), int(want_lpt),
-            kind, int(red_src == "lpt"), k,
-            *[_ptr(o) for o in outs],
-            torch.cuda.current_stream().cuda_stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"vbn_cat_scan launch failed: CUDA error {rc}")
-    LAUNCHES["categorical_scan"] += 1
+    launch("sweep_scan", "vbn_cat_scan",
+           rec.data_ptr(), par.data_ptr(), n, n_slots,
+           ctab.data_ptr(), lpt.data_ptr(),
+           packed.data_ptr(), tgt_idx.data_ptr(), _ptr(u_ext),
+           seed & ((1 << 64) - 1), b, s, threads, ppt, bits,
+           _carveout_pct(carve_kb),
+           int(want_logw or red_src == "logw"),
+           int(want_lpt or red_src == "lpt"),
+           int(want_logw), int(want_tgt), int(want_lpt),
+           kind, int(red_src == "lpt"), k,
+           *[_ptr(o) for o in outs], device=dev, key="categorical_scan")
     logw, tgt, lpt, part = outs
     red = _combine_reduction(part, k) if part is not None else None
     return logw, tgt, lpt, red
@@ -730,12 +692,13 @@ def _launch_lg_scan(seed, fixed_vals, flags, tgt_idx, ptab_flat, struct, s,
                     u_ext, want):
     pids, pmax, dmax = struct
     n, b = len(pids), fixed_vals.shape[0]
-    _check(fixed_vals, "fixed_vals", torch.float32, (b, n))
-    _check(flags, "flags", torch.int32, (b, n))
-    _check(tgt_idx, "tgt_idx", torch.int32, (b,))
-    _check(ptab_flat, "ptab_flat", torch.float32, (n * (dmax + 2),))
+    dev = fixed_vals.device
+    check(fixed_vals, "fixed_vals", torch.float32, (b, n), dev)
+    check(flags, "flags", torch.int32, (b, n), dev)
+    check(tgt_idx, "tgt_idx", torch.int32, (b,), dev)
+    check(ptab_flat, "ptab_flat", torch.float32, (n * (dmax + 2),), dev)
     if u_ext is not None:
-        _check(u_ext, "u_ext", torch.float32, (b, 2 * n, s))
+        check(u_ext, "u_ext", torch.float32, (b, 2 * n, s), dev)
     if s % 1024 != 0:
         raise ValueError(f"n_samples {s} not a multiple of 1024")
     if pmax != dmax:
@@ -744,7 +707,6 @@ def _launch_lg_scan(seed, fixed_vals, flags, tgt_idx, ptab_flat, struct, s,
     if red_kind == "pmf":
         raise ValueError("pmf reduction undefined for continuous LG targets")
     n_slots = lg_slot_map(pids)[2]
-    dev = fixed_vals.device
     kind = 2 if red_kind == "mom" else 0
     layout = lg_scan_layout(n, n_slots, kind, lg_resident_bytes(struct),
                             dev.index or 0)
@@ -756,22 +718,16 @@ def _launch_lg_scan(seed, fixed_vals, flags, tgt_idx, ptab_flat, struct, s,
     outs = _outputs(b, s, nblk, 3, want, dev)
     rec, par = lg_records(ptab_flat, struct)
     dens = lg_densities(ptab_flat, struct)
-    with torch.cuda.device(dev):
-        rc = _lib().vbn_lg_scan(
-            rec.data_ptr(), par.data_ptr(), dens.data_ptr(), n, n_slots,
-            fixed_vals.data_ptr(), flags.data_ptr(), tgt_idx.data_ptr(),
-            _ptr(u_ext), seed & ((1 << 64) - 1), b, s, threads, ppt,
-            _carveout_pct(carve_kb),
-            int(want_logw or red_src == "logw"),
-            int(want_lpt or red_src == "lpt"),
-            int(want_logw), int(want_tgt), int(want_lpt),
-            kind, int(red_src == "lpt"),
-            *[_ptr(o) for o in outs],
-            torch.cuda.current_stream().cuda_stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"vbn_lg_scan launch failed: CUDA error {rc}")
-    LAUNCHES["lg_scan"] += 1
+    launch("sweep_scan", "vbn_lg_scan",
+           rec.data_ptr(), par.data_ptr(), dens.data_ptr(), n, n_slots,
+           fixed_vals.data_ptr(), flags.data_ptr(), tgt_idx.data_ptr(),
+           _ptr(u_ext), seed & ((1 << 64) - 1), b, s, threads, ppt,
+           _carveout_pct(carve_kb),
+           int(want_logw or red_src == "logw"),
+           int(want_lpt or red_src == "lpt"),
+           int(want_logw), int(want_tgt), int(want_lpt),
+           kind, int(red_src == "lpt"),
+           *[_ptr(o) for o in outs], device=dev, key="lg_scan")
     logw, tgt, lpt, part = outs
     red = _combine_reduction(part, 3) if part is not None else None
     return logw, tgt, lpt, red
@@ -832,10 +788,6 @@ def lg_sweep_scan(
 # ---------------------------------------------------------------------------
 
 
-def _always_fits(_b: int) -> bool:
-    return True
-
-
 def pack_rows(fixed_vals, ev_mask, do_mask, cards) -> torch.Tensor:
     """[B, N] int32 packed words for ``categorical_sweep_scan``: each
     clamped value rounded and clipped to its node's classes, then
@@ -867,8 +819,7 @@ def make_scan_sweep_fn(plan, cpds, n_samples: int, want=("logw",),
     """Return ``raw(params_tuple, seed, fixed [B, N] f32, ev [B, N],
     do [B, N], tgt [B], u_ext=None) -> (logw, tgt, lpt, red)`` on the
     family-matched scan kernel, or None when neither gate admits the plan.
-    ``raw.fits(b)`` is always true (see the module note). With ``mesh`` the
-    kernel runs sharded (``ops/sweep.py::_shard_sweep``). Each build prints
+    With ``mesh`` the kernel runs sharded (``ops/sweep.py::_shard_sweep``). Each build prints
     its gate line (``ops/sweep.py::gate_log``); a raw built counts in
     ``BUILDS["fn"]``."""
     reason = scan_sweep_reason(plan, cpds, n_samples)
@@ -894,7 +845,6 @@ def make_scan_sweep_fn(plan, cpds, n_samples: int, want=("logw",),
                                 gate_log, plan, n_samples, mesh,
                                 "cuda-scan-categorical"))
 
-    raw.fits = _always_fits
     gate_log(plan, n_samples, mesh, "cuda-scan-categorical")
     BUILDS["fn"] += 1
     return raw
@@ -924,7 +874,6 @@ def _make_lg_scan_fn(plan, cpds, n_samples, want, mesh):
                                 gate_log, plan, n_samples, mesh,
                                 "cuda-scan-linear-gaussian"))
 
-    raw.fits = _always_fits
     gate_log(plan, n_samples, mesh, "cuda-scan-linear-gaussian")
     BUILDS["fn"] += 1
     return raw

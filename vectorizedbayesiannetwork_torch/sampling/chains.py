@@ -35,8 +35,10 @@ from ..parallel.mesh import (
     mesh_coords,
     mesh_shape,
 )
+from ..utils.profiling import counter
 
-CHAINS = {"sharded": 0, "whole": 0}  # meshed sampler calls by how they ran
+# meshed sampler calls by how they ran
+CHAINS = counter("CHAINS", ("sharded", "whole"))
 
 
 class ChainBlock:

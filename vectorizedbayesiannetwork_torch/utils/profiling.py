@@ -40,17 +40,19 @@ that no reader of host time reads, and the copy after it holds its own
 cost alone. A fetch (``.cpu()``) is a ``vbn.fetch`` span, wait and copy
 both.
 
-Counters. ``counters()`` is one snapshot of every counter of the port,
-``reset_counters()`` zeroes them: ``LAUNCHES`` and ``TRACES``
-(``ops/sweep.py``), ``ROUTES`` and ``GROUPS`` (``inference/_sweep.py``),
-``CHAINS`` (``sampling/chains.py``), ``BUILDS`` (here: raw kernel
-functions built, ``fn``; per-call table builds, ``tables``; plan-cache
-misses, ``plans``) and ``MLP`` (here: the served MLP forwards of the
-neural Gaussian CPD, ``forwards``, and the rows they ran, ``rows``; of
-them the forwards that the fused kernel ``vbn_gauss_mlp`` served,
-``fused``, and their rows, ``fused_rows``; a level group that the static
-sweep runs under ``torch.func.vmap`` runs the forward's Python once, so
-counts as one node's forward). Counters are
+Counters. A module makes each of its counters with ``counter(name,
+keys)``, which registers it; ``counters()`` is one snapshot of every
+registered counter, ``reset_counters()`` zeroes them. Importing the
+package registers all seven: ``LAUNCHES`` (``ops/_launch.py``: kernel
+launches by wrapper), ``TRACES`` (``ops/sweep.py``), ``ROUTES`` and
+``GROUPS`` (``inference/_sweep.py``), ``CHAINS`` (``sampling/chains.py``),
+``BUILDS`` (here: raw kernel functions built, ``fn``; per-call table
+builds, ``tables``; plan-cache misses, ``plans``) and ``MLP`` (here: the
+served MLP forwards of the neural Gaussian CPD, ``forwards``, and the rows
+they ran, ``rows``; of them the forwards that the fused kernel
+``vbn_gauss_mlp`` served, ``fused``, and their rows, ``fused_rows``; a
+level group that the static sweep runs under ``torch.func.vmap`` runs the
+forward's Python once, so counts as one node's forward). Counters are
 plain integer bumps, always on.
 """
 
@@ -62,7 +64,7 @@ import itertools
 import os
 import time
 from collections import Counter
-from typing import Dict, List
+from typing import Dict, Iterable, List, Optional
 
 import torch
 
@@ -72,8 +74,20 @@ _DEFAULT_TRACE_DIR = str(DEFAULT_DIR.parent / "trace")  # build/trace
 
 MAX_SPANS = 1 << 16  # records kept; later spans still reach the profiler
 
-BUILDS = {"fn": 0, "tables": 0, "plans": 0}
-MLP = {"forwards": 0, "rows": 0, "fused": 0, "fused_rows": 0}
+_COUNTERS: Dict[str, Dict[str, int]] = {}
+
+
+def counter(name: str, keys: Optional[Iterable[str]] = None):
+    """A new counter registered under ``name`` for ``counters()`` and
+    ``reset_counters()``: a dict of ``keys`` at 0, or a ``Counter`` when
+    ``keys`` is None."""
+    c = Counter() if keys is None else dict.fromkeys(keys, 0)
+    _COUNTERS[name] = c
+    return c
+
+
+BUILDS = counter("BUILDS", ("fn", "tables", "plans"))
+MLP = counter("MLP", ("forwards", "rows", "fused", "fused_rows"))
 
 _recording = torch.autograd._profiler_enabled
 _SPANS: List[Dict] = []
@@ -215,25 +229,15 @@ def reset_spans() -> None:
     _dropped = 0
 
 
-def _registered() -> Dict[str, Dict]:
-    from ..inference._sweep import GROUPS, ROUTES
-    from ..ops.sweep import LAUNCHES, TRACES
-    from ..sampling.chains import CHAINS
-
-    return {"LAUNCHES": LAUNCHES, "TRACES": TRACES, "ROUTES": ROUTES,
-            "GROUPS": GROUPS, "CHAINS": CHAINS, "BUILDS": BUILDS,
-            "MLP": MLP}
-
-
 def counters() -> Dict[str, Dict[str, int]]:
     """A snapshot of every counter of the port, by its name."""
-    return {name: dict(c) for name, c in _registered().items()}
+    return {name: dict(c) for name, c in _COUNTERS.items()}
 
 
 def reset_counters() -> None:
     """Zero every counter: a fixed-key counter keeps its keys, a
     ``Counter`` is emptied."""
-    for c in _registered().values():
+    for c in _COUNTERS.values():
         if isinstance(c, Counter):
             c.clear()
         else:
