@@ -355,6 +355,17 @@ Then the row stream of the torch-op sweeps (before phase 26):
     plain version's over the whole batch in chunks, and the bound by
     ``vbnbench``'s count of the forward's operations at the published
     peaks.
+31. node_planes (right after phase 30): the per-node dynamic sweep's
+    target read at the gnn cell's shape (96 x 2^20, 8 one-dim nodes, one
+    target a row drawn at random): the packed route (the nodes' [B, S,
+    1] values concatenated into [B, S, 8], then
+    ``packed_target_values``) against the node-major store's gather
+    (``_dynamic_sweep.py::dynamic_target_values`` over [8, B, S]), the
+    target blocks equal bit for bit; ms of each (CUDA events, a warm-up
+    then one call, in turns packed, planes, planes, packed, five rounds;
+    medians), of the concatenation alone and of the gnn network's parent
+    concatenations (3, 3, 2 and 1 parents), and the gather's bound by
+    its bytes.
 
 Prints a JSON line of kernel results (the twelve kernels,
 ``vbn_uniforms`` and ``vbn_gauss_mlp``, its launches in (t3) and phase 28 as ``launches_t3``
@@ -6502,6 +6513,72 @@ def mlp_timing(cpd, params, pa):
     return out
 
 
+def packed_target_values(plan, packed, target_idx):
+    """Each row's target block [B, S, max_dim] gathered from a packed [B,
+    S, total]: the per-node dynamic sweep's read before its node-major
+    store (two uploads of the plan's offsets and dims, then a gather whose
+    rows lie ``total`` floats apart)."""
+    import torch
+
+    dev = packed.device
+    offs = torch.tensor(plan.node_offsets, dtype=torch.int64, device=dev)
+    dims = torch.tensor(plan.node_dims, dtype=torch.int64, device=dev)
+    ti = target_idx.long()
+    max_d = int(max(plan.node_dims))
+    cols = offs[ti][:, None] + torch.arange(max_d, device=dev)[None]
+    keep = torch.arange(max_d, device=dev)[None] < dims[ti][:, None]
+    cols = torch.clamp(cols, max=plan.total_dim - 1)
+    b, s = packed.shape[:2]
+    got = packed.gather(2, cols[:, None, :].expand(b, s, max_d))
+    return torch.where(keep[:, None, :], got, 0.0)
+
+
+def node_planes_timing(b=N_DYN, s=S_MAIN, n=8, rounds=5):
+    """Phase node_planes (see the module note)."""
+    import torch
+
+    from vectorizedbayesiannetwork_torch.inference._dynamic_sweep import (
+        dynamic_target_values,
+    )
+
+    plan = types.SimpleNamespace(node_offsets=tuple(range(n)),
+                                 node_dims=(1,) * n, total_dim=n)
+    gen = torch.Generator(device="cuda").manual_seed(26)
+    planes = torch.randn((n, b, s), device="cuda", generator=gen)
+    vals = [planes[i][:, :, None].clone() for i in range(n)]
+    ti = torch.randint(0, n, (b,), device="cuda", generator=gen,
+                       dtype=torch.int32)
+    routes = {
+        "packed": lambda: packed_target_values(plan, torch.cat(vals, dim=-1),
+                                               ti),
+        "planes": lambda: dynamic_target_values(plan, planes, ti),
+    }
+    equal = torch.equal(routes["planes"](), routes["packed"]())
+    ms = {k: [] for k in routes}
+    for _ in range(rounds):
+        for k in ("packed", "planes", "planes", "packed"):
+            ms[k].append(cuda_ms(routes[k], 1))
+    # the gnn network's parent concatenations: x3, x5 (3), x7 (2), x6 (1)
+    views = [planes[i][:, :, None] for i in range(n)]
+    extra = {
+        "cat_ms": lambda: torch.cat(vals, dim=-1),
+        "parent_cats_ms": lambda: [torch.cat(views[:k], dim=-1)
+                                   for k in (3, 3, 2, 1)],
+    }
+    rec = {"rows": b, "particles": s, "planes": n, "equal": equal,
+           **{f"{k}_ms": float(np.median(v)) for k, v in ms.items()},
+           **{f"{k}_all": v for k, v in ms.items()},
+           **{k: cuda_ms(fn, 3) for k, fn in extra.items()},
+           "planes_bound_ms": 1e3 * 2 * 4 * b * s / PEAK_BYTES}
+    del planes, vals, views
+    torch.cuda.empty_cache()
+    log("node_planes", **rec)
+    if not equal:
+        raise AssertionError("the planes' target blocks differ from the "
+                             "packed route's")
+    return rec
+
+
 def main(argv) -> int:
     import argparse
 
@@ -6574,6 +6651,7 @@ def main(argv) -> int:
     serve_exact(VBN, defaults, bn, asia_vbn, lg_vbn)
     neural, sm = serve_neural(VBN, defaults, bn, asia_vbn)
     mlp_row = check_mlp_fused(KEPT["b_gauss_mlp_launches"])
+    node_planes_timing()
     level = serve_level_group(VBN, defaults)
     sampling = serve_sampling(VBN, defaults, sm)
     serve_updates(VBN, defaults)

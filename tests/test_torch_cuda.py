@@ -1174,6 +1174,39 @@ def test_kde_dynamic_sweep_read_flags_keep_the_rows(card, kde_vbn,
             assert torch.equal(a, w)
 
 
+@pytest.mark.cuda
+def test_gnn_cell_rows_on_the_node_planes_equal_the_packed_route(card,
+                                                                 monkeypatch):
+    """The gnn cell's served batch on the card (``gauss8-gnn-lw.mixed96``:
+    its fit and the first 96-row call of its pool, at S = 2^14): the rows
+    served from the per-node sweep's node-major store equal, bit for bit,
+    those of the route before it (the nodes' values concatenated, then
+    the per-row gather: ``test_torch_node_planes.parent_per_node_trace``)
+    on the same key; each call counts one ``target_planes`` sweep and
+    launches ``vbn_gauss_mlp`` twice a node with parents."""
+    from test_torch_node_planes import parent_per_node_trace
+    from vbnbench import registry, run
+    from vectorizedbayesiannetwork_torch.inference import _dynamic_sweep as dsw
+
+    cell = run.Cell(registry.load_benchmark(), "gauss8-gnn-lw.mixed96",
+                    2**31 + 2026, "cuda", {"n_samples": 1 << 14})
+    vbn = cell.fit()
+    serve = cell.server(vbn)
+    call = cell.calls[0]
+    assert len(call.queries) == 96
+    rows = []
+    for patch in (False, True):
+        if patch:
+            monkeypatch.setattr(dsw, "_per_node_trace", parent_per_node_trace)
+        vbn._keys.set_state(500)
+        sweeps, mlp = dsw.SWEEPS["target_planes"], _launch.LAUNCHES["gauss_mlp"]
+        rows.append(np.asarray(serve(call)))
+        assert dsw.SWEEPS["target_planes"] - sweeps == (0 if patch else 1)
+        assert _launch.LAUNCHES["gauss_mlp"] - mlp == 8
+    assert rows[0].shape == (96, 2) and np.isfinite(rows[0]).all()
+    assert torch.equal(torch.as_tensor(rows[0]), torch.as_tensor(rows[1]))
+
+
 _LAUNCH = {"cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
            "cuLaunchKernelEx"}
 _SYNC = {"cudaStreamSynchronize", "cudaDeviceSynchronize"}

@@ -333,15 +333,17 @@ def test_mixed_families_take_the_torch_sweep(monkeypatch):
 
 
 def test_dynamic_target_values_match_jax():
-    """The per-row target gather gives the JAX one-hot contraction's values."""
+    """The per-row target gather, reading the node-major planes of a packed
+    [B, S, total] (its view ``permute(2, 0, 1)``), gives the JAX one-hot
+    contraction's values."""
     import types
 
     plan = types.SimpleNamespace(node_offsets=(0, 1, 3), node_dims=(1, 2, 1),
                                  total_dim=4)
     packed = np.random.default_rng(0).normal(size=(3, 5, 4)).astype(np.float32)
     ti = np.asarray([2, 1, 0], np.int32)
-    got = tdsw.dynamic_target_values(plan, torch.as_tensor(packed),
-                                     torch.as_tensor(ti))
+    got = tdsw.dynamic_target_values(
+        plan, torch.as_tensor(packed).permute(2, 0, 1), torch.as_tensor(ti))
     want = jdsw.dynamic_target_values(plan, jnp.asarray(packed), jnp.asarray(ti))
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 

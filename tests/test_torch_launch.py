@@ -6,7 +6,7 @@ each entry is held against its ``extern "C"`` declaration in
 wrong value or a crash). ``ops/_launch.py::launch`` is run on a stand-in
 library to hold its rule: the current stream last, and a launch counted
 only after a zero return code. The counters register themselves
-(``utils/profiling.py::counter``); the seven the package registers keep
+(``utils/profiling.py::counter``); the eight the package registers keep
 their names and keys.
 """
 
@@ -123,11 +123,12 @@ FIXED_KEYS = {
     "CHAINS": {"sharded", "whole"},
     "BUILDS": {"fn", "tables", "plans"},
     "MLP": {"forwards", "rows", "fused", "fused_rows"},
+    "SWEEPS": {"target_planes", "packed"},
 }
 
 
 def test_counters_register_themselves():
-    """Importing the package registers the seven counters with their
+    """Importing the package registers the eight counters with their
     keys (``ROUTES`` and ``GROUPS`` are ``Counter``s: keys as they come),
     and ``utils/profiling.py`` imports no layer above it."""
     got = profiling.counters()

@@ -12,6 +12,14 @@ families, more than 1500 nodes). Draws come from the call's row stream
 masks; under a mesh (``mesh=``) each rank sweeps its block and the blocks
 are gathered (``ops/sweep.py::shard_trace``).
 
+The loop keeps its values in one node-major store, ``planes``
+[total_dim, B, S]: each node writes its final value into its own planes,
+and no concatenation of the nodes' values runs. With ``targets`` the sweep
+returns only each row's target block, gathered from the row's own planes
+(``dynamic_target_values``); without, one copy lays the store out as
+``packed`` [B, S, total_dim]. ``SWEEPS`` counts which of the two a
+per-node sweep gave.
+
 As in the JAX package, a plan of 64 nodes or more that is all categorical
 or all linear-Gaussian takes the stacked-table form
 (``_sweep.stacked_form``: ``_discrete_sweep.py``, ``_gaussian_sweep.py``)
@@ -21,6 +29,7 @@ loop below.
 
 from __future__ import annotations
 
+import functools
 from typing import List, Optional, Sequence, Tuple
 
 import torch
@@ -29,8 +38,10 @@ from ..core.plan import InferencePlan
 from ..core.rng import Draw, RowStream
 from ..ops.kde_fused import ReadFlag
 from ..ops.sweep import shard_trace
-from ..utils.profiling import annotate, wait
+from ..utils.profiling import annotate, counter, wait
 from ._sweep import ROUTES, _parents_flat, stacked_form
+
+SWEEPS = counter("SWEEPS", ("target_planes", "packed"))
 
 
 def dynamic_sweep_trace(
@@ -58,17 +69,16 @@ def dynamic_sweep_trace(
     ROUTES[route] += 1
 
     def local(stream: RowStream, fixed_l, ev_l, do_l, ti_l=None, tgt_l=None):
-        if form is not None:
-            out = form(plan, cpds, params_tuple, stream, fixed_l, stream.s,
-                       weighted=True, ev_mask_arr=ev_l,
-                       fx_mask_arr=torch.maximum(ev_l, do_l),
-                       tgt_mask_arr=tgt_l)
-        else:
-            out = _per_node_trace(plan, cpds, params_tuple, stream, fixed_l,
-                                  ev_l, do_l, tgt_l)
+        if form is None:
+            return _per_node_trace(plan, cpds, params_tuple, stream, fixed_l,
+                                   ev_l, do_l, tgt_l, ti_l)
+        out = form(plan, cpds, params_tuple, stream, fixed_l, stream.s,
+                   weighted=True, ev_mask_arr=ev_l,
+                   fx_mask_arr=torch.maximum(ev_l, do_l), tgt_mask_arr=tgt_l)
         if ti_l is None:
             return out
-        return (dynamic_target_values(plan, out[0], ti_l),) + tuple(out[1:])
+        return (dynamic_target_values(plan, out[0].permute(2, 0, 1), ti_l),
+                ) + tuple(out[1:])
 
     with annotate(f"vbn.sweep.{route}"):
         return shard_trace(mesh, local, draw, n_samples,
@@ -76,14 +86,18 @@ def dynamic_sweep_trace(
 
 
 def _per_node_trace(plan, cpds, params_tuple, stream: RowStream, fixed,
-                    ev_mask, do_mask, tgt_mask):
+                    ev_mask, do_mask, tgt_mask, targets=None):
     """``dynamic_sweep_trace``'s per-node loop over one block of rows and
-    particles. A CPD that ``takes_read_flag`` is told which rows the loop
-    reads: its pick on the free rows (neither evidence nor do), its
+    particles. Node ``idx`` writes its final value into its planes of the
+    store, ``planes[off : off + d]``, and its parents read those planes as
+    [B, S, d] views. A CPD that ``takes_read_flag`` is told which rows the
+    loop reads: its pick on the free rows (neither evidence nor do), its
     log-density on the evidence rows (and the target rows with
     ``tgt_mask``), each a column of a [B, n_nodes] mask read in place."""
     b, s = fixed.shape[0], stream.s
     m = b * s
+    planes = torch.empty((plan.total_dim, b, s), dtype=torch.float32,
+                         device=fixed.device)
     vals: List[Optional[torch.Tensor]] = [None] * plan.n_nodes
     log_w = torch.zeros((b, s), dtype=torch.float32, device=fixed.device)
     lp_tgt = torch.zeros((b, s), dtype=torch.float32, device=fixed.device)
@@ -104,8 +118,9 @@ def _per_node_trace(plan, cpds, params_tuple, stream: RowStream, fixed,
                                          pflat, m, **pick_kw)
         fixed_b = fixed[:, None, off : off + d].expand(b, s, d)
         m_fix = fix[:, idx]  # [B]
-        v = torch.where(m_fix[:, None, None] > 0, fixed_b,
-                        sampled.reshape(b, s, d))
+        v = planes[off : off + d].permute(1, 2, 0)  # [B, S, d]
+        torch.where(m_fix[:, None, None] > 0, fixed_b,
+                    sampled.reshape(b, s, d), out=v)
         vals[idx] = v
         lp = cpds[idx]._log_prob_flat(
             params_tuple[idx], v.reshape(m, d), pflat, **lp_kw
@@ -114,27 +129,41 @@ def _per_node_trace(plan, cpds, params_tuple, stream: RowStream, fixed,
         log_w = log_w + torch.where(ev_mask[:, idx][:, None] > 0, lp, 0.0)
         if tgt_mask is not None:
             lp_tgt = lp_tgt + torch.where(tgt_mask[:, idx][:, None] > 0, lp, 0.0)
-    packed = torch.cat(vals, dim=-1)
+    if targets is None:
+        SWEEPS["packed"] += 1
+        first = planes.movedim(0, -1).contiguous()  # [B, S, total_dim]
+    else:
+        SWEEPS["target_planes"] += 1
+        first = dynamic_target_values(plan, planes, targets)
     if tgt_mask is not None:
-        return packed, log_w, lp_tgt
-    return packed, log_w
+        return first, log_w, lp_tgt
+    return first, log_w
+
+
+@functools.lru_cache(maxsize=64)
+def _plane_table(offsets, dims, device: torch.device) -> torch.Tensor:
+    """[2, n_nodes] int64 on ``device``: each node's first plane and its
+    dim, uploaded once a layout and device."""
+    wait(device)
+    return torch.tensor([offsets, dims], dtype=torch.int64, device=device)
 
 
 def dynamic_target_values(
-    plan: InferencePlan, packed: torch.Tensor, target_idx: torch.Tensor
+    plan: InferencePlan, planes: torch.Tensor, target_idx: torch.Tensor
 ) -> torch.Tensor:
-    """packed [B, S, total] -> each row's target block, [B, S, max_dim];
-    ``target_idx`` is per row [B]. Columns past a row's target dim are 0
-    (the caller slices them off), as the JAX one-hot contraction gives."""
-    dev = packed.device
-    wait(dev)
-    offs = torch.tensor(plan.node_offsets, dtype=torch.int64, device=dev)
-    dims = torch.tensor(plan.node_dims, dtype=torch.int64, device=dev)
-    ti = target_idx.long()
+    """Node-major planes [total, B, S] -> each row's target block, [B, S,
+    max_dim]: row b reads planes ``offs[t_b] + j``, ``target_idx`` [B]
+    giving t_b. Columns past a row's target dim are 0 (the caller slices
+    them off), as the JAX one-hot contraction gives. A stacked [B, S,
+    total] passes its view ``packed.permute(2, 0, 1)``."""
+    dev = planes.device
+    tab = _plane_table(plan.node_offsets, plan.node_dims, dev)
+    start, dims = tab[:, target_idx.long()]  # [B] each
     max_d = int(max(plan.node_dims))
-    cols = offs[ti][:, None] + torch.arange(max_d, device=dev)[None]  # [B, M]
-    keep = torch.arange(max_d, device=dev)[None] < dims[ti][:, None]
-    cols = torch.clamp(cols, max=plan.total_dim - 1)
-    b, s = packed.shape[:2]
-    got = packed.gather(2, cols[:, None, :].expand(b, s, max_d))
-    return torch.where(keep[:, None, :], got, 0.0)
+    j = torch.arange(max_d, device=dev)
+    cols = torch.clamp(start[:, None] + j, max=plan.total_dim - 1)  # [B, M]
+    rows = torch.arange(planes.shape[1], device=dev)[:, None]
+    got = planes[cols, rows]  # [B, M, S]
+    if min(plan.node_dims) < max_d:
+        got = torch.where((j < dims[:, None])[:, :, None], got, 0.0)
+    return got.transpose(1, 2).contiguous()

@@ -43,9 +43,12 @@ both.
 Counters. A module makes each of its counters with ``counter(name,
 keys)``, which registers it; ``counters()`` is one snapshot of every
 registered counter, ``reset_counters()`` zeroes them. Importing the
-package registers all seven: ``LAUNCHES`` (``ops/_launch.py``: kernel
+package registers all eight: ``LAUNCHES`` (``ops/_launch.py``: kernel
 launches by wrapper), ``TRACES`` (``ops/sweep.py``), ``ROUTES`` and
-``GROUPS`` (``inference/_sweep.py``), ``CHAINS`` (``sampling/chains.py``),
+``GROUPS`` (``inference/_sweep.py``), ``SWEEPS``
+(``inference/_dynamic_sweep.py``: per-node dynamic sweeps by what they
+gave, each row's target block ``target_planes`` or the whole store
+``packed``), ``CHAINS`` (``sampling/chains.py``),
 ``BUILDS`` (here: raw kernel functions built, ``fn``; per-call table
 builds, ``tables``; plan-cache misses, ``plans``) and ``MLP`` (here: the
 served MLP forwards of the neural Gaussian CPD, ``forwards``, and the rows
